@@ -6,21 +6,31 @@
 Phases, each of which must pass (any failure exits nonzero):
 
 1. Device: the card's name and power limit.
-2. Build: compile the K1 walk-segment kernel (csrc/walk_rf.cu) from the
-   checkout with nvcc and load it.
-3. Kernel vs plain: breed and deal a flagship-config root bank
-   (lanes=16384, R=8), run one K1 launch and the plain PyTorch segment
-   on identical copies with cap=256, in the trapezoid and the scouting
-   step modes, and require bit-equality of every output.
-4. Main path: ``integrate_family_walker`` at the flagship configuration
-   (sin_recip_scaled, M=1024 thetas on [1e-4, 1], eps=1e-10, lanes=2^14,
-   R=8, scout f32, double-buffered banks): a warm-up run, then a timed
-   run with the K1 launch count read around it. Areas must be finite and
-   within 1e-3 of the closed form, and the waste buckets must reconcile
-   to lanes x kernel steps. The same configuration with scouting off
-   must agree with the port's float64 bag engine within 3e-9 on every
-   128th member. The scouting run's distance from the bag is printed,
-   not held (see phase 5).
+2. Build: compile the three walk kernels from the checkout, one nvcc
+   process per source, all started together, and load them: K1
+   (csrc/walk_rf.cu, in-kernel refill), K2 (csrc/walk_ee.cu, early exit)
+   and K3 (csrc/walk_seg.cu, fixed length).
+3. Kernels vs plain, at the flagship's shapes (lanes=16384): each kernel
+   and its plain PyTorch segment run on identical copies, and every
+   output must be bit-equal.
+   a. K1 on a bred and dealt flagship bank (R=8), cap=256, in the
+      trapezoid, scouting and Simpson step machines.
+   b. K2 on the flagship's seeded lanes (bred, work-sorted, the first
+      boundary refill), cap=256, thresh 0.80 * lanes, in the same three.
+   c. K3, 256 steps on the same seeded lanes, trapezoid and Simpson; then
+      the reference's probe (tools/profile_walker.py) at lanes=16384, on
+      restarted lanes that mostly park (not an all-live rate). K3 has no
+      grid barrier, so its time per step against K2's on the seeded
+      lanes is the barrier's share of K2's step.
+4. Main path, in-kernel refill: ``integrate_family_walker`` at the
+   flagship configuration (sin_recip_scaled, M=1024 thetas on [1e-4, 1],
+   eps=1e-10, lanes=2^14, R=8, scout f32, double-buffered banks): a
+   warm-up run, then a timed run with the launch counts read around it.
+   Areas must be finite and within 1e-3 of the closed form, and the waste
+   buckets must reconcile to lanes x kernel steps. The same configuration
+   with scouting off must agree with the port's float64 bag engine within
+   3e-9 on every 128th member. The scouting run's distance from the bag is
+   printed, not held (see phase 5).
 5. Scout schedule: at |theta/x| ~ 1e4 the float32 scout error exceeds
    the reference's guard band, so its decisive splits over-refine by
    rounding noise, in the reference walker as in the port. The
@@ -28,11 +38,24 @@ Phases, each of which must pass (any failure exits nonzero):
    (every 256th theta, lanes=1024), where the CPU port reproduces the
    reference walker's tasks and areas, runs on the card and on the CPU:
    the same tasks, kernel steps and waste, and areas within 1e-12.
-6. Profile: one more main-path run under ``torch.profiler``: device busy
-   time, idle share and the kernels that take it.
+6. Main path, boundary refill: the reference bench's fallback
+   configuration (the flagship with refill_slots=0, scout f64, through
+   K2): a warm-up run, then a timed run with the launch counts read
+   around it. Finite areas, tasks == splits + leaves, reconciling waste,
+   K2 launched, all 1024 areas within 1e-3 of the closed form and every
+   128th within 3e-9 of the float64 bag. Once more with scout f32: its
+   distance from the bag printed, the closed form held.
+7. Simpson: the reference's real-chip Simpson configuration
+   (tests/test_tpu_lane.py: 4 thetas on [1e-2, 1], eps 1e-12, 256 lanes)
+   with boundary refill and with in-kernel refill: equal tasks and areas
+   within 1e-12 of the port's float64 Simpson bag. Then the full-width
+   flagship with the Simpson rule at refill_slots 0 and 8: within 1e-3
+   of the closed form, its distance from the Simpson bag printed.
+8. Profile: one more run of each main path under ``torch.profiler``:
+   device busy time, idle share and the kernels that take it.
 
 Before the last line it prints one JSON object describing each kernel
-(time, plain time, bound, launches on the main path) and the card's
+(time, plain time, bound, launches on its main path) and the card's
 ``nvidia-smi`` name and power limit; the last line is the
 ``{"ok": true, "device": ...}`` record. Details go to chiprun_out/.
 """
@@ -54,16 +77,20 @@ LANES = 1 << 14
 REFILL_SLOTS = 8
 ROOTS_PER_LANE = 12
 CAPACITY = 1 << 23
-CMP_CAP = 256                  # steps of the kernel-vs-plain launch
+CMP_CAP = 256                  # steps of the kernel-vs-plain launches
 AREA_TOL_BAG = 3e-9
 AREA_TOL_EXACT = 1e-3
 AREA_TOL_DEVICES = 1e-12       # card vs CPU: float64 reduction order only
+AREA_TOL_SIMPSON = 1e-12       # Simpson walker vs the float64 Simpson bag
 SCHEDULE_STRIDE = 256          # phase 5: every 256th theta ...
 SCHEDULE_LANES = 1024          # ... over 1024 lanes
+SAMPLE_STRIDE = 128            # members held to the float64 bag
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
 # operations/s outside the tensor cores (an FMA counted as two)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+STATE_BYTES = 26 * 4           # one lane's WalkState
+MODES = ("step", "step_scout", "step_simpson")
 
 
 def log(msg: str) -> None:
@@ -78,38 +105,60 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def clone_inputs(inp: dict) -> dict:
+def mode_args(mode: str):
+    """(rule, scout) of a step machine."""
+    from ppls_tpu_torch.config import Rule
+    return {"step": (Rule.TRAPEZOID, False),
+            "step_scout": (Rule.TRAPEZOID, True),
+            "step_simpson": (Rule.SIMPSON, False)}[mode]
+
+
+def clone(inp: dict) -> dict:
     from ppls_tpu_torch.parallel.walker import WalkState
-    return dict(
-        state=WalkState(*(t.clone() for t in inp["state"])),
-        slot=inp["slot"].clone(), nslots=inp["nslots"].clone(),
-        bank=tuple(t.clone() for t in inp["bank"]),
-        resm=tuple(t.clone() for t in inp["resm"]),
-        thresh=inp["thresh"], batch=inp["batch"])
+    out = dict(inp, state=WalkState(*(t.clone() for t in inp["state"])))
+    for k in ("slot", "nslots"):
+        if k in inp:
+            out[k] = inp[k].clone()
+    for k in ("bank", "resm"):
+        if k in inp:
+            out[k] = tuple(t.clone() for t in inp[k])
+    return out
 
 
-def run_k1(fn, inp: dict, f_ds, scout: bool):
-    """Launch ``fn`` (the kernel wrapper or the plain segment) on
-    ``inp``; returns (outputs, milliseconds by CUDA events)."""
+def timed(fn):
+    """(fn(), milliseconds by CUDA events)."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    resh, resl, ctr = fn(inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
-                         inp["batch"], inp["nslots"], inp["bank"],
-                         inp["resm"], f_ds=f_ds, eps=EPS, scout=scout)
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
-    outs = [*inp["state"], inp["slot"], *inp["resm"], resh, resl, ctr]
-    return outs, start.elapsed_time(stop)
+    return out, start.elapsed_time(stop)
 
 
-def k1_operation_counts(f_ds) -> dict:
+def compare(what: str, outs_k, outs_p) -> float:
+    """Require bit-equality of every output; returns the max abs error
+    over the float outputs (0.0 when equal)."""
+    import torch
+    max_err = 0.0
+    for a, b in zip(outs_k, outs_p):
+        if a.dtype == torch.float32:
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+            max_err = max(max_err, float((a - b).abs().max()))
+        else:
+            same = torch.equal(a, b)
+        if not same:
+            raise AssertionError(f"{what}: kernel and plain segment differ")
+    return max_err
+
+
+def operation_counts(f_ds) -> dict:
     """float32 arithmetic operations (add, sub, mul, div, neg, abs,
-    round) of one ds eval, one scout eval and one trapezoid step's
-    non-eval work, counted by running the plain PyTorch twins on one
-    lane under a counting function mode."""
+    round) of one ds eval, one scout eval and the non-eval work of one
+    trapezoid and one Simpson step, counted by running the plain PyTorch
+    twins on one lane under a counting function mode."""
     import torch
     from torch.overrides import TorchFunctionMode
     from ppls_tpu_torch.parallel import walker as W
@@ -141,31 +190,286 @@ def k1_operation_counts(f_ds) -> dict:
     s = W._fresh_lanes(1, "cpu")._replace(
         flags=torch.zeros(1, dtype=torch.int32),
         w_h=torch.full((1,), 0.25, dtype=torch.float32))
-    step = count(W._step_trap, s, f_ds, 1e-10)
+    trap = count(W._step_trap, s, f_ds, 1e-10)
+    simpson = count(W._step_simpson, s, f_ds, 1e-10)
     return dict(ds_eval=ds_eval, scout_eval=sc_eval,
-                step_overhead=step - ds_eval)
+                step_overhead=trap - ds_eval,
+                simpson_overhead=simpson - ds_eval)
 
 
-def k1_bound_ms(inp: dict, ctr: list, ops: dict, scout: bool):
-    """Least time for the launch's work: bytes moved (inputs read once,
-    outputs written once) over HBM bandwidth, or the float32 operations
-    this run's data needed over the float32 peak, whichever is larger.
+def bound_ms(n_bytes: int, live_steps: int, scout_evals: int,
+             confirm_evals: int, ops: dict, mode: str):
+    """Least time for a launch's work: the bytes it must move (inputs
+    read once, outputs written once) over HBM bandwidth, or the float32
+    operations this run's data needed over the float32 peak, whichever
+    is larger. ``live_steps`` are the live (eval_active) lane-steps.
     Returns (bound_ms, "bytes" or "operations")."""
-    lanes = inp["slot"].shape[0]
-    R = inp["bank"][0].shape[0]
-    lane_bytes = 26 * 4 + 2 * 4 + 3 * 4          # state, slot/nslots, resm
-    bytes_in = lanes * lane_bytes + 7 * 4 * R * lanes
-    bytes_out = lanes * (26 * 4 + 4 + 3 * 4) + 2 * 4 * R * lanes + 8 * 4
-    live_steps = ctr[1]                        # eval_active lane-steps
-    if scout:
-        n_ops = (ctr[6] * ops["scout_eval"] + ctr[7] * ops["ds_eval"]
+    if mode == "step_scout":
+        n_ops = (scout_evals * ops["scout_eval"]
+                 + confirm_evals * ops["ds_eval"]
                  + live_steps * ops["step_overhead"])
+    elif mode == "step_simpson":
+        n_ops = live_steps * (ops["ds_eval"] + ops["simpson_overhead"])
     else:
         n_ops = live_steps * (ops["ds_eval"] + ops["step_overhead"])
-    t_bytes = (bytes_in + bytes_out) / PEAK_BYTES
+    t_bytes = n_bytes / PEAK_BYTES
     t_ops = n_ops / PEAK_F32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def k1_bytes(inp: dict) -> int:
+    lanes = inp["slot"].shape[0]
+    R = inp["bank"][0].shape[0]
+    lane_in = STATE_BYTES + 2 * 4 + 3 * 4        # state, slot/nslots, resm
+    bytes_in = lanes * lane_in + 7 * 4 * R * lanes
+    bytes_out = lanes * (STATE_BYTES + 4 + 3 * 4) + 2 * 4 * R * lanes + 8 * 4
+    return bytes_in + bytes_out
+
+
+def median_runs(fn, n: int = 5):
+    """(last outputs, median ms, the n ms) of n runs of fn() after one
+    warm-up run, which is not counted."""
+    import numpy as np
+    fn()
+    times, outs = [], None
+    for _ in range(n):
+        outs, ms = fn()
+        times.append(ms)
+    return outs, float(np.median(times)), times
+
+
+def phase_k1(W, f_theta, f_ds, theta, ops) -> dict:
+    cmp = {}
+    for mode in MODES:
+        rule, scout = mode_args(mode)
+        t0 = time.perf_counter()
+        base = W.first_phase_inputs(
+            f_theta, theta, BOUNDS, EPS, lanes=LANES,
+            roots_per_lane=ROOTS_PER_LANE, refill_slots=REFILL_SLOTS,
+            capacity=CAPACITY, scout=scout, rule=rule, device="cuda")
+        log(f"[smoke] K1 {mode}: bank dealt in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            f"{int(base['nslots'].sum())} roots over {LANES} lanes x "
+            f"{REFILL_SLOTS} slots, thresh {base['thresh']}, batch "
+            f"{base['batch']}")
+
+        def run(fn):
+            inp = clone(base)
+            (resh, resl, ctr), ms = timed(lambda: fn(
+                inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
+                inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
+                f_ds=f_ds, eps=EPS, scout=scout, rule=rule))
+            return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
+                    ctr], ms
+
+        outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment_rf))
+        outs_p, plain_ms = run(W.segment_rf_plain)
+        max_err = compare(f"K1 {mode}", outs_k, outs_p)
+        ctr = outs_k[-1].tolist()
+        bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7],
+                                   ops, mode)
+        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
+                         bound_ms=bound, bound_by=bound_by, counters=ctr,
+                         us_per_step=1e3 * kernel_ms / ctr[0])
+        log(f"[smoke] K1 {mode}: bit-equal to the plain segment; "
+            f"{ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{cmp[mode]['us_per_step']:.3f} us/step, plain "
+            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}); "
+            f"counters {ctr}")
+    return cmp
+
+
+def seeded_lanes(W, f_theta, theta, rule) -> dict:
+    t0 = time.perf_counter()
+    base = W.first_phase_inputs(
+        f_theta, theta, BOUNDS, EPS, lanes=LANES,
+        roots_per_lane=ROOTS_PER_LANE, refill_slots=0, capacity=CAPACITY,
+        scout=False, rule=rule, device="cuda")
+    log(f"[smoke] {rule.name} lanes seeded in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{int(((base['state'].flags & 4) == 0).sum())} of {LANES} lanes "
+        f"hold a root, thresh {base['thresh']}")
+    return base
+
+
+def phase_k2(W, f_ds, seeded, ops) -> dict:
+    import torch
+    cmp = {}
+    for mode in MODES:
+        rule, scout = mode_args(mode)
+        base = seeded[rule]
+
+        def run(fn):
+            inp = clone(base)
+            ctr, ms = timed(lambda: fn(inp["state"], inp["thresh"], CMP_CAP,
+                                       f_ds=f_ds, eps=EPS, scout=scout,
+                                       rule=rule))
+            return [*inp["state"], ctr], ms
+
+        def kernel(*args, **kw):      # the wrapper's counters, as one tensor
+            _, steps, waste, evals = W.run_segment_ee(*args, **kw)
+            return torch.cat([steps.reshape(1), waste, evals])
+
+        outs_k, kernel_ms, times = median_runs(lambda: run(kernel))
+        outs_p, plain_ms = run(W.segment_ee_plain)
+        max_err = compare(f"K2 {mode}", outs_k, outs_p)
+        ctr = outs_k[-1].tolist()
+        if sum(ctr[1:5]) != ctr[0] * LANES:
+            raise AssertionError(f"K2 {mode}: waste does not reconcile")
+        n_bytes = 2 * LANES * STATE_BYTES + 7 * 4
+        bound, bound_by = bound_ms(n_bytes, ctr[1], ctr[5], ctr[6], ops,
+                                   mode)
+        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
+                         bound_ms=bound, bound_by=bound_by, counters=ctr,
+                         us_per_step=1e3 * kernel_ms / ctr[0])
+        log(f"[smoke] K2 {mode}: bit-equal to the plain segment; "
+            f"{ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{cmp[mode]['us_per_step']:.3f} us/step, plain "
+            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}); "
+            f"counters {ctr}")
+    return cmp
+
+
+def phase_k3(W, f_ds, seeded, ops) -> dict:
+    cmp = {}
+    for mode in ("step", "step_simpson"):
+        rule, _ = mode_args(mode)
+        base = seeded[rule]
+
+        def run(fn):
+            inp = clone(base)
+            _, ms = timed(lambda: fn(inp["state"], CMP_CAP, f_ds=f_ds,
+                                     eps=EPS, rule=rule))
+            return list(inp["state"]), ms
+
+        outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment))
+        outs_p, plain_ms = run(W.segment_plain)
+        max_err = compare(f"K3 {mode}", outs_k, outs_p)
+        # K3's work on these lanes is K2's with no exit (thresh -1): the
+        # same state, and K2's counters give the live lane-steps
+        twin = clone(base)
+        _, steps, waste, evals = W.run_segment_ee(
+            twin["state"], -1, CMP_CAP, f_ds=f_ds, eps=EPS, scout=False,
+            rule=rule)
+        compare(f"K3 {mode} vs K2 with no exit", outs_k, list(twin["state"]))
+        live = int(waste[0])
+        bound, bound_by = bound_ms(2 * LANES * STATE_BYTES, live, 0, 0, ops,
+                                   mode)
+        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
+                         bound_ms=bound, bound_by=bound_by,
+                         live_lane_steps=live,
+                         us_per_step=1e3 * kernel_ms / CMP_CAP)
+        log(f"[smoke] K3 {mode}: bit-equal to the plain segment and to K2 "
+            f"with no exit; {CMP_CAP} steps; kernel {kernel_ms:.3f} ms (runs "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{cmp[mode]['us_per_step']:.3f} us/step, plain "
+            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}); "
+            f"{live} live lane-steps")
+    return cmp
+
+
+def phase_barrier(W, f_ds, base, pairs: int = 7) -> dict:
+    """K2 with no exit (thresh -1) does K3's work step for step, plus
+    one block reduction, atomic and grid barrier per step: the two
+    alternated on copies of the same lanes, medians by CUDA events."""
+    import numpy as np
+    k2, k3 = [], []
+    for j in range(pairs + 1):
+        a, b = clone(base), clone(base)
+        _, ms2 = timed(lambda: W.run_segment_ee(
+            a["state"], -1, CMP_CAP, f_ds=f_ds, eps=EPS, scout=False))
+        _, ms3 = timed(lambda: W.run_segment(b["state"], CMP_CAP, f_ds=f_ds,
+                                             eps=EPS))
+        if j:                       # the first pair warms up
+            k2.append(ms2)
+            k3.append(ms3)
+    us2 = 1e3 * float(np.median(k2)) / CMP_CAP
+    us3 = 1e3 * float(np.median(k3)) / CMP_CAP
+    out = dict(k2_us_per_step=us2, k3_us_per_step=us3,
+               barrier_us_per_step=us2 - us3, barrier_share=1 - us3 / us2,
+               k2_ms=k2, k3_ms=k3)
+    log(f"[smoke] barrier: K2 with no exit {us2:.3f} us/step, K3 "
+        f"{us3:.3f} us/step on the same lanes ({pairs} alternated pairs, "
+        f"K2 ms {', '.join(f'{t:.3f}' for t in k2)}; K3 ms "
+        f"{', '.join(f'{t:.3f}' for t in k3)}): the grid count and barrier "
+        f"cost {us2 - us3:.3f} us per step, {out['barrier_share']:.3f} of "
+        f"K2's step")
+    return out
+
+
+def check_walk(what: str, res, m: int) -> None:
+    import numpy as np
+    areas = np.asarray(res.areas)
+    if not np.all(np.isfinite(areas)) or areas.shape != (m,):
+        raise AssertionError(f"{what}: non-finite or misshapen areas")
+    mt = res.metrics
+    if mt.tasks != mt.splits + mt.leaves:
+        raise AssertionError(f"{what}: tasks != splits + leaves")
+    att = res.attribution()
+    if not att["reconciles"]:
+        raise AssertionError(f"{what}: waste does not reconcile {att}")
+
+
+def main_path(W, f_theta, f_ds, theta, kw, counter, what: str):
+    """A warm-up run, then a timed run with every kernel's launch count
+    set to 0 before and read after. Returns (result, wall s, launches)."""
+    import torch
+    t0 = time.perf_counter()
+    W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS, **kw)
+    torch.cuda.synchronize()
+    log(f"[smoke] {what} warm-up run: {time.perf_counter() - t0:.2f} s")
+    kernels = (W.run_segment_rf, W.run_segment_ee, W.run_segment)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    check_walk(what, res, len(theta))
+    if counter.launches <= 0:
+        raise AssertionError(f"{what}: {counter.__name__} was never "
+                             f"launched")
+    return res, wall, launches
+
+
+def profile_run(W, f_theta, f_ds, theta, kw, kernel: str, out_dir, tag):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS, **kw)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    k_ms = sum(dev_us(e) for e in events if kernel in e.key) / 1e3
+    by_dev = sorted(events, key=dev_us, reverse=True)
+    with open(os.path.join(out_dir, f"chip_smoke_profile_{tag}.txt"),
+              "w") as fh:
+        for e in by_dev[:40]:
+            fh.write(f"{dev_us(e) / 1e3:12.3f} ms  {e.count:8d}  {e.key}\n")
+    if busy_ms > 0:
+        log(f"[smoke] profile {tag}: wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
+            f"{kernel} {k_ms:.1f} ms")
+        for e in by_dev[:8]:
+            log(f"[smoke]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+                f"{e.key[:80]}")
+    else:
+        log(f"[smoke] profile {tag}: the profiler recorded no device time "
+            f"(device busy share not measured)")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=k_ms,
+                idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0 else None)
 
 
 def main() -> int:
@@ -177,15 +481,18 @@ def main() -> int:
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from ppls_tpu_torch.config import Rule
     from ppls_tpu_torch.models.integrands import (family_exact, get_family,
                                                   get_family_ds)
     from ppls_tpu_torch.parallel import walker as W
     from ppls_tpu_torch.parallel.bag_engine import integrate_family
-    from ppls_tpu_torch.utils.cuda_build import load_walk_rf
+    from ppls_tpu_torch.tools.profile_walker import kernel_ceiling_slope
+    from ppls_tpu_torch.utils.cuda_build import load_all_kernels
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     t_start = time.perf_counter()
+    report = {}
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -193,96 +500,66 @@ def main() -> int:
     log(f"[smoke] device: {kind} | nvidia-smi: {smi} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
 
-    # 2. build
-    built = load_walk_rf()
-    log(f"[smoke] K1 build: {built.build_seconds:.1f} s -> {built.path}")
-    with open(os.path.join(out_dir, "walk_rf_build.log"), "w") as fh:
-        fh.write(built.log)
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[smoke] ptxas: {line.strip()}")
+    # 2. build, all kernels at once
+    t0 = time.perf_counter()
+    built = load_all_kernels()
+    log(f"[smoke] build: {time.perf_counter() - t0:.1f} s for "
+        f"{len(built)} kernels in parallel")
+    for name, b in built.items():
+        log(f"[smoke] {name}: {b.build_seconds:.1f} s -> {b.path}")
+        with open(os.path.join(out_dir, f"{name}_build.log"), "w") as fh:
+            fh.write(b.log)
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[smoke]   ptxas: {line.strip()}")
 
     f_theta = get_family("sin_recip_scaled")
     f_ds = get_family_ds("sin_recip_scaled")
     theta = 1.0 + np.arange(M) / M
+    exact = family_exact("sin_recip_scaled", *BOUNDS, theta)
+    sample = np.arange(0, M, SAMPLE_STRIDE)
 
-    # 3. kernel vs plain on the card, both step modes
-    ops = k1_operation_counts(f_ds)
+    # 3. kernels vs plain on the card
+    ops = operation_counts(f_ds)
     log(f"[smoke] float32 ops: ds eval {ops['ds_eval']}, scout eval "
-        f"{ops['scout_eval']}, step overhead {ops['step_overhead']}")
-    cmp = {}
-    for scout in (False, True):
-        mode = "step_scout" if scout else "step"
-        t0 = time.perf_counter()
-        base = W.first_phase_inputs(
-            f_theta, theta, BOUNDS, EPS, lanes=LANES,
-            roots_per_lane=ROOTS_PER_LANE, refill_slots=REFILL_SLOTS,
-            capacity=CAPACITY, scout=scout, device="cuda")
-        log(f"[smoke] flagship bank dealt in "
-            f"{time.perf_counter() - t0:.1f} s: "
-            f"{int(base['nslots'].sum())} roots over {LANES} lanes x "
-            f"{REFILL_SLOTS} slots, thresh {base['thresh']}, batch "
-            f"{base['batch']}")
-        outs_k = None
-        times = []
-        for _ in range(3):
-            inp = clone_inputs(base)
-            outs_k, ms = run_k1(W.run_segment_rf, inp, f_ds, scout)
-            times.append(ms)
-        inp_p = clone_inputs(base)
-        outs_p, plain_ms = run_k1(W.segment_rf_plain, inp_p, f_ds, scout)
-        max_err = 0.0
-        for a, b in zip(outs_k, outs_p):
-            if a.dtype == torch.float32:
-                same = torch.equal(a.view(torch.int32), b.view(torch.int32))
-                max_err = max(max_err, float((a - b).abs().max()))
-            else:
-                same = torch.equal(a, b)
-            if not same:
-                raise AssertionError(
-                    f"K1 {mode}: kernel and plain segment differ")
-        ctr = outs_k[-1].tolist()
-        kernel_ms = float(np.median(times))
-        bound, bound_by = k1_bound_ms(base, ctr, ops, scout)
-        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
-                         bound_ms=bound, bound_by=bound_by, counters=ctr)
-        log(f"[smoke] K1 {mode}: bit-equal to the plain segment; "
-            f"{ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
-            f"{', '.join(f'{t:.3f}' for t in times)}), plain "
-            f"{plain_ms:.1f} ms, bound {bound:.4f} ms; counters {ctr}")
-    log("[smoke] library_ms: no single PyTorch call computes the walk "
+        f"{ops['scout_eval']}, trapezoid step overhead "
+        f"{ops['step_overhead']}, Simpson step overhead "
+        f"{ops['simpson_overhead']}")
+    k1 = phase_k1(W, f_theta, f_ds, theta, ops)
+    seeded = {rule: seeded_lanes(W, f_theta, theta, rule)
+              for rule in (Rule.TRAPEZOID, Rule.SIMPSON)}
+    k2 = phase_k2(W, f_ds, seeded, ops)
+    k3 = phase_k3(W, f_ds, seeded, ops)
+    barrier = phase_barrier(W, f_ds, seeded[Rule.TRAPEZOID])
+    probe = kernel_ceiling_slope(lanes=LANES)
+    log(f"[smoke] K3 probe on restarted lanes that mostly park, not a "
+        f"ceiling (lanes {LANES}, {probe['launches']} launches): "
+        f"{probe['lane_steps_per_sec'] / 1e9:.3f} G lane-steps/s, "
+        f"{probe['us_per_step']:.3f} us per step")
+    log(f"[smoke] us per step, trapezoid, 256-step launches on the "
+        f"flagship's lanes: K1 {k1['step']['us_per_step']:.3f} (its bank), "
+        f"K2 {k2['step']['us_per_step']:.3f}, K3 "
+        f"{k3['step']['us_per_step']:.3f} (all live); probe (mostly "
+        f"parked) {probe['us_per_step']:.3f}; barrier share of K2's step "
+        f"{barrier['barrier_share']:.3f}")
+    log("[smoke] library_ms: no single PyTorch call computes a walk "
         "segment, so there is none")
+    report.update(k1=k1, k2=k2, k3=k3, probe=probe, barrier_share=barrier)
 
-    # 4. main path: the flagship, scouting on, double-buffered banks
+    # 4. main path, in-kernel refill: the flagship, scouting on,
+    # double-buffered banks
     kw = dict(capacity=CAPACITY, lanes=LANES, refill_slots=REFILL_SLOTS,
               roots_per_lane=ROOTS_PER_LANE, double_buffer=True,
               device="cuda")
-    t0 = time.perf_counter()
-    W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS,
-                              scout_dtype="f32", **kw)
-    torch.cuda.synchronize()
-    log(f"[smoke] warm-up run: {time.perf_counter() - t0:.2f} s")
-    W.run_segment_rf.launches = 0
-    t0 = time.perf_counter()
-    res = W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS,
-                                    scout_dtype="f32", **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = W.run_segment_rf.launches
+    res, wall, launches = main_path(W, f_theta, f_ds, theta,
+                                    dict(kw, scout_dtype="f32"),
+                                    W.run_segment_rf, "main path (K1)")
     mt = res.metrics
     areas = np.asarray(res.areas)
-    if not np.all(np.isfinite(areas)) or areas.shape != (M,):
-        raise AssertionError("main path: non-finite or misshapen areas")
-    if mt.tasks != mt.splits + mt.leaves:
-        raise AssertionError("main path: tasks != splits + leaves")
     att = res.attribution()
-    if not att["reconciles"]:
-        raise AssertionError(f"main path: waste does not reconcile {att}")
-    if launches <= 0:
-        raise AssertionError("main path: K1 was never launched")
-    log(f"[smoke] main path: wall {wall:.3f} s, {mt.tasks} tasks "
+    log(f"[smoke] main path (K1): wall {wall:.3f} s, {mt.tasks} tasks "
         f"({mt.tasks / wall / 1e6:.2f} M tasks/s), kernel steps "
-        f"{res.kernel_steps}, cycles {res.cycles}, K1 launches {launches}, "
+        f"{res.kernel_steps}, cycles {res.cycles}, launches {launches}, "
         f"host syncs {res.host_syncs} (per cycle "
         f"{res.host_syncs_per_cycle}), lane efficiency "
         f"{res.lane_efficiency:.4f}, walker fraction "
@@ -298,10 +575,8 @@ def main() -> int:
                                        scout_dtype="f64", **kw)
     torch.cuda.synchronize()
     wall_ds = time.perf_counter() - t0
-    sample = np.arange(0, M, 128)
     bag = integrate_family(f_theta, theta[sample], BOUNDS, EPS,
                            capacity=1 << 22, device="cuda")
-    exact = family_exact("sin_recip_scaled", *BOUNDS, theta)
     d_exact = float(np.max(np.abs(areas - exact)))
     d_bag_ds = float(np.max(np.abs(np.asarray(res_ds.areas)[sample]
                                    - bag.areas)))
@@ -323,6 +598,19 @@ def main() -> int:
         raise AssertionError("ds walk: areas disagree with the f64 bag")
     if not d_exact < AREA_TOL_EXACT:
         raise AssertionError("main path: areas disagree with closed form")
+    report["main_k1"] = dict(
+        wall_s=wall, tasks=mt.tasks, kernel_steps=res.kernel_steps,
+        cycles=res.cycles, launches=launches, host_syncs=res.host_syncs,
+        host_syncs_per_cycle=res.host_syncs_per_cycle, waste=att["buckets"],
+        lane_efficiency=res.lane_efficiency,
+        walker_fraction=res.walker_fraction,
+        seg_stats=res.seg_stats.tolist(),
+        cycle_stats=res.cycle_stats.tolist(),
+        ds_run=dict(wall_s=wall_ds, tasks=res_ds.metrics.tasks,
+                    kernel_steps=res_ds.kernel_steps,
+                    waste=res_ds.attribution()["buckets"]),
+        d_bag_ds=d_bag_ds, d_bag=d_bag, err_w=err_w, err_b=err_b,
+        d_exact=d_exact)
 
     # 5. scout schedule: the card against the plain segment on the CPU at
     # the configuration where the CPU port reproduces the reference walker
@@ -352,74 +640,169 @@ def main() -> int:
         raise AssertionError("scout schedule: card and CPU walks differ")
     if not d_dev < AREA_TOL_DEVICES:
         raise AssertionError("scout schedule: card and CPU areas differ")
+    report["schedule"] = dict(tasks=on_card.metrics.tasks,
+                              bag_tasks=sub_bag.metrics.tasks,
+                              d_card_cpu=d_dev,
+                              d_bag=np.abs(on_card.areas
+                                           - sub_bag.areas).tolist())
 
-    # 6. where the time goes: one more main-path run under the profiler
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # 6. main path, boundary refill: the reference bench's fallback
+    kw0 = dict(capacity=CAPACITY, lanes=LANES, refill_slots=0,
+               roots_per_lane=ROOTS_PER_LANE, device="cuda")
+    res0, wall0, launches0 = main_path(W, f_theta, f_ds, theta,
+                                       dict(kw0, scout_dtype="f64"),
+                                       W.run_segment_ee,
+                                       "main path (K2)")
+    # each kernel's launches over the two main paths' timed runs; K3 is
+    # on neither (its only caller is the probe)
+    main_launches = {k: launches[k] + launches0[k] for k in launches}
+    if main_launches["run_segment"] != 0:
+        raise AssertionError(f"K3 ran on a main path: {main_launches}")
+    mt0 = res0.metrics
+    areas0 = np.asarray(res0.areas)
+    occ = res0.occupancy_summary()
+    d_exact0 = float(np.max(np.abs(areas0 - exact)))
+    d_bag0 = float(np.max(np.abs(areas0[sample] - bag.areas)))
+    segments = int(res0.cycle_stats[:, W.CYCLE_STAT_FIELDS.index(
+        "segments")].sum())
+    log(f"[smoke] main path (K2): wall {wall0:.3f} s, {mt0.tasks} tasks "
+        f"({mt0.tasks / wall0 / 1e6:.2f} M tasks/s), kernel steps "
+        f"{res0.kernel_steps}, segments {segments}, cycles "
+        f"{res0.cycles}, launches {launches0}, host syncs "
+        f"{res0.host_syncs} (per cycle {res0.host_syncs_per_cycle}), lane "
+        f"efficiency {res0.lane_efficiency:.4f}, est. occupancy "
+        f"{occ['est_occupancy']}, walker fraction "
+        f"{res0.walker_fraction:.4f}")
+    log(f"[smoke] waste buckets: {res0.attribution()['buckets']}; "
+        f"occupancy {occ}")
+    log(f"[smoke] main path (K2): max |walker - f64 bag| on {len(sample)} "
+        f"members {d_bag0:.3e} (tol {AREA_TOL_BAG}); all {M}: max |walker "
+        f"- closed form| {d_exact0:.3e} (tol {AREA_TOL_EXACT})")
+    if not d_bag0 < AREA_TOL_BAG:
+        raise AssertionError("main path (K2): areas disagree with the bag")
+    if not d_exact0 < AREA_TOL_EXACT:
+        raise AssertionError("main path (K2): areas disagree with the "
+                             "closed form")
+    t0 = time.perf_counter()
+    res0s = W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS,
+                                      scout_dtype="f32", **kw0)
+    torch.cuda.synchronize()
+    wall0s = time.perf_counter() - t0
+    check_walk("boundary refill, scout f32", res0s, M)
+    areas0s = np.asarray(res0s.areas)
+    d_exact0s = float(np.max(np.abs(areas0s - exact)))
+    d_bag0s = float(np.max(np.abs(areas0s[sample] - bag.areas)))
+    log(f"[smoke] boundary refill, scout f32: wall {wall0s:.3f} s, "
+        f"{res0s.metrics.tasks} tasks ({res0s.metrics.tasks - mt0.tasks:+d}"
+        f"), kernel steps {res0s.kernel_steps}; max |walker - f64 bag| "
+        f"{d_bag0s:.3e} (not held: over-refinement, phase 5); max |walker "
+        f"- closed form| {d_exact0s:.3e} (tol {AREA_TOL_EXACT})")
+    if not d_exact0s < AREA_TOL_EXACT:
+        raise AssertionError("boundary refill, scout f32: areas disagree "
+                             "with the closed form")
+    report["main_k2"] = dict(
+        wall_s=wall0, tasks=mt0.tasks, kernel_steps=res0.kernel_steps,
+        segments=segments, cycles=res0.cycles,
+        launches=launches0, host_syncs=res0.host_syncs,
+        host_syncs_per_cycle=res0.host_syncs_per_cycle,
+        waste=res0.attribution()["buckets"], occupancy=occ,
+        lane_efficiency=res0.lane_efficiency,
+        walker_fraction=res0.walker_fraction, d_bag=d_bag0,
+        d_exact=d_exact0, seg_stats=res0.seg_stats.tolist(),
+        scout_run=dict(wall_s=wall0s, tasks=res0s.metrics.tasks,
+                       kernel_steps=res0s.kernel_steps, d_bag=d_bag0s,
+                       d_exact=d_exact0s))
+
+    # 7. Simpson: the reference's real-chip configuration, both refill
+    # modes, against the float64 Simpson bag; then the full-width flagship
+    s_theta = 1.0 + np.arange(4) / 4.0
+    s_bounds, s_eps = (1e-2, 1.0), 1e-12
+    s_kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=1, seg_iters=32,
+                min_active_frac=0.05, rule=Rule.SIMPSON, device="cuda")
+    s_bag = integrate_family(f_theta, s_theta, s_bounds, s_eps,
+                             rule=Rule.SIMPSON, chunk=1 << 10,
+                             capacity=1 << 16, device="cuda")
+    report["simpson_lane"] = {}
+    for tag, over in (("boundary", {}),
+                      ("in-kernel", dict(refill_slots=2, roots_per_lane=2))):
+        r = W.integrate_family_walker(f_theta, f_ds, s_theta, s_bounds,
+                                      s_eps, **dict(s_kw, **over))
+        check_walk(f"Simpson lane config ({tag})", r, len(s_theta))
+        d = float(np.max(np.abs(r.areas - s_bag.areas)))
+        log(f"[smoke] Simpson lane config, {tag} refill: {r.metrics.tasks} "
+            f"tasks (bag {s_bag.metrics.tasks}), max |walker - Simpson bag| "
+            f"{d:.3e} (tol {AREA_TOL_SIMPSON}), walker fraction "
+            f"{r.walker_fraction:.3f}")
+        if r.metrics.tasks != s_bag.metrics.tasks or not d < AREA_TOL_SIMPSON:
+            raise AssertionError(f"Simpson lane config ({tag}): walker and "
+                                 f"Simpson bag differ")
+        report["simpson_lane"][tag] = dict(tasks=r.metrics.tasks, d_bag=d)
+    f_bag = integrate_family(f_theta, theta[sample], BOUNDS, EPS,
+                             rule=Rule.SIMPSON, capacity=1 << 22,
+                             device="cuda")
+    report["simpson_flagship"] = {}
+    for R in (0, REFILL_SLOTS):
+        counter = W.run_segment_rf if R else W.run_segment_ee
+        before = counter.launches
         t0 = time.perf_counter()
-        W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS,
-                                  scout_dtype="f32", **kw)
+        r = W.integrate_family_walker(
+            f_theta, f_ds, theta, BOUNDS, EPS, rule=Rule.SIMPSON,
+            capacity=CAPACITY, lanes=LANES, refill_slots=R,
+            roots_per_lane=ROOTS_PER_LANE, device="cuda")
         torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    events = prof.key_averages()
+        wall_s = time.perf_counter() - t0
+        check_walk(f"Simpson flagship (R={R})", r, M)
+        d_ex = float(np.max(np.abs(np.asarray(r.areas) - exact)))
+        d_b = float(np.max(np.abs(np.asarray(r.areas)[sample]
+                                  - f_bag.areas)))
+        d_bag_ex = float(np.max(np.abs(f_bag.areas - exact[sample])))
+        n = counter.launches - before
+        log(f"[smoke] Simpson flagship, refill_slots={R}: wall {wall_s:.3f} "
+            f"s, {r.metrics.tasks} tasks, kernel steps {r.kernel_steps}, "
+            f"{counter.__name__} launches {n}; max |walker - closed form| "
+            f"{d_ex:.3e} (tol {AREA_TOL_EXACT}); max |walker - Simpson bag| "
+            f"on {len(sample)} members {d_b:.3e} (bag {f_bag.metrics.tasks} "
+            f"tasks, {d_bag_ex:.3e} from the closed form there)")
+        if n <= 0 or not d_ex < AREA_TOL_EXACT:
+            raise AssertionError(f"Simpson flagship (R={R}) failed")
+        report["simpson_flagship"][R] = dict(
+            wall_s=wall_s, tasks=r.metrics.tasks,
+            kernel_steps=r.kernel_steps, launches=n, d_exact=d_ex, d_bag=d_b,
+            d_bag_exact=d_bag_ex)
 
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    k1_ms = sum(dev_us(e) for e in events if "walk_rf_kernel" in e.key) / 1e3
-    by_dev = sorted(events, key=dev_us, reverse=True)
-    with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as fh:
-        for e in by_dev[:40]:
-            fh.write(f"{dev_us(e) / 1e3:12.3f} ms  {e.count:8d}  {e.key}\n")
-    if busy_ms > 0:
-        log(f"[smoke] profile: wall {wall_prof * 1e3:.1f} ms, device busy "
-            f"{busy_ms:.1f} ms (idle share "
-            f"{1 - busy_ms / (wall_prof * 1e3):.3f}), K1 {k1_ms:.1f} ms")
-        for e in by_dev[:8]:
-            log(f"[smoke]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
-                f"{e.key[:80]}")
-    else:
-        log("[smoke] profile: the profiler recorded no device time "
-            "(device busy share not measured)")
+    # 8. where the time goes: one more run of each main path, profiled
+    report["profile_k1"] = profile_run(W, f_theta, f_ds, theta,
+                                       dict(kw, scout_dtype="f32"),
+                                       "walk_rf_kernel", out_dir, "k1")
+    report["profile_k2"] = profile_run(W, f_theta, f_ds, theta,
+                                       dict(kw0, scout_dtype="f64"),
+                                       "walk_ee_kernel", out_dir, "k2")
+    report.update(device=kind, smi=smi,
+                  total_s=time.perf_counter() - t_start)
     with open(os.path.join(out_dir, "chip_smoke_main.json"), "w") as fh:
-        json.dump(dict(wall_s=wall, tasks=mt.tasks,
-                       kernel_steps=res.kernel_steps, cycles=res.cycles,
-                       launches=launches, host_syncs=res.host_syncs,
-                       host_syncs_per_cycle=res.host_syncs_per_cycle,
-                       waste=att["buckets"],
-                       lane_efficiency=res.lane_efficiency,
-                       walker_fraction=res.walker_fraction,
-                       seg_stats=res.seg_stats.tolist(),
-                       cycle_stats=res.cycle_stats.tolist(),
-                       ds_run=dict(wall_s=wall_ds,
-                                   tasks=res_ds.metrics.tasks,
-                                   kernel_steps=res_ds.kernel_steps,
-                                   waste=res_ds.attribution()["buckets"]),
-                       d_bag_ds=d_bag_ds, d_bag=d_bag, err_w=err_w,
-                       err_b=err_b, d_exact=d_exact,
-                       schedule=dict(tasks=on_card.metrics.tasks,
-                                     bag_tasks=sub_bag.metrics.tasks,
-                                     d_card_cpu=d_dev,
-                                     d_bag=np.abs(on_card.areas
-                                                  - sub_bag.areas).tolist()),
-                       profile=dict(wall_ms=wall_prof * 1e3,
-                                    busy_ms=busy_ms, k1_ms=k1_ms),
-                       k1=cmp, device=kind, smi=smi), fh, indent=1)
+        json.dump(report, fh, indent=1, default=str)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
-    scout = cmp["step_scout"]
-    print(json.dumps({"kernels": [{
-        "name": "walk_rf", "route": "cuda",
-        "source": "ppls_tpu_torch/csrc/walk_rf.cu",
-        "replaces": "ppls_tpu/parallel/walker.py:993",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cmp.values()),
-        "ms": scout["ms"], "plain_ms": scout["plain_ms"],
-        "bound_ms": scout["bound_ms"], "bound_by": scout["bound_by"],
-        "library_ms": None}]}))
+    def row(name, source, replaces, counter, cmp, mode, **extra):
+        c = cmp[mode]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": main_launches[counter],
+                "max_abs_err": max(v["max_abs_err"] for v in cmp.values()),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None, **extra}
+
+    print(json.dumps({"kernels": [
+        row("walk_rf", "ppls_tpu_torch/csrc/walk_rf.cu",
+            "ppls_tpu/parallel/walker.py:993", "run_segment_rf", k1,
+            "step_scout"),
+        row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
+            "ppls_tpu/parallel/walker.py:1279", "run_segment_ee", k2,
+            "step"),
+        row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
+            "ppls_tpu/parallel/walker.py:1253", "run_segment", k3, "step",
+            probe_launches=probe["launches"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

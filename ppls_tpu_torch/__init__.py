@@ -1,11 +1,12 @@
 """ppls_tpu_torch: the PyTorch / CUDA port of ppls_tpu for NVIDIA Hopper.
 
 The JAX package ``ppls_tpu`` is the reference; this package imports
-nothing of it and nothing of JAX. This slice carries the flagship
-family walker (``integrate_family_walker``) and the float64 family bag
-engine (``integrate_family``); the walk segment runs in a hand-written
-CUDA kernel (``csrc/walk_rf.cu``) on the card and in plain PyTorch on
-the CPU. Entry points run on CUDA unless ``device="cpu"`` is passed.
+nothing of it and nothing of JAX. It carries the flagship family walker
+(``integrate_family_walker``, in-kernel or boundary refill, trapezoid or
+Simpson) and the float64 family bag engine (``integrate_family``); the
+walk segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
+``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on the
+CPU. Entry points run on CUDA unless ``device="cpu"`` is passed.
 
 No global dtype is set: every tensor is created with an explicit dtype.
 """

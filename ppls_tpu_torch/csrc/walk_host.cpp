@@ -1,17 +1,21 @@
-// Host build of the K1 step machine: the same per-lane functions as the
-// CUDA kernel (walk_step.cuh), driven by a plain sequential loop with the
-// grid-wide counts taken over all lanes between steps. It exists so the
-// CPU tests can hold the kernel's own arithmetic bit for bit against the
-// plain PyTorch segment; it is built with g++ -O2 -ffp-contract=off and
-// is not used by the engine.
+// Host build of the walk kernels' step machine: the same per-lane
+// functions as the CUDA kernels (walk_step.cuh), driven by plain
+// sequential loops with the grid-wide counts taken over all lanes between
+// steps. It exists so the CPU tests can hold the kernels' own arithmetic
+// bit for bit against the plain PyTorch segments; it is built with g++
+// -O2 -ffp-contract=off and is not used by the engine.
+//
+//   walk_rf_host   K1 (walk_rf.cu), the in-kernel-refill segment
+//   walk_ee_host   K2 (walk_ee.cu), the early-exit segment
+//   walk_seg_host  K3 (walk_seg.cu), the fixed-length segment
 
 #include "walk_step.cuh"
 
 namespace {
 
-template <int FAM, bool SCOUT>
-int run(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
-        int batch) {
+template <int FAM, int MODE>
+int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
+       int batch) {
   int* slot = static_cast<int*>(p[ws::P_SLOT]);
   const int* nslots = static_cast<const int*>(p[ws::P_NSLOTS]);
   float* rm_h = static_cast<float*>(p[ws::P_RESM_H]);
@@ -45,10 +49,7 @@ int run(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
         rm_fam[lane] = rm.fam;
       }
       ws::lane_classify(s, slot[lane], nslots[lane], w);
-      if (SCOUT)
-        ws::step_scout<FAM>(s, eps32, sc_n, cf_n);
-      else
-        ws::step_trap<FAM>(s, eps32);
+      ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
       ws::store_lane(p, lane, s);
     }
     ++k;
@@ -65,20 +66,76 @@ int run(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
   return 0;
 }
 
+template <int FAM, int MODE>
+int ee(void* const* p, int lanes, float eps32, int thresh, int cap) {
+  auto live_count = [&]() {
+    int live = 0;
+    for (int lane = 0; lane < lanes; ++lane)
+      live += !ws::is_parked(ws::load_lane(p, lane));
+    return live;
+  };
+  ws::WasteEE w = {0, 0, 0};
+  int sc_n = 0, cf_n = 0;
+  int k = 0, live = live_count();
+  while (k == 0 || (k < cap && live > thresh)) {
+    for (int lane = 0; lane < lanes; ++lane) {
+      ws::Lane s = ws::load_lane(p, lane);
+      ws::lane_classify_ee(s, w);
+      ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
+      ws::store_lane(p, lane, s);
+    }
+    ++k;
+    live = live_count();
+  }
+  int* out = static_cast<int*>(p[ws::P_EE_COUNTERS]);
+  out[0] = k;
+  out[1] = w.active;
+  out[2] = w.dead;
+  out[3] = w.parked_root;
+  out[4] = 0;
+  out[5] = sc_n;
+  out[6] = cf_n;
+  return 0;
+}
+
+template <int FAM, int MODE>
+int seg(void* const* p, int lanes, float eps32, int iters) {
+  int sc_n = 0, cf_n = 0;
+  for (int lane = 0; lane < lanes; ++lane) {
+    ws::Lane s = ws::load_lane(p, lane);
+    for (int k = 0; k < iters; ++k) ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
+    ws::store_lane(p, lane, s);
+  }
+  return 0;
+}
+
 }  // namespace
 
-extern "C" int walk_rf_host(void* const* p, int lanes, int R, int family,
-                            int scout, float eps32, int thresh, int cap,
-                            int batch) {
-  if (family == ws::FAMILY_SIN_RECIP)
-    return scout ? run<ws::FAMILY_SIN_RECIP, true>(p, lanes, R, eps32,
-                                                   thresh, cap, batch)
-                 : run<ws::FAMILY_SIN_RECIP, false>(p, lanes, R, eps32,
-                                                    thresh, cap, batch);
-  if (family == ws::FAMILY_COSH4)
-    return scout ? run<ws::FAMILY_COSH4, true>(p, lanes, R, eps32, thresh,
-                                               cap, batch)
-                 : run<ws::FAMILY_COSH4, false>(p, lanes, R, eps32, thresh,
-                                                cap, batch);
-  return -2;
+// Each entry returns 0, or -2 for an unknown family or mode.
+extern "C" {
+
+int walk_rf_host(void* const* p, int lanes, int R, int family, int mode,
+                 float eps32, int thresh, int cap, int batch) {
+  return ws::dispatch(family, mode, [&]<int FAM, int MODE>() {
+    return rf<FAM, MODE>(p, lanes, R, eps32, thresh, cap, batch);
+  }, -2);
 }
+
+int walk_ee_host(void* const* p, int lanes, int family, int mode,
+                 float eps32, int thresh, int cap) {
+  return ws::dispatch(family, mode, [&]<int FAM, int MODE>() {
+    return ee<FAM, MODE>(p, lanes, eps32, thresh, cap);
+  }, -2);
+}
+
+int walk_seg_host(void* const* p, int lanes, int family, int mode,
+                  float eps32, int iters) {
+  return ws::dispatch(family, mode, [&]<int FAM, int MODE>() {
+    if constexpr (MODE == ws::STEP_SCOUT)
+      return -2;                            // K3 has no scout mode
+    else
+      return seg<FAM, MODE>(p, lanes, eps32, iters);
+  }, -2);
+}
+
+}  // extern "C"

@@ -6,7 +6,8 @@
 // refilling parked lanes from their private root banks whenever
 // `nref >= batch` or `live <= thresh`, banking finished roots into the
 // result bank (or the sentinel row), classifying every lane-step into
-// the five waste buckets, and counting scout / confirm evals.
+// the five waste buckets, and counting scout / confirm evals. The step
+// machine is a template parameter: trapezoid, scouting or Simpson.
 //
 // Design. One thread owns one lane; the lane state lives in registers
 // for the whole launch and the state tensors are updated in place. Root
@@ -18,10 +19,10 @@
 // exactly, the kernel is launched cooperatively and each step ends with
 // a block reduction, an integer atomicAdd into a counter slot (three
 // slots in rotation, so a slot is cleared two steps before its reuse),
-// and grid.sync(). Integer atomics are order-independent, so reruns are
-// bit-identical. The waste and eval counters need no per-step
-// grid-wide value: each lane accumulates its own and they are reduced
-// once at the end (the same totals).
+// and grid.sync() (walk_grid.cuh). Integer atomics are order-independent,
+// so reruns are bit-identical. The waste and eval counters need no
+// per-step grid-wide value: each lane accumulates its own and they are
+// reduced once at the end (the same totals).
 //
 // What bounds it on this card: the float32 issue rate of the ds
 // arithmetic (~20-30 float32 operations per ds operation, several
@@ -35,67 +36,16 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "walk_grid.cuh"
 #include "walk_step.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+using wg::kThreads;
 
-// Grid-wide sum of (a, b) into rotating slot `c % 3` of `sync`; every
-// thread gets both totals. The slot used two reductions later is cleared
-// here: all threads finished reading it before this grid.sync.
-__device__ __forceinline__ void grid_count2(cg::grid_group& grid, int a,
-                                            int b, int* sync, int c,
-                                            int& ta, int& tb) {
-  __shared__ int sa[kWarps];
-  __shared__ int sb[kWarps];
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-  }
-  int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    sa[warp] = a;
-    sb[warp] = b;
-  }
-  __syncthreads();
-  int slot = 2 * (c % 3);
-  if (threadIdx.x == 0) {
-    int sum_a = 0, sum_b = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      sum_a += sa[w];
-      sum_b += sb[w];
-    }
-    atomicAdd(&sync[slot], sum_a);
-    atomicAdd(&sync[slot + 1], sum_b);
-  }
-  grid.sync();
-  const volatile int* vs = sync;
-  ta = vs[slot];
-  tb = vs[slot + 1];
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    int clear = 2 * ((c + 2) % 3);
-    sync[clear] = 0;
-    sync[clear + 1] = 0;
-  }
-}
-
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) s += scratch[w];
-  return s;
-}
-
-template <int FAM, bool SCOUT>
+template <int FAM, int MODE>
 __global__ void __launch_bounds__(kThreads)
     walk_rf_kernel(void* const* p, int lanes, int R, float eps32,
                    int thresh, int cap, int batch) {
@@ -114,22 +64,20 @@ __global__ void __launch_bounds__(kThreads)
   int sc_n = 0, cf_n = 0;
 
   int k = 0, c = 0;
-  int live, nref;
-  grid_count2(grid, !ws::is_parked(s), ws::takeable(s, slot, nslots),
-              sync, c, live, nref);
-  while (k == 0 || (k < cap && (live > thresh || nref > 0))) {
-    // refill BEFORE the step, on the counts of the previous step
-    if (nref > 0 && (nref >= batch || live <= thresh))
+  int cnt[2] = {!ws::is_parked(s), ws::takeable(s, slot, nslots)};
+  wg::grid_count(grid, cnt, sync, c);
+  while (k == 0 || (k < cap && (cnt[0] > thresh || cnt[1] > 0))) {
+    // refill BEFORE the step, on the counts (live, nref) of the
+    // previous step
+    if (cnt[1] > 0 && (cnt[1] >= batch || cnt[0] <= thresh))
       ws::lane_take(s, slot, nslots, R, lane, lanes, p, rm);
     ws::lane_classify(s, slot, nslots, w);
-    if (SCOUT)
-      ws::step_scout<FAM>(s, eps32, sc_n, cf_n);
-    else
-      ws::step_trap<FAM>(s, eps32);
+    ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
     ++k;
     ++c;
-    grid_count2(grid, !ws::is_parked(s), ws::takeable(s, slot, nslots),
-                sync, c, live, nref);
+    cnt[0] = !ws::is_parked(s);
+    cnt[1] = ws::takeable(s, slot, nslots);
+    wg::grid_count(grid, cnt, sync, c);
   }
 
   ws::store_lane(p, lane, s);
@@ -140,29 +88,21 @@ __global__ void __launch_bounds__(kThreads)
 
   // counters: steps, eval_active, masked_dead, refill_stall, drain_tail,
   // theta_overwalk (0: no theta groups here), scout evals, confirm evals
-  __shared__ int scratch[kWarps];
   int* out = static_cast<int*>(p[ws::P_COUNTERS]);
   const int vals[7] = {w.active, w.dead, w.stall, w.tail, 0, sc_n, cf_n};
-  for (int j = 0; j < 7; ++j) {
-    int tot = block_sum(vals[j], scratch);
-    if (threadIdx.x == 0 && tot != 0) atomicAdd(&out[1 + j], tot);
-  }
+  wg::add_counters(vals, 7, out + 1);
   if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = k;
 }
 
-template <int FAM, bool SCOUT>
-const void* kernel_ptr() {
-  return reinterpret_cast<const void*>(&walk_rf_kernel<FAM, SCOUT>);
-}
+struct Pick {
+  template <int FAM, int MODE>
+  const void* operator()() const {
+    return reinterpret_cast<const void*>(&walk_rf_kernel<FAM, MODE>);
+  }
+};
 
-const void* pick_kernel(int family, int scout) {
-  if (family == ws::FAMILY_SIN_RECIP)
-    return scout ? kernel_ptr<ws::FAMILY_SIN_RECIP, true>()
-                 : kernel_ptr<ws::FAMILY_SIN_RECIP, false>();
-  if (family == ws::FAMILY_COSH4)
-    return scout ? kernel_ptr<ws::FAMILY_COSH4, true>()
-                 : kernel_ptr<ws::FAMILY_COSH4, false>();
-  return nullptr;
+const void* pick_kernel(int family, int mode) {
+  return ws::dispatch(family, mode, Pick{}, static_cast<const void*>(nullptr));
 }
 
 }  // namespace
@@ -170,43 +110,25 @@ const void* pick_kernel(int family, int scout) {
 extern "C" {
 
 // How many blocks of kThreads the current device can hold at once for
-// this variant (occupancy per SM times the SM count), or -1 on error.
-// The caller queries it once per (family, scout, device) with that
-// device current.
-int walk_rf_max_coresident_blocks(int family, int scout) {
-  const void* fn = pick_kernel(family, scout);
-  if (fn == nullptr) return -1;
-  int device = 0, per_sm = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                    0) != cudaSuccess)
-    return -1;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess)
-    return -1;
-  return per_sm * sms;
+// this variant, or -1 on error. The caller queries it once per (family,
+// mode, device) with that device current.
+int walk_rf_max_coresident_blocks(int family, int mode) {
+  return wg::max_coresident_blocks(pick_kernel(family, mode));
 }
 
 // One cooperative launch on `stream`, whose device must be current.
-// `d_ptrs` is a device array of ws::N_PTRS pointers. Returns 0, a
-// cudaError_t code, -2 for an unknown family, -3 when lanes is not a
-// multiple of the block size, or -4 when the grid exceeds `max_blocks`,
-// the co-resident limit (it is never shrunk to fit).
+// `d_ptrs` is a device array of ws::N_PTRS pointers; `mode` a ws::STEP_*.
+// Returns 0, a cudaError_t code, -2 for an unknown family or mode, -3
+// when lanes is not a multiple of the block size, or -4 when the grid
+// exceeds `max_blocks`, the co-resident limit (it is never shrunk).
 int walk_rf_launch(void* const* d_ptrs, int lanes, int R, int family,
-                   int scout, float eps32, int thresh, int cap, int batch,
+                   int mode, float eps32, int thresh, int cap, int batch,
                    int max_blocks, void* stream) {
-  const void* fn = pick_kernel(family, scout);
+  const void* fn = pick_kernel(family, mode);
   if (fn == nullptr) return -2;
-  if (lanes <= 0 || lanes % kThreads != 0) return -3;
-  int grid = lanes / kThreads;
-  if (grid > max_blocks) return -4;
   void* args[] = {(void*)&d_ptrs, &lanes, &R, &eps32, &thresh, &cap,
                   &batch};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return wg::launch_cooperative(fn, lanes, max_blocks, args, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
-// Per-lane step machine of the in-kernel-refill walk segment.
+// Per-lane step machine of the walk segments (K1, K2, K3).
 //
-// Everything here is __host__ __device__: the CUDA kernel (walk_rf.cu)
-// runs it with one thread per lane, and walk_host.cpp runs the same
-// functions in a plain host loop so the CPU tests can hold the kernel's
-// own arithmetic bit for bit against the plain PyTorch segment
-// (ppls_tpu_torch/parallel/walker.py) before any card is involved.
+// Everything here is __host__ __device__: the CUDA kernels (walk_rf.cu,
+// walk_ee.cu, walk_seg.cu) run it with one thread per lane, and
+// walk_host.cpp runs the same functions in plain host loops so the CPU
+// tests can hold the kernels' own arithmetic bit for bit against the
+// plain PyTorch segments (ppls_tpu_torch/parallel/walker.py) before any
+// card is involved.
 //
 // Numerics: double-single (two-float32) arithmetic whose error-free
 // transforms die under multiply-add contraction or flush-to-zero. Build
@@ -33,7 +34,14 @@ constexpr int PARKED = 2;
 constexpr int NO_ROOT = 4;
 constexpr int OVF = 8;
 constexpr int MODE_INIT = 16;
+constexpr int MODE_LOADM = 32;        // Simpson: next eval loads f(mid)
+constexpr int MODE_TESTB = 64;        // Simpson: q1 stashed, next eval q3
 constexpr int MAX_REL_DEPTH = 30;
+
+// step machines (walker.py STEP_*): one template parameter of every kernel
+constexpr int STEP_TRAP = 0;
+constexpr int STEP_SCOUT = 1;
+constexpr int STEP_SIMPSON = 2;
 constexpr int DEPTH_BITS = 14;
 constexpr int DEPTH_MASK = (1 << DEPTH_BITS) - 1;
 
@@ -54,6 +62,13 @@ constexpr int P_RESL = 39;
 constexpr int P_COUNTERS = 40;        // int32[8]: steps, 5 waste, 2 evals
 constexpr int P_SYNC = 41;            // int32[6], zeroed: grid counts
 constexpr int N_PTRS = 42;
+// pointer table of one K2 launch (walker.py run_segment_ee): the state,
+// then int32[7] counters (steps, eval_active, masked_dead,
+// parked_with_root, theta_overwalk, scout evals, confirm evals) and an
+// int32[3] zeroed grid-count buffer. K3 takes the 26 state pointers only.
+constexpr int P_EE_COUNTERS = 26;
+constexpr int P_EE_SYNC = 27;
+constexpr int N_EE_PTRS = 28;
 
 // --- float32 constants (exact values of the Python modules' constants) ------
 constexpr float K_SPLIT = 4097.0f;
@@ -99,6 +114,14 @@ constexpr float K_SC_E4 = 0x1.555556p-5f, K_SC_E5 = 0x1.111112p-7f;
 constexpr float K_SC_E6 = 0x1.6c16c2p-10f, K_SC_E7 = 0x1.a01a02p-13f;
 // scout guard band: 64 float32 ulps, 64 * 2^-23
 constexpr float K_SCOUT_BAND = 0x1.0p-17f;
+// Simpson + Richardson scalings as two-limb constants (walker.py
+// SIMPSON_SIXTH / _TWELFTH / _FIFTEENTH): a float32 literal alone would
+// put a systematic 3e-8 relative error on every accepted value
+constexpr float K_SIXTH_H = 0x1.555556p-3f, K_SIXTH_L = -0x1.555556p-28f;
+constexpr float K_TWELFTH_H = 0x1.555556p-4f,
+                K_TWELFTH_L = -0x1.555556p-29f;
+constexpr float K_FIFTEENTH_H = 0x1.111112p-4f,
+                K_FIFTEENTH_L = -0x1.dddddep-29f;
 
 // --- bit helpers -------------------------------------------------------------
 
@@ -465,6 +488,21 @@ WS_HD void lane_classify(const Lane& s, int slot, int nslots, Waste& w) {
   w.tail += 1 - live - stall - dead;
 }
 
+// K2's per-lane waste classification: live -> eval_active, no root ->
+// masked_dead, otherwise parked with a root (the host splits that bucket
+// into refill_stall or drain_tail by the queue at launch)
+struct WasteEE {
+  int active, dead, parked_root;
+};
+
+WS_HD void lane_classify_ee(const Lane& s, WasteEE& w) {
+  int live = !is_parked(s);
+  int dead = (s.flags & NO_ROOT) != 0;
+  w.active += live;
+  w.dead += dead;
+  w.parked_root += 1 - live - dead;
+}
+
 // --- geometry and steps (walker.py _node_geometry / step / step_scout) ------
 
 WS_HD void node_geometry(const Lane& s, ds2& w, ds2& x0, ds2& x1) {
@@ -617,6 +655,112 @@ WS_HD void step_scout(Lane& s, float eps32, int& sc_n, int& cf_n) {
   s.flags = flags;
   sc_n += (live ? 1 : 0) + (need_l ? 1 : 0) + (need_r ? 1 : 0);
   cf_n += need_conf ? 3 : 0;
+}
+
+// Simpson + Richardson step: one eval per step through the 5-phase mode
+// chain INIT (f(left)) -> LOADM (f(mid)) -> LOAD (f(right)) -> TESTA
+// (f(q1), stashed in fq) -> TESTB (f(q3), decide)
+template <int FAM>
+WS_HD void step_simpson(Lane& s, float eps32) {
+  bool parked = is_parked(s);
+  bool mode_load = (s.flags & MODE_LOAD) != 0;
+  bool mode_init = (s.flags & MODE_INIT) != 0;
+  bool mode_loadm = (s.flags & MODE_LOADM) != 0;
+  bool mode_testb = (s.flags & MODE_TESTB) != 0;
+  bool live = !parked;
+  bool testa = live && !(mode_load || mode_init || mode_loadm || mode_testb);
+  ds2 w, x0, x1;
+  node_geometry(s, w, x0, x1);
+  ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
+  ds2 q1 = ds_add(x0, ds_mul_pow2(w, 0.25f));
+  ds2 q3 = ds_add(mid, ds_mul_pow2(w, 0.25f));
+  ds2 xq = mode_testb ? q3 : q1;
+  xq = mode_loadm ? mid : xq;
+  xq = mode_load ? x1 : xq;
+  xq = mode_init ? x0 : xq;
+  xq = parked ? ds2{1.0f, 0.0f} : xq;
+  ds2 th = {s.th_h, s.th_l};
+  ds2 fq = f_ds<FAM>(xq, th);
+
+  ds2 fl = {s.fl_h, s.fl_l};
+  ds2 fr = {s.fr_h, s.fr_l};
+  ds2 fm = {s.fm_h, s.fm_l};
+  ds2 fq1 = {s.fq_h, s.fq_l};
+  ds2 four_fm = ds_mul_pow2(fm, 4.0f);
+  ds2 s1 = ds_mul(ds_mul(w, ds2{K_SIXTH_H, K_SIXTH_L}),
+                  ds_add(ds_add(fl, four_fm), fr));
+  ds2 inner = ds_add(ds_add(fl, fr),
+                     ds_add(ds_mul_pow2(ds_add(fq1, fq), 4.0f),
+                            ds_mul_pow2(fm, 2.0f)));
+  ds2 s2 = ds_mul(ds_mul(w, ds2{K_TWELFTH_H, K_TWELFTH_L}), inner);
+  ds2 diff = ds_sub(s2, s1);
+  ds2 corr = ds_mul(diff, ds2{K_FIFTEENTH_H, K_FIFTEENTH_L});
+  ds2 err = ds_abs(corr);
+  ds2 val = ds_add(s2, corr);
+  bool split = (err.h + err.l) > eps32;
+  bool testing = live && mode_testb;
+
+  int i_next, d_next;
+  bool do_split, adv, fin, ovf;
+  finish_step(s, testing, split, val, i_next, d_next, do_split, adv, fin,
+              ovf);
+  // caches: a split hands the left child (fl, fq1, fm); an advance
+  // shifts fr to fl and reloads mid and right
+  ds2 new_fl = adv ? fr : fl;
+  new_fl = mode_init ? fq : new_fl;
+  ds2 new_fm = do_split ? fq1 : fm;
+  new_fm = mode_loadm ? fq : new_fm;
+  ds2 new_fr = do_split ? fm : fr;
+  new_fr = mode_load ? fq : new_fr;
+  ds2 new_fq = testa ? fq : fq1;
+  int flags = s.flags;
+  if (mode_init) flags = (flags & ~MODE_INIT) | MODE_LOADM;
+  if (mode_loadm) flags = (flags & ~MODE_LOADM) | MODE_LOAD;
+  if (mode_load) flags &= ~MODE_LOAD;
+  if (testa) flags |= MODE_TESTB;
+  if (do_split) flags &= ~MODE_TESTB;
+  if (adv) flags = (flags & ~MODE_TESTB) | MODE_LOADM;
+  if (fin) flags = (flags & ~MODE_TESTB) | PARKED;
+  if (ovf) flags = (flags & ~MODE_TESTB) | (PARKED | OVF);
+  s.fl_h = new_fl.h; s.fl_l = new_fl.l;
+  s.fm_h = new_fm.h; s.fm_l = new_fm.l;
+  s.fr_h = new_fr.h; s.fr_l = new_fr.l;
+  s.fq_h = new_fq.h; s.fq_l = new_fq.l;
+  s.i = i_next;
+  s.d = d_next;
+  s.flags = flags;
+}
+
+// one step of step machine MODE; scout mode adds to the eval counters
+template <int FAM, int MODE>
+WS_HD void step(Lane& s, float eps32, int& sc_n, int& cf_n) {
+  if (MODE == STEP_SCOUT)
+    step_scout<FAM>(s, eps32, sc_n, cf_n);
+  else if (MODE == STEP_SIMPSON)
+    step_simpson<FAM>(s, eps32);
+  else
+    step_trap<FAM>(s, eps32);
+}
+
+// The one map from a runtime (family, step machine) pair to its template
+// variant: returns fn.template operator()<FAM, MODE>(), or `unknown` when
+// either id is not known. The kernels use it to pick their launch
+// pointer, the host loops to pick their loop.
+template <int FAM, typename R, typename Fn>
+inline R dispatch_mode(int mode, Fn fn, R unknown) {
+  if (mode == STEP_TRAP) return fn.template operator()<FAM, STEP_TRAP>();
+  if (mode == STEP_SCOUT) return fn.template operator()<FAM, STEP_SCOUT>();
+  if (mode == STEP_SIMPSON) return fn.template operator()<FAM, STEP_SIMPSON>();
+  return unknown;
+}
+
+template <typename R, typename Fn>
+inline R dispatch(int family, int mode, Fn fn, R unknown) {
+  if (family == FAMILY_SIN_RECIP)
+    return dispatch_mode<FAMILY_SIN_RECIP>(mode, fn, unknown);
+  if (family == FAMILY_COSH4)
+    return dispatch_mode<FAMILY_COSH4>(mode, fn, unknown);
+  return unknown;
 }
 
 }  // namespace ws

@@ -6,7 +6,9 @@ current node of root [A, A+W] is [A + i W 2^-d, A + (i+1) W 2^-d].
 Descend is ``i <<= 1``; advance after an accepted leaf strips trailing
 ones. The split test and the leaf values are double-single float32
 (``ops/ds_kernel.py``), accumulated lane-locally; per-family credit is
-an exact segment sum at phase boundaries.
+an exact segment sum at phase boundaries. Three step machines: the
+trapezoid test, the float32-scouting trapezoid test, and Simpson with
+Richardson extrapolation.
 
 Each engine cycle (:func:`_cycle_once`):
 
@@ -14,15 +16,24 @@ Each engine cycle (:func:`_cycle_once`):
    bag holds enough roots (``_breed``).
 2. SORT: the top of the queue is ordered by a one-step error estimate,
    a proxy for subtree work (``_order_roots_by_work``).
-3. DEAL: the sorted roots are dealt round-robin into per-lane private
-   root banks (``deal_root_bank``).
-4. WALK: the K1 segment kernel walks the lanes and refills them from
-   their banks itself (``run_segment_rf``; CUDA on the card, the plain
-   PyTorch segment on the CPU), launch after launch until the bank is
-   dry and occupancy falls to the suspension floor
-   (``_run_walk_kernel_refill``, optionally with double-buffered
-   half-banks).
-5. CREDIT, EXPAND, DRAIN: one exact segment sum credits every family;
+3. WALK, in one of two modes:
+
+   * in-kernel refill (``refill_slots`` = R > 0): the sorted roots are
+     dealt round-robin into per-lane private root banks
+     (``deal_root_bank``) and the K1 segment kernel walks the lanes and
+     refills them from their banks itself (``run_segment_rf``), launch
+     after launch until the bank is dry and occupancy falls to the
+     suspension floor (``_run_walk_kernel_refill``, optionally with
+     double-buffered half-banks);
+   * boundary refill (``refill_slots=0``, the default): the K2 segment
+     kernel walks until occupancy falls to a threshold
+     (``run_segment_ee``), then the host banks finished lanes and hands
+     them fresh roots off the queue top (``_bank_and_refill``), segment
+     after segment (``_run_walk``).
+
+   Each kernel runs as CUDA on the card and as its plain PyTorch
+   segment on the CPU.
+4. CREDIT, EXPAND, DRAIN: exact segment sums credit every family;
    suspended walks and untaken roots go back into the bag as explicit
    tasks (``_expand_pending``); a small remainder drains in float64.
 
@@ -30,10 +41,12 @@ The reference runs each phase as one compiled ``while_loop``. This port
 runs a host Python loop over device-resident tensors; the points where
 it reads a device value are counted (``WalkerResult.host_syncs``).
 
-Not ported in this slice: the Simpson rule, theta blocks
-(``theta_block > 1``), the legacy XLA-boundary refill
-(``refill_slots=0``), checkpoint/resume and the streaming, multi-chip
-and CLI surfaces (ROADMAP.md).
+K3 (``run_segment``), a fixed number of steps with no counters, is the
+kernel-ceiling probe's segment (``ppls_tpu_torch/tools/profile_walker.py``).
+
+Not ported in this slice: theta blocks (``theta_block > 1``),
+checkpoint/resume and the streaming, multi-chip and CLI surfaces
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ from ppls_tpu_torch.ops.ds import ds_from_f64, ds_to_f64
 from ppls_tpu_torch.ops.ds_kernel import f32
 from ppls_tpu_torch.ops.pow2 import pow2_f32, pow2_f64
 from ppls_tpu_torch.ops.reduction import segment_sum_auto
-from ppls_tpu_torch.ops.rules import eval_batch
+from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
 from ppls_tpu_torch.parallel.bag_engine import (
     DEPTH_BITS, DEPTH_MASK, BagState, bag_step, dyn_slice, dyn_update,
     initial_bag, run_bag)
@@ -71,6 +84,36 @@ _NO_ROOT = 4                # lane has no root assigned (idle)
 _OVF = 8                    # parked on depth overflow: not refilled, its
 #                             pending (i, d) set feeds the mop-up
 _MODE_INIT = 16             # fresh root: next eval is f(left)
+_MODE_LOADM = 32            # Simpson only: next eval loads f(mid)
+_MODE_TESTB = 64            # Simpson only: q1 is stashed, next eval is
+#                             q3 and the split decision fires
+
+# step machines, a template parameter of every kernel (csrc/walk_step.cuh)
+STEP_TRAP, STEP_SCOUT, STEP_SIMPSON = 0, 1, 2
+
+
+def step_mode(rule: Rule, scout: bool) -> int:
+    """The step machine of a walk: scouting (trapezoid only), Simpson or
+    the trapezoid test."""
+    if scout:
+        if Rule(rule) != Rule.TRAPEZOID:
+            raise ValueError("scout mode supports Rule.TRAPEZOID only")
+        return STEP_SCOUT
+    return STEP_SIMPSON if Rule(rule) == Rule.SIMPSON else STEP_TRAP
+
+
+def _dsc(x: float) -> Tuple[float, float]:
+    """A float64 constant as two float32 limbs (hi, lo)."""
+    hi = f32(x)
+    return hi, f32(x - hi)
+
+
+# Simpson + Richardson scalings as ds constants: a float32 literal
+# carries 3e-8 relative error, which would land systematically on every
+# accepted value (csrc/walk_step.cuh K_SIXTH_* etc. spell the same limbs)
+SIMPSON_SIXTH = _dsc(1.0 / 6.0)
+SIMPSON_TWELFTH = _dsc(1.0 / 12.0)
+SIMPSON_FIFTEENTH = _dsc(1.0 / 15.0)
 
 # scout guard band: 64 float32 ulps of the test's magnitude sum
 SCOUT_GUARD_ULPS = 64.0
@@ -370,6 +413,88 @@ def _step_scout(s: WalkState, f_ds: Callable, eps32: float):
     return s2, sc_n, cf_n
 
 
+def _step_simpson(s: WalkState, f_ds: Callable, eps32: float) -> WalkState:
+    """Simpson + Richardson step: one eval per step through a 5-phase
+    mode chain per node visit, INIT (f(left), fresh roots only) -> LOADM
+    (f(mid)) -> LOAD (f(right)) -> TESTA (f(q1), stashed in fq) -> TESTB
+    (f(q3), decide). A split hands the left child (fl, fq1, fm) for
+    free; an advance reloads mid and right."""
+    parked = (s.flags & _PARKED) != 0
+    mode_load = (s.flags & _MODE_LOAD) != 0
+    mode_init = (s.flags & _MODE_INIT) != 0
+    mode_loadm = (s.flags & _MODE_LOADM) != 0
+    mode_testb = (s.flags & _MODE_TESTB) != 0
+    live = ~parked
+    testa = live & ~(mode_load | mode_init | mode_loadm | mode_testb)
+
+    w, x0, x1 = _node_geometry(s)
+    mid = dsk.ds_add(x0, dsk.ds_mul_pow2(w, 0.5))
+    q1 = dsk.ds_add(x0, dsk.ds_mul_pow2(w, 0.25))
+    q3 = dsk.ds_add(mid, dsk.ds_mul_pow2(w, 0.25))
+    xq = dsk.ds_where(mode_testb, q3, q1)
+    xq = dsk.ds_where(mode_loadm, mid, xq)
+    xq = dsk.ds_where(mode_load, x1, xq)
+    xq = dsk.ds_where(mode_init, x0, xq)
+    xq = dsk.ds_where(parked, (torch.ones_like(xq[0]),
+                               torch.zeros_like(xq[1])), xq)
+    fq = f_ds(xq, (s.th_h, s.th_l))
+
+    fl = (s.fl_h, s.fl_l)
+    fr = (s.fr_h, s.fr_l)
+    fm = (s.fm_h, s.fm_l)
+    fq1 = (s.fq_h, s.fq_l)
+    four_fm = dsk.ds_mul_pow2(fm, 4.0)
+    s1 = dsk.ds_mul(dsk.ds_mul(w, SIMPSON_SIXTH),
+                    dsk.ds_add(dsk.ds_add(fl, four_fm), fr))
+    inner = dsk.ds_add(
+        dsk.ds_add(fl, fr),
+        dsk.ds_add(dsk.ds_mul_pow2(dsk.ds_add(fq1, fq), 4.0),
+                   dsk.ds_mul_pow2(fm, 2.0)))
+    s2 = dsk.ds_mul(dsk.ds_mul(w, SIMPSON_TWELFTH), inner)
+    diff = dsk.ds_sub(s2, s1)
+    corr = dsk.ds_mul(diff, SIMPSON_FIFTEENTH)
+    err = dsk.ds_abs(corr)
+    val = dsk.ds_add(s2, corr)
+    split = (err[0] + err[1]) > eps32
+    testing = live & mode_testb
+
+    upd, do_split, adv, fin, ovf = _finish_step(s, testing, split, val)
+    new_fl = dsk.ds_where(adv, fr, fl)
+    new_fl = dsk.ds_where(mode_init, fq, new_fl)
+    new_fm = dsk.ds_where(do_split, fq1, fm)
+    new_fm = dsk.ds_where(mode_loadm, fq, new_fm)
+    new_fr = dsk.ds_where(do_split, fm, fr)
+    new_fr = dsk.ds_where(mode_load, fq, new_fr)
+    new_fq = dsk.ds_where(testa, fq, fq1)
+    flags = s.flags
+    flags = torch.where(mode_init, (flags & ~_MODE_INIT) | _MODE_LOADM,
+                        flags)
+    flags = torch.where(mode_loadm, (flags & ~_MODE_LOADM) | _MODE_LOAD,
+                        flags)
+    flags = torch.where(mode_load, flags & ~_MODE_LOAD, flags)
+    flags = torch.where(testa, flags | _MODE_TESTB, flags)
+    flags = torch.where(do_split, flags & ~_MODE_TESTB, flags)
+    flags = torch.where(adv, (flags & ~_MODE_TESTB) | _MODE_LOADM, flags)
+    flags = torch.where(fin, (flags & ~_MODE_TESTB) | _PARKED, flags)
+    flags = torch.where(ovf, (flags & ~_MODE_TESTB) | (_PARKED | _OVF),
+                        flags)
+    return s._replace(fl_h=new_fl[0], fl_l=new_fl[1], fm_h=new_fm[0],
+                      fm_l=new_fm[1], fr_h=new_fr[0], fr_l=new_fr[1],
+                      fq_h=new_fq[0], fq_l=new_fq[1], flags=flags, **upd)
+
+
+def _step(s: WalkState, f_ds: Callable, eps32: float, mode: int):
+    """One step of step machine ``mode``: ``(state, scout evals, confirm
+    evals)``, the counts 0-dim int32 tensors (zero outside scout
+    mode)."""
+    if mode == STEP_SCOUT:
+        return _step_scout(s, f_ds, eps32)
+    zero = torch.zeros((), dtype=torch.int32, device=s.i.device)
+    if mode == STEP_SIMPSON:
+        return _step_simpson(s, f_ds, eps32), zero, zero
+    return _step_trap(s, f_ds, eps32), zero, zero
+
+
 def _takeable(s: WalkState, slot: torch.Tensor, nslots: torch.Tensor):
     """Parked, not depth-overflowed, with a dealt root left."""
     return (((s.flags & _PARKED) != 0) & ((s.flags & _OVF) == 0)
@@ -425,7 +550,7 @@ def _take(s: WalkState, slot, nslots, bank, resh, resl, resm):
 
 def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
                      batch: int, nslots, bank, resm, *, f_ds: Callable,
-                     eps: float, scout: bool):
+                     eps: float, scout: bool, rule: Rule = Rule.TRAPEZOID):
     """K1 in plain PyTorch: up to ``cap`` steps over all lanes. It runs
     while ``k == 0 or (k < cap and (live > thresh or nref > 0))``; each
     iteration refills first when ``nref >= batch or live <= thresh``,
@@ -435,6 +560,7 @@ def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
     ``(resh, resl, counters)``: this launch's (R, lanes) result banks and
     an int32 (8,) tensor [steps, 5 waste buckets, scout evals, confirm
     evals]."""
+    mode = step_mode(rule, scout)
     R, lanes = bank[0].shape
     dev = slot.device
     eps32 = f32(eps)
@@ -464,12 +590,9 @@ def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
         wd = wd + dead_n
         ws = ws + stall_n
         wt = wt + (lanes - live_n - stall_n - dead_n)
-        if scout:
-            st, sc_n, cf_n = _step_scout(st, f_ds, eps32)
-            se = se + sc_n
-            ce = ce + cf_n
-        else:
-            st = _step_trap(st, f_ds, eps32)
+        st, sc_n, cf_n = _step(st, f_ds, eps32, mode)
+        se = se + sc_n
+        ce = ce + cf_n
         live, nref = counts()
         k += 1
     for dst, src in zip(state, st):
@@ -483,61 +606,166 @@ def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
 
 
 # ---------------------------------------------------------------------------
-# K1 on the card: the CUDA kernel (csrc/walk_rf.cu) and its wrapper
+# K2 and K3 in plain PyTorch: the early-exit and fixed-length segments
 # ---------------------------------------------------------------------------
 
-_K1_ERRORS = {
-    -2: "unknown integrand family",
+
+def _live_count(s: WalkState) -> torch.Tensor:
+    return dsk.mask_count((s.flags & _PARKED) == 0)
+
+
+def segment_ee_plain(state: WalkState, thresh: int, cap: int, *,
+                     f_ds: Callable, eps: float, scout: bool,
+                     rule: Rule = Rule.TRAPEZOID) -> torch.Tensor:
+    """K2 in plain PyTorch: steps while ``k == 0 or (k < cap and live >
+    thresh)``, ``live`` the unparked lanes after each step. Before each
+    step every lane-step is counted as live (eval_active), rootless
+    (masked_dead) or parked with a root. ``state`` is updated in place.
+    Returns the int32 (7,) counters [steps, eval_active, masked_dead,
+    parked_with_root, theta_overwalk (0), scout evals, confirm evals]."""
+    mode = step_mode(rule, scout)
+    lanes = state.a_h.shape[0]
+    eps32 = f32(eps)
+    zero = torch.zeros((), dtype=torch.int32, device=state.i.device)
+    wa = wd = wr = se = ce = zero
+    st = state
+    k, live = 0, int(_live_count(st))
+    while k == 0 or (k < cap and live > thresh):
+        live_n = _live_count(st)
+        dead_n = dsk.mask_count((st.flags & _NO_ROOT) != 0)
+        wa = wa + live_n
+        wd = wd + dead_n
+        wr = wr + (lanes - live_n - dead_n)
+        st, sc_n, cf_n = _step(st, f_ds, eps32, mode)
+        se = se + sc_n
+        ce = ce + cf_n
+        live = int(_live_count(st))
+        k += 1
+    for dst, src in zip(state, st):
+        dst.copy_(src)
+    return torch.stack([torch.full_like(zero, k), wa, wd, wr, zero, se,
+                        ce]).to(torch.int32)
+
+
+def _seg_mode(rule: Rule, scout: bool) -> int:
+    if scout:
+        raise ValueError(
+            "scout mode requires the early-exit or refill kernel variants "
+            "(the plain fixed-iteration kernel carries no eval counters)")
+    return step_mode(rule, False)
+
+
+def segment_plain(state: WalkState, iters: int, *, f_ds: Callable,
+                  eps: float, rule: Rule = Rule.TRAPEZOID,
+                  scout: bool = False) -> WalkState:
+    """K3 in plain PyTorch: exactly ``iters`` steps over all lanes, no
+    counters, ``state`` updated in place and returned. Scouting is
+    refused, as by the reference."""
+    mode = _seg_mode(rule, scout)
+    eps32 = f32(eps)
+    st = state
+    for _ in range(int(iters)):
+        st = _step(st, f_ds, eps32, mode)[0]
+    for dst, src in zip(state, st):
+        dst.copy_(src)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# The kernels on the card: csrc/walk_rf.cu (K1), walk_ee.cu (K2) and
+# walk_seg.cu (K3), and their wrappers
+# ---------------------------------------------------------------------------
+
+_KERNEL_ERRORS = {
+    -2: "unknown integrand family or step machine",
     -3: "lanes is not a multiple of the block size",
     -4: "the grid cannot be co-resident on this card (cooperative launch "
         "refused; the grid is never shrunk)",
 }
 
 
+def _kernel_family(f_ds: Callable) -> int:
+    family = getattr(f_ds, "kernel_family", None)
+    if family is None:
+        raise ValueError(
+            f"{getattr(f_ds, '__name__', f_ds)!r} has no CUDA kernel "
+            f"integrand (kernel_family); registered ds twins carry one")
+    return int(family)
+
+
+def _device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
 @functools.lru_cache(maxsize=None)
-def _k1_max_blocks(family: int, scout: bool, index: int) -> int:
-    """Blocks of K1 that card ``index`` holds at once (queried once per
-    variant and card, with that card current)."""
-    from ppls_tpu_torch.utils.cuda_build import load_walk_rf
+def _max_blocks(kernel: str, family: int, mode: int, index: int) -> int:
+    """Blocks of the cooperative ``kernel`` ("walk_rf" or "walk_ee")
+    that card ``index`` holds at once (queried once per variant and card,
+    with that card current)."""
+    from ppls_tpu_torch.utils import cuda_build
+    lib = getattr(cuda_build, f"load_{kernel}")().lib
     with torch.cuda.device(index):
-        n = load_walk_rf().lib.walk_rf_max_coresident_blocks(family,
-                                                              int(scout))
+        n = getattr(lib, f"{kernel}_max_coresident_blocks")(family, mode)
     if n < 0:
-        raise RuntimeError("K1: the occupancy query failed")
+        raise RuntimeError(f"{kernel}: the occupancy query failed")
     return n
 
 
-def _check_k1_operands(state: WalkState, slot, nslots, bank, resm,
-                       device: torch.device) -> Tuple[int, int]:
+def _check_operands(what: str, state: WalkState, device: torch.device,
+                    extra=()) -> int:
+    """Raise unless every operand is a contiguous tensor of its dtype and
+    shape on ``device``; ``extra`` holds (name, tensor, dtype, shape)
+    rows beyond the state. Returns lanes."""
     lanes = state.a_h.shape[0]
-    R = bank[0].shape[0]
-    if lanes % 128 or R < 1:
-        raise ValueError(f"K1 needs lanes % 128 == 0 and R >= 1, got "
-                         f"lanes={lanes}, R={R}")
-    lane_i32 = [("slot", slot), ("nslots", nslots), ("resm_fam", resm[2])]
-    lane_f32 = [("resm_h", resm[0]), ("resm_l", resm[1])]
-    for j, name in enumerate(WalkState._fields):
-        (lane_f32 if j < N_F32_FIELDS else lane_i32).append(
-            (name, state[j]))
-    bank_names = ("a_h", "a_l", "w_h", "w_l", "th_h", "th_l", "meta")
-    checks = ([(n, t, torch.float32, (lanes,)) for n, t in lane_f32]
-              + [(n, t, torch.int32, (lanes,)) for n, t in lane_i32]
-              + [(f"bank.{n}", t,
-                  torch.int32 if n == "meta" else torch.float32, (R, lanes))
-                 for n, t in zip(bank_names, bank)])
-    for name, t, dtype, shape in checks:
+    if lanes % 128:
+        raise ValueError(f"{what} needs lanes % 128 == 0, got {lanes}")
+    checks = [(name, t, torch.float32 if j < N_F32_FIELDS else torch.int32,
+               (lanes,)) for j, (name, t) in enumerate(
+                   zip(WalkState._fields, state))]
+    for name, t, dtype, shape in [*checks, *extra]:
         if t.device != device or t.dtype != dtype \
                 or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                f"K1 operand {name}: expected contiguous {dtype} "
+                f"{what} operand {name}: expected contiguous {dtype} "
                 f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device} (contiguous={t.is_contiguous()})")
-    return lanes, R
+    return lanes
+
+
+def _pointer_table(operands, device: torch.device) -> torch.Tensor:
+    """The operands' device addresses as a device int64 array. It goes up
+    through pinned memory, so the copy is stream-ordered and does not
+    wait for the stream to drain."""
+    return torch.tensor([t.data_ptr() for t in operands],
+                        dtype=torch.int64).pin_memory().to(
+                            device, non_blocking=True)
+
+
+def _launch(what: str, device: torch.device, launch) -> None:
+    """Run ``launch(stream)`` with ``device`` current; raise on a
+    nonzero return code."""
+    index = _device_index(device)
+    with torch.cuda.device(index):
+        rc = launch(torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_KERNEL_ERRORS.get(rc, f'cudaError {rc}')}")
+
+
+def _cpu_or_cuda(what: str, device: torch.device) -> bool:
+    """True for a CPU tensor (the plain version runs), False for CUDA
+    (the kernel launches); raises on anything else."""
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {device}")
+    return False
 
 
 def run_segment_rf(state: WalkState, slot, thresh: int, cap: int,
                    batch: int, nslots, bank, resm, *, f_ds: Callable,
-                   eps: float, scout: bool):
+                   eps: float, scout: bool, rule: Rule = Rule.TRAPEZOID):
     """One K1 segment launch. On a CUDA tensor this launches the
     hand-written kernel (``csrc/walk_rf.cu``, built at first use) on the
     current stream, or raises; on a CPU tensor it runs the plain
@@ -550,47 +778,108 @@ def run_segment_rf(state: WalkState, slot, thresh: int, cap: int,
     ``run_segment_rf.launches`` counts kernel launches (plain runs do
     not count)."""
     device = state.a_h.device
-    if device.type == "cpu":
+    if _cpu_or_cuda("K1", device):
         return segment_rf_plain(state, slot, thresh, cap, batch, nslots,
                                 bank, resm, f_ds=f_ds, eps=eps,
-                                scout=scout)
-    if device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {device}")
-    family = getattr(f_ds, "kernel_family", None)
-    if family is None:
-        raise ValueError(
-            f"{getattr(f_ds, '__name__', f_ds)!r} has no CUDA kernel "
-            f"integrand (kernel_family); registered ds twins carry one")
-    lanes, R = _check_k1_operands(state, slot, nslots, bank, resm, device)
+                                scout=scout, rule=rule)
+    family, mode = _kernel_family(f_ds), step_mode(rule, scout)
+    R = bank[0].shape[0]
+    lanes = state.a_h.shape[0]
+    bank_names = ("a_h", "a_l", "w_h", "w_l", "th_h", "th_l", "meta")
+    extra = ([("slot", slot, torch.int32, (lanes,)),
+              ("nslots", nslots, torch.int32, (lanes,)),
+              ("resm_h", resm[0], torch.float32, (lanes,)),
+              ("resm_l", resm[1], torch.float32, (lanes,)),
+              ("resm_fam", resm[2], torch.int32, (lanes,))]
+             + [(f"bank.{n}", t,
+                 torch.int32 if n == "meta" else torch.float32, (R, lanes))
+                for n, t in zip(bank_names, bank)])
+    if R < 1:
+        raise ValueError(f"K1 needs R >= 1, got {R}")
+    _check_operands("K1", state, device, extra)
     from ppls_tpu_torch.utils.cuda_build import load_walk_rf
     lib = load_walk_rf().lib
     resh = torch.zeros((R, lanes), dtype=torch.float32, device=device)
     resl = torch.zeros((R, lanes), dtype=torch.float32, device=device)
     counters = torch.zeros(8, dtype=torch.int32, device=device)
     sync = torch.zeros(6, dtype=torch.int32, device=device)
-    operands = (*state, nslots, slot, *bank, *resm, resh, resl, counters,
-                sync)
-    # the pointer table goes up through pinned memory, so the copy is
-    # stream-ordered and does not wait for the stream to drain
-    ptrs = torch.tensor([t.data_ptr() for t in operands],
-                        dtype=torch.int64).pin_memory().to(
-                            device, non_blocking=True)
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    max_blocks = _k1_max_blocks(int(family), bool(scout), index)
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index).cuda_stream
-        rc = lib.walk_rf_launch(ptrs.data_ptr(), lanes, R, int(family),
-                                int(bool(scout)), f32(eps), int(thresh),
-                                int(cap), int(batch), max_blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: "
-                           f"{_K1_ERRORS.get(rc, f'cudaError {rc}')}")
+    ptrs = _pointer_table((*state, nslots, slot, *bank, *resm, resh, resl,
+                           counters, sync), device)
+    max_blocks = _max_blocks("walk_rf", family, mode, _device_index(device))
+    _launch("K1", device, lambda stream: lib.walk_rf_launch(
+        ptrs.data_ptr(), lanes, R, family, mode, f32(eps), int(thresh),
+        int(cap), int(batch), max_blocks, stream))
     run_segment_rf.launches += 1
     return resh, resl, counters
 
 
 run_segment_rf.launches = 0
+
+
+def run_segment_ee(state: WalkState, thresh: int, cap: int, *,
+                   f_ds: Callable, eps: float, scout: bool,
+                   rule: Rule = Rule.TRAPEZOID):
+    """One K2 segment launch, the reference's ``run_segment_ee``. On a
+    CUDA tensor this launches the hand-written kernel
+    (``csrc/walk_ee.cu``, built at first use) on the current stream, or
+    raises; on a CPU tensor it runs :func:`segment_ee_plain`. ``state``
+    is updated IN PLACE. Returns ``(state, steps, (wa, wd, wr, wo), (se,
+    ce))`` as the reference does, the counts as views of one int32
+    device tensor: steps, then eval_active, masked_dead,
+    parked-with-root and theta_overwalk lane-steps, then scout and
+    confirm evals.
+
+    ``run_segment_ee.launches`` counts kernel launches."""
+    device = state.a_h.device
+    if _cpu_or_cuda("K2", device):
+        ctr = segment_ee_plain(state, thresh, cap, f_ds=f_ds, eps=eps,
+                               scout=scout, rule=rule)
+        return state, ctr[0], ctr[1:5], ctr[5:7]
+    family, mode = _kernel_family(f_ds), step_mode(rule, scout)
+    lanes = _check_operands("K2", state, device)
+    from ppls_tpu_torch.utils.cuda_build import load_walk_ee
+    lib = load_walk_ee().lib
+    ctr = torch.zeros(7, dtype=torch.int32, device=device)
+    sync = torch.zeros(3, dtype=torch.int32, device=device)
+    ptrs = _pointer_table((*state, ctr, sync), device)
+    max_blocks = _max_blocks("walk_ee", family, mode, _device_index(device))
+    _launch("K2", device, lambda stream: lib.walk_ee_launch(
+        ptrs.data_ptr(), lanes, family, mode, f32(eps), int(thresh),
+        int(cap), max_blocks, stream))
+    run_segment_ee.launches += 1
+    return state, ctr[0], ctr[1:5], ctr[5:7]
+
+
+run_segment_ee.launches = 0
+
+
+def run_segment(state: WalkState, iters: int, *, f_ds: Callable,
+                eps: float, rule: Rule = Rule.TRAPEZOID,
+                scout: bool = False) -> WalkState:
+    """One K3 segment launch: exactly ``iters`` steps, no counters, the
+    reference's ``early_exit=False`` ``run_segment``. On a CUDA tensor
+    this launches ``csrc/walk_seg.cu`` (built at first use) on the
+    current stream, or raises; on a CPU tensor it runs
+    :func:`segment_plain`. ``state`` is updated IN PLACE and returned.
+    Scouting is refused, as by the reference.
+
+    ``run_segment.launches`` counts kernel launches."""
+    mode = _seg_mode(rule, scout)
+    device = state.a_h.device
+    if _cpu_or_cuda("K3", device):
+        return segment_plain(state, iters, f_ds=f_ds, eps=eps, rule=rule)
+    family = _kernel_family(f_ds)
+    lanes = _check_operands("K3", state, device)
+    from ppls_tpu_torch.utils.cuda_build import load_walk_seg
+    lib = load_walk_seg().lib
+    ptrs = _pointer_table(state, device)
+    _launch("K3", device, lambda stream: lib.walk_seg_launch(
+        ptrs.data_ptr(), lanes, family, mode, f32(eps), int(iters), stream))
+    run_segment.launches += 1
+    return state
+
+
+run_segment.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -720,12 +1009,13 @@ class _WalkOut:
     steps: int
     gsegs: int
     seg_stats: np.ndarray     # (S_CAP, 4) per-segment stats ring
-    waste: torch.Tensor       # (N_WASTE,) int64
-    evals: torch.Tensor       # (2,) int64
-    slot: torch.Tensor        # roots taken per lane
-    nslots: torch.Tensor      # roots dealt per lane
-    dealt: tuple              # flat (R*lanes,) l, r, th, meta
+    waste: np.ndarray         # (N_WASTE,) int64 lane-steps
+    evals: np.ndarray         # (2,) int64 scout / confirm evals
     taken: int                # roots consumed this phase
+    # in-kernel refill only (None with boundary refill):
+    slot: Optional[torch.Tensor] = None     # roots taken per lane
+    nslots: Optional[torch.Tensor] = None   # roots dealt per lane
+    dealt: Optional[tuple] = None           # flat (R*lanes,) l, r, th, meta
 
 
 def _lane_summary(s: WalkState, slot, nslots):
@@ -738,7 +1028,7 @@ def _lane_summary(s: WalkState, slot, nslots):
 def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
                             max_segments, min_active_frac, exit_frac,
                             suspend_frac, lanes, gsegs0, seg_stats0,
-                            refill_slots, scout, double_buffer,
+                            rule, refill_slots, scout, double_buffer,
                             syncs) -> _WalkOut:
     """One walk phase with in-kernel refill: deal the work-sorted queue
     into per-lane banks, launch K1 until the banks are dry and
@@ -766,8 +1056,8 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
     resl = torch.zeros((R, lanes), dtype=torch.float32, device=dev)
     resm = _fresh_sentinel(lanes, dev)
     acc_sw = torch.zeros(m, dtype=f64, device=dev)
-    waste = torch.zeros(N_WASTE, dtype=torch.int64, device=dev)
-    evals = torch.zeros(2, dtype=torch.int64, device=dev)
+    waste = np.zeros(N_WASTE, dtype=np.int64)
+    evals = np.zeros(2, dtype=np.int64)
     stats = seg_stats0
     steps = segs = taken = retired = 0
     gsegs = gsegs0
@@ -795,14 +1085,14 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
         cap = min(max(step_budget - steps, 1), seg_iters)
         rh, rl, ctr = run_segment_rf(s, slot, floor, cap, batch, nslots,
                                      bank, resm, f_ds=f_ds, eps=eps,
-                                     scout=scout)
+                                     scout=scout, rule=rule)
         resh += rh
         resl += rl
-        waste += ctr[1:1 + N_WASTE].to(torch.int64)
-        evals += ctr[1 + N_WASTE:3 + N_WASTE].to(torch.int64)
-        summary = torch.cat([ctr[:1].to(torch.int64),
-                             _lane_summary(s, slot, nslots)])
-        si, live, min_slot, sum_slot, nref = syncs.pull(summary)
+        summary = syncs.pull(torch.cat([ctr.to(torch.int64),
+                                        _lane_summary(s, slot, nslots)]))
+        waste += summary[1:1 + N_WASTE]
+        evals += summary[1 + N_WASTE:3 + N_WASTE]
+        si, live, min_slot, sum_slot, nref = (summary[0], *summary[8:])
         taken2 = retired + sum_slot
         # queue left at launch: the undealt queue (rolling deal) or the
         # untaken dealt roots (single deal), as the reference records
@@ -861,6 +1151,156 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
                     taken=taken)
 
 
+def _bank_and_refill(s: WalkState, acc: torch.Tensor, bag: BagState,
+                     cursor: int, m: int):
+    """The boundary of a boundary-refill walk (the reference's
+    ``_bank_and_refill``): credit every finished lane's accumulator to
+    its family, then permute the lanes so the refillable ones (parked,
+    not OVF) form a prefix in lane order, and hand the first
+    ``n_taken = min(n_ref, avail)`` of them roots p = 0, 1, ... off the
+    queue top, bag[top - 1 - p], in INIT mode; the other refillable
+    lanes retire to parked | no-root. OVF lanes keep their state (their
+    pending nodes feed the mop-up) and are not refilled. Root endpoint
+    values are left to the kernel's INIT/LOAD steps.
+
+    Returns ``(state, acc, n_taken)``, ``n_taken`` a 0-dim device
+    tensor (the cursor advance), so the boundary reads nothing back."""
+    lanes = s.i.shape[0]
+    dev = s.i.device
+    parked = (s.flags & _PARKED) != 0
+    has_root = (s.flags & _NO_ROOT) == 0
+    ovf = (s.flags & _OVF) != 0
+    contrib = torch.where(parked & has_root,
+                          ds_to_f64((s.acc_h, s.acc_l)), 0.0)
+    acc = acc + segment_sum_auto(s.fam, contrib, m, lanes)
+
+    # The reference stable-sorts all 26 columns keyed by refill rank (or
+    # `lanes`): a partition, refillable lanes first in lane order, then
+    # the rest in lane order. Two cumsums give each lane its place. (The
+    # reference's optimization_barrier on the key guards an XLA
+    # miscompile; eager PyTorch has nothing to guard.)
+    ref32 = (parked & ~ovf).to(torch.int32)
+    n_ref = ref32.sum(dtype=torch.int32)
+    rank = torch.cumsum(ref32, 0, dtype=torch.int32) - 1
+    rest = torch.cumsum(1 - ref32, 0, dtype=torch.int32) - 1
+    dest = torch.where(ref32 != 0, rank, n_ref + rest).to(torch.int64)
+    pos = torch.arange(lanes, device=dev)
+    order = torch.empty_like(pos)
+    order[dest] = pos
+    f_cols = torch.stack(s[:N_F32_FIELDS])[:, order]
+    i_cols = torch.stack(s[N_F32_FIELDS:])[:, order]
+    sp = WalkState(*f_cols.unbind(), *i_cols.unbind())
+
+    # roots consumed from the TOP, so the remainder [0, count - cursor)
+    # stays a valid bag prefix; root p sits at bag[top - 1 - p]. Rows
+    # p >= n_taken are masked below, so their (clamped) index is benign.
+    avail = bag.count - cursor
+    idx = torch.clamp(avail - 1 - pos, min=0)
+    rl, rr, rth, rmeta = (c[idx] for c in (bag.bag_l, bag.bag_r,
+                                           bag.bag_th, bag.bag_meta))
+    a_h, a_l = ds_from_f64(rl)
+    w_h, w_l = ds_from_f64(rr - rl)
+    th_h, th_l = ds_from_f64(rth)
+    n_taken = torch.clamp(n_ref, max=avail)
+    take = pos < n_taken
+    retire = (pos >= n_taken) & (pos < n_ref)
+    z32 = torch.zeros(lanes, dtype=torch.float32, device=dev)
+    zi = torch.zeros(lanes, dtype=torch.int32, device=dev)
+
+    def pick(new, old):
+        return torch.where(take, new, old)
+
+    # banked lanes' accumulators reset; finished lanes that got no root
+    # go idle; OVF lanes keep their flags and state
+    banked = ((sp.flags & _PARKED) != 0) & ((sp.flags & _NO_ROOT) == 0)
+    flags = torch.where(take, _MODE_INIT, sp.flags)
+    flags = torch.where(retire, _PARKED | _NO_ROOT, flags)
+    out = WalkState(
+        a_h=pick(a_h, sp.a_h), a_l=pick(a_l, sp.a_l),
+        w_h=pick(w_h, sp.w_h), w_l=pick(w_l, sp.w_l),
+        th_h=pick(th_h, sp.th_h), th_l=pick(th_l, sp.th_l),
+        fl_h=pick(z32, sp.fl_h), fl_l=pick(z32, sp.fl_l),
+        fr_h=pick(z32, sp.fr_h), fr_l=pick(z32, sp.fr_l),
+        fm_h=pick(z32, sp.fm_h), fm_l=pick(z32, sp.fm_l),
+        fq_h=pick(z32, sp.fq_h), fq_l=pick(z32, sp.fq_l),
+        acc_h=torch.where(banked, z32, sp.acc_h),
+        acc_l=torch.where(banked, z32, sp.acc_l),
+        i=pick(zi, sp.i), d=pick(zi, sp.d),
+        base_d=pick(rmeta & DEPTH_MASK, sp.base_d),
+        fam=pick(rmeta >> DEPTH_BITS, sp.fam),
+        flags=flags, tasks=sp.tasks, splits=sp.splits, maxd=sp.maxd,
+        mk_i=pick(zi, sp.mk_i),
+        mk_d=torch.where(take, -1, sp.mk_d))
+    return out, acc, n_taken
+
+
+def _run_walk(bag: BagState, *, f_ds, eps, m, seg_iters, max_segments,
+              min_active_frac, exit_frac, suspend_frac, lanes, gsegs0,
+              seg_stats0, rule, scout, syncs) -> _WalkOut:
+    """One boundary-refill walk phase (the reference's ``_run_walk``):
+    seed every lane off the queue top, then launch K2 until occupancy
+    falls to ``exit_frac * lanes``, bank and refill at the boundary, and
+    repeat. Once the queue is dry the threshold drops to the suspension
+    floor and the phase ends there (the survivors' pending nodes go back
+    to the bag), or when the step budget is spent. Each segment reads
+    its counters, the live count and the cursor advance back in one
+    host sync."""
+    dev = bag.bag_l.device
+    min_active = int(lanes * min_active_frac)
+    exit_thresh = int(lanes * exit_frac)
+    dry_thresh = max(min_active, int(lanes * suspend_frac))
+    step_budget = max_segments * seg_iters
+    waste = np.zeros(N_WASTE, dtype=np.int64)
+    evals = np.zeros(2, dtype=np.int64)
+    stats = seg_stats0
+    steps = segs = 0
+    gsegs = gsegs0
+
+    s, acc, n_taken = _bank_and_refill(
+        _fresh_lanes(lanes, dev), torch.zeros(m, dtype=torch.float64,
+                                              device=dev), bag, 0, m)
+    cursor, active = syncs.pull(torch.stack([n_taken.to(torch.int64),
+                                             _live_count(s).to(
+                                                 torch.int64)]))
+    while steps < step_budget:
+        queue_left = bag.count - cursor
+        floor = min_active if queue_left > 0 else dry_thresh
+        if not (active >= floor or (queue_left > 0 and active + queue_left
+                                    >= min_active)):
+            break
+        thresh = exit_thresh if queue_left > 0 else dry_thresh
+        cap = min(max(step_budget - steps, 1), seg_iters)
+        s, si, w4, e2 = run_segment_ee(s, thresh, cap, f_ds=f_ds, eps=eps,
+                                       scout=scout, rule=rule)
+        live_exit = _live_count(s)
+        s, acc, n_taken = _bank_and_refill(s, acc, bag, cursor, m)
+        row = syncs.pull(torch.cat([
+            si.reshape(1), w4, e2,
+            torch.stack([live_exit, n_taken, _live_count(s)])]).to(
+                torch.int64))
+        si, wa, wd, wr, wo, se, ce, live_exit, n_taken, active = row
+        stats[min(gsegs, S_CAP - 1)] = (si, live_exit, queue_left, n_taken)
+        # the kernel counts parked-with-root lane-steps as one number;
+        # the queue at launch names the cause: roots were waiting for
+        # this boundary (refill_stall), or none were left (drain_tail)
+        dry = queue_left <= 0
+        waste += (wa, wd, 0 if dry else wr, wr if dry else 0, wo)
+        evals += (se, ce)
+        steps += si
+        segs += 1
+        gsegs += 1
+        cursor += n_taken
+
+    # final credit: lanes suspended mid-walk hold accepted-leaf sums no
+    # boundary banked; their pending nodes become mop-up tasks
+    suspended = ((s.flags & _NO_ROOT) == 0) & ((s.flags & _PARKED) == 0)
+    contrib = torch.where(suspended, ds_to_f64((s.acc_h, s.acc_l)), 0.0)
+    acc = acc + segment_sum_auto(s.fam, contrib, m, lanes)
+    return _WalkOut(lanes=s, cursor=cursor, acc=acc, segs=segs, steps=steps,
+                    gsegs=gsegs, seg_stats=stats, waste=waste, evals=evals,
+                    taken=cursor)
+
+
 def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
                     syncs: HostSyncs) -> BagState:
     """Convert un-walked state back into explicit bag tasks, in place.
@@ -868,9 +1308,10 @@ def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
     Roots were dealt off the TOP of the bag, so the never-dealt
     remainder [0, count - cursor) is already a valid bag prefix. The
     suspended lanes' pending sets (the current node (i, d) plus the right
-    sibling (i >> k) + 1 at depth d - k for every zero bit k < d) and the
-    dealt roots a lane never reached are compacted with one stable sort
-    and pushed on top of it."""
+    sibling (i >> k) + 1 at depth d - k for every zero bit k < d) and,
+    after an in-kernel-refill phase, the dealt roots a lane never
+    reached are compacted with one stable sort and pushed on top of
+    it."""
     s = walk.lanes
     dev = s.i.device
     has_root = (s.flags & _NO_ROOT) == 0
@@ -899,16 +1340,17 @@ def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
               + torch.clamp(s.base_d[None, :] + node_d, max=DEPTH_MASK))
     th_n = th[None, :].expand_as(ln)
 
-    # dealt roots a lane never reached (slot <= k < nslots) re-enter too
-    lanes = s.i.shape[0]
-    Rk = walk.dealt[3].shape[0] // lanes
-    kk = torch.arange(Rk, dtype=torch.int32, device=dev)[:, None]
-    valid_u = (kk >= walk.slot[None, :]) & (kk < walk.nslots[None, :])
-    ln = torch.cat([ln, walk.dealt[0].reshape(Rk, lanes)])
-    rn = torch.cat([rn, walk.dealt[1].reshape(Rk, lanes)])
-    th_n = torch.cat([th_n, walk.dealt[2].reshape(Rk, lanes)])
-    meta_n = torch.cat([meta_n, walk.dealt[3].reshape(Rk, lanes)])
-    valid = torch.cat([valid, valid_u])
+    if walk.dealt is not None:
+        # dealt roots a lane never reached (slot <= k < nslots) re-enter
+        lanes = s.i.shape[0]
+        Rk = walk.dealt[3].shape[0] // lanes
+        kk = torch.arange(Rk, dtype=torch.int32, device=dev)[:, None]
+        valid_u = (kk >= walk.slot[None, :]) & (kk < walk.nslots[None, :])
+        ln = torch.cat([ln, walk.dealt[0].reshape(Rk, lanes)])
+        rn = torch.cat([rn, walk.dealt[1].reshape(Rk, lanes)])
+        th_n = torch.cat([th_n, walk.dealt[2].reshape(Rk, lanes)])
+        meta_n = torch.cat([meta_n, walk.dealt[3].reshape(Rk, lanes)])
+        valid = torch.cat([valid, valid_u])
 
     key = (~valid).reshape(-1).to(torch.int32)
     _, order = torch.sort(key, stable=True)
@@ -948,18 +1390,23 @@ def _cycle_once(bag: BagState, *, f_theta, f_ds, eps, m, seg_iters,
                 lanes, capacity, breed_chunk, target, rule, refill_slots,
                 gsegs0, seg_stats0, scout, double_buffer,
                 syncs) -> _CycleOut:
-    """One engine cycle: graduated breed -> work sort -> walk ->
+    """One engine cycle: graduated breed -> work sort -> walk (in-kernel
+    refill when ``refill_slots`` > 0, boundary refill otherwise) ->
     expand -> drain (only below the walker's engagement floor, and only
     until the frontier regrows past the root target)."""
     bred, srows = _breed_and_sort(
         bag, f_theta=f_theta, eps=eps, capacity=capacity, rule=rule,
         breed_chunk=breed_chunk, target=target, syncs=syncs)
-    walk = _run_walk_kernel_refill(
-        bred, f_ds=f_ds, eps=eps, m=m, seg_iters=seg_iters,
-        max_segments=max_segments, min_active_frac=min_active_frac,
-        exit_frac=exit_frac, suspend_frac=suspend_frac, lanes=lanes,
-        gsegs0=gsegs0, seg_stats0=seg_stats0, refill_slots=refill_slots,
-        scout=scout, double_buffer=double_buffer, syncs=syncs)
+    wkw = dict(f_ds=f_ds, eps=eps, m=m, seg_iters=seg_iters,
+               max_segments=max_segments, min_active_frac=min_active_frac,
+               exit_frac=exit_frac, suspend_frac=suspend_frac, lanes=lanes,
+               gsegs0=gsegs0, seg_stats0=seg_stats0, rule=rule, scout=scout,
+               syncs=syncs)
+    if refill_slots:
+        walk = _run_walk_kernel_refill(bred, refill_slots=refill_slots,
+                                       double_buffer=double_buffer, **wkw)
+    else:
+        walk = _run_walk(bred, **wkw)
     bag2 = _expand_pending(walk, bred, capacity, m, syncs)
     bag3 = bag2
     if bag2.count < max(1, int(lanes * min_active_frac)):
@@ -1005,6 +1452,54 @@ class WalkerResult:
             "dominant_waste": max(waste_only, key=waste_only.get),
         }
 
+    def occupancy_summary(self) -> Optional[dict]:
+        """Per-run occupancy breakdown from the stats rows, as the
+        reference computes it. ``est_occupancy`` is the steps-weighted
+        mean of each segment's (live at start + live at exit) / 2, live at
+        start rebuilt as the previous segment's exit count plus that
+        boundary's refills: valid for boundary refill only. In-kernel
+        refill rows count a whole launch's takes, so there it is None
+        (``lane_efficiency`` is that mode's occupancy number)."""
+        ss = self.seg_stats
+        if ss is None or len(ss) == 0 or not self.lanes:
+            return None
+        ss = np.asarray(ss, dtype=np.float64)
+        steps, live_exit, queue_left, refilled = ss.T
+        lanes = float(self.lanes)
+        tot = steps.sum()
+        dry = queue_left <= 0
+        est_occ = None
+        if not self.refill_slots:
+            # row i's `refilled` is the boundary after segment i, so
+            # segment i+1 starts with live_exit[i] + refilled[i] lanes
+            live_start = np.empty_like(live_exit)
+            live_start[0] = lanes        # the seeding fills every lane
+            live_start[1:] = np.minimum(lanes,
+                                        live_exit[:-1] + refilled[:-1])
+            occ = (live_start + live_exit) / (2 * lanes)
+            w = steps / tot if tot else steps
+            est_occ = round(float((occ * w).sum()), 4)
+        out = {
+            "mode": ("in-kernel-refill" if self.refill_slots
+                     else "boundary-refill"),
+            "segments": int(len(ss)),
+            "kernel_steps": int(tot),
+            "mean_steps_per_segment": round(float(steps.mean()), 1),
+            "est_occupancy": est_occ,
+            "dry_queue_steps_frac": round(
+                float(steps[dry].sum() / tot) if tot else 0.0, 4),
+            "refilled_roots": int(refilled.sum()),
+        }
+        cs = self.cycle_stats
+        if cs is not None and len(cs):
+            cs = np.asarray(cs, dtype=np.float64)
+            wt = cs[:, CYCLE_STAT_FIELDS.index("walker_tasks")].sum()
+            dt = cs[:, CYCLE_STAT_FIELDS.index("drain_tasks")].sum()
+            out["drain_tasks_frac"] = round(
+                float(dt / max(wt + dt, 1.0)), 4)
+            out["cycles_recorded"] = int(len(cs))
+        return out
+
 
 def _family_problem(theta, bounds):
     """theta as (m,) float64 and bounds as (m, 2) float64 (one (a, b)
@@ -1042,19 +1537,14 @@ def integrate_family_walker(
 
     The reference entry point's parameters and defaults, plus ``device``
     (CUDA by default; raises without a card unless ``device="cpu"`` is
-    passed, which runs the plain PyTorch segment). ``refill_slots`` must
-    be > 0 in this slice; the root sort always runs (the reference's
+    passed, which runs the plain PyTorch segments). ``refill_slots`` = 0
+    walks with boundary refill (K2), R > 0 with in-kernel refill (K1);
+    the root sort always runs (the reference's
     ``sort_roots``/``sort_skip_ratio`` are fixed at their defaults) and
     a non-finite area always raises (no ``nan_policy``)."""
     dev = resolve_device(device)
-    if Rule(rule) != Rule.TRAPEZOID:
-        raise _not_ported("Rule.SIMPSON in the walker",
-                          "Queue 2, K1 Simpson mode")
     if int(theta_block) != 1:
         raise _not_ported("theta_block > 1", "Queue 2, K1 theta mode")
-    if int(refill_slots) == 0:
-        raise _not_ported("refill_slots=0 (the XLA-boundary refill)",
-                          "Queue 2, K2")
     if lanes % 128:
         raise ValueError(f"lanes must be a multiple of 128, got {lanes}")
     if refill_slots < 0 or refill_slots > roots_per_lane:
@@ -1101,16 +1591,11 @@ def integrate_family_walker(
                         **ckw)
         bred, walk, bag3 = o.bred, o.walk, o.bag3
         s = walk.lanes
-        cyc = syncs.pull(torch.cat([
-            torch.stack([s.tasks.sum(dtype=torch.int64),
-                         s.splits.sum(dtype=torch.int64),
-                         s.maxd.max().to(torch.int64),
-                         bred.max_depth.to(torch.int64),
-                         bag3.max_depth.to(torch.int64)]),
-            walk.waste, walk.evals]))
-        wt, ws, wmaxd, bmaxd, dmaxd = cyc[:5]
-        w_waste = np.asarray(cyc[5:5 + N_WASTE], dtype=np.int64)
-        w_evals = np.asarray(cyc[5 + N_WASTE:], dtype=np.int64)
+        wt, ws, wmaxd, bmaxd, dmaxd = syncs.pull(torch.stack([
+            s.tasks.sum(dtype=torch.int64), s.splits.sum(dtype=torch.int64),
+            s.maxd.max().to(torch.int64), bred.max_depth.to(torch.int64),
+            bag3.max_depth.to(torch.int64)]))
+        w_waste, w_evals = walk.waste, walk.evals
         bag_tasks = bred.tasks + bag3.tasks
         bag_splits = bred.splits + bag3.splits
         cyc_rows.append([bred.count, bred.iters, walk.taken, wt,
@@ -1152,12 +1637,14 @@ def integrate_family_walker(
     # kernel evals are device-counted: scout + confirm in scout mode,
     # the eval_active bucket otherwise (one real eval per live step)
     kernel_evals = (sevals + cevals) if sevals else int(waste[0])
+    ept = EVALS_PER_TASK[Rule(rule)]       # float64 evals per bag task
     cyc_stats = (np.asarray(cyc_rows, dtype=np.int64)[:C_CAP]
                  if cyc_rows else None)
     metrics = RunMetrics(
         tasks=tasks, splits=tot["splits"], leaves=tasks - tot["splits"],
         rounds=tot["rounds"] + tot["segs"], max_depth=tot["maxd"],
-        integrand_evals=3 * tot["btasks"] + kernel_evals + 3 * tot["srows"],
+        integrand_evals=ept * tot["btasks"] + kernel_evals
+        + ept * tot["srows"],
         wall_time_s=wall, n_chips=1, tasks_per_chip=[tasks])
     if cyc_stats is not None and cycles <= C_CAP:
         metrics.per_round = round_stats_from_rows(
@@ -1180,25 +1667,39 @@ def integrate_family_walker(
 def first_phase_inputs(f_theta: Callable, theta, bounds, eps: float, *,
                        lanes: int, roots_per_lane: int, refill_slots: int,
                        capacity: int, scout: bool,
+                       rule: Rule = Rule.TRAPEZOID,
                        min_active_frac: float = 0.1, device="cuda"):
-    """The K1 operands of a run's first walk phase (single deal): breed,
-    work-sort and deal as :func:`integrate_family_walker` does, with the
-    exit/suspension cadence it resolves for ``scout``. Returns a dict of
-    ``state``, ``slot``, ``nslots``, ``bank``, ``resm``, ``thresh`` and
-    ``batch`` — what the kernel-versus-plain checks feed both versions."""
+    """The kernel operands of a run's first walk phase: breed and
+    work-sort as :func:`integrate_family_walker` does, with the
+    exit/suspension cadence it resolves for ``scout``, then
+
+    * ``refill_slots`` = R > 0 (K1, single deal): deal the banks.
+      Returns ``state``, ``slot``, ``nslots``, ``bank``, ``resm``,
+      ``thresh`` (the suspension floor) and ``batch``;
+    * ``refill_slots=0`` (K2 and K3): seed every lane off the queue top
+      (the first ``_bank_and_refill``). Returns ``state`` and ``thresh``
+      (the exit threshold of a segment with roots left).
+
+    What the kernel-versus-plain checks feed both versions."""
     dev = resolve_device(device)
     theta, bounds = _family_problem(theta, bounds)
     exit_frac, suspend_frac = resolve_cadence(None, None, scout,
                                               refill_slots)
     target, breed_chunk, slack_chunk = walker_sizing(   # default chunk
         lanes, roots_per_lane, capacity, 1 << 15)
-    bag = initial_bag(bounds, capacity, theta.shape[0], slack_chunk,
-                      theta=theta, device=dev)
+    m = theta.shape[0]
+    bag = initial_bag(bounds, capacity, m, slack_chunk, theta=theta,
+                      device=dev)
     bag, _ = _breed_and_sort(bag, f_theta=f_theta, eps=float(eps),
-                             capacity=capacity, rule=Rule.TRAPEZOID,
+                             capacity=capacity, rule=Rule(rule),
                              breed_chunk=breed_chunk, target=target,
                              syncs=HostSyncs())
     min_active = int(lanes * min_active_frac)
+    if not refill_slots:
+        state, _acc, _n = _bank_and_refill(
+            _fresh_lanes(lanes, dev),
+            torch.zeros(m, dtype=torch.float64, device=dev), bag, 0, m)
+        return dict(state=state, thresh=int(lanes * exit_frac))
     bank, nslots, _navail, _dealt = deal_root_bank(
         bag, refill_slots=refill_slots, lanes=lanes,
         min_active=min_active)

@@ -1,7 +1,7 @@
 """Build the port's hand-written kernels into shared libraries with a
 plain C interface and load them through ``ctypes``.
 
-The CUDA sources are compiled by ``nvcc`` at first use into
+Each CUDA source is compiled by ``nvcc`` at first use into
 ``ppls_tpu_torch/csrc/build/<hash>/``, keyed by a hash of the sources and
 flags, so a fresh checkout builds them on its first call and later
 calls reuse the library. A failed build raises. The same header also
@@ -10,6 +10,7 @@ compiles with ``g++`` into a host library the CPU tests use.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -30,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-ftz=false", "-prec-div=true",
               "-prec-sqrt=true", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
-HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC")
+HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC")
+DEVICE_HEADERS = (CSRC / "walk_step.cuh", CSRC / "walk_grid.cuh")
 
 
 class BuiltLib(NamedTuple):
@@ -91,42 +93,74 @@ def build_library(name: str, compiler: str, flags: Sequence[str],
     return BuiltLib(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)
 
 
-@functools.lru_cache(maxsize=None)
-def load_walk_rf() -> BuiltLib:
-    """Build (at first use) and load the K1 walk-segment kernel."""
+def _load_nvcc(name: str) -> BuiltLib:
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
-            "/usr/local/cuda and PATH); the walk kernel is built from "
+            "/usr/local/cuda and PATH); the walk kernels are built from "
             "ppls_tpu_torch/csrc at first use")
-    built = build_library("walk_rf", nvcc, NVCC_FLAGS,
-                          [CSRC / "walk_rf.cu"], [CSRC / "walk_step.cuh"],
-                          BUILD_DIR)
-    lib = built.lib
-    lib.walk_rf_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.walk_rf_launch.restype = ctypes.c_int
-    lib.walk_rf_max_coresident_blocks.argtypes = [ctypes.c_int,
-                                                  ctypes.c_int]
-    lib.walk_rf_max_coresident_blocks.restype = ctypes.c_int
+    return build_library(name, nvcc, NVCC_FLAGS, [CSRC / f"{name}.cu"],
+                         DEVICE_HEADERS, BUILD_DIR)
+
+
+def _sig(fn, argtypes, restype=ctypes.c_int):
+    fn.argtypes = argtypes
+    fn.restype = restype
+
+
+_I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
+def load_walk_rf() -> BuiltLib:
+    """Build (at first use) and load K1, the in-kernel-refill segment."""
+    built = _load_nvcc("walk_rf")
+    _sig(built.lib.walk_rf_launch,
+         [_P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P])
+    _sig(built.lib.walk_rf_max_coresident_blocks, [_I, _I])
     return built
 
 
+@functools.lru_cache(maxsize=None)
+def load_walk_ee() -> BuiltLib:
+    """Build (at first use) and load K2, the early-exit segment."""
+    built = _load_nvcc("walk_ee")
+    _sig(built.lib.walk_ee_launch, [_P, _I, _I, _I, _F, _I, _I, _I, _P])
+    _sig(built.lib.walk_ee_max_coresident_blocks, [_I, _I])
+    return built
+
+
+@functools.lru_cache(maxsize=None)
+def load_walk_seg() -> BuiltLib:
+    """Build (at first use) and load K3, the fixed-length segment."""
+    built = _load_nvcc("walk_seg")
+    _sig(built.lib.walk_seg_launch, [_P, _I, _I, _I, _F, _I, _P])
+    return built
+
+
+def load_all_kernels() -> dict:
+    """Build every walk kernel at once (one nvcc process per source, all
+    started together) and load them: ``{name: BuiltLib}``."""
+    loaders = {"walk_rf": load_walk_rf, "walk_ee": load_walk_ee,
+               "walk_seg": load_walk_seg}
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {k: pool.submit(f) for k, f in loaders.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def build_walk_host(out_root: Path) -> BuiltLib:
-    """Build the host (g++) twin of the K1 step machine into
-    ``out_root`` and load it. Used by the CPU tests only."""
+    """Build the host (g++) twin of the walk kernels' step machine into
+    ``out_root`` and load it: ``walk_rf_host``, ``walk_ee_host`` and
+    ``walk_seg_host``. Used by the CPU tests only."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
     built = build_library("walk_host", gxx, HOST_FLAGS,
                           [CSRC / "walk_host.cpp"],
                           [CSRC / "walk_step.cuh"], out_root)
-    fn = built.lib.walk_rf_host
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    _sig(lib.walk_rf_host, [_P, _I, _I, _I, _I, _F, _I, _I, _I])
+    _sig(lib.walk_ee_host, [_P, _I, _I, _I, _F, _I, _I])
+    _sig(lib.walk_seg_host, [_P, _I, _I, _I, _F, _I])
     return built

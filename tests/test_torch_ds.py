@@ -253,7 +253,22 @@ def test_kernel_header_constants_match_python():
     for n in ("S3", "S5", "S7", "S9", "S11", "C2", "C4", "C6", "C8", "C10",
               "E2", "E3", "E4", "E5", "E6", "E7"):
         pairs[f"K_SC_{n}"] = getattr(tsk, "_" + n)
-    from ppls_tpu_torch.parallel.walker import _SCOUT_BAND
-    pairs["K_SCOUT_BAND"] = _SCOUT_BAND
+    from ppls_tpu_torch.parallel import walker as TW
+    pairs["K_SCOUT_BAND"] = TW._SCOUT_BAND
+    # the Simpson scalings: the port's limbs and the reference's dsc()
+    # construction (walker.py step_simpson), hi and lo
+    for n, x in (("SIXTH", 6.0), ("TWELFTH", 12.0), ("FIFTEENTH", 15.0)):
+        hi, lo = getattr(TW, f"SIMPSON_{n}")
+        ref_hi = np.float32(1.0 / x)
+        assert (hi, lo) == (float(ref_hi), float(np.float32(
+            1.0 / x - np.float64(ref_hi)))), n
+        pairs[f"K_{n}_H"], pairs[f"K_{n}_L"] = hi, lo
     for name, want in pairs.items():
         assert c(name) == want, name
+    # lane flags and step machines
+    ints = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    for name in ("MODE_LOAD", "PARKED", "NO_ROOT", "OVF", "MODE_INIT",
+                 "MODE_LOADM", "MODE_TESTB"):
+        assert int(ints[name]) == getattr(TW, "_" + name), name
+    for name in ("STEP_TRAP", "STEP_SCOUT", "STEP_SIMPSON"):
+        assert int(ints[name]) == getattr(TW, name), name

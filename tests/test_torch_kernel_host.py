@@ -1,14 +1,15 @@
-"""K1's own arithmetic, checked on the CPU: the step machine of
-``csrc/walk_step.cuh`` (the code the CUDA kernel runs per lane), built
-with g++ -O2 -ffp-contract=off into a host library with a plain
-sequential loop (``csrc/walk_host.cpp``), held bit for bit against the
-plain PyTorch segment on the same seeded lanes, launch after launch, in
-both step modes and for both kernel integrands.
+"""The walk kernels' own arithmetic, checked on the CPU: the step
+machine of ``csrc/walk_step.cuh`` (the code the CUDA kernels run per
+lane), built with g++ -O2 -ffp-contract=off into a host library of plain
+sequential loops (``csrc/walk_host.cpp``), held bit for bit against the
+plain PyTorch segments on the same seeded lanes, launch after launch:
+K1 in its three step machines (trapezoid, scouting, Simpson), K2 in the
+same three, K3 in trapezoid and Simpson, for both kernel integrands.
 
-The ``cuda`` tests hold the CUDA kernel itself against the plain
-segment, and the walker on the card against the walker on the CPU; they
-skip where there is no card. This file imports nothing of JAX, so on a
-machine without it the card tests run with
+The ``cuda`` tests hold the CUDA kernels themselves against the plain
+segments, and the walker on the card against the walker on the CPU;
+they skip where there is no card. This file imports nothing of JAX, so
+on a machine without it the card tests run with
 ``python -m pytest --noconftest tests/test_torch_kernel_host.py -m cuda``.
 """
 
@@ -19,9 +20,22 @@ import numpy as np
 import pytest
 import torch
 
+from ppls_tpu_torch.config import Rule
 from ppls_tpu_torch.models.integrands import get_family, get_family_ds
 from ppls_tpu_torch.ops.ds_kernel import f32
 from ppls_tpu_torch.parallel import walker as W
+
+# (rule, scout) of each step machine
+MODES = {"trapezoid": (Rule.TRAPEZOID, False),
+         "scout": (Rule.TRAPEZOID, True),
+         "simpson": (Rule.SIMPSON, False)}
+
+
+def _eps(eps, rule):
+    # Simpson's O(h^6) accepts end these workloads in the breed at the
+    # trapezoid eps; 1e-12 (tests/test_tpu_lane.py's Simpson eps) leaves
+    # the walker real work
+    return 1e-12 if rule == Rule.SIMPSON else eps
 
 CASES = [
     ("sin_recip_scaled", 1.0 + np.arange(8) / 8.0, (1e-2, 1.0), 1e-7),
@@ -38,24 +52,31 @@ def host_lib(tmp_path_factory):
     return build_walk_host(tmp_path_factory.mktemp("walk_host")).lib
 
 
-def _inputs(fam, theta, bounds, eps, scout, device="cpu"):
+def _inputs(fam, theta, bounds, eps, scout, device="cpu", refill_slots=4,
+            rule=Rule.TRAPEZOID):
     return W.first_phase_inputs(
         get_family(fam), theta, bounds, eps, lanes=256, roots_per_lane=4,
-        refill_slots=4, capacity=1 << 16, scout=scout, min_active_frac=0.05,
-        device=device)
+        refill_slots=refill_slots, capacity=1 << 16, scout=scout,
+        rule=rule, min_active_frac=0.05, device=device)
 
 
 def _clone(inp):
     out = dict(inp)
     out["state"] = W.WalkState(*(t.clone() for t in inp["state"]))
     for k in ("slot", "nslots"):
-        out[k] = inp[k].clone()
+        if k in inp:
+            out[k] = inp[k].clone()
     for k in ("bank", "resm"):
-        out[k] = tuple(t.clone() for t in inp[k])
+        if k in inp:
+            out[k] = tuple(t.clone() for t in inp[k])
     return out
 
 
-def _run_host(lib, inp, cap, f_ds, eps, scout):
+def _table(ops):
+    return (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
+
+
+def _run_host(lib, inp, cap, f_ds, eps, scout, rule=Rule.TRAPEZOID):
     R, lanes = inp["bank"][0].shape
     resh = torch.zeros((R, lanes), dtype=torch.float32)
     resl = torch.zeros((R, lanes), dtype=torch.float32)
@@ -63,12 +84,30 @@ def _run_host(lib, inp, cap, f_ds, eps, scout):
     sync = torch.zeros(6, dtype=torch.int32)
     ops = (*inp["state"], inp["nslots"], inp["slot"], *inp["bank"],
            *inp["resm"], resh, resl, ctr, sync)
-    table = (ctypes.c_void_p * len(ops))(*[t.data_ptr() for t in ops])
+    table = _table(ops)
     rc = lib.walk_rf_host(ctypes.cast(table, ctypes.c_void_p), lanes, R,
-                          f_ds.kernel_family, int(scout), f32(eps),
-                          inp["thresh"], cap, inp["batch"])
+                          f_ds.kernel_family, W.step_mode(rule, scout),
+                          f32(eps), inp["thresh"], cap, inp["batch"])
     assert rc == 0
     return resh, resl, ctr
+
+
+def _run_host_ee(lib, state, thresh, cap, f_ds, eps, mode):
+    ctr = torch.zeros(7, dtype=torch.int32)
+    sync = torch.zeros(3, dtype=torch.int32)
+    table = _table((*state, ctr, sync))
+    rc = lib.walk_ee_host(ctypes.cast(table, ctypes.c_void_p),
+                          state.a_h.shape[0], f_ds.kernel_family, mode,
+                          f32(eps), thresh, cap)
+    assert rc == 0
+    return ctr
+
+
+def _run_host_seg(lib, state, iters, f_ds, eps, mode):
+    table = _table(tuple(state))
+    return lib.walk_seg_host(ctypes.cast(table, ctypes.c_void_p),
+                             state.a_h.shape[0], f_ds.kernel_family, mode,
+                             f32(eps), iters)
 
 
 def _bits(t):
@@ -85,24 +124,76 @@ def _assert_bit_equal(a, b, outs_a, outs_b):
         assert torch.equal(_bits(x), _bits(y))
 
 
-@pytest.mark.parametrize("scout", [False, True])
+@pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("fam,theta,bounds,eps", CASES)
 def test_host_step_machine_bit_equal_to_plain_segment(host_lib, fam, theta,
-                                                      bounds, eps, scout):
+                                                      bounds, eps, mode):
+    rule, scout = MODES[mode]
     f_ds = get_family_ds(fam)
-    base = _inputs(fam, theta, bounds, eps, scout)
+    eps = _eps(eps, rule)
+    base = _inputs(fam, theta, bounds, eps, scout, rule=rule)
     a, b = _clone(base), _clone(base)
     steps = 0
     for cap in (24, 24, 64):          # consecutive launches on one state
         outs_a = W.segment_rf_plain(a["state"], a["slot"], a["thresh"], cap,
                                     a["batch"], a["nslots"], a["bank"],
                                     a["resm"], f_ds=f_ds, eps=eps,
-                                    scout=scout)
-        outs_b = _run_host(host_lib, b, cap, f_ds, eps, scout)
+                                    scout=scout, rule=rule)
+        outs_b = _run_host(host_lib, b, cap, f_ds, eps, scout, rule)
         _assert_bit_equal(a, b, outs_a, outs_b)
         steps += int(outs_a[2][0])
     assert steps > 24
     assert int(a["slot"].sum()) > 256       # refills happened
+
+
+def _assert_state_bit_equal(a, b):
+    for name, x, y in zip(W.WalkState._fields, a, b):
+        assert torch.equal(_bits(x), _bits(y)), name
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("fam,theta,bounds,eps", CASES)
+def test_host_k2_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
+                                            eps, mode):
+    # K2 on the seeded lanes of a boundary-refill phase, three launches
+    # in a row at the exit threshold: every state field and counter equal
+    rule, scout = MODES[mode]
+    f_ds = get_family_ds(fam)
+    eps = _eps(eps, rule)
+    base = _inputs(fam, theta, bounds, eps, scout, refill_slots=0,
+                   rule=rule)
+    a, b = _clone(base)["state"], _clone(base)["state"]
+    steps = 0
+    for cap in (16, 16, 48):
+        ctr_a = W.segment_ee_plain(a, base["thresh"], cap, f_ds=f_ds,
+                                   eps=eps, scout=scout, rule=rule)
+        ctr_b = _run_host_ee(host_lib, b, base["thresh"], cap, f_ds, eps,
+                             W.step_mode(rule, scout))
+        _assert_state_bit_equal(a, b)
+        assert torch.equal(ctr_a, ctr_b)
+        assert int(ctr_a[1:5].sum()) == int(ctr_a[0]) * 256
+        steps += int(ctr_a[0])
+    assert steps > 16
+    assert int(a.tasks.sum()) > 0
+
+
+@pytest.mark.parametrize("rule", [Rule.TRAPEZOID, Rule.SIMPSON])
+@pytest.mark.parametrize("fam,theta,bounds,eps", CASES)
+def test_host_k3_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
+                                            eps, rule):
+    f_ds = get_family_ds(fam)
+    eps = _eps(eps, rule)
+    base = _inputs(fam, theta, bounds, eps, False, refill_slots=0,
+                   rule=rule)
+    a, b = _clone(base)["state"], _clone(base)["state"]
+    for iters in (8, 40):
+        W.segment_plain(a, iters, f_ds=f_ds, eps=eps, rule=rule)
+        assert _run_host_seg(host_lib, b, iters, f_ds, eps,
+                             W.step_mode(rule, False)) == 0
+        _assert_state_bit_equal(a, b)
+    assert int(a.tasks.sum()) > 0
+    # scouting has no K3 variant, in the host build as in the wrapper
+    assert _run_host_seg(host_lib, b, 1, f_ds, eps, W.STEP_SCOUT) == -2
 
 
 def test_k1_wrapper_on_cpu_is_the_plain_segment():
@@ -118,6 +209,27 @@ def test_k1_wrapper_on_cpu_is_the_plain_segment():
                                 b["resm"], f_ds=f_ds, eps=1e-7, scout=True)
     _assert_bit_equal(a, b, outs_a, outs_b)
     assert W.run_segment_rf.launches == before   # no kernel launched
+
+
+def test_k2_k3_wrappers_on_cpu_are_the_plain_segments():
+    f_ds = get_family_ds("sin_recip_scaled")
+    base = _inputs(*CASES[0], scout=False, refill_slots=0)
+    a, b = _clone(base)["state"], _clone(base)["state"]
+    before = (W.run_segment_ee.launches, W.run_segment.launches)
+    out, steps, waste, evals = W.run_segment_ee(a, base["thresh"], 16,
+                                                f_ds=f_ds, eps=1e-7,
+                                                scout=False)
+    ctr = W.segment_ee_plain(b, base["thresh"], 16, f_ds=f_ds, eps=1e-7,
+                             scout=False)
+    assert out is a
+    _assert_state_bit_equal(a, b)
+    assert torch.equal(torch.cat([steps.reshape(1), waste, evals]), ctr)
+    W.run_segment(a, 8, f_ds=f_ds, eps=1e-7)
+    W.segment_plain(b, 8, f_ds=f_ds, eps=1e-7)
+    _assert_state_bit_equal(a, b)
+    assert (W.run_segment_ee.launches, W.run_segment.launches) == before
+    with pytest.raises(ValueError, match="no eval counters"):
+        W.run_segment(a, 8, f_ds=f_ds, eps=1e-7, scout=True)
 
 
 @pytest.fixture
@@ -169,3 +281,101 @@ def test_cuda_walker_matches_cpu_walker(cuda_device):
     assert gpu.kernel_steps == cpu.kernel_steps
     assert np.array_equal(gpu.waste, cpu.waste)
     assert np.max(np.abs(gpu.areas - cpu.areas)) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cuda_k2_bit_equal_to_plain_segment(cuda_device, mode):
+    rule, scout = MODES[mode]
+    fam, theta, bounds, eps = CASES[0]
+    f_ds = get_family_ds(fam)
+    eps = _eps(eps, rule)
+    base = _inputs(fam, theta, bounds, eps, scout, device=cuda_device,
+                   refill_slots=0, rule=rule)
+    a, b = _clone(base)["state"], _clone(base)["state"]
+    before = W.run_segment_ee.launches
+    for cap in (16, 48):
+        _, steps, waste, evals = W.run_segment_ee(
+            a, base["thresh"], cap, f_ds=f_ds, eps=eps, scout=scout,
+            rule=rule)
+        ctr = W.segment_ee_plain(b, base["thresh"], cap, f_ds=f_ds, eps=eps,
+                                 scout=scout, rule=rule)
+        torch.cuda.synchronize()
+        _assert_state_bit_equal(a, b)
+        assert torch.equal(torch.cat([steps.reshape(1), waste, evals]), ctr)
+    assert W.run_segment_ee.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", [Rule.TRAPEZOID, Rule.SIMPSON])
+def test_cuda_k3_bit_equal_to_plain_segment(cuda_device, rule):
+    fam, theta, bounds, eps = CASES[0]
+    f_ds = get_family_ds(fam)
+    eps = _eps(eps, rule)
+    base = _inputs(fam, theta, bounds, eps, False, device=cuda_device,
+                   refill_slots=0, rule=rule)
+    a, b = _clone(base)["state"], _clone(base)["state"]
+    before = W.run_segment.launches
+    W.run_segment(a, 40, f_ds=f_ds, eps=eps, rule=rule)
+    W.segment_plain(b, 40, f_ds=f_ds, eps=eps, rule=rule)
+    torch.cuda.synchronize()
+    _assert_state_bit_equal(a, b)
+    assert W.run_segment.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [dict(refill_slots=0),
+                                  dict(refill_slots=0, scout_dtype="f32"),
+                                  dict(rule=Rule.SIMPSON),
+                                  dict(rule=Rule.SIMPSON, refill_slots=0)])
+def test_cuda_walker_modes_match_cpu_walker(cuda_device, over):
+    # the boundary-refill walker (K2) and the Simpson walker (K1 or K2 in
+    # Simpson mode) on the card and on the CPU: the same decisions, and
+    # areas equal up to the float64 reduction order of the two devices
+    fam, theta, bounds, _ = CASES[0]
+    eps = 1e-12 if over.get("rule") == Rule.SIMPSON else 1e-7
+    kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
+              refill_slots=2, seg_iters=32, min_active_frac=0.05)
+    kw.update(over)
+    counter = W.run_segment_ee if kw["refill_slots"] == 0 \
+        else W.run_segment_rf
+    before = counter.launches
+    gpu = W.integrate_family_walker(get_family(fam), get_family_ds(fam),
+                                    theta, bounds, eps, device=cuda_device,
+                                    **kw)
+    assert counter.launches > before
+    cpu = W.integrate_family_walker(get_family(fam), get_family_ds(fam),
+                                    theta, bounds, eps, device="cpu", **kw)
+    assert gpu.metrics.tasks == cpu.metrics.tasks
+    assert gpu.kernel_steps == cpu.kernel_steps
+    assert np.array_equal(gpu.waste, cpu.waste)
+    assert np.max(np.abs(gpu.areas - cpu.areas)) < 1e-12
+
+
+def test_ceiling_probe_state_and_card_requirement(monkeypatch):
+    # the probe's lanes carry the whole 26-field state (mk_i = 0,
+    # mk_d = -1) and start testing at once; K3 on them is K2 with no
+    # exit (thresh -1) step for step
+    from ppls_tpu_torch.tools import profile_walker as P
+    f_ds = get_family_ds(P.FAMILY)
+    a = P.ceiling_state(256, device="cpu")
+    assert len(a) == len(W.WalkState._fields)
+    assert int(a.mk_i.abs().sum()) == 0 and bool((a.mk_d == -1).all())
+    assert int(a.flags.abs().sum()) == 0
+    b = W.WalkState(*(t.clone() for t in a))
+    W.run_segment(a, 24, f_ds=f_ds, eps=1e-10)
+    ctr = W.segment_ee_plain(b, -1, 24, f_ds=f_ds, eps=1e-10, scout=False)
+    _assert_state_bit_equal(a, b)
+    assert int(ctr[0]) == 24 and int(ctr[1]) > 24 * 128
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="card measurement"):
+        P.kernel_ceiling(lanes=256, outer=2)
+
+
+@pytest.mark.cuda
+def test_cuda_ceiling_probe_runs(cuda_device):
+    from ppls_tpu_torch.tools import profile_walker as P
+    before = W.run_segment.launches
+    s = P.kernel_ceiling_slope(lanes=1 << 12, outer_lo=4, outer_hi=16)
+    assert s["lane_steps_per_sec"] > 0 and s["us_per_step"] > 0
+    assert W.run_segment.launches == before + s["launches"]

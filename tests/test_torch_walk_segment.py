@@ -1,12 +1,14 @@
-"""K1's plain PyTorch segment against the reference's Pallas
-``run_segment_rf`` in interpret mode, one launch on identical inputs.
+"""The plain PyTorch segments against the reference's Pallas kernels in
+interpret mode, one launch on identical inputs: K1 (``run_segment_rf``),
+K2 (``run_segment_ee``) and K3 (``run_segment``).
 
-The inputs (a seed-dealt root bank of 2 slots over 256 lanes, some
-lanes dealt fewer roots, a few never fed) are made with numpy and
-carried to both packages through ``ppls_tpu_torch.interop``.
+The inputs are made with numpy and carried to both packages through
+``ppls_tpu_torch.interop``: for K1 a seed-dealt root bank of 2 slots
+over 256 lanes (some lanes dealt fewer roots, a few never fed); for K2
+and K3 seeded lanes as a boundary refill leaves them.
 
 Contract: every integer field, the slot cursors, the step count, the
-five waste buckets and the two eval counters equal; ds values within
+waste buckets and the two eval counters equal; ds values within
 1e-7 relative. The tolerance is the reference's, not the port's: in
 interpret mode the kernel's ds arithmetic is lowered through XLA, whose
 simplifier degrades the error-free transforms toward float32 (the
@@ -23,6 +25,7 @@ import pytest
 from ppls_tpu.models.integrands import get_family_ds as ref_family_ds
 from ppls_tpu.parallel import walker as RW
 from ppls_tpu_torch import interop
+from ppls_tpu_torch.config import Rule
 from ppls_tpu_torch.models.integrands import get_family_ds
 from ppls_tpu_torch.parallel import walker as TW
 
@@ -119,3 +122,106 @@ def test_plain_segment_matches_reference_kernel(fam, scout, lo, hi, eps,
     close(interop.lanes_to_numpy(t_resm[0]),
           interop.lanes_to_numpy(t_resm[1]), r_resm[0], r_resm[1],
           "sentinel")
+
+
+# --- K2 (early-exit) and K3 (fixed-length) segments ---------------------
+
+N_IDLE = 24        # lanes left parked with no root (masked_dead)
+
+
+def _seeded_lanes(seed, lo, hi):
+    """Lanes as a boundary refill leaves them: every lane but N_IDLE
+    holds a fresh root in INIT mode (seeded endpoints, widths, thetas,
+    families and depths); the rest are parked with no root."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(lo, hi, LANES)
+    w = rng.uniform(0.02, 0.1, LANES) * (hi - lo)
+    th = rng.uniform(1.0, 2.0, LANES)
+    state = [np.array(x) for x in
+             jax.device_get(tuple(RW._fresh_lanes(LANES)))]
+    f = {n: j for j, n in enumerate(RW.WalkState._fields)}
+    for name, x in (("a", a), ("w", w), ("th", th)):
+        hi_, lo_ = _split(np.tile(x, R)[:R * LANES])
+        state[f[name + "_h"]] = hi_[0]
+        state[f[name + "_l"]] = lo_[0]
+    state[f["fam"]] = rng.integers(0, 8, LANES).astype(np.int32).reshape(
+        -1, 128)
+    state[f["base_d"]] = rng.integers(0, 6, LANES).astype(
+        np.int32).reshape(-1, 128)
+    flags = np.full(LANES, RW._MODE_INIT, np.int32)
+    flags[rng.choice(LANES, N_IDLE, replace=False)] = \
+        RW._PARKED | RW._NO_ROOT
+    state[f["flags"]] = flags.reshape(-1, 128)
+    return state
+
+
+def _assert_state_close(got, ref):
+    for j, name in enumerate(TW.WalkState._fields):
+        if j >= TW.N_F32_FIELDS:
+            assert np.array_equal(got[j], ref[j]), name
+    for f in ("a", "w", "th", "fl", "fr", "fm", "fq", "acc"):
+        i = TW.WalkState._fields.index(f + "_h")
+        v = got[i].astype(np.float64) + got[i + 1].astype(np.float64)
+        rv = ref[i].astype(np.float64) + ref[i + 1].astype(np.float64)
+        scale = max(1.0, float(np.max(np.abs(rv))))
+        assert np.max(np.abs(v - rv)) <= 1e-7 * scale, f
+
+
+# Seeds on which interpret mode decides every lane as the port does (see
+# above). Over seeds 0-3, sin(theta / x) agrees on every seed in the
+# trapezoid and scouting machines, at x in [0.1, 0.8] and at small x, and
+# on 3 of 4 in the Simpson machine, whose |S2 - S1| / 15 test cancels
+# more; cosh^4, run 64 steps deep, flips lanes on every seed (its K1
+# case above and the bit-for-bit host tests cover it).
+EE_CASES = [
+    ("sin_recip_scaled", "trap", 0.1, 0.8, 1e-6, 0),
+    ("sin_recip_scaled", "scout", 0.1, 0.8, 1e-6, 1),
+    ("sin_recip_scaled", "simpson", 0.1, 0.8, 1e-9, 1),
+    ("sin_recip_scaled", "trap", 1e-4, 1e-2, 1e-10, 3),
+    ("sin_recip_scaled", "scout", 1e-4, 1e-2, 1e-10, 2),
+]
+_RULES = {"trap": (Rule.TRAPEZOID, False), "scout": (Rule.TRAPEZOID, True),
+          "simpson": (Rule.SIMPSON, False)}
+
+
+@pytest.mark.parametrize("fam,mode,lo,hi,eps,seed", EE_CASES)
+def test_plain_ee_segment_matches_reference_kernel(fam, mode, lo, hi, eps,
+                                                   seed):
+    rule, scout = _RULES[mode]
+    state = _seeded_lanes(seed, lo, hi)
+    thresh = LANES // 8
+    run = RW.make_walk_kernel(ref_family_ds(fam), eps, CAP, interpret=True,
+                              early_exit=True, rule=rule, scout=scout)
+    r_state, r_steps, r_waste, r_evals = jax.device_get(run(
+        RW.WalkState(*(jnp.asarray(x) for x in state)), jnp.int32(thresh),
+        jnp.int32(CAP)))
+
+    t_state = interop.walk_state_from_numpy(state)
+    _, steps, waste, evals = TW.run_segment_ee(
+        t_state, thresh, CAP, f_ds=get_family_ds(fam), eps=eps, scout=scout,
+        rule=rule)
+
+    assert int(steps) == int(r_steps) and 4 < int(steps) <= CAP
+    assert waste.tolist() == [int(v) for v in r_waste]
+    assert evals.tolist() == [int(v) for v in r_evals]
+    assert int(waste.sum()) == int(steps) * LANES
+    assert int(waste[1]) == int(steps) * N_IDLE
+    _assert_state_close(interop.walk_state_to_numpy(t_state), r_state)
+
+
+@pytest.mark.parametrize("fam,rule,seed", [
+    ("sin_recip_scaled", Rule.TRAPEZOID, 0),
+    ("sin_recip_scaled", Rule.SIMPSON, 2),
+])
+def test_plain_fixed_segment_matches_reference_kernel(fam, rule, seed):
+    eps = 1e-9 if rule == Rule.SIMPSON else 1e-6
+    state = _seeded_lanes(seed, 0.1, 0.8)
+    run = RW.make_walk_kernel(ref_family_ds(fam), eps, 48, interpret=True,
+                              rule=rule)
+    r_state = jax.device_get(run(RW.WalkState(*(jnp.asarray(x)
+                                                for x in state))))
+    t_state = interop.walk_state_from_numpy(state)
+    TW.run_segment(t_state, 48, f_ds=get_family_ds(fam), eps=eps, rule=rule)
+    got = interop.walk_state_to_numpy(t_state)
+    assert int(got[TW.WalkState._fields.index("tasks")].sum()) > LANES
+    _assert_state_close(got, r_state)

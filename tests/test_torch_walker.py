@@ -1,16 +1,25 @@
 """The whole slice: the port's ``integrate_family_walker`` against the
 reference walker and the reference float64 bag engine, at the small
 shapes of tests/test_scout_double_buffer.py (8 thetas of
-sin(theta / x) on [1e-2, 1], eps 1e-7, 256 lanes, R = 2).
+sin(theta / x) on [1e-2, 1], eps 1e-7, 256 lanes, R = 2) for in-kernel
+refill and of tests/test_walker.py (``KW0``: roots_per_lane 1,
+refill_slots 0) for boundary refill.
 
-The reference's own walker contract, held for the port in every
-scout / double-buffer mode: areas within 3e-9 of the float64 bag and of
-the reference walker, task drift below 1e-3, tasks == splits + leaves,
-the waste buckets reconciling to lanes x kernel steps, and a rerun
-bit-identical. The reference resolves its cadence with the tuning table
-off, so both sides use the hand-tuned defaults. One test runs four
+The reference's own walker contract, held for the port in every refill,
+scout and double-buffer mode: areas within 3e-9 of the float64 bag and
+of the reference walker, task drift below 1e-3, tasks == splits +
+leaves, the waste buckets reconciling to lanes x kernel steps, and a
+rerun bit-identical. The reference resolves its cadence with the tuning
+table off, so both sides use the hand-tuned defaults. One test runs four
 members at the flagship's own bounds and eps, where the scout schedule
 over-refines in the reference as in the port.
+
+The Simpson walker is held to the port's float64 Simpson bag at
+tests/test_tpu_lane.py's real-chip configuration (equal tasks, areas
+within 1e-12): the port performs the float32 arithmetic exactly, as the
+chip does. Against the reference Simpson walker, whose interpret mode
+degrades ds toward float32, only at tests/test_walker.py's
+interpret-mode tolerances.
 """
 
 import numpy as np
@@ -22,8 +31,10 @@ from ppls_tpu.models.integrands import get_family_ds as ref_family_ds
 from ppls_tpu.parallel.bag_engine import integrate_family as ref_bag
 from ppls_tpu.parallel.walker import integrate_family_walker as ref_walker
 from ppls_tpu_torch.config import Rule
-from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+from ppls_tpu_torch.models.integrands import (family_exact, get_family,
+                                              get_family_ds)
 from ppls_tpu_torch.parallel.bag_engine import integrate_family
+from ppls_tpu_torch.parallel.walker import CYCLE_STAT_FIELDS as W_FIELDS
 from ppls_tpu_torch.parallel.walker import integrate_family_walker
 
 FAM = "sin_recip_scaled"
@@ -32,6 +43,10 @@ BOUNDS = (1e-2, 1.0)
 EPS = 1e-7
 KW = dict(capacity=1 << 16, lanes=256, roots_per_lane=2, refill_slots=2,
           seg_iters=32, min_active_frac=0.05)
+# boundary refill at tests/test_walker.py's shapes
+KW0 = dict(KW, roots_per_lane=1, refill_slots=0)
+REFILL = {"in-kernel": {}, "boundary": dict(roots_per_lane=1,
+                                            refill_slots=0)}
 
 
 def _port(**over):
@@ -79,6 +94,52 @@ def test_walker_slice_matches_reference(monkeypatch, bag_areas, scout,
     assert np.array_equal(again.areas, got.areas)
     assert again.metrics.tasks == got.metrics.tasks
     assert np.array_equal(again.waste, got.waste)
+
+
+@pytest.mark.parametrize("scout", ["f64", "f32"])
+def test_boundary_refill_walker_matches_reference(monkeypatch, bag_areas,
+                                                  scout):
+    # refill_slots=0: K2 segments with the host banking and refilling at
+    # every boundary. Here the port also walks the reference's exact
+    # schedule: the same kernel steps, waste buckets and per-segment rows.
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
+    got = _port(refill_slots=0, roots_per_lane=1, scout_dtype=scout)
+    ref = ref_walker(ref_family(FAM), ref_family_ds(FAM), THETA, BOUNDS,
+                     EPS, scout_dtype=scout, **KW0)
+    b_areas, b_tasks = bag_areas
+
+    assert np.max(np.abs(got.areas - b_areas)) < 3e-9
+    assert np.max(np.abs(got.areas - ref.areas)) < 3e-9
+    assert abs(got.metrics.tasks - b_tasks) / b_tasks < 1e-3
+    assert abs(got.metrics.tasks - ref.metrics.tasks) \
+        / ref.metrics.tasks < 1e-3
+    assert got.metrics.tasks == got.metrics.splits + got.metrics.leaves
+    att = got.attribution()
+    assert att["reconciles"], att
+    assert got.walker_fraction > 0.5
+    assert got.refill_slots == 0 and got.kernel_steps > 0
+    assert got.kernel_steps == ref.kernel_steps
+    assert np.array_equal(got.waste, ref.waste)
+    assert np.array_equal(got.seg_stats, ref.seg_stats)
+    occ, r_occ = got.occupancy_summary(), ref.occupancy_summary()
+    assert occ["mode"] == "boundary-refill" and occ["est_occupancy"] > 0
+    assert {k: v for k, v in occ.items() if k != "mode"} \
+        == {k: v for k, v in r_occ.items() if k != "mode"}
+    # one host sync per segment plus one per phase seeding, beside the
+    # bag's own
+    assert got.host_syncs == sum(got.host_syncs_per_cycle) + 1
+
+    again = _port(refill_slots=0, roots_per_lane=1, scout_dtype=scout)
+    assert np.array_equal(again.areas, got.areas)
+    assert again.metrics.tasks == got.metrics.tasks
+    assert np.array_equal(again.waste, got.waste)
+
+
+def test_occupancy_estimate_only_for_boundary_refill():
+    assert _port().occupancy_summary()["est_occupancy"] is None
+    occ = _port(**REFILL["boundary"]).occupancy_summary()
+    assert occ["mode"] == "boundary-refill"
+    assert 0.0 < occ["est_occupancy"] <= 1.0
 
 
 def test_walker_flagship_regime_matches_reference(monkeypatch):
@@ -143,24 +204,34 @@ def _port_bag(eps):
                             chunk=1 << 10, capacity=1 << 16, device="cpu")
 
 
-def test_walker_tiny_workload_is_the_bag():
+@pytest.mark.parametrize("refill", list(REFILL))
+def test_walker_tiny_workload_is_the_bag(refill):
     # eps = 10: the seeds accept in the first breed round, nothing is
-    # dealt, and the result is the float64 bag's exactly
-    got = _port(scout_dtype="f32")
+    # dealt, and the result is the float64 bag's exactly; eps = 1e-3:
+    # breeding peak-stops early, the walker takes part, and the areas
+    # hold the ds contract
+    kw = dict(KW, **REFILL[refill])
+    got = _port(scout_dtype="f32", **REFILL[refill])
     tiny = integrate_family_walker(get_family(FAM), get_family_ds(FAM),
-                                   THETA, BOUNDS, 10.0, device="cpu", **KW)
+                                   THETA, BOUNDS, 10.0, device="cpu", **kw)
     bag = _port_bag(10.0)
     assert tiny.walker_fraction == 0.0 and tiny.kernel_steps == 0
     assert tiny.metrics.tasks == bag.metrics.tasks
     assert np.max(np.abs(tiny.areas - bag.areas)) < 1e-15
     assert got.walker_fraction > 0.5
+    shallow = integrate_family_walker(get_family(FAM), get_family_ds(FAM),
+                                      THETA, BOUNDS, 1e-3, device="cpu",
+                                      **kw)
+    assert np.max(np.abs(shallow.areas - _port_bag(1e-3).areas)) < 3e-9
 
 
-def test_walker_mopup_via_forced_suspension():
+@pytest.mark.parametrize("refill", list(REFILL))
+def test_walker_mopup_via_forced_suspension(refill):
     # a one-segment step budget suspends nearly every lane mid-walk; the
     # suspended (i, d) sets go back to the bag through _expand_pending
     # over many cycles
-    kw = dict(KW, seg_iters=8, max_segments=1, max_cycles=256)
+    kw = dict(KW, seg_iters=8, max_segments=1, max_cycles=256,
+              **REFILL[refill])
     got = integrate_family_walker(get_family(FAM), get_family_ds(FAM),
                                   THETA, BOUNDS, EPS, device="cpu", **kw)
     bag = _port_bag(EPS)
@@ -170,7 +241,8 @@ def test_walker_mopup_via_forced_suspension():
         / bag.metrics.tasks < 1e-3
 
 
-def test_walker_depth_overflow_mopup(monkeypatch):
+@pytest.mark.parametrize("refill", list(REFILL))
+def test_walker_depth_overflow_mopup(monkeypatch, refill):
     # lanes deeper than MAX_REL_DEPTH park as overflowed; their pending
     # nodes are re-derived from (i, d) in float64 and finished by the bag
     # (the reference's tolerance: coordinate rounding flips borderline
@@ -179,7 +251,8 @@ def test_walker_depth_overflow_mopup(monkeypatch):
     monkeypatch.setattr(W, "MAX_REL_DEPTH", 4)
     got = integrate_family_walker(get_family(FAM), get_family_ds(FAM),
                                   THETA, BOUNDS, EPS, device="cpu",
-                                  max_cycles=256, **KW)
+                                  max_cycles=256,
+                                  **dict(KW, **REFILL[refill]))
     bag = _port_bag(EPS)
     assert np.max(np.abs(got.areas - bag.areas)) < 3e-9
     assert abs(got.metrics.tasks - bag.metrics.tasks) \
@@ -187,9 +260,7 @@ def test_walker_depth_overflow_mopup(monkeypatch):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(rule=Rule.SIMPSON), "Simpson"),
     (dict(theta_block=2), "theta_block"),
-    (dict(refill_slots=0), "refill_slots=0"),
 ])
 def test_unported_modes_name_their_roadmap_item(over, match):
     with pytest.raises(NotImplementedError, match=match) as e:
@@ -209,3 +280,66 @@ def test_walker_refuses_out_of_domain_ds():
     with pytest.raises(ValueError, match="Cody-Waite"):
         integrate_family_walker(get_family(FAM), get_family_ds(FAM), [1e4],
                                 (1e-4, 1.0), EPS, device="cpu", **KW)
+
+
+# tests/test_tpu_lane.py's real-chip Simpson configuration
+S_THETA = 1.0 + np.arange(4) / 4.0
+S_EPS = 1e-12
+S_KW = dict(capacity=1 << 16, lanes=256, roots_per_lane=1, seg_iters=32,
+            min_active_frac=0.05)
+S_REFILL = {"boundary": {}, "in-kernel": dict(refill_slots=2,
+                                              roots_per_lane=2)}
+
+
+@pytest.fixture(scope="module")
+def simpson_bag():
+    return integrate_family(get_family(FAM), S_THETA, BOUNDS, S_EPS,
+                            rule=Rule.SIMPSON, chunk=1 << 10,
+                            capacity=1 << 16, device="cpu")
+
+
+def _simpson_walker(refill):
+    return integrate_family_walker(
+        get_family(FAM), get_family_ds(FAM), S_THETA, BOUNDS, S_EPS,
+        rule=Rule.SIMPSON, device="cpu", **dict(S_KW, **S_REFILL[refill]))
+
+
+@pytest.mark.parametrize("refill", list(S_REFILL))
+def test_simpson_walker_matches_simpson_bag(simpson_bag, refill):
+    # K1 and K2 in Simpson mode: the float64 Simpson bag's decisions
+    # exactly (equal tasks) and its areas within 1e-12, on both refill
+    # paths; the walker's evals are the device-counted live lane-steps
+    # plus 5 per float64 bag task and per scored root
+    got = _simpson_walker(refill)
+    assert got.metrics.tasks == simpson_bag.metrics.tasks
+    assert np.max(np.abs(got.areas - simpson_bag.areas)) < 1e-12
+    assert got.walker_fraction > 0.3
+    assert got.attribution()["reconciles"]
+    cs = got.cycle_stats
+    col = W_FIELDS.index
+    btasks = int(cs[:, col("tasks")].sum() - cs[:, col("walker_tasks")].sum())
+    srows = int(cs[:, col("sort_rows")].sum())
+    assert got.metrics.integrand_evals \
+        == 5 * btasks + int(got.waste[0]) + 5 * srows
+    assert got.metrics.integrand_evals / got.metrics.tasks < 4.5
+
+
+def test_simpson_walker_near_reference_walker(monkeypatch, simpson_bag):
+    # the reference Simpson walker in interpret mode, at its own test's
+    # tolerances (tests/test_walker.py::test_walker_simpson_matches_bag_
+    # simpson: the degraded ds flips borderline Simpson decisions)
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
+    from ppls_tpu.config import Rule as RefRule
+    got = _simpson_walker("boundary")
+    ref = ref_walker(ref_family(FAM), ref_family_ds(FAM), S_THETA, BOUNDS,
+                     S_EPS, rule=RefRule.SIMPSON, **S_KW)
+    exact = family_exact(FAM, *BOUNDS, S_THETA)
+    assert np.max(np.abs(got.areas - exact)) < 1e-8
+    assert np.max(np.abs(got.areas - ref.areas)) < 1e-7
+    assert abs(got.metrics.tasks - ref.metrics.tasks) \
+        / ref.metrics.tasks < 0.3
+
+
+def test_simpson_walker_refuses_scouting():
+    with pytest.raises(ValueError, match="TRAPEZOID only"):
+        _port(rule=Rule.SIMPSON, scout_dtype="f32")
