@@ -22,6 +22,13 @@ Phases, each of which must pass (any failure exits nonzero):
       restarted lanes that mostly park (not an all-live rate). K3 has no
       grid barrier, so its time per step against K2's on the seeded
       lanes is the barrier's share of K2's step.
+   d. K1's theta variants (theta_block T > 1) on a bred, dealt theta bank
+      of sin(theta x) on [0, 1], eps 1e-5, lanes/T slots of T thetas
+      from linspace(1, 4, lanes), R=8, cap=256: trapezoid at T = 8, 64,
+      128, 256 and 2048 (every vote scope: warp ballot, shared memory,
+      the block, whole blocks with a second grid barrier per step), scout
+      at T = 32 and 2048. T = 256 against T = 128 is what the second
+      barrier costs.
 4. Main path, in-kernel refill: ``integrate_family_walker`` at the
    flagship configuration (sin_recip_scaled, M=1024 thetas on [1e-4, 1],
    eps=1e-10, lanes=2^14, R=8, scout f32, double-buffered banks): a
@@ -53,11 +60,26 @@ Phases, each of which must pass (any failure exits nonzero):
    of the closed form, its distance from the Simpson bag printed.
 8. Profile: one more run of each main path under ``torch.profiler``:
    device busy time, idle share and the kernels that take it.
+9. The reference's theta leg (tools/bench_history.py run_theta_proxies,
+   its constants copied): a T = 1 solo sweep of 8 sample thetas, then
+   T = 32, 256 and 2048 at lanes 2048, each batch embedding the samples.
+   Each T must meet the per-theta quality contract (batched |area -
+   exact| <= solo |area - exact| + eps at the samples), reconcile its
+   waste and launch K1; T = 256 must cut bookkeeping (kernel steps plus
+   rounds and segments) per theta at least 4x against the solo sweep.
+10. Theta mode, card against CPU: tests/test_theta_walker.py's
+   configuration (T = 8, eps 1e-6 and 1e-7, scout off and on) on both:
+   equal tasks, kernel steps and waste, areas within 1e-12. Then the
+   theta main path at the flagship's 16384 lanes (T = 2048, m = 8,
+   thetas linspace(1, 4, 16384)): areas within 1e-3 of the closed form,
+   reconciling waste, its wall, tasks/s and K1 launches, and one
+   profiled run's device idle share.
 
 Before the last line it prints one JSON object describing each kernel
-(time, plain time, bound, launches on its main path) and the card's
-``nvidia-smi`` name and power limit; the last line is the
-``{"ok": true, "device": ...}`` record. Details go to chiprun_out/.
+(time, plain time, bound, launches on its main paths; K1's theta times
+per T under ``theta``) and the card's ``nvidia-smi`` name and power
+limit; the last line is the ``{"ok": true, "device": ...}`` record.
+The full report, the profiles and the build logs go to ``out_dir``.
 """
 
 from __future__ import annotations
@@ -91,6 +113,28 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 STATE_BYTES = 26 * 4           # one lane's WalkState
 MODES = ("step", "step_scout", "step_simpson")
+DEVICE = "cuda"
+# phase 3d: K1's theta variants, (T, step machine)
+THETA_CMP = ((8, "step"), (64, "step"), (128, "step"), (256, "step"),
+             (2048, "step"), (32, "step_scout"), (2048, "step_scout"))
+# phase 9: the reference's theta leg, tools/bench_history.py:76-91
+THETA_FAMILY = "sin_scaled"
+THETA_EPS = 1e-5
+THETA_BOUNDS = (0.0, 1.0)
+THETA_RANGE = (1.0, 4.0)
+THETA_LANES = 2048
+THETA_SOLO_SAMPLES = 8
+THETA_FULL_T = (32, 256, 2048)
+THETA_KW = dict(capacity=1 << 16, roots_per_lane=8, refill_slots=8,
+                seg_iters=64, min_active_frac=0.05)
+GATE_THETA_MIN_REDUCTION = 4.0
+# phase 10: tests/test_theta_walker.py's configuration, and the full
+# lane count
+THETA_TEST_T = 8
+THETA_TEST_KW = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
+                     refill_slots=2, seg_iters=2048, min_active_frac=0.05)
+THETA_WIDE_T = 2048
+THETA_WIDE_M = 8
 
 
 def log(msg: str) -> None:
@@ -400,10 +444,64 @@ def phase_barrier(W, f_ds, base, pairs: int = 7) -> dict:
     return out
 
 
-def check_walk(what: str, res, m: int) -> None:
+def phase_k1_theta(W, f_theta, f_ds, ops) -> dict:
+    """K1's theta variants against the plain theta segment, bit for bit,
+    one bred and dealt theta bank per (T, step machine)."""
+    import numpy as np
+    cmp = {}
+    for T, mode in THETA_CMP:
+        rule, scout = mode_args(mode)
+        m = LANES // T
+        theta = np.linspace(*THETA_RANGE, m * T).reshape(m, T)
+        base = W.first_phase_inputs(
+            f_theta, theta, THETA_BOUNDS, THETA_EPS, lanes=LANES,
+            roots_per_lane=ROOTS_PER_LANE, refill_slots=REFILL_SLOTS,
+            capacity=CAPACITY, scout=scout, theta_block=T, device=DEVICE)
+
+        def run(fn):
+            inp = clone(base)
+            (resh, resl, ctr), ms = timed(lambda: fn(
+                inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
+                inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
+                f_ds=f_ds, eps=THETA_EPS, scout=scout, theta_block=T))
+            return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
+                    ctr], ms
+
+        outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment_rf))
+        outs_p, plain_ms = run(W.segment_rf_plain)
+        max_err = compare(f"K1 theta T={T} {mode}", outs_k, outs_p)
+        ctr = outs_k[-1].tolist()
+        if sum(ctr[1:6]) != ctr[0] * LANES:
+            raise AssertionError(f"K1 theta T={T}: waste does not "
+                                 f"reconcile")
+        bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7],
+                                   ops, mode)
+        key = f"{T}" + ("_scout" if scout else "")
+        cmp[key] = dict(T=T, mode=mode, ms=kernel_ms, plain_ms=plain_ms,
+                        max_abs_err=max_err, bound_ms=bound,
+                        bound_by=bound_by, counters=ctr,
+                        us_per_step=1e3 * kernel_ms / ctr[0],
+                        roots=int(base["nslots"].sum()) // T)
+        log(f"[smoke] K1 theta T={T} {mode}: bit-equal to the plain "
+            f"segment; {cmp[key]['roots']} roots dealt to {LANES // T} "
+            f"groups; {ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{cmp[key]['us_per_step']:.3f} us/step, plain {plain_ms:.1f} "
+            f"ms, bound {bound:.4f} ms ({bound_by}); counters {ctr}")
+    a, b = cmp["128"], cmp["256"]
+    log(f"[smoke] K1 theta, the second grid barrier per step: T=256 "
+        f"{b['us_per_step']:.3f} us/step against T=128 "
+        f"{a['us_per_step']:.3f} ({b['us_per_step'] - a['us_per_step']:+.3f}"
+        f" us/step; 256-step launches {b['ms']:.3f} / {a['ms']:.3f} ms)")
+    return cmp
+
+
+def check_walk(what: str, res, shape) -> None:
     import numpy as np
     areas = np.asarray(res.areas)
-    if not np.all(np.isfinite(areas)) or areas.shape != (m,):
+    if isinstance(shape, int):
+        shape = (shape,)
+    if not np.all(np.isfinite(areas)) or areas.shape != tuple(shape):
         raise AssertionError(f"{what}: non-finite or misshapen areas")
     mt = res.metrics
     if mt.tasks != mt.splits + mt.leaves:
@@ -436,13 +534,14 @@ def main_path(W, f_theta, f_ds, theta, kw, counter, what: str):
     return res, wall, launches
 
 
-def profile_run(W, f_theta, f_ds, theta, kw, kernel: str, out_dir, tag):
+def profile_run(W, f_theta, f_ds, theta, kw, kernel: str, out_dir, tag,
+                bounds=BOUNDS, eps=EPS):
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS, **kw)
+        W.integrate_family_walker(f_theta, f_ds, theta, bounds, eps, **kw)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -470,6 +569,150 @@ def profile_run(W, f_theta, f_ds, theta, kw, kernel: str, out_dir, tag):
             f"(device busy share not measured)")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=k_ms,
                 idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0 else None)
+
+
+def counted(W, fn):
+    """(fn(), wall s, launches): every kernel's launch count set to 0
+    just before ``fn`` and read just after it."""
+    import torch
+    kernels = (W.run_segment_rf, W.run_segment_ee, W.run_segment)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k.__name__: k.launches for k in kernels}
+
+
+def phase_theta_leg(W, f_theta, f_ds, family_exact) -> dict:
+    """The reference bench's theta leg on the port: bookkeeping per
+    theta (kernel steps plus rounds and segments, over T) against a
+    T = 1 solo sweep, and the per-theta quality contract."""
+    import numpy as np
+    samples = np.linspace(*THETA_RANGE, THETA_SOLO_SAMPLES)
+    ex_s = family_exact(THETA_FAMILY, *THETA_BOUNDS, samples)
+    kw = dict(THETA_KW, lanes=THETA_LANES, device=DEVICE)
+    solo_bk, solo_err = [], []
+    t0 = time.perf_counter()
+    for t, e in zip(samples, ex_s):
+        r = W.integrate_family_walker(f_theta, f_ds, [t], THETA_BOUNDS,
+                                      THETA_EPS, **kw)
+        check_walk(f"theta leg solo {t}", r, 1)
+        solo_bk.append(r.kernel_steps + r.metrics.rounds)
+        solo_err.append(abs(float(r.areas[0]) - float(e)))
+    t1_per_theta = float(np.mean(solo_bk))
+    solo_err = np.asarray(solo_err)
+    log(f"[smoke] theta leg: T=1 solo sweep of {THETA_SOLO_SAMPLES} thetas "
+        f"({time.perf_counter() - t0:.2f} s): bookkeeping per theta "
+        f"{t1_per_theta:.2f}, max |area - exact| {solo_err.max():.3e}")
+    legs = {}
+    for T in THETA_FULL_T:
+        thetas = np.linspace(*THETA_RANGE, T)
+        thetas[:THETA_SOLO_SAMPLES] = samples
+        thetas = thetas.reshape(1, T)
+        r, wall, launches = counted(W, lambda: W.integrate_family_walker(
+            f_theta, f_ds, thetas, THETA_BOUNDS, THETA_EPS, theta_block=T,
+            **kw))
+        check_walk(f"theta leg T={T}", r, (1, T))
+        ex = family_exact(THETA_FAMILY, *THETA_BOUNDS, thetas)
+        err = float(np.max(np.abs(r.areas - ex)))
+        sample_err = np.abs(r.areas[0, :THETA_SOLO_SAMPLES] - ex_s)
+        bk = r.kernel_steps + r.metrics.rounds
+        att = r.attribution()
+        leg = dict(
+            kernel_steps=r.kernel_steps, rounds_plus_segments=r.metrics.rounds,
+            bookkeeping_per_theta=bk / T,
+            reduction_vs_t1=t1_per_theta / max(bk / T, 1e-12),
+            overwalk_share=att["buckets"]["theta_overwalk"]
+            / max(att["lane_steps"], 1),
+            wall_s=wall, tasks=r.metrics.tasks, cycles=r.cycles,
+            launches=launches, max_abs_err=err,
+            quality_vs_solo_ok=bool(np.all(sample_err
+                                           <= solo_err + THETA_EPS)),
+            reconciles=bool(att["reconciles"]))
+        legs[T] = leg
+        log(f"[smoke] theta leg T={T}: {leg['kernel_steps']} kernel steps, "
+            f"{leg['rounds_plus_segments']} rounds + segments, bookkeeping "
+            f"per theta {leg['bookkeeping_per_theta']:.3f} (reduction "
+            f"{leg['reduction_vs_t1']:.2f}x vs T=1), theta_overwalk share "
+            f"{leg['overwalk_share']:.4f}, wall {wall:.3f} s, "
+            f"{r.metrics.tasks} tasks, K1 launches "
+            f"{launches['run_segment_rf']}, max |area - exact| {err:.3e}, "
+            f"quality vs solo {leg['quality_vs_solo_ok']}")
+        if not (leg["quality_vs_solo_ok"] and leg["reconciles"]
+                and launches["run_segment_rf"] > 0):
+            raise AssertionError(f"theta leg T={T} failed: {leg}")
+    if legs[256]["reduction_vs_t1"] < GATE_THETA_MIN_REDUCTION:
+        raise AssertionError(f"theta leg T=256: reduction "
+                             f"{legs[256]['reduction_vs_t1']:.2f} < "
+                             f"{GATE_THETA_MIN_REDUCTION}")
+    return dict(t1_bookkeeping_per_theta=t1_per_theta,
+                solo_max_abs_err=float(solo_err.max()), legs=legs)
+
+
+def phase_theta_card_cpu(W, f_theta, f_ds, family_exact, out_dir) -> dict:
+    """Theta mode on the card against the plain segment on the CPU at
+    tests/test_theta_walker.py's configuration; then the theta main path
+    at the flagship's lane count, timed and profiled."""
+    import numpy as np
+    T = THETA_TEST_T
+    theta = np.linspace(*THETA_RANGE, T).reshape(1, T)
+    out = {}
+    for eps in (1e-6, 1e-7):
+        for scout in ("f64", "f32"):
+            kw = dict(THETA_TEST_KW, theta_block=T, scout_dtype=scout)
+            card, _, launches = counted(W, lambda: W.integrate_family_walker(
+                f_theta, f_ds, theta, THETA_BOUNDS, eps, device=DEVICE, **kw))
+            cpu = W.integrate_family_walker(f_theta, f_ds, theta,
+                                            THETA_BOUNDS, eps, device="cpu",
+                                            **kw)
+            check_walk("theta test config (card)", card, (1, T))
+            d = float(np.max(np.abs(card.areas - cpu.areas)))
+            log(f"[smoke] theta test config eps {eps:g} scout {scout}: card "
+                f"{card.metrics.tasks} tasks / {card.kernel_steps} steps / "
+                f"waste {card.waste.tolist()}, CPU {cpu.metrics.tasks} / "
+                f"{cpu.kernel_steps} / {cpu.waste.tolist()}; max |card - "
+                f"CPU| {d:.3e} (tol {AREA_TOL_DEVICES}); K1 launches "
+                f"{launches['run_segment_rf']}")
+            if (card.metrics.tasks != cpu.metrics.tasks
+                    or card.kernel_steps != cpu.kernel_steps
+                    or not np.array_equal(card.waste, cpu.waste)
+                    or not d < AREA_TOL_DEVICES
+                    or launches["run_segment_rf"] <= 0):
+                raise AssertionError(f"theta test config eps {eps} scout "
+                                     f"{scout}: card and CPU differ")
+            out[f"{eps:g}_{scout}"] = dict(
+                tasks=card.metrics.tasks, kernel_steps=card.kernel_steps,
+                waste=card.waste.tolist(), d_card_cpu=d)
+    # the theta main path at the flagship's 16384 lanes
+    T, m = THETA_WIDE_T, THETA_WIDE_M
+    theta = np.linspace(*THETA_RANGE, m * T).reshape(m, T)
+    kw = dict(THETA_KW, lanes=LANES, theta_block=T, device=DEVICE)
+    W.integrate_family_walker(f_theta, f_ds, theta, THETA_BOUNDS, THETA_EPS,
+                              **kw)                                # warm-up
+    r, wall, launches = counted(W, lambda: W.integrate_family_walker(
+        f_theta, f_ds, theta, THETA_BOUNDS, THETA_EPS, **kw))
+    check_walk("theta main path", r, (m, T))
+    exact = family_exact(THETA_FAMILY, *THETA_BOUNDS, theta)
+    d_exact = float(np.max(np.abs(r.areas - exact)))
+    att = r.attribution()
+    log(f"[smoke] theta main path (K1, T={T}, m={m}, {LANES} lanes): wall "
+        f"{wall:.3f} s, {r.metrics.tasks} per-theta tasks "
+        f"({r.metrics.tasks / wall / 1e6:.3f} M/s), kernel steps "
+        f"{r.kernel_steps}, cycles {r.cycles}, launches {launches}, host "
+        f"syncs {r.host_syncs}, waste {att['buckets']}; max |area - closed "
+        f"form| {d_exact:.3e} over {m * T} thetas (tol {AREA_TOL_EXACT})")
+    if not d_exact < AREA_TOL_EXACT or not att["reconciles"] \
+            or launches["run_segment_rf"] <= 0:
+        raise AssertionError("theta main path failed")
+    prof = profile_run(W, f_theta, f_ds, theta, kw, "walk_rf_kernel",
+                       out_dir, "theta", bounds=THETA_BOUNDS, eps=THETA_EPS)
+    out["wide"] = dict(wall_s=wall, tasks=r.metrics.tasks,
+                       kernel_steps=r.kernel_steps, cycles=r.cycles,
+                       launches=launches, host_syncs=r.host_syncs,
+                       waste=att["buckets"], d_exact=d_exact, profile=prof)
+    return out
 
 
 def main() -> int:
@@ -542,9 +785,17 @@ def main() -> int:
         f"{k3['step']['us_per_step']:.3f} (all live); probe (mostly "
         f"parked) {probe['us_per_step']:.3f}; barrier share of K2's step "
         f"{barrier['barrier_share']:.3f}")
+    f_theta_sc = get_family(THETA_FAMILY)
+    f_ds_sc = get_family_ds(THETA_FAMILY)
+    ops_sc = operation_counts(f_ds_sc)
+    log(f"[smoke] float32 ops, {THETA_FAMILY}: ds eval {ops_sc['ds_eval']}, "
+        f"scout eval {ops_sc['scout_eval']}, trapezoid step overhead "
+        f"{ops_sc['step_overhead']}")
+    k1_theta = phase_k1_theta(W, f_theta_sc, f_ds_sc, ops_sc)
     log("[smoke] library_ms: no single PyTorch call computes a walk "
         "segment, so there is none")
-    report.update(k1=k1, k2=k2, k3=k3, probe=probe, barrier_share=barrier)
+    report.update(k1=k1, k2=k2, k3=k3, probe=probe, barrier_share=barrier,
+                  k1_theta=k1_theta)
 
     # 4. main path, in-kernel refill: the flagship, scouting on,
     # double-buffered banks
@@ -777,30 +1028,49 @@ def main() -> int:
     report["profile_k2"] = profile_run(W, f_theta, f_ds, theta,
                                        dict(kw0, scout_dtype="f64"),
                                        "walk_ee_kernel", out_dir, "k2")
+
+    # 9. the reference's theta leg; 10. theta mode, card against CPU, and
+    # the theta main path at full width
+    report["theta_leg"] = phase_theta_leg(W, f_theta_sc, f_ds_sc,
+                                          family_exact)
+    report["theta_card_cpu"] = phase_theta_card_cpu(
+        W, f_theta_sc, f_ds_sc, family_exact, out_dir)
+    theta_launches = (sum(leg["launches"]["run_segment_rf"]
+                          for leg in report["theta_leg"]["legs"].values())
+                      + report["theta_card_cpu"]["wide"]["launches"][
+                          "run_segment_rf"])
     report.update(device=kind, smi=smi,
                   total_s=time.perf_counter() - t_start)
     with open(os.path.join(out_dir, "chip_smoke_main.json"), "w") as fh:
         json.dump(report, fh, indent=1, default=str)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
-    def row(name, source, replaces, counter, cmp, mode, **extra):
+    def row(name, source, replaces, launches, cmp, mode, **extra):
         c = cmp[mode]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": main_launches[counter],
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": max(v["max_abs_err"] for v in cmp.values()),
                 "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                 "library_ms": None, **extra}
 
+    theta_rows = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "us_per_step",
+                                         "max_abs_err")}
+                  for k, v in k1_theta.items()}
     print(json.dumps({"kernels": [
         row("walk_rf", "ppls_tpu_torch/csrc/walk_rf.cu",
-            "ppls_tpu/parallel/walker.py:993", "run_segment_rf", k1,
-            "step_scout"),
+            "ppls_tpu/parallel/walker.py:993",
+            main_launches["run_segment_rf"] + theta_launches,
+            {**k1, **k1_theta}, "step_scout",
+            flagship_launches=main_launches["run_segment_rf"],
+            theta_launches=theta_launches, theta=theta_rows),
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
-            "ppls_tpu/parallel/walker.py:1279", "run_segment_ee", k2,
-            "step"),
+            "ppls_tpu/parallel/walker.py:1279",
+            main_launches["run_segment_ee"], k2, "step"),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
-            "ppls_tpu/parallel/walker.py:1253", "run_segment", k3, "step",
+            "ppls_tpu/parallel/walker.py:1253",
+            main_launches["run_segment"], k3, "step",
             probe_launches=probe["launches"]),
     ]}))
     print(smi)

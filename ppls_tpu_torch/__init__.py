@@ -3,7 +3,8 @@
 The JAX package ``ppls_tpu`` is the reference; this package imports
 nothing of it and nothing of JAX. It carries the flagship family walker
 (``integrate_family_walker``, in-kernel or boundary refill, trapezoid or
-Simpson) and the float64 family bag engine (``integrate_family``); the
+Simpson, and its many-theta mode ``theta_block`` > 1) and the float64
+family bag engine (``integrate_family``); the
 walk segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
 ``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on the
 CPU. Entry points run on CUDA unless ``device="cpu"`` is passed.

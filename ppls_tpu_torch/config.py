@@ -15,8 +15,8 @@ class Rule(str, enum.Enum):
 
     TRAPEZOID reproduces the reference C program's semantics: accept
     ``larea + rarea`` when ``|larea + rarea - lrarea| <= eps`` (strict
-    ``>`` split test). SIMPSON (composite Simpson with Richardson
-    extrapolation) is not ported yet.
+    ``>`` split test). SIMPSON is composite Simpson with Richardson
+    extrapolation.
     """
 
     TRAPEZOID = "trapezoid"

@@ -1,5 +1,6 @@
 // Block and grid reductions shared by the cooperative walk kernels (K1 in
-// walk_rf.cu, K2 in walk_ee.cu). Device code only.
+// walk_rf.cu, K2 in walk_ee.cu), and K1's theta-group vote. Device code
+// only.
 
 #pragma once
 
@@ -44,6 +45,52 @@ __device__ __forceinline__ void grid_count(cg::grid_group& grid, int (&v)[N],
     int clear = N * ((c + 2) % 3);
     for (int j = 0; j < N; ++j) sync[clear + j] = 0;
   }
+}
+
+// The union vote of theta groups: true in every thread whose group of T
+// adjacent lanes (lanes g*T .. g*T+T-1; T a power of two) holds a true
+// `vote`. Every thread of the grid must call it, with the same T and c.
+//   T <= 32:       one warp ballot, masked to the group's T bits.
+//   T <= kThreads: ballots, one flag per warp in shared memory, one
+//                  __syncthreads(). The next write of the flags comes
+//                  after the caller's next block barrier (grid_count).
+//   T > kThreads:  a group spans T / kThreads whole blocks: a block OR,
+//                  one integer atomicOr per block into the group's slot of
+//                  rotating set `c % 3` of `slots` (3 sets of G = lanes / T
+//                  ints, zeroed before launch), and a second grid.sync().
+//                  Block 0 clears the set used two votes later; every
+//                  thread read it before this grid.sync.
+__device__ __forceinline__ bool group_any(cg::grid_group& grid, bool vote,
+                                          int T, int* slots, int G, int c) {
+  if (T <= 32) {
+    unsigned b = __ballot_sync(0xffffffffu, vote);
+    if (T == 32) return b != 0u;
+    int base = (threadIdx.x & 31) & ~(T - 1);
+    return ((b >> base) & ((1u << T) - 1u)) != 0u;
+  }
+  if (T <= kThreads) {
+    __shared__ int warp_any[kWarps];
+    unsigned b = __ballot_sync(0xffffffffu, vote);
+    if ((threadIdx.x & 31) == 0) warp_any[threadIdx.x >> 5] = b != 0u;
+    __syncthreads();
+    int per_group = T >> 5;
+    int w0 = (threadIdx.x >> 5) & ~(per_group - 1);
+    int any = 0;
+    for (int j = 0; j < per_group; ++j) any |= warp_any[w0 + j];
+    return any != 0;
+  }
+  int block_any = __syncthreads_or(vote);
+  int g = blockIdx.x / (T / kThreads);
+  int* set = slots + G * (c % 3);
+  if (threadIdx.x == 0 && block_any) atomicOr(&set[g], 1);
+  grid.sync();
+  const volatile int* vs = set;
+  bool any = vs[g] != 0;
+  if (blockIdx.x == 0) {
+    int* clear = slots + G * ((c + 2) % 3);
+    for (int j = threadIdx.x; j < G; j += kThreads) clear[j] = 0;
+  }
+  return any;
 }
 
 // Block-wide sum of v, valid in thread 0.

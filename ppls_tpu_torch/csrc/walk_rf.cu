@@ -9,6 +9,16 @@
 // the five waste buckets, and counting scout / confirm evals. The step
 // machine is a template parameter: trapezoid, scouting or Simpson.
 //
+// Theta mode (theta_block = T > 1, trapezoid and scouting; the THETA
+// template flag, so the T = 1 variants are the code they were): groups
+// of T adjacent lanes walk one node sequence, each lane with its own
+// theta. Each step is split in two (walk_step.cuh): every lane evaluates
+// its node and votes, the vote is OR-reduced over its group
+// (wg::group_any: a warp ballot up to T = 32, shared memory up to the
+// block, an atomic slot and a second grid.sync() per step beyond), and
+// every lane commits the group's decision. Retired lanes' live steps are
+// counted as theta_overwalk.
+//
 // Design. One thread owns one lane; the lane state lives in registers
 // for the whole launch and the state tensors are updated in place. Root
 // bank reads and result bank writes are indexed loads/stores
@@ -45,13 +55,14 @@ namespace {
 
 using wg::kThreads;
 
-template <int FAM, int MODE>
+template <int FAM, int MODE, bool THETA>
 __global__ void __launch_bounds__(kThreads)
     walk_rf_kernel(void* const* p, int lanes, int R, float eps32,
-                   int thresh, int cap, int batch) {
+                   int thresh, int cap, int batch, int T) {
   cg::grid_group grid = cg::this_grid();
   const int lane = blockIdx.x * kThreads + threadIdx.x;
   int* sync = static_cast<int*>(p[ws::P_SYNC]);
+  int* votes = static_cast<int*>(p[ws::P_VOTE]);
 
   ws::Lane s = ws::load_lane(p, lane);
   int slot = static_cast<int*>(p[ws::P_SLOT])[lane];
@@ -60,7 +71,7 @@ __global__ void __launch_bounds__(kThreads)
   rm.h = static_cast<float*>(p[ws::P_RESM_H])[lane];
   rm.l = static_cast<float*>(p[ws::P_RESM_L])[lane];
   rm.fam = static_cast<int*>(p[ws::P_RESM_FAM])[lane];
-  ws::Waste w = {0, 0, 0, 0};
+  ws::Waste w = {0, 0, 0, 0, 0};
   int sc_n = 0, cf_n = 0;
 
   int k = 0, c = 0;
@@ -71,8 +82,14 @@ __global__ void __launch_bounds__(kThreads)
     // previous step
     if (cnt[1] > 0 && (cnt[1] >= batch || cnt[0] <= thresh))
       ws::lane_take(s, slot, nslots, R, lane, lanes, p, rm);
-    ws::lane_classify(s, slot, nslots, w);
-    ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
+    ws::lane_classify<THETA>(s, slot, nslots, w);
+    if constexpr (THETA) {
+      ws::Eval e = ws::evaluate<FAM, MODE, true>(s, eps32, sc_n, cf_n);
+      bool any = wg::group_any(grid, e.vote, T, votes, lanes / T, k);
+      ws::commit<MODE, true>(s, e, any);
+    } else {
+      ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
+    }
     ++k;
     ++c;
     cnt[0] = !ws::is_parked(s);
@@ -87,22 +104,34 @@ __global__ void __launch_bounds__(kThreads)
   static_cast<int*>(p[ws::P_RESM_FAM])[lane] = rm.fam;
 
   // counters: steps, eval_active, masked_dead, refill_stall, drain_tail,
-  // theta_overwalk (0: no theta groups here), scout evals, confirm evals
+  // theta_overwalk (0 outside theta mode), scout evals, confirm evals
   int* out = static_cast<int*>(p[ws::P_COUNTERS]);
-  const int vals[7] = {w.active, w.dead, w.stall, w.tail, 0, sc_n, cf_n};
+  const int vals[7] = {w.active, w.dead, w.stall, w.tail, w.over, sc_n,
+                       cf_n};
   wg::add_counters(vals, 7, out + 1);
   if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = k;
 }
 
+// the variant of (family, mode, theta mode); Simpson has no theta mode
 struct Pick {
+  bool theta;
   template <int FAM, int MODE>
   const void* operator()() const {
-    return reinterpret_cast<const void*>(&walk_rf_kernel<FAM, MODE>);
+    if constexpr (MODE == ws::STEP_SIMPSON) {
+      if (theta) return nullptr;
+      return reinterpret_cast<const void*>(&walk_rf_kernel<FAM, MODE, false>);
+    } else {
+      return theta ? reinterpret_cast<const void*>(
+                         &walk_rf_kernel<FAM, MODE, true>)
+                   : reinterpret_cast<const void*>(
+                         &walk_rf_kernel<FAM, MODE, false>);
+    }
   }
 };
 
-const void* pick_kernel(int family, int mode) {
-  return ws::dispatch(family, mode, Pick{}, static_cast<const void*>(nullptr));
+const void* pick_kernel(int family, int mode, bool theta) {
+  return ws::dispatch(family, mode, Pick{theta},
+                      static_cast<const void*>(nullptr));
 }
 
 }  // namespace
@@ -110,24 +139,28 @@ const void* pick_kernel(int family, int mode) {
 extern "C" {
 
 // How many blocks of kThreads the current device can hold at once for
-// this variant, or -1 on error. The caller queries it once per (family,
-// mode, device) with that device current.
-int walk_rf_max_coresident_blocks(int family, int mode) {
-  return wg::max_coresident_blocks(pick_kernel(family, mode));
+// this variant (`theta` nonzero: the theta-mode one), or -1 on error. The
+// caller queries it once per (family, mode, theta, device) with that
+// device current.
+int walk_rf_max_coresident_blocks(int family, int mode, int theta) {
+  return wg::max_coresident_blocks(pick_kernel(family, mode, theta != 0));
 }
 
 // One cooperative launch on `stream`, whose device must be current.
-// `d_ptrs` is a device array of ws::N_PTRS pointers; `mode` a ws::STEP_*.
-// Returns 0, a cudaError_t code, -2 for an unknown family or mode, -3
-// when lanes is not a multiple of the block size, or -4 when the grid
+// `d_ptrs` is a device array of ws::N_PTRS pointers; `mode` a ws::STEP_*;
+// `T` the theta block (1: no theta groups; else a power of two dividing
+// lanes). Returns 0, a cudaError_t code, -2 for an unknown family or mode
+// (or Simpson with T > 1), -3 when lanes is not a multiple of the block
+// size or T is not a power of two dividing lanes, or -4 when the grid
 // exceeds `max_blocks`, the co-resident limit (it is never shrunk).
 int walk_rf_launch(void* const* d_ptrs, int lanes, int R, int family,
                    int mode, float eps32, int thresh, int cap, int batch,
-                   int max_blocks, void* stream) {
-  const void* fn = pick_kernel(family, mode);
+                   int T, int max_blocks, void* stream) {
+  if (T < 1 || (T & (T - 1)) != 0 || lanes % T != 0) return -3;
+  const void* fn = pick_kernel(family, mode, T > 1);
   if (fn == nullptr) return -2;
   void* args[] = {(void*)&d_ptrs, &lanes, &R, &eps32, &thresh, &cap,
-                  &batch};
+                  &batch, &T};
   return wg::launch_cooperative(fn, lanes, max_blocks, args, stream);
 }
 

@@ -48,8 +48,9 @@ constexpr int DEPTH_MASK = (1 << DEPTH_BITS) - 1;
 // integrand ids (models/integrands.py KERNEL_*)
 constexpr int FAMILY_SIN_RECIP = 0;   // sin(theta / x)
 constexpr int FAMILY_COSH4 = 1;       // cosh(theta x)^4
+constexpr int FAMILY_SIN_SCALED = 2;  // sin(theta x)
 
-// pointer table of one segment launch (walker.py _K1_POINTERS order)
+// pointer table of one K1 launch (walker.py run_segment_rf order)
 constexpr int N_STATE = 26;           // WalkState fields, in order
 constexpr int P_NSLOTS = 26;
 constexpr int P_SLOT = 27;
@@ -61,7 +62,9 @@ constexpr int P_RESH = 38;
 constexpr int P_RESL = 39;
 constexpr int P_COUNTERS = 40;        // int32[8]: steps, 5 waste, 2 evals
 constexpr int P_SYNC = 41;            // int32[6], zeroed: grid counts
-constexpr int N_PTRS = 42;
+constexpr int P_VOTE = 42;            // int32[3 * lanes / T], zeroed: the
+                                      // theta groups' vote slots (T > 128)
+constexpr int N_PTRS = 43;
 // pointer table of one K2 launch (walker.py run_segment_ee): the state,
 // then int32[7] counters (steps, eval_active, masked_dead,
 // parked_with_root, theta_overwalk, scout evals, confirm evals) and an
@@ -346,6 +349,11 @@ WS_HD ds2 f_ds<FAMILY_SIN_RECIP>(ds2 x, ds2 th) {
 }
 
 template <>
+WS_HD ds2 f_ds<FAMILY_SIN_SCALED>(ds2 x, ds2 th) {
+  return ds_sin(ds_mul(th, x));
+}
+
+template <>
 WS_HD ds2 f_ds<FAMILY_COSH4>(ds2 x, ds2 th) {
   ds2 u = ds_mul(th, x);
   ds2 e = ds_exp(u);
@@ -362,6 +370,11 @@ WS_HD float f_sc(float x, float th);
 template <>
 WS_HD float f_sc<FAMILY_SIN_RECIP>(float x, float th) {
   return sc_sin(th / x);
+}
+
+template <>
+WS_HD float f_sc<FAMILY_SIN_SCALED>(float x, float th) {
+  return sc_sin(th * x);
 }
 
 template <>
@@ -473,16 +486,32 @@ WS_HD void lane_take(Lane& s, int& slot, int nslots, int R, int lane,
   slot += 1;
 }
 
-// lane-waste classification of the state a step evaluates
+// Theta mode (theta_block = T > 1): the T adjacent lanes of a group walk
+// one node sequence together, each with its own theta. A lane whose own
+// test accepted a node its group split carries an accept marker (mk_i,
+// mk_d) and is retired while the group's node is a descendant of it:
+// DFS node indexes at any depth only grow in visit order, so a stale
+// marker never matches a later subtree (walker.py _theta_retired).
+WS_HD bool theta_retired(const Lane& s) {
+  int dd = s.d - s.mk_d;
+  int sh = dd < 0 ? 0 : (dd > 31 ? 31 : dd);
+  return s.mk_d >= 0 && dd >= 0 && (s.i >> sh) == s.mk_i;
+}
+
+// lane-waste classification of the state a step evaluates; in theta mode
+// a live but retired lane's step is theta_overwalk, not eval_active
 struct Waste {
-  int active, dead, stall, tail;
+  int active, dead, stall, tail, over;
 };
 
+template <bool THETA>
 WS_HD void lane_classify(const Lane& s, int slot, int nslots, Waste& w) {
   int live = !is_parked(s);
   int stall = takeable(s, slot, nslots);
   int dead = ((s.flags & NO_ROOT) != 0) && !stall;
-  w.active += live;
+  int over = THETA && live && theta_retired(s);
+  w.active += live - over;
+  w.over += over;
   w.stall += stall;
   w.dead += dead;
   w.tail += 1 - live - stall - dead;
@@ -516,16 +545,34 @@ WS_HD void node_geometry(const Lane& s, ds2& w, ds2& x0, ds2& x1) {
   x1 = ds_add(x0, w);
 }
 
-// shared tail of both steps: credit, DFS advance and counters
-WS_HD void finish_step(Lane& s, bool testing, bool split, ds2 val,
-                       int& i_next, int& d_next, bool& do_split,
-                       bool& adv, bool& fin, bool& ovf) {
-  do_split = testing && split;
-  ovf = do_split && s.d >= MAX_REL_DEPTH;
-  do_split = do_split && !ovf;
-  bool accept = testing && !split;
+// Shared tail of every step: credit, DFS advance, counters. `split` is
+// the lane's own decision. Outside theta mode the lane splits on it, and
+// a split past MAX_REL_DEPTH parks the lane as OVF. In theta mode the
+// group splits on `group_split` (any unretired lane's vote), a split past
+// the cap is accepted by the whole group instead, a lane credits its own
+// value where its own test passed (or at the cap), and a lane that
+// credits while its group splits sets its accept marker.
+template <bool THETA>
+WS_HD void finish_step(Lane& s, bool testing, bool test_act, bool split,
+                       bool group_split, ds2 val, int& i_next, int& d_next,
+                       bool& do_split, bool& adv, bool& fin, bool& ovf) {
+  bool accept, credit;
+  if (THETA) {
+    do_split = testing && group_split;
+    bool ovf_force = do_split && s.d >= MAX_REL_DEPTH;
+    do_split = do_split && !ovf_force;
+    ovf = false;
+    accept = testing && !do_split;
+    credit = test_act && (!split || ovf_force);
+  } else {
+    do_split = testing && split;
+    ovf = do_split && s.d >= MAX_REL_DEPTH;
+    do_split = do_split && !ovf;
+    accept = testing && !split;
+    credit = accept;
+  }
   ds2 acc = ds_add(ds2{s.acc_h, s.acc_l},
-                   accept ? val : ds2{0.0f, 0.0f});
+                   credit ? val : ds2{0.0f, 0.0f});
   s.acc_h = acc.h;
   s.acc_l = acc.l;
   int t = ctz_pos(s.i + 1);
@@ -533,65 +580,71 @@ WS_HD void finish_step(Lane& s, bool testing, bool split, ds2 val,
   adv = accept && !fin;
   i_next = do_split ? s.i * 2 : (adv ? (s.i >> t) + 1 : s.i);
   d_next = do_split ? s.d + 1 : (adv ? s.d - t : s.d);
-  s.tasks += testing ? 1 : 0;
-  s.splits += do_split ? 1 : 0;
+  s.tasks += (THETA ? test_act : testing) ? 1 : 0;
+  s.splits += ((THETA ? test_act && split : true) && do_split) ? 1 : 0;
   int md = testing ? s.base_d + s.d : 0;
   s.maxd = s.maxd > md ? s.maxd : md;
+  if (THETA && do_split && credit) {
+    s.mk_i = s.i;
+    s.mk_d = s.d;
+  }
 }
 
-// trapezoid step: one eval per step through the INIT/LOAD cache modes
-template <int FAM>
-WS_HD void step_trap(Lane& s, float eps32) {
+// A trapezoid or scouting step up to its split decision: what the commit
+// needs. Theta mode reduces `vote` over the lane's group in between.
+struct Eval {
+  ds2 val;               // the node's value, the credit candidate
+  ds2 fl, fr;            // the endpoint caches the test used
+  ds2 fq;                // trapezoid: this step's eval; scout: f32 f(mid)
+  bool testing;          // the lane tests its node this step
+  bool test_act;         // ... and is not retired (theta mode)
+  bool split;            // the lane's own decision
+  bool vote;             // test_act && split
+  bool mode_load, mode_init;
+};
+
+// trapezoid step, evaluation half: one eval per step through the
+// INIT/LOAD cache modes
+template <int FAM, bool THETA>
+WS_HD Eval eval_trap(const Lane& s, float eps32) {
+  Eval e;
   bool parked = is_parked(s);
-  bool mode_load = (s.flags & MODE_LOAD) != 0;
-  bool mode_init = (s.flags & MODE_INIT) != 0;
+  e.mode_load = (s.flags & MODE_LOAD) != 0;
+  e.mode_init = (s.flags & MODE_INIT) != 0;
   bool live = !parked;
   ds2 w, x0, x1;
   node_geometry(s, w, x0, x1);
   ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
-  ds2 xq = mode_load ? x1 : mid;
-  xq = mode_init ? x0 : xq;
+  ds2 xq = e.mode_load ? x1 : mid;
+  xq = e.mode_init ? x0 : xq;
   xq = parked ? ds2{1.0f, 0.0f} : xq;
   ds2 th = {s.th_h, s.th_l};
-  ds2 fq = f_ds<FAM>(xq, th);
+  e.fq = f_ds<FAM>(xq, th);
 
   ds2 quarter = ds_mul_pow2(w, 0.25f);
-  ds2 fl = {s.fl_h, s.fl_l};
-  ds2 fr = {s.fr_h, s.fr_l};
-  ds2 la = ds_mul(ds_add(fl, fq), quarter);
-  ds2 ra = ds_mul(ds_add(fq, fr), quarter);
-  ds2 val = ds_add(la, ra);
-  ds2 lr = ds_mul(ds_add(fl, fr), ds_mul_pow2(w, 0.5f));
-  ds2 err = ds_abs(ds_sub(val, lr));
-  bool split = (err.h + err.l) > eps32;
-  bool testing = live && !(mode_load || mode_init);
-
-  int i_next, d_next;
-  bool do_split, adv, fin, ovf;
-  finish_step(s, testing, split, val, i_next, d_next, do_split, adv, fin,
-              ovf);
-  ds2 new_fl = adv ? fr : fl;
-  new_fl = mode_init ? fq : new_fl;
-  ds2 new_fr = do_split ? fq : fr;
-  new_fr = mode_load ? fq : new_fr;
-  int flags = s.flags;
-  if (adv) flags |= MODE_LOAD;
-  if (mode_load) flags &= ~MODE_LOAD;
-  if (mode_init) flags = (flags & ~MODE_INIT) | MODE_LOAD;
-  if (fin) flags |= PARKED;
-  if (ovf) flags |= PARKED | OVF;
-  s.fl_h = new_fl.h; s.fl_l = new_fl.l;
-  s.fr_h = new_fr.h; s.fr_l = new_fr.l;
-  s.i = i_next;
-  s.d = d_next;
-  s.flags = flags;
+  e.fl = ds2{s.fl_h, s.fl_l};
+  e.fr = ds2{s.fr_h, s.fr_l};
+  ds2 la = ds_mul(ds_add(e.fl, e.fq), quarter);
+  ds2 ra = ds_mul(ds_add(e.fq, e.fr), quarter);
+  e.val = ds_add(la, ra);
+  ds2 lr = ds_mul(ds_add(e.fl, e.fr), ds_mul_pow2(w, 0.5f));
+  ds2 err = ds_abs(ds_sub(e.val, lr));
+  e.split = (err.h + err.l) > eps32;
+  e.testing = live && !(e.mode_load || e.mode_init);
+  e.test_act = e.testing && !(THETA && theta_retired(s));
+  e.vote = e.test_act && e.split;
+  return e;
 }
 
-// scouting step: float32 test of every live lane, endpoint loads fused
-// in, full-ds confirm of every non-decisive decision. Adds this lane's
-// useful scout evals and ds confirm evals to the counters.
-template <int FAM>
-WS_HD void step_scout(Lane& s, float eps32, int& sc_n, int& cf_n) {
+// scouting step, evaluation half: float32 test of every live lane,
+// endpoint loads fused in, full-ds confirm of every non-decisive
+// decision (in theta mode: of every unretired lane's non-decisive or
+// depth-capped decision, so a forced accept has a ds value to credit).
+// Adds this lane's useful scout evals and ds confirm evals to the
+// counters.
+template <int FAM, bool THETA>
+WS_HD Eval eval_scout(const Lane& s, float eps32, int& sc_n, int& cf_n) {
+  Eval e;
   bool parked = is_parked(s);
   bool mode_load = (s.flags & MODE_LOAD) != 0;
   bool mode_init = (s.flags & MODE_INIT) != 0;
@@ -606,21 +659,24 @@ WS_HD void step_scout(Lane& s, float eps32, int& sc_n, int& cf_n) {
   float f_m = f_sc<FAM>(parked ? 1.0f : mid.h, th.h);
   float f_l = f_sc<FAM>(need_l ? x0.h : 1.0f, th.h);
   float f_r = f_sc<FAM>(need_r ? x1.h : 1.0f, th.h);
-  ds2 fl_eff = mode_init ? ds2{f_l, 0.0f} : ds2{s.fl_h, s.fl_l};
-  ds2 fr_eff = need_r ? ds2{f_r, 0.0f} : ds2{s.fr_h, s.fr_l};
+  e.fl = mode_init ? ds2{f_l, 0.0f} : ds2{s.fl_h, s.fl_l};
+  e.fr = need_r ? ds2{f_r, 0.0f} : ds2{s.fr_h, s.fr_l};
+  e.fq = ds2{f_m, 0.0f};
 
   float qw = w.h;
-  float la32 = (fl_eff.h + f_m) * (qw * 0.25f);
-  float ra32 = (f_m + fr_eff.h) * (qw * 0.25f);
-  float lr32 = (fl_eff.h + fr_eff.h) * (qw * 0.5f);
+  float la32 = (e.fl.h + f_m) * (qw * 0.25f);
+  float ra32 = (f_m + e.fr.h) * (qw * 0.25f);
+  float lr32 = (e.fl.h + e.fr.h) * (qw * 0.5f);
   float err32 = fabsf((la32 + ra32) - lr32);
   float band = K_SCOUT_BAND * (fabsf(la32) + fabsf(ra32) + fabsf(lr32));
 
-  bool testing = live;
-  bool decisive = testing && err32 > eps32 + band;
-  bool need_conf = testing && !decisive;
+  e.testing = live;
+  bool decisive = e.testing && err32 > eps32 + band;
+  e.test_act = e.testing && !(THETA && theta_retired(s));
+  bool need_conf =
+      e.test_act && (!decisive || (THETA && s.d >= MAX_REL_DEPTH));
 
-  ds2 val = {0.0f, 0.0f};
+  e.val = ds2{0.0f, 0.0f};
   bool split_ds = false;
   if (need_conf) {
     // full-ds re-evaluation of the tested node (the scout caches never
@@ -631,21 +687,54 @@ WS_HD void step_scout(Lane& s, float eps32, int& sc_n, int& cf_n) {
     ds2 quarter = ds_mul_pow2(w, 0.25f);
     ds2 la = ds_mul(ds_add(g0, gm), quarter);
     ds2 ra = ds_mul(ds_add(gm, g1), quarter);
-    val = ds_add(la, ra);
+    e.val = ds_add(la, ra);
     ds2 lr = ds_mul(ds_add(g0, g1), ds_mul_pow2(w, 0.5f));
-    ds2 errd = ds_abs(ds_sub(val, lr));
+    ds2 errd = ds_abs(ds_sub(e.val, lr));
     split_ds = (errd.h + errd.l) > eps32;
   }
-  bool split = need_conf ? split_ds : decisive;
+  e.split = need_conf ? split_ds : decisive;
+  e.vote = e.test_act && e.split;
+  e.mode_load = mode_load;
+  e.mode_init = mode_init;
+  sc_n += (live ? 1 : 0) + (need_l ? 1 : 0) + (need_r ? 1 : 0);
+  cf_n += need_conf ? 3 : 0;
+  return e;
+}
 
+// the evaluation half of a trapezoid or scouting step
+template <int FAM, int MODE, bool THETA>
+WS_HD Eval evaluate(const Lane& s, float eps32, int& sc_n, int& cf_n) {
+  static_assert(MODE != STEP_SIMPSON, "Simpson has no split step");
+  if (MODE == STEP_SCOUT) return eval_scout<FAM, THETA>(s, eps32, sc_n, cf_n);
+  return eval_trap<FAM, THETA>(s, eps32);
+}
+
+// The commit half: the step's decision (the lane's own, or its group's
+// in theta mode), then the caches and the mode flags.
+template <int MODE, bool THETA>
+WS_HD void commit(Lane& s, const Eval& e, bool group_split) {
   int i_next, d_next;
   bool do_split, adv, fin, ovf;
-  finish_step(s, testing, split, val, i_next, d_next, do_split, adv, fin,
-              ovf);
-  ds2 new_fl = adv ? fr_eff : fl_eff;
-  ds2 new_fr = do_split ? ds2{f_m, 0.0f} : fr_eff;
-  int flags = s.flags & ~(MODE_INIT | MODE_LOAD);
-  if (adv) flags |= MODE_LOAD;
+  finish_step<THETA>(s, e.testing, e.test_act, e.split, group_split, e.val,
+                     i_next, d_next, do_split, adv, fin, ovf);
+  ds2 new_fl, new_fr;
+  int flags = s.flags;
+  if (MODE == STEP_SCOUT) {
+    // the scout caches hold f32 values; a split hands f(mid) to the
+    // right end, an advance reloads the right end inline next step
+    new_fl = adv ? e.fr : e.fl;
+    new_fr = do_split ? e.fq : e.fr;
+    flags &= ~(MODE_INIT | MODE_LOAD);
+    if (adv) flags |= MODE_LOAD;
+  } else {
+    new_fl = adv ? e.fr : e.fl;
+    new_fl = e.mode_init ? e.fq : new_fl;
+    new_fr = do_split ? e.fq : e.fr;
+    new_fr = e.mode_load ? e.fq : new_fr;
+    if (adv) flags |= MODE_LOAD;
+    if (e.mode_load) flags &= ~MODE_LOAD;
+    if (e.mode_init) flags = (flags & ~MODE_INIT) | MODE_LOAD;
+  }
   if (fin) flags |= PARKED;
   if (ovf) flags |= PARKED | OVF;
   s.fl_h = new_fl.h; s.fl_l = new_fl.l;
@@ -653,8 +742,6 @@ WS_HD void step_scout(Lane& s, float eps32, int& sc_n, int& cf_n) {
   s.i = i_next;
   s.d = d_next;
   s.flags = flags;
-  sc_n += (live ? 1 : 0) + (need_l ? 1 : 0) + (need_r ? 1 : 0);
-  cf_n += need_conf ? 3 : 0;
 }
 
 // Simpson + Richardson step: one eval per step through the 5-phase mode
@@ -702,8 +789,8 @@ WS_HD void step_simpson(Lane& s, float eps32) {
 
   int i_next, d_next;
   bool do_split, adv, fin, ovf;
-  finish_step(s, testing, split, val, i_next, d_next, do_split, adv, fin,
-              ovf);
+  finish_step<false>(s, testing, testing, split, split, val, i_next, d_next,
+                     do_split, adv, fin, ovf);
   // caches: a split hands the left child (fl, fq1, fm); an advance
   // shifts fr to fl and reloads mid and right
   ds2 new_fl = adv ? fr : fl;
@@ -731,15 +818,16 @@ WS_HD void step_simpson(Lane& s, float eps32) {
   s.flags = flags;
 }
 
-// one step of step machine MODE; scout mode adds to the eval counters
+// one step of step machine MODE outside theta mode; scout mode adds to
+// the eval counters
 template <int FAM, int MODE>
 WS_HD void step(Lane& s, float eps32, int& sc_n, int& cf_n) {
-  if (MODE == STEP_SCOUT)
-    step_scout<FAM>(s, eps32, sc_n, cf_n);
-  else if (MODE == STEP_SIMPSON)
+  if constexpr (MODE == STEP_SIMPSON) {
     step_simpson<FAM>(s, eps32);
-  else
-    step_trap<FAM>(s, eps32);
+  } else {
+    Eval e = evaluate<FAM, MODE, false>(s, eps32, sc_n, cf_n);
+    commit<MODE, false>(s, e, e.split);
+  }
 }
 
 // The one map from a runtime (family, step machine) pair to its template
@@ -760,6 +848,8 @@ inline R dispatch(int family, int mode, Fn fn, R unknown) {
     return dispatch_mode<FAMILY_SIN_RECIP>(mode, fn, unknown);
   if (family == FAMILY_COSH4)
     return dispatch_mode<FAMILY_COSH4>(mode, fn, unknown);
+  if (family == FAMILY_SIN_SCALED)
+    return dispatch_mode<FAMILY_SIN_SCALED>(mode, fn, unknown);
   return unknown;
 }
 

@@ -66,6 +66,14 @@ def bank_to_numpy(bank: Sequence[torch.Tensor]) -> Tuple[np.ndarray, ...]:
     return tuple(lanes_to_numpy(t) for t in bank)
 
 
+def theta_table_from_numpy(theta_table, device="cpu") -> torch.Tensor:
+    """A theta mode's (m, T) float64 theta table -> a float64 tensor. Its
+    theta bank is an ordinary bank (:func:`bank_from_numpy`) whose rows
+    are lane-expanded."""
+    return torch.tensor(np.asarray(theta_table, dtype=np.float64),
+                        dtype=torch.float64, device=device)
+
+
 def sentinel_from_numpy(resm: Sequence, device="cpu"):
     """(resm_h, resm_l, resm_fam), each (rows, 128) -> (lanes,)."""
     return (lanes_from_numpy(resm[0], torch.float32, device),

@@ -2,8 +2,9 @@
 double-single twins for the walk kernel, domain checks, and closed
 forms.
 
-Two families are carried: ``sin_recip_scaled`` (sin(theta / x), the
-flagship bench family) and ``cosh4_scaled`` (cosh^4(theta x); theta = 1
+Three families are carried: ``sin_recip_scaled`` (sin(theta / x), the
+flagship bench family), ``sin_scaled`` (sin(theta x), the many-theta
+walker's bench family) and ``cosh4_scaled`` (cosh^4(theta x); theta = 1
 over [0, 5] is the reference C program's problem). Each ds twin names
 the integrand the CUDA walk kernel compiles in (``kernel_family``),
 matching the ``FAMILY_*`` ids of ``csrc/walk_step.cuh``.
@@ -26,9 +27,11 @@ DS_SIN_MAX_ARG = float(1 << 22)
 # cosh^4 must stay inside the float32 hi limb: |u| <= 22 keeps margin.
 DS_COSH4_MAX_ARG = 22.0
 
-# kernel integrand ids (csrc/walk_step.cuh FAMILY_SIN_RECIP / FAMILY_COSH4)
+# kernel integrand ids (csrc/walk_step.cuh FAMILY_SIN_RECIP / FAMILY_COSH4 /
+# FAMILY_SIN_SCALED)
 KERNEL_SIN_RECIP = 0
 KERNEL_COSH4 = 1
+KERNEL_SIN_SCALED = 2
 
 
 def get_family(name: str) -> Callable:
@@ -51,6 +54,10 @@ def _sin_recip_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     return torch.sin(th / x)
 
 
+def _sin_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    return torch.sin(th * x)
+
+
 def _cosh4_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     c = torch.cosh(th * x)
     c2 = c * c
@@ -58,6 +65,7 @@ def _cosh4_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
 
 
 FAMILIES["sin_recip_scaled"] = _sin_recip_scaled
+FAMILIES["sin_scaled"] = _sin_scaled
 FAMILIES["cosh4_scaled"] = _cosh4_scaled
 
 
@@ -65,6 +73,12 @@ def _sin_recip_scaled_ds(x, th, dsm=None):
     if dsm is None:
         from ppls_tpu_torch.ops import ds_kernel as dsm
     return dsm.ds_sin(dsm.ds_div(th, x))
+
+
+def _sin_scaled_ds(x, th, dsm=None):
+    if dsm is None:
+        from ppls_tpu_torch.ops import ds_kernel as dsm
+    return dsm.ds_sin(dsm.ds_mul(th, x))
 
 
 def _cosh4_scaled_ds(x, th, dsm=None):
@@ -92,6 +106,15 @@ def _sin_recip_domain(bounds: np.ndarray, theta: np.ndarray) -> None:
             f"(results would be silently wrong, not NaN)")
 
 
+def _sin_scaled_domain(bounds: np.ndarray, theta: np.ndarray) -> None:
+    worst = np.max(np.abs(theta) * np.max(np.abs(bounds), axis=1))
+    if worst > DS_SIN_MAX_ARG:
+        raise ValueError(
+            f"sin_scaled ds twin out of ds_sin's Cody-Waite range: "
+            f"max |theta*x| = {worst:.3e} > {DS_SIN_MAX_ARG:.3e} "
+            f"(results would be silently wrong, not NaN)")
+
+
 def _cosh4_scaled_domain(bounds: np.ndarray, theta: np.ndarray) -> None:
     worst = np.max(np.abs(theta) * np.max(np.abs(bounds), axis=1))
     if worst > DS_COSH4_MAX_ARG:
@@ -103,9 +126,12 @@ def _cosh4_scaled_domain(bounds: np.ndarray, theta: np.ndarray) -> None:
 
 _sin_recip_scaled_ds.ds_domain_check = _sin_recip_domain
 _sin_recip_scaled_ds.kernel_family = KERNEL_SIN_RECIP
+_sin_scaled_ds.ds_domain_check = _sin_scaled_domain
+_sin_scaled_ds.kernel_family = KERNEL_SIN_SCALED
 _cosh4_scaled_ds.ds_domain_check = _cosh4_scaled_domain
 _cosh4_scaled_ds.kernel_family = KERNEL_COSH4
 DS_FAMILIES["sin_recip_scaled"] = _sin_recip_scaled_ds
+DS_FAMILIES["sin_scaled"] = _sin_scaled_ds
 DS_FAMILIES["cosh4_scaled"] = _cosh4_scaled_ds
 
 
@@ -132,6 +158,14 @@ def _sin_recip_scaled_exact_vec(a, b, th):
     return F(np.float64(b), ci_b) - F(np.float64(a), ci_a)
 
 
+def _sin_scaled_exact_vec(a, b, th):
+    th = np.asarray(th, dtype=np.float64)
+    safe = np.where(th == 0.0, 1.0, th)
+    out = (np.cos(safe * a) - np.cos(safe * b)) / safe
+    # theta -> 0: the integrand vanishes, and so does the integral
+    return np.where(th == 0.0, 0.0, out)
+
+
 def _cosh4_scaled_exact_vec(a, b, th):
     th = np.asarray(th, dtype=np.float64)
     safe = np.where(th == 0.0, 1.0, th)
@@ -145,6 +179,7 @@ def _cosh4_scaled_exact_vec(a, b, th):
 
 
 FAMILY_EXACT_VEC["sin_recip_scaled"] = _sin_recip_scaled_exact_vec
+FAMILY_EXACT_VEC["sin_scaled"] = _sin_scaled_exact_vec
 FAMILY_EXACT_VEC["cosh4_scaled"] = _cosh4_scaled_exact_vec
 
 

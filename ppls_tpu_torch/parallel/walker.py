@@ -44,9 +44,17 @@ it reads a device value are counted (``WalkerResult.host_syncs``).
 K3 (``run_segment``), a fixed number of steps with no counters, is the
 kernel-ceiling probe's segment (``ppls_tpu_torch/tools/profile_walker.py``).
 
-Not ported in this slice: theta blocks (``theta_block > 1``),
-checkpoint/resume and the streaming, multi-chip and CLI surfaces
-(ROADMAP.md).
+Theta mode (``theta_block`` = T > 1, in-kernel refill and the trapezoid
+test only): theta is an (m, T) table, each frontier root is dealt to a
+group of T adjacent lanes that walk it together with T thetas, the
+group splits a node when any unretired lane's own test fails (the union
+vote), a lane whose own test passed credits its value there and retires
+for the subtree (its accept marker ``mk_i``/``mk_d``), and credit lands
+in m * T accumulators. Breeding only splits, and the float64 drain is
+the union-refinement bag round (``_theta_bag_round``).
+
+Not ported: checkpoint/resume and the streaming, multi-chip and CLI
+surfaces (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -69,8 +77,8 @@ from ppls_tpu_torch.ops.pow2 import pow2_f32, pow2_f64
 from ppls_tpu_torch.ops.reduction import segment_sum_auto
 from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
 from ppls_tpu_torch.parallel.bag_engine import (
-    DEPTH_BITS, DEPTH_MASK, BagState, bag_step, dyn_slice, dyn_update,
-    initial_bag, run_bag)
+    ACCEPT_BIT, DEPTH_BITS, DEPTH_MASK, MAX_FAMILIES, BagState, bag_step,
+    dyn_slice, dyn_update, initial_bag, run_bag)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import RunMetrics, round_stats_from_rows
 
@@ -141,12 +149,6 @@ CYCLE_STAT_FIELDS = ("bred_roots", "breed_iters", "roots_consumed",
                      "tasks", "splits") + WASTE_FIELDS + EVAL_FIELDS
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ppls_tpu_torch yet ({item} in "
-        f"ROADMAP.md)")
-
-
 @functools.lru_cache(maxsize=None)
 def scout_twin(f_ds: Callable) -> Callable:
     """The float32 scout evaluator of a ds twin (the same integrand
@@ -191,11 +193,99 @@ def resolve_cadence(exit_frac: Optional[float],
     return float(exit_frac), float(suspend_frac)
 
 
+def validate_theta_block(theta_block: int, *, lanes: int,
+                         refill_slots: int, rule: Rule, m: int) -> int:
+    """The preconditions of theta mode (the reference's checks and
+    messages): T a power of two dividing ``lanes``, in-kernel refill,
+    the trapezoid rule, and m * T families within the meta word.
+    Returns T."""
+    T = int(theta_block)
+    if T < 1:
+        raise ValueError(f"theta_block must be >= 1, got {T}")
+    if T == 1:
+        return T
+    if T & (T - 1):
+        raise ValueError(f"theta_block must be a power of two, got {T}")
+    if lanes % T:
+        raise ValueError(
+            f"theta_block={T} must divide lanes={lanes} (each theta "
+            f"block occupies T adjacent minor-axis lanes)")
+    if not refill_slots:
+        raise ValueError(
+            "theta_block > 1 requires refill_slots > 0 (the theta "
+            "groups take roots together through the in-kernel refill "
+            "deal; the legacy XLA-boundary refill permutes lanes "
+            "individually and would scramble the groups)")
+    if Rule(rule) != Rule.TRAPEZOID:
+        raise ValueError(
+            "theta_block > 1 supports Rule.TRAPEZOID only (the Simpson "
+            "walker's 5-phase mode chain has no union-vote step)")
+    if m * T > MAX_FAMILIES:
+        raise ValueError(
+            f"slots * theta_block = {m} * {T} exceeds the meta-word "
+            f"fam field ({MAX_FAMILIES})")
+    return T
+
+
+def normalize_theta_batch(theta, theta_block: int):
+    """``(theta2d, rep)``: the (m, T) float64 theta table and the (m,)
+    representative column ``theta2d[:, 0]`` that frontier bag rows carry
+    for the work sort. T = 1 takes an (m,) theta; T > 1 an (m, T) one,
+    or a bare (T,) vector for m = 1."""
+    theta = np.asarray(theta, dtype=np.float64)
+    T = int(theta_block)
+    if T == 1:
+        return theta.reshape(-1, 1), theta.reshape(-1)
+    if theta.ndim == 1:
+        if theta.shape[0] != T:
+            raise ValueError(
+                f"theta_block={T}: 1-D theta must have exactly T "
+                f"entries (the m=1 convenience), got {theta.shape[0]}")
+        theta = theta.reshape(1, T)
+    if theta.ndim != 2 or theta.shape[1] != T:
+        raise ValueError(
+            f"theta_block={T}: theta must be (m, {T}), got "
+            f"{theta.shape}")
+    return theta, theta[:, 0].copy()
+
+
+def theta_drain_chunk(breed_chunk: int, theta_block: int) -> int:
+    """The union-refinement drain's pop width: its exact segment sum
+    credits chunk * T rows per round, kept near 2^16."""
+    return max(1, min(breed_chunk, (1 << 16) // theta_block))
+
+
+def theta_breed_target(target: int, refill_slots: int, lanes: int,
+                       theta_block: int) -> int:
+    """Theta mode's breed target: split-only breeding finishes no work,
+    so it must not outrun one deal (R roots per theta group), or the
+    undealt remainder would grow every cycle."""
+    return min(target, max(1, refill_slots) * (lanes // theta_block))
+
+
+def _group_any(mask: torch.Tensor, theta_block: int) -> torch.Tensor:
+    """Any over each theta group of T adjacent lanes, broadcast back to
+    every lane of the group: the union vote."""
+    g = mask.reshape(-1, theta_block)
+    return g.any(dim=1, keepdim=True).expand(g.shape).reshape(mask.shape)
+
+
+def _theta_retired(s: "WalkState") -> torch.Tensor:
+    """Theta lanes retired for the group's current node: it lies in the
+    subtree of the lane's accept marker (mk_i, mk_d), set where the
+    lane's own test passed but its group split. DFS node indexes at any
+    depth only grow in visit order, so a stale marker never matches a
+    later subtree; a refill resets the markers."""
+    dd = s.d - s.mk_d
+    anc = s.i >> torch.clamp(dd, 0, 31)
+    return (s.mk_d >= 0) & (dd >= 0) & (anc == s.mk_i)
+
+
 class WalkState(NamedTuple):
     """Per-lane walker state, every field a (lanes,) tensor; lane l is
     the reference's (row, col) = divmod(l, 128). ``fm``/``fq`` are
     Simpson caches the trapezoid walk carries untouched; ``mk_i``/
-    ``mk_d`` are theta-block markers (0 / -1 here)."""
+    ``mk_d`` are theta mode's accept markers (0 / -1 when unset)."""
 
     a_h: torch.Tensor        # root left endpoint (ds, float32 limbs)
     a_l: torch.Tensor
@@ -221,8 +311,8 @@ class WalkState(NamedTuple):
     tasks: torch.Tensor      # int32 tasks evaluated by this lane
     splits: torch.Tensor     # int32
     maxd: torch.Tensor       # int32 max absolute depth seen
-    mk_i: torch.Tensor       # int32 theta marker (unused: 0)
-    mk_d: torch.Tensor       # int32 theta marker depth (unused: -1)
+    mk_i: torch.Tensor       # int32 theta accept marker node (0: unset)
+    mk_d: torch.Tensor       # int32 its depth (-1: unset)
 
 
 N_F32_FIELDS = 16            # the first 16 WalkState fields are float32
@@ -280,14 +370,37 @@ def _ctz(k: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _finish_step(s: WalkState, testing, split, val):
-    """Shared tail of both steps: credit, DFS advance, counters."""
-    do_split = testing & split
-    ovf = do_split & (s.d >= MAX_REL_DEPTH)
-    do_split = do_split & ~ovf
-    accept = testing & ~split
+def _finish_step(s: WalkState, testing, split, val, theta_block: int = 1,
+                 test_act=None):
+    """Shared tail of every step: credit, DFS advance, counters.
+
+    Outside theta mode a lane splits on its own ``split``, and a split
+    past MAX_REL_DEPTH parks it as OVF. In theta mode (T > 1; the
+    unretired testing lanes ``test_act``) the group splits when any of
+    its unretired lanes votes to, a split past the depth cap is accepted
+    by the whole group instead, each lane credits its own value where its
+    own test passed (or at the cap), and a lane that credits while its
+    group splits sets its accept marker."""
+    if theta_block > 1:
+        vote = test_act & split
+        do_split = testing & _group_any(vote, theta_block)
+        ovf_force = do_split & (s.d >= MAX_REL_DEPTH)
+        do_split = do_split & ~ovf_force
+        ovf = torch.zeros_like(do_split)
+        accept = testing & ~do_split
+        credit = test_act & (~split | ovf_force)
+        split_inc = vote & do_split
+        task_inc = test_act
+    else:
+        do_split = testing & split
+        ovf = do_split & (s.d >= MAX_REL_DEPTH)
+        do_split = do_split & ~ovf
+        accept = testing & ~split
+        credit = accept
+        split_inc = do_split
+        task_inc = testing
     z = torch.zeros_like(val[0])
-    acc = dsk.ds_add((s.acc_h, s.acc_l), dsk.ds_where(accept, val, (z, z)))
+    acc = dsk.ds_add((s.acc_h, s.acc_l), dsk.ds_where(credit, val, (z, z)))
     t = _ctz(s.i + 1)
     fin = accept & (t >= s.d)
     adv = accept & ~fin
@@ -297,13 +410,18 @@ def _finish_step(s: WalkState, testing, split, val):
                          torch.where(adv, s.d - t, s.d))
     counters = dict(
         acc_h=acc[0], acc_l=acc[1], i=i_next, d=d_next,
-        tasks=s.tasks + testing.to(torch.int32),
-        splits=s.splits + do_split.to(torch.int32),
+        tasks=s.tasks + task_inc.to(torch.int32),
+        splits=s.splits + split_inc.to(torch.int32),
         maxd=torch.maximum(s.maxd, torch.where(testing, s.base_d + s.d, 0)))
+    if theta_block > 1:
+        mark = do_split & credit
+        counters.update(mk_i=torch.where(mark, s.i, s.mk_i),
+                        mk_d=torch.where(mark, s.d, s.mk_d))
     return counters, do_split, adv, fin, ovf
 
 
-def _step_trap(s: WalkState, f_ds: Callable, eps32: float) -> WalkState:
+def _step_trap(s: WalkState, f_ds: Callable, eps32: float,
+               theta_block: int = 1) -> WalkState:
     """Trapezoid step: one eval per step through the INIT/LOAD modes."""
     parked = (s.flags & _PARKED) != 0
     mode_load = (s.flags & _MODE_LOAD) != 0
@@ -328,8 +446,10 @@ def _step_trap(s: WalkState, f_ds: Callable, eps32: float) -> WalkState:
     err = dsk.ds_abs(dsk.ds_sub(val, lr))
     split = (err[0] + err[1]) > eps32
     testing = live & ~(mode_load | mode_init)
+    test_act = testing & ~_theta_retired(s) if theta_block > 1 else None
 
-    upd, do_split, adv, fin, ovf = _finish_step(s, testing, split, val)
+    upd, do_split, adv, fin, ovf = _finish_step(s, testing, split, val,
+                                                theta_block, test_act)
     new_fl = dsk.ds_where(adv, fr, fl)
     new_fl = dsk.ds_where(mode_init, fq, new_fl)
     new_fr = dsk.ds_where(do_split, fq, fr)
@@ -345,10 +465,13 @@ def _step_trap(s: WalkState, f_ds: Callable, eps32: float) -> WalkState:
                       fr_l=new_fr[1], flags=flags, **upd)
 
 
-def _step_scout(s: WalkState, f_ds: Callable, eps32: float):
+def _step_scout(s: WalkState, f_ds: Callable, eps32: float,
+                theta_block: int = 1):
     """Scouting step: a float32 test of every live lane (endpoint loads
     fused in) and a full-ds confirm of every non-decisive decision, so
-    credit never carries float32 error. Returns (state, scout evals,
+    credit never carries float32 error. In theta mode retired lanes do
+    not confirm, and unretired lanes at the depth cap always do, so a
+    forced accept has a ds value to credit. Returns (state, scout evals,
     confirm evals) with the counts as 0-dim int32 tensors."""
     f_scout = scout_twin(f_ds)
     parked = (s.flags & _PARKED) != 0
@@ -379,7 +502,12 @@ def _step_scout(s: WalkState, f_ds: Callable, eps32: float):
 
     testing = live
     decisive = testing & (err32 > eps32 + band)
-    need_conf = testing & ~decisive
+    if theta_block > 1:
+        test_act = testing & ~_theta_retired(s)
+        need_conf = test_act & (~decisive | (s.d >= MAX_REL_DEPTH))
+    else:
+        test_act = None
+        need_conf = testing & ~decisive
     n_conf = dsk.mask_count(need_conf)
     if int(n_conf) > 0:
         g0 = f_ds(dsk.ds_where(need_conf, x0, benign), th)
@@ -398,7 +526,8 @@ def _step_scout(s: WalkState, f_ds: Callable, eps32: float):
         split_ds = torch.zeros_like(parked)
     split = torch.where(need_conf, split_ds, decisive)
 
-    upd, do_split, adv, fin, ovf = _finish_step(s, testing, split, val)
+    upd, do_split, adv, fin, ovf = _finish_step(s, testing, split, val,
+                                                theta_block, test_act)
     new_fl = dsk.ds_where(adv, fr_eff, fl_eff)
     new_fr = dsk.ds_where(do_split, f_m, fr_eff)
     flags = s.flags & ~(_MODE_INIT | _MODE_LOAD)
@@ -483,16 +612,19 @@ def _step_simpson(s: WalkState, f_ds: Callable, eps32: float) -> WalkState:
                       fq_h=new_fq[0], fq_l=new_fq[1], flags=flags, **upd)
 
 
-def _step(s: WalkState, f_ds: Callable, eps32: float, mode: int):
-    """One step of step machine ``mode``: ``(state, scout evals, confirm
-    evals)``, the counts 0-dim int32 tensors (zero outside scout
-    mode)."""
+def _step(s: WalkState, f_ds: Callable, eps32: float, mode: int,
+          theta_block: int = 1):
+    """One step of step machine ``mode`` (theta groups of ``theta_block``
+    lanes; Simpson has none): ``(state, scout evals, confirm evals)``,
+    the counts 0-dim int32 tensors (zero outside scout mode)."""
     if mode == STEP_SCOUT:
-        return _step_scout(s, f_ds, eps32)
+        return _step_scout(s, f_ds, eps32, theta_block)
     zero = torch.zeros((), dtype=torch.int32, device=s.i.device)
     if mode == STEP_SIMPSON:
+        if theta_block > 1:
+            raise ValueError("theta_block > 1 supports Rule.TRAPEZOID only")
         return _step_simpson(s, f_ds, eps32), zero, zero
-    return _step_trap(s, f_ds, eps32), zero, zero
+    return _step_trap(s, f_ds, eps32, theta_block), zero, zero
 
 
 def _takeable(s: WalkState, slot: torch.Tensor, nslots: torch.Tensor):
@@ -550,11 +682,14 @@ def _take(s: WalkState, slot, nslots, bank, resh, resl, resm):
 
 def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
                      batch: int, nslots, bank, resm, *, f_ds: Callable,
-                     eps: float, scout: bool, rule: Rule = Rule.TRAPEZOID):
+                     eps: float, scout: bool, rule: Rule = Rule.TRAPEZOID,
+                     theta_block: int = 1):
     """K1 in plain PyTorch: up to ``cap`` steps over all lanes. It runs
     while ``k == 0 or (k < cap and (live > thresh or nref > 0))``; each
     iteration refills first when ``nref >= batch or live <= thresh``,
     classifies every lane into the waste buckets, and takes one step.
+    With ``theta_block`` = T > 1 the steps vote in groups of T lanes,
+    and a live but retired lane's step counts as theta_overwalk.
 
     ``state``, ``slot`` and ``resm`` are updated in place. Returns
     ``(resh, resl, counters)``: this launch's (R, lanes) result banks and
@@ -568,7 +703,8 @@ def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
     resh = torch.zeros((R, lanes), dtype=torch.float32, device=dev)
     resl = torch.zeros((R, lanes), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    wa = wd = ws = wt = se = ce = zero
+    wa = wd = ws = wt = wo = se = ce = zero
+    T = int(theta_block)
 
     def counts():
         live = dsk.mask_count((st.flags & _PARKED) == 0)
@@ -586,11 +722,14 @@ def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
         live_n = dsk.mask_count(~parked)
         stall_n = dsk.mask_count(takeable)
         dead_n = dsk.mask_count(noroot & ~takeable)
-        wa = wa + live_n
+        over_n = (dsk.mask_count(~parked & _theta_retired(st)) if T > 1
+                  else zero)
+        wa = wa + live_n - over_n
         wd = wd + dead_n
         ws = ws + stall_n
         wt = wt + (lanes - live_n - stall_n - dead_n)
-        st, sc_n, cf_n = _step(st, f_ds, eps32, mode)
+        wo = wo + over_n
+        st, sc_n, cf_n = _step(st, f_ds, eps32, mode, T)
         se = se + sc_n
         ce = ce + cf_n
         live, nref = counts()
@@ -601,7 +740,7 @@ def segment_rf_plain(state: WalkState, slot, thresh: int, cap: int,
     for dst, src in zip(resm, rm):
         dst.copy_(src)
     counters = torch.stack([torch.full_like(zero, k), wa, wd, ws, wt,
-                            zero, se, ce]).to(torch.int32)
+                            wo, se, ce]).to(torch.int32)
     return resh, resl, counters
 
 
@@ -677,8 +816,10 @@ def segment_plain(state: WalkState, iters: int, *, f_ds: Callable,
 # ---------------------------------------------------------------------------
 
 _KERNEL_ERRORS = {
-    -2: "unknown integrand family or step machine",
-    -3: "lanes is not a multiple of the block size",
+    -2: "unknown integrand family or step machine (or Simpson with "
+        "theta_block > 1)",
+    -3: "lanes is not a multiple of the block size, or theta_block is "
+        "not a power of two dividing lanes",
     -4: "the grid cannot be co-resident on this card (cooperative launch "
         "refused; the grid is never shrunk)",
 }
@@ -699,14 +840,15 @@ def _device_index(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_blocks(kernel: str, family: int, mode: int, index: int) -> int:
+def _max_blocks(kernel: str, index: int, *variant: int) -> int:
     """Blocks of the cooperative ``kernel`` ("walk_rf" or "walk_ee")
     that card ``index`` holds at once (queried once per variant and card,
-    with that card current)."""
+    with that card current). ``variant`` is (family, mode), plus the
+    theta flag for K1."""
     from ppls_tpu_torch.utils import cuda_build
     lib = getattr(cuda_build, f"load_{kernel}")().lib
     with torch.cuda.device(index):
-        n = getattr(lib, f"{kernel}_max_coresident_blocks")(family, mode)
+        n = getattr(lib, f"{kernel}_max_coresident_blocks")(*variant)
     if n < 0:
         raise RuntimeError(f"{kernel}: the occupancy query failed")
     return n
@@ -765,26 +907,32 @@ def _cpu_or_cuda(what: str, device: torch.device) -> bool:
 
 def run_segment_rf(state: WalkState, slot, thresh: int, cap: int,
                    batch: int, nslots, bank, resm, *, f_ds: Callable,
-                   eps: float, scout: bool, rule: Rule = Rule.TRAPEZOID):
+                   eps: float, scout: bool, rule: Rule = Rule.TRAPEZOID,
+                   theta_block: int = 1):
     """One K1 segment launch. On a CUDA tensor this launches the
-    hand-written kernel (``csrc/walk_rf.cu``, built at first use) on the
-    current stream, or raises; on a CPU tensor it runs the plain
-    PyTorch segment :func:`segment_rf_plain`. Either way ``state``,
-    ``slot`` and ``resm`` are updated IN PLACE, and the return value is
-    ``(resh, resl, counters)`` as documented there. ``bank`` is the
-    7-tuple of (R, lanes) dealt root arrays and ``resm`` the
-    (resm_h, resm_l, resm_fam) sentinel row.
+    hand-written kernel (``csrc/walk_rf.cu``, built at first use; its
+    theta variant when ``theta_block`` > 1) on the current stream, or
+    raises; on a CPU tensor it runs the plain PyTorch segment
+    :func:`segment_rf_plain`. Either way ``state``, ``slot`` and
+    ``resm`` are updated IN PLACE, and the return value is ``(resh,
+    resl, counters)`` as documented there. ``bank`` is the 7-tuple of
+    (R, lanes) dealt root arrays and ``resm`` the (resm_h, resm_l,
+    resm_fam) sentinel row.
 
     ``run_segment_rf.launches`` counts kernel launches (plain runs do
     not count)."""
     device = state.a_h.device
+    T = int(theta_block)
+    lanes = state.a_h.shape[0]
+    if T > 1:
+        validate_theta_block(T, lanes=lanes, refill_slots=bank[0].shape[0],
+                             rule=rule, m=1)
     if _cpu_or_cuda("K1", device):
         return segment_rf_plain(state, slot, thresh, cap, batch, nslots,
                                 bank, resm, f_ds=f_ds, eps=eps,
-                                scout=scout, rule=rule)
+                                scout=scout, rule=rule, theta_block=T)
     family, mode = _kernel_family(f_ds), step_mode(rule, scout)
     R = bank[0].shape[0]
-    lanes = state.a_h.shape[0]
     bank_names = ("a_h", "a_l", "w_h", "w_l", "th_h", "th_l", "meta")
     extra = ([("slot", slot, torch.int32, (lanes,)),
               ("nslots", nslots, torch.int32, (lanes,)),
@@ -803,12 +951,14 @@ def run_segment_rf(state: WalkState, slot, thresh: int, cap: int,
     resl = torch.zeros((R, lanes), dtype=torch.float32, device=device)
     counters = torch.zeros(8, dtype=torch.int32, device=device)
     sync = torch.zeros(6, dtype=torch.int32, device=device)
+    votes = torch.zeros(3 * (lanes // T), dtype=torch.int32, device=device)
     ptrs = _pointer_table((*state, nslots, slot, *bank, *resm, resh, resl,
-                           counters, sync), device)
-    max_blocks = _max_blocks("walk_rf", family, mode, _device_index(device))
+                           counters, sync, votes), device)
+    max_blocks = _max_blocks("walk_rf", _device_index(device), family, mode,
+                             int(T > 1))
     _launch("K1", device, lambda stream: lib.walk_rf_launch(
         ptrs.data_ptr(), lanes, R, family, mode, f32(eps), int(thresh),
-        int(cap), int(batch), max_blocks, stream))
+        int(cap), int(batch), T, max_blocks, stream))
     run_segment_rf.launches += 1
     return resh, resl, counters
 
@@ -842,7 +992,7 @@ def run_segment_ee(state: WalkState, thresh: int, cap: int, *,
     ctr = torch.zeros(7, dtype=torch.int32, device=device)
     sync = torch.zeros(3, dtype=torch.int32, device=device)
     ptrs = _pointer_table((*state, ctr, sync), device)
-    max_blocks = _max_blocks("walk_ee", family, mode, _device_index(device))
+    max_blocks = _max_blocks("walk_ee", _device_index(device), family, mode)
     _launch("K2", device, lambda stream: lib.walk_ee_launch(
         ptrs.data_ptr(), lanes, family, mode, f32(eps), int(thresh),
         int(cap), max_blocks, stream))
@@ -888,11 +1038,15 @@ run_segment.launches = 0
 
 
 def walker_sizing(lanes: int, roots_per_lane: int, capacity: int,
-                  chunk: int):
+                  chunk: int, theta_block: int = 1):
     """``(target, breed_chunk, slack_chunk)``: the breed root target,
     the breeding pop width, and the store slack that keeps the bag's
-    push windows and the expand-pending grid from ever clamping."""
-    target = min(roots_per_lane * lanes, capacity // 2)
+    push windows and the expand-pending grid from ever clamping. In
+    theta mode each frontier root feeds a group of T lanes, so the
+    target is ``roots_per_lane * lanes / T``; the slack keeps its lane
+    count."""
+    target = min(roots_per_lane * (lanes // int(theta_block)),
+                 capacity // 2)
     breed_chunk = max(1 << int(target - 1).bit_length(), chunk)
     slack_chunk = max(
         breed_chunk, -(-(MAX_REL_DEPTH + 1 + roots_per_lane) * lanes // 2))
@@ -912,12 +1066,13 @@ def _breed(bag: BagState, *, f_theta, eps, chunk, capacity, target, rule,
 
 
 def _breed_and_sort(bag: BagState, *, f_theta, eps, capacity, rule,
-                    breed_chunk, target, syncs):
+                    breed_chunk, target, syncs, breed_eps=None):
     """Graduated breed (rising chunk widths bound each round's wasted
-    lanes ~2x) up to ``target`` roots, then the work sort of the queue
-    top. Returns ``(bred, scored_rows)``."""
-    bkw = dict(f_theta=f_theta, eps=eps, capacity=capacity, rule=rule,
-               syncs=syncs)
+    lanes ~2x) up to ``target`` roots at ``breed_eps`` (default
+    ``eps``; -1 splits every row), then the work sort of the queue top
+    at ``eps``. Returns ``(bred, scored_rows)``."""
+    bkw = dict(f_theta=f_theta, eps=eps if breed_eps is None else breed_eps,
+               capacity=capacity, rule=rule, syncs=syncs)
     for pc in (1 << 14, 1 << 16, 1 << 18):
         if pc < breed_chunk:
             bag = _breed(bag, chunk=pc, target=min(pc // 2, target), **bkw)
@@ -963,7 +1118,8 @@ def _order_roots_by_work(bag: BagState, *, f_theta, eps, rule, window,
 
 
 def deal_root_bank(bag: BagState, *, refill_slots: int, lanes: int,
-                   min_active: int, offset: int = 0):
+                   min_active: int, offset: int = 0, theta_block: int = 1,
+                   theta_table: Optional[torch.Tensor] = None):
     """Deal the top ``min(count - offset, R*lanes)`` work-sorted roots
     round-robin into per-lane root banks: root p (biggest-first off the
     queue top) goes to lane p % lanes, slot p // lanes. A queue below
@@ -971,9 +1127,19 @@ def deal_root_bank(bag: BagState, *, refill_slots: int, lanes: int,
     dealt)``: the 7-tuple of (R, lanes) bank arrays (ds limbs of left
     endpoint, width and theta, plus the meta word), the per-lane dealt
     counts, the dealt root count, and the flat (R*lanes,) dealt columns
-    (l, r, th, meta)."""
+    (l, r, th, meta).
+
+    Theta mode (``theta_block`` = T > 1): the queue holds frontier roots
+    and the top ``min(count - offset, R * lanes/T)`` go round-robin over
+    the lanes/T theta groups (root p to group p % G, slot p // G), each
+    replicated over its group's T lanes with lane theta
+    ``theta_table[fam, lane % T]`` (float64, (m, T)) and credit id
+    fam * T + lane % T in the meta word. ``navail``, ``offset`` and
+    ``min_active`` count frontier roots; ``dealt`` is lane-expanded."""
     R = int(refill_slots)
-    cap_roots = R * lanes
+    T = int(theta_block)
+    G = lanes // T
+    cap_roots = R * G
     dev = bag.bag_l.device
     top = bag.count - offset
     navail = min(top, cap_roots) if top >= min_active else 0
@@ -988,12 +1154,31 @@ def deal_root_bank(bag: BagState, *, refill_slots: int, lanes: int,
     p_ids = torch.arange(cap_roots, dtype=torch.int32, device=dev)
     dmeta = torch.where(p_ids < navail, dmeta, 0)
 
+    if T > 1:
+        def expand(col):
+            return col.reshape(R, G, 1).expand(R, G, T).reshape(-1)
+
+        dl, dr = expand(dl), expand(dr)
+        fam_p = (dmeta >> DEPTH_BITS).to(torch.int64)
+        dep_p = dmeta & DEPTH_MASK
+        tidx = torch.arange(T, dtype=torch.int64, device=dev)
+        dth = theta_table[fam_p[:, None], tidx[None, :]].reshape(-1)
+        famp = fam_p[:, None].to(torch.int32) * T + tidx[None, :].to(
+            torch.int32)
+        dmeta = ((famp << DEPTH_BITS) + dep_p[:, None]).reshape(-1)
+        p_e = torch.div(torch.arange(R * lanes, dtype=torch.int32,
+                                     device=dev), T, rounding_mode="floor")
+        dmeta = torch.where(p_e < navail, dmeta, 0)
+
     limbs = [t.reshape(R, lanes) for x in (dl, dr - dl, dth)
              for t in ds_from_f64(x)]
     bank = (*limbs, dmeta.reshape(R, lanes))
-    lane_ids = torch.arange(lanes, dtype=torch.int32, device=dev)
+    # group g (lane l in theta mode: g = l // T) holds ceil((navail - g)
+    # / G) roots
+    g_ids = torch.div(torch.arange(lanes, dtype=torch.int32, device=dev), T,
+                      rounding_mode="floor")
     nslots = torch.clamp(
-        torch.div(navail - lane_ids + lanes - 1, lanes,
+        torch.div(navail - g_ids + G - 1, G,
                   rounding_mode="floor"), 0, R).to(torch.int32)
     return bank, nslots, navail, (dl, dr, dth, dmeta)
 
@@ -1011,7 +1196,8 @@ class _WalkOut:
     seg_stats: np.ndarray     # (S_CAP, 4) per-segment stats ring
     waste: np.ndarray         # (N_WASTE,) int64 lane-steps
     evals: np.ndarray         # (2,) int64 scout / confirm evals
-    taken: int                # roots consumed this phase
+    taken: int                # roots consumed this phase (frontier roots
+    #                           in theta mode)
     # in-kernel refill only (None with boundary refill):
     slot: Optional[torch.Tensor] = None     # roots taken per lane
     nslots: Optional[torch.Tensor] = None   # roots dealt per lane
@@ -1029,7 +1215,8 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
                             max_segments, min_active_frac, exit_frac,
                             suspend_frac, lanes, gsegs0, seg_stats0,
                             rule, refill_slots, scout, double_buffer,
-                            syncs) -> _WalkOut:
+                            syncs, theta_block: int = 1,
+                            theta_table=None) -> _WalkOut:
     """One walk phase with in-kernel refill: deal the work-sorted queue
     into per-lane banks, launch K1 until the banks are dry and
     occupancy is at the suspension floor (or the step budget is spent),
@@ -1039,13 +1226,25 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
     every lane has consumed the active half and the queue still has
     roots, the retiring half is credited, the shadow half shifts down
     and a fresh shadow half is dealt, so one phase consumes the whole
-    sorted queue."""
+    sorted queue.
+
+    Theta mode (T > 1): the engagement floor counts frontier roots, the
+    suspension floor is 0 (a root suspended mid-walk would lose its
+    lanes' accept markers, so every engaged root runs to completion),
+    taken counts are in frontier roots, and credit goes to m * T ids."""
     R = int(refill_slots)
+    T = int(theta_block)
+    m_eff = m * T
     dev = bag.bag_l.device
     cap_roots = R * lanes
-    min_active = int(lanes * min_active_frac)
-    floor = max(min_active, int(lanes * suspend_frac))
+    if T > 1:
+        min_active = max(1, int((lanes // T) * min_active_frac))
+        floor = 0
+    else:
+        min_active = int(lanes * min_active_frac)
+        floor = max(min_active, int(lanes * suspend_frac))
     batch = max(lanes - int(lanes * exit_frac), 1)
+    tkw = dict(theta_block=T, theta_table=theta_table)
     step_budget = max_segments * seg_iters
     top = bag.count
     f64 = torch.float64
@@ -1055,7 +1254,7 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
     resh = torch.zeros((R, lanes), dtype=torch.float32, device=dev)
     resl = torch.zeros((R, lanes), dtype=torch.float32, device=dev)
     resm = _fresh_sentinel(lanes, dev)
-    acc_sw = torch.zeros(m, dtype=f64, device=dev)
+    acc_sw = torch.zeros(m_eff, dtype=f64, device=dev)
     waste = np.zeros(N_WASTE, dtype=np.int64)
     evals = np.zeros(2, dtype=np.int64)
     stats = seg_stats0
@@ -1064,28 +1263,29 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
 
     if double_buffer:
         Rh = R // 2
-        half_roots = Rh * lanes
+        half_roots = Rh * lanes            # lane-expanded rows per half
+        half_deal = Rh * (lanes // T)      # frontier roots per half
         bank_a, nsl_a, navail_a, dealt_a = deal_root_bank(
-            bag, refill_slots=Rh, lanes=lanes, min_active=min_active)
+            bag, refill_slots=Rh, lanes=lanes, min_active=min_active, **tkw)
         # the first shadow half only behind a FULL active half
-        gate_s = 1 if navail_a == half_roots else 1 << 30
+        gate_s = 1 if navail_a == half_deal else 1 << 30
         bank_s, nsl_s, navail_s, dealt_s = deal_root_bank(
             bag, refill_slots=Rh, lanes=lanes, min_active=gate_s,
-            offset=navail_a)
+            offset=navail_a, **tkw)
         bank = tuple(torch.cat([a, b]) for a, b in zip(bank_a, bank_s))
         nslots = nsl_a + nsl_s
         dealt = tuple(torch.cat([a, b]) for a, b in zip(dealt_a, dealt_s))
         consumed = navail_a + navail_s
     else:
         bank, nslots, consumed, dealt = deal_root_bank(
-            bag, refill_slots=R, lanes=lanes, min_active=min_active)
+            bag, refill_slots=R, lanes=lanes, min_active=min_active, **tkw)
 
     live, _, _, nref = syncs.pull(_lane_summary(s, slot, nslots))
     while steps < step_budget and (live > floor or nref > 0):
         cap = min(max(step_budget - steps, 1), seg_iters)
         rh, rl, ctr = run_segment_rf(s, slot, floor, cap, batch, nslots,
                                      bank, resm, f_ds=f_ds, eps=eps,
-                                     scout=scout, rule=rule)
+                                     scout=scout, rule=rule, theta_block=T)
         resh += rh
         resl += rl
         summary = syncs.pull(torch.cat([ctr.to(torch.int64),
@@ -1093,11 +1293,12 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
         waste += summary[1:1 + N_WASTE]
         evals += summary[1 + N_WASTE:3 + N_WASTE]
         si, live, min_slot, sum_slot, nref = (summary[0], *summary[8:])
-        taken2 = retired + sum_slot
+        taken2 = retired + sum_slot      # lane-expanded in theta mode
         # queue left at launch: the undealt queue (rolling deal) or the
-        # untaken dealt roots (single deal), as the reference records
-        row = (si, live, top - (consumed if double_buffer else taken),
-               taken2 - taken)
+        # untaken dealt roots (single deal), as the reference records,
+        # in frontier roots
+        row = (si, live, top - (consumed if double_buffer else taken // T),
+               (taken2 - taken) // T)
         stats[min(gsegs, S_CAP - 1)] = row
         taken = taken2
         steps += si
@@ -1111,11 +1312,11 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
             contrib = torch.cat([
                 ds_to_f64((resh[:Rh], resl[:Rh])).reshape(-1),
                 ds_to_f64(resm)])
-            acc_sw = acc_sw + segment_sum_auto(ids, contrib, m,
+            acc_sw = acc_sw + segment_sum_auto(ids, contrib, m_eff,
                                                half_roots + lanes)
             bank_n, nsl_n, navail_n, dealt_n = deal_root_bank(
                 bag, refill_slots=Rh, lanes=lanes, min_active=1,
-                offset=consumed)
+                offset=consumed, **tkw)
             bank = tuple(torch.cat([b[Rh:], bn])
                          for b, bn in zip(bank, bank_n))
             nslots = (nslots - Rh) + nsl_n
@@ -1133,7 +1334,7 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
     acc0 = acc_sw
     if double_buffer:
         # the last uncredited sentinel bankings
-        acc0 = acc_sw + segment_sum_auto(resm[2], ds_to_f64(resm), m,
+        acc0 = acc_sw + segment_sum_auto(resm[2], ds_to_f64(resm), m_eff,
                                          lanes)
 
     # phase-end credit: completed roots from the result bank (ids from
@@ -1144,11 +1345,11 @@ def _run_walk_kernel_refill(bag: BagState, *, f_ds, eps, m, seg_iters,
     grid_contrib = ds_to_f64((resh, resl)).reshape(-1)
     ids = torch.cat([s.fam, dealt[3] >> DEPTH_BITS])
     contrib = torch.cat([lane_contrib, grid_contrib])
-    acc = acc0 + segment_sum_auto(ids, contrib, m, lanes + cap_roots)
+    acc = acc0 + segment_sum_auto(ids, contrib, m_eff, lanes + cap_roots)
     return _WalkOut(lanes=s, cursor=consumed, acc=acc, segs=segs,
                     steps=steps, gsegs=gsegs, seg_stats=stats, waste=waste,
                     evals=evals, slot=slot, nslots=nslots, dealt=dealt,
-                    taken=taken)
+                    taken=taken // T)
 
 
 def _bank_and_refill(s: WalkState, acc: torch.Tensor, bag: BagState,
@@ -1302,7 +1503,7 @@ def _run_walk(bag: BagState, *, f_ds, eps, m, seg_iters, max_segments,
 
 
 def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
-                    syncs: HostSyncs) -> BagState:
+                    syncs: HostSyncs, theta_block: int = 1) -> BagState:
     """Convert un-walked state back into explicit bag tasks, in place.
 
     Roots were dealt off the TOP of the bag, so the never-dealt
@@ -1311,13 +1512,24 @@ def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
     sibling (i >> k) + 1 at depth d - k for every zero bit k < d) and,
     after an in-kernel-refill phase, the dealt roots a lane never
     reached are compacted with one stable sort and pushed on top of
-    it."""
+    it.
+
+    Theta mode (T > 1; ``m`` is then m * T): pending nodes and untaken
+    dealt roots come from the group leaders (lane % T == 0) only and go
+    back as frontier rows (family fam // T, the leader's theta). A
+    suspended theta lane means the step budget ran out mid-root, whose
+    retired lanes' markers would be lost: it sets ``overflow``."""
     s = walk.lanes
     dev = s.i.device
+    T = int(theta_block)
     has_root = (s.flags & _NO_ROOT) == 0
     parked = (s.flags & _PARKED) != 0
     ovf = (s.flags & _OVF) != 0
     suspended = (has_root & ~parked) | ovf
+    theta_suspended = suspended.any()
+    if T > 1:
+        leader = torch.arange(s.i.shape[0], device=dev) % T == 0
+        suspended = suspended & leader
 
     f64 = torch.float64
     a64 = ds_to_f64((s.a_h, s.a_l))
@@ -1336,7 +1548,8 @@ def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
     wd = w64[None, :] * pow2_f64(-node_d)
     ln = a64[None, :] + node_i.to(f64) * wd
     rn = ln + wd
-    meta_n = ((s.fam[None, :] << DEPTH_BITS)
+    fam_l = torch.div(s.fam, T, rounding_mode="floor")
+    meta_n = ((fam_l[None, :] << DEPTH_BITS)
               + torch.clamp(s.base_d[None, :] + node_d, max=DEPTH_MASK))
     th_n = th[None, :].expand_as(ln)
 
@@ -1346,17 +1559,24 @@ def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
         Rk = walk.dealt[3].shape[0] // lanes
         kk = torch.arange(Rk, dtype=torch.int32, device=dev)[:, None]
         valid_u = (kk >= walk.slot[None, :]) & (kk < walk.nslots[None, :])
+        dealt_meta = walk.dealt[3].reshape(Rk, lanes)
+        if T > 1:
+            valid_u = valid_u & leader[None, :]
+            dealt_meta = ((torch.div(dealt_meta >> DEPTH_BITS, T,
+                                     rounding_mode="floor") << DEPTH_BITS)
+                          + (dealt_meta & DEPTH_MASK))
         ln = torch.cat([ln, walk.dealt[0].reshape(Rk, lanes)])
         rn = torch.cat([rn, walk.dealt[1].reshape(Rk, lanes)])
         th_n = torch.cat([th_n, walk.dealt[2].reshape(Rk, lanes)])
-        meta_n = torch.cat([meta_n, walk.dealt[3].reshape(Rk, lanes)])
+        meta_n = torch.cat([meta_n, dealt_meta])
         valid = torch.cat([valid, valid_u])
 
     key = (~valid).reshape(-1).to(torch.int32)
     _, order = torch.sort(key, stable=True)
     sl, sr, sth, smeta = (x.reshape(-1)[order]
                           for x in (ln, rn, th_n, meta_n))
-    n_pend = int(syncs.pull(valid.sum()))
+    n_pend, any_suspended = syncs.pull(torch.stack([
+        valid.sum(), theta_suspended.to(torch.int64)]))
     remain = bag.count - walk.cursor
     live_row = torch.arange(sl.shape[0], device=dev) < n_pend
     sl = torch.where(live_row, sl, sl[0])
@@ -1373,7 +1593,95 @@ def _expand_pending(walk: _WalkOut, bag: BagState, capacity: int, m: int,
         bag_meta=bag.bag_meta, count=min(n_tasks, capacity),
         acc=torch.zeros(m, dtype=f64, device=dev),
         max_depth=torch.zeros((), dtype=torch.int32, device=dev),
-        overflow=n_tasks > capacity)
+        overflow=n_tasks > capacity or (T > 1 and bool(any_suspended)))
+
+
+def _theta_bag_round(state: BagState, theta_table: torch.Tensor,
+                     theta_block: int, f_theta: Callable, eps: float,
+                     chunk: int, capacity: int,
+                     syncs: HostSyncs) -> BagState:
+    """One union-refinement float64 bag round, theta mode's
+    :func:`bag_step`: each popped frontier row tests its 3 trapezoid
+    nodes against all T thetas of its slot (``theta_table[fam]``),
+    splits when any theta fails its own test, and on acceptance credits
+    every theta its own value at id fam * T + t (exact segment sum).
+    Pushed rows stay theta-less frontier tasks. Tasks count n_take * T
+    and splits the per-theta failures."""
+    T = int(theta_block)
+    m_eff = state.acc.shape[0]
+    n_take = min(state.count, chunk)
+    start = state.count - n_take
+    dev = state.bag_l.device
+    l = dyn_slice(state.bag_l, start, chunk)
+    r = dyn_slice(state.bag_r, start, chunk)
+    th = dyn_slice(state.bag_th, start, chunk)
+    meta = dyn_slice(state.bag_meta, start, chunk)
+    active = torch.arange(chunk, dtype=torch.int32, device=dev) < n_take
+
+    fam = meta >> DEPTH_BITS
+    depth = meta & DEPTH_MASK
+    th2 = theta_table[torch.clamp(fam, 0, theta_table.shape[0] - 1).to(
+        torch.int64)]                                      # (chunk, T)
+    mid = (l + r) * 0.5
+    fl = f_theta(l[:, None], th2)
+    fr = f_theta(r[:, None], th2)
+    fm = f_theta(mid[:, None], th2)
+    lrarea = (fl + fr) * ((r - l) * 0.5)[:, None]
+    larea = (fl + fm) * ((mid - l) * 0.5)[:, None]
+    rarea = (fm + fr) * ((r - mid) * 0.5)[:, None]
+    value = larea + rarea
+    err = torch.abs(value - lrarea)
+    split_t = err > eps
+    split = split_t.any(dim=1) & active
+    accept = active & ~split
+
+    leaf = torch.where(accept[:, None], value, 0.0)
+    tids = fam[:, None] * T + torch.arange(T, dtype=torch.int32,
+                                           device=dev)[None, :]
+    acc = state.acc + segment_sum_auto(tids.reshape(-1), leaf.reshape(-1),
+                                       m_eff, chunk * T)
+    max_depth = torch.maximum(
+        state.max_depth,
+        torch.max(torch.where(active, depth, 0)).to(torch.int32))
+
+    # children: bag_step's compaction and two child windows
+    skey = torch.where(split, meta, meta | ACCEPT_BIT)
+    skey, order = torch.sort(skey, stable=True)
+    sl, sr, sth = l[order], r[order], th[order]
+    smid = (sl + sr) * 0.5
+    ch_meta = (skey & ~ACCEPT_BIT) + 1
+    n_split, n_split_t = syncs.pull(torch.stack([
+        split.sum(dtype=torch.int64),
+        (split_t & active[:, None]).sum(dtype=torch.int64)]))
+    mid_start = start + n_split
+    dyn_update(state.bag_l, sl, start)
+    dyn_update(state.bag_l, smid, mid_start)
+    dyn_update(state.bag_r, smid, start)
+    dyn_update(state.bag_r, sr, mid_start)
+    dyn_update(state.bag_th, sth, start)
+    dyn_update(state.bag_th, sth, mid_start)
+    dyn_update(state.bag_meta, ch_meta, start)
+    dyn_update(state.bag_meta, ch_meta, mid_start)
+    new_count_raw = start + 2 * n_split
+    return dataclasses.replace(
+        state, count=min(new_count_raw, capacity), acc=acc,
+        tasks=state.tasks + n_take * T, splits=state.splits + n_split_t,
+        iters=state.iters + 1, max_depth=max_depth,
+        overflow=state.overflow or new_count_raw > capacity)
+
+
+def _run_theta_bag(state: BagState, *, theta_table, theta_block: int,
+                   f_theta: Callable, eps: float, chunk: int,
+                   capacity: int, max_iters: int, syncs: HostSyncs,
+                   stop_count: Optional[int] = None) -> BagState:
+    """Union-refinement rounds (theta mode's :func:`run_bag`) to empty,
+    to ``stop_count`` tasks, or ``max_iters`` rounds."""
+    while (state.count > 0 and not state.overflow
+           and state.iters < max_iters
+           and (stop_count is None or state.count < stop_count)):
+        state = _theta_bag_round(state, theta_table, theta_block, f_theta,
+                                 eps, chunk, capacity, syncs)
+    return state
 
 
 @dataclasses.dataclass
@@ -1388,15 +1696,26 @@ class _CycleOut:
 def _cycle_once(bag: BagState, *, f_theta, f_ds, eps, m, seg_iters,
                 max_segments, min_active_frac, exit_frac, suspend_frac,
                 lanes, capacity, breed_chunk, target, rule, refill_slots,
-                gsegs0, seg_stats0, scout, double_buffer,
-                syncs) -> _CycleOut:
+                gsegs0, seg_stats0, scout, double_buffer, syncs,
+                theta_block: int = 1, theta_table=None) -> _CycleOut:
     """One engine cycle: graduated breed -> work sort -> walk (in-kernel
     refill when ``refill_slots`` > 0, boundary refill otherwise) ->
     expand -> drain (only below the walker's engagement floor, and only
-    until the frontier regrows past the root target)."""
+    until the frontier regrows past the root target).
+
+    Theta mode (T > 1): the bag holds theta-less frontier rows; breeding
+    only splits (eps -1, the target clamped to one deal: a breed accept
+    scored on the representative theta could strand another theta above
+    its eps), the walk runs the union vote, and the drain is the
+    union-refinement float64 round with its pop width clamped
+    (:func:`theta_drain_chunk`); ``m`` stays the slot count."""
+    T = int(theta_block)
+    if T > 1:
+        target = theta_breed_target(target, refill_slots, lanes, T)
     bred, srows = _breed_and_sort(
         bag, f_theta=f_theta, eps=eps, capacity=capacity, rule=rule,
-        breed_chunk=breed_chunk, target=target, syncs=syncs)
+        breed_chunk=breed_chunk, target=target, syncs=syncs,
+        breed_eps=-1.0 if T > 1 else eps)
     wkw = dict(f_ds=f_ds, eps=eps, m=m, seg_iters=seg_iters,
                max_segments=max_segments, min_active_frac=min_active_frac,
                exit_frac=exit_frac, suspend_frac=suspend_frac, lanes=lanes,
@@ -1404,15 +1723,23 @@ def _cycle_once(bag: BagState, *, f_theta, f_ds, eps, m, seg_iters,
                syncs=syncs)
     if refill_slots:
         walk = _run_walk_kernel_refill(bred, refill_slots=refill_slots,
-                                       double_buffer=double_buffer, **wkw)
+                                       double_buffer=double_buffer,
+                                       theta_block=T,
+                                       theta_table=theta_table, **wkw)
     else:
         walk = _run_walk(bred, **wkw)
-    bag2 = _expand_pending(walk, bred, capacity, m, syncs)
+    bag2 = _expand_pending(walk, bred, capacity, m * T, syncs, T)
     bag3 = bag2
-    if bag2.count < max(1, int(lanes * min_active_frac)):
-        bag3 = run_bag(bag2, f_theta=f_theta, eps=eps, rule=rule,
-                       chunk=breed_chunk, capacity=capacity,
-                       max_iters=1 << 20, syncs=syncs, stop_count=target)
+    if bag2.count < max(1, int((lanes // T) * min_active_frac)):
+        dkw = dict(f_theta=f_theta, eps=eps, capacity=capacity,
+                   max_iters=1 << 20, syncs=syncs, stop_count=target)
+        if T > 1:
+            bag3 = _run_theta_bag(bag2, theta_table=theta_table,
+                                  theta_block=T,
+                                  chunk=theta_drain_chunk(breed_chunk, T),
+                                  **dkw)
+        else:
+            bag3 = run_bag(bag2, rule=rule, chunk=breed_chunk, **dkw)
     return _CycleOut(bred=bred, walk=walk, bag3=bag3,
                      bag2_count=bag2.count, srows=srows)
 
@@ -1541,10 +1868,13 @@ def integrate_family_walker(
     walks with boundary refill (K2), R > 0 with in-kernel refill (K1);
     the root sort always runs (the reference's
     ``sort_roots``/``sort_skip_ratio`` are fixed at their defaults) and
-    a non-finite area always raises (no ``nan_policy``)."""
+    a non-finite area always raises (no ``nan_policy``).
+
+    ``theta_block`` = T > 1 (in-kernel refill, trapezoid rule) takes
+    ``theta`` as (m, T) (or (T,) for m = 1): groups of T lanes walk each
+    interval for T thetas under the union vote, and ``areas`` come back
+    (m, T)."""
     dev = resolve_device(device)
-    if int(theta_block) != 1:
-        raise _not_ported("theta_block > 1", "Queue 2, K1 theta mode")
     if lanes % 128:
         raise ValueError(f"lanes must be a multiple of 128, got {lanes}")
     if refill_slots < 0 or refill_slots > roots_per_lane:
@@ -1554,17 +1884,20 @@ def integrate_family_walker(
     validate_double_buffer(double_buffer, refill_slots)
     exit_frac, suspend_frac = resolve_cadence(exit_frac, suspend_frac,
                                               scout, refill_slots)
-    theta, bounds = _family_problem(theta, bounds)
-    m = theta.shape[0]
+    theta2d, rep_theta = normalize_theta_batch(theta, theta_block)
+    m = theta2d.shape[0]
+    T = validate_theta_block(theta_block, lanes=lanes,
+                             refill_slots=refill_slots, rule=rule, m=m)
+    rep_theta, bounds = _family_problem(rep_theta, bounds)
     # ds transcendentals return silently wrong values outside their
-    # Cody-Waite ranges: refuse up front
-    check_ds_domain(f_ds, bounds, theta)
+    # Cody-Waite ranges: refuse up front, for every theta of every slot
+    check_ds_domain(f_ds, np.repeat(bounds, T, axis=0), theta2d.reshape(-1))
     target, breed_chunk, slack_chunk = walker_sizing(
-        lanes, roots_per_lane, capacity, chunk)
+        lanes, roots_per_lane, capacity, chunk, T)
 
     syncs = HostSyncs()
     t0 = time.perf_counter()
-    bag = initial_bag(bounds, capacity, m, slack_chunk, theta=theta,
+    bag = initial_bag(bounds, capacity, m * T, slack_chunk, theta=rep_theta,
                       device=dev)
     ckw = dict(f_theta=f_theta, f_ds=f_ds, eps=float(eps), m=m,
                seg_iters=int(seg_iters), max_segments=int(max_segments),
@@ -1573,9 +1906,12 @@ def integrate_family_walker(
                lanes=int(lanes), capacity=int(capacity),
                breed_chunk=int(breed_chunk), target=int(target),
                rule=Rule(rule), refill_slots=int(refill_slots),
-               scout=scout, double_buffer=bool(double_buffer), syncs=syncs)
+               scout=scout, double_buffer=bool(double_buffer), syncs=syncs,
+               theta_block=T,
+               theta_table=(torch.tensor(theta2d, dtype=torch.float64,
+                                         device=dev) if T > 1 else None))
     f64 = torch.float64
-    acc = torch.zeros(m, dtype=f64, device=dev)
+    acc = torch.zeros(m * T, dtype=f64, device=dev)
     tot = dict(tasks=0, splits=0, btasks=0, wtasks=0, wsplits=0, roots=0,
                rounds=0, segs=0, wsteps=0, srows=0, maxd=0)
     waste = np.zeros(N_WASTE, dtype=np.int64)
@@ -1624,14 +1960,21 @@ def integrate_family_walker(
     wall = time.perf_counter() - t0
 
     if overflow:
-        raise RuntimeError("walker bag overflowed; raise capacity")
+        raise RuntimeError(
+            "walker bag overflowed; raise capacity (on theta_block "
+            "runs this also fires when a walk phase's step budget "
+            "expired mid-root — raise max_segments/seg_iters; see "
+            "_expand_pending's theta-suspension note)")
     if bag.count > 0:
         raise RuntimeError(f"walker did not converge in {cycles} cycles "
                            f"({bag.count} tasks left); raise max_cycles")
     if not np.all(np.isfinite(areas)):
         raise FloatingPointError(
-            f"walker produced {int(np.sum(~np.isfinite(areas)))}/{m} "
-            f"non-finite areas (NaN/inf); refusing to report them")
+            f"walker produced {int(np.sum(~np.isfinite(areas)))}/"
+            f"{areas.size} non-finite areas (NaN/inf); refusing to report "
+            f"them")
+    if T > 1:
+        areas = areas.reshape(m, T)     # one row of T areas per slot
     tasks, wtasks = tot["tasks"], tot["wtasks"]
     sevals, cevals = int(evals[0]), int(evals[1])
     # kernel evals are device-counted: scout + confirm in scout mode,
@@ -1668,32 +2011,54 @@ def first_phase_inputs(f_theta: Callable, theta, bounds, eps: float, *,
                        lanes: int, roots_per_lane: int, refill_slots: int,
                        capacity: int, scout: bool,
                        rule: Rule = Rule.TRAPEZOID,
-                       min_active_frac: float = 0.1, device="cuda"):
+                       min_active_frac: float = 0.1, theta_block: int = 1,
+                       device="cuda"):
     """The kernel operands of a run's first walk phase: breed and
     work-sort as :func:`integrate_family_walker` does, with the
     exit/suspension cadence it resolves for ``scout``, then
 
     * ``refill_slots`` = R > 0 (K1, single deal): deal the banks.
       Returns ``state``, ``slot``, ``nslots``, ``bank``, ``resm``,
-      ``thresh`` (the suspension floor) and ``batch``;
+      ``thresh`` (the suspension floor), ``batch`` and ``theta_block``;
+      with ``theta_block`` = T > 1 (``theta`` (m, T)) the bank is a
+      theta bank and ``thresh`` is 0;
     * ``refill_slots=0`` (K2 and K3): seed every lane off the queue top
       (the first ``_bank_and_refill``). Returns ``state`` and ``thresh``
       (the exit threshold of a segment with roots left).
 
     What the kernel-versus-plain checks feed both versions."""
     dev = resolve_device(device)
-    theta, bounds = _family_problem(theta, bounds)
+    theta2d, rep_theta = normalize_theta_batch(theta, theta_block)
+    m = theta2d.shape[0]
+    T = validate_theta_block(theta_block, lanes=lanes,
+                             refill_slots=refill_slots, rule=rule, m=m)
+    theta, bounds = _family_problem(rep_theta, bounds)
     exit_frac, suspend_frac = resolve_cadence(None, None, scout,
                                               refill_slots)
     target, breed_chunk, slack_chunk = walker_sizing(   # default chunk
-        lanes, roots_per_lane, capacity, 1 << 15)
-    m = theta.shape[0]
-    bag = initial_bag(bounds, capacity, m, slack_chunk, theta=theta,
+        lanes, roots_per_lane, capacity, 1 << 15, T)
+    if T > 1:
+        target = theta_breed_target(target, refill_slots, lanes, T)
+    bag = initial_bag(bounds, capacity, m * T, slack_chunk, theta=theta,
                       device=dev)
     bag, _ = _breed_and_sort(bag, f_theta=f_theta, eps=float(eps),
                              capacity=capacity, rule=Rule(rule),
                              breed_chunk=breed_chunk, target=target,
-                             syncs=HostSyncs())
+                             syncs=HostSyncs(),
+                             breed_eps=-1.0 if T > 1 else None)
+    if T > 1:
+        min_active = max(1, int((lanes // T) * min_active_frac))
+        bank, nslots, _navail, _dealt = deal_root_bank(
+            bag, refill_slots=refill_slots, lanes=lanes,
+            min_active=min_active, theta_block=T,
+            theta_table=torch.tensor(theta2d, dtype=torch.float64,
+                                     device=dev))
+        return dict(
+            state=_fresh_lanes(lanes, dev),
+            slot=torch.zeros(lanes, dtype=torch.int32, device=dev),
+            nslots=nslots, bank=bank, resm=_fresh_sentinel(lanes, dev),
+            thresh=0, batch=max(lanes - int(lanes * exit_frac), 1),
+            theta_block=T)
     min_active = int(lanes * min_active_frac)
     if not refill_slots:
         state, _acc, _n = _bank_and_refill(
@@ -1708,4 +2073,4 @@ def first_phase_inputs(f_theta: Callable, theta, bounds, eps: float, *,
         slot=torch.zeros(lanes, dtype=torch.int32, device=dev),
         nslots=nslots, bank=bank, resm=_fresh_sentinel(lanes, dev),
         thresh=max(min_active, int(lanes * suspend_frac)),
-        batch=max(lanes - int(lanes * exit_frac), 1))
+        batch=max(lanes - int(lanes * exit_frac), 1), theta_block=1)

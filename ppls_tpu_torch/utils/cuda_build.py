@@ -117,8 +117,8 @@ def load_walk_rf() -> BuiltLib:
     """Build (at first use) and load K1, the in-kernel-refill segment."""
     built = _load_nvcc("walk_rf")
     _sig(built.lib.walk_rf_launch,
-         [_P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P])
-    _sig(built.lib.walk_rf_max_coresident_blocks, [_I, _I])
+         [_P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])
+    _sig(built.lib.walk_rf_max_coresident_blocks, [_I, _I, _I])
     return built
 
 
@@ -160,7 +160,7 @@ def build_walk_host(out_root: Path) -> BuiltLib:
                           [CSRC / "walk_host.cpp"],
                           [CSRC / "walk_step.cuh"], out_root)
     lib = built.lib
-    _sig(lib.walk_rf_host, [_P, _I, _I, _I, _I, _F, _I, _I, _I])
+    _sig(lib.walk_rf_host, [_P, _I, _I, _I, _I, _F, _I, _I, _I, _I])
     _sig(lib.walk_ee_host, [_P, _I, _I, _I, _F, _I, _I])
     _sig(lib.walk_seg_host, [_P, _I, _I, _I, _F, _I])
     return built

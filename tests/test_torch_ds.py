@@ -272,3 +272,13 @@ def test_kernel_header_constants_match_python():
         assert int(ints[name]) == getattr(TW, "_" + name), name
     for name in ("STEP_TRAP", "STEP_SCOUT", "STEP_SIMPSON"):
         assert int(ints[name]) == getattr(TW, name), name
+    # the integrand ids the kernels dispatch on, one per ds twin
+    from ppls_tpu_torch.models import integrands as TI
+    for name, fam in (("FAMILY_SIN_RECIP", "sin_recip_scaled"),
+                      ("FAMILY_COSH4", "cosh4_scaled"),
+                      ("FAMILY_SIN_SCALED", "sin_scaled")):
+        want = getattr(TI, "KERNEL_" + name[len("FAMILY_"):])
+        assert int(ints[name]) == want \
+            == TI.get_family_ds(fam).kernel_family, name
+    assert len({int(v) for n, v in ints.items()
+                if n.startswith("FAMILY_")}) == len(TI.DS_FAMILIES)

@@ -4,7 +4,10 @@ lane), built with g++ -O2 -ffp-contract=off into a host library of plain
 sequential loops (``csrc/walk_host.cpp``), held bit for bit against the
 plain PyTorch segments on the same seeded lanes, launch after launch:
 K1 in its three step machines (trapezoid, scouting, Simpson), K2 in the
-same three, K3 in trapezoid and Simpson, for both kernel integrands.
+same three, K3 in trapezoid and Simpson, for both kernel integrands;
+and K1's theta mode (theta_block T in 1, 8, 64, 256: evaluate every
+lane, OR each group's votes, commit every lane) in the trapezoid and
+scouting machines on sin(theta x) and sin(theta / x).
 
 The ``cuda`` tests hold the CUDA kernels themselves against the plain
 segments, and the walker on the card against the walker on the CPU;
@@ -78,18 +81,24 @@ def _table(ops):
 
 def _run_host(lib, inp, cap, f_ds, eps, scout, rule=Rule.TRAPEZOID):
     R, lanes = inp["bank"][0].shape
+    T = inp["theta_block"]
     resh = torch.zeros((R, lanes), dtype=torch.float32)
     resl = torch.zeros((R, lanes), dtype=torch.float32)
     ctr = torch.zeros(8, dtype=torch.int32)
     sync = torch.zeros(6, dtype=torch.int32)
+    votes = torch.zeros(3 * (lanes // T), dtype=torch.int32)
     ops = (*inp["state"], inp["nslots"], inp["slot"], *inp["bank"],
-           *inp["resm"], resh, resl, ctr, sync)
-    table = _table(ops)
-    rc = lib.walk_rf_host(ctypes.cast(table, ctypes.c_void_p), lanes, R,
-                          f_ds.kernel_family, W.step_mode(rule, scout),
-                          f32(eps), inp["thresh"], cap, inp["batch"])
+           *inp["resm"], resh, resl, ctr, sync, votes)
+    rc = _host_rf(lib, _table(ops), lanes, R, f_ds, W.step_mode(rule, scout),
+                  eps, inp["thresh"], cap, inp["batch"], T)
     assert rc == 0
     return resh, resl, ctr
+
+
+def _host_rf(lib, table, lanes, R, f_ds, mode, eps, thresh, cap, batch, T):
+    return lib.walk_rf_host(ctypes.cast(table, ctypes.c_void_p), lanes, R,
+                            f_ds.kernel_family, mode, f32(eps), thresh, cap,
+                            batch, T)
 
 
 def _run_host_ee(lib, state, thresh, cap, f_ds, eps, mode):
@@ -149,6 +158,64 @@ def test_host_step_machine_bit_equal_to_plain_segment(host_lib, fam, theta,
 def _assert_state_bit_equal(a, b):
     for name, x, y in zip(W.WalkState._fields, a, b):
         assert torch.equal(_bits(x), _bits(y)), name
+
+
+# theta mode: (family, bounds, eps, theta range); m = max(2, 64 // T)
+# slots of T thetas each over 512 lanes, R = 4
+THETA_CASES = [("sin_scaled", (0.0, 1.0), 1e-9, (1.0, 4.0)),
+               ("sin_recip_scaled", (1e-2, 1.0), 1e-7, (1.0, 2.0))]
+
+
+def _theta_inputs(fam, bounds, eps, span, T, scout, device="cpu"):
+    m = max(2, 64 // T)
+    theta = np.linspace(*span, m * T)
+    return W.first_phase_inputs(
+        get_family(fam), theta.reshape(m, T) if T > 1 else theta, bounds,
+        eps, lanes=512, roots_per_lane=4, refill_slots=4, capacity=1 << 16,
+        scout=scout, min_active_frac=0.05, theta_block=T, device=device)
+
+
+@pytest.mark.parametrize("scout", [False, True])
+@pytest.mark.parametrize("T", [1, 8, 64, 256])
+@pytest.mark.parametrize("fam,bounds,eps,span", THETA_CASES)
+def test_host_theta_loop_bit_equal_to_plain_segment(host_lib, fam, bounds,
+                                                    eps, span, T, scout):
+    # T = 1 runs the variant without votes; on the card T = 8 votes
+    # inside a warp, 64 across warps, 256 across blocks
+    f_ds = get_family_ds(fam)
+    base = _theta_inputs(fam, bounds, eps, span, T, scout)
+    a, b = _clone(base), _clone(base)
+    steps = over = 0
+    for cap in (24, 24, 64):
+        outs_a = W.segment_rf_plain(a["state"], a["slot"], a["thresh"], cap,
+                                    a["batch"], a["nslots"], a["bank"],
+                                    a["resm"], f_ds=f_ds, eps=eps,
+                                    scout=scout, theta_block=T)
+        outs_b = _run_host(host_lib, b, cap, f_ds, eps, scout)
+        _assert_bit_equal(a, b, outs_a, outs_b)
+        ctr = outs_a[2].tolist()
+        assert sum(ctr[1:6]) == ctr[0] * 512
+        steps += ctr[0]
+        over += ctr[5]
+    assert steps > 48
+    assert int(a["slot"].sum()) >= 512        # every lane took a root
+    assert (over > 0) == (T > 1)              # retired lanes walked on
+    for f in ("i", "d", "flags"):             # a group walks one node
+        g = getattr(a["state"], f).reshape(-1, T)
+        assert bool((g == g[:, :1]).all()), f
+
+
+def test_host_theta_loop_refuses_bad_blocks(host_lib):
+    # Simpson has no theta mode; T must be a power of two dividing lanes
+    inp = _inputs(*CASES[0], scout=False)
+    f_ds = get_family_ds(CASES[0][0])
+    R, lanes = inp["bank"][0].shape
+    table = _table((*inp["state"], inp["nslots"], inp["slot"], *inp["bank"],
+                    *inp["resm"]))
+    for T, mode, want in ((8, W.STEP_SIMPSON, -2), (3, W.STEP_TRAP, -3),
+                          (1024, W.STEP_TRAP, -3)):
+        assert _host_rf(host_lib, table, lanes, R, f_ds, mode, 1e-7, 0, 4, 1,
+                        T) == want
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -262,6 +329,31 @@ def test_cuda_kernel_bit_equal_to_plain_segment(cuda_device, scout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scout", [False, True])
+@pytest.mark.parametrize("T", [8, 64, 256])
+def test_cuda_theta_kernel_bit_equal_to_plain_segment(cuda_device, T, scout):
+    # the card twin of the host theta check, one case per vote scope
+    fam, bounds, eps, span = THETA_CASES[0]
+    f_ds = get_family_ds(fam)
+    base = _theta_inputs(fam, bounds, eps, span, T, scout,
+                         device=cuda_device)
+    a, b = _clone(base), _clone(base)
+    before = W.run_segment_rf.launches
+    for cap in (24, 64):
+        outs_a = W.run_segment_rf(a["state"], a["slot"], a["thresh"], cap,
+                                  a["batch"], a["nslots"], a["bank"],
+                                  a["resm"], f_ds=f_ds, eps=eps, scout=scout,
+                                  theta_block=T)
+        outs_b = W.segment_rf_plain(b["state"], b["slot"], b["thresh"], cap,
+                                    b["batch"], b["nslots"], b["bank"],
+                                    b["resm"], f_ds=f_ds, eps=eps,
+                                    scout=scout, theta_block=T)
+        torch.cuda.synchronize()
+        _assert_bit_equal(a, b, outs_a, outs_b)
+    assert W.run_segment_rf.launches == before + 2
+
+
+@pytest.mark.cuda
 def test_cuda_walker_matches_cpu_walker(cuda_device):
     # the whole slice on the card (K1) and on the CPU (plain segment):
     # the same decisions, so the same task count, and areas equal up to
@@ -327,7 +419,9 @@ def test_cuda_k3_bit_equal_to_plain_segment(cuda_device, rule):
 @pytest.mark.parametrize("over", [dict(refill_slots=0),
                                   dict(refill_slots=0, scout_dtype="f32"),
                                   dict(rule=Rule.SIMPSON),
-                                  dict(rule=Rule.SIMPSON, refill_slots=0)])
+                                  dict(rule=Rule.SIMPSON, refill_slots=0),
+                                  dict(theta_block=8),
+                                  dict(theta_block=8, scout_dtype="f32")])
 def test_cuda_walker_modes_match_cpu_walker(cuda_device, over):
     # the boundary-refill walker (K2) and the Simpson walker (K1 or K2 in
     # Simpson mode) on the card and on the CPU: the same decisions, and

@@ -260,12 +260,23 @@ def test_walker_depth_overflow_mopup(monkeypatch, refill):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(theta_block=2), "theta_block"),
+    (dict(theta_block=2, refill_slots=0, roots_per_lane=1), "refill_slots"),
+    (dict(theta_block=2, rule=Rule.SIMPSON), "TRAPEZOID"),
 ])
 def test_unported_modes_name_their_roadmap_item(over, match):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        _port(**over)
-    assert "ROADMAP" in str(e.value)
+    # theta blocks are ported; the port refuses what the reference
+    # refuses, with the reference's own error
+    from ppls_tpu.config import Rule as RefRule
+    kw = dict(KW, **over)
+    rule = Rule(kw.pop("rule", Rule.TRAPEZOID))
+    with pytest.raises(ValueError, match=match) as got:
+        integrate_family_walker(get_family(FAM), get_family_ds(FAM),
+                                THETA[:2], BOUNDS, EPS, rule=rule,
+                                device="cpu", **kw)
+    with pytest.raises(ValueError, match=match) as ref:
+        ref_walker(ref_family(FAM), ref_family_ds(FAM), THETA[:2], BOUNDS,
+                   EPS, rule=RefRule(rule.value), **kw)
+    assert str(got.value) == str(ref.value)
 
 
 def test_walker_entry_point_requires_cuda_unless_cpu(monkeypatch):
