@@ -26,9 +26,13 @@ Phases, each of which must pass (any failure exits nonzero):
       of sin(theta x) on [0, 1], eps 1e-5, lanes/T slots of T thetas
       from linspace(1, 4, lanes), R=8, cap=256: trapezoid at T = 8, 64,
       128, 256 and 2048 (every vote scope: warp ballot, shared memory,
-      the block, whole blocks with a second grid barrier per step), scout
-      at T = 32 and 2048. T = 256 against T = 128 is what the second
-      barrier costs.
+      the block, whole blocks voting through a word per group), scout
+      at T = 32 and 2048. T = 256 against T = 128 is what the vote
+      across blocks costs.
+   e. K1's step attribution per step machine: us per step, the confirm
+      share (confirm evals / 3 over live lane-steps), K1 against K2 on
+      lanes doing the same work, the barrier from c., the T = 256 minus
+      T = 128 gap from d.
 4. Main path, in-kernel refill: ``integrate_family_walker`` at the
    flagship configuration (sin_recip_scaled, M=1024 thetas on [1e-4, 1],
    eps=1e-10, lanes=2^14, R=8, scout f32, double-buffered banks): a
@@ -417,8 +421,9 @@ def phase_k3(W, f_ds, seeded, ops) -> dict:
 
 def phase_barrier(W, f_ds, base, pairs: int = 7) -> dict:
     """K2 with no exit (thresh -1) does K3's work step for step, plus
-    one block reduction, atomic and grid barrier per step: the two
-    alternated on copies of the same lanes, medians by CUDA events."""
+    the block reduction and the packed count-and-barrier per step: the
+    two alternated on copies of the same lanes, medians by CUDA
+    events."""
     import numpy as np
     k2, k3 = [], []
     for j in range(pairs + 1):
@@ -489,11 +494,44 @@ def phase_k1_theta(W, f_theta, f_ds, ops) -> dict:
             f"{cmp[key]['us_per_step']:.3f} us/step, plain {plain_ms:.1f} "
             f"ms, bound {bound:.4f} ms ({bound_by}); counters {ctr}")
     a, b = cmp["128"], cmp["256"]
-    log(f"[smoke] K1 theta, the second grid barrier per step: T=256 "
+    log(f"[smoke] K1 theta, the vote across blocks: T=256 "
         f"{b['us_per_step']:.3f} us/step against T=128 "
         f"{a['us_per_step']:.3f} ({b['us_per_step'] - a['us_per_step']:+.3f}"
         f" us/step; 256-step launches {b['ms']:.3f} / {a['ms']:.3f} ms)")
     return cmp
+
+
+def k1_attribution(k1: dict, k2: dict, barrier: dict, k1_theta: dict) -> dict:
+    """Where K1's step goes, per step machine, from this run's 256-step
+    launches: us per step; the confirm share (confirm evals / 3 over the
+    live lane-steps: the lane-steps that ran the three-point ds confirm);
+    K2's us per step on lanes that do the same work (the same steps, live
+    lane-steps and evals), so K1's step minus K2's is K1's refill test,
+    five-bucket classification and two-count barrier; the barrier (K2
+    with no exit against K3, the same work without it); and theta mode's
+    T = 256 minus T = 128 (the group vote across blocks)."""
+    gap = k1_theta["256"]["us_per_step"] - k1_theta["128"]["us_per_step"]
+    out = dict(barrier_us_per_step=barrier["barrier_us_per_step"],
+               barrier_share=barrier["barrier_share"],
+               theta_256_minus_128_us=gap)
+    for mode in MODES:
+        c1, c2 = k1[mode]["counters"], k2[mode]["counters"]
+        same = (c1[0], c1[1], c1[6], c1[7]) == (c2[0], c2[1], c2[5], c2[6])
+        share = c1[7] / 3 / c1[1] if c1[1] else 0.0
+        us1, us2 = k1[mode]["us_per_step"], k2[mode]["us_per_step"]
+        out[mode] = dict(us_per_step=us1, confirm_share=share,
+                         k2_us_per_step=us2, k1_minus_k2_us=us1 - us2,
+                         same_work_as_k2=same)
+        log(f"[smoke] K1 step attribution, {mode}: {us1:.3f} us/step; "
+            f"confirm share {share:.4f}; K2 {us2:.3f} us/step on lanes "
+            f"doing {'the same' if same else 'other'} work (K1 - K2 "
+            f"{us1 - us2:+.3f} us: refill test, classification, two "
+            f"counts)")
+    log(f"[smoke] K1 step attribution: the grid count and barrier "
+        f"{barrier['barrier_us_per_step']:.3f} us/step ("
+        f"{barrier['barrier_share']:.3f} of K2's step with no exit); "
+        f"theta T=256 minus T=128 {gap:+.3f} us/step")
+    return out
 
 
 def check_walk(what: str, res, shape) -> None:
@@ -792,10 +830,11 @@ def main() -> int:
         f"scout eval {ops_sc['scout_eval']}, trapezoid step overhead "
         f"{ops_sc['step_overhead']}")
     k1_theta = phase_k1_theta(W, f_theta_sc, f_ds_sc, ops_sc)
+    attribution = k1_attribution(k1, k2, barrier, k1_theta)
     log("[smoke] library_ms: no single PyTorch call computes a walk "
         "segment, so there is none")
     report.update(k1=k1, k2=k2, k3=k3, probe=probe, barrier_share=barrier,
-                  k1_theta=k1_theta)
+                  k1_theta=k1_theta, k1_attribution=attribution)
 
     # 4. main path, in-kernel refill: the flagship, scouting on,
     # double-buffered banks
@@ -1064,7 +1103,9 @@ def main() -> int:
             main_launches["run_segment_rf"] + theta_launches,
             {**k1, **k1_theta}, "step_scout",
             flagship_launches=main_launches["run_segment_rf"],
-            theta_launches=theta_launches, theta=theta_rows),
+            theta_launches=theta_launches, theta=theta_rows,
+            step_attribution=attribution,
+            main_path_ms=report["profile_k1"]["kernel_ms"]),
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
             "ppls_tpu/parallel/walker.py:1279",
             main_launches["run_segment_ee"], k2, "step"),

@@ -10,28 +10,27 @@
 // is a template parameter: trapezoid, scouting or Simpson.
 //
 // Design. One thread owns one lane, its state in registers for the whole
-// launch, updated in place. The loop exit reads a grid-wide count after
-// every step; to keep it exact (and so the reference's step counts and
-// waste), the kernel is launched cooperatively and every step ends with
-// a block reduction, an integer atomicAdd into one of three rotating
-// slots and one grid.sync() (walk_grid.cuh, the pattern of K1 with one
-// count). The grid is checked for co-residency and never shrunk. Each
-// lane classifies itself before its step and sums its own counts; they
-// are reduced once at the end.
+// launch, updated in place. Each lane classifies itself before its step
+// and sums its own counts; they are reduced once at the end.
 //
-// What bounds it on this card: as K1, the float32 instruction rate of the ds
-// arithmetic and the per-step grid barrier, at one block of 4 warps per
-// SM for 16384 lanes; the state is ~1.7 MB, so memory is no bound. K3
-// (walk_seg.cu) runs the same step code with no barrier, which measures
-// the barrier's share.
+// What bounds it on this card, and what the design does about it: as K1
+// (walk_rf.cu), the latency of the ds arithmetic's dependent float32
+// chains at one warp per scheduler (16384 lanes are one block of 4 warps
+// on each of 128 SMs; the state is ~1.7 MB, so memory is no bound), plus
+// the grid-wide live count the exit test reads after every step. To keep
+// that count exact (and so the reference's step counts and waste), the
+// kernel is launched cooperatively and every step ends in K1's packed
+// count-and-barrier (wg::grid_count with one count: one 64-bit atomic and
+// one spin per block, where a cooperative-groups grid.sync() after an
+// atomic cost 1.42 of a 2.79 us step, H100 80GB HBM3, 700 W). The grid
+// is checked for co-residency and never shrunk. The scouting step
+// confirms its three points side by side, as K1's. K3 (walk_seg.cu) runs
+// the same step code with no barrier, which measures the barrier's share.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "walk_grid.cuh"
 #include "walk_step.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -40,9 +39,8 @@ using wg::kThreads;
 template <int FAM, int MODE>
 __global__ void __launch_bounds__(kThreads)
     walk_ee_kernel(void* const* p, float eps32, int thresh, int cap) {
-  cg::grid_group grid = cg::this_grid();
   const int lane = blockIdx.x * kThreads + threadIdx.x;
-  int* sync = static_cast<int*>(p[ws::P_EE_SYNC]);
+  uint64_t* sync = static_cast<uint64_t*>(p[ws::P_EE_SYNC]);
 
   ws::Lane s = ws::load_lane(p, lane);
   ws::WasteEE w = {0, 0, 0};
@@ -50,14 +48,14 @@ __global__ void __launch_bounds__(kThreads)
 
   int k = 0, c = 0;
   int live[1] = {!ws::is_parked(s)};
-  wg::grid_count(grid, live, sync, c);
+  wg::grid_count(live, sync, c);
   while (k == 0 || (k < cap && live[0] > thresh)) {
     ws::lane_classify_ee(s, w);
     ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
     ++k;
     ++c;
     live[0] = !ws::is_parked(s);
-    wg::grid_count(grid, live, sync, c);
+    wg::grid_count(live, sync, c);
   }
   ws::store_lane(p, lane, s);
 
@@ -93,8 +91,9 @@ int walk_ee_max_coresident_blocks(int family, int mode) {
 // One cooperative launch on `stream`, whose device must be current.
 // `d_ptrs` is a device array of ws::N_EE_PTRS pointers; `mode` a
 // ws::STEP_*. Returns 0, a cudaError_t code, -2 for an unknown family or
-// mode, -3 when lanes is not a multiple of the block size, or -4 when the
-// grid exceeds `max_blocks` (it is never shrunk).
+// mode, -3 when lanes is not a multiple of the block size, -4 when the
+// grid exceeds `max_blocks` (it is never shrunk), or -5 when lanes exceed
+// the packed count's fields (wg::packed_fits).
 int walk_ee_launch(void* const* d_ptrs, int lanes, int family, int mode,
                    float eps32, int thresh, int cap, int max_blocks,
                    void* stream) {

@@ -1,50 +1,176 @@
-// Block and grid reductions shared by the cooperative walk kernels (K1 in
-// walk_rf.cu, K2 in walk_ee.cu), and K1's theta-group vote. Device code
-// only.
+// The grid-wide counts and K1's theta-group vote, shared by the
+// cooperative walk kernels (K1 in walk_rf.cu, K2 in walk_ee.cu).
+//
+// The packing and slot arithmetic at the top is plain C++ that the host
+// build (walk_host.cpp) runs too, so the CPU tests hold it; the device
+// primitives below it build under nvcc only.
 
 #pragma once
 
-#include <cooperative_groups.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define WG_HD __host__ __device__ __forceinline__
+#else
+#define WG_HD inline
+#endif
 
 namespace wg {
-
-namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;         // one lane per thread, every kernel
 constexpr int kWarps = kThreads / 32;
 
-// Grid-wide sums of the N values v[] of every thread, written back into
-// v[] of every thread. The block totals go by integer atomicAdd into
-// rotating slot `c % 3` of `sync` (N ints each, zeroed before launch),
-// then one grid.sync(). The slot used two reductions later is cleared
-// here: every thread read it before this grid.sync. Integer atomics are
-// order-independent, so reruns are bit-identical.
+// --- the packed count: one 64-bit word per step ------------------------------
+//
+// Each block adds, in one atomic, (1 arrival, its live lanes, its
+// refillable lanes) into the step's word:
+//   bits 63..48  arrivals  16 bits: a cooperative grid is never larger
+//                          than the co-resident limit (132 SMs x 16
+//                          blocks of 128 threads = 2112 on an H100 < 2^12);
+//                          16 bits leave room for larger cards
+//   bits 47..24  live      24 bits: a grid-wide count of lanes, at most
+//   bits 23..0   nref      `lanes`, so up to 16,777,215 lanes
+// A field's grid-wide sum in one step never exceeds its width at these
+// limits, so no block's addition carries into the next field. The words
+// are never cleared: a slot's value only grows, and a step's sum is the
+// word minus its value after the slot's previous step (modulo 2^64, so
+// the carries of earlier steps cancel). The launch refuses a grid beyond
+// the limits (kMaxLanes lanes, kMaxBlocks blocks).
+constexpr int kArrivalBits = 16;
+constexpr int kCountBits = 24;
+constexpr int kMaxBlocks = (1 << kArrivalBits) - 1;
+constexpr int kMaxLanes = (1 << kCountBits) - 1;
+constexpr uint64_t kCountMask = (uint64_t{1} << kCountBits) - 1;
+
+WG_HD uint64_t pack_count(uint64_t arrivals, uint64_t live, uint64_t nref) {
+  return (arrivals << (2 * kCountBits)) | (live << kCountBits) | nref;
+}
+WG_HD int count_arrivals(uint64_t w) {
+  return static_cast<int>(w >> (2 * kCountBits));
+}
+WG_HD int count_live(uint64_t w) {
+  return static_cast<int>((w >> kCountBits) & kCountMask);
+}
+WG_HD int count_nref(uint64_t w) { return static_cast<int>(w & kCountMask); }
+
+// lanes that the packed fields can count, in a grid they can count
+WG_HD bool packed_fits(int lanes) {
+  return lanes >= 0 && lanes <= kMaxLanes && lanes / kThreads <= kMaxBlocks;
+}
+
+// --- the group vote for T > kThreads: one 32-bit word per group and vote ----
+//
+// A group of T lanes spans T / kThreads whole blocks. Each block adds
+// (1 arrival, its vote bit) into its group's word of rotating set c % 3
+// (3 sets of G = lanes / T words, zeroed before launch): bits 15..0 count
+// arrivals, bits 31..16 the blocks that voted; in one vote both are at
+// most kMaxBlocks. As the count words, they are never cleared: a vote is
+// the word minus its value after the set's previous vote (modulo 2^32).
+WG_HD int vote_blocks(int T) { return T / kThreads; }
+WG_HD int vote_group(int block, int T) { return block / vote_blocks(T); }
+WG_HD int vote_slot(int g, int G, int c) { return G * (c % 3) + g; }
+WG_HD uint32_t vote_word(bool any) { return 1u + (any ? (1u << 16) : 0u); }
+WG_HD int vote_arrivals(uint32_t w) { return static_cast<int>(w & 0xFFFFu); }
+WG_HD bool vote_any(uint32_t w) { return (w >> 16) != 0u; }
+
+#ifdef __CUDACC__
+
+// --- device primitives -------------------------------------------------------
+
+// Relaxed atomics and loads at GPU scope: coherent in L2, no fence.
+__device__ __forceinline__ uint64_t atom_add_relaxed(uint64_t* p,
+                                                     uint64_t v) {
+  unsigned long long old;
+  asm volatile("atom.relaxed.gpu.global.add.u64 %0, [%1], %2;"
+               : "=l"(old) : "l"(p), "l"(static_cast<unsigned long long>(v))
+               : "memory");
+  return old;
+}
+__device__ __forceinline__ uint64_t ld_relaxed(const uint64_t* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t atom_add_relaxed(uint32_t* p,
+                                                     uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.relaxed.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+__device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Grid-wide sums of the N (1 or 2) per-thread counts v[] = {live, nref},
+// written back into v[] of every thread; also the step's grid barrier.
+// Every thread of the grid calls it once per step c.
+//
+// What it costs, and why it is built so: the only data that cross blocks
+// in a walk step are these two integers (lane state, root bank and result
+// bank are each private to one lane), yet the loop's exit and refill tests
+// need them exact every step. A cooperative-groups grid.sync() after
+// integer atomics cost 1.42 us of a 2.79 us K2 step on the H100 80GB
+// HBM3, 700 W (two block barriers, three atomics, two full fences, a spin
+// and 128 global reloads per block). Here a block reduces by warp
+// shuffles and shared memory; thread 0 adds its packed (arrival, live,
+// nref) into slot c % 3 of `slots` (3 words, zeroed before launch) in one
+// relaxed 64-bit atomic and spins on that word until the step's arrivals
+// reach gridDim.x (the last block to arrive reads the totals from its own
+// atomic and does not spin); the block gets the totals through shared
+// memory. One atomic, one spin, two block barriers, no fence.
+//
+// No fence is needed because the words are never cleared. A step's sum
+// is the slot's word minus the value it held when its previous step was
+// complete, which thread 0 kept in shared memory when it read it. A block
+// adds to a slot again only three steps later, after two more complete
+// steps, which each block enters only after its spin on this slot ended,
+// so no block ever reads a later step's addition into this step's sum;
+// the spin's exit is a control dependency, and no store needs ordering.
+// (Release/acquire atomics with block 0 clearing the slot two steps ahead
+// measured ~0.5 us a step slower on the H100 80GB HBM3, 700 W, PERF.md.)
+// The launch stays cooperative, which guarantees that every block is
+// resident while others spin.
 template <int N>
-__device__ __forceinline__ void grid_count(cg::grid_group& grid, int (&v)[N],
-                                           int* sync, int c) {
+__device__ __forceinline__ void grid_count(int (&v)[N], uint64_t* slots,
+                                           int c) {
+  static_assert(N == 1 || N == 2, "live, or live and nref");
   __shared__ int part[N][kWarps];
+  __shared__ int total[N];
+  __shared__ uint64_t base[3];  // each slot's word after its previous step
+#pragma unroll
   for (int j = 0; j < N; ++j)
     for (int off = 16; off > 0; off >>= 1)
       v[j] += __shfl_down_sync(0xffffffffu, v[j], off);
-  int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0)
-    for (int j = 0; j < N; ++j) part[j][warp] = v[j];
-  __syncthreads();
-  int slot = N * (c % 3);
-  if (threadIdx.x == 0)
-    for (int j = 0; j < N; ++j) {
-      int sum = 0;
-      for (int w = 0; w < kWarps; ++w) sum += part[j][w];
-      atomicAdd(&sync[slot + j], sum);
-    }
-  grid.sync();
-  const volatile int* vs = sync;
-  for (int j = 0; j < N; ++j) v[j] = vs[slot + j];
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    int clear = N * ((c + 2) % 3);
-    for (int j = 0; j < N; ++j) sync[clear + j] = 0;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) part[j][threadIdx.x >> 5] = v[j];
   }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum[2] = {0, 0};
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      for (int w = 0; w < kWarps; ++w) sum[j] += part[j][w];
+    const int s = c % 3;
+    const uint64_t b = c < 3 ? 0 : base[s];
+    uint64_t* slot = slots + s;
+    const uint64_t mine = pack_count(1, sum[0], sum[1]);
+    uint64_t w = atom_add_relaxed(slot, mine) + mine - b;
+    while (count_arrivals(w) < static_cast<int>(gridDim.x))
+      w = ld_relaxed(slot) - b;
+    base[s] = w + b;
+    total[0] = count_live(w);
+    if constexpr (N == 2) total[1] = count_nref(w);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = total[j];
 }
 
 // The union vote of theta groups: true in every thread whose group of T
@@ -54,14 +180,18 @@ __device__ __forceinline__ void grid_count(cg::grid_group& grid, int (&v)[N],
 //   T <= kThreads: ballots, one flag per warp in shared memory, one
 //                  __syncthreads(). The next write of the flags comes
 //                  after the caller's next block barrier (grid_count).
-//   T > kThreads:  a group spans T / kThreads whole blocks: a block OR,
-//                  one integer atomicOr per block into the group's slot of
-//                  rotating set `c % 3` of `slots` (3 sets of G = lanes / T
-//                  ints, zeroed before launch), and a second grid.sync().
-//                  Block 0 clears the set used two votes later; every
-//                  thread read it before this grid.sync.
-__device__ __forceinline__ bool group_any(cg::grid_group& grid, bool vote,
-                                          int T, int* slots, int G, int c) {
+//   T > kThreads:  a group spans T / kThreads whole blocks, and only
+//                  those need each other's vote: a block OR, then thread 0
+//                  adds (1 arrival, the block's vote) into its group's
+//                  word of `slots` (see vote_word) in one relaxed atomic
+//                  and spins on that word until the group's blocks have
+//                  all arrived; no grid-wide barrier. (A grid.sync() here
+//                  cost +1.5 us a step at T = 256 over T = 128 on the
+//                  H100 80GB HBM3, 700 W.) The words are never cleared,
+//                  as grid_count's: a vote is the word minus its value
+//                  after the set's previous vote.
+__device__ __forceinline__ bool group_any(bool vote, int T, uint32_t* slots,
+                                          int G, int c) {
   if (T <= 32) {
     unsigned b = __ballot_sync(0xffffffffu, vote);
     if (T == 32) return b != 0u;
@@ -79,18 +209,21 @@ __device__ __forceinline__ bool group_any(cg::grid_group& grid, bool vote,
     for (int j = 0; j < per_group; ++j) any |= warp_any[w0 + j];
     return any != 0;
   }
+  __shared__ int group_vote;
+  __shared__ uint32_t vbase[3];  // the group's words after their last vote
   int block_any = __syncthreads_or(vote);
-  int g = blockIdx.x / (T / kThreads);
-  int* set = slots + G * (c % 3);
-  if (threadIdx.x == 0 && block_any) atomicOr(&set[g], 1);
-  grid.sync();
-  const volatile int* vs = set;
-  bool any = vs[g] != 0;
-  if (blockIdx.x == 0) {
-    int* clear = slots + G * ((c + 2) % 3);
-    for (int j = threadIdx.x; j < G; j += kThreads) clear[j] = 0;
+  if (threadIdx.x == 0) {
+    const int s = c % 3;
+    const uint32_t b = c < 3 ? 0u : vbase[s];
+    uint32_t* slot = slots + vote_slot(vote_group(blockIdx.x, T), G, c);
+    const uint32_t mine = vote_word(block_any != 0);
+    uint32_t w = atom_add_relaxed(slot, mine) + mine - b;
+    while (vote_arrivals(w) < vote_blocks(T)) w = ld_relaxed(slot) - b;
+    vbase[s] = w + b;
+    group_vote = vote_any(w);
   }
-  return any;
+  __syncthreads();
+  return group_vote != 0;
 }
 
 // Block-wide sum of v, valid in thread 0.
@@ -134,11 +267,14 @@ inline int max_coresident_blocks(const void* fn) {
 
 // One cooperative launch of `fn` over lanes / kThreads blocks. Returns 0,
 // a cudaError_t code, -3 when lanes is not a multiple of the block size,
-// or -4 when the grid exceeds `max_blocks`, the co-resident limit (the
-// grid is never shrunk to fit).
+// -4 when the grid exceeds `max_blocks`, the co-resident limit (the grid
+// is never shrunk), or -5 when lanes or the grid exceed the packed
+// count's fields (packed_fits). The cooperative launch is what lets
+// grid_count and group_any spin: every block of the grid is resident.
 inline int launch_cooperative(const void* fn, int lanes, int max_blocks,
                               void** args, void* stream) {
   if (lanes <= 0 || lanes % kThreads != 0) return -3;
+  if (!packed_fits(lanes)) return -5;
   int grid = lanes / kThreads;
   if (grid > max_blocks) return -4;
   cudaError_t err = cudaLaunchCooperativeKernel(
@@ -147,5 +283,7 @@ inline int launch_cooperative(const void* fn, int lanes, int max_blocks,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+#endif  // __CUDACC__
 
 }  // namespace wg

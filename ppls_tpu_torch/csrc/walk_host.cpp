@@ -7,15 +7,76 @@
 //
 //   walk_rf_host   K1 (walk_rf.cu), the in-kernel-refill segment; with
 //                  T > 1 every step evaluates all lanes, ORs the votes
-//                  of each group of T lanes, then commits all lanes
+//                  of each group of T lanes (beyond one block through
+//                  the kernel's own vote words, walk_grid.cuh), then
+//                  commits all lanes
 //   walk_ee_host   K2 (walk_ee.cu), the early-exit segment
 //   walk_seg_host  K3 (walk_seg.cu), the fixed-length segment
+// The counts between steps go through the kernels' packed count
+// (walk_grid.cuh): one word per block, summed. The wg_* entries expose
+// the packing, the limits and the vote arithmetic to the tests, and
+// ws_f_*_host the N-point integrand evaluations.
+
+#include <stdint.h>
 
 #include <vector>
 
+#include "walk_grid.cuh"
 #include "walk_step.cuh"
 
 namespace {
+
+// The grid-wide (live, nref) of the lanes as the kernels count them: one
+// packed word per block of kThreads lanes, the words summed. Returns
+// false if the arrivals do not come to the block count.
+bool packed_counts(void* const* p, int lanes, const int* slot,
+                   const int* nslots, int& live, int& nref) {
+  const int blocks = (lanes + wg::kThreads - 1) / wg::kThreads;
+  uint64_t total = 0;
+  for (int b = 0; b < blocks; ++b) {
+    uint64_t lb = 0, nb = 0;
+    for (int lane = b * wg::kThreads;
+         lane < lanes && lane < (b + 1) * wg::kThreads; ++lane) {
+      ws::Lane s = ws::load_lane(p, lane);
+      lb += !ws::is_parked(s);
+      if (slot != nullptr) nb += ws::takeable(s, slot[lane], nslots[lane]);
+    }
+    total += wg::pack_count(1, lb, nb);
+  }
+  live = wg::count_live(total);
+  nref = wg::count_nref(total);
+  return wg::count_arrivals(total) == blocks;
+}
+
+// One theta-group vote for T > kThreads made the way wg::group_any makes
+// it on the card: each block ORs its lanes' votes and adds vote_word into
+// its group's word of set c % 3 of `slots`, which are never cleared; a
+// lane's answer is vote_any of its group's word minus the word's value
+// after the set's previous vote (`base`, kept per word), once all of the
+// group's blocks arrived. Returns false if a word did not gain exactly
+// its group's arrivals.
+bool group_vote(const std::vector<char>& vote, int lanes, int T, int c,
+                std::vector<uint32_t>& slots, std::vector<uint32_t>& base,
+                std::vector<char>& any) {
+  const int G = lanes / T, blocks = lanes / wg::kThreads;
+  for (int b = 0; b < blocks; ++b) {
+    bool block_any = false;
+    for (int t = 0; t < wg::kThreads; ++t)
+      block_any = block_any || vote[b * wg::kThreads + t] != 0;
+    slots[wg::vote_slot(wg::vote_group(b, T), G, c)] +=
+        wg::vote_word(block_any);
+  }
+  for (int b = 0; b < blocks; ++b) {
+    const int j = wg::vote_slot(wg::vote_group(b, T), G, c);
+    const uint32_t w = slots[j] - base[j];
+    if (wg::vote_arrivals(w) != wg::vote_blocks(T)) return false;
+    for (int t = 0; t < wg::kThreads; ++t)
+      any[b * wg::kThreads + t] = wg::vote_any(w);
+  }
+  for (int g = 0; g < G; ++g) base[wg::vote_slot(g, G, c)] =
+      slots[wg::vote_slot(g, G, c)];
+  return true;
+}
 
 template <int FAM, int MODE, bool THETA>
 int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
@@ -27,23 +88,15 @@ int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
   int* rm_fam = static_cast<int*>(p[ws::P_RESM_FAM]);
   int* out = static_cast<int*>(p[ws::P_COUNTERS]);
 
-  auto counts = [&](int& live, int& nref) {
-    live = 0;
-    nref = 0;
-    for (int lane = 0; lane < lanes; ++lane) {
-      ws::Lane s = ws::load_lane(p, lane);
-      live += !ws::is_parked(s);
-      nref += ws::takeable(s, slot[lane], nslots[lane]);
-    }
-  };
-
   ws::Waste w = {0, 0, 0, 0, 0};
   int sc_n = 0, cf_n = 0;
   int k = 0, live, nref;
   std::vector<ws::Lane> held(THETA ? lanes : 0);
   std::vector<ws::Eval> evals(THETA ? lanes : 0);
-  std::vector<char> any(THETA ? lanes / T : 0);
-  counts(live, nref);
+  std::vector<char> vote(THETA ? lanes : 0), any(THETA ? lanes : 0);
+  std::vector<uint32_t> vote_slots(THETA ? 3 * (lanes / T) : 0, 0u);
+  std::vector<uint32_t> vote_base(vote_slots.size(), 0u);
+  if (!packed_counts(p, lanes, slot, nslots, live, nref)) return -6;
   while (k == 0 || (k < cap && (live > thresh || nref > 0))) {
     bool refill = nref > 0 && (nref >= batch || live <= thresh);
     for (int lane = 0; lane < lanes; ++lane) {
@@ -65,17 +118,24 @@ int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
       }
     }
     if constexpr (THETA) {
-      for (int g = 0; g < lanes / T; ++g) {
-        any[g] = 0;
-        for (int t = 0; t < T; ++t) any[g] |= evals[g * T + t].vote;
+      for (int lane = 0; lane < lanes; ++lane) vote[lane] = evals[lane].vote;
+      if (T > wg::kThreads) {
+        if (!group_vote(vote, lanes, T, k, vote_slots, vote_base, any))
+          return -6;
+      } else {
+        for (int g = 0; g < lanes / T; ++g) {
+          char a = 0;
+          for (int t = 0; t < T; ++t) a |= vote[g * T + t];
+          for (int t = 0; t < T; ++t) any[g * T + t] = a;
+        }
       }
       for (int lane = 0; lane < lanes; ++lane) {
-        ws::commit<MODE, true>(held[lane], evals[lane], any[lane / T] != 0);
+        ws::commit<MODE, true>(held[lane], evals[lane], any[lane] != 0);
         ws::store_lane(p, lane, held[lane]);
       }
     }
     ++k;
-    counts(live, nref);
+    if (!packed_counts(p, lanes, slot, nslots, live, nref)) return -6;
   }
   out[0] = k;
   out[1] = w.active;
@@ -90,15 +150,10 @@ int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
 
 template <int FAM, int MODE>
 int ee(void* const* p, int lanes, float eps32, int thresh, int cap) {
-  auto live_count = [&]() {
-    int live = 0;
-    for (int lane = 0; lane < lanes; ++lane)
-      live += !ws::is_parked(ws::load_lane(p, lane));
-    return live;
-  };
   ws::WasteEE w = {0, 0, 0};
   int sc_n = 0, cf_n = 0;
-  int k = 0, live = live_count();
+  int k = 0, live, nref;
+  if (!packed_counts(p, lanes, nullptr, nullptr, live, nref)) return -6;
   while (k == 0 || (k < cap && live > thresh)) {
     for (int lane = 0; lane < lanes; ++lane) {
       ws::Lane s = ws::load_lane(p, lane);
@@ -107,7 +162,7 @@ int ee(void* const* p, int lanes, float eps32, int thresh, int cap) {
       ws::store_lane(p, lane, s);
     }
     ++k;
-    live = live_count();
+    if (!packed_counts(p, lanes, nullptr, nullptr, live, nref)) return -6;
   }
   int* out = static_cast<int*>(p[ws::P_EE_COUNTERS]);
   out[0] = k;
@@ -135,8 +190,103 @@ int seg(void* const* p, int lanes, float eps32, int iters) {
 
 // Each entry returns 0, or -2 for an unknown family or mode (or Simpson
 // with T > 1); walk_rf_host returns -3 when T is not a power of two
-// dividing lanes.
+// dividing lanes; walk_rf_host and walk_ee_host return -6 if a packed
+// count or a vote word did not hold its arrivals.
 extern "C" {
+
+// the packed count's layout: {kArrivalBits, kCountBits, kMaxBlocks,
+// kMaxLanes, kThreads}
+void wg_limits(int* out) {
+  out[0] = wg::kArrivalBits;
+  out[1] = wg::kCountBits;
+  out[2] = wg::kMaxBlocks;
+  out[3] = wg::kMaxLanes;
+  out[4] = wg::kThreads;
+}
+
+int wg_packed_fits(int lanes) { return wg::packed_fits(lanes) ? 1 : 0; }
+
+// The packed words (1 arrival, live[b], nref[b]) of `blocks` blocks
+// added to a word that held `base`, and the gain decoded into out =
+// {arrivals, live, nref}: one step of a never-cleared count word.
+void wg_pack_sum(uint64_t base, int blocks, const int* live, const int* nref,
+                 int* out) {
+  uint64_t w = base;
+  for (int b = 0; b < blocks; ++b)
+    w += wg::pack_count(1, static_cast<uint64_t>(live[b]),
+                        static_cast<uint64_t>(nref[b]));
+  w -= base;
+  out[0] = wg::count_arrivals(w);
+  out[1] = wg::count_live(w);
+  out[2] = wg::count_nref(w);
+}
+
+// `rounds` successive group votes over `lanes` lanes (votes and any:
+// rounds x lanes, row-major) through the vote words the kernel uses for
+// T > kThreads, rotating and never cleared as on the card; every word
+// starts at `init` (0 on the card, where a word wraps only after many
+// votes). Returns 0, -3 unless kThreads < T, T a power of two dividing
+// lanes, or -6 if a word did not gain its group's arrivals.
+int wg_group_any_host(const int* votes, int lanes, int T, int rounds,
+                      uint32_t init, int* any_out) {
+  if (T <= wg::kThreads || (T & (T - 1)) != 0 || lanes % T != 0) return -3;
+  std::vector<uint32_t> slots(3 * (lanes / T), init), base(slots);
+  std::vector<char> vote(lanes), any(lanes);
+  for (int c = 0; c < rounds; ++c) {
+    for (int lane = 0; lane < lanes; ++lane)
+      vote[lane] = votes[c * lanes + lane] != 0;
+    if (!group_vote(vote, lanes, T, c, slots, base, any)) return -6;
+    for (int lane = 0; lane < lanes; ++lane)
+      any_out[c * lanes + lane] = any[lane];
+  }
+  return 0;
+}
+
+// The integrand at n points of one theta, the scouting confirm's way
+// (three points side by side) when `wide`, else one point at a time:
+// out_h/out_l[j] = f_ds(x[j], theta); n a multiple of 3.
+int ws_f_ds_host(int family, int wide, int n, const float* x_h,
+                 const float* x_l, float th_h, float th_l, float* out_h,
+                 float* out_l) {
+  if (n % 3 != 0) return -3;
+  return ws::dispatch(family, ws::STEP_TRAP, [&]<int FAM, int MODE>() {
+    const ws::ds2 th = {th_h, th_l};
+    for (int j = 0; j < n; j += 3) {
+      const ws::ds2 x[3] = {{x_h[j], x_l[j]}, {x_h[j + 1], x_l[j + 1]},
+                            {x_h[j + 2], x_l[j + 2]}};
+      ws::ds2 g[3];
+      if (wide) {
+        ws::f_ds_n<FAM, 3>(x, th, g);
+      } else {
+        for (int t = 0; t < 3; ++t) g[t] = ws::f_ds<FAM>(x[t], th);
+      }
+      for (int t = 0; t < 3; ++t) {
+        out_h[j + t] = g[t].h;
+        out_l[j + t] = g[t].l;
+      }
+    }
+    return 0;
+  }, -2);
+}
+
+// The scout (float32) twin the same way: out[j] = f_sc(x[j], theta).
+int ws_f_sc_host(int family, int wide, int n, const float* x, float th,
+                 float* out) {
+  if (n % 3 != 0) return -3;
+  return ws::dispatch(family, ws::STEP_TRAP, [&]<int FAM, int MODE>() {
+    for (int j = 0; j < n; j += 3) {
+      const float xs[3] = {x[j], x[j + 1], x[j + 2]};
+      float g[3];
+      if (wide) {
+        ws::f_sc_n<FAM, 3>(xs, th, g);
+      } else {
+        for (int t = 0; t < 3; ++t) g[t] = ws::f_sc<FAM>(xs[t], th);
+      }
+      for (int t = 0; t < 3; ++t) out[j + t] = g[t];
+    }
+    return 0;
+  }, -2);
+}
 
 int walk_rf_host(void* const* p, int lanes, int R, int family, int mode,
                  float eps32, int thresh, int cap, int batch, int T) {

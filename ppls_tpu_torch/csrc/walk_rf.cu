@@ -15,41 +15,53 @@
 // theta. Each step is split in two (walk_step.cuh): every lane evaluates
 // its node and votes, the vote is OR-reduced over its group
 // (wg::group_any: a warp ballot up to T = 32, shared memory up to the
-// block, an atomic slot and a second grid.sync() per step beyond), and
-// every lane commits the group's decision. Retired lanes' live steps are
-// counted as theta_overwalk.
+// block, beyond that a word per group that only the group's blocks wait
+// on), and every lane commits the group's decision. Retired lanes' live
+// steps are counted as theta_overwalk.
 //
 // Design. One thread owns one lane; the lane state lives in registers
 // for the whole launch and the state tensors are updated in place. Root
 // bank reads and result bank writes are indexed loads/stores
 // bank[f][slot][lane] (the TPU kernel needed an R-deep masked-select
-// chain because Mosaic has no gather). The exit test and the refill
-// decision read two grid-wide counts, live and nref, after every step;
-// to keep the reference's semantics (and so its step and waste counts)
-// exactly, the kernel is launched cooperatively and each step ends with
-// a block reduction, an integer atomicAdd into a counter slot (three
-// slots in rotation, so a slot is cleared two steps before its reuse),
-// and grid.sync() (walk_grid.cuh). Integer atomics are order-independent,
-// so reruns are bit-identical. The waste and eval counters need no
-// per-step grid-wide value: each lane accumulates its own and they are
-// reduced once at the end (the same totals).
+// chain because Mosaic has no gather). The waste and eval counters need
+// no per-step grid-wide value: each lane accumulates its own and they
+// are reduced once at the end (the same totals).
 //
-// What bounds it on this card: the float32 issue rate of the ds
-// arithmetic (~20-30 float32 operations per ds operation, several
-// hundred per ds sin) and the per-step grid barrier; not memory, since
-// the whole state is ~1.5 MB at 16384 lanes. 16384 lanes are only 128
-// blocks of 128 threads, one block on each of 128 of the 132 SMs, i.e.
-// 4 warps per SM: latency-bound and far below the FP32 peak. Raising
-// the occupancy, walking in native FP64 and removing the per-step
-// barrier are later work (ROADMAP).
+// What bounds it on this card, and what the design does about it. The
+// work is float32 arithmetic, not memory: the whole state is ~1.5 MB at
+// 16384 lanes, and its bound is ~0.3 us a step at the float32 peak. 16384
+// lanes are 128 blocks of 128 threads, one block on each of 128 of the
+// 132 SMs: one warp per scheduler, so every dependent float32 operation
+// of a ds evaluation (several hundred in a ds sin) waits its full
+// latency. Three costs sat on top of that chain (H100 80GB HBM3, 700 W,
+// PERF.md):
+//   - The exit and refill tests read two grid-wide counts, live and
+//     nref, after every step, and they must stay exact to keep the
+//     reference's schedule. They were a cooperative-groups grid.sync()
+//     after integer atomics, ~1.4 us a step. Now one packed
+//     count-and-barrier (wg::grid_count): one relaxed 64-bit atomic per
+//     block carries an arrival, live and nref into a word that is never
+//     cleared, and thread 0 spins on that word alone, with no fence. The
+//     launch stays cooperative, which keeps every block resident while
+//     others spin.
+//   - The scouting step confirmed 61% of its live lane-steps with three
+//     full-ds evaluations run one after another. Now the three points
+//     run in lockstep (ws::f_ds_n<FAM, 3>, and the three float32 scout
+//     evaluations with ws::f_sc_n), each bit-equal to a single
+//     evaluation. ptxas still schedules the three ds_sin chains one
+//     after another (SASS), so the gain is the divisions' and the scout
+//     evaluations', ~0.3 us a step (PERF.md).
+//   - Theta mode beyond T = 128 added a second grid.sync() per step
+//     (+1.5 us at T = 256). Now a block waits only for the T / 128
+//     blocks of its own group.
+// Raising the occupancy (more lanes per card are the caller's choice)
+// and a native-FP64 walk (another arithmetic than the reference's) are
+// not this kernel's to change.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "walk_grid.cuh"
 #include "walk_step.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,10 +71,9 @@ template <int FAM, int MODE, bool THETA>
 __global__ void __launch_bounds__(kThreads)
     walk_rf_kernel(void* const* p, int lanes, int R, float eps32,
                    int thresh, int cap, int batch, int T) {
-  cg::grid_group grid = cg::this_grid();
   const int lane = blockIdx.x * kThreads + threadIdx.x;
-  int* sync = static_cast<int*>(p[ws::P_SYNC]);
-  int* votes = static_cast<int*>(p[ws::P_VOTE]);
+  uint64_t* sync = static_cast<uint64_t*>(p[ws::P_SYNC]);
+  uint32_t* votes = static_cast<uint32_t*>(p[ws::P_VOTE]);
 
   ws::Lane s = ws::load_lane(p, lane);
   int slot = static_cast<int*>(p[ws::P_SLOT])[lane];
@@ -76,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
 
   int k = 0, c = 0;
   int cnt[2] = {!ws::is_parked(s), ws::takeable(s, slot, nslots)};
-  wg::grid_count(grid, cnt, sync, c);
+  wg::grid_count(cnt, sync, c);
   while (k == 0 || (k < cap && (cnt[0] > thresh || cnt[1] > 0))) {
     // refill BEFORE the step, on the counts (live, nref) of the
     // previous step
@@ -85,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
     ws::lane_classify<THETA>(s, slot, nslots, w);
     if constexpr (THETA) {
       ws::Eval e = ws::evaluate<FAM, MODE, true>(s, eps32, sc_n, cf_n);
-      bool any = wg::group_any(grid, e.vote, T, votes, lanes / T, k);
+      bool any = wg::group_any(e.vote, T, votes, lanes / T, k);
       ws::commit<MODE, true>(s, e, any);
     } else {
       ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
@@ -94,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
     ++c;
     cnt[0] = !ws::is_parked(s);
     cnt[1] = ws::takeable(s, slot, nslots);
-    wg::grid_count(grid, cnt, sync, c);
+    wg::grid_count(cnt, sync, c);
   }
 
   ws::store_lane(p, lane, s);
@@ -151,8 +162,9 @@ int walk_rf_max_coresident_blocks(int family, int mode, int theta) {
 // `T` the theta block (1: no theta groups; else a power of two dividing
 // lanes). Returns 0, a cudaError_t code, -2 for an unknown family or mode
 // (or Simpson with T > 1), -3 when lanes is not a multiple of the block
-// size or T is not a power of two dividing lanes, or -4 when the grid
-// exceeds `max_blocks`, the co-resident limit (it is never shrunk).
+// size or T is not a power of two dividing lanes, -4 when the grid
+// exceeds `max_blocks`, the co-resident limit (it is never shrunk), or -5
+// when lanes exceed the packed count's fields (wg::packed_fits).
 int walk_rf_launch(void* const* d_ptrs, int lanes, int R, int family,
                    int mode, float eps32, int thresh, int cap, int batch,
                    int T, int max_blocks, void* stream) {

@@ -61,14 +61,16 @@ constexpr int P_RESM_FAM = 37;
 constexpr int P_RESH = 38;
 constexpr int P_RESL = 39;
 constexpr int P_COUNTERS = 40;        // int32[8]: steps, 5 waste, 2 evals
-constexpr int P_SYNC = 41;            // int32[6], zeroed: grid counts
-constexpr int P_VOTE = 42;            // int32[3 * lanes / T], zeroed: the
-                                      // theta groups' vote slots (T > 128)
+constexpr int P_SYNC = 41;            // uint64[3], zeroed: the packed
+                                      // grid counts (walk_grid.cuh)
+constexpr int P_VOTE = 42;            // uint32[3 * lanes / T], zeroed: the
+                                      // theta groups' vote words (T > 128)
 constexpr int N_PTRS = 43;
 // pointer table of one K2 launch (walker.py run_segment_ee): the state,
 // then int32[7] counters (steps, eval_active, masked_dead,
-// parked_with_root, theta_overwalk, scout evals, confirm evals) and an
-// int32[3] zeroed grid-count buffer. K3 takes the 26 state pointers only.
+// parked_with_root, theta_overwalk, scout evals, confirm evals) and a
+// uint64[3] zeroed packed-count buffer. K3 takes the 26 state pointers
+// only.
 constexpr int P_EE_COUNTERS = 26;
 constexpr int P_EE_SYNC = 27;
 constexpr int N_EE_PTRS = 28;
@@ -156,75 +158,181 @@ WS_HD float pow2_f32(int ki) {
   return ki < -126 ? 0.0f : v;
 }
 
-// --- double-single arithmetic (ops/ds_kernel.py) -----------------------------
-
-struct ds2 {
-  float h, l;
+// --- lockstep values ---------------------------------------------------------
+//
+// fv<N>: N float32 values that one thread carries through the same
+// operations in lockstep (the scouting step's three evaluation points).
+// Each operator applies its float32 operation to every value in turn, so
+// the PTX holds the N operations of one source step side by side: N
+// independent chains the scheduler may interleave where one chain alone
+// waits out each operation's latency. Every value goes through exactly
+// the operations of the scalar code, in the same order, so its result is
+// bit-equal to it. The ds arithmetic below is written once for F = float
+// and F = fv<N>.
+template <int N>
+struct fv {
+  float v[N];
+};
+template <int N>
+struct iv {
+  int v[N];
+};
+template <int N>
+struct bv {
+  bool v[N];
 };
 
-WS_HD ds2 two_sum(float a, float b) {
-  float s = a + b;
-  float v = s - a;
-  float e = (a - (s - v)) + (b - v);
+#define WS_EACH(R, expr)            \
+  R r;                              \
+  _Pragma("unroll")                 \
+  for (int j = 0; j < N; ++j) r.v[j] = (expr); \
+  return r;
+
+#define WS_FV_BINARY(op)                                           \
+  template <int N>                                                 \
+  WS_HD fv<N> operator op(fv<N> a, fv<N> b) {                      \
+    WS_EACH(fv<N>, a.v[j] op b.v[j])                               \
+  }                                                                \
+  template <int N>                                                 \
+  WS_HD fv<N> operator op(float a, fv<N> b) {                      \
+    WS_EACH(fv<N>, a op b.v[j])                                    \
+  }                                                                \
+  template <int N>                                                 \
+  WS_HD fv<N> operator op(fv<N> a, float b) {                      \
+    WS_EACH(fv<N>, a.v[j] op b)                                    \
+  }
+WS_FV_BINARY(+)
+WS_FV_BINARY(-)
+WS_FV_BINARY(*)
+WS_FV_BINARY(/)
+#undef WS_FV_BINARY
+
+template <int N>
+WS_HD fv<N> operator-(fv<N> a) { WS_EACH(fv<N>, -a.v[j]) }
+template <int N>
+WS_HD iv<N> operator&(iv<N> a, int b) { WS_EACH(iv<N>, a.v[j] & b) }
+template <int N>
+WS_HD bv<N> operator==(iv<N> a, int b) { WS_EACH(bv<N>, a.v[j] == b) }
+template <int N>
+WS_HD bv<N> operator>=(iv<N> a, int b) { WS_EACH(bv<N>, a.v[j] >= b) }
+
+// a float constant as an F
+template <class F>
+struct Splat {
+  static WS_HD F of(float x) { return x; }
+};
+template <int N>
+struct Splat<fv<N>> {
+  static WS_HD fv<N> of(float x) { WS_EACH(fv<N>, x) }
+};
+
+WS_HD float rint_f(float x) { return rintf(x); }
+template <int N>
+WS_HD fv<N> rint_f(fv<N> x) { WS_EACH(fv<N>, rintf(x.v[j])) }
+WS_HD int to_int(float x) { return static_cast<int>(x); }
+template <int N>
+WS_HD iv<N> to_int(fv<N> x) { WS_EACH(iv<N>, static_cast<int>(x.v[j])) }
+template <int N>
+WS_HD fv<N> pow2_f32(iv<N> k) { WS_EACH(fv<N>, pow2_f32(k.v[j])) }
+template <class T>
+WS_HD T sel(bool c, T a, T b) { return c ? a : b; }
+template <int N>
+WS_HD fv<N> sel(bv<N> c, fv<N> a, fv<N> b) {
+  WS_EACH(fv<N>, c.v[j] ? a.v[j] : b.v[j])
+}
+#undef WS_EACH
+
+// --- double-single arithmetic (ops/ds_kernel.py) -----------------------------
+
+template <class F>
+struct dsT {
+  F h, l;
+};
+using ds2 = dsT<float>;
+
+template <class F>
+WS_HD dsT<F> dsc(float h, float l) {
+  return {Splat<F>::of(h), Splat<F>::of(l)};
+}
+
+template <class F>
+WS_HD dsT<F> two_sum(F a, F b) {
+  F s = a + b;
+  F v = s - a;
+  F e = (a - (s - v)) + (b - v);
   return {s, e};
 }
 
-WS_HD ds2 quick_two_sum(float a, float b) {
-  float s = a + b;
-  float e = b - (s - a);
+template <class F>
+WS_HD dsT<F> quick_two_sum(F a, F b) {
+  F s = a + b;
+  F e = b - (s - a);
   return {s, e};
 }
 
-WS_HD void dekker_split(float a, float& hi, float& lo) {
-  float t = K_SPLIT * a;
+template <class F>
+WS_HD void dekker_split(F a, F& hi, F& lo) {
+  F t = K_SPLIT * a;
   hi = t - (t - a);
   lo = a - hi;
 }
 
-WS_HD ds2 two_prod(float a, float b) {
-  float p = a * b;
-  float ah, al, bh, bl;
+template <class F>
+WS_HD dsT<F> two_prod(F a, F b) {
+  F p = a * b;
+  F ah, al, bh, bl;
   dekker_split(a, ah, al);
   dekker_split(b, bh, bl);
-  float e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+  F e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
   return {p, e};
 }
 
-WS_HD ds2 ds_neg(ds2 x) { return {-x.h, -x.l}; }
+template <class F>
+WS_HD dsT<F> ds_neg(dsT<F> x) { return {-x.h, -x.l}; }
 
-WS_HD ds2 ds_add(ds2 x, ds2 y) {
-  ds2 s = two_sum(x.h, y.h);
-  float e = s.l + (x.l + y.l);
+template <class F>
+WS_HD dsT<F> ds_add(dsT<F> x, dsT<F> y) {
+  dsT<F> s = two_sum(x.h, y.h);
+  F e = s.l + (x.l + y.l);
   return quick_two_sum(s.h, e);
 }
 
-WS_HD ds2 ds_sub(ds2 x, ds2 y) { return ds_add(x, ds_neg(y)); }
+template <class F>
+WS_HD dsT<F> ds_sub(dsT<F> x, dsT<F> y) { return ds_add(x, ds_neg(y)); }
 
-WS_HD ds2 ds_add_f32(ds2 x, float b) {
-  ds2 s = two_sum(x.h, b);
-  float e = s.l + x.l;
+template <class F>
+WS_HD dsT<F> ds_add_f32(dsT<F> x, F b) {
+  dsT<F> s = two_sum(x.h, b);
+  F e = s.l + x.l;
   return quick_two_sum(s.h, e);
 }
 
-WS_HD ds2 ds_mul(ds2 x, ds2 y) {
-  ds2 p = two_prod(x.h, y.h);
-  float e = p.l + (x.h * y.l + x.l * y.h);
+template <class F>
+WS_HD dsT<F> ds_mul(dsT<F> x, dsT<F> y) {
+  dsT<F> p = two_prod(x.h, y.h);
+  F e = p.l + (x.h * y.l + x.l * y.h);
   return quick_two_sum(p.h, e);
 }
 
-WS_HD ds2 ds_mul_f32(ds2 x, float b) {
-  ds2 p = two_prod(x.h, b);
-  float e = p.l + x.l * b;
+template <class F>
+WS_HD dsT<F> ds_mul_f32(dsT<F> x, F b) {
+  dsT<F> p = two_prod(x.h, b);
+  F e = p.l + x.l * b;
   return quick_two_sum(p.h, e);
 }
 
-WS_HD ds2 ds_mul_pow2(ds2 x, float k) { return {x.h * k, x.l * k}; }
+template <class F>
+WS_HD dsT<F> ds_mul_pow2(dsT<F> x, float k) { return {x.h * k, x.l * k}; }
 
-WS_HD ds2 ds_div(ds2 x, ds2 y) {
-  float q1 = x.h / y.h;
-  ds2 p = two_prod(q1, y.h);
-  ds2 r = ds_sub(x, ds2{p.h, p.l + q1 * y.l});
-  float q2 = (r.h + r.l) / y.h;
+// With F = fv<N>, each IEEE float32 division (-prec-div=true, which ends
+// a basic block at its slow-path branch) is followed by the other values'
+// divisions, so the work between two division stages stays in one block.
+template <class F>
+WS_HD dsT<F> ds_div(dsT<F> x, dsT<F> y) {
+  F q1 = x.h / y.h;
+  dsT<F> p = two_prod(q1, y.h);
+  dsT<F> r = ds_sub(x, dsT<F>{p.h, p.l + q1 * y.l});
+  F q2 = (r.h + r.l) / y.h;
   return quick_two_sum(q1, q2);
 }
 
@@ -233,158 +341,205 @@ WS_HD ds2 ds_abs(ds2 x) {
   return {neg ? -x.h : x.h, neg ? -x.l : x.l};
 }
 
-WS_HD ds2 ds_where(bool c, ds2 x, ds2 y) { return c ? x : y; }
+template <class F, class M>
+WS_HD dsT<F> ds_sel(M c, dsT<F> x, dsT<F> y) {
+  return {sel(c, x.h, y.h), sel(c, x.l, y.l)};
+}
 
-WS_HD ds2 sin_poly(ds2 y) {
-  ds2 y2 = ds_mul(y, y);
-  float tail = K_S11 + y2.h * K_S13;
-  ds2 p = ds_add(ds2{K_S9_H, K_S9_L}, ds_mul_f32(y2, tail));
-  p = ds_add(ds2{K_S7_H, K_S7_L}, ds_mul(y2, p));
-  p = ds_add(ds2{K_S5_H, K_S5_L}, ds_mul(y2, p));
-  p = ds_add(ds2{K_S3_H, K_S3_L}, ds_mul(y2, p));
+template <class F>
+WS_HD dsT<F> sin_poly(dsT<F> y) {
+  dsT<F> y2 = ds_mul(y, y);
+  F tail = K_S11 + y2.h * K_S13;
+  dsT<F> p = ds_add(dsc<F>(K_S9_H, K_S9_L), ds_mul_f32(y2, tail));
+  p = ds_add(dsc<F>(K_S7_H, K_S7_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_S5_H, K_S5_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_S3_H, K_S3_L), ds_mul(y2, p));
   return ds_add(y, ds_mul(ds_mul(y, y2), p));
 }
 
-WS_HD ds2 cos_poly(ds2 y) {
-  ds2 y2 = ds_mul(y, y);
-  float tail = K_C10 + y2.h * K_C12;
-  ds2 p = ds_add(ds2{K_C8_H, K_C8_L}, ds_mul_f32(y2, tail));
-  p = ds_add(ds2{K_C6_H, K_C6_L}, ds_mul(y2, p));
-  p = ds_add(ds2{K_C4_H, K_C4_L}, ds_mul(y2, p));
-  p = ds_add(ds2{K_C2_H, K_C2_L}, ds_mul(y2, p));
-  return ds_add(ds2{1.0f, 0.0f}, ds_mul(y2, p));
+template <class F>
+WS_HD dsT<F> cos_poly(dsT<F> y) {
+  dsT<F> y2 = ds_mul(y, y);
+  F tail = K_C10 + y2.h * K_C12;
+  dsT<F> p = ds_add(dsc<F>(K_C8_H, K_C8_L), ds_mul_f32(y2, tail));
+  p = ds_add(dsc<F>(K_C6_H, K_C6_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_C4_H, K_C4_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_C2_H, K_C2_L), ds_mul(y2, p));
+  return ds_add(dsc<F>(1.0f, 0.0f), ds_mul(y2, p));
 }
 
-WS_HD ds2 ds_sin(ds2 x) {
-  float k = rintf(x.h * K_TWO_OVER_PI);
-  ds2 t1 = two_prod(k, K_PIO2_1);
-  float h = x.h - t1.h;  // exact by Sterbenz
-  ds2 t2 = two_prod(k, K_PIO2_2);
-  ds2 y = {h, 0.0f};
+template <class F>
+WS_HD dsT<F> ds_sin(dsT<F> x) {
+  F k = rint_f(x.h * K_TWO_OVER_PI);
+  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PIO2_1));
+  F h = x.h - t1.h;  // exact by Sterbenz
+  dsT<F> t2 = two_prod(k, Splat<F>::of(K_PIO2_2));
+  dsT<F> y = {h, Splat<F>::of(0.0f)};
   y = ds_add_f32(y, -t1.l);
   y = ds_add_f32(y, x.l);
   y = ds_add_f32(y, -t2.h);
   y = ds_add_f32(y, -t2.l);
   y = ds_add_f32(y, -(k * K_PIO2_3));
-  int q = static_cast<int>(k) & 3;
-  ds2 sin_y = sin_poly(y);
-  ds2 cos_y = cos_poly(y);
-  ds2 res = ((q & 1) == 1) ? cos_y : sin_y;
-  return (q >= 2) ? ds_neg(res) : res;
+  auto q = to_int(k) & 3;
+  dsT<F> sin_y = sin_poly(y);
+  dsT<F> cos_y = cos_poly(y);
+  dsT<F> res = ds_sel((q & 1) == 1, cos_y, sin_y);
+  return ds_sel(q >= 2, ds_neg(res), res);
 }
 
-WS_HD ds2 exp_poly(ds2 r) {
-  float tail = K_E10 + r.h * (K_E11 + r.h * K_E12);
-  ds2 p = ds_add(ds2{K_E9_H, K_E9_L}, ds_mul_f32(r, tail));
-  p = ds_add(ds2{K_E8_H, K_E8_L}, ds_mul(r, p));
-  p = ds_add(ds2{K_E7_H, K_E7_L}, ds_mul(r, p));
-  p = ds_add(ds2{K_E6_H, K_E6_L}, ds_mul(r, p));
-  p = ds_add(ds2{K_E5_H, K_E5_L}, ds_mul(r, p));
-  p = ds_add(ds2{K_E4_H, K_E4_L}, ds_mul(r, p));
-  p = ds_add(ds2{K_E3_H, K_E3_L}, ds_mul(r, p));
-  p = ds_add(ds2{0.5f, 0.0f}, ds_mul(r, p));
-  return ds_add(ds_add(ds2{1.0f, 0.0f}, r), ds_mul(ds_mul(r, r), p));
+template <class F>
+WS_HD dsT<F> exp_poly(dsT<F> r) {
+  F tail = K_E10 + r.h * (K_E11 + r.h * K_E12);
+  dsT<F> p = ds_add(dsc<F>(K_E9_H, K_E9_L), ds_mul_f32(r, tail));
+  p = ds_add(dsc<F>(K_E8_H, K_E8_L), ds_mul(r, p));
+  p = ds_add(dsc<F>(K_E7_H, K_E7_L), ds_mul(r, p));
+  p = ds_add(dsc<F>(K_E6_H, K_E6_L), ds_mul(r, p));
+  p = ds_add(dsc<F>(K_E5_H, K_E5_L), ds_mul(r, p));
+  p = ds_add(dsc<F>(K_E4_H, K_E4_L), ds_mul(r, p));
+  p = ds_add(dsc<F>(K_E3_H, K_E3_L), ds_mul(r, p));
+  p = ds_add(dsc<F>(0.5f, 0.0f), ds_mul(r, p));
+  return ds_add(ds_add(dsc<F>(1.0f, 0.0f), r), ds_mul(ds_mul(r, r), p));
 }
 
-WS_HD ds2 ds_exp(ds2 x) {
-  float k = rintf(x.h * K_LOG2E);
-  ds2 t1 = two_prod(k, K_LN2_1);
-  float h = x.h - t1.h;  // exact by Sterbenz
-  ds2 t2 = two_prod(k, K_LN2_2);
-  ds2 y = {h, 0.0f};
+template <class F>
+WS_HD dsT<F> ds_exp(dsT<F> x) {
+  F k = rint_f(x.h * K_LOG2E);
+  dsT<F> t1 = two_prod(k, Splat<F>::of(K_LN2_1));
+  F h = x.h - t1.h;  // exact by Sterbenz
+  dsT<F> t2 = two_prod(k, Splat<F>::of(K_LN2_2));
+  dsT<F> y = {h, Splat<F>::of(0.0f)};
   y = ds_add_f32(y, -t1.l);
   y = ds_add_f32(y, x.l);
   y = ds_add_f32(y, -t2.h);
   y = ds_add_f32(y, -t2.l);
   y = ds_add_f32(y, -(k * K_LN2_3));
-  ds2 e = exp_poly(y);
-  float s = pow2_f32(static_cast<int>(k));
+  dsT<F> e = exp_poly(y);
+  F s = pow2_f32(to_int(k));
   return {e.h * s, e.l * s};
 }
 
 // --- scout arithmetic (ops/scout_kernel.py): plain float32 ------------------
 
-WS_HD float sc_sin(float xv) {
-  float k = rintf(xv * K_TWO_OVER_PI);
-  ds2 t1 = two_prod(k, K_PIO2_1);
-  float y = (xv - t1.h) - (t1.l + k * K_PIO2_2);
-  float y2 = y * y;
-  float sp = K_SC_S9 + y2 * K_SC_S11;
+template <class F>
+WS_HD F sc_sin(F xv) {
+  F k = rint_f(xv * K_TWO_OVER_PI);
+  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PIO2_1));
+  F y = (xv - t1.h) - (t1.l + k * K_PIO2_2);
+  F y2 = y * y;
+  F sp = K_SC_S9 + y2 * K_SC_S11;
   sp = K_SC_S7 + y2 * sp;
   sp = K_SC_S5 + y2 * sp;
   sp = K_SC_S3 + y2 * sp;
-  float sin_y = y + y * y2 * sp;
-  float cp = K_SC_C8 + y2 * K_SC_C10;
+  F sin_y = y + y * y2 * sp;
+  F cp = K_SC_C8 + y2 * K_SC_C10;
   cp = K_SC_C6 + y2 * cp;
   cp = K_SC_C4 + y2 * cp;
   cp = K_SC_C2 + y2 * cp;
-  float cos_y = 1.0f + y2 * cp;
-  int q = static_cast<int>(k) & 3;
-  float res = ((q & 1) == 1) ? cos_y : sin_y;
-  return (q >= 2) ? -res : res;
+  F cos_y = 1.0f + y2 * cp;
+  auto q = to_int(k) & 3;
+  F res = sel((q & 1) == 1, cos_y, sin_y);
+  return sel(q >= 2, -res, res);
 }
 
-WS_HD float sc_exp(float xv) {
-  float k = rintf(xv * K_LOG2E);
-  ds2 t1 = two_prod(k, K_LN2_1);
-  float r = (xv - t1.h) - (t1.l + k * K_LN2_2);
-  float p = K_SC_E6 + r * K_SC_E7;
+template <class F>
+WS_HD F sc_exp(F xv) {
+  F k = rint_f(xv * K_LOG2E);
+  dsT<F> t1 = two_prod(k, Splat<F>::of(K_LN2_1));
+  F r = (xv - t1.h) - (t1.l + k * K_LN2_2);
+  F p = K_SC_E6 + r * K_SC_E7;
   p = K_SC_E5 + r * p;
   p = K_SC_E4 + r * p;
   p = K_SC_E3 + r * p;
   p = K_SC_E2 + r * p;
-  float e = 1.0f + r * (1.0f + r * p);
-  float s = pow2_f32(static_cast<int>(k));
+  F e = 1.0f + r * (1.0f + r * p);
+  F s = pow2_f32(to_int(k));
   return e * s;
 }
 
 // --- integrands (models/integrands.py ds twins) ------------------------------
+//
+// f_ds_of<FAM>(x, th) for F = float is the single evaluation every step
+// machine makes. The scouting step's confirm evaluates its three points
+// (x0, mid, x1) through f_ds_n<FAM, 3>, in lockstep (fv<3>): one
+// evaluation is a dependent chain of several hundred float32 operations,
+// and at 16384 lanes a scheduler holds a single warp, so one chain runs
+// at its operations' latency. On the H100 build ptxas interleaves the
+// three points' divisions and scout evaluations but still lays the three
+// ds_sin chains one after another (SASS, PERF.md). The scout twins the
+// same way.
 
-template <int FAM>
-WS_HD ds2 f_ds(ds2 x, ds2 th);
-
-template <>
-WS_HD ds2 f_ds<FAMILY_SIN_RECIP>(ds2 x, ds2 th) {
-  return ds_sin(ds_div(th, x));
-}
-
-template <>
-WS_HD ds2 f_ds<FAMILY_SIN_SCALED>(ds2 x, ds2 th) {
-  return ds_sin(ds_mul(th, x));
-}
-
-template <>
-WS_HD ds2 f_ds<FAMILY_COSH4>(ds2 x, ds2 th) {
-  ds2 u = ds_mul(th, x);
-  ds2 e = ds_exp(u);
-  ds2 inv = ds_div(ds2{1.0f, 0.0f}, e);
-  ds2 c = ds_mul_pow2(ds_add(e, inv), 0.5f);
-  ds2 c2 = ds_mul(c, c);
-  return ds_mul(c2, c2);
+template <int FAM, class F>
+WS_HD dsT<F> f_ds_of(dsT<F> x, dsT<F> th) {
+  if constexpr (FAM == FAMILY_SIN_SCALED) {  // sin(theta x)
+    return ds_sin(ds_mul(th, x));
+  } else if constexpr (FAM == FAMILY_SIN_RECIP) {  // sin(theta / x)
+    return ds_sin(ds_div(th, x));
+  } else {  // cosh(theta x)^4
+    static_assert(FAM == FAMILY_COSH4, "unknown integrand family");
+    dsT<F> u = ds_mul(th, x);
+    dsT<F> e = ds_exp(u);
+    dsT<F> inv = ds_div(dsc<F>(1.0f, 0.0f), e);
+    dsT<F> c = ds_mul_pow2(ds_add(e, inv), 0.5f);
+    dsT<F> c2 = ds_mul(c, c);
+    return ds_mul(c2, c2);
+  }
 }
 
 // scout twins: only the hi limbs matter (the lo limbs are +0.0)
+template <int FAM, class F>
+WS_HD F f_sc_of(F x, F th) {
+  if constexpr (FAM == FAMILY_SIN_SCALED) {
+    return sc_sin(th * x);
+  } else if constexpr (FAM == FAMILY_SIN_RECIP) {
+    return sc_sin(th / x);
+  } else {
+    static_assert(FAM == FAMILY_COSH4, "unknown integrand family");
+    F u = th * x;
+    F e = sc_exp(u);
+    F inv = 1.0f / e;
+    F c = (e + inv) * 0.5f;
+    F c2 = c * c;
+    return c2 * c2;
+  }
+}
+
 template <int FAM>
-WS_HD float f_sc(float x, float th);
-
-template <>
-WS_HD float f_sc<FAMILY_SIN_RECIP>(float x, float th) {
-  return sc_sin(th / x);
+WS_HD ds2 f_ds(ds2 x, ds2 th) {
+  return f_ds_of<FAM, float>(x, th);
 }
 
-template <>
-WS_HD float f_sc<FAMILY_SIN_SCALED>(float x, float th) {
-  return sc_sin(th * x);
+template <int FAM>
+WS_HD float f_sc(float x, float th) {
+  return f_sc_of<FAM, float>(x, th);
 }
 
-template <>
-WS_HD float f_sc<FAMILY_COSH4>(float x, float th) {
-  float u = th * x;
-  float e = sc_exp(u);
-  float inv = 1.0f / e;
-  float c = (e + inv) * 0.5f;
-  float c2 = c * c;
-  return c2 * c2;
+// the integrand at N points of one theta, in lockstep
+template <int FAM, int N>
+WS_HD void f_ds_n(const ds2 (&x)[N], ds2 th, ds2 (&g)[N]) {
+  dsT<fv<N>> xs, ths;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    xs.h.v[j] = x[j].h;
+    xs.l.v[j] = x[j].l;
+    ths.h.v[j] = th.h;
+    ths.l.v[j] = th.l;
+  }
+  dsT<fv<N>> r = f_ds_of<FAM>(xs, ths);
+#pragma unroll
+  for (int j = 0; j < N; ++j) g[j] = ds2{r.h.v[j], r.l.v[j]};
+}
+
+template <int FAM, int N>
+WS_HD void f_sc_n(const float (&x)[N], float th, float (&g)[N]) {
+  fv<N> xs, ths;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    xs.v[j] = x[j];
+    ths.v[j] = th;
+  }
+  fv<N> r = f_sc_of<FAM>(xs, ths);
+#pragma unroll
+  for (int j = 0; j < N; ++j) g[j] = r.v[j];
 }
 
 // --- lane state --------------------------------------------------------------
@@ -656,9 +811,11 @@ WS_HD Eval eval_scout(const Lane& s, float eps32, int& sc_n, int& cf_n) {
 
   bool need_l = live && mode_init;
   bool need_r = live && (mode_init || mode_load);
-  float f_m = f_sc<FAM>(parked ? 1.0f : mid.h, th.h);
-  float f_l = f_sc<FAM>(need_l ? x0.h : 1.0f, th.h);
-  float f_r = f_sc<FAM>(need_r ? x1.h : 1.0f, th.h);
+  const float xs[3] = {parked ? 1.0f : mid.h, need_l ? x0.h : 1.0f,
+                       need_r ? x1.h : 1.0f};
+  float fs[3];
+  f_sc_n<FAM, 3>(xs, th.h, fs);
+  float f_m = fs[0], f_l = fs[1], f_r = fs[2];
   e.fl = mode_init ? ds2{f_l, 0.0f} : ds2{s.fl_h, s.fl_l};
   e.fr = need_r ? ds2{f_r, 0.0f} : ds2{s.fr_h, s.fr_l};
   e.fq = ds2{f_m, 0.0f};
@@ -680,10 +837,11 @@ WS_HD Eval eval_scout(const Lane& s, float eps32, int& sc_n, int& cf_n) {
   bool split_ds = false;
   if (need_conf) {
     // full-ds re-evaluation of the tested node (the scout caches never
-    // reach the credit)
-    ds2 g0 = f_ds<FAM>(x0, th);
-    ds2 gm = f_ds<FAM>(mid, th);
-    ds2 g1 = f_ds<FAM>(x1, th);
+    // reach the credit), its three points side by side
+    const ds2 xd[3] = {x0, mid, x1};
+    ds2 gd[3];
+    f_ds_n<FAM, 3>(xd, th, gd);
+    ds2 g0 = gd[0], gm = gd[1], g1 = gd[2];
     ds2 quarter = ds_mul_pow2(w, 0.25f);
     ds2 la = ds_mul(ds_add(g0, gm), quarter);
     ds2 ra = ds_mul(ds_add(gm, g1), quarter);

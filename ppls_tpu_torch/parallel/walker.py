@@ -822,7 +822,18 @@ _KERNEL_ERRORS = {
         "not a power of two dividing lanes",
     -4: "the grid cannot be co-resident on this card (cooperative launch "
         "refused; the grid is never shrunk)",
+    -5: "lanes exceed the packed grid count's fields",
 }
+
+# The packed grid count of K1 and K2 (csrc/walk_grid.cuh): each block adds
+# one 64-bit word of (arrivals: 16 bits, live: 24 bits, nref: 24 bits) per
+# step, so a launch counts at most 2^24 - 1 lanes in at most 2^16 - 1
+# blocks of 128 threads.
+PACKED_ARRIVAL_BITS = 16
+PACKED_COUNT_BITS = 24
+PACKED_MAX_BLOCKS = (1 << PACKED_ARRIVAL_BITS) - 1
+PACKED_MAX_LANES = (1 << PACKED_COUNT_BITS) - 1
+KERNEL_THREADS = 128
 
 
 def _kernel_family(f_ds: Callable) -> int:
@@ -860,8 +871,9 @@ def _check_operands(what: str, state: WalkState, device: torch.device,
     shape on ``device``; ``extra`` holds (name, tensor, dtype, shape)
     rows beyond the state. Returns lanes."""
     lanes = state.a_h.shape[0]
-    if lanes % 128:
-        raise ValueError(f"{what} needs lanes % 128 == 0, got {lanes}")
+    if lanes % KERNEL_THREADS:
+        raise ValueError(f"{what} needs lanes % {KERNEL_THREADS} == 0, got "
+                         f"{lanes}")
     checks = [(name, t, torch.float32 if j < N_F32_FIELDS else torch.int32,
                (lanes,)) for j, (name, t) in enumerate(
                    zip(WalkState._fields, state))]
@@ -873,6 +885,17 @@ def _check_operands(what: str, state: WalkState, device: torch.device,
                 f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device} (contiguous={t.is_contiguous()})")
     return lanes
+
+
+def _check_packed_limits(what: str, lanes: int) -> None:
+    """Raise unless ``lanes`` fit the packed grid count's fields: at most
+    PACKED_MAX_LANES lanes in at most PACKED_MAX_BLOCKS blocks."""
+    blocks = lanes // KERNEL_THREADS
+    if lanes > PACKED_MAX_LANES or blocks > PACKED_MAX_BLOCKS:
+        raise ValueError(
+            f"{what}: {lanes} lanes ({blocks} blocks) exceed the packed grid "
+            f"count's fields (at most {PACKED_MAX_LANES} lanes in "
+            f"{PACKED_MAX_BLOCKS} blocks of {KERNEL_THREADS} threads)")
 
 
 def _pointer_table(operands, device: torch.device) -> torch.Tensor:
@@ -931,6 +954,7 @@ def run_segment_rf(state: WalkState, slot, thresh: int, cap: int,
         return segment_rf_plain(state, slot, thresh, cap, batch, nslots,
                                 bank, resm, f_ds=f_ds, eps=eps,
                                 scout=scout, rule=rule, theta_block=T)
+    _check_packed_limits("K1", lanes)
     family, mode = _kernel_family(f_ds), step_mode(rule, scout)
     R = bank[0].shape[0]
     bank_names = ("a_h", "a_l", "w_h", "w_l", "th_h", "th_l", "meta")
@@ -950,7 +974,7 @@ def run_segment_rf(state: WalkState, slot, thresh: int, cap: int,
     resh = torch.zeros((R, lanes), dtype=torch.float32, device=device)
     resl = torch.zeros((R, lanes), dtype=torch.float32, device=device)
     counters = torch.zeros(8, dtype=torch.int32, device=device)
-    sync = torch.zeros(6, dtype=torch.int32, device=device)
+    sync = torch.zeros(3, dtype=torch.int64, device=device)
     votes = torch.zeros(3 * (lanes // T), dtype=torch.int32, device=device)
     ptrs = _pointer_table((*state, nslots, slot, *bank, *resm, resh, resl,
                            counters, sync, votes), device)
@@ -985,12 +1009,13 @@ def run_segment_ee(state: WalkState, thresh: int, cap: int, *,
         ctr = segment_ee_plain(state, thresh, cap, f_ds=f_ds, eps=eps,
                                scout=scout, rule=rule)
         return state, ctr[0], ctr[1:5], ctr[5:7]
+    _check_packed_limits("K2", state.a_h.shape[0])
     family, mode = _kernel_family(f_ds), step_mode(rule, scout)
     lanes = _check_operands("K2", state, device)
     from ppls_tpu_torch.utils.cuda_build import load_walk_ee
     lib = load_walk_ee().lib
     ctr = torch.zeros(7, dtype=torch.int32, device=device)
-    sync = torch.zeros(3, dtype=torch.int32, device=device)
+    sync = torch.zeros(3, dtype=torch.int64, device=device)
     ptrs = _pointer_table((*state, ctr, sync), device)
     max_blocks = _max_blocks("walk_ee", _device_index(device), family, mode)
     _launch("K2", device, lambda stream: lib.walk_ee_launch(

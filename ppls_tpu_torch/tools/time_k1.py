@@ -1,15 +1,36 @@
-"""Time K1 launches (theta_block = 1) on the flagship's dealt bank, for
-the checkout given by ``--root``, so two checkouts can be timed in
+"""Time the walk kernels of one checkout, or of several checkouts in
 alternation on one card:
 
-    python ppls_tpu_torch/tools/time_k1.py --root PATH [--launches N]
+    python ppls_tpu_torch/tools/time_k1.py [--root PATH] [--launches N]
+    python ppls_tpu_torch/tools/time_k1.py --compare PARENT CHANGE \\
+        [--rounds 3] [--out FILE]
 
-It imports ``ppls_tpu_torch`` from PATH (default: the checkout this file
-is in), deals the flagship's first bank (sin(theta/x), 1024 thetas on
-[1e-4, 1], eps 1e-10, 16384 lanes, R = 8), and times ``--launches``
-256-step launches of the trapezoid and the scouting machine by CUDA
-events after one warm-up launch each. Prints one JSON line: the root and
-the launch times in ms per machine. Needs an NVIDIA GPU.
+With ``--root`` (default: the checkout this file is in) it imports
+``ppls_tpu_torch`` from PATH and times, by CUDA events after one warm-up
+launch each, ``--launches`` 256-step launches of:
+
+- K1 at T = 1 on the flagship's first dealt bank (sin(theta/x), 1024
+  thetas on [1e-4, 1], eps 1e-10, 16384 lanes, R = 8): ``step``
+  (trapezoid) and ``step_scout``;
+- K1's theta trapezoid at T = 128 and T = 256 (``theta_128``,
+  ``theta_256``) on a dealt theta bank of sin(theta x) on [0, 1], eps
+  1e-5, thetas linspace(1, 4, 16384), R = 8;
+- K2 on the flagship's seeded lanes (the first boundary refill):
+  ``k2_step`` and ``k2_step_scout`` at thresh 0.80 * lanes, and
+  ``k2_noexit`` (thresh -1) beside ``k3_step``, K3 on the same lanes:
+  the same work with and without the grid count and barrier.
+
+It prints one JSON line: the root and, per kernel, the launch times in
+ms and the launch's steps. Only the wrappers' public signatures are
+used, so a parent checkout that lacks newer kernel code is timed the
+same way.
+
+With ``--compare`` it runs one such process per root in the order
+given, then in reverse, ``--rounds`` times (two roots, three rounds:
+A B B A A B B A A B B A), and prints per root and kernel the median and
+interquartile range of the per-process median times and the us per
+step, and the card's ``nvidia-smi`` name and power limit. Needs an
+NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -17,51 +38,171 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+CAP = 256
+LANES = 1 << 14
+DEVICE = "cuda"
+
+
+def _timed_launches(fn, launches: int):
+    """(times in ms, the last launch's steps) of launches + 1 calls of
+    fn(), which returns its step count; the first call warms up."""
+    import torch
+    times, steps = [], 0
+    for j in range(launches + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        launch = fn()
+        torch.cuda.synchronize()
+        start.record()
+        steps = launch()
+        stop.record()
+        torch.cuda.synchronize()
+        if j:
+            times.append(start.elapsed_time(stop))
+    return times, int(steps)
+
+
+def time_root(launches: int) -> dict:
+    import numpy as np
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    from ppls_tpu_torch.parallel import walker as W
+
+    def k1(base, f_ds, eps, scout, T=1):
+        def prepare():
+            state = W.WalkState(*(t.clone() for t in base["state"]))
+            slot = base["slot"].clone()
+            bank = tuple(t.clone() for t in base["bank"])
+            resm = tuple(t.clone() for t in base["resm"])
+            kw = dict(theta_block=T) if T > 1 else {}
+
+            def launch():
+                out = W.run_segment_rf(state, slot, base["thresh"], CAP,
+                                       base["batch"], base["nslots"], bank,
+                                       resm, f_ds=f_ds, eps=eps, scout=scout,
+                                       **kw)
+                return out[2][0]
+            return launch
+        return prepare
+
+    def k2(base, f_ds, eps, scout, thresh):
+        def prepare():
+            state = W.WalkState(*(t.clone() for t in base["state"]))
+
+            def launch():
+                return W.run_segment_ee(state, thresh, CAP, f_ds=f_ds,
+                                        eps=eps, scout=scout)[1]
+            return launch
+        return prepare
+
+    def k3(base, f_ds, eps):
+        def prepare():
+            state = W.WalkState(*(t.clone() for t in base["state"]))
+
+            def launch():
+                W.run_segment(state, CAP, f_ds=f_ds, eps=eps)
+                return CAP
+            return launch
+        return prepare
+
+    f, f_ds = get_family("sin_recip_scaled"), get_family_ds("sin_recip_scaled")
+    theta = 1.0 + np.arange(1024) / 1024
+    flagship = dict(lanes=LANES, roots_per_lane=12, capacity=1 << 23,
+                    device=DEVICE)
+    runs = {}
+    for mode, scout in (("step", False), ("step_scout", True)):
+        base = W.first_phase_inputs(f, theta, (1e-4, 1.0), 1e-10,
+                                    refill_slots=8, scout=scout, **flagship)
+        runs[mode] = k1(base, f_ds, 1e-10, scout)
+    fs, fs_ds = get_family("sin_scaled"), get_family_ds("sin_scaled")
+    for T in (128, 256):
+        thetas = np.linspace(1.0, 4.0, LANES).reshape(LANES // T, T)
+        base = W.first_phase_inputs(fs, thetas, (0.0, 1.0), 1e-5,
+                                    refill_slots=8, scout=False,
+                                    theta_block=T, **flagship)
+        runs[f"theta_{T}"] = k1(base, fs_ds, 1e-5, False, T)
+    seeded = W.first_phase_inputs(f, theta, (1e-4, 1.0), 1e-10,
+                                  refill_slots=0, scout=False, **flagship)
+    runs["k2_step"] = k2(seeded, f_ds, 1e-10, False, seeded["thresh"])
+    runs["k2_step_scout"] = k2(seeded, f_ds, 1e-10, True, seeded["thresh"])
+    runs["k2_noexit"] = k2(seeded, f_ds, 1e-10, False, -1)
+    runs["k3_step"] = k3(seeded, f_ds, 1e-10)
+    out = {}
+    for name, prepare in runs.items():
+        times, steps = _timed_launches(prepare, launches)
+        out[name] = {"ms": times, "steps": steps}
+    return out
+
+
+def compare(roots, rounds: int, launches: int, out_path) -> int:
+    import numpy as np
+    order = [r for _ in range(rounds) for r in (*roots, *roots[::-1])]
+    per_root = {r: [] for r in roots}
+    for root in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--root", root,
+             "--launches", str(launches)],
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        per_root[root].append(rec)
+        print(json.dumps(rec), flush=True)
+    summary = {}
+    for root, recs in per_root.items():
+        summary[root] = {}
+        for name in recs[0]:
+            if name == "root":
+                continue
+            meds = [float(np.median(r[name]["ms"])) for r in recs]
+            q25, q50, q75 = np.percentile(meds, [25, 50, 75])
+            steps = recs[0][name]["steps"]
+            summary[root][name] = dict(
+                median_ms=float(q50), iqr_ms=float(q75 - q25),
+                us_per_step=1e3 * float(q50) / steps, steps=steps,
+                process_medians_ms=meds)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=False).stdout.strip()
+    result = {"order": order, "launches": launches, "smi": smi,
+              "summary": summary}
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump(result, fh, indent=1)
+    for name in summary[roots[0]]:
+        cells = "; ".join(
+            f"{os.path.basename(os.path.normpath(r))}: "
+            f"{summary[r][name]['median_ms']:.4f} ms (IQR "
+            f"{summary[r][name]['iqr_ms']:.4f}), "
+            f"{summary[r][name]['us_per_step']:.3f} us/step"
+            for r in roots)
+        print(f"[time_k1] {name} ({summary[roots[0]][name]['steps']} "
+              f"steps): {cells}", flush=True)
+    print(smi, flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--launches", type=int, default=11)
+    ap.add_argument("--compare", nargs="+", metavar="ROOT")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out")
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare([os.path.abspath(r) for r in args.compare],
+                       args.rounds, args.launches, args.out)
     sys.path.insert(0, os.path.abspath(args.root))
-    import numpy as np
     import torch
-    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
-    from ppls_tpu_torch.parallel import walker as W
-
     if not torch.cuda.is_available():
         print("time_k1: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    f, f_ds = get_family("sin_recip_scaled"), get_family_ds("sin_recip_scaled")
-    theta = 1.0 + np.arange(1024) / 1024
-    out = {"root": args.root}
-    for mode, scout in (("step", False), ("step_scout", True)):
-        base = W.first_phase_inputs(f, theta, (1e-4, 1.0), 1e-10,
-                                    lanes=1 << 14, roots_per_lane=12,
-                                    refill_slots=8, capacity=1 << 23,
-                                    scout=scout, device="cuda")
-        times = []
-        for j in range(args.launches + 1):
-            state = W.WalkState(*(t.clone() for t in base["state"]))
-            slot = base["slot"].clone()
-            bank = tuple(t.clone() for t in base["bank"])
-            resm = tuple(t.clone() for t in base["resm"])
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            W.run_segment_rf(state, slot, base["thresh"], 256, base["batch"],
-                             base["nslots"], bank, resm, f_ds=f_ds,
-                             eps=1e-10, scout=scout)
-            stop.record()
-            torch.cuda.synchronize()
-            if j:                              # the first launch warms up
-                times.append(start.elapsed_time(stop))
-        out[mode] = times
+    out = {"root": args.root, **time_root(args.launches)}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -152,15 +152,21 @@ def load_all_kernels() -> dict:
 def build_walk_host(out_root: Path) -> BuiltLib:
     """Build the host (g++) twin of the walk kernels' step machine into
     ``out_root`` and load it: ``walk_rf_host``, ``walk_ee_host`` and
-    ``walk_seg_host``. Used by the CPU tests only."""
+    ``walk_seg_host``, and the packed-count, vote and integrand checks
+    (``wg_*``, ``ws_f_*_host``). Used by the CPU tests only."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
     built = build_library("walk_host", gxx, HOST_FLAGS,
-                          [CSRC / "walk_host.cpp"],
-                          [CSRC / "walk_step.cuh"], out_root)
+                          [CSRC / "walk_host.cpp"], DEVICE_HEADERS, out_root)
     lib = built.lib
     _sig(lib.walk_rf_host, [_P, _I, _I, _I, _I, _F, _I, _I, _I, _I])
     _sig(lib.walk_ee_host, [_P, _I, _I, _I, _F, _I, _I])
     _sig(lib.walk_seg_host, [_P, _I, _I, _I, _F, _I])
+    _sig(lib.wg_limits, [_P], None)
+    _sig(lib.wg_packed_fits, [_I])
+    _sig(lib.wg_pack_sum, [ctypes.c_uint64, _I, _P, _P, _P], None)
+    _sig(lib.wg_group_any_host, [_P, _I, _I, _I, ctypes.c_uint32, _P])
+    _sig(lib.ws_f_ds_host, [_I, _I, _I, _P, _P, _F, _F, _P, _P])
+    _sig(lib.ws_f_sc_host, [_I, _I, _I, _P, _F, _P])
     return built

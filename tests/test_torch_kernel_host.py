@@ -85,7 +85,7 @@ def _run_host(lib, inp, cap, f_ds, eps, scout, rule=Rule.TRAPEZOID):
     resh = torch.zeros((R, lanes), dtype=torch.float32)
     resl = torch.zeros((R, lanes), dtype=torch.float32)
     ctr = torch.zeros(8, dtype=torch.int32)
-    sync = torch.zeros(6, dtype=torch.int32)
+    sync = torch.zeros(3, dtype=torch.int64)
     votes = torch.zeros(3 * (lanes // T), dtype=torch.int32)
     ops = (*inp["state"], inp["nslots"], inp["slot"], *inp["bank"],
            *inp["resm"], resh, resl, ctr, sync, votes)
@@ -103,7 +103,7 @@ def _host_rf(lib, table, lanes, R, f_ds, mode, eps, thresh, cap, batch, T):
 
 def _run_host_ee(lib, state, thresh, cap, f_ds, eps, mode):
     ctr = torch.zeros(7, dtype=torch.int32)
-    sync = torch.zeros(3, dtype=torch.int32)
+    sync = torch.zeros(3, dtype=torch.int64)
     table = _table((*state, ctr, sync))
     rc = lib.walk_ee_host(ctypes.cast(table, ctypes.c_void_p),
                           state.a_h.shape[0], f_ds.kernel_family, mode,
@@ -176,12 +176,13 @@ def _theta_inputs(fam, bounds, eps, span, T, scout, device="cpu"):
 
 
 @pytest.mark.parametrize("scout", [False, True])
-@pytest.mark.parametrize("T", [1, 8, 64, 256])
+@pytest.mark.parametrize("T", [1, 8, 64, 128, 256])
 @pytest.mark.parametrize("fam,bounds,eps,span", THETA_CASES)
 def test_host_theta_loop_bit_equal_to_plain_segment(host_lib, fam, bounds,
                                                     eps, span, T, scout):
     # T = 1 runs the variant without votes; on the card T = 8 votes
-    # inside a warp, 64 across warps, 256 across blocks
+    # inside a warp, 64 across warps, 128 across the block, 256 across
+    # blocks
     f_ds = get_family_ds(fam)
     base = _theta_inputs(fam, bounds, eps, span, T, scout)
     a, b = _clone(base), _clone(base)
@@ -263,6 +264,203 @@ def test_host_k3_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
     assert _run_host_seg(host_lib, b, 1, f_ds, eps, W.STEP_SCOUT) == -2
 
 
+# --- the kernels' grid primitives and the three-point confirm, on the host --
+
+def _fp(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _points(fam, n, seed):
+    """n (a multiple of 3) ds points, seeded at random in the family's
+    range and with edge inputs first, and a theta."""
+    rng = np.random.default_rng(seed)
+    lo, hi = {"sin_recip_scaled": (1e-4, 1.0), "sin_scaled": (0.0, 1.0),
+              "cosh4_scaled": (0.0, 3.0)}[fam]
+    edges = [lo, hi, 0.5, 0.25, 2.0 ** -20, 1.0 - 2.0 ** -24, 1e-30, 0.0,
+             -0.75, 1e4, 3e-39, 1.0 + 2.0 ** -23]
+    if fam == "cosh4_scaled":                  # keep cosh^4 finite
+        edges = [e for e in edges if abs(e) < 20.0]
+    x = np.concatenate([edges, rng.uniform(lo, hi, n)])[:n]
+    x = x[: len(x) - len(x) % 3]
+    h = torch.tensor(x, dtype=torch.float32)
+    lo_limb = torch.tensor(x - h.double().numpy(), dtype=torch.float32)
+    return h, lo_limb, float(rng.uniform(1.0, 2.0))
+
+
+def _same_floats(a, b):
+    """Bit-equal where not NaN, NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(_bits(a)[~na], _bits(b)[~nb])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("fam", ["sin_recip_scaled", "sin_scaled",
+                                 "cosh4_scaled"])
+def test_host_three_point_confirm_bit_equal_to_single_evals(host_lib, fam,
+                                                            seed):
+    # the scouting confirm evaluates x0, mid, x1 side by side
+    # (f_ds_n<FAM, 3>, and f_sc_n for the float32 scout evals): each
+    # point bit-equal to a single evaluation and to the plain twin
+    f_ds = get_family_ds(fam)
+    x_h, x_l, th = _points(fam, 600, seed)
+    th_h = f32(th)
+    th_l = f32(th - float(th_h))
+    n = x_h.numel()
+    outs = {}
+    for wide in (1, 0):
+        oh, ol = torch.empty(n), torch.empty(n)
+        assert host_lib.ws_f_ds_host(f_ds.kernel_family, wide, n, _fp(x_h),
+                                     _fp(x_l), th_h, th_l, _fp(oh),
+                                     _fp(ol)) == 0
+        sc = torch.empty(n)
+        assert host_lib.ws_f_sc_host(f_ds.kernel_family, wide, n, _fp(x_h),
+                                     th_h, _fp(sc)) == 0
+        outs[wide] = (oh, ol, sc)
+    for a, b in zip(outs[1], outs[0]):
+        assert _same_floats(a, b)
+    th_t = (torch.full((n,), th_h), torch.full((n,), th_l))
+    ph, pl = f_ds((x_h, x_l), th_t)
+    assert _same_floats(outs[1][0], ph) and _same_floats(outs[1][1], pl)
+    zero = torch.zeros(n)
+    psc = W.scout_twin(f_ds)((x_h, zero), (th_t[0], zero))[0]
+    assert _same_floats(outs[1][2], psc)
+    assert int(torch.isfinite(outs[1][0]).sum()) > n - 12
+
+
+def test_packed_count_round_trips_at_field_limits(host_lib):
+    lim = (ctypes.c_int * 5)()
+    host_lib.wg_limits(lim)
+    assert list(lim) == [W.PACKED_ARRIVAL_BITS, W.PACKED_COUNT_BITS,
+                         W.PACKED_MAX_BLOCKS, W.PACKED_MAX_LANES,
+                         W.KERNEL_THREADS]
+    assert lim[0] + 2 * lim[1] == 64
+
+    # a step's gain in a never-cleared word: from 0, from a word whose
+    # fields are full, and across the 64-bit wrap, earlier carries cancel
+    bases = [0, (1 << 64) - 1, (1 << 64) - 3 * (1 << 48) - 5,
+             (lim[2] << 48) | (lim[3] << 24) | lim[3]]
+
+    def pack_sum(live, nref):
+        live = torch.tensor(live, dtype=torch.int32)
+        nref = torch.tensor(nref, dtype=torch.int32)
+        outs = set()
+        for base in bases:
+            out = (ctypes.c_int * 3)()
+            host_lib.wg_pack_sum(base, live.numel(), _fp(live), _fp(nref),
+                                 out)
+            outs.add(tuple(out))
+        assert len(outs) == 1
+        return list(outs.pop())
+
+    full, nmax = W.KERNEL_THREADS, W.PACKED_MAX_BLOCKS
+    assert pack_sum([0], [0]) == [1, 0, 0]
+    assert pack_sum([W.PACKED_MAX_LANES], [W.PACKED_MAX_LANES]) == [
+        1, W.PACKED_MAX_LANES, W.PACKED_MAX_LANES]
+    assert pack_sum([W.PACKED_MAX_LANES], [0]) == [1, W.PACKED_MAX_LANES, 0]
+    assert pack_sum([0], [W.PACKED_MAX_LANES]) == [1, 0, W.PACKED_MAX_LANES]
+    # the largest grid, every lane live and refillable: no field carries
+    assert pack_sum([full] * nmax, [full] * nmax) == [nmax, nmax * full,
+                                                      nmax * full]
+    rng = np.random.default_rng(3)
+    live = rng.integers(0, full + 1, 1000)
+    nref = rng.integers(0, full + 1, 1000)
+    assert pack_sum(live.tolist(), nref.tolist()) == [
+        1000, int(live.sum()), int(nref.sum())]
+    # the launch limit, in the header and in the wrapper
+    for lanes in (full, nmax * full, (nmax + 1) * full, W.PACKED_MAX_LANES,
+                  W.PACKED_MAX_LANES + 1):
+        fits = bool(host_lib.wg_packed_fits(lanes))
+        assert fits == (lanes <= nmax * full)
+        if fits:
+            W._check_packed_limits("K1", lanes)
+        else:
+            with pytest.raises(ValueError, match="packed grid count"):
+                W._check_packed_limits("K1", lanes)
+
+
+def test_wrappers_raise_past_the_packed_count_limits(monkeypatch):
+    # on the card path, before any operand check or launch; the state is
+    # stride-0 views, so no memory is taken
+    monkeypatch.setattr(W, "_cpu_or_cuda", lambda what, device: False)
+    f_ds = get_family_ds("sin_recip_scaled")
+    for lanes in ((W.PACKED_MAX_BLOCKS + 1) * W.KERNEL_THREADS,
+                  W.PACKED_MAX_LANES + 1):
+        state = W.WalkState(*(
+            torch.zeros(1, dtype=torch.float32 if j < W.N_F32_FIELDS
+                        else torch.int32).expand(lanes)
+            for j in range(len(W.WalkState._fields))))
+        lane_i = torch.zeros(1, dtype=torch.int32).expand(lanes)
+        bank = tuple(torch.zeros(1, 1) for _ in range(7))
+        with pytest.raises(ValueError, match="K1: .* packed grid count"):
+            W.run_segment_rf(state, lane_i, 0, 4, 1, lane_i, bank,
+                             (state.a_h, state.a_h, lane_i), f_ds=f_ds,
+                             eps=1e-7, scout=False)
+        with pytest.raises(ValueError, match="K2: .* packed grid count"):
+            W.run_segment_ee(state, 0, 4, f_ds=f_ds, eps=1e-7, scout=False)
+
+
+@pytest.mark.parametrize("T", [256, 1024, 2048])
+def test_group_vote_words_match_the_group_or(host_lib, T):
+    # the vote words K1 uses beyond one block (each block adds an arrival
+    # and its vote into its group's word; three rotating sets, never
+    # cleared: a vote is a word's gain since the set's previous vote)
+    # against the OR over each group of T adjacent lanes, over rounds of
+    # sparse, empty and full votes
+    lanes, rounds = 4096, 11
+    rng = np.random.default_rng(T)
+    votes = (rng.random((rounds, lanes)) < 5e-4).astype(np.int32)
+    votes[0, 7] = 1
+    votes[2] = 0
+    votes[3] = 1
+    votes[5, ::T] = 1                           # one lane per group
+    votes_t = torch.from_numpy(votes)
+    want = np.repeat(votes.reshape(rounds, lanes // T, T).any(axis=2), T,
+                     axis=1)
+    # words from 0 as on the card, and near the 32-bit wrap and with the
+    # arrival field full, where earlier votes' carries must cancel
+    for init in (0, 0xFFFFFFF0, 0x0000FFFF):
+        got = torch.zeros((rounds, lanes), dtype=torch.int32)
+        assert host_lib.wg_group_any_host(_fp(votes_t), lanes, T, rounds,
+                                          init, _fp(got)) == 0
+        assert np.array_equal(got.numpy() != 0, want), init
+    assert want[0].any() and not want[2].any() and want[3].all()
+    assert not want[[0, 1, 4, 6]].all()        # sparse rounds leave groups
+    for bad in (128, 96, 8192):
+        assert host_lib.wg_group_any_host(_fp(votes_t), lanes, bad, 1, 0,
+                                          _fp(got)) == -3
+
+
+@pytest.mark.parametrize("scout", [False, True])
+@pytest.mark.parametrize("T", [1024, 2048])
+def test_host_theta_loop_group_words_bit_equal_to_plain_segment(host_lib, T,
+                                                                scout):
+    # the host K1 loop votes through the kernel's group words when a
+    # group spans blocks: T = 1024 and 2048 over 4096 lanes (4 and 2
+    # groups of 8 and 16 blocks), bit-equal to the plain theta segment
+    fam, bounds, eps, span = THETA_CASES[0]
+    f_ds = get_family_ds(fam)
+    m = 4096 // T
+    theta = np.linspace(*span, m * T).reshape(m, T)
+    base = W.first_phase_inputs(
+        get_family(fam), theta, bounds, eps, lanes=4096, roots_per_lane=2,
+        refill_slots=2, capacity=1 << 16, scout=scout, min_active_frac=0.05,
+        theta_block=T, device="cpu")
+    a, b = _clone(base), _clone(base)
+    steps = 0
+    for cap in (16, 48):
+        outs_a = W.segment_rf_plain(a["state"], a["slot"], a["thresh"], cap,
+                                    a["batch"], a["nslots"], a["bank"],
+                                    a["resm"], f_ds=f_ds, eps=eps,
+                                    scout=scout, theta_block=T)
+        outs_b = _run_host(host_lib, b, cap, f_ds, eps, scout)
+        _assert_bit_equal(a, b, outs_a, outs_b)
+        steps += int(outs_a[2][0])
+    assert steps > 16
+    for f in ("i", "d", "flags"):
+        g = getattr(a["state"], f).reshape(-1, T)
+        assert bool((g == g[:, :1]).all()), f
+
+
 def test_k1_wrapper_on_cpu_is_the_plain_segment():
     f_ds = get_family_ds("sin_recip_scaled")
     base = _inputs(*CASES[0], scout=True)
@@ -330,7 +528,7 @@ def test_cuda_kernel_bit_equal_to_plain_segment(cuda_device, scout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scout", [False, True])
-@pytest.mark.parametrize("T", [8, 64, 256])
+@pytest.mark.parametrize("T", [8, 64, 128, 256])
 def test_cuda_theta_kernel_bit_equal_to_plain_segment(cuda_device, T, scout):
     # the card twin of the host theta check, one case per vote scope
     fam, bounds, eps, span = THETA_CASES[0]
@@ -351,6 +549,34 @@ def test_cuda_theta_kernel_bit_equal_to_plain_segment(cuda_device, T, scout):
         torch.cuda.synchronize()
         _assert_bit_equal(a, b, outs_a, outs_b)
     assert W.run_segment_rf.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scout", [False, True])
+@pytest.mark.parametrize("T", [1024, 2048])
+def test_cuda_theta_group_words_bit_equal_to_plain_segment(cuda_device, T,
+                                                           scout):
+    # the card twin of the host group-word check: groups of 8 and 16
+    # blocks voting through their words, 4096 lanes
+    fam, bounds, eps, span = THETA_CASES[0]
+    f_ds = get_family_ds(fam)
+    theta = np.linspace(*span, 4096).reshape(4096 // T, T)
+    base = W.first_phase_inputs(
+        get_family(fam), theta, bounds, eps, lanes=4096, roots_per_lane=2,
+        refill_slots=2, capacity=1 << 16, scout=scout, min_active_frac=0.05,
+        theta_block=T, device=cuda_device)
+    a, b = _clone(base), _clone(base)
+    for cap in (16, 48):
+        outs_a = W.run_segment_rf(a["state"], a["slot"], a["thresh"], cap,
+                                  a["batch"], a["nslots"], a["bank"],
+                                  a["resm"], f_ds=f_ds, eps=eps, scout=scout,
+                                  theta_block=T)
+        outs_b = W.segment_rf_plain(b["state"], b["slot"], b["thresh"], cap,
+                                    b["batch"], b["nslots"], b["bank"],
+                                    b["resm"], f_ds=f_ds, eps=eps,
+                                    scout=scout, theta_block=T)
+        torch.cuda.synchronize()
+        _assert_bit_equal(a, b, outs_a, outs_b)
 
 
 @pytest.mark.cuda
