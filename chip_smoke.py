@@ -78,10 +78,37 @@ Phases, each of which must pass (any failure exits nonzero):
    thetas linspace(1, 4, 16384)): areas within 1e-3 of the closed form,
    reconciling waste, its wall, tasks/s and K1 launches, and one
    profiled run's device idle share.
+11. The streaming engine (``StreamEngine``), the reference bench's stream
+   leg at full width (bench.py:1055-1245, its sizes at bench.py:1098-1108):
+   24 requests of sin(theta / x), theta = 1 + i/24, on [1e-4, 1], eps
+   1e-10, slots 64, chunk 2^13, capacity 2^22, lanes 2^14, refill_slots 8,
+   scout f32, double-buffered banks; one walker cycle (K1) per phase.
+   a. Warm-up runs and 24 cold per-request walker calls.
+   b. The saturated stream (all 24 admitted at phase 0) alternated three
+      times with the batch walker on the same set (capacity 2^23), the
+      launch counts read around each stream run: every area within 1e-3
+      of the closed form, equal areas over the three runs; printed, not
+      gated: requests/s, stream over batch tasks/s (medians), the
+      cold/stream wall and boundary-proxy ratios, phases, K1 launches,
+      host syncs per phase, lane efficiency, and |stream - cold|. With
+      scouting the reference's schedule over-refines by rounding noise
+      (phase 5), so its areas move with the schedule by up to ~1e-6, in
+      the reference engine as in the port; the bench's gate |stream -
+      cold| <= 1e-8 is held on the same leg with the ds walk (scouting
+      off), against 24 cold ds calls. One more saturated run is
+      profiled.
+   c. The open-loop sweep at 0.5, 2 and 8 requests per phase (seed 17):
+      p50/p99 latency in phases and seconds.
+   d. The reference's overload leg (tools/bench_history.py:102-112: queue
+      limit 6, three priority classes, quarantine on, seeded arrivals at 8
+      per phase; without its fault plan), through K1 (refill_slots 2) and
+      through K2 (refill_slots 0), on the card and on the CPU: equal shed
+      records, per-request phases and tasks, areas within 1e-12.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
-per T under ``theta``) and the card's ``nvidia-smi`` name and power
+per T under ``theta``; the stream's launches under ``stream_launches``)
+and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
 """
@@ -139,6 +166,31 @@ THETA_TEST_KW = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
                      refill_slots=2, seg_iters=2048, min_active_frac=0.05)
 THETA_WIDE_T = 2048
 THETA_WIDE_M = 8
+# phase 11: the reference bench's stream leg at full width
+# (bench.py:1098-1108), and its overload leg (tools/bench_history.py:
+# 102-112), whose fault plan is left out
+STREAM_FAMILY = "sin_recip_scaled"
+STREAM_K = 24
+STREAM_KW = dict(slots=64, chunk=1 << 13, capacity=1 << 22, lanes=LANES,
+                 refill_slots=REFILL_SLOTS, scout_dtype="f32",
+                 double_buffer=True)
+STREAM_BATCH_KW = dict(capacity=CAPACITY, lanes=LANES,
+                       refill_slots=REFILL_SLOTS, scout_dtype="f32",
+                       double_buffer=True)
+STREAM_COLD_TOL = 1e-8                 # bench.py:1166-1168
+STREAM_ROUNDS = 3                      # batch / stream timing pairs
+STREAM_SWEEP_RATES = (0.5, 2.0, 8.0)
+STREAM_SWEEP_SEED = 17
+SLO_EPS = 1e-6
+SLO_BOUNDS = (1e-2, 1.0)
+SLO_K = 24
+SLO_RATE = 8.0
+SLO_QUEUE_LIMIT = 6
+SLO_SEED = 23
+SLO_KW = dict(slots=4, chunk=1 << 10, capacity=1 << 16, lanes=256,
+              roots_per_lane=2, refill_slots=2, seg_iters=32,
+              min_active_frac=0.05)
+SLO_TENANTS = (("free", 0), ("std", 1), ("pro", 2))
 
 
 def log(msg: str) -> None:
@@ -574,12 +626,19 @@ def main_path(W, f_theta, f_ds, theta, kw, counter, what: str):
 
 def profile_run(W, f_theta, f_ds, theta, kw, kernel: str, out_dir, tag,
                 bounds=BOUNDS, eps=EPS):
+    return profile_fn(lambda: W.integrate_family_walker(
+        f_theta, f_ds, theta, bounds, eps, **kw), kernel, out_dir, tag)
+
+
+def profile_fn(fn, kernel: str, out_dir, tag):
+    """One run of ``fn`` under ``torch.profiler``: wall, device busy time,
+    idle share and ``kernel``'s time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        W.integrate_family_walker(f_theta, f_ds, theta, bounds, eps, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -753,6 +812,233 @@ def phase_theta_card_cpu(W, f_theta, f_ds, family_exact, out_dir) -> dict:
     return out
 
 
+def stream_sweep_arrivals(rate: float, k: int, seed: int):
+    """The reference bench's seeded open-loop arrival phases."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate, k)
+    return [int(p) for p in np.floor(np.cumsum(gaps) - gaps[0]).astype(int)]
+
+
+def overload_run(TS, device: str, over: dict):
+    """The reference's overload leg (tools/bench_history.py
+    run_stream_slo_proxies, its constants copied) without its fault
+    plan, on ``device``."""
+    reqs = []
+    for i in range(SLO_K):
+        tenant, pri = SLO_TENANTS[i % len(SLO_TENANTS)]
+        reqs.append((1.0 + i / SLO_K, SLO_BOUNDS,
+                     {"tenant": tenant, "priority": pri}))
+    eng = TS.StreamEngine(STREAM_FAMILY, SLO_EPS,
+                          queue_limit=SLO_QUEUE_LIMIT, quarantine=True,
+                          device=device, **dict(SLO_KW, **over))
+    return eng.run(reqs, arrival_phase=stream_sweep_arrivals(
+        SLO_RATE, SLO_K, SLO_SEED))
+
+
+def phase_stream(W, TS, f_theta, f_ds, family_exact, out_dir) -> dict:
+    """The streaming engine on the card: the reference bench's stream leg
+    at full width, the open-loop sweep, and the overload leg card
+    against CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    k = STREAM_K
+    theta = 1.0 + np.arange(k) / k
+    reqs = [(float(t), BOUNDS) for t in theta]
+    exact = family_exact(STREAM_FAMILY, *BOUNDS, theta)
+    ekw = dict(STREAM_KW, device=DEVICE)
+    wkw = dict(STREAM_BATCH_KW, device=DEVICE)
+
+    def engine(**over):
+        return TS.StreamEngine(STREAM_FAMILY, EPS, **dict(ekw, **over))
+
+    def cold_calls(**over):
+        """(areas, wall s, rounds + segments, cycles) of K cold
+        per-request walker calls after an m = 1 warm-up."""
+        kw = dict(wkw, **over)
+        W.integrate_family_walker(f_theta, f_ds, [theta[0]], BOUNDS, EPS, **kw)
+        areas = np.empty(k)
+        rounds = cycles = 0
+        t0 = time.perf_counter()
+        for i, t in enumerate(theta):
+            r1 = W.integrate_family_walker(f_theta, f_ds, [t], BOUNDS, EPS,
+                                           **kw)
+            areas[i] = r1.areas[0]
+            rounds += r1.metrics.rounds
+            cycles += r1.cycles
+        torch.cuda.synchronize()
+        return areas, time.perf_counter() - t0, rounds, cycles
+
+    # a. warm-ups and the K cold calls
+    t0 = time.perf_counter()
+    engine().run(reqs)
+    W.integrate_family_walker(f_theta, f_ds, theta, BOUNDS, EPS, **wkw)
+    torch.cuda.synchronize()
+    log(f"[smoke] stream and batch warm-up runs: "
+        f"{time.perf_counter() - t0:.2f} s")
+    cold_areas, cold_wall, cold_rounds, cold_cycles = cold_calls()
+
+    # b. the saturated stream against the batch walker on the same set,
+    # alternated (batch, stream) x STREAM_ROUNDS; every stream run is
+    # counted, the first one's record kept
+    batch_walls, stream_walls, runs = [], [], []
+    for _ in range(STREAM_ROUNDS):
+        b, w, _ = counted(W, lambda: W.integrate_family_walker(
+            f_theta, f_ds, theta, BOUNDS, EPS, **wkw))
+        batch_walls.append(w)
+        eng = engine()
+        res_i, _, launches_i = counted(W, lambda: eng.run(reqs))
+        stream_walls.append(res_i.wall_s)
+        runs.append((eng, res_i, launches_i))
+    eng, res, launches = runs[0]
+    batch_wall = float(np.median(batch_walls))
+    stream_wall = float(np.median(stream_walls))
+    batch_rate = b.metrics.tasks / batch_wall
+    log(f"[smoke] stream leg references: batch walker {b.metrics.tasks} "
+        f"tasks in {batch_wall:.4f} s (median; runs "
+        f"{', '.join(f'{x:.4f}' for x in batch_walls)}; "
+        f"{batch_rate / 1e6:.2f} M tasks/s); {k} cold calls {cold_wall:.3f} "
+        f"s, {cold_cycles} cycles, {cold_rounds} rounds + segments")
+    reg = eng.telemetry.registry
+    stream_tasks = int(reg.value("ppls_stream_tasks_total"))
+    stream_rate = stream_tasks / stream_wall
+    boundaries = int(reg.value("ppls_stream_rounds_total")
+                     + reg.value("ppls_stream_segs_total"))
+    occ = res.occupancy_summary(LANES)
+    sync = res.host_syncs_per_phase
+    d_cold = float(np.max(np.abs(res.areas - cold_areas)))
+    d_exact = float(np.max(np.abs(res.areas - exact)))
+    out = dict(
+        requests_per_sec=k / stream_wall, wall_s=stream_wall,
+        stream_walls=stream_walls, phases=res.phases, tasks=stream_tasks,
+        stream_tasks_per_sec=stream_rate, batch_tasks_per_sec=batch_rate,
+        vs_batch=stream_rate / batch_rate, batch_wall_s=batch_wall,
+        batch_walls=batch_walls, batch_tasks=b.metrics.tasks,
+        batch_cycles=b.cycles, batch_host_syncs=b.host_syncs,
+        cold_wall_s=cold_wall, vs_cold_wall=cold_wall / stream_wall,
+        cold_rounds_plus_segs=cold_rounds,
+        stream_rounds_plus_segs=boundaries,
+        boundary_proxy_ratio=cold_rounds / max(boundaries, 1),
+        launches=launches, host_syncs=res.host_syncs,
+        host_syncs_per_phase=sync,
+        kernel_steps=int(reg.value("ppls_stream_wsteps_total")),
+        lane_efficiency=occ["lane_efficiency"],
+        walker_fraction=occ["walker_fraction"],
+        waste=occ["attribution"]["buckets"], latency=res.latency_percentiles(),
+        d_cold=d_cold, d_exact=d_exact)
+    log(f"[smoke] stream saturated ({k} requests at phase 0): "
+        f"{out['requests_per_sec']:.2f} req/s, wall {stream_wall:.4f} s "
+        f"(median; runs {', '.join(f'{x:.4f}' for x in stream_walls)}), "
+        f"{res.phases} phases (batch walker {b.cycles} cycles, "
+        f"{b.host_syncs} host syncs), {stream_tasks} tasks "
+        f"({stream_rate / 1e6:.2f} M tasks/s; stream/batch tasks/s "
+        f"{out['vs_batch']:.3f}, reference target >= 0.9, not gated), "
+        f"cold/stream wall {out['vs_cold_wall']:.2f}x, boundary proxy "
+        f"{out['boundary_proxy_ratio']:.2f}x ({cold_rounds} / {boundaries}), "
+        f"launches {launches}, kernel steps {out['kernel_steps']}, host "
+        f"syncs {res.host_syncs} ({res.host_syncs / max(len(sync), 1):.2f} "
+        f"per phase: {sync}), lane efficiency {occ['lane_efficiency']:.4f}, "
+        f"walker fraction {occ['walker_fraction']:.4f}, waste {out['waste']}")
+    log(f"[smoke] stream saturated: max |stream - cold| {d_cold:.3e} (not "
+        f"held with scouting: the reference's scout schedule over-refines "
+        f"by rounding noise, so areas move with the schedule, in the "
+        f"reference engine as in the port; the ds walk below holds "
+        f"{STREAM_COLD_TOL}); max |stream - closed form| {d_exact:.3e} (tol "
+        f"{AREA_TOL_EXACT}); p50/p99 latency "
+        f"{out['latency']['p50_phases']}/{out['latency']['p99_phases']} "
+        f"phases")
+    if (any(len(r.completed) != k for _, r, _ in runs)
+            or any(not np.array_equal(r.areas, res.areas) for _, r, _ in runs)
+            or not d_exact < AREA_TOL_EXACT
+            or not occ["attribution"]["reconciles"]
+            or launches["run_segment_rf"] <= 0):
+        raise AssertionError(f"stream saturated run failed: {out}")
+    # the same leg with the ds walk (scouting off): the bench's gate
+    ds_cold, _, _, _ = cold_calls(scout_dtype="f64")
+    ds_res, ds_wall, ds_launches = counted(
+        W, lambda: engine(scout_dtype="f64").run(reqs))
+    d_cold_ds = float(np.max(np.abs(ds_res.areas - ds_cold)))
+    d_exact_ds = float(np.max(np.abs(ds_res.areas - exact)))
+    out["ds_walk"] = dict(wall_s=ds_wall, phases=ds_res.phases,
+                          tasks=ds_res.totals["tasks"], launches=ds_launches,
+                          d_cold=d_cold_ds, d_exact=d_exact_ds)
+    log(f"[smoke] stream saturated, scouting off: wall {ds_wall:.4f} s, "
+        f"{ds_res.phases} phases, {ds_res.totals['tasks']} tasks, launches "
+        f"{ds_launches}; max |stream - cold| {d_cold_ds:.3e} (tol "
+        f"{STREAM_COLD_TOL}); max |stream - closed form| {d_exact_ds:.3e} "
+        f"(tol {AREA_TOL_EXACT})")
+    if (len(ds_res.completed) != k or not d_cold_ds <= STREAM_COLD_TOL
+            or not d_exact_ds < AREA_TOL_EXACT
+            or ds_launches["run_segment_rf"] <= 0):
+        raise AssertionError(f"stream saturated, scouting off: "
+                             f"{out['ds_walk']}")
+    out["profile"] = profile_fn(lambda: engine().run(reqs),
+                                "walk_rf_kernel", out_dir, "stream")
+
+    # c. the open-loop sweep
+    out["sweep"] = []
+    for rate in STREAM_SWEEP_RATES:
+        arrivals = stream_sweep_arrivals(rate, k, STREAM_SWEEP_SEED)
+        rs, _, sweep_launches = counted(
+            W, lambda: engine().run(reqs, arrival_phase=arrivals))
+        lat = rs.latency_percentiles()
+        socc = rs.occupancy_summary(LANES)
+        d = float(np.max(np.abs(rs.areas - exact)))
+        row = dict(offered_req_per_phase=rate,
+                   requests_per_sec=rs.requests_per_sec, wall_s=rs.wall_s,
+                   phases=rs.phases, **lat,
+                   mean_live_requests=socc.get("mean_live_families", 0.0),
+                   lane_efficiency=socc["lane_efficiency"],
+                   host_syncs=rs.host_syncs,
+                   launches=sweep_launches["run_segment_rf"], d_exact=d)
+        out["sweep"].append(row)
+        log(f"[smoke] stream load {rate}/phase: {rs.requests_per_sec:.2f} "
+            f"req/s, {rs.phases} phases, p50/p99 {lat['p50_phases']}/"
+            f"{lat['p99_phases']} phases, {lat['p50_s']:.4f}/"
+            f"{lat['p99_s']:.4f} s, mean live requests "
+            f"{row['mean_live_requests']:.2f}, lane efficiency "
+            f"{row['lane_efficiency']:.4f}, K1 launches {row['launches']}, "
+            f"max |area - closed form| {d:.3e}")
+        if len(rs.completed) != k or not d < AREA_TOL_EXACT:
+            raise AssertionError(f"stream load {rate}: {row}")
+
+    # d. the overload leg, card against CPU, through K1 and K2
+    out["overload"] = {}
+    for tag, over, counter in (("k1", {}, "run_segment_rf"),
+                               ("k2", dict(refill_slots=0),
+                                "run_segment_ee")):
+        card, _, ov_launches = counted(
+            W, lambda: overload_run(TS, DEVICE, over))
+        cpu = overload_run(TS, "cpu", over)
+
+        def recs(r):
+            return {c.rid: (c.submit_phase, c.admit_phase, c.retire_phase,
+                            c.last_credited_phase, c.failed, c.failure)
+                    for c in r.completed}
+
+        sheds = [dataclasses.astuple(x) for x in card.shed]
+        d = float(np.max(np.abs(card.areas - cpu.areas)))
+        row = dict(completed=len(card.completed), shed=len(card.shed),
+                   phases=card.phases, tasks=card.totals["tasks"],
+                   launches=ov_launches[counter], d_card_cpu=d,
+                   latency_by_class=card.class_latency_percentiles())
+        out["overload"][tag] = row
+        log(f"[smoke] overload leg through {counter}: {len(card.completed)} "
+            f"completed, {len(card.shed)} shed, {card.phases} phases, card "
+            f"{card.totals['tasks']} tasks / CPU {cpu.totals['tasks']}; "
+            f"launches {ov_launches[counter]}; max |card - CPU| {d:.3e} (tol "
+            f"{AREA_TOL_DEVICES}); per-class p99 "
+            f"{ {c: v['p99_phases'] for c, v in row['latency_by_class'].items()} }")
+        if (sheds != [dataclasses.astuple(x) for x in cpu.shed]
+                or recs(card) != recs(cpu)
+                or card.totals != cpu.totals or not d < AREA_TOL_DEVICES
+                or len(card.completed) + len(card.shed) != SLO_K
+                or ov_launches[counter] <= 0):
+            raise AssertionError(f"overload leg ({tag}): card and CPU differ")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -767,6 +1053,7 @@ def main() -> int:
                                                   get_family_ds)
     from ppls_tpu_torch.parallel import walker as W
     from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    from ppls_tpu_torch.runtime import stream as TS
     from ppls_tpu_torch.tools.profile_walker import kernel_ceiling_slope
     from ppls_tpu_torch.utils.cuda_build import load_all_kernels
 
@@ -1074,6 +1361,10 @@ def main() -> int:
                                           family_exact)
     report["theta_card_cpu"] = phase_theta_card_cpu(
         W, f_theta_sc, f_ds_sc, family_exact, out_dir)
+    # 11. the streaming engine
+    report["stream"] = phase_stream(W, TS, f_theta, f_ds, family_exact,
+                                    out_dir)
+    stream_launches = report["stream"]["launches"]
     theta_launches = (sum(leg["launches"]["run_segment_rf"]
                           for leg in report["theta_leg"]["legs"].values())
                       + report["theta_card_cpu"]["wide"]["launches"][
@@ -1100,15 +1391,20 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("walk_rf", "ppls_tpu_torch/csrc/walk_rf.cu",
             "ppls_tpu/parallel/walker.py:993",
-            main_launches["run_segment_rf"] + theta_launches,
+            main_launches["run_segment_rf"] + theta_launches
+            + stream_launches["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout",
             flagship_launches=main_launches["run_segment_rf"],
-            theta_launches=theta_launches, theta=theta_rows,
+            theta_launches=theta_launches,
+            stream_launches=stream_launches["run_segment_rf"],
+            stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
+            theta=theta_rows,
             step_attribution=attribution,
             main_path_ms=report["profile_k1"]["kernel_ms"]),
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
             "ppls_tpu/parallel/walker.py:1279",
-            main_launches["run_segment_ee"], k2, "step"),
+            main_launches["run_segment_ee"], k2, "step",
+            stream_launches=report["stream"]["overload"]["k2"]["launches"]),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",
             main_launches["run_segment"], k3, "step",

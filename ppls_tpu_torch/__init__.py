@@ -3,8 +3,10 @@
 The JAX package ``ppls_tpu`` is the reference; this package imports
 nothing of it and nothing of JAX. It carries the flagship family walker
 (``integrate_family_walker``, in-kernel or boundary refill, trapezoid or
-Simpson, and its many-theta mode ``theta_block`` > 1) and the float64
-family bag engine (``integrate_family``); the
+Simpson, and its many-theta mode ``theta_block`` > 1), the float64
+family bag engine (``integrate_family``) and the streaming engine
+(``StreamEngine``: requests admitted into family slots and retired one
+by one, one walker cycle per phase); the
 walk segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
 ``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on the
 CPU. Entry points run on CUDA unless ``device="cpu"`` is passed.
@@ -18,9 +20,11 @@ from ppls_tpu_torch.models.integrands import (
 from ppls_tpu_torch.parallel.bag_engine import FamilyResult, integrate_family
 from ppls_tpu_torch.parallel.walker import (
     WalkerResult, integrate_family_walker)
+from ppls_tpu_torch.runtime.stream import StreamEngine, StreamResult
 
 __all__ = [
-    "FAMILIES", "FamilyResult", "Rule", "WalkerResult", "family_exact",
+    "FAMILIES", "FamilyResult", "Rule", "StreamEngine", "StreamResult",
+    "WalkerResult", "family_exact",
     "get_family", "get_family_ds", "integrate_family",
     "integrate_family_walker",
 ]

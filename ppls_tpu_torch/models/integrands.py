@@ -34,6 +34,32 @@ KERNEL_COSH4 = 1
 KERNEL_SIN_SCALED = 2
 
 
+def register_family(name: str, f_theta: Callable) -> Callable:
+    """Register a parameterised integrand ``f(x, theta)`` (float64
+    tensors) for family runs."""
+    FAMILIES[name] = f_theta
+    return f_theta
+
+
+def register_family_ds(name: str, f_ds: Callable,
+                       domain_check: Optional[Callable] = None) -> Callable:
+    """Register the ds twin of a family: ``f_ds(x_ds, theta_ds,
+    dsm=None)`` on (hi, lo) float32 pairs (scouting passes
+    ``dsm=ops.scout_kernel``).
+
+    ``domain_check(bounds, theta)`` (host side; ``bounds`` (m, 2),
+    ``theta`` (m,)) must raise ``ValueError`` where a ds transcendental
+    would leave its Cody-Waite range; it is attached as
+    ``f_ds.ds_domain_check``. The CUDA kernels compile their integrands
+    in, so a twin registered here runs on the CPU (and in the float64
+    modes, which evaluate no twin); without a ``kernel_family`` id a
+    kernel launch on the card raises."""
+    if domain_check is not None:
+        f_ds.ds_domain_check = domain_check
+    DS_FAMILIES[name] = f_ds
+    return f_ds
+
+
 def get_family(name: str) -> Callable:
     try:
         return FAMILIES[name]

@@ -53,8 +53,9 @@ for the subtree (its accept marker ``mk_i``/``mk_d``), and credit lands
 in m * T accumulators. Breeding only splits, and the float64 drain is
 the union-refinement bag round (``_theta_bag_round``).
 
-Not ported: checkpoint/resume and the streaming, multi-chip and CLI
-surfaces (ROADMAP.md).
+The streaming engine (``runtime/stream.py``) runs one cycle per phase
+through :func:`run_stream_cycle`. Not ported: checkpoint/resume and the
+multi-chip and CLI surfaces (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ from ppls_tpu_torch.ops import scout_kernel
 from ppls_tpu_torch.ops.ds import ds_from_f64, ds_to_f64
 from ppls_tpu_torch.ops.ds_kernel import f32
 from ppls_tpu_torch.ops.pow2 import pow2_f32, pow2_f64
-from ppls_tpu_torch.ops.reduction import segment_sum_auto
+from ppls_tpu_torch.ops.reduction import kahan_add, segment_sum_auto
 from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
 from ppls_tpu_torch.parallel.bag_engine import (
     ACCEPT_BIT, DEPTH_BITS, DEPTH_MASK, MAX_FAMILIES, BagState, bag_step,
@@ -2099,3 +2100,184 @@ def first_phase_inputs(f_theta: Callable, theta, bounds, eps: float, *,
         nslots=nslots, bank=bank, resm=_fresh_sentinel(lanes, dev),
         thresh=max(min_active, int(lanes * suspend_frac)),
         batch=max(lanes - int(lanes * exit_frac), 1), theta_block=1)
+
+
+# ---------------------------------------------------------------------------
+# Streaming hooks (runtime/stream.py): the continuous-batching engine runs
+# the same cycle as integrate_family_walker, one cycle per phase, with
+# admission and retirement at the host boundary between phases.
+# ---------------------------------------------------------------------------
+
+# One phase's stats row, the reference's columns in its order.
+STREAM_STAT_FIELDS = ("tasks", "btasks", "wtasks", "wsplits", "roots",
+                      "rounds", "segs", "wsteps", "srows", "maxd",
+                      "live_tasks", "live_families", "splits",
+                      "crounds") + WASTE_FIELDS + EVAL_FIELDS
+
+
+def family_live_counts_cols(bag_meta: torch.Tensor, count: int,
+                            m: int) -> torch.Tensor:
+    """(m,) int32: live rows per family over raw (meta, count) bag
+    columns, the retirement mask's primitive: family ids clipped to
+    [0, m), one exact unit-weight segment sum. The reference sums over
+    the whole store with weight 0 past ``count``; the live prefix gives
+    the same integers."""
+    dev = bag_meta.device
+    if count <= 0:
+        return torch.zeros(m, dtype=torch.int32, device=dev)
+    ids = torch.clamp(bag_meta[:count] >> DEPTH_BITS, 0, m - 1)
+    ones = torch.ones(count, dtype=torch.float64, device=dev)
+    return segment_sum_auto(ids, ones, m, count).to(torch.int32)
+
+
+def family_live_counts(bag: BagState, m: int) -> torch.Tensor:
+    """(m,) int32 live bag rows per family. Lane state folds back into
+    the bag at every cycle edge, so a family with no live row has no
+    pending work anywhere: the stream's done mask is ``== 0``."""
+    return family_live_counts_cols(bag.bag_meta, bag.count, m)
+
+
+class StreamCycleOut(NamedTuple):
+    """One streaming phase's outputs. The stats row is split between
+    the columns the host loop already holds (``row``) and those counted
+    on the device (``dev_row``: walker tasks, walker splits, max depth,
+    live families); :func:`pull_stream_cycle` reads the device part and
+    the accumulators in one sync."""
+
+    bag: BagState            # next phase's input (counters zeroed)
+    acc: torch.Tensor        # (m * T,) f64 running per-family areas
+    acc_c: torch.Tensor      # (m * T,) f64 Neumaier compensation of acc
+    fam_live: torch.Tensor   # (m,) i32 live rows per slot (0 = done)
+    fam_last: torch.Tensor   # (m,) i32 last phase credited (-1 = never)
+    row: np.ndarray          # (len(STREAM_STAT_FIELDS),) i64, host part
+    dev_row: torch.Tensor    # (4,) i64 on the device
+
+
+def run_stream_cycle(bag: BagState, acc: torch.Tensor, acc_c: torch.Tensor,
+                     fam_last: torch.Tensor, phase: int, theta_table=None,
+                     *, f_theta: Callable, f_ds: Callable, eps: float,
+                     m: int, seg_iters: int, max_segments: int,
+                     min_active_frac: float, exit_frac: float,
+                     suspend_frac: float, lanes: int, capacity: int,
+                     breed_chunk: int, target: int,
+                     rule: Rule = Rule.TRAPEZOID, refill_slots: int = 0,
+                     f64_rounds: int = 0, scout: bool = False,
+                     double_buffer: bool = False, theta_block: int = 1,
+                     syncs: HostSyncs) -> StreamCycleOut:
+    """ONE phase of the streaming walker: the breed -> sort -> walk ->
+    expand -> drain cycle of :func:`integrate_family_walker` (the shared
+    :func:`_cycle_once`, from a fresh segment count), plus the streaming
+    surface: per-slot live counts (the done mask), the last phase that
+    credited each slot, and the phase's stats row.
+
+    The per-family accumulator is Neumaier-compensated across phases:
+    each phase's credit (breed + walk + drain, summed in that order) is
+    folded into the running pair, so the area does not depend on how
+    the admission schedule split a family's leaves into phases.
+
+    With ``f64_rounds`` = K > 0 the phase is instead up to K float64 bag
+    rounds (union-refinement rounds in theta mode) and no kernel runs:
+    every split decision and leaf value is then pointwise float64.
+
+    ``phase`` is the caller's phase index. Like the batch loop this is a
+    host loop over device tensors; its device reads go through
+    ``syncs``."""
+    T = int(theta_block)
+    dev = bag.bag_l.device
+    i64 = torch.int64
+    if f64_rounds:
+        dkw = dict(f_theta=f_theta, eps=eps, capacity=capacity,
+                   max_iters=min(int(f64_rounds), 1 << 20), syncs=syncs)
+        if T > 1:
+            bag3 = _run_theta_bag(bag, theta_table=theta_table,
+                                  theta_block=T,
+                                  chunk=theta_drain_chunk(breed_chunk, T),
+                                  **dkw)
+        else:
+            bag3 = run_bag(bag, rule=rule, chunk=breed_chunk, **dkw)
+        credit = bag3.acc
+        zero = torch.zeros((), dtype=i64, device=dev)
+        wt = ws = zero
+        maxd = bag3.max_depth
+        host = dict(btasks=bag3.tasks, splits=bag3.splits, roots=0,
+                    rounds=bag3.iters, segs=0, wsteps=0, srows=0)
+        waste = np.zeros(N_WASTE, dtype=np.int64)
+        evals = np.zeros(2, dtype=np.int64)
+        overflow = bag3.overflow
+    else:
+        o = _cycle_once(
+            bag, f_theta=f_theta, f_ds=f_ds, eps=eps, m=m,
+            seg_iters=seg_iters, max_segments=max_segments,
+            min_active_frac=min_active_frac, exit_frac=exit_frac,
+            suspend_frac=suspend_frac, lanes=lanes, capacity=capacity,
+            breed_chunk=breed_chunk, target=target, rule=rule,
+            refill_slots=refill_slots, gsegs0=0,
+            seg_stats0=np.zeros((S_CAP, len(SEG_STAT_FIELDS)),
+                                dtype=np.int64),
+            scout=scout, double_buffer=double_buffer, syncs=syncs,
+            theta_block=T, theta_table=theta_table)
+        bred, walk, bag3 = o.bred, o.walk, o.bag3
+        # this phase's exact per-family credit, in the reference's order
+        credit = bred.acc + walk.acc + bag3.acc
+        s = walk.lanes
+        wt = s.tasks.sum(dtype=i64)
+        ws = s.splits.sum(dtype=i64)
+        maxd = torch.maximum(torch.maximum(bred.max_depth, bag3.max_depth),
+                             s.maxd.max())
+        host = dict(btasks=bred.tasks + bag3.tasks,
+                    splits=bred.splits + bag3.splits, roots=walk.taken,
+                    rounds=bred.iters + bag3.iters, segs=walk.segs,
+                    wsteps=walk.steps, srows=o.srows)
+        waste, evals = walk.waste, walk.evals
+        overflow = bred.overflow or bag3.overflow
+    acc2, acc_c2 = kahan_add((acc, acc_c), credit)
+
+    fam_live = family_live_counts(bag3, m)
+    # fam_last is per slot; theta mode reduces the (m * T,) credit to an
+    # any-theta-credited mark per slot
+    credited = credit != 0.0
+    if T > 1:
+        credited = credited.reshape(m, T).any(dim=1)
+    fam_last2 = torch.where(credited, torch.full_like(fam_last, int(phase)),
+                            fam_last)
+
+    f = STREAM_STAT_FIELDS.index
+    row = np.zeros(len(STREAM_STAT_FIELDS), dtype=np.int64)
+    row[f("tasks")] = host["btasks"]           # + walker tasks at the pull
+    row[f("splits")] = host["splits"]          # + walker splits
+    for k in ("btasks", "roots", "rounds", "segs", "wsteps", "srows"):
+        row[f(k)] = host[k]
+    row[f("live_tasks")] = bag3.count
+    row[f(WASTE_FIELDS[0]):f(WASTE_FIELDS[0]) + N_WASTE] = waste
+    row[f(EVAL_FIELDS[0]):f(EVAL_FIELDS[0]) + 2] = evals
+    dev_row = torch.stack([wt, ws, maxd.to(i64),
+                           (fam_live > 0).sum(dtype=i64)])
+    next_bag = dataclasses.replace(bag3.fresh_counters(), overflow=overflow)
+    return StreamCycleOut(bag=next_bag, acc=acc2, acc_c=acc_c2,
+                          fam_live=fam_live, fam_last=fam_last2, row=row,
+                          dev_row=dev_row)
+
+
+def pull_stream_cycle(out: StreamCycleOut, syncs: HostSyncs):
+    """The phase's one device read: ``(fam_live, acc, acc_c, fam_last,
+    count, overflow, stats)`` as host values, the stats row complete."""
+    m_eff, m = out.acc.shape[0], out.fam_live.shape[0]
+    f64 = torch.float64
+    # every value is a float64 or an integer below 2^53: one exact read
+    flat = np.asarray(syncs.pull(torch.cat([
+        out.acc, out.acc_c, out.fam_live.to(f64), out.fam_last.to(f64),
+        out.dev_row.to(f64)])), dtype=np.float64)
+    acc, acc_c = flat[:m_eff], flat[m_eff:2 * m_eff]
+    fam_live = flat[2 * m_eff:2 * m_eff + m].astype(np.int32)
+    fam_last = flat[2 * m_eff + m:2 * m_eff + 2 * m].astype(np.int32)
+    wt, ws, maxd, nlive = (int(v) for v in flat[2 * m_eff + 2 * m:])
+    f = STREAM_STAT_FIELDS.index
+    stats = out.row.copy()
+    stats[f("tasks")] += wt
+    stats[f("splits")] += ws
+    stats[f("wtasks")] = wt
+    stats[f("wsplits")] = ws
+    stats[f("maxd")] = maxd
+    stats[f("live_families")] = nlive
+    return (fam_live, acc, acc_c, fam_last, out.bag.count,
+            bool(out.bag.overflow), stats)

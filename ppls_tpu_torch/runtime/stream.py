@@ -1,0 +1,1184 @@
+"""Continuous-batching streaming walker: phase-boundary admission and
+retirement of concurrent integration requests (the reference's
+``runtime/stream.py``, engine ``"walker"``, on one card).
+
+One phase is one cycle of the family walker
+(:func:`~ppls_tpu_torch.parallel.walker.run_stream_cycle`). Between
+phases the host:
+
+* admits queued requests into free FAMILY SLOTS: one contiguous push of
+  seed rows onto the bag top plus a clear of the recycled slots'
+  accumulators (:func:`_admit_program`), before the cycle, so new seeds
+  breed and deal in the same phase;
+* retires every slot whose live-row count reached zero: lane state folds
+  back into the bag at every cycle edge, so its Neumaier-compensated
+  running area is final;
+* applies the overload policy: per-tenant token buckets, admission by
+  (-priority, rid), a bounded queue that sheds the lowest-priority
+  oldest request, and deadlines (a queued request that can no longer
+  meet its deadline is shed; an in-flight one retires failed and its
+  live rows are compacted out of the bag by a stable partition,
+  :func:`_cancel_program`).
+
+The cycle runs K1 with in-kernel refill (``refill_slots`` > 0, the
+default 8) and K2 with boundary refill (``refill_slots=0``); the float64
+mode (``f64_rounds`` > 0) runs bag rounds only. Every decision is a
+function of the schedule and of device-counted state, so reruns repeat
+exactly.
+
+Not ported (the constructor refuses them with the ROADMAP.md item):
+snapshot/resume and checkpointing, the multi-chip engine
+(``walker-dd``), CPU spillover, SLO evaluation, online adaptation, fault
+injection, the range-reduced ds twins and the unsorted root queue.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ppls_tpu_torch.config import Rule
+from ppls_tpu_torch.models.integrands import (check_ds_domain, get_family,
+                                              get_family_ds)
+from ppls_tpu_torch.obs.registry import (PHASE_BUCKETS, SECONDS_BUCKETS,
+                                         Histogram)
+from ppls_tpu_torch.obs.telemetry import Telemetry, build_attribution
+from ppls_tpu_torch.parallel.bag_engine import DEPTH_BITS, BagState
+from ppls_tpu_torch.parallel.walker import (
+    DEFAULT_LANES, SORT_SKIP_RATIO, STREAM_STAT_FIELDS, WASTE_FIELDS,
+    pull_stream_cycle, resolve_cadence, resolve_scout_dtype,
+    run_stream_cycle, validate_double_buffer, validate_theta_block,
+    walker_sizing)
+from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
+from ppls_tpu_torch.utils.metrics import round_stats_from_rows
+
+# STREAM_STAT_FIELDS columns that accumulate as registry counters (all
+# but the running max)
+_COUNTER_STATS = tuple(k for k in STREAM_STAT_FIELDS if k != "maxd")
+
+
+@dataclasses.dataclass
+class StreamRequest:
+    """One pending request: one 1D integral (scalar ``theta``), or on a
+    ``theta_block`` = T > 1 engine a THETA BATCH of up to T thetas
+    scored over one shared union-refinement frontier (a tuple).
+    ``deadline_phases`` is the request's phase budget: it retires by
+    ``submit_phase + deadline_phases`` or fails."""
+
+    rid: int
+    theta: object                 # float, or tuple of floats (batch)
+    bounds: Tuple[float, float]
+    submit_phase: int
+    submit_t: float
+    tenant: str = "default"
+    priority: int = 1
+    deadline_phases: Optional[int] = None
+
+    @property
+    def thetas(self) -> Tuple[float, ...]:
+        t = self.theta
+        return tuple(t) if isinstance(t, (tuple, list)) else (float(t),)
+
+    @property
+    def deadline_phase(self) -> Optional[int]:
+        """Last phase index at which this request may retire."""
+        if self.deadline_phases is None:
+            return None
+        return self.submit_phase + int(self.deadline_phases)
+
+
+@dataclasses.dataclass
+class ShedRecord:
+    """A request refused by admission control. Shed requests consume a
+    rid, so rids stay aligned with the submission order."""
+
+    rid: int
+    theta: object
+    bounds: Tuple[float, float]
+    tenant: str
+    priority: int
+    reason: str                   # "queue_full" | "deadline_exceeded"
+    phase: int                    # phase index the shed happened at
+    submit_phase: int
+
+
+@dataclasses.dataclass
+class CompletedRequest:
+    """A retired request: its area and latency accounting.
+
+    ``phases_in_flight`` counts phases from admission through retirement
+    inclusive; ``latency_phases`` adds the queue wait (submit -> retire).
+    ``last_credited_phase`` is -1 for a request that never credited.
+    ``failed`` marks a quarantined (non-finite) or deadline-expired
+    retirement (``failure`` "nan" or "deadline_exceeded"): its area
+    fields carry no answer."""
+
+    rid: int
+    theta: object
+    bounds: Tuple[float, float]
+    area: float               # scalar requests; first theta on batches
+    submit_phase: int
+    admit_phase: int
+    retire_phase: int
+    latency_s: float
+    first_seeded_phase: int
+    last_credited_phase: int
+    areas: Optional[List[float]] = None   # theta batches: per-theta areas
+    failed: bool = False
+    tenant: str = "default"
+    priority: int = 1
+    failure: Optional[str] = None
+
+    @property
+    def phases_in_flight(self) -> int:
+        return self.retire_phase - self.admit_phase + 1
+
+    @property
+    def latency_phases(self) -> int:
+        return self.retire_phase - self.submit_phase + 1
+
+
+@dataclasses.dataclass
+class StreamResult:
+    """Aggregate result of a stream (``StreamEngine.run``/``result``)."""
+
+    completed: List[CompletedRequest]
+    phases: int
+    wall_s: float
+    totals: dict                 # registry-sourced STREAM_STAT_FIELDS sums
+    phase_stats: np.ndarray      # (phases, len(STREAM_STAT_FIELDS)) i64
+    fam_done: Optional[np.ndarray] = None         # (slots,) bool
+    fam_first_phase: Optional[np.ndarray] = None  # (slots,) i32, -1=never
+    fam_last_phase: Optional[np.ndarray] = None   # (slots,) i32, -1=never
+    # the registry's latency histograms: the one quantile path; None on
+    # hand-assembled results (rebuilt from ``completed``)
+    latency_hist_phases: Optional[object] = None
+    latency_hist_seconds: Optional[object] = None
+    per_round: List = dataclasses.field(default_factory=list)
+    # every request refused by admission control: completed + shed ==
+    # requests submitted
+    shed: List = dataclasses.field(default_factory=list)
+    # device reads by the host loop, in all and per non-idle phase
+    host_syncs: int = 0
+    host_syncs_per_phase: List[int] = dataclasses.field(
+        default_factory=list)
+
+    @property
+    def areas(self) -> np.ndarray:
+        """Areas in request-id order."""
+        done = sorted(self.completed, key=lambda c: c.rid)
+        return np.array([c.area for c in done])
+
+    @property
+    def requests_per_sec(self) -> float:
+        return len(self.completed) / self.wall_s if self.wall_s else 0.0
+
+    def latency_percentiles(self) -> dict:
+        """p50/p99 request latency (submit -> retire, queue wait
+        included) in phases and seconds, through the registry
+        histograms' bucket-edge quantile."""
+        if not self.completed:
+            return {}
+        hp, hs = self.latency_hist_phases, self.latency_hist_seconds
+        if hp is None or hs is None or hp.count != len(self.completed):
+            hp = Histogram(PHASE_BUCKETS)
+            hs = Histogram(SECONDS_BUCKETS)
+            for c in self.completed:
+                hp.observe(c.latency_phases)
+                hs.observe(c.latency_s)
+        return {
+            "p50_phases": float(hp.quantile(0.5)),
+            "p99_phases": float(hp.quantile(0.99)),
+            "p50_s": float(hs.quantile(0.5)),
+            "p99_s": float(hs.quantile(0.99)),
+        }
+
+    def class_latency_percentiles(self) -> dict:
+        """p50/p99 retire latency in phases per priority class, failed
+        retirements included."""
+        by_class: dict = {}
+        for c in self.completed:
+            h = by_class.setdefault(int(c.priority),
+                                    Histogram(PHASE_BUCKETS))
+            h.observe(c.latency_phases)
+        return {
+            str(p): {
+                "count": h.count,
+                "p50_phases": float(h.quantile(0.5)),
+                "p99_phases": float(h.quantile(0.99)),
+            } for p, h in sorted(by_class.items())}
+
+    def tenant_summary(self) -> dict:
+        """Per-tenant retired / failed / shed counts and shed reasons."""
+        out: dict = {}
+
+        def row(tenant):
+            return out.setdefault(str(tenant), {
+                "completed": 0, "failed": 0, "shed": 0,
+                "shed_reasons": {}})
+
+        for c in self.completed:
+            r = row(c.tenant)
+            r["completed"] += 1
+            if c.failed:
+                r["failed"] += 1
+        for s in self.shed:
+            r = row(s.tenant)
+            r["shed"] += 1
+            r["shed_reasons"][s.reason] = \
+                r["shed_reasons"].get(s.reason, 0) + 1
+        return out
+
+    def occupancy_summary(self, lanes: int) -> dict:
+        """Steady-state occupancy from the phase rows."""
+        t = self.totals
+        wsteps = int(t.get("wsteps", 0))
+        out = {
+            "lane_efficiency": (int(t["wtasks"]) / (wsteps * lanes)
+                                if wsteps else 0.0),
+            "walker_fraction": (int(t["wtasks"]) / int(t["tasks"])
+                                if t.get("tasks") else 0.0),
+        }
+        buckets = {k: int(t.get(k, 0)) for k in WASTE_FIELDS}
+        if any(buckets.values()):
+            out["attribution"] = build_attribution(buckets, wsteps * lanes)
+        ps = self.phase_stats
+        if ps is not None and len(ps):
+            j = STREAM_STAT_FIELDS.index("live_families")
+            k = STREAM_STAT_FIELDS.index("live_tasks")
+            out["mean_live_families"] = float(ps[:, j].mean())
+            out["mean_live_tasks"] = float(ps[:, k].mean())
+        return out
+
+
+def _admit_program(bag: BagState, acc: torch.Tensor, acc_c: torch.Tensor,
+                   fam_last: torch.Tensor, seeds_l: torch.Tensor,
+                   seeds_r: torch.Tensor, seeds_th: torch.Tensor,
+                   seeds_meta: torch.Tensor, n_new: int,
+                   clear: torch.Tensor, *, capacity: int):
+    """Push the ``n_new`` seed rows (the dense prefix of the fixed-width
+    seed arrays; pad rows carry in-domain fill) onto the bag top, in
+    place, and clear the recycled slots' accumulators and last-credit
+    marks. The whole window is written: ``count + window`` past the
+    store raises (the reference's update clamps its start there; the
+    engine's admit window keeps clear of it). Returns ``(bag, acc,
+    acc_c, fam_last)``."""
+    start = bag.count
+    window = seeds_l.shape[0]
+    store = bag.bag_l.shape[0]
+    if start + window > store:
+        raise ValueError(
+            f"admit window of {window} rows at count {start} overruns the "
+            f"bag store ({store} rows)")
+    for col, seeds in ((bag.bag_l, seeds_l), (bag.bag_r, seeds_r),
+                       (bag.bag_th, seeds_th), (bag.bag_meta, seeds_meta)):
+        col[start:start + window] = seeds
+    count = start + int(n_new)
+    # theta mode: the accumulator pair is (slots * T,) and the clear mask
+    # per slot
+    clear_acc = (clear.repeat_interleave(acc.shape[0] // clear.shape[0])
+                 if acc.shape[0] != clear.shape[0] else clear)
+    bag = dataclasses.replace(bag, count=count,
+                              overflow=bag.overflow or count > capacity)
+    return (bag, torch.where(clear_acc, 0.0, acc),
+            torch.where(clear_acc, 0.0, acc_c),
+            torch.where(clear, torch.full_like(fam_last, -1), fam_last))
+
+
+def _cancel_program(bag: BagState, kill: torch.Tensor,
+                    syncs: HostSyncs) -> BagState:
+    """Compact the live prefix, dropping every row whose family slot is
+    in the ``kill`` mask. A STABLE partition: surviving rows keep their
+    bag order, so the continued schedule is a function of state alone.
+    Dropped rows become in-domain fill past the new count. Reads the new
+    count (one sync)."""
+    n = bag.bag_l.shape[0]
+    dev = bag.bag_l.device
+    live = torch.arange(n, dtype=torch.int32, device=dev) < bag.count
+    slot = torch.clamp(bag.bag_meta >> DEPTH_BITS, 0, kill.shape[0] - 1)
+    keep = live & ~(kill[slot.to(torch.int64)] & live)
+    order = torch.argsort(torch.where(keep, 0, 1).to(torch.int32),
+                          stable=True)
+    return dataclasses.replace(
+        bag, bag_l=bag.bag_l[order], bag_r=bag.bag_r[order],
+        bag_th=bag.bag_th[order], bag_meta=bag.bag_meta[order],
+        count=int(syncs.pull(keep.sum(dtype=torch.int64))))
+
+
+def _engine_name(base: str, rule: Rule) -> str:
+    """The rule is part of the engine identity; trapezoid keeps the bare
+    name."""
+    rule = Rule(rule)
+    return base if rule == Rule.TRAPEZOID else f"{base}-{rule.value}"
+
+
+def _stream_identity(engine: str, family: str, eps: float, rule: Rule,
+                     slots: int, lanes: int, chunk: int, capacity: int,
+                     roots_per_lane: int, refill_slots: int,
+                     n_dev: int = 1) -> dict:
+    return {"engine": _engine_name(engine, rule), "fname": family,
+            "eps": float(eps), "m": int(slots), "lanes": int(lanes),
+            "chunk": int(chunk), "capacity": int(capacity),
+            "roots_per_lane": int(roots_per_lane),
+            "refill_slots": int(refill_slots), "n_dev": int(n_dev)}
+
+
+def _not_ported(what: str, item: str) -> ValueError:
+    return ValueError(f"{what} is not ported to ppls_tpu_torch yet "
+                      f"(ROADMAP.md Queue 1 {item})")
+
+
+class StreamEngine:
+    """Long-lived streaming integration service over the walker, on one
+    card (or on the CPU with ``device="cpu"``).
+
+    ``family`` names the integrand (its float64 form and ds twin).
+    ``eps``/``rule`` are per engine; ``slots`` bounds the requests
+    resident at once; the pending queue is unbounded unless
+    ``queue_limit`` is set.
+
+    Typical driving loop::
+
+        eng = StreamEngine("sin_recip_scaled", eps=1e-8, slots=32)
+        eng.submit(theta=1.25, bounds=(1e-3, 1.0))
+        done = eng.step()        # one phase: admit -> cycle -> retire
+        rest = eng.drain()       # phases until everything retires
+
+    or the one-shot ``run(requests, arrival_phase=...)``.
+
+    The reference's parameters and defaults, with ``device`` in place of
+    ``interpret``. Unported options raise ``ValueError``: ``engine=
+    "walker-dd"``, ``mesh``/``n_devices``, ``checkpoint_path``,
+    ``checkpoint_background``, ``spillover``, ``slo_config``,
+    ``adapt``, ``fault_injector``, ``reduced_integrands``,
+    ``sort_roots=False`` and ``sort_skip_ratio`` other than 8.0.
+    """
+
+    def __init__(self, family: str, eps: float,
+                 rule: Rule = Rule.TRAPEZOID,
+                 slots: int = 64,
+                 chunk: int = 1 << 13,
+                 capacity: int = 1 << 20,
+                 lanes: int = DEFAULT_LANES,
+                 roots_per_lane: int = 12,
+                 refill_slots: int = 8,
+                 seg_iters: int = 2048,
+                 max_segments: int = 1 << 18,
+                 min_active_frac: float = 0.1,
+                 exit_frac: Optional[float] = None,
+                 suspend_frac: Optional[float] = None,
+                 sort_roots: bool = True,
+                 sort_skip_ratio: float = SORT_SKIP_RATIO,
+                 f64_rounds: int = 0,
+                 scout_dtype: Optional[str] = None,
+                 double_buffer: bool = False,
+                 reduced_integrands: bool = False,
+                 theta_block: int = 1,
+                 admit_window: Optional[int] = None,
+                 device="cuda",
+                 engine: str = "walker",
+                 mesh=None, n_devices: Optional[int] = None,
+                 checkpoint_path: Optional[str] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 quarantine: bool = False,
+                 fault_injector=None,
+                 queue_limit: Optional[int] = None,
+                 tenant_quotas: Optional[dict] = None,
+                 default_deadline_phases: Optional[int] = None,
+                 on_shed=None,
+                 spillover: bool = False,
+                 slo_config=None,
+                 adapt: bool = False,
+                 checkpoint_background: bool = False):
+        if engine == "walker-dd" or mesh is not None or n_devices:
+            raise _not_ported("the multi-chip stream engine (walker-dd)",
+                              "item 7, behind item 8")
+        if engine != "walker":
+            raise ValueError(f"unknown stream engine {engine!r}")
+        if checkpoint_path or checkpoint_background:
+            raise _not_ported("stream snapshot/resume (checkpoint_path, "
+                              "checkpoint_background)", "item 6")
+        if fault_injector is not None:
+            raise _not_ported("fault injection (fault_injector)", "item 7")
+        if spillover:
+            raise _not_ported("CPU spillover", "item 7")
+        if slo_config is not None or adapt:
+            raise _not_ported("SLO evaluation and online adaptation "
+                              "(slo_config, adapt)", "item 7")
+        if reduced_integrands:
+            raise _not_ported("the range-reduced ds twins "
+                              "(reduced_integrands)", "item 2")
+        if not sort_roots or float(sort_skip_ratio) != SORT_SKIP_RATIO:
+            raise _not_ported("an unsorted root queue or another sort "
+                              "skip ratio (sort_roots, sort_skip_ratio)",
+                              "item 4")
+        self.device = resolve_device(device)
+        if lanes % 128:
+            raise ValueError(
+                f"lanes must be a multiple of 128, got {lanes}")
+        if refill_slots < 0 or refill_slots > roots_per_lane:
+            raise ValueError(
+                f"refill_slots must be in [0, roots_per_lane="
+                f"{roots_per_lane}], got {refill_slots}")
+        if scout_dtype == "f32" and f64_rounds:
+            raise ValueError(
+                "scout_dtype='f32' is meaningless with f64_rounds > 0 "
+                "(the float64 streaming mode runs no walk kernel)")
+        self._scout = bool(resolve_scout_dtype(scout_dtype, Rule(rule))
+                           and not f64_rounds)
+        validate_double_buffer(double_buffer, refill_slots)
+        self._double_buffer = bool(double_buffer)
+        # the reference's tier names: explicit values, else the hand tier
+        # (the port reads no tuning table)
+        tier = ("explicit" if exit_frac is not None
+                and suspend_frac is not None else "default")
+        exit_frac, suspend_frac = resolve_cadence(
+            exit_frac, suspend_frac, self._scout, refill_slots)
+        self._theta_block = validate_theta_block(
+            theta_block, lanes=int(lanes), refill_slots=refill_slots,
+            rule=rule, m=slots)
+        self.family = family
+        self.f_theta = get_family(family)
+        self.f_ds = get_family_ds(family)
+        self.eps = float(eps)
+        self.rule = Rule(rule)
+        self.slots = int(slots)
+        self.engine = engine
+        self.lanes = int(lanes)
+        target, breed_chunk, slack_chunk = walker_sizing(
+            lanes, roots_per_lane, capacity, chunk, self._theta_block)
+        self._store = capacity + 2 * slack_chunk
+        self._capacity = int(capacity)
+        self._chunk = int(chunk)
+        self._roots_per_lane = int(roots_per_lane)
+        self._refill_slots = int(refill_slots)
+        self._syncs = HostSyncs()
+        self._cycle_kw = dict(
+            f_theta=self.f_theta, f_ds=self.f_ds, eps=self.eps,
+            m=self.slots, seg_iters=int(seg_iters),
+            max_segments=int(max_segments),
+            min_active_frac=float(min_active_frac),
+            exit_frac=float(exit_frac), suspend_frac=float(suspend_frac),
+            lanes=self.lanes, capacity=int(capacity),
+            breed_chunk=int(breed_chunk), target=int(target),
+            rule=self.rule, refill_slots=int(refill_slots),
+            f64_rounds=int(f64_rounds), scout=self._scout,
+            double_buffer=self._double_buffer,
+            theta_block=self._theta_block, syncs=self._syncs)
+        # admit window: the fixed seed-array width, capped by the store's
+        # slack so the push always fits
+        aw = slots if admit_window is None else int(admit_window)
+        self._admit_window = max(1, min(aw, 2 * slack_chunk))
+
+        # telemetry: a per-engine handle by default, so the registry's
+        # totals are this run's. Every publish below consumes host values
+        # the phase boundary already read.
+        self.telemetry = telemetry if telemetry is not None \
+            else Telemetry()
+        tel = self.telemetry
+        self._stat_counters = {k: tel.stream_counter(k)
+                               for k in _COUNTER_STATS}
+        self._g_maxd = tel.stream_gauge(
+            "max_depth", "max refinement depth seen across phases")
+        self._g_queue = tel.stream_gauge(
+            "queue_depth", "pending (not yet admitted) requests")
+        self._g_resident = tel.stream_gauge(
+            "resident", "requests holding a family slot")
+        self._g_free = tel.stream_gauge("free_slots", "free family slots")
+        self._g_phase = tel.stream_gauge("phase", "current phase index")
+        self._g_live_tasks = tel.stream_gauge(
+            "live_tasks_now", "live bag rows after the last phase")
+        self._c_admitted = tel.registry.counter(
+            "ppls_stream_admitted_total", "requests admitted to slots")
+        self._c_retired = tel.registry.counter(
+            "ppls_stream_retired_total", "requests retired with areas")
+        self._h_lat_phases = tel.latency_phases_histogram()
+        self._h_lat_seconds = tel.latency_seconds_histogram()
+        self._g_lat = {
+            (q, unit): tel.stream_gauge(
+                f"retire_latency_{unit}_p{int(q * 100)}",
+                f"rolling p{int(q * 100)} retire latency ({unit}; "
+                f"bucket-edge quantile)")
+            for q in (0.5, 0.99) for unit in ("phases", "seconds")}
+        self._g_tuning = tel.registry.gauge(
+            "ppls_tuning_resolution",
+            "cadence resolution tier for this engine (1 = the tier "
+            "that resolved)", ("tier",))
+        self._g_tuning.labels(tier=tier).set(1.0)
+
+        # admission control, load shedding and deadlines: host policy
+        self.queue_limit = (None if queue_limit is None
+                            else int(queue_limit))
+        if self.queue_limit is not None and self.queue_limit < 1:
+            raise ValueError(
+                f"queue_limit must be >= 1, got {queue_limit}")
+        self.tenant_quotas = None
+        if tenant_quotas:
+            self.tenant_quotas = {}
+            for name, q in tenant_quotas.items():
+                rate = float(q.get("rate", 1.0))
+                burst = float(q.get("burst", max(rate, 1.0)))
+                if rate <= 0 or burst < 1.0:
+                    # rate 0 would starve the tenant forever and the
+                    # drain would never end: refusal is the queue
+                    # bound's job
+                    raise ValueError(
+                        f"tenant quota {name!r}: rate must be > 0 "
+                        f"and burst >= 1, got rate={rate} "
+                        f"burst={burst}")
+                self.tenant_quotas[str(name)] = {"rate": rate,
+                                                 "burst": burst}
+        self.default_deadline_phases = (
+            None if default_deadline_phases is None
+            else int(default_deadline_phases))
+        if self.default_deadline_phases is not None \
+                and self.default_deadline_phases < 1:
+            raise ValueError(
+                f"default_deadline_phases must be >= 1, got "
+                f"{default_deadline_phases}")
+        self.on_shed = on_shed
+        self.shed: List[ShedRecord] = []
+        self._tokens: dict = {}
+
+        # host bookkeeping
+        self._pending: List[StreamRequest] = []
+        self._free = list(range(self.slots))
+        self._slot_req = {}          # slot -> StreamRequest
+        self._records = {}           # rid -> dict(slot, admit_phase)
+        self.completed: List[CompletedRequest] = []
+        self._next_rid = 0
+        self.phase = 0
+        self._count = 0              # live bag rows after the last phase
+        self._phase_rows: List[np.ndarray] = []
+        self._phase_syncs: List[int] = []
+        self._fam_first = np.full(self.slots, -1, dtype=np.int32)
+        self._last_fam_live = np.zeros(self.slots, dtype=np.int32)
+        self._last_fam_last = np.full(self.slots, -1, dtype=np.int32)
+
+        # device state, built on the first admission so the dead-slot
+        # fill is an in-domain point of a real request
+        self._dev = None
+        self._fill = None            # (fill_x, fill_th)
+        self._theta_dev = None       # (slots, T) f64 theta table (T > 1)
+
+        # a non-finite area retires as a FAILED record with quarantine on;
+        # off (the default), it raises
+        self.quarantine = bool(quarantine)
+        self._c_quarantined = tel.registry.counter(
+            "ppls_stream_quarantined_total",
+            "requests retired as failed through the NaN quarantine")
+        self._c_shed = tel.shed_counter()
+        self._c_deadline = tel.registry.counter(
+            "ppls_stream_deadline_exceeded_total",
+            "in-flight requests retired failed at their phase "
+            "deadline", ("tenant",))
+        self._c_tenant_retired = tel.registry.counter(
+            "ppls_stream_tenant_retired_total",
+            "requests retired, by tenant", ("tenant",))
+        self._h_class_lat = tel.class_latency_histogram()
+        self._h_tenant_lat = tel.tenant_latency_histogram()
+        # per-rid request spans (open at submit, closed at retire/shed)
+        self._rid_spans: dict = {}
+        self._token_waits: dict = {}
+
+    # ------------------------------------------------------------------
+    # identity
+    # ------------------------------------------------------------------
+
+    def _identity(self) -> dict:
+        ident = _stream_identity(
+            f"{self.engine}-stream", self.family, self.eps, self.rule,
+            self.slots, self.lanes, self._chunk, self._capacity,
+            self._roots_per_lane, self._refill_slots, 1)
+        if self._scout:
+            ident["scout"] = True
+        if self._double_buffer:
+            ident["double_buffer"] = True
+        if self._theta_block > 1:
+            ident["theta_block"] = int(self._theta_block)
+        return ident
+
+    def snapshot(self):
+        raise _not_ported("stream snapshot/resume", "item 6")
+
+    @classmethod
+    def resume(cls, *args, **kwargs):
+        raise _not_ported("stream snapshot/resume", "item 6")
+
+    # ------------------------------------------------------------------
+    # request intake
+    # ------------------------------------------------------------------
+
+    def submit(self, theta, bounds, tenant: str = "default",
+               priority: int = 1,
+               deadline_phases: Optional[int] = None) -> int:
+        """Queue one request; returns its request id.
+
+        On a ``theta_block`` = T > 1 engine ``theta`` may be a sequence
+        of up to T thetas (a theta batch, retiring with per-theta
+        ``areas``). A malformed submission (ds domain, oversized batch,
+        bad tenant or deadline) raises ``ValueError`` before a rid is
+        consumed. Under a full ``queue_limit`` the shed policy refuses
+        the lowest-priority oldest queued request, or this one when it
+        does not strictly outrank that one (see ``self.shed``)."""
+        bounds = (float(bounds[0]), float(bounds[1]))
+        if isinstance(theta, (tuple, list, np.ndarray)):
+            thetas = tuple(float(t) for t in np.asarray(theta).reshape(-1))
+            if not thetas:
+                raise ValueError("empty theta batch")
+            if len(thetas) > self._theta_block:
+                raise ValueError(
+                    f"theta batch of {len(thetas)} exceeds this "
+                    f"engine's theta_block={self._theta_block}")
+            theta_store = thetas if self._theta_block > 1 \
+                else thetas[0]
+        else:
+            thetas = (float(theta),)
+            theta_store = float(theta)
+        check_ds_domain(self.f_ds,
+                        np.tile(np.array([bounds]), (len(thetas), 1)),
+                        np.array(thetas))
+        tenant = str(tenant)
+        if not tenant or len(tenant) > 128:
+            raise ValueError(
+                f"tenant must be a non-empty string of <= 128 chars, "
+                f"got {tenant!r}")
+        priority = int(priority)
+        if deadline_phases is None:
+            deadline_phases = self.default_deadline_phases
+        if deadline_phases is not None:
+            deadline_phases = int(deadline_phases)
+            if deadline_phases < 1:
+                raise ValueError(
+                    f"deadline_phases must be >= 1, got "
+                    f"{deadline_phases}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = StreamRequest(
+            rid=rid, theta=theta_store, bounds=bounds,
+            submit_phase=self.phase, submit_t=time.perf_counter(),
+            tenant=tenant, priority=priority,
+            deadline_phases=deadline_phases)
+        self._rid_spans[rid] = self.telemetry.request_span(
+            rid, tenant=tenant, priority=priority,
+            submit_phase=req.submit_phase)
+        if self.queue_limit is not None \
+                and len(self._pending) >= self.queue_limit:
+            # the victim is the lowest-priority OLDEST queued request;
+            # the arrival must strictly outrank it to displace it
+            victim = min(self._pending,
+                         key=lambda r: (r.priority, r.rid))
+            if victim.priority < req.priority:
+                self._pending.remove(victim)
+                self._shed(victim, "queue_full")
+            else:
+                self._shed(req, "queue_full")
+                return rid
+        self._pending.append(req)
+        return rid
+
+    def _quota_for(self, tenant: str) -> Optional[dict]:
+        if self.tenant_quotas is None:
+            return None
+        return self.tenant_quotas.get(tenant,
+                                      self.tenant_quotas.get("*"))
+
+    def _shed(self, req: StreamRequest, reason: str) -> ShedRecord:
+        rec = ShedRecord(
+            rid=req.rid, theta=req.theta, bounds=req.bounds,
+            tenant=req.tenant, priority=req.priority, reason=reason,
+            phase=self.phase, submit_phase=req.submit_phase)
+        self.shed.append(rec)
+        self._c_shed.labels(tenant=req.tenant, reason=reason).inc()
+        self._token_waits.pop(req.rid, None)
+        span = self._rid_spans.pop(req.rid, None)
+        self.telemetry.request_event(
+            span, "request_shed", rid=req.rid, tenant=req.tenant,
+            priority=req.priority, reason=reason, phase=self.phase,
+            submit_phase=req.submit_phase)
+        if span is not None:
+            span.close(disposition="shed", reason=reason,
+                       phase=self.phase)
+        if self.on_shed is not None:
+            self.on_shed(rec)
+        return rec
+
+    @property
+    def next_rid(self) -> int:
+        """Request ids follow the submission order."""
+        return self._next_rid
+
+    @property
+    def pending(self) -> int:
+        return len(self._pending)
+
+    @property
+    def resident(self) -> int:
+        return len(self._slot_req)
+
+    @property
+    def idle(self) -> bool:
+        """Nothing queued, resident or live on the device."""
+        return not self._pending and not self._slot_req \
+            and self._count == 0
+
+    # ------------------------------------------------------------------
+    # device state
+    # ------------------------------------------------------------------
+
+    def _ensure_state(self, first: StreamRequest):
+        if self._dev is not None:
+            return
+        fill_x = 0.5 * (first.bounds[0] + first.bounds[1])
+        fill_th = float(first.thetas[0])
+        self._fill = (float(fill_x), fill_th)
+        # per-slot theta rows: admissions overwrite theirs, the others
+        # keep the in-domain fill theta
+        self._theta_table = np.full(
+            (self.slots, self._theta_block), fill_th, dtype=np.float64)
+        self._build_store()
+
+    def _build_store(self):
+        fill_x, fill_th = self._fill
+        dev, f64 = self.device, torch.float64
+        store = self._store
+        m_eff = self.slots * self._theta_block
+        bag = BagState(
+            bag_l=torch.full((store,), fill_x, dtype=f64, device=dev),
+            bag_r=torch.full((store,), fill_x, dtype=f64, device=dev),
+            bag_th=torch.full((store,), fill_th, dtype=f64, device=dev),
+            bag_meta=torch.zeros(store, dtype=torch.int32, device=dev),
+            count=0, acc=torch.zeros(m_eff, dtype=f64, device=dev),
+            max_depth=torch.zeros((), dtype=torch.int32, device=dev))
+        self._dev = dict(
+            bag=bag,
+            acc=torch.zeros(m_eff, dtype=f64, device=dev),
+            acc_c=torch.zeros(m_eff, dtype=f64, device=dev),
+            fam_last=torch.full((self.slots,), -1, dtype=torch.int32,
+                                device=dev))
+
+    # ------------------------------------------------------------------
+    # the phase loop
+    # ------------------------------------------------------------------
+
+    def _refill_tokens(self) -> None:
+        """Phase-open token-bucket refill: rate tokens per phase up to
+        burst, for every tenant seen so far."""
+        if self.tenant_quotas is None:
+            return
+        for tenant in self._tokens:
+            q = self._quota_for(tenant)
+            if q is not None:
+                self._tokens[tenant] = min(
+                    q["burst"], self._tokens[tenant] + q["rate"])
+
+    def _shed_unmeetable(self) -> None:
+        """Shed queued requests whose deadline phase is already past."""
+        victims = [r for r in self._pending
+                   if r.deadline_phase is not None
+                   and r.deadline_phase < self.phase]
+        for req in victims:
+            self._pending.remove(req)
+            self._shed(req, "deadline_exceeded")
+
+    def _select_for_admission(self) -> List[StreamRequest]:
+        """This phase's admissions: budget = min(free slots, admit
+        window, bag headroom), order (-priority, rid), gated by the
+        tenant token buckets (an out-of-tokens tenant's requests wait in
+        place). Removes the chosen requests from the queue and takes one
+        token per admission."""
+        room = self._capacity - self._count
+        budget = max(0, min(len(self._free), self._admit_window, room))
+        if not budget or not self._pending:
+            return []
+        chosen: List[StreamRequest] = []
+        if self.tenant_quotas is None:
+            chosen = heapq.nsmallest(
+                budget, self._pending,
+                key=lambda r: (-r.priority, r.rid))
+        else:
+            for req in sorted(self._pending,
+                              key=lambda r: (-r.priority, r.rid)):
+                if len(chosen) >= budget:
+                    break
+                q = self._quota_for(req.tenant)
+                if q is not None:
+                    if req.tenant not in self._tokens:
+                        self._tokens[req.tenant] = q["burst"]
+                    if self._tokens[req.tenant] < 1.0:
+                        self._token_waits[req.rid] = \
+                            self._token_waits.get(req.rid, 0) + 1
+                        self.telemetry.request_event(
+                            self._rid_spans.get(req.rid),
+                            "token_wait", rid=req.rid,
+                            tenant=req.tenant, phase=self.phase)
+                        continue
+                    self._tokens[req.tenant] -= 1.0
+                chosen.append(req)
+        if chosen:
+            taken = {r.rid for r in chosen}
+            self._pending = [r for r in self._pending
+                             if r.rid not in taken]
+        return chosen
+
+    def _admit(self) -> List[StreamRequest]:
+        chosen = self._select_for_admission()
+        if not chosen:
+            return []
+        self._ensure_state(chosen[0])
+        n_new = len(chosen)
+        A = self._admit_window
+        fill_x, fill_th = self._fill
+        sl = np.full(A, fill_x)
+        sr = np.full(A, fill_x)
+        sth = np.full(A, fill_th)
+        sm = np.zeros(A, dtype=np.int32)
+        clear = np.zeros(self.slots, dtype=bool)
+        for i, req in enumerate(chosen):
+            slot = self._free.pop(0)
+            sl[i], sr[i] = req.bounds
+            row = req.thetas
+            # frontier rows carry the batch's first theta for the work
+            # sort; a short batch pads the slot's theta row with it
+            # (the pads vote and credit like the rest, and are dropped
+            # at retirement)
+            sth[i] = row[0]
+            if self._theta_block > 1:
+                pad = row + (row[0],) * (self._theta_block - len(row))
+                self._theta_table[slot] = pad
+            sm[i] = np.int32(slot << DEPTH_BITS)
+            clear[slot] = True       # recycle: zero the slot's acc pair
+            self._slot_req[slot] = req
+            self._records[req.rid] = dict(slot=slot,
+                                          admit_phase=self.phase)
+            self._fam_first[slot] = self.phase
+            self.telemetry.request_event(
+                self._rid_spans.get(req.rid),
+                "admit", rid=req.rid, slot=slot, phase=self.phase,
+                theta=(list(row) if self._theta_block > 1
+                       else req.theta),
+                bounds=list(req.bounds),
+                submit_phase=req.submit_phase,
+                queue_wait_phases=self.phase - req.submit_phase,
+                token_wait_phases=self._token_waits.pop(req.rid, 0),
+                tenant=req.tenant, priority=req.priority)
+        self._c_admitted.inc(n_new)
+        self._apply_admit(sl, sr, sth, sm, n_new, clear)
+        self._count += n_new
+        return chosen
+
+    def _apply_admit(self, sl, sr, sth, sm, n_new, clear):
+        dev, f64 = self.device, torch.float64
+        d = self._dev
+        bag, acc, acc_c, fam_last = _admit_program(
+            d["bag"], d["acc"], d["acc_c"], d["fam_last"],
+            torch.as_tensor(sl, dtype=f64, device=dev),
+            torch.as_tensor(sr, dtype=f64, device=dev),
+            torch.as_tensor(sth, dtype=f64, device=dev),
+            torch.as_tensor(sm, dtype=torch.int32, device=dev), n_new,
+            torch.as_tensor(clear, dtype=torch.bool, device=dev),
+            capacity=self._capacity)
+        self._dev = dict(bag=bag, acc=acc, acc_c=acc_c, fam_last=fam_last)
+        if self._theta_block > 1:
+            self._theta_dev = torch.as_tensor(self._theta_table,
+                                              dtype=f64, device=dev)
+
+    def _cycle_launch(self):
+        """Run the phase's cycle and install its carry. The returned
+        token goes to :meth:`_cycle_pull` on this engine before any other
+        launch."""
+        d = self._dev
+        out = run_stream_cycle(d["bag"], d["acc"], d["acc_c"],
+                               d["fam_last"], self.phase, self._theta_dev,
+                               **self._cycle_kw)
+        self._dev = dict(bag=out.bag, acc=out.acc, acc_c=out.acc_c,
+                         fam_last=out.fam_last)
+        return out
+
+    def _cycle_pull(self, out):
+        """The phase's one read of its results: (fam_live, acc, acc_c,
+        fam_last, count, overflow, stats) as host values."""
+        return pull_stream_cycle(out, self._syncs)
+
+    def _publish_phase_row(self, row: np.ndarray) -> dict:
+        """Fold one phase row into the registry."""
+        vals = {k: int(v) for k, v in zip(STREAM_STAT_FIELDS, row)}
+        for k, c in self._stat_counters.items():
+            c.inc(vals[k])
+        self._g_maxd.set_max(vals["maxd"])
+        self._g_live_tasks.set(vals["live_tasks"])
+        return vals
+
+    def _publish_gauges(self) -> None:
+        self._g_queue.set(len(self._pending))
+        self._g_resident.set(len(self._slot_req))
+        self._g_free.set(len(self._free))
+        self._g_phase.set(self.phase)
+        for (q, unit), g in self._g_lat.items():
+            h = (self._h_lat_phases if unit == "phases"
+                 else self._h_lat_seconds)
+            v = h.quantile(q)
+            if v is not None:
+                g.set(v)
+
+    def _account_retirement(self, c: CompletedRequest,
+                            slot: int) -> None:
+        """Registry and event accounting shared by every retirement
+        (normal, quarantine, deadline expiry)."""
+        self._c_retired.inc()
+        self._c_tenant_retired.labels(tenant=c.tenant).inc()
+        self._h_lat_phases.observe(c.latency_phases)
+        self._h_lat_seconds.observe(c.latency_s)
+        self._h_class_lat.labels(priority=str(c.priority)) \
+            .observe(c.latency_phases)
+        self._h_tenant_lat.labels(tenant=c.tenant) \
+            .observe(c.latency_phases)
+        ok = not c.failed
+        span = self._rid_spans.pop(c.rid, None)
+        self.telemetry.request_event(
+            span, "retire", rid=c.rid, slot=slot,
+            area=(c.area if ok else None),
+            **({"areas": c.areas}
+               if c.areas is not None and ok else {}),
+            failed=c.failed,
+            **({"failure": c.failure} if c.failure else {}),
+            submit_phase=c.submit_phase,
+            admit_phase=c.admit_phase,
+            retire_phase=c.retire_phase,
+            latency_phases=c.latency_phases,
+            first_seeded_phase=c.first_seeded_phase,
+            last_credited_phase=c.last_credited_phase,
+            latency_s=round(c.latency_s, 6),
+            tenant=c.tenant, priority=c.priority)
+        if span is not None:
+            span.close(
+                disposition=("failed" if c.failed else "retired"),
+                **({"failure": c.failure} if c.failure else {}),
+                retire_phase=c.retire_phase,
+                latency_phases=c.latency_phases)
+
+    def _cancel_slots(self, kill: np.ndarray) -> None:
+        """Compact the cancelled slots' live rows out of the bag. Between
+        phases all walk state lives in the bag, so after the compaction
+        nothing can credit the freed slots again."""
+        k = torch.as_tensor(kill, dtype=torch.bool, device=self.device)
+        d = self._dev
+        bag = _cancel_program(d["bag"], k, self._syncs)
+        self._dev = dict(d, bag=bag)
+        self._count = bag.count
+        self._last_fam_live = np.where(kill, 0, self._last_fam_live)
+
+    def step(self) -> List[CompletedRequest]:
+        """One phase: admit -> cycle -> retire. Returns the requests
+        retired this phase (empty when idle)."""
+        return self.step_finish(self.step_begin())
+
+    def step_begin(self):
+        """First half of one phase: the phase span, the admission policy
+        and the cycle. Returns the token for :meth:`step_finish`;
+        nothing else may drive this engine in between."""
+        n0 = self._syncs.n
+        span = self.telemetry.span("phase", phase=self.phase)
+        self._refill_tokens()
+        self._shed_unmeetable()
+        self._admit()
+        if self._count == 0 and not self._slot_req:
+            return ("idle", span, n0, None)
+        return ("cycle", span, n0, self._cycle_launch())
+
+    def step_finish(self, token) -> List[CompletedRequest]:
+        """Second half of one phase: read the cycle's results, then
+        retire and account. ``step() == step_finish(step_begin())``."""
+        kind, span, n0, launch = token
+        tel = self.telemetry
+        if kind == "idle":
+            # nothing live and nothing admissible: no device work, but
+            # the phase counter advances so arrival gaps make progress
+            self.phase += 1
+            self._publish_gauges()
+            span.close(idle=True, retired=0)
+            return []
+        (fam_live, acc, acc_c, fam_last, count, overflow,
+         stats) = self._cycle_pull(launch)
+        self._last_fam_live = fam_live
+        self._last_fam_last = np.asarray(fam_last, dtype=np.int32)
+        if overflow:
+            tel.event("overflow", phase=self.phase, count=int(count))
+            span.close(error="overflow")
+            raise RuntimeError(
+                "stream walker bag overflowed; raise capacity or lower "
+                "the offered load / admit window")
+        self._count = count
+        row = stats.astype(np.int64)
+        self._phase_rows.append(row)
+        vals = self._publish_phase_row(row)
+        if tel.tracer.enabled:
+            # per-rid phase residency, linked to this phase's span
+            for slot in sorted(self._slot_req):
+                req = self._slot_req[slot]
+                tel.request_event(
+                    self._rid_spans.get(req.rid), "request_phase",
+                    rid=req.rid, slot=slot, phase=self.phase,
+                    phase_span=span.sid)
+        retired = []
+        now = time.perf_counter()
+        for slot in sorted(self._slot_req):
+            if fam_live[slot] != 0:
+                continue
+            req = self._slot_req.pop(slot)
+            rec = self._records.pop(req.rid)
+            T = self._theta_block
+            if T > 1:
+                seg = (acc.reshape(self.slots, T)[slot]
+                       + acc_c.reshape(self.slots, T)[slot])
+                areas = [float(v) for v in seg[:len(req.thetas)]]
+                area = areas[0]
+                finite = np.all(np.isfinite(areas))
+            else:
+                areas = None
+                area = float(acc[slot] + acc_c[slot])
+                finite = np.isfinite(area)
+            if not finite and not self.quarantine:
+                tel.event("nan_retire", rid=req.rid, slot=slot,
+                          phase=self.phase)
+                span.close(error="nan_retire")
+                raise FloatingPointError(
+                    f"stream request {req.rid} produced a non-finite "
+                    f"area — refusing to report garbage")
+            if not finite:
+                # quarantine: the poison stays in this slot's
+                # accumulators, which its next admission clears
+                tel.request_event(self._rid_spans.get(req.rid),
+                                  "quarantine", rid=req.rid,
+                                  slot=slot, phase=self.phase)
+                self._c_quarantined.inc()
+            c = CompletedRequest(
+                rid=req.rid, theta=req.theta, bounds=req.bounds,
+                area=area, areas=areas,
+                submit_phase=req.submit_phase,
+                admit_phase=rec["admit_phase"],
+                retire_phase=self.phase,
+                latency_s=now - req.submit_t,
+                first_seeded_phase=int(self._fam_first[slot]),
+                last_credited_phase=int(fam_last[slot]),
+                failed=not finite,
+                tenant=req.tenant, priority=req.priority,
+                failure=(None if finite else "nan"))
+            retired.append(c)
+            self._free.append(slot)
+            self._account_retirement(c, slot)
+        # deadline expiry: a resident request at or past its deadline
+        # phase retires FAILED and its live rows are compacted out; the
+        # slot is reusable at once
+        kill = None
+        for slot in sorted(self._slot_req):
+            req = self._slot_req[slot]
+            dp = req.deadline_phase
+            if dp is None or self.phase < dp:
+                continue
+            self._slot_req.pop(slot)
+            rec = self._records.pop(req.rid)
+            c = CompletedRequest(
+                rid=req.rid, theta=req.theta, bounds=req.bounds,
+                area=float("nan"), areas=None,
+                submit_phase=req.submit_phase,
+                admit_phase=rec["admit_phase"],
+                retire_phase=self.phase,
+                latency_s=now - req.submit_t,
+                first_seeded_phase=int(self._fam_first[slot]),
+                last_credited_phase=int(fam_last[slot]),
+                failed=True, tenant=req.tenant,
+                priority=req.priority, failure="deadline_exceeded")
+            tel.request_event(self._rid_spans.get(req.rid),
+                              "deadline_exceeded", rid=req.rid,
+                              slot=slot, phase=self.phase,
+                              deadline_phase=dp, tenant=req.tenant)
+            self._c_deadline.labels(tenant=req.tenant).inc()
+            retired.append(c)
+            self._free.append(slot)
+            if kill is None:
+                kill = np.zeros(self.slots, dtype=bool)
+            kill[slot] = True
+            self._account_retirement(c, slot)
+        if kill is not None:
+            self._cancel_slots(kill)
+        self._free.sort()
+        self.completed.extend(retired)
+        self._phase_syncs.append(self._syncs.n - n0)
+        self.phase += 1
+        self._publish_gauges()
+        span.close(retired=len(retired), **vals)
+        return retired
+
+    def drain(self, max_phases: int = 1 << 14) -> List[CompletedRequest]:
+        """Run phases until the engine is idle; returns everything
+        retired during the drain."""
+        done: List[CompletedRequest] = []
+        phases = 0
+        while not self.idle:
+            done.extend(self.step())
+            phases += 1
+            if phases >= max_phases:
+                raise RuntimeError(
+                    f"stream did not drain in {max_phases} phases "
+                    f"({self._count} tasks, {self.resident} resident, "
+                    f"{self.pending} pending)")
+        return done
+
+    def run(self, requests: Sequence[Tuple[float, Tuple[float, float]]],
+            arrival_phase: Optional[Sequence[int]] = None) -> StreamResult:
+        """Submit ``requests`` — (theta, bounds) pairs, or (theta,
+        bounds, kwargs) triples carrying tenant/priority/deadline_phases
+        — all at once or on the open-loop ``arrival_phase`` schedule
+        (one phase per request, counted from this call), and run phases
+        until every request has retired or been shed."""
+        t0 = time.perf_counter()
+        sched = ([0] * len(requests) if arrival_phase is None
+                 else [int(p) for p in arrival_phase])
+        if len(sched) != len(requests):
+            raise ValueError("arrival_phase length != requests length")
+        order = sorted(range(len(requests)), key=lambda i: sched[i])
+        queue = [(sched[i], requests[i]) for i in order]
+        phases0 = self.phase
+        run_span = self.telemetry.span(
+            "run", engine=f"{self.engine}-stream", requests=len(queue))
+        k = 0
+        phases = 0
+        while k < len(queue) or not self.idle:
+            while k < len(queue) and \
+                    queue[k][0] <= self.phase - phases0:
+                r = queue[k][1]
+                kw2 = r[2] if len(r) > 2 else {}
+                self.submit(r[0], r[1], **kw2)
+                k += 1
+            self.step()
+            phases += 1
+            if phases > (1 << 14):
+                raise RuntimeError("stream did not converge")
+        run_span.close(phases=phases, completed=len(self.completed))
+        return self.result(wall_s=time.perf_counter() - t0)
+
+    def result(self, wall_s: float = 0.0) -> StreamResult:
+        rows = (np.stack(self._phase_rows) if self._phase_rows
+                else np.zeros((0, len(STREAM_STAT_FIELDS)), np.int64))
+        # totals come from the registry, the counters every reader uses
+        reg = self.telemetry.registry
+        totals = {k: int(reg.value(f"ppls_stream_{k}_total"))
+                  for k in _COUNTER_STATS}
+        totals["maxd"] = int(reg.value("ppls_stream_max_depth"))
+        return StreamResult(
+            completed=list(self.completed), phases=self.phase,
+            wall_s=wall_s, totals=totals, phase_stats=rows,
+            fam_done=np.asarray(self._last_fam_live) == 0,
+            fam_first_phase=self._fam_first.copy(),
+            fam_last_phase=self._last_fam_last.copy(),
+            latency_hist_phases=self._h_lat_phases.solo(),
+            latency_hist_seconds=self._h_lat_seconds.solo(),
+            per_round=round_stats_from_rows(rows, STREAM_STAT_FIELDS),
+            shed=list(self.shed), host_syncs=self._syncs.n,
+            host_syncs_per_phase=list(self._phase_syncs))
