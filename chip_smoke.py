@@ -9,7 +9,8 @@ Phases, each of which must pass (any failure exits nonzero):
 2. Build: compile the three walk kernels from the checkout, one nvcc
    process per source, all started together, and load them: K1
    (csrc/walk_rf.cu, in-kernel refill), K2 (csrc/walk_ee.cu, early exit)
-   and K3 (csrc/walk_seg.cu, fixed length).
+   and K3 (csrc/walk_seg.cu, fixed length), each with every integrand
+   body of csrc/walk_step.cuh; the nvcc seconds per source are printed.
 3. Kernels vs plain, at the flagship's shapes (lanes=16384): each kernel
    and its plain PyTorch segment run on identical copies, and every
    output must be bit-equal.
@@ -104,10 +105,44 @@ Phases, each of which must pass (any failure exits nonzero):
       per phase; without its fault plan), through K1 (refill_slots 2) and
       through K2 (refill_slots 0), on the card and on the CPU: equal shed
       records, per-request phases and tasks, areas within 1e-12.
+12. The integrand bodies the kernels compile in beside the three of
+   phases 3-11 (the range-reduced twins of sin(theta / x), cosh^4 and
+   sin(theta x), gauss_center, quad_scaled), and the paths that run them.
+   a. Each body against the plain segment at lanes=16384, cap=256, on its
+      bank (ppls_tpu_torch/tools/time_k1.py body_bank: the flagship's
+      domain; cosh^4 on [0, 5] with theta <= 4.4; sin(theta x) on [0, 1],
+      theta from linspace(1, 4); Gaussians centred in [0.4995, 0.5005]
+      on [0.4, 0.6]; theta x^2 on [0, 1], theta = 1 + i/4): K1 on a bred,
+      dealt bank (R=8) and K2 on seeded lanes in the trapezoid, scouting
+      and Simpson machines, K3 in trapezoid and Simpson, every output
+      bit-equal; a reduced twin's reference twin on the same launches
+      (kernel only) for the us/step of the two; K1's theta variant at
+      T = 32 through the reduced sin(theta x).
+   b. The flagship main path with reduced_integrands (the reduced
+      sin(theta / x) twin) through K1 and through K2, under phases 4 and
+      6's gates, its distance from their reference-twin areas printed,
+      and its K1 time in the main path profiled.
+   c. The reference problem through the reduced cosh^4 twin (theta = 1
+      on [0, 5], eps 1e-6, lanes 2^14, R=2, scout f32, double buffer):
+      within 1e-6 of 7583461.361497 (tests/test_reduced_integrands.py).
+   d. gauss_center at the reference's real-chip check
+      (tests/test_tpu_lane.py:215-230, lanes 256, K2): every peak above
+      1e-3, within 3e-9 of the float64 bag, card = CPU (tasks, steps,
+      waste and areas bit for bit).
+   e. The reference bench's multihost single-engine run
+      (tools/bench_history.py:133-142): quad_scaled over theta = 1 + i/4
+      on [0, 1]; as configured (f64_rounds=2, no walk kernel) and with
+      f64_rounds=0 (K1, R=2): card = CPU bit for bit, both modes' areas
+      equal, the distance from theta/3 printed.
+   f. Phase 11's saturated stream with reduced_integrands=True:
+      requests/s against phase 11's, the closed form, and |stream - cold|
+      <= 1e-8 on the ds walk.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
-per T under ``theta``; the stream's launches under ``stream_launches``)
+per T under ``theta``; the stream's launches under ``stream_launches``;
+phase 12's records per body and step machine under ``bodies`` and its
+paths' launches under ``body_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -191,6 +226,34 @@ SLO_KW = dict(slots=4, chunk=1 << 10, capacity=1 << 16, lanes=256,
               roots_per_lane=2, refill_slots=2, seg_iters=32,
               min_active_frac=0.05)
 SLO_TENANTS = (("free", 0), ("std", 1), ("pro", 2))
+# phase 12: the integrand bodies K1, K2 and K3 gained; each twin is
+# "<family>" or "<family>@reduced" (its range-reduced twin), checked on
+# the bank of ppls_tpu_torch/tools/time_k1.py body_bank
+BODIES = ("sin_recip_scaled@reduced", "cosh4_scaled@reduced",
+          "sin_scaled@reduced", "gauss_center", "quad_scaled")
+BODY_RUNS = 4                          # kernel launches per median
+BODY_THETA = ("sin_scaled@reduced", 32)   # K1's theta variant
+# the reference problem through the reduced cosh^4 twin
+# (tests/test_reduced_integrands.py:160-176) at full width
+REF_PROBLEM_AREA = 7583461.361497
+REF_PROBLEM_TOL = 1e-6
+REF_PROBLEM_KW = dict(capacity=1 << 20, lanes=LANES, roots_per_lane=2,
+                      refill_slots=2, scout_dtype="f32", double_buffer=True)
+# gauss_center at the reference's real-chip check
+# (tests/test_tpu_lane.py:215-230)
+GAUSS_THETA = (0.4995, 0.5, 0.5005)
+GAUSS_BOUNDS = (0.4, 0.6)
+GAUSS_EPS = 1e-9
+GAUSS_KW = dict(capacity=1 << 16, lanes=256, roots_per_lane=1, seg_iters=32,
+                min_active_frac=0.05)
+# the reference bench's multihost leg, its single-engine run
+# (tools/bench_history.py:124-142, :558-561)
+MULTIHOST_FAMILY = "quad_scaled"
+MULTIHOST_EPS = 1e-9
+MULTIHOST_K = 8
+MULTIHOST_WKW = dict(slots=4, chunk=1 << 10, capacity=1 << 16, lanes=256,
+                     roots_per_lane=2, refill_slots=2, seg_iters=32,
+                     min_active_frac=0.05, f64_rounds=2)
 
 
 def log(msg: str) -> None:
@@ -339,6 +402,149 @@ def median_runs(fn, n: int = 5):
     return outs, float(np.median(times)), times
 
 
+def fmt_cmp(what: str, c: dict, times) -> str:
+    """One log line of a kernel-versus-plain record (and of its reference
+    twin's alternated launches, where it has them)."""
+    line = (f"[smoke] {what}: bit-equal to the plain segment; "
+            f"{c['counters'][0]} steps; kernel {c['ms']:.3f} ms (runs "
+            f"{', '.join(f'{t:.3f}' for t in times)}), "
+            f"{c['us_per_step']:.3f} us/step, plain {c['plain_ms']:.1f} ms, "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}); counters "
+            f"{c['counters']}")
+    ref = c.get("reference_twin")
+    if ref is not None:
+        line += (f"; reference twin on the same inputs, alternated: "
+                 f"{ref['ms']:.3f} ms (runs "
+                 f"{', '.join(f'{t:.3f}' for t in ref['runs'])}), "
+                 f"{ref['us_per_step']:.3f} us/step, {ref['counters'][0]} "
+                 f"steps; reduced / reference us/step "
+                 f"{c['us_per_step'] / ref['us_per_step']:.3f}")
+    return line
+
+
+def kernel_runs(run, ref_run, runs):
+    """(outputs, median ms, the ms of each run) of ``runs`` launches of
+    ``run()`` after a warm-up; with ``ref_run`` (a reference twin on the
+    same inputs) the two alternate, A B then B A, and its record is the
+    fourth element (else None)."""
+    import numpy as np
+    if ref_run is None:
+        return (*median_runs(run, runs), None)
+    run(), ref_run()                                    # warm-ups
+    times, ref_times, outs, ref_outs = [], [], None, None
+    for j in range(runs):
+        for which in ((0, 1) if j % 2 == 0 else (1, 0)):
+            if which == 0:
+                outs, ms = run()
+                times.append(ms)
+            else:
+                ref_outs, ms = ref_run()
+                ref_times.append(ms)
+    ref_ms = float(np.median(ref_times))
+    ctr = ref_outs[-1].tolist()
+    return outs, float(np.median(times)), times, dict(
+        ms=ref_ms, runs=ref_times, counters=ctr,
+        us_per_step=1e3 * ref_ms / ctr[0])
+
+
+def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1,
+           ref_ds=None):
+    """K1 on copies of one dealt bank, CMP_CAP steps: the median of
+    ``runs`` kernel launches by CUDA events (alternated with the
+    reference twin ``ref_ds``, when given), then the plain segment,
+    every output held bit-equal. Returns (record, the kernel ms of each
+    run)."""
+    rule, scout = mode_args(mode)
+    kw = dict(theta_block=theta_block) if theta_block > 1 else {}
+
+    def run(fn, twin=f_ds):
+        inp = clone(base)
+        (resh, resl, ctr), ms = timed(lambda: fn(
+            inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
+            inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
+            f_ds=twin, eps=eps, scout=scout, rule=rule, **kw))
+        return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
+                ctr], ms
+
+    outs_k, kernel_ms, times, ref = kernel_runs(
+        lambda: run(W.run_segment_rf),
+        ref_ds and (lambda: run(W.run_segment_rf, ref_ds)), runs)
+    outs_p, plain_ms = run(W.segment_rf_plain)
+    ctr = outs_k[-1].tolist()
+    bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7], ops,
+                               mode)
+    rec = dict(ms=kernel_ms, plain_ms=plain_ms,
+               max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
+               bound_by=bound_by, counters=ctr,
+               us_per_step=1e3 * kernel_ms / ctr[0])
+    if ref is not None:
+        rec["reference_twin"] = ref
+    return rec, times
+
+
+def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, ref_ds=None):
+    """K2 on copies of seeded lanes, CMP_CAP steps at the seeding's exit
+    threshold, as :func:`cmp_k1`; the waste must reconcile."""
+    import torch
+    rule, scout = mode_args(mode)
+
+    def run(fn, twin=f_ds):
+        inp = clone(base)
+        ctr, ms = timed(lambda: fn(inp["state"], inp["thresh"], CMP_CAP,
+                                   f_ds=twin, eps=eps, scout=scout,
+                                   rule=rule))
+        return [*inp["state"], ctr], ms
+
+    def kernel(*args, **kw):          # the wrapper's counters, as one tensor
+        _, steps, waste, evals = W.run_segment_ee(*args, **kw)
+        return torch.cat([steps.reshape(1), waste, evals])
+
+    outs_k, kernel_ms, times, ref = kernel_runs(
+        lambda: run(kernel), ref_ds and (lambda: run(kernel, ref_ds)), runs)
+    outs_p, plain_ms = run(W.segment_ee_plain)
+    ctr = outs_k[-1].tolist()
+    if sum(ctr[1:5]) != ctr[0] * LANES:
+        raise AssertionError(f"{what}: waste does not reconcile")
+    n_bytes = 2 * LANES * STATE_BYTES + 7 * 4
+    bound, bound_by = bound_ms(n_bytes, ctr[1], ctr[5], ctr[6], ops, mode)
+    rec = dict(ms=kernel_ms, plain_ms=plain_ms,
+               max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
+               bound_by=bound_by, counters=ctr,
+               us_per_step=1e3 * kernel_ms / ctr[0])
+    if ref is not None:
+        rec["reference_twin"] = ref
+    return rec, times
+
+
+def cmp_k3(W, what, base, f_ds, eps, mode, ops, runs=5):
+    """K3 on copies of seeded lanes, CMP_CAP steps, held bit-equal to the
+    plain segment and to K2 with no exit (thresh -1) on the same lanes,
+    whose counters give the live lane-steps."""
+    rule, _ = mode_args(mode)
+
+    def run(fn):
+        inp = clone(base)
+        _, ms = timed(lambda: fn(inp["state"], CMP_CAP, f_ds=f_ds, eps=eps,
+                                 rule=rule))
+        return list(inp["state"]), ms
+
+    outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment), runs)
+    outs_p, plain_ms = run(W.segment_plain)
+    max_err = compare(what, outs_k, outs_p)
+    twin = clone(base)
+    _, steps, waste, evals = W.run_segment_ee(
+        twin["state"], -1, CMP_CAP, f_ds=f_ds, eps=eps, scout=False,
+        rule=rule)
+    compare(f"{what} vs K2 with no exit", outs_k, list(twin["state"]))
+    live = int(waste[0])
+    bound, bound_by = bound_ms(2 * LANES * STATE_BYTES, live, 0, 0, ops,
+                               mode)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
+                bound_ms=bound, bound_by=bound_by, live_lane_steps=live,
+                counters=[CMP_CAP], us_per_step=1e3 * kernel_ms / CMP_CAP), \
+        times
+
+
 def phase_k1(W, f_theta, f_ds, theta, ops) -> dict:
     cmp = {}
     for mode in MODES:
@@ -353,31 +559,9 @@ def phase_k1(W, f_theta, f_ds, theta, ops) -> dict:
             f"{int(base['nslots'].sum())} roots over {LANES} lanes x "
             f"{REFILL_SLOTS} slots, thresh {base['thresh']}, batch "
             f"{base['batch']}")
-
-        def run(fn):
-            inp = clone(base)
-            (resh, resl, ctr), ms = timed(lambda: fn(
-                inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
-                inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
-                f_ds=f_ds, eps=EPS, scout=scout, rule=rule))
-            return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
-                    ctr], ms
-
-        outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment_rf))
-        outs_p, plain_ms = run(W.segment_rf_plain)
-        max_err = compare(f"K1 {mode}", outs_k, outs_p)
-        ctr = outs_k[-1].tolist()
-        bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7],
-                                   ops, mode)
-        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
-                         bound_ms=bound, bound_by=bound_by, counters=ctr,
-                         us_per_step=1e3 * kernel_ms / ctr[0])
-        log(f"[smoke] K1 {mode}: bit-equal to the plain segment; "
-            f"{ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
-            f"{', '.join(f'{t:.3f}' for t in times)}), "
-            f"{cmp[mode]['us_per_step']:.3f} us/step, plain "
-            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}); "
-            f"counters {ctr}")
+        cmp[mode], times = cmp_k1(W, f"K1 {mode}", base, f_ds, EPS, mode,
+                                  ops)
+        log(fmt_cmp(f"K1 {mode}", cmp[mode], times))
     return cmp
 
 
@@ -395,79 +579,21 @@ def seeded_lanes(W, f_theta, theta, rule) -> dict:
 
 
 def phase_k2(W, f_ds, seeded, ops) -> dict:
-    import torch
     cmp = {}
     for mode in MODES:
-        rule, scout = mode_args(mode)
-        base = seeded[rule]
-
-        def run(fn):
-            inp = clone(base)
-            ctr, ms = timed(lambda: fn(inp["state"], inp["thresh"], CMP_CAP,
-                                       f_ds=f_ds, eps=EPS, scout=scout,
-                                       rule=rule))
-            return [*inp["state"], ctr], ms
-
-        def kernel(*args, **kw):      # the wrapper's counters, as one tensor
-            _, steps, waste, evals = W.run_segment_ee(*args, **kw)
-            return torch.cat([steps.reshape(1), waste, evals])
-
-        outs_k, kernel_ms, times = median_runs(lambda: run(kernel))
-        outs_p, plain_ms = run(W.segment_ee_plain)
-        max_err = compare(f"K2 {mode}", outs_k, outs_p)
-        ctr = outs_k[-1].tolist()
-        if sum(ctr[1:5]) != ctr[0] * LANES:
-            raise AssertionError(f"K2 {mode}: waste does not reconcile")
-        n_bytes = 2 * LANES * STATE_BYTES + 7 * 4
-        bound, bound_by = bound_ms(n_bytes, ctr[1], ctr[5], ctr[6], ops,
-                                   mode)
-        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
-                         bound_ms=bound, bound_by=bound_by, counters=ctr,
-                         us_per_step=1e3 * kernel_ms / ctr[0])
-        log(f"[smoke] K2 {mode}: bit-equal to the plain segment; "
-            f"{ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
-            f"{', '.join(f'{t:.3f}' for t in times)}), "
-            f"{cmp[mode]['us_per_step']:.3f} us/step, plain "
-            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}); "
-            f"counters {ctr}")
+        cmp[mode], times = cmp_k2(W, f"K2 {mode}", seeded[mode_args(mode)[0]],
+                                  f_ds, EPS, mode, ops)
+        log(fmt_cmp(f"K2 {mode}", cmp[mode], times))
     return cmp
 
 
 def phase_k3(W, f_ds, seeded, ops) -> dict:
     cmp = {}
     for mode in ("step", "step_simpson"):
-        rule, _ = mode_args(mode)
-        base = seeded[rule]
-
-        def run(fn):
-            inp = clone(base)
-            _, ms = timed(lambda: fn(inp["state"], CMP_CAP, f_ds=f_ds,
-                                     eps=EPS, rule=rule))
-            return list(inp["state"]), ms
-
-        outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment))
-        outs_p, plain_ms = run(W.segment_plain)
-        max_err = compare(f"K3 {mode}", outs_k, outs_p)
-        # K3's work on these lanes is K2's with no exit (thresh -1): the
-        # same state, and K2's counters give the live lane-steps
-        twin = clone(base)
-        _, steps, waste, evals = W.run_segment_ee(
-            twin["state"], -1, CMP_CAP, f_ds=f_ds, eps=EPS, scout=False,
-            rule=rule)
-        compare(f"K3 {mode} vs K2 with no exit", outs_k, list(twin["state"]))
-        live = int(waste[0])
-        bound, bound_by = bound_ms(2 * LANES * STATE_BYTES, live, 0, 0, ops,
-                                   mode)
-        cmp[mode] = dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
-                         bound_ms=bound, bound_by=bound_by,
-                         live_lane_steps=live,
-                         us_per_step=1e3 * kernel_ms / CMP_CAP)
-        log(f"[smoke] K3 {mode}: bit-equal to the plain segment and to K2 "
-            f"with no exit; {CMP_CAP} steps; kernel {kernel_ms:.3f} ms (runs "
-            f"{', '.join(f'{t:.3f}' for t in times)}), "
-            f"{cmp[mode]['us_per_step']:.3f} us/step, plain "
-            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({bound_by}); "
-            f"{live} live lane-steps")
+        cmp[mode], times = cmp_k3(W, f"K3 {mode}", seeded[mode_args(mode)[0]],
+                                  f_ds, EPS, mode, ops)
+        log(fmt_cmp(f"K3 {mode} (and K2 with no exit)", cmp[mode], times)
+            + f"; {cmp[mode]['live_lane_steps']} live lane-steps")
     return cmp
 
 
@@ -507,44 +633,23 @@ def phase_k1_theta(W, f_theta, f_ds, ops) -> dict:
     import numpy as np
     cmp = {}
     for T, mode in THETA_CMP:
-        rule, scout = mode_args(mode)
+        _, scout = mode_args(mode)
         m = LANES // T
         theta = np.linspace(*THETA_RANGE, m * T).reshape(m, T)
         base = W.first_phase_inputs(
             f_theta, theta, THETA_BOUNDS, THETA_EPS, lanes=LANES,
             roots_per_lane=ROOTS_PER_LANE, refill_slots=REFILL_SLOTS,
             capacity=CAPACITY, scout=scout, theta_block=T, device=DEVICE)
-
-        def run(fn):
-            inp = clone(base)
-            (resh, resl, ctr), ms = timed(lambda: fn(
-                inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
-                inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
-                f_ds=f_ds, eps=THETA_EPS, scout=scout, theta_block=T))
-            return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
-                    ctr], ms
-
-        outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment_rf))
-        outs_p, plain_ms = run(W.segment_rf_plain)
-        max_err = compare(f"K1 theta T={T} {mode}", outs_k, outs_p)
-        ctr = outs_k[-1].tolist()
+        key = f"{T}" + ("_scout" if scout else "")
+        cmp[key], times = cmp_k1(W, f"K1 theta T={T} {mode}", base, f_ds,
+                                 THETA_EPS, mode, ops, theta_block=T)
+        ctr = cmp[key]["counters"]
         if sum(ctr[1:6]) != ctr[0] * LANES:
             raise AssertionError(f"K1 theta T={T}: waste does not "
                                  f"reconcile")
-        bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7],
-                                   ops, mode)
-        key = f"{T}" + ("_scout" if scout else "")
-        cmp[key] = dict(T=T, mode=mode, ms=kernel_ms, plain_ms=plain_ms,
-                        max_abs_err=max_err, bound_ms=bound,
-                        bound_by=bound_by, counters=ctr,
-                        us_per_step=1e3 * kernel_ms / ctr[0],
-                        roots=int(base["nslots"].sum()) // T)
-        log(f"[smoke] K1 theta T={T} {mode}: bit-equal to the plain "
-            f"segment; {cmp[key]['roots']} roots dealt to {LANES // T} "
-            f"groups; {ctr[0]} steps; kernel {kernel_ms:.3f} ms (runs "
-            f"{', '.join(f'{t:.3f}' for t in times)}), "
-            f"{cmp[key]['us_per_step']:.3f} us/step, plain {plain_ms:.1f} "
-            f"ms, bound {bound:.4f} ms ({bound_by}); counters {ctr}")
+        cmp[key].update(T=T, mode=mode, roots=int(base["nslots"].sum()) // T)
+        log(fmt_cmp(f"K1 theta T={T} {mode}", cmp[key], times)
+            + f"; {cmp[key]['roots']} roots dealt to {LANES // T} groups")
     a, b = cmp["128"], cmp["256"]
     log(f"[smoke] K1 theta, the vote across blocks: T=256 "
         f"{b['us_per_step']:.3f} us/step against T=128 "
@@ -1039,6 +1144,319 @@ def phase_stream(W, TS, f_theta, f_ds, family_exact, out_dir) -> dict:
     return out
 
 
+def twin(name: str):
+    """(family, float64 form, ds twin) of "<family>" or
+    "<family>@reduced"."""
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    fam, _, tag = name.partition("@")
+    return fam, get_family(fam), get_family_ds(fam, reduced=tag == "reduced")
+
+
+def phase_bodies(W, ops_of) -> dict:
+    """12a. Each new integrand body against its plain segment at the
+    flagship's lane count, on its own bank: K1 on a bred, dealt bank
+    (R=8) and K2 on seeded lanes in the trapezoid, scouting and Simpson
+    machines, K3 in trapezoid and Simpson; a reduced twin's reference
+    twin runs the same K1 and K2 launches, alternated with them, for the
+    two's us/step. Then K1's theta variant at T = 32 for one body."""
+    import numpy as np
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.tools.time_k1 import body_bank
+    out = {}
+    for name in BODIES:
+        fam, f_theta, f_ds = twin(name)
+        ref_ds = twin(fam)[2] if name.endswith("@reduced") else None
+        theta, bounds, eps_trap, eps_simpson = body_bank(fam)
+        ops = ops_of(f_ds)
+        rec = out[name] = dict(k1={}, k2={}, k3={})
+
+        def inputs(rule, scout, refill_slots):
+            eps = eps_simpson if rule == Rule.SIMPSON else eps_trap
+            # Simpson with Richardson is exact on theta x^2, so its breed
+            # accepts every root: those lanes get the trapezoid's roots
+            if fam == "quad_scaled" and rule == Rule.SIMPSON:
+                rule = Rule.TRAPEZOID
+            return W.first_phase_inputs(
+                f_theta, theta, bounds, eps, lanes=LANES,
+                roots_per_lane=ROOTS_PER_LANE, refill_slots=refill_slots,
+                capacity=CAPACITY, scout=scout, rule=rule, device=DEVICE)
+
+        t0 = time.perf_counter()
+        seeded = {rule: inputs(rule, False, 0)
+                  for rule in (Rule.TRAPEZOID, Rule.SIMPSON)}
+        for mode in MODES:
+            rule, scout = mode_args(mode)
+            eps = eps_simpson if rule == Rule.SIMPSON else eps_trap
+            bank = inputs(rule, scout, REFILL_SLOTS)
+            for kernel, cmp, base in (("k1", cmp_k1, bank),
+                                      ("k2", cmp_k2, seeded[rule])):
+                what = f"{kernel.upper()} {name} {mode}"
+                rec[kernel][mode], times = cmp(W, what, base, f_ds, eps,
+                                               mode, ops, BODY_RUNS,
+                                               ref_ds=ref_ds)
+                log(fmt_cmp(what, rec[kernel][mode], times)
+                    + (f"; {int(base['nslots'].sum())} roots dealt"
+                       if kernel == "k1" else ""))
+            if mode != "step_scout":
+                what = f"K3 {name} {mode}"
+                rec["k3"][mode], times = cmp_k3(W, what, seeded[rule], f_ds,
+                                                eps, mode, ops, BODY_RUNS)
+                log(fmt_cmp(what + " (and K2 with no exit)", rec["k3"][mode],
+                            times))
+        log(f"[smoke] {name}: {len(theta)} thetas on {bounds}, eps "
+            f"{eps_trap:g} (Simpson {eps_simpson:g}): "
+            f"{time.perf_counter() - t0:.1f} s")
+    name, T = BODY_THETA
+    fam, f_theta, f_ds = twin(name)
+    theta = np.linspace(*THETA_RANGE, LANES).reshape(LANES // T, T)
+    base = W.first_phase_inputs(
+        f_theta, theta, THETA_BOUNDS, THETA_EPS, lanes=LANES,
+        roots_per_lane=ROOTS_PER_LANE, refill_slots=REFILL_SLOTS,
+        capacity=CAPACITY, scout=False, theta_block=T, device=DEVICE)
+    what = f"K1 theta T={T} {name} step"
+    rec, times = cmp_k1(W, what, base, f_ds, THETA_EPS, "step",
+                        ops_of(f_ds), BODY_RUNS, theta_block=T)
+    ctr = rec["counters"]
+    if sum(ctr[1:6]) != ctr[0] * LANES:
+        raise AssertionError(f"{what}: waste does not reconcile")
+    log(fmt_cmp(what, rec, times))
+    out[name]["k1"][f"theta_{T}"] = rec
+    return out
+
+
+def phase_reduced_flagship(W, f_theta, theta, exact, sample, bag, ref,
+                           kw, kw0, out_dir) -> dict:
+    """12b. The flagship main path through the reduced sin(theta / x)
+    twin: K1 (R=8, scouting, double buffer) and K2 (R=0, scout f64), with
+    phases 4 and 6's gates, and its distance from their reference-twin
+    areas (``ref``: the phase 4 scouting and ds runs and the phase 6
+    run)."""
+    import numpy as np
+    import torch
+    _, _, f_red = twin("sin_recip_scaled@reduced")
+    out = {}
+    res, wall, launches = main_path(W, f_theta, f_red, theta,
+                                    dict(kw, scout_dtype="f32"),
+                                    W.run_segment_rf,
+                                    "reduced main path (K1)")
+    t0 = time.perf_counter()
+    res_ds = W.integrate_family_walker(f_theta, f_red, theta, BOUNDS, EPS,
+                                       scout_dtype="f64", **kw)
+    torch.cuda.synchronize()
+    wall_ds = time.perf_counter() - t0
+    areas, areas_ds = np.asarray(res.areas), np.asarray(res_ds.areas)
+    out["k1"] = dict(
+        wall_s=wall, tasks=res.metrics.tasks, kernel_steps=res.kernel_steps,
+        cycles=res.cycles, launches=launches, host_syncs=res.host_syncs,
+        lane_efficiency=res.lane_efficiency,
+        d_exact=float(np.max(np.abs(areas - exact))),
+        d_bag=float(np.max(np.abs(areas[sample] - bag.areas))),
+        d_bag_ds=float(np.max(np.abs(areas_ds[sample] - bag.areas))),
+        d_ref=float(np.max(np.abs(areas - ref["k1"]))),
+        d_ref_ds=float(np.max(np.abs(areas_ds - ref["k1_ds"]))),
+        ds_run=dict(wall_s=wall_ds, tasks=res_ds.metrics.tasks,
+                    kernel_steps=res_ds.kernel_steps))
+    k1 = out["k1"]
+    log(f"[smoke] reduced main path (K1): wall {wall:.3f} s, "
+        f"{res.metrics.tasks} tasks ({res.metrics.tasks / wall / 1e6:.2f} M "
+        f"tasks/s), kernel steps {res.kernel_steps}, cycles {res.cycles}, "
+        f"launches {launches}, host syncs {res.host_syncs}, lane efficiency "
+        f"{res.lane_efficiency:.4f}; scouting off: {res_ds.metrics.tasks} "
+        f"tasks, kernel steps {res_ds.kernel_steps}, wall {wall_ds:.3f} s")
+    log(f"[smoke] reduced main path (K1) on {len(sample)} members: max "
+        f"|walker(ds) - f64 bag| {k1['d_bag_ds']:.3e} (tol {AREA_TOL_BAG}); "
+        f"max |walker(scout) - f64 bag| {k1['d_bag']:.3e} (not held, phase "
+        f"5); all {M}: max |walker(scout) - closed form| {k1['d_exact']:.3e} "
+        f"(tol {AREA_TOL_EXACT}); max |reduced - reference twin| scouting "
+        f"{k1['d_ref']:.3e}, ds {k1['d_ref_ds']:.3e}")
+    if not (k1["d_bag_ds"] < AREA_TOL_BAG
+            and k1["d_exact"] < AREA_TOL_EXACT):
+        raise AssertionError(f"reduced main path (K1) failed: {k1}")
+    res0, wall0, launches0 = main_path(W, f_theta, f_red, theta,
+                                       dict(kw0, scout_dtype="f64"),
+                                       W.run_segment_ee,
+                                       "reduced main path (K2)")
+    areas0 = np.asarray(res0.areas)
+    out["k2"] = k2 = dict(
+        wall_s=wall0, tasks=res0.metrics.tasks,
+        kernel_steps=res0.kernel_steps, cycles=res0.cycles,
+        launches=launches0, host_syncs=res0.host_syncs,
+        d_exact=float(np.max(np.abs(areas0 - exact))),
+        d_bag=float(np.max(np.abs(areas0[sample] - bag.areas))),
+        d_ref=float(np.max(np.abs(areas0 - ref["k2"]))))
+    log(f"[smoke] reduced main path (K2): wall {wall0:.3f} s, "
+        f"{res0.metrics.tasks} tasks, kernel steps {res0.kernel_steps}, "
+        f"launches {launches0}, host syncs {res0.host_syncs}; max |walker - "
+        f"f64 bag| on {len(sample)} members {k2['d_bag']:.3e} (tol "
+        f"{AREA_TOL_BAG}); all {M}: max |walker - closed form| "
+        f"{k2['d_exact']:.3e} (tol {AREA_TOL_EXACT}); max |reduced - "
+        f"reference twin| {k2['d_ref']:.3e}")
+    if not (k2["d_bag"] < AREA_TOL_BAG and k2["d_exact"] < AREA_TOL_EXACT):
+        raise AssertionError(f"reduced main path (K2) failed: {k2}")
+    out["profile_k1"] = profile_run(W, f_theta, f_red, theta,
+                                    dict(kw, scout_dtype="f32"),
+                                    "walk_rf_kernel", out_dir, "k1_reduced")
+    return out
+
+
+def phase_reference_problem(W) -> dict:
+    """12c. The reference problem (cosh^4 on [0, 5], theta = 1) through
+    the reduced cosh^4 twin at full width, held to the closed form."""
+    _, f_theta, f_red = twin("cosh4_scaled@reduced")
+    r, wall, launches = counted(W, lambda: W.integrate_family_walker(
+        f_theta, f_red, [1.0], (0.0, 5.0), 1e-6, device=DEVICE,
+        **REF_PROBLEM_KW))
+    check_walk("reference problem (reduced cosh^4)", r, 1)
+    rel = abs(float(r.areas[0]) - REF_PROBLEM_AREA) / REF_PROBLEM_AREA
+    out = dict(area=float(r.areas[0]), rel_err=rel, wall_s=wall,
+               tasks=r.metrics.tasks, kernel_steps=r.kernel_steps,
+               launches=launches, scout_evals=r.scout_evals,
+               walker_fraction=r.walker_fraction)
+    log(f"[smoke] reference problem through the reduced cosh^4 twin "
+        f"({LANES} lanes, R=2, scout f32, double buffer): area "
+        f"{r.areas[0]:.6f}, |area - {REF_PROBLEM_AREA}| / area {rel:.3e} "
+        f"(tol {REF_PROBLEM_TOL}), {r.metrics.tasks} tasks, kernel steps "
+        f"{r.kernel_steps}, walker fraction {r.walker_fraction:.4f}, "
+        f"launches {launches}, wall {wall:.3f} s")
+    if not rel < REF_PROBLEM_TOL or launches["run_segment_rf"] <= 0:
+        raise AssertionError(f"reference problem failed: {out}")
+    return out
+
+
+def phase_gauss(W, integrate_family) -> dict:
+    """12d. gauss_center at the reference's real-chip configuration
+    (R=0: K2) on the card and on the CPU, and the float64 bag."""
+    import numpy as np
+    _, f_theta, f_ds = twin("gauss_center")
+    card, wall, launches = counted(W, lambda: W.integrate_family_walker(
+        f_theta, f_ds, GAUSS_THETA, GAUSS_BOUNDS, GAUSS_EPS, device=DEVICE,
+        **GAUSS_KW))
+    cpu = W.integrate_family_walker(f_theta, f_ds, GAUSS_THETA, GAUSS_BOUNDS,
+                                    GAUSS_EPS, device="cpu", **GAUSS_KW)
+    bag = integrate_family(f_theta, GAUSS_THETA, GAUSS_BOUNDS, GAUSS_EPS,
+                           chunk=1 << 10, capacity=1 << 16, device=DEVICE)
+    check_walk("gauss_center (card)", card, len(GAUSS_THETA))
+    d_bag = float(np.max(np.abs(card.areas - bag.areas)))
+    d_dev = float(np.max(np.abs(card.areas - cpu.areas)))
+    same = dict(tasks=card.metrics.tasks == cpu.metrics.tasks,
+                kernel_steps=card.kernel_steps == cpu.kernel_steps,
+                waste=bool(np.array_equal(card.waste, cpu.waste)),
+                areas_bits=bool(np.array_equal(card.areas, cpu.areas)))
+    out = dict(areas=card.areas.tolist(), bag_areas=bag.areas.tolist(),
+               d_bag=d_bag, d_card_cpu=d_dev, card_equals_cpu=same,
+               tasks=card.metrics.tasks, bag_tasks=bag.metrics.tasks,
+               kernel_steps=card.kernel_steps, launches=launches,
+               walker_fraction=card.walker_fraction)
+    log(f"[smoke] gauss_center ({GAUSS_THETA} on {GAUSS_BOUNDS}, eps "
+        f"{GAUSS_EPS:g}, 256 lanes, K2): areas {card.areas}, bag "
+        f"{bag.areas} ({bag.metrics.tasks} tasks); max |walker - f64 bag| "
+        f"{d_bag:.3e} (tol {AREA_TOL_BAG}); card {card.metrics.tasks} tasks "
+        f"/ {card.kernel_steps} steps, CPU {cpu.metrics.tasks} / "
+        f"{cpu.kernel_steps}; card = CPU {same}, max |card - CPU| "
+        f"{d_dev:.3e}; walker fraction {card.walker_fraction:.3f}, launches "
+        f"{launches}")
+    if (not np.all(bag.areas > 1e-3) or not d_bag < AREA_TOL_BAG
+            or not all(same.values())
+            or launches["run_segment_ee"] <= 0):
+        raise AssertionError(f"gauss_center failed: {out}")
+    return out
+
+
+def phase_multihost_quad(W, TS) -> dict:
+    """12e. The reference bench's multihost single-engine run: quad_scaled
+    over theta = 1 + i/4 on [0, 1], on the card and on the CPU. As the
+    bench configures it (f64_rounds=2) every phase is float64 bag rounds;
+    with f64_rounds=0 the same requests walk K1 at R=2. The workload is
+    dyadic: card = CPU bit for bit, and the two modes alike."""
+    import numpy as np
+    thetas = [1.0 + i / 4.0 for i in range(MULTIHOST_K)]
+    reqs = [(t, (0.0, 1.0)) for t in thetas]
+    out = {}
+    for f64_rounds in (2, 0):
+        kw = dict(MULTIHOST_WKW, f64_rounds=f64_rounds)
+        card, wall, launches = counted(W, lambda: TS.StreamEngine(
+            MULTIHOST_FAMILY, MULTIHOST_EPS, device=DEVICE, **kw).run(reqs))
+        cpu = TS.StreamEngine(MULTIHOST_FAMILY, MULTIHOST_EPS, device="cpu",
+                              **kw).run(reqs)
+        d = float(np.max(np.abs(card.areas - np.asarray(thetas) / 3.0)))
+        row = dict(areas=card.areas.tolist(), phases=card.phases,
+                   tasks=card.totals["tasks"], wtasks=card.totals["wtasks"],
+                   launches=launches, wall_s=wall, d_theta_over_3=d,
+                   card_equals_cpu=bool(np.array_equal(card.areas,
+                                                       cpu.areas)
+                                        and card.totals == cpu.totals))
+        out[f64_rounds] = row
+        log(f"[smoke] multihost single engine (quad_scaled, f64_rounds "
+            f"{f64_rounds}): {card.phases} phases, {row['tasks']} tasks "
+            f"({row['wtasks']} walked), launches {launches}; card = CPU bit "
+            f"for bit {row['card_equals_cpu']}; max |area - theta/3| "
+            f"{d:.3e}")
+        if (not row["card_equals_cpu"] or len(card.completed) != len(reqs)
+                or not d < 1e-6
+                or (f64_rounds == 0) != (launches["run_segment_rf"] > 0)):
+            raise AssertionError(f"multihost single engine failed: {row}")
+    if out[2]["areas"] != out[0]["areas"]:
+        raise AssertionError("multihost single engine: the float64 and "
+                             "walker modes' areas differ")
+    return out
+
+
+def phase_reduced_stream(W, TS, f_theta, family_exact, plain_rps) -> dict:
+    """12f. Phase 11's saturated stream leg with reduced_integrands=True:
+    requests/s against phase 11's (``plain_rps``), the closed form, and
+    the bench's gate |stream - cold| <= 1e-8 on the ds walk."""
+    import numpy as np
+    import torch
+    _, _, f_red = twin(STREAM_FAMILY + "@reduced")
+    k = STREAM_K
+    theta = 1.0 + np.arange(k) / k
+    reqs = [(float(t), BOUNDS) for t in theta]
+    exact = family_exact(STREAM_FAMILY, *BOUNDS, theta)
+
+    def engine(**over):
+        return TS.StreamEngine(STREAM_FAMILY, EPS, reduced_integrands=True,
+                               **dict(STREAM_KW, device=DEVICE, **over))
+
+    engine().run(reqs)                                  # warm-up
+    runs = [counted(W, lambda: engine().run(reqs))
+            for _ in range(STREAM_ROUNDS)]
+    res, _, launches = runs[0]
+    wall = float(np.median([r.wall_s for r, _, _ in runs]))
+    d_exact = float(np.max(np.abs(res.areas - exact)))
+    cold = np.array([W.integrate_family_walker(
+        f_theta, f_red, [t], BOUNDS, EPS,
+        **dict(STREAM_BATCH_KW, scout_dtype="f64", device=DEVICE)).areas[0]
+        for t in theta])
+    ds_res, ds_wall, ds_launches = counted(
+        W, lambda: engine(scout_dtype="f64").run(reqs))
+    torch.cuda.synchronize()
+    d_cold_ds = float(np.max(np.abs(ds_res.areas - cold)))
+    out = dict(requests_per_sec=k / wall, wall_s=wall,
+               walls=[r.wall_s for r, _, _ in runs], phases=res.phases,
+               tasks=res.totals["tasks"], launches=launches,
+               host_syncs=res.host_syncs, d_exact=d_exact,
+               vs_phase11_requests_per_sec=(k / wall) / plain_rps,
+               ds_walk=dict(wall_s=ds_wall, phases=ds_res.phases,
+                            launches=ds_launches, d_cold=d_cold_ds))
+    log(f"[smoke] reduced stream saturated: {out['requests_per_sec']:.2f} "
+        f"req/s (phase 11: {plain_rps:.2f}; ratio "
+        f"{out['vs_phase11_requests_per_sec']:.3f}), wall {wall:.4f} s "
+        f"(median; runs {', '.join(f'{r.wall_s:.4f}' for r, _, _ in runs)}),"
+        f" {res.phases} phases, {res.totals['tasks']} tasks, launches "
+        f"{launches}, host syncs {res.host_syncs}; max |stream - closed "
+        f"form| {d_exact:.3e} (tol {AREA_TOL_EXACT}); scouting off: "
+        f"{ds_res.phases} phases, launches {ds_launches}, max |stream - "
+        f"cold| {d_cold_ds:.3e} (tol {STREAM_COLD_TOL})")
+    if (any(len(r.completed) != k or not np.array_equal(r.areas, res.areas)
+            for r, _, _ in runs)
+            or not d_exact < AREA_TOL_EXACT
+            or not d_cold_ds <= STREAM_COLD_TOL
+            or launches["run_segment_rf"] <= 0
+            or ds_launches["run_segment_rf"] <= 0):
+        raise AssertionError(f"reduced stream failed: {out}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1364,6 +1782,33 @@ def main() -> int:
     # 11. the streaming engine
     report["stream"] = phase_stream(W, TS, f_theta, f_ds, family_exact,
                                     out_dir)
+    # 12. the integrand bodies K1, K2 and K3 gained, and the paths that
+    # run them
+    report["bodies"] = phase_bodies(W, operation_counts)
+    report["reduced_flagship"] = phase_reduced_flagship(
+        W, f_theta, theta, exact, sample, bag,
+        dict(k1=areas, k1_ds=np.asarray(res_ds.areas), k2=areas0), kw, kw0,
+        out_dir)
+    red = report["reduced_flagship"]
+    log(f"[smoke] main-path K1 (profiler): reduced twin "
+        f"{red['profile_k1']['kernel_ms']:.1f} ms, reference twin "
+        f"{report['profile_k1']['kernel_ms']:.1f} ms (phase 8); walls "
+        f"{red['k1']['wall_s']:.3f} / {wall:.3f} s")
+    report["reference_problem"] = phase_reference_problem(W)
+    report["gauss"] = phase_gauss(W, integrate_family)
+    report["multihost_quad"] = phase_multihost_quad(W, TS)
+    report["reduced_stream"] = phase_reduced_stream(
+        W, TS, f_theta, family_exact, report["stream"]["requests_per_sec"])
+    body_paths = (red["k1"]["launches"], red["k2"]["launches"],
+                  report["reference_problem"]["launches"],
+                  report["gauss"]["launches"],
+                  report["multihost_quad"][2]["launches"],
+                  report["multihost_quad"][0]["launches"],
+                  report["reduced_stream"]["launches"])
+    body_launches = {k: sum(p[k] for p in body_paths)
+                     for k in main_launches}
+    if body_launches["run_segment"] != 0:
+        raise AssertionError(f"K3 ran on a main path: {body_launches}")
     stream_launches = report["stream"]["launches"]
     theta_launches = (sum(leg["launches"]["run_segment_rf"]
                           for leg in report["theta_leg"]["legs"].values())
@@ -1375,14 +1820,30 @@ def main() -> int:
         json.dump(report, fh, indent=1, default=str)
     log(f"[smoke] total {time.perf_counter() - t_start:.1f} s")
 
-    def row(name, source, replaces, launches, cmp, mode, **extra):
+    def bodies(kernel):
+        """The kernel's phase 12a records per body and step machine."""
+        out = {}
+        for name, rec in report["bodies"].items():
+            out[name] = {}
+            for mode, c in rec[kernel].items():
+                out[name][mode] = {f: c[f] for f in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "us_per_step",
+                    "max_abs_err")}
+                if "reference_twin" in c:
+                    out[name][mode]["reference_twin_us_per_step"] = \
+                        c["reference_twin"]["us_per_step"]
+        return out
+
+    def row(name, source, replaces, launches, cmp, mode, body, **extra):
         c = cmp[mode]
+        errs = [v["max_abs_err"] for v in cmp.values()] + [
+            v["max_abs_err"] for b in body.values() for v in b.values()]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max(v["max_abs_err"] for v in cmp.values()),
+                "max_abs_err": max(errs),
                 "ms": c["ms"], "plain_ms": c["plain_ms"],
                 "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                "library_ms": None, **extra}
+                "library_ms": None, "bodies": body, **extra}
 
     theta_rows = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "us_per_step",
@@ -1392,22 +1853,27 @@ def main() -> int:
         row("walk_rf", "ppls_tpu_torch/csrc/walk_rf.cu",
             "ppls_tpu/parallel/walker.py:993",
             main_launches["run_segment_rf"] + theta_launches
-            + stream_launches["run_segment_rf"],
-            {**k1, **k1_theta}, "step_scout",
+            + stream_launches["run_segment_rf"]
+            + body_launches["run_segment_rf"],
+            {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
             stream_launches=stream_launches["run_segment_rf"],
+            body_launches=body_launches["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
-            main_path_ms=report["profile_k1"]["kernel_ms"]),
+            main_path_ms=report["profile_k1"]["kernel_ms"],
+            reduced_main_path_ms=red["profile_k1"]["kernel_ms"]),
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
             "ppls_tpu/parallel/walker.py:1279",
-            main_launches["run_segment_ee"], k2, "step",
+            main_launches["run_segment_ee"] + body_launches["run_segment_ee"],
+            k2, "step", bodies("k2"),
+            body_launches=body_launches["run_segment_ee"],
             stream_launches=report["stream"]["overload"]["k2"]["launches"]),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",
-            main_launches["run_segment"], k3, "step",
+            main_launches["run_segment"], k3, "step", bodies("k3"),
             probe_launches=probe["launches"]),
     ]}))
     print(smi)

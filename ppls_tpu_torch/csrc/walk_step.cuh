@@ -45,10 +45,16 @@ constexpr int STEP_SIMPSON = 2;
 constexpr int DEPTH_BITS = 14;
 constexpr int DEPTH_MASK = (1 << DEPTH_BITS) - 1;
 
-// integrand ids (models/integrands.py KERNEL_*)
-constexpr int FAMILY_SIN_RECIP = 0;   // sin(theta / x)
-constexpr int FAMILY_COSH4 = 1;       // cosh(theta x)^4
-constexpr int FAMILY_SIN_SCALED = 2;  // sin(theta x)
+// integrand ids (models/integrands.py KERNEL_*), one per ds twin; the
+// *_REDUCED ids are the range-reduced twins of the same families
+constexpr int FAMILY_SIN_RECIP = 0;          // sin(theta / x)
+constexpr int FAMILY_COSH4 = 1;              // cosh(theta x)^4
+constexpr int FAMILY_SIN_SCALED = 2;         // sin(theta x)
+constexpr int FAMILY_QUAD_SCALED = 3;        // theta x^2
+constexpr int FAMILY_GAUSS_CENTER = 4;       // exp(-500000 (x - theta)^2)
+constexpr int FAMILY_SIN_RECIP_REDUCED = 5;  // sin(theta / x), ds_sin_pi
+constexpr int FAMILY_COSH4_REDUCED = 6;      // ((1 + cosh 2|theta x|) / 2)^2
+constexpr int FAMILY_SIN_SCALED_REDUCED = 7; // sin(theta x), ds_sin_pi
 
 // pointer table of one K1 launch (walker.py run_segment_rf order)
 constexpr int N_STATE = 26;           // WalkState fields, in order
@@ -107,10 +113,25 @@ constexpr float K_E9_H = 0x1.71de3ap-19f, K_E9_L = 0x1.55b1ccp-45f;
 constexpr float K_E10 = 0x1.27e4fcp-22f;
 constexpr float K_E11 = 0x1.ae6456p-26f;
 constexpr float K_E12 = 0x1.1eed8ep-29f;
+// pi reduction and the one sin polynomial of ds_sin_pi (S3..S9 are the
+// K_S*_H/L limbs above)
+constexpr float K_PI_1 = 0x1.921fb6p+1f;
+constexpr float K_PI_2 = -0x1.777a5cp-24f;
+constexpr float K_PI_3 = -0x1.0p-48f;
+constexpr float K_INV_PI = 0x1.45f306p-2f;
+constexpr float K_S11P_H = -0x1.ae6456p-26f, K_S11P_L = -0x1.fd5138p-52f;
+constexpr float K_S13P_H = 0x1.612462p-33f, K_S13P_L = -0x1.8af25ep-58f;
+constexpr float K_S15P = -0x1.ae7f3ep-41f;
+constexpr float K_S17P = 0x1.952c78p-49f;
+constexpr float K_S19P = -0x1.2f49b4p-57f;
+constexpr float K_S21P = 0x1.71b8f0p-66f;
+// gauss_center: exp(-0.5 ((x - c) / 1e-3)^2) = exp(-500000 (x - c)^2)
+constexpr float K_GAUSS_SCALE = -500000.0f;
 // scout (plain float32) polynomial coefficients
 constexpr float K_SC_S3 = -0x1.555556p-3f, K_SC_S5 = 0x1.111112p-7f;
 constexpr float K_SC_S7 = -0x1.a01a02p-13f, K_SC_S9 = 0x1.71de3ap-19f;
 constexpr float K_SC_S11 = -0x1.ae6456p-26f;
+constexpr float K_SC_S13 = 0x1.612462p-33f;
 constexpr float K_SC_C2 = -0x1.0p-1f, K_SC_C4 = 0x1.555556p-5f;
 constexpr float K_SC_C6 = -0x1.6c16c2p-10f, K_SC_C8 = 0x1.a01a02p-16f;
 constexpr float K_SC_C10 = -0x1.27e4fcp-22f;
@@ -210,6 +231,8 @@ WS_FV_BINARY(/)
 template <int N>
 WS_HD fv<N> operator-(fv<N> a) { WS_EACH(fv<N>, -a.v[j]) }
 template <int N>
+WS_HD bv<N> operator<(fv<N> a, float b) { WS_EACH(bv<N>, a.v[j] < b) }
+template <int N>
 WS_HD iv<N> operator&(iv<N> a, int b) { WS_EACH(iv<N>, a.v[j] & b) }
 template <int N>
 WS_HD bv<N> operator==(iv<N> a, int b) { WS_EACH(bv<N>, a.v[j] == b) }
@@ -229,6 +252,9 @@ struct Splat<fv<N>> {
 WS_HD float rint_f(float x) { return rintf(x); }
 template <int N>
 WS_HD fv<N> rint_f(fv<N> x) { WS_EACH(fv<N>, rintf(x.v[j])) }
+WS_HD float abs_f(float x) { return fabsf(x); }
+template <int N>
+WS_HD fv<N> abs_f(fv<N> x) { WS_EACH(fv<N>, fabsf(x.v[j])) }
 WS_HD int to_int(float x) { return static_cast<int>(x); }
 template <int N>
 WS_HD iv<N> to_int(fv<N> x) { WS_EACH(iv<N>, static_cast<int>(x.v[j])) }
@@ -336,14 +362,15 @@ WS_HD dsT<F> ds_div(dsT<F> x, dsT<F> y) {
   return quick_two_sum(q1, q2);
 }
 
-WS_HD ds2 ds_abs(ds2 x) {
-  bool neg = x.h < 0.0f;
-  return {neg ? -x.h : x.h, neg ? -x.l : x.l};
-}
-
 template <class F, class M>
 WS_HD dsT<F> ds_sel(M c, dsT<F> x, dsT<F> y) {
   return {sel(c, x.h, y.h), sel(c, x.l, y.l)};
+}
+
+// the sign test on the hi limb, as ops/ds_kernel.ds_abs
+template <class F>
+WS_HD dsT<F> ds_abs(dsT<F> x) {
+  return ds_sel(x.h < 0.0f, ds_neg(x), x);
 }
 
 template <class F>
@@ -385,6 +412,38 @@ WS_HD dsT<F> ds_sin(dsT<F> x) {
   dsT<F> cos_y = cos_poly(y);
   dsT<F> res = ds_sel((q & 1) == 1, cos_y, sin_y);
   return ds_sel(q >= 2, ds_neg(res), res);
+}
+
+// sin by pi reduction and one polynomial (ops/ds_kernel.ds_sin_pi): the
+// remainder lies in [-pi/2, pi/2], so no cos chain and no quadrant select,
+// only the parity sign of k
+template <class F>
+WS_HD dsT<F> sin_poly_pi(dsT<F> y) {
+  dsT<F> y2 = ds_mul(y, y);
+  F tail = K_S15P + y2.h * (K_S17P + y2.h * (K_S19P + y2.h * K_S21P));
+  dsT<F> p = ds_add(dsc<F>(K_S13P_H, K_S13P_L), ds_mul_f32(y2, tail));
+  p = ds_add(dsc<F>(K_S11P_H, K_S11P_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_S9_H, K_S9_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_S7_H, K_S7_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_S5_H, K_S5_L), ds_mul(y2, p));
+  p = ds_add(dsc<F>(K_S3_H, K_S3_L), ds_mul(y2, p));
+  return ds_add(y, ds_mul(ds_mul(y, y2), p));
+}
+
+template <class F>
+WS_HD dsT<F> ds_sin_pi(dsT<F> x) {
+  F k = rint_f(x.h * K_INV_PI);
+  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PI_1));
+  F h = x.h - t1.h;  // exact by Sterbenz
+  dsT<F> t2 = two_prod(k, Splat<F>::of(K_PI_2));
+  dsT<F> y = {h, Splat<F>::of(0.0f)};
+  y = ds_add_f32(y, -t1.l);
+  y = ds_add_f32(y, x.l);
+  y = ds_add_f32(y, -t2.h);
+  y = ds_add_f32(y, -t2.l);
+  y = ds_add_f32(y, -(k * K_PI_3));
+  dsT<F> res = sin_poly_pi(y);
+  return ds_sel((to_int(k) & 1) == 1, ds_neg(res), res);
 }
 
 template <class F>
@@ -441,6 +500,22 @@ WS_HD F sc_sin(F xv) {
   return sel(q >= 2, -res, res);
 }
 
+// float32 sin by pi reduction (ops/scout_kernel.ds_sin_pi)
+template <class F>
+WS_HD F sc_sin_pi(F xv) {
+  F k = rint_f(xv * K_INV_PI);
+  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PI_1));
+  F y = (xv - t1.h) - (t1.l + k * K_PI_2);
+  F y2 = y * y;
+  F p = K_SC_S11 + y2 * K_SC_S13;
+  p = K_SC_S9 + y2 * p;
+  p = K_SC_S7 + y2 * p;
+  p = K_SC_S5 + y2 * p;
+  p = K_SC_S3 + y2 * p;
+  F res = y + y * y2 * p;
+  return sel((to_int(k) & 1) == 1, -res, res);
+}
+
 template <class F>
 WS_HD F sc_exp(F xv) {
   F k = rint_f(xv * K_LOG2E);
@@ -474,14 +549,31 @@ WS_HD dsT<F> f_ds_of(dsT<F> x, dsT<F> th) {
     return ds_sin(ds_mul(th, x));
   } else if constexpr (FAM == FAMILY_SIN_RECIP) {  // sin(theta / x)
     return ds_sin(ds_div(th, x));
-  } else {  // cosh(theta x)^4
-    static_assert(FAM == FAMILY_COSH4, "unknown integrand family");
+  } else if constexpr (FAM == FAMILY_COSH4) {  // cosh(theta x)^4
     dsT<F> u = ds_mul(th, x);
     dsT<F> e = ds_exp(u);
     dsT<F> inv = ds_div(dsc<F>(1.0f, 0.0f), e);
     dsT<F> c = ds_mul_pow2(ds_add(e, inv), 0.5f);
     dsT<F> c2 = ds_mul(c, c);
     return ds_mul(c2, c2);
+  } else if constexpr (FAM == FAMILY_QUAD_SCALED) {  // theta x^2
+    return ds_mul(th, ds_mul(x, x));
+  } else if constexpr (FAM == FAMILY_GAUSS_CENTER) {  // theta: the centre
+    dsT<F> d = ds_sub(x, th);
+    return ds_exp(ds_mul_f32(ds_mul(d, d), Splat<F>::of(K_GAUSS_SCALE)));
+  } else if constexpr (FAM == FAMILY_SIN_RECIP_REDUCED) {
+    return ds_sin_pi(ds_div(th, x));
+  } else if constexpr (FAM == FAMILY_SIN_SCALED_REDUCED) {
+    return ds_sin_pi(ds_mul(th, x));
+  } else {  // ((1 + cosh 2|u|) / 2)^2 with one exp of 2|u|
+    static_assert(FAM == FAMILY_COSH4_REDUCED, "unknown integrand family");
+    dsT<F> u = ds_mul(th, x);
+    dsT<F> e2 = ds_exp(ds_mul_pow2(ds_abs(u), 2.0f));
+    dsT<F> one = dsc<F>(1.0f, 0.0f);
+    dsT<F> inv = ds_div(one, e2);
+    dsT<F> c2u = ds_mul_pow2(ds_add(e2, inv), 0.5f);
+    dsT<F> half = ds_mul_pow2(ds_add(one, c2u), 0.5f);
+    return ds_mul(half, half);
   }
 }
 
@@ -492,14 +584,30 @@ WS_HD F f_sc_of(F x, F th) {
     return sc_sin(th * x);
   } else if constexpr (FAM == FAMILY_SIN_RECIP) {
     return sc_sin(th / x);
-  } else {
-    static_assert(FAM == FAMILY_COSH4, "unknown integrand family");
+  } else if constexpr (FAM == FAMILY_COSH4) {
     F u = th * x;
     F e = sc_exp(u);
     F inv = 1.0f / e;
     F c = (e + inv) * 0.5f;
     F c2 = c * c;
     return c2 * c2;
+  } else if constexpr (FAM == FAMILY_QUAD_SCALED) {
+    return th * (x * x);
+  } else if constexpr (FAM == FAMILY_GAUSS_CENTER) {
+    F d = x - th;
+    return sc_exp((d * d) * K_GAUSS_SCALE);
+  } else if constexpr (FAM == FAMILY_SIN_RECIP_REDUCED) {
+    return sc_sin_pi(th / x);
+  } else if constexpr (FAM == FAMILY_SIN_SCALED_REDUCED) {
+    return sc_sin_pi(th * x);
+  } else {
+    static_assert(FAM == FAMILY_COSH4_REDUCED, "unknown integrand family");
+    F u = th * x;
+    F e2 = sc_exp(abs_f(u) * 2.0f);
+    F inv = 1.0f / e2;
+    F c2u = (e2 + inv) * 0.5f;
+    F half = (1.0f + c2u) * 0.5f;
+    return half * half;
   }
 }
 
@@ -1008,6 +1116,16 @@ inline R dispatch(int family, int mode, Fn fn, R unknown) {
     return dispatch_mode<FAMILY_COSH4>(mode, fn, unknown);
   if (family == FAMILY_SIN_SCALED)
     return dispatch_mode<FAMILY_SIN_SCALED>(mode, fn, unknown);
+  if (family == FAMILY_QUAD_SCALED)
+    return dispatch_mode<FAMILY_QUAD_SCALED>(mode, fn, unknown);
+  if (family == FAMILY_GAUSS_CENTER)
+    return dispatch_mode<FAMILY_GAUSS_CENTER>(mode, fn, unknown);
+  if (family == FAMILY_SIN_RECIP_REDUCED)
+    return dispatch_mode<FAMILY_SIN_RECIP_REDUCED>(mode, fn, unknown);
+  if (family == FAMILY_COSH4_REDUCED)
+    return dispatch_mode<FAMILY_COSH4_REDUCED>(mode, fn, unknown);
+  if (family == FAMILY_SIN_SCALED_REDUCED)
+    return dispatch_mode<FAMILY_SIN_SCALED_REDUCED>(mode, fn, unknown);
   return unknown;
 }
 

@@ -2,12 +2,20 @@
 double-single twins for the walk kernel, domain checks, and closed
 forms.
 
-Three families are carried: ``sin_recip_scaled`` (sin(theta / x), the
-flagship bench family), ``sin_scaled`` (sin(theta x), the many-theta
-walker's bench family) and ``cosh4_scaled`` (cosh^4(theta x); theta = 1
-over [0, 5] is the reference C program's problem). Each ds twin names
-the integrand the CUDA walk kernel compiles in (``kernel_family``),
-matching the ``FAMILY_*`` ids of ``csrc/walk_step.cuh``.
+The families: ``sin_recip_scaled`` (sin(theta / x), the flagship bench
+family), ``sin_scaled`` (sin(theta x), the many-theta walker's bench
+family), ``cosh4_scaled`` (cosh^4(theta x); theta = 1 over [0, 5] is the
+reference C program's problem), ``gauss_center`` (a Gaussian of width
+1e-3 centred at theta: the clustered-refinement stress case) and
+``quad_scaled`` (theta x^2, dyadic-exact: on dyadic bounds every credit
+and sum is exact, so areas do not depend on the schedule).
+
+Each family has a ds twin (``DS_FAMILIES``); the three transcendental
+families also have a range-reduced twin (``DS_FAMILIES_REDUCED``:
+cosh^4 through one exp of 2|u|, sin through ``ds_sin_pi``), chosen with
+``get_family_ds(name, reduced=True)``. Every twin names the integrand
+the CUDA walk kernels compile in (``kernel_family``), matching the
+``FAMILY_*`` ids of ``csrc/walk_step.cuh``.
 """
 
 from __future__ import annotations
@@ -19,19 +27,27 @@ import torch
 
 FAMILIES: Dict[str, Callable] = {}
 DS_FAMILIES: Dict[str, Callable] = {}
+DS_FAMILIES_REDUCED: Dict[str, Callable] = {}
+FAMILY_EXACT: Dict[str, Callable] = {}
 FAMILY_EXACT_VEC: Dict[str, Callable] = {}
 
 # Cody-Waite validity limits of the ds transcendentals: beyond these the
 # range reduction returns silently wrong values, not NaNs.
 DS_SIN_MAX_ARG = float(1 << 22)
-# cosh^4 must stay inside the float32 hi limb: |u| <= 22 keeps margin.
+DS_EXP_MAX_ARG = 88.0
+# cosh^4 must stay inside the float32 hi limb: |u| <= 22 keeps margin
+# (the reduced form's exp(2|u|) <= exp(44) is finite there too).
 DS_COSH4_MAX_ARG = 22.0
 
-# kernel integrand ids (csrc/walk_step.cuh FAMILY_SIN_RECIP / FAMILY_COSH4 /
-# FAMILY_SIN_SCALED)
+# kernel integrand ids (csrc/walk_step.cuh FAMILY_*), one per ds twin
 KERNEL_SIN_RECIP = 0
 KERNEL_COSH4 = 1
 KERNEL_SIN_SCALED = 2
+KERNEL_QUAD_SCALED = 3
+KERNEL_GAUSS_CENTER = 4
+KERNEL_SIN_RECIP_REDUCED = 5
+KERNEL_COSH4_REDUCED = 6
+KERNEL_SIN_SCALED_REDUCED = 7
 
 
 def register_family(name: str, f_theta: Callable) -> Callable:
@@ -68,7 +84,24 @@ def get_family(name: str) -> Callable:
                        f"{sorted(FAMILIES)}") from None
 
 
-def get_family_ds(name: str) -> Callable:
+def register_family_ds_reduced(name: str, f_ds: Callable,
+                               domain_check: Optional[Callable] = None
+                               ) -> Callable:
+    """Register the range-reduced ds twin of a family: the contract of
+    :func:`register_family_ds`, chosen only by ``get_family_ds(name,
+    reduced=True)``."""
+    if domain_check is not None:
+        f_ds.ds_domain_check = domain_check
+    DS_FAMILIES_REDUCED[name] = f_ds
+    return f_ds
+
+
+def get_family_ds(name: str, reduced: bool = False) -> Callable:
+    """A family's ds twin. With ``reduced``, its range-reduced twin where
+    it has one, else its ds twin: the flag picks a cheaper evaluation,
+    never which families exist."""
+    if reduced and name in DS_FAMILIES_REDUCED:
+        return DS_FAMILIES_REDUCED[name]
     try:
         return DS_FAMILIES[name]
     except KeyError:
@@ -90,9 +123,21 @@ def _cosh4_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     return c2 * c2
 
 
+def _gauss_center(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    # the divisor is a tensor on x's device: PyTorch on CUDA multiplies
+    # by the reciprocal of a Python-scalar divisor, on the CPU it divides
+    return torch.exp(-0.5 * ((x - c) / x.new_tensor(1e-3)) ** 2)
+
+
+def _quad_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
+    return th * x * x
+
+
 FAMILIES["sin_recip_scaled"] = _sin_recip_scaled
 FAMILIES["sin_scaled"] = _sin_scaled
+FAMILIES["gauss_center"] = _gauss_center
 FAMILIES["cosh4_scaled"] = _cosh4_scaled
+FAMILIES["quad_scaled"] = _quad_scaled
 
 
 def _sin_recip_scaled_ds(x, th, dsm=None):
@@ -118,6 +163,56 @@ def _cosh4_scaled_ds(x, th, dsm=None):
     c = dsm.ds_mul_pow2(dsm.ds_add(e, inv), 0.5)
     c2 = dsm.ds_mul(c, c)
     return dsm.ds_mul(c2, c2)
+
+
+def _quad_scaled_ds(x, th, dsm=None):
+    if dsm is None:
+        from ppls_tpu_torch.ops import ds_kernel as dsm
+    return dsm.ds_mul(th, dsm.ds_mul(x, x))
+
+
+def _gauss_center_ds(x, c, dsm=None):
+    # exp(-0.5 ((x - c) / 1e-3)^2) = exp(-500000 (x - c)^2); the scale is
+    # an integer below 2^24, exact in float32
+    if dsm is None:
+        from ppls_tpu_torch.ops import ds_kernel as dsm
+    d = dsm.ds_sub(x, c)
+    z = dsm.ds_mul_f32(dsm.ds_mul(d, d), -500000.0)
+    return dsm.ds_exp(z)
+
+
+# The range-reduced twins. cosh^4(u) = ((1 + cosh 2u) / 2)^2 with
+# cosh 2u = (E + 1/E) / 2 at E = exp(2|u|): one exp, one division and
+# one squaring where the reference form takes an exp, a division and two
+# squarings; the even symmetry keeps E >= 1. sin through the pi-reduced
+# one-polynomial ds_sin_pi; a ds module without it uses its ds_sin.
+
+
+def _cosh4_scaled_ds_reduced(x, th, dsm=None):
+    if dsm is None:
+        from ppls_tpu_torch.ops import ds_kernel as dsm
+    u = dsm.ds_mul(th, x)
+    au = dsm.ds_abs(u)
+    e2 = dsm.ds_exp(dsm.ds_mul_pow2(au, 2.0))
+    one = (torch.ones_like(e2[0]), torch.zeros_like(e2[0]))
+    inv = dsm.ds_div(one, e2)
+    c2u = dsm.ds_mul_pow2(dsm.ds_add(e2, inv), 0.5)
+    half = dsm.ds_mul_pow2(dsm.ds_add(one, c2u), 0.5)
+    return dsm.ds_mul(half, half)
+
+
+def _sin_recip_scaled_ds_reduced(x, th, dsm=None):
+    if dsm is None:
+        from ppls_tpu_torch.ops import ds_kernel as dsm
+    sin_fn = getattr(dsm, "ds_sin_pi", dsm.ds_sin)
+    return sin_fn(dsm.ds_div(th, x))
+
+
+def _sin_scaled_ds_reduced(x, th, dsm=None):
+    if dsm is None:
+        from ppls_tpu_torch.ops import ds_kernel as dsm
+    sin_fn = getattr(dsm, "ds_sin_pi", dsm.ds_sin)
+    return sin_fn(dsm.ds_mul(th, x))
 
 
 def _sin_recip_domain(bounds: np.ndarray, theta: np.ndarray) -> None:
@@ -150,15 +245,32 @@ def _cosh4_scaled_domain(bounds: np.ndarray, theta: np.ndarray) -> None:
             f"the float32 hi limb)")
 
 
-_sin_recip_scaled_ds.ds_domain_check = _sin_recip_domain
 _sin_recip_scaled_ds.kernel_family = KERNEL_SIN_RECIP
-_sin_scaled_ds.ds_domain_check = _sin_scaled_domain
 _sin_scaled_ds.kernel_family = KERNEL_SIN_SCALED
-_cosh4_scaled_ds.ds_domain_check = _cosh4_scaled_domain
 _cosh4_scaled_ds.kernel_family = KERNEL_COSH4
-DS_FAMILIES["sin_recip_scaled"] = _sin_recip_scaled_ds
-DS_FAMILIES["sin_scaled"] = _sin_scaled_ds
-DS_FAMILIES["cosh4_scaled"] = _cosh4_scaled_ds
+_quad_scaled_ds.kernel_family = KERNEL_QUAD_SCALED
+_gauss_center_ds.kernel_family = KERNEL_GAUSS_CENTER
+_sin_recip_scaled_ds_reduced.kernel_family = KERNEL_SIN_RECIP_REDUCED
+_cosh4_scaled_ds_reduced.kernel_family = KERNEL_COSH4_REDUCED
+_sin_scaled_ds_reduced.kernel_family = KERNEL_SIN_SCALED_REDUCED
+register_family_ds("sin_recip_scaled", _sin_recip_scaled_ds,
+                   domain_check=_sin_recip_domain)
+register_family_ds("sin_scaled", _sin_scaled_ds,
+                   domain_check=_sin_scaled_domain)
+# gauss_center: -500000 (x - c)^2 <= 0, and ds_exp underflows to exactly
+# 0 (the limit) for large negative arguments; quad_scaled multiplies only.
+# Every (bounds, theta) is in their domain.
+register_family_ds("gauss_center", _gauss_center_ds)
+register_family_ds("cosh4_scaled", _cosh4_scaled_ds,
+                   domain_check=_cosh4_scaled_domain)
+register_family_ds("quad_scaled", _quad_scaled_ds)
+# the reduced twins carry their families' domain checks
+register_family_ds_reduced("cosh4_scaled", _cosh4_scaled_ds_reduced,
+                           domain_check=_cosh4_scaled_domain)
+register_family_ds_reduced("sin_recip_scaled", _sin_recip_scaled_ds_reduced,
+                           domain_check=_sin_recip_domain)
+register_family_ds_reduced("sin_scaled", _sin_scaled_ds_reduced,
+                           domain_check=_sin_scaled_domain)
 
 
 def check_ds_domain(f_ds: Callable, bounds, theta) -> None:
@@ -204,17 +316,140 @@ def _cosh4_scaled_exact_vec(a, b, th):
     return np.where(th == 0.0, b - a, F(b) - F(a))
 
 
-FAMILY_EXACT_VEC["sin_recip_scaled"] = _sin_recip_scaled_exact_vec
-FAMILY_EXACT_VEC["sin_scaled"] = _sin_scaled_exact_vec
-FAMILY_EXACT_VEC["cosh4_scaled"] = _cosh4_scaled_exact_vec
+def _gauss_center_exact_vec(a, b, c):
+    from scipy import special
+    c = np.asarray(c, dtype=np.float64)
+    s = 1e-3
+
+    def g(x):
+        return s * np.sqrt(np.pi / 2.0) * special.erf(
+            (x - c) / (s * np.sqrt(2.0)))
+
+    return g(np.float64(b)) - g(np.float64(a))
 
 
-def family_exact(name: str, a: float, b: float, theta) -> Optional[np.ndarray]:
+def _quad_scaled_exact_vec(a, b, th):
+    th = np.asarray(th, dtype=np.float64)
+    return th * (np.float64(b) ** 3 - np.float64(a) ** 3) / 3.0
+
+
+# 40-digit scalar forms (mpmath, imported at the call: it is not needed
+# on the card's machine)
+
+def _sin_recip_scaled_exact(a, b, th):
+    import mpmath
+    with mpmath.workdps(40):
+        t = mpmath.mpf(th)
+
+        def F(x):
+            return x * mpmath.sin(t / x) - t * mpmath.ci(t / x)
+
+        return float(F(mpmath.mpf(b)) - F(mpmath.mpf(a)))
+
+
+def _sin_scaled_exact(a, b, th):
+    import mpmath
+    with mpmath.workdps(40):
+        t = mpmath.mpf(th)
+        return float((mpmath.cos(t * a) - mpmath.cos(t * b)) / t)
+
+
+def _gauss_center_exact(a, b, c):
+    import mpmath
+    with mpmath.workdps(40):
+        s = mpmath.mpf("1e-3")
+
+        def g(x):
+            return s * mpmath.sqrt(mpmath.pi / 2) * mpmath.erf(
+                (mpmath.mpf(x) - c) / (s * mpmath.sqrt(2)))
+
+        return float(g(b) - g(a))
+
+
+def _cosh4_scaled_exact(a, b, th):
+    import mpmath
+    with mpmath.workdps(40):
+        t = mpmath.mpf(th)
+
+        def F(x):
+            u = t * mpmath.mpf(x)
+            return (3 * u / 8 + mpmath.sinh(2 * u) / 4
+                    + mpmath.sinh(4 * u) / 32) / t
+
+        return float(F(b) - F(a))
+
+
+def _quad_scaled_exact(a, b, th):
+    return float(th) * (float(b) ** 3 - float(a) ** 3) / 3.0
+
+
+for _name, _fn, _vec in (
+        ("sin_recip_scaled", _sin_recip_scaled_exact,
+         _sin_recip_scaled_exact_vec),
+        ("sin_scaled", _sin_scaled_exact, _sin_scaled_exact_vec),
+        ("gauss_center", _gauss_center_exact, _gauss_center_exact_vec),
+        ("cosh4_scaled", _cosh4_scaled_exact, _cosh4_scaled_exact_vec),
+        ("quad_scaled", _quad_scaled_exact, _quad_scaled_exact_vec)):
+    FAMILY_EXACT[_name] = _fn
+    FAMILY_EXACT_VEC[_name] = _vec
+
+
+def family_exact(name: str, a: float, b: float, theta,
+                 prefer_vec: bool = True) -> Optional[np.ndarray]:
     """Exact integrals over [a, b] for every theta (float64 array of
-    theta's shape), or None if the family has no closed form."""
-    vfn = FAMILY_EXACT_VEC.get(name)
-    if vfn is None:
+    theta's shape), or None if the family has no closed form. The
+    vectorised numpy / scipy form by default; ``prefer_vec=False`` takes
+    the 40-digit mpmath form (the reference picks it for fewer than 64
+    thetas; here it is asked for, since mpmath is not on the card's
+    machine)."""
+    fn, vfn = FAMILY_EXACT.get(name), FAMILY_EXACT_VEC.get(name)
+    if fn is None and vfn is None:
         return None
     th = np.asarray(theta, dtype=np.float64)
-    return np.asarray(vfn(float(a), float(b), th.reshape(-1)),
-                      dtype=np.float64).reshape(th.shape)
+    if vfn is not None and (prefer_vec or fn is None):
+        return np.asarray(vfn(float(a), float(b), th.reshape(-1)),
+                          dtype=np.float64).reshape(th.shape)
+    return np.array([fn(float(a), float(b), float(t))
+                     for t in th.reshape(-1)],
+                    dtype=np.float64).reshape(th.shape)
+
+
+# --- float64 models of the reduced forms (host side, numpy) ------------------
+# Each reduced form evaluated in plain float64, held to the reference
+# integrand's float64 values by the ulp protocol of the reference's tests
+# (tests/test_reduced_integrands.py).
+
+
+def cosh4_scaled_reduced_f64(x, th):
+    """The reduced cosh^4 form in float64: ((1 + cosh(2|u|)) / 2)^2."""
+    u = np.abs(np.asarray(x, dtype=np.float64) * np.float64(th))
+    return ((1.0 + np.cosh(2.0 * u)) * 0.5) ** 2
+
+
+def _two_prod_f64(a, b):
+    """Dekker product in float64 (splitter 2^27 + 1): p + e == a * b
+    exactly."""
+    split = np.float64(134217729.0)
+    p = a * b
+    ta = split * a
+    ah = ta - (ta - a)
+    al = a - ah
+    tb = split * b
+    bh = tb - (tb - b)
+    bl = b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, e
+
+
+def sin_recip_scaled_reduced_f64(x, th):
+    """The pi-reduced sin(theta / x) in float64: the argument mod pi by a
+    two-limb pi subtraction with an exact Dekker product, one sin on
+    [-pi/2, pi/2], the parity sign."""
+    arg = np.float64(th) / np.asarray(x, dtype=np.float64)
+    k = np.round(arg / np.pi)
+    p1 = np.float64(3.141592653589793)
+    pl = np.float64(1.2246467991473532e-16)
+    t, e = _two_prod_f64(k, p1)
+    y = (arg - t) - (e + k * pl)   # arg - t exact by Sterbenz
+    s = np.sin(y)
+    return np.where((k.astype(np.int64) & 1) == 1, -s, s)

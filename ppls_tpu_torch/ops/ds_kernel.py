@@ -211,6 +211,64 @@ def ds_sin(x: DS) -> DS:
     return ds_where(negate, ds_neg(res), res)
 
 
+# --- reduced sin: pi reduction, one polynomial -------------------------------
+#
+# ``ds_sin`` reduces mod pi/2 and evaluates both the sin and the cos
+# polynomial, then selects by quadrant. ``ds_sin_pi`` reduces mod pi: the
+# remainder lies in [-pi/2, pi/2], where sin alone suffices and the
+# quadrant logic is a parity sign. The wider remainder takes a longer
+# polynomial (S3..S21, the last four plain float32). Validity as ds_sin
+# (|x| <= ~2^22). The primitive of the range-reduced sin twins
+# (models/integrands.py DS_FAMILIES_REDUCED).
+
+_PI_1 = f32(3.141592653589793)
+_PI_2 = f32(3.141592653589793 - _PI_1)
+_PI_3 = f32(3.141592653589793 - _PI_1 - _PI_2)
+_INV_PI = f32(0.3183098861837907)
+
+_S3P = _c(-1.0 / 6.0)
+_S5P = _c(1.0 / 120.0)
+_S7P = _c(-1.0 / 5040.0)
+_S9P = _c(1.0 / 362880.0)
+_S11P = _c(-1.0 / 39916800.0)
+_S13P = _c(1.0 / 6227020800.0)
+_S15P = f32(-1.0 / 1307674368000.0)
+_S17P = f32(1.0 / 355687428096000.0)
+_S19P = f32(-1.0 / 121645100408832000.0)
+_S21P = f32(1.0 / 51090942171709440000.0)
+
+
+def _sin_poly_pi(y: DS) -> DS:
+    """sin(y) for |y| <= pi/2 (after the pi reduction)."""
+    y2 = ds_mul(y, y)
+    tail = _S15P + y2[0] * (_S17P + y2[0] * (_S19P + y2[0] * _S21P))
+    p = ds_add(_S13P, ds_mul_f32(y2, tail))
+    p = ds_add(_S11P, ds_mul(y2, p))
+    p = ds_add(_S9P, ds_mul(y2, p))
+    p = ds_add(_S7P, ds_mul(y2, p))
+    p = ds_add(_S5P, ds_mul(y2, p))
+    p = ds_add(_S3P, ds_mul(y2, p))
+    return ds_add(y, ds_mul(ds_mul(y, y2), p))
+
+
+def ds_sin_pi(x: DS) -> DS:
+    """sin(x) in ds precision by pi reduction and one polynomial,
+    branch-free, |x| <= ~2^22."""
+    k = torch.round(x[0] * _INV_PI)
+    t1, e1 = two_prod(k, _PI_1)
+    h = x[0] - t1            # exact by Sterbenz (k = round(x / pi))
+    t2, e2 = two_prod(k, _PI_2)
+    y = (h, torch.zeros_like(h))
+    y = ds_add_f32(y, -e1)
+    y = ds_add_f32(y, x[1])
+    y = ds_add_f32(y, -t2)
+    y = ds_add_f32(y, -e2)
+    y = ds_add_f32(y, -(k * _PI_3))
+    res = _sin_poly_pi(y)
+    negate = (k.to(torch.int32) & 1) == 1
+    return ds_where(negate, ds_neg(res), res)
+
+
 # --- exp: Cody-Waite ln2 reduction + ds-leading Taylor -----------------------
 
 _LN2_1 = f32(0.6931471805599453)

@@ -6,9 +6,9 @@ float32 error could flip falls inside the guard band and is retaken in
 full ds by the confirm pass. The (hi, lo) pair API (the subset the
 integrand twins use) is kept so one integrand twin serves both passes,
 but every ``lo`` limb is identically +0.0 and every operation is a
-single rounding. Twins of these
-functions, in the same operation order, are the ``sc_*`` functions of
-``csrc/walk_step.cuh``.
+single rounding. Twins of these functions, in the same operation
+order, are the ``sc_*`` functions of ``csrc/walk_step.cuh`` and the
+scout branches of its ``f_sc_of``.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from ppls_tpu_torch.ops.ds_kernel import (
-    _LN2_1, _LN2_2, _LOG2E, _PIO2_1, _PIO2_2, _TWO_OVER_PI, DS, f32,
-    two_prod,
+    _INV_PI, _LN2_1, _LN2_2, _LOG2E, _PI_1, _PI_2, _PIO2_1, _PIO2_2,
+    _TWO_OVER_PI, DS, f32, two_prod,
 )
 from ppls_tpu_torch.ops.pow2 import pow2_f32
 
@@ -26,13 +26,32 @@ def _z(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(x)
 
 
+def ds_neg(x: DS) -> DS:
+    return -x[0], _z(x[0])
+
+
 def ds_add(x: DS, y: DS) -> DS:
     s = x[0] + y[0]
     return s, _z(s)
 
 
+def ds_sub(x: DS, y: DS) -> DS:
+    s = x[0] - y[0]
+    return s, _z(s)
+
+
+def ds_add_f32(x: DS, b) -> DS:
+    s = x[0] + b
+    return s, _z(s)
+
+
 def ds_mul(x: DS, y: DS) -> DS:
     p = x[0] * y[0]
+    return p, _z(p)
+
+
+def ds_mul_f32(x: DS, b) -> DS:
+    p = x[0] * b
     return p, _z(p)
 
 
@@ -43,6 +62,14 @@ def ds_mul_pow2(x: DS, k: float) -> DS:
 def ds_div(x: DS, y: DS) -> DS:
     q = x[0] / y[0]
     return q, _z(q)
+
+
+def ds_abs(x: DS) -> DS:
+    return torch.abs(x[0]), _z(x[0])
+
+
+def ds_where(c: torch.Tensor, x: DS, y: DS) -> DS:
+    return torch.where(c, x[0], y[0]), torch.where(c, x[1], y[1])
 
 
 # --- float32 sin: two-limb Cody-Waite + 5-term Taylor ------------------------
@@ -83,6 +110,30 @@ def ds_sin(x: DS) -> DS:
     use_cos = (q & 1) == 1
     negate = q >= 2
     res = torch.where(use_cos, cos_y, sin_y)
+    res = torch.where(negate, -res, res)
+    return res, _z(res)
+
+
+# --- float32 reduced sin: pi reduction, one polynomial -----------------------
+
+_S13 = f32(1.0 / 6227020800.0)
+
+
+def ds_sin_pi(x: DS) -> DS:
+    """sin(x) in float32 by pi reduction and one polynomial (|x| <=
+    ~2^22): the scout twin of ``ds_kernel.ds_sin_pi``."""
+    xv = x[0]
+    k = torch.round(xv * _INV_PI)
+    t1, e1 = two_prod(k, _PI_1)
+    y = (xv - t1) - (e1 + k * _PI_2)
+    y2 = y * y
+    p = _S11 + y2 * _S13
+    p = _S9 + y2 * p
+    p = _S7 + y2 * p
+    p = _S5 + y2 * p
+    p = _S3 + y2 * p
+    res = y + y * y2 * p
+    negate = (k.to(torch.int32) & 1) == 1
     res = torch.where(negate, -res, res)
     return res, _z(res)
 

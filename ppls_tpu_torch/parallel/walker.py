@@ -160,6 +160,15 @@ def scout_twin(f_ds: Callable) -> Callable:
     return f_scout
 
 
+def _is_reduced_twin(f_ds: Callable) -> bool:
+    """Whether ``f_ds`` is a registered range-reduced ds twin. The walker
+    receives the twin itself, so membership in the registry is the
+    detection; the reduced schedule is a checkpoint identity key (ROADMAP
+    Queue 1 item 6)."""
+    from ppls_tpu_torch.models.integrands import DS_FAMILIES_REDUCED
+    return any(f_ds is v for v in DS_FAMILIES_REDUCED.values())
+
+
 def resolve_scout_dtype(scout_dtype: Optional[str], rule: Rule) -> bool:
     """``"f32"`` turns on two-pass scouting, ``"f64"`` or None leaves it
     off (the reference's PPLS_SCOUT environment lane is not carried)."""

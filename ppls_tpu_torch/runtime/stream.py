@@ -29,7 +29,7 @@ exactly.
 Not ported (the constructor refuses them with the ROADMAP.md item):
 snapshot/resume and checkpointing, the multi-chip engine
 (``walker-dd``), CPU spillover, SLO evaluation, online adaptation, fault
-injection, the range-reduced ds twins and the unsorted root queue.
+injection and the unsorted root queue.
 """
 
 from __future__ import annotations
@@ -51,9 +51,9 @@ from ppls_tpu_torch.obs.telemetry import Telemetry, build_attribution
 from ppls_tpu_torch.parallel.bag_engine import DEPTH_BITS, BagState
 from ppls_tpu_torch.parallel.walker import (
     DEFAULT_LANES, SORT_SKIP_RATIO, STREAM_STAT_FIELDS, WASTE_FIELDS,
-    pull_stream_cycle, resolve_cadence, resolve_scout_dtype,
-    run_stream_cycle, validate_double_buffer, validate_theta_block,
-    walker_sizing)
+    _is_reduced_twin, pull_stream_cycle, resolve_cadence,
+    resolve_scout_dtype, run_stream_cycle, validate_double_buffer,
+    validate_theta_block, walker_sizing)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import round_stats_from_rows
 
@@ -355,8 +355,9 @@ class StreamEngine:
     ``interpret``. Unported options raise ``ValueError``: ``engine=
     "walker-dd"``, ``mesh``/``n_devices``, ``checkpoint_path``,
     ``checkpoint_background``, ``spillover``, ``slo_config``,
-    ``adapt``, ``fault_injector``, ``reduced_integrands``,
-    ``sort_roots=False`` and ``sort_skip_ratio`` other than 8.0.
+    ``adapt``, ``fault_injector``, ``sort_roots=False`` and
+    ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
+    the family's range-reduced ds twin where it has one.
     """
 
     def __init__(self, family: str, eps: float,
@@ -410,9 +411,6 @@ class StreamEngine:
         if slo_config is not None or adapt:
             raise _not_ported("SLO evaluation and online adaptation "
                               "(slo_config, adapt)", "item 7")
-        if reduced_integrands:
-            raise _not_ported("the range-reduced ds twins "
-                              "(reduced_integrands)", "item 2")
         if not sort_roots or float(sort_skip_ratio) != SORT_SKIP_RATIO:
             raise _not_ported("an unsorted root queue or another sort "
                               "skip ratio (sort_roots, sort_skip_ratio)",
@@ -444,7 +442,9 @@ class StreamEngine:
             rule=rule, m=slots)
         self.family = family
         self.f_theta = get_family(family)
-        self.f_ds = get_family_ds(family)
+        self.f_ds = get_family_ds(family, reduced=bool(reduced_integrands))
+        # a family without a reduced twin walks its ds twin: not reduced
+        self._reduced = _is_reduced_twin(self.f_ds)
         self.eps = float(eps)
         self.rule = Rule(rule)
         self.slots = int(slots)
@@ -599,6 +599,8 @@ class StreamEngine:
             ident["scout"] = True
         if self._double_buffer:
             ident["double_buffer"] = True
+        if self._reduced:
+            ident["reduced"] = True
         if self._theta_block > 1:
             ident["theta_block"] = int(self._theta_block)
         return ident

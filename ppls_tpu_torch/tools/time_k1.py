@@ -2,23 +2,29 @@
 alternation on one card:
 
     python ppls_tpu_torch/tools/time_k1.py [--root PATH] [--launches N]
+        [--family NAME] [--reduced]
     python ppls_tpu_torch/tools/time_k1.py --compare PARENT CHANGE \\
-        [--rounds 3] [--out FILE]
+        [--rounds 3] [--out FILE] [--family NAME] [--reduced]
 
 With ``--root`` (default: the checkout this file is in) it imports
 ``ppls_tpu_torch`` from PATH and times, by CUDA events after one warm-up
 launch each, ``--launches`` 256-step launches of:
 
-- K1 at T = 1 on the flagship's first dealt bank (sin(theta/x), 1024
-  thetas on [1e-4, 1], eps 1e-10, 16384 lanes, R = 8): ``step``
-  (trapezoid) and ``step_scout``;
+- K1 at T = 1 on the first dealt bank of ``--family`` (default the
+  flagship's: sin(theta/x), 1024 thetas on [1e-4, 1], eps 1e-10; the
+  other families' banks are ``body_bank``'s), 16384 lanes, R = 8:
+  ``step`` (trapezoid) and ``step_scout``; with ``--reduced`` also
+  ``step_reduced`` and ``step_scout_reduced``, the family's range-reduced
+  ds twin on the same bank, each launched in alternation with its
+  reference twin;
 - K1's theta trapezoid at T = 128 and T = 256 (``theta_128``,
   ``theta_256``) on a dealt theta bank of sin(theta x) on [0, 1], eps
   1e-5, thetas linspace(1, 4, 16384), R = 8;
-- K2 on the flagship's seeded lanes (the first boundary refill):
-  ``k2_step`` and ``k2_step_scout`` at thresh 0.80 * lanes, and
-  ``k2_noexit`` (thresh -1) beside ``k3_step``, K3 on the same lanes:
-  the same work with and without the grid count and barrier.
+- K2 on the family's seeded lanes (the first boundary refill):
+  ``k2_step`` and ``k2_step_scout`` at thresh 0.80 * lanes (with
+  ``--reduced`` their ``_reduced`` twins too), and ``k2_noexit`` (thresh
+  -1) beside ``k3_step``, K3 on the same lanes: the same work with and
+  without the grid count and barrier.
 
 It prints one JSON line: the root and, per kernel, the launch times in
 ms and the launch's steps. Only the wrappers' public signatures are
@@ -45,28 +51,61 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CAP = 256
 LANES = 1 << 14
 DEVICE = "cuda"
+BODY_M = 1024
 
 
-def _timed_launches(fn, launches: int):
-    """(times in ms, the last launch's steps) of launches + 1 calls of
-    fn(), which returns its step count; the first call warms up."""
+def body_bank(family: str, m: int = BODY_M):
+    """(thetas, bounds, eps, Simpson eps) of the bank each integrand body
+    is timed and checked on (chip_smoke.py phase 12): the flagship's
+    domain for sin(theta / x); sin(theta x) on the theta leg's [0, 1];
+    cosh^4 on [0, 5] with theta <= 4.4, so |theta x| <= 22; Gaussians of
+    width 1e-3 centred in [0.4995, 0.5005] on [0.4, 0.6]; theta x^2 on
+    [0, 1] with theta = 1 + i/4. The eps keep most lanes walking through
+    a 256-step launch where the family allows: on the smooth families
+    Simpson's breed accepts every root at the trapezoid's eps, so its
+    eps is the ds rounding's (1e-16). cosh^4's lanes at theta above ~3
+    split to the depth cap and park, so its launches end early; theta
+    x^2 is exact under Simpson at any eps."""
+    import numpy as np
+    i = np.arange(m)
+    return {
+        "sin_recip_scaled": (1.0 + i / m, (1e-4, 1.0), 1e-10, 1e-10),
+        "sin_scaled": (np.linspace(1.0, 4.0, m), (0.0, 1.0), 1e-12, 1e-16),
+        "cosh4_scaled": (np.linspace(0.5, 4.4, m), (0.0, 5.0), 1e-6, 1e-6),
+        "gauss_center": (np.linspace(0.4995, 0.5005, m), (0.4, 0.6), 1e-12,
+                         1e-16),
+        "quad_scaled": (1.0 + i / 4.0, (0.0, 1.0), 1e-12, 1e-12),
+    }[family]
+
+
+def _timed_pairs(prepares, launches: int):
+    """Launch times in ms by CUDA events, and the last launch's steps, of
+    launches + 1 launches of each kernel (the first warms up), in
+    alternation (A B, then B A, ...) so that a reduced twin and its
+    reference twin see the card alike. ``prepares[name]()`` copies the
+    inputs and returns the launch, which returns its step count:
+    {name: (times, steps)}."""
     import torch
-    times, steps = [], 0
+    names = list(prepares)
+    times = {n: [] for n in names}
+    steps = {}
     for j in range(launches + 1):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        launch = fn()
-        torch.cuda.synchronize()
-        start.record()
-        steps = launch()
-        stop.record()
-        torch.cuda.synchronize()
-        if j:
-            times.append(start.elapsed_time(stop))
-    return times, int(steps)
+        for name in (names if j % 2 == 0 else names[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            launch = prepares[name]()
+            torch.cuda.synchronize()
+            start.record()
+            steps[name] = int(launch())
+            stop.record()
+            torch.cuda.synchronize()
+            if j:
+                times[name].append(start.elapsed_time(stop))
+    return {n: (times[n], steps[n]) for n in names}
 
 
-def time_root(launches: int) -> dict:
+def time_root(launches: int, family: str = "sin_recip_scaled",
+              reduced: bool = False) -> dict:
     import numpy as np
     from ppls_tpu_torch.models.integrands import get_family, get_family_ds
     from ppls_tpu_torch.parallel import walker as W
@@ -108,15 +147,21 @@ def time_root(launches: int) -> dict:
             return launch
         return prepare
 
-    f, f_ds = get_family("sin_recip_scaled"), get_family_ds("sin_recip_scaled")
-    theta = 1.0 + np.arange(1024) / 1024
+    f, f_ds = get_family(family), get_family_ds(family)
+    theta, bounds, eps, _ = body_bank(family)
+    # the family's ds twin, and with --reduced its range-reduced twin on
+    # the same banks
+    twins = {"": f_ds}
+    if reduced:
+        twins["_reduced"] = get_family_ds(family, reduced=True)
     flagship = dict(lanes=LANES, roots_per_lane=12, capacity=1 << 23,
                     device=DEVICE)
     runs = {}
     for mode, scout in (("step", False), ("step_scout", True)):
-        base = W.first_phase_inputs(f, theta, (1e-4, 1.0), 1e-10,
-                                    refill_slots=8, scout=scout, **flagship)
-        runs[mode] = k1(base, f_ds, 1e-10, scout)
+        base = W.first_phase_inputs(f, theta, bounds, eps, refill_slots=8,
+                                    scout=scout, **flagship)
+        for tag, twin in twins.items():
+            runs[mode + tag] = k1(base, twin, eps, scout)
     fs, fs_ds = get_family("sin_scaled"), get_family_ds("sin_scaled")
     for T in (128, 256):
         thetas = np.linspace(1.0, 4.0, LANES).reshape(LANES // T, T)
@@ -124,27 +169,36 @@ def time_root(launches: int) -> dict:
                                     refill_slots=8, scout=False,
                                     theta_block=T, **flagship)
         runs[f"theta_{T}"] = k1(base, fs_ds, 1e-5, False, T)
-    seeded = W.first_phase_inputs(f, theta, (1e-4, 1.0), 1e-10,
-                                  refill_slots=0, scout=False, **flagship)
-    runs["k2_step"] = k2(seeded, f_ds, 1e-10, False, seeded["thresh"])
-    runs["k2_step_scout"] = k2(seeded, f_ds, 1e-10, True, seeded["thresh"])
-    runs["k2_noexit"] = k2(seeded, f_ds, 1e-10, False, -1)
-    runs["k3_step"] = k3(seeded, f_ds, 1e-10)
+    seeded = W.first_phase_inputs(f, theta, bounds, eps, refill_slots=0,
+                                  scout=False, **flagship)
+    for tag, twin in twins.items():
+        runs["k2_step" + tag] = k2(seeded, twin, eps, False,
+                                   seeded["thresh"])
+        runs["k2_step_scout" + tag] = k2(seeded, twin, eps, True,
+                                         seeded["thresh"])
+    runs["k2_noexit"] = k2(seeded, f_ds, eps, False, -1)
+    runs["k3_step"] = k3(seeded, f_ds, eps)
     out = {}
     for name, prepare in runs.items():
-        times, steps = _timed_launches(prepare, launches)
-        out[name] = {"ms": times, "steps": steps}
+        if name.endswith("_reduced"):
+            continue                     # timed with its reference twin
+        pair = {name: prepare}
+        if name + "_reduced" in runs:
+            pair[name + "_reduced"] = runs[name + "_reduced"]
+        for n, (times, steps) in _timed_pairs(pair, launches).items():
+            out[n] = {"ms": times, "steps": steps}
     return out
 
 
-def compare(roots, rounds: int, launches: int, out_path) -> int:
+def compare(roots, rounds: int, launches: int, out_path,
+            body_args=()) -> int:
     import numpy as np
     order = [r for _ in range(rounds) for r in (*roots, *roots[::-1])]
     per_root = {r: [] for r in roots}
     for root in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
-             "--launches", str(launches)],
+             "--launches", str(launches), *body_args],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -193,16 +247,26 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", nargs="+", metavar="ROOT")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--out")
+    ap.add_argument("--family", default="sin_recip_scaled",
+                    help="the integrand of the K1 and K2 banks")
+    ap.add_argument("--reduced", action="store_true",
+                    help="also time the family's range-reduced ds twin on "
+                         "the same banks")
     args = ap.parse_args(argv)
+    # passed on only when asked for: a parent checkout may predate them
+    body_args = (["--family", args.family]
+                 if args.family != "sin_recip_scaled" else []) \
+        + (["--reduced"] if args.reduced else [])
     if args.compare:
         return compare([os.path.abspath(r) for r in args.compare],
-                       args.rounds, args.launches, args.out)
+                       args.rounds, args.launches, args.out, body_args)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("time_k1: needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    out = {"root": args.root, **time_root(args.launches)}
+    out = {"root": args.root, **time_root(args.launches, args.family,
+                                          args.reduced)}
     print(json.dumps(out), flush=True)
     return 0
 

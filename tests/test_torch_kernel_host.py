@@ -4,10 +4,11 @@ lane), built with g++ -O2 -ffp-contract=off into a host library of plain
 sequential loops (``csrc/walk_host.cpp``), held bit for bit against the
 plain PyTorch segments on the same seeded lanes, launch after launch:
 K1 in its three step machines (trapezoid, scouting, Simpson), K2 in the
-same three, K3 in trapezoid and Simpson, for both kernel integrands;
-and K1's theta mode (theta_block T in 1, 8, 64, 256: evaluate every
-lane, OR each group's votes, commit every lane) in the trapezoid and
-scouting machines on sin(theta x) and sin(theta / x).
+same three, K3 in trapezoid and Simpson, for every integrand the kernels
+compile in (each family's ds twin and the range-reduced twins); and K1's
+theta mode (theta_block T in 1, 8, 64, 256: evaluate every lane, OR each
+group's votes, commit every lane) in the trapezoid and scouting machines
+on sin(theta x), its reduced twin and sin(theta / x).
 
 The ``cuda`` tests hold the CUDA kernels themselves against the plain
 segments, and the walker on the card against the walker on the CPU;
@@ -40,10 +41,33 @@ def _eps(eps, rule):
     # the walker real work
     return 1e-12 if rule == Rule.SIMPSON else eps
 
+# (twin, theta, bounds, eps); a twin is "<family>" or "<family>@reduced"
 CASES = [
     ("sin_recip_scaled", 1.0 + np.arange(8) / 8.0, (1e-2, 1.0), 1e-7),
     ("cosh4_scaled", 0.5 + np.arange(4) / 4.0, (0.0, 3.0), 1e-6),
+    ("sin_recip_scaled@reduced", 1.0 + np.arange(8) / 8.0, (1e-2, 1.0),
+     1e-7),
+    ("cosh4_scaled@reduced", 0.5 + np.arange(4) / 4.0, (0.0, 3.0), 1e-6),
+    ("sin_scaled@reduced", np.linspace(1.0, 8.0, 64), (0.0, 1.0), 1e-7),
+    ("gauss_center", np.linspace(0.4995, 0.5005, 64), (0.4, 0.6), 1e-9),
+    ("quad_scaled", 1.0 + np.arange(8) / 4.0, (0.0, 1.0), 1e-9),
 ]
+
+
+def _simpson_exact(fam, rule):
+    """Simpson with Richardson is exact on theta x^2 (in float64 and, on
+    dyadic nodes, in ds): its breed accepts every root, so these cases
+    breed with the trapezoid rule and each walk tests one node."""
+    return _family(fam) == "quad_scaled" and rule == Rule.SIMPSON
+
+
+def _family(twin):
+    return twin.partition("@")[0]
+
+
+def _twin(twin):
+    fam, _, tag = twin.partition("@")
+    return get_family_ds(fam, reduced=tag == "reduced")
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +81,11 @@ def host_lib(tmp_path_factory):
 
 def _inputs(fam, theta, bounds, eps, scout, device="cpu", refill_slots=4,
             rule=Rule.TRAPEZOID):
+    if _simpson_exact(fam, rule):
+        rule = Rule.TRAPEZOID
     return W.first_phase_inputs(
-        get_family(fam), theta, bounds, eps, lanes=256, roots_per_lane=4,
+        get_family(_family(fam)), theta, bounds, eps, lanes=256,
+        roots_per_lane=4,
         refill_slots=refill_slots, capacity=1 << 16, scout=scout,
         rule=rule, min_active_frac=0.05, device=device)
 
@@ -138,7 +165,7 @@ def _assert_bit_equal(a, b, outs_a, outs_b):
 def test_host_step_machine_bit_equal_to_plain_segment(host_lib, fam, theta,
                                                       bounds, eps, mode):
     rule, scout = MODES[mode]
-    f_ds = get_family_ds(fam)
+    f_ds = _twin(fam)
     eps = _eps(eps, rule)
     base = _inputs(fam, theta, bounds, eps, scout, rule=rule)
     a, b = _clone(base), _clone(base)
@@ -151,8 +178,11 @@ def test_host_step_machine_bit_equal_to_plain_segment(host_lib, fam, theta,
         outs_b = _run_host(host_lib, b, cap, f_ds, eps, scout, rule)
         _assert_bit_equal(a, b, outs_a, outs_b)
         steps += int(outs_a[2][0])
-    assert steps > 24
     assert int(a["slot"].sum()) > 256       # refills happened
+    if _simpson_exact(fam, rule):
+        assert int(a["state"].splits.sum()) == 0 and steps > 16
+    else:
+        assert steps > 24
 
 
 def _assert_state_bit_equal(a, b):
@@ -163,14 +193,16 @@ def _assert_state_bit_equal(a, b):
 # theta mode: (family, bounds, eps, theta range); m = max(2, 64 // T)
 # slots of T thetas each over 512 lanes, R = 4
 THETA_CASES = [("sin_scaled", (0.0, 1.0), 1e-9, (1.0, 4.0)),
-               ("sin_recip_scaled", (1e-2, 1.0), 1e-7, (1.0, 2.0))]
+               ("sin_recip_scaled", (1e-2, 1.0), 1e-7, (1.0, 2.0)),
+               ("sin_scaled@reduced", (0.0, 1.0), 1e-9, (1.0, 4.0))]
 
 
 def _theta_inputs(fam, bounds, eps, span, T, scout, device="cpu"):
     m = max(2, 64 // T)
     theta = np.linspace(*span, m * T)
     return W.first_phase_inputs(
-        get_family(fam), theta.reshape(m, T) if T > 1 else theta, bounds,
+        get_family(_family(fam)), theta.reshape(m, T) if T > 1 else theta,
+        bounds,
         eps, lanes=512, roots_per_lane=4, refill_slots=4, capacity=1 << 16,
         scout=scout, min_active_frac=0.05, theta_block=T, device=device)
 
@@ -183,7 +215,7 @@ def test_host_theta_loop_bit_equal_to_plain_segment(host_lib, fam, bounds,
     # T = 1 runs the variant without votes; on the card T = 8 votes
     # inside a warp, 64 across warps, 128 across the block, 256 across
     # blocks
-    f_ds = get_family_ds(fam)
+    f_ds = _twin(fam)
     base = _theta_inputs(fam, bounds, eps, span, T, scout)
     a, b = _clone(base), _clone(base)
     steps = over = 0
@@ -226,7 +258,7 @@ def test_host_k2_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
     # K2 on the seeded lanes of a boundary-refill phase, three launches
     # in a row at the exit threshold: every state field and counter equal
     rule, scout = MODES[mode]
-    f_ds = get_family_ds(fam)
+    f_ds = _twin(fam)
     eps = _eps(eps, rule)
     base = _inputs(fam, theta, bounds, eps, scout, refill_slots=0,
                    rule=rule)
@@ -241,15 +273,18 @@ def test_host_k2_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
         assert torch.equal(ctr_a, ctr_b)
         assert int(ctr_a[1:5].sum()) == int(ctr_a[0]) * 256
         steps += int(ctr_a[0])
-    assert steps > 16
-    assert int(a.tasks.sum()) > 0
+    if _simpson_exact(fam, rule):           # every lane tests its root once
+        assert int(a.tasks.sum()) == 256 and int(a.splits.sum()) == 0
+    else:
+        assert steps > 16
+        assert int(a.tasks.sum()) > 0
 
 
 @pytest.mark.parametrize("rule", [Rule.TRAPEZOID, Rule.SIMPSON])
 @pytest.mark.parametrize("fam,theta,bounds,eps", CASES)
 def test_host_k3_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
                                             eps, rule):
-    f_ds = get_family_ds(fam)
+    f_ds = _twin(fam)
     eps = _eps(eps, rule)
     base = _inputs(fam, theta, bounds, eps, False, refill_slots=0,
                    rule=rule)
@@ -275,16 +310,20 @@ def _points(fam, n, seed):
     range and with edge inputs first, and a theta."""
     rng = np.random.default_rng(seed)
     lo, hi = {"sin_recip_scaled": (1e-4, 1.0), "sin_scaled": (0.0, 1.0),
-              "cosh4_scaled": (0.0, 3.0)}[fam]
+              "cosh4_scaled": (0.0, 3.0), "gauss_center": (0.49, 0.51),
+              "quad_scaled": (0.0, 1.0)}[_family(fam)]
+    th = (0.4995, 0.5005) if _family(fam) == "gauss_center" else (1.0, 2.0)
+    if fam == "cosh4_scaled@reduced":   # its whole domain, |theta x| <= 22
+        lo, hi, th = -5.0, 5.0, (1.0, 4.4)
     edges = [lo, hi, 0.5, 0.25, 2.0 ** -20, 1.0 - 2.0 ** -24, 1e-30, 0.0,
              -0.75, 1e4, 3e-39, 1.0 + 2.0 ** -23]
-    if fam == "cosh4_scaled":                  # keep cosh^4 finite
+    if _family(fam) == "cosh4_scaled":          # keep cosh^4 finite
         edges = [e for e in edges if abs(e) < 20.0]
     x = np.concatenate([edges, rng.uniform(lo, hi, n)])[:n]
     x = x[: len(x) - len(x) % 3]
     h = torch.tensor(x, dtype=torch.float32)
     lo_limb = torch.tensor(x - h.double().numpy(), dtype=torch.float32)
-    return h, lo_limb, float(rng.uniform(1.0, 2.0))
+    return h, lo_limb, float(rng.uniform(*th))
 
 
 def _same_floats(a, b):
@@ -295,13 +334,15 @@ def _same_floats(a, b):
 
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("fam", ["sin_recip_scaled", "sin_scaled",
-                                 "cosh4_scaled"])
+                                 "cosh4_scaled", "sin_recip_scaled@reduced",
+                                 "sin_scaled@reduced", "cosh4_scaled@reduced",
+                                 "gauss_center", "quad_scaled"])
 def test_host_three_point_confirm_bit_equal_to_single_evals(host_lib, fam,
                                                             seed):
     # the scouting confirm evaluates x0, mid, x1 side by side
     # (f_ds_n<FAM, 3>, and f_sc_n for the float32 scout evals): each
     # point bit-equal to a single evaluation and to the plain twin
-    f_ds = get_family_ds(fam)
+    f_ds = _twin(fam)
     x_h, x_l, th = _points(fam, 600, seed)
     th_h = f32(th)
     th_l = f32(th - float(th_h))
@@ -670,6 +711,77 @@ def test_cuda_walker_modes_match_cpu_walker(cuda_device, over):
     assert gpu.kernel_steps == cpu.kernel_steps
     assert np.array_equal(gpu.waste, cpu.waste)
     assert np.max(np.abs(gpu.areas - cpu.areas)) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("twin", [c[0] for c in CASES[2:]])
+def test_cuda_bodies_bit_equal_to_plain_segment(cuda_device, twin, mode):
+    # each integrand body the kernels gained (the range-reduced twins,
+    # gauss_center, quad_scaled) in K1, K2 and, but for scouting, K3
+    fam, theta, bounds, eps = next(c for c in CASES if c[0] == twin)
+    rule, scout = MODES[mode]
+    f_ds = _twin(fam)
+    eps = _eps(eps, rule)
+    base = _inputs(fam, theta, bounds, eps, scout, device=cuda_device,
+                   rule=rule)
+    a, b = _clone(base), _clone(base)
+    counters = (W.run_segment_rf, W.run_segment_ee, W.run_segment)
+    before = [k.launches for k in counters]
+    for cap in (24, 64):
+        outs_a = W.run_segment_rf(a["state"], a["slot"], a["thresh"], cap,
+                                  a["batch"], a["nslots"], a["bank"],
+                                  a["resm"], f_ds=f_ds, eps=eps, scout=scout,
+                                  rule=rule)
+        outs_b = W.segment_rf_plain(b["state"], b["slot"], b["thresh"], cap,
+                                    b["batch"], b["nslots"], b["bank"],
+                                    b["resm"], f_ds=f_ds, eps=eps,
+                                    scout=scout, rule=rule)
+        torch.cuda.synchronize()
+        _assert_bit_equal(a, b, outs_a, outs_b)
+    seeded = _inputs(fam, theta, bounds, eps, scout, device=cuda_device,
+                     refill_slots=0, rule=rule)
+    a, b = _clone(seeded)["state"], _clone(seeded)["state"]
+    for cap in (16, 48):
+        _, steps, waste, evals = W.run_segment_ee(
+            a, seeded["thresh"], cap, f_ds=f_ds, eps=eps, scout=scout,
+            rule=rule)
+        ctr = W.segment_ee_plain(b, seeded["thresh"], cap, f_ds=f_ds,
+                                 eps=eps, scout=scout, rule=rule)
+        torch.cuda.synchronize()
+        _assert_state_bit_equal(a, b)
+        assert torch.equal(torch.cat([steps.reshape(1), waste, evals]), ctr)
+    if not scout:
+        W.run_segment(a, 40, f_ds=f_ds, eps=eps, rule=rule)
+        W.segment_plain(b, 40, f_ds=f_ds, eps=eps, rule=rule)
+        torch.cuda.synchronize()
+        _assert_state_bit_equal(a, b)
+    assert [k.launches - n for k, n in zip(counters, before)] \
+        == [2, 2, 0 if scout else 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("twin", [c[0] for c in CASES[2:]])
+def test_cuda_body_walkers_match_cpu_walker(cuda_device, twin):
+    # the walker through each new body on the card (K1, scouting, double
+    # buffer) and on the CPU: the same decisions, areas equal up to the
+    # float64 reduction order of the two devices
+    fam, theta, bounds, eps = next(c for c in CASES if c[0] == twin)
+    kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
+              refill_slots=2, seg_iters=32, min_active_frac=0.05,
+              scout_dtype="f32", double_buffer=True)
+    before = W.run_segment_rf.launches
+    gpu = W.integrate_family_walker(get_family(_family(fam)), _twin(fam),
+                                    theta, bounds, eps, device=cuda_device,
+                                    **kw)
+    assert W.run_segment_rf.launches > before
+    cpu = W.integrate_family_walker(get_family(_family(fam)), _twin(fam),
+                                    theta, bounds, eps, device="cpu", **kw)
+    assert gpu.metrics.tasks == cpu.metrics.tasks
+    assert gpu.kernel_steps == cpu.kernel_steps
+    assert np.array_equal(gpu.waste, cpu.waste)
+    assert np.max(np.abs(gpu.areas - cpu.areas)
+                  / np.maximum(np.abs(cpu.areas), 1.0)) < 1e-12
 
 
 def test_ceiling_probe_state_and_card_requirement(monkeypatch):

@@ -40,14 +40,12 @@ import torch
 
 from ppls_tpu.models import integrands as RI
 from ppls_tpu.obs.registry import MetricsRegistry as RefRegistry
-from ppls_tpu.ops import ds_kernel as jdk
 from ppls_tpu.parallel import walker as RW
 from ppls_tpu.parallel.bag_engine import BagState as RefBag
 from ppls_tpu.runtime import stream as RS
 from ppls_tpu_torch import interop
 from ppls_tpu_torch.models import integrands as TI
 from ppls_tpu_torch.obs.registry import PHASE_BUCKETS, MetricsRegistry
-from ppls_tpu_torch.ops import ds_kernel as tdk
 from ppls_tpu_torch.parallel import walker as TW
 from ppls_tpu_torch.runtime import stream as TS
 
@@ -76,29 +74,20 @@ SKW = dict(slots=4, chunk=1 << 9, capacity=1 << 16, lanes=256,
            min_active_frac=0.05)
 
 
-# the dyadic-exact quadratic family of tests/test_stream.py
-def _quad(x, th):
-    return th * x * x
+# the reference bench's multihost leg (tools/bench_history.py:124-142):
+# the single-engine run of the dyadic quad_scaled workload
+MULTIHOST_EPS = 1e-9
+MULTIHOST_WKW = dict(slots=4, chunk=1 << 10, capacity=1 << 16, lanes=256,
+                     roots_per_lane=2, refill_slots=2, seg_iters=32,
+                     min_active_frac=0.05, f64_rounds=2)
+MULTIHOST_THETA = [1.0 + i / 4.0 for i in range(8)]
 
 
 @pytest.fixture
 def quad_family():
-    """"quad_stream_test" registered in both packages for one test, and
-    each registry put back as it was after it (other test files count the
-    port's families; tests/test_stream.py registers the reference's)."""
-    name = "quad_stream_test"
-    regs = (RI.FAMILIES, RI.DS_FAMILIES, TI.FAMILIES, TI.DS_FAMILIES)
-    saved = [reg.get(name) for reg in regs]
-    RI.register_family(name, _quad)
-    RI.register_family_ds(name, lambda x, th: jdk.ds_mul(th, jdk.ds_mul(x, x)))
-    TI.register_family(name, _quad)
-    TI.register_family_ds(name, lambda x, th: tdk.ds_mul(th, tdk.ds_mul(x, x)))
-    yield name
-    for reg, old in zip(regs, saved):
-        if old is None:
-            reg.pop(name, None)
-        else:
-            reg[name] = old
+    """The dyadic-exact quadratic family tests/test_stream.py registers
+    for itself: theta x^2, in both packages as quad_scaled."""
+    return "quad_scaled"
 
 
 def _ref(*args, **kw):
@@ -556,10 +545,57 @@ REFUSED = {
     "slo_config": (dict(slo_config={}), "item 7"),
     "adapt": (dict(adapt=True), "item 7"),
     "fault_injector": (dict(fault_injector=object()), "item 7"),
-    "reduced_integrands": (dict(reduced_integrands=True), "item 2"),
     "sort_roots": (dict(sort_roots=False), "item 4"),
     "sort_skip_ratio": (dict(sort_skip_ratio=4.0), "item 4"),
 }
+
+
+def test_reduced_stream_matches_reference_engine():
+    """reduced_integrands=True walks the family's range-reduced twin:
+    the reference engine's schedule on the CPU, with every stats row,
+    registry counter and request record equal, areas within 3e-9, and
+    ``reduced`` in the identity as the reference keys it."""
+    kw = dict(KW, reduced_integrands=True, scout_dtype="f32",
+              double_buffer=True)
+    r_eng, p_eng = _ref(FAM, EPS, **kw), _port(FAM, EPS, **kw)
+    ref = r_eng.run(REQS, arrival_phase=ARRIVALS)
+    got = p_eng.run(REQS, arrival_phase=ARRIVALS)
+    assert p_eng.f_ds is TI.get_family_ds(FAM, reduced=True)
+    assert p_eng._identity() == r_eng._identity()
+    assert p_eng._identity()["reduced"] is True
+    assert _phases(got) == _phases(ref)
+    assert np.array_equal(got.phase_stats, ref.phase_stats)
+    assert got.totals == ref.totals
+    assert np.max(np.abs(got.areas - ref.areas)) < 3e-9
+    # a family without a reduced twin walks its ds twin, not reduced
+    eng = _port("quad_scaled", 1e-9, **dict(KW, reduced_integrands=True))
+    assert eng.f_ds is TI.get_family_ds("quad_scaled")
+    assert "reduced" not in eng._identity()
+
+
+@pytest.mark.parametrize("f64_rounds", [2, 0])
+def test_multihost_single_engine_quad_matches_reference(f64_rounds):
+    """The reference bench's multihost single-engine run: quad_scaled
+    over theta = 1 + i/4, i < 8, on [0, 1]. As the bench configures it
+    (f64_rounds=2) every phase runs float64 bag rounds and no walk
+    kernel; with f64_rounds=0 the same requests walk K1 at R = 2. The
+    workload is dyadic, so the areas are the reference's bit for bit, in
+    both modes alike."""
+    kw = dict(MULTIHOST_WKW, f64_rounds=f64_rounds)
+    reqs = [(t, (0.0, 1.0)) for t in MULTIHOST_THETA]
+    before = TW.run_segment_rf.launches
+    got = _port("quad_scaled", MULTIHOST_EPS, **kw).run(reqs)
+    ref = _ref("quad_scaled", MULTIHOST_EPS, **kw).run(reqs)
+    assert TW.run_segment_rf.launches == before   # plain segments here
+    assert len(got.completed) == len(reqs)
+    assert np.array_equal(got.areas, ref.areas)
+    assert got.totals == ref.totals and _phases(got) == _phases(ref)
+    assert (got.totals["wtasks"] > 0) == (f64_rounds == 0)
+    other = _port("quad_scaled", MULTIHOST_EPS,
+                  **dict(kw, f64_rounds=2 - f64_rounds)).run(reqs)
+    assert np.array_equal(got.areas, other.areas)
+    assert np.max(np.abs(got.areas - np.asarray(MULTIHOST_THETA) / 3.0)) \
+        < 1e-6
 
 
 @pytest.mark.parametrize("arg", list(REFUSED))

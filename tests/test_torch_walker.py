@@ -14,6 +14,10 @@ table off, so both sides use the hand-tuned defaults. One test runs four
 members at the flagship's own bounds and eps, where the scout schedule
 over-refines in the reference as in the port.
 
+The other integrand bodies run end to end at the reference tests'
+configurations: the reference problem through the range-reduced cosh^4
+twin, gauss_center, and quad_scaled (bit for bit).
+
 The Simpson walker is held to the port's float64 Simpson bag at
 tests/test_tpu_lane.py's real-chip configuration (equal tasks, areas
 within 1e-12): the port performs the float32 arithmetic exactly, as the
@@ -197,6 +201,87 @@ def test_walker_reference_problem_family():
     assert got.walker_fraction > 0.5
     assert np.max(np.abs(got.areas - bag.areas) / bag.areas) < 3e-9
     assert got.attribution()["reconciles"]
+
+
+def test_walker_reduced_cosh4_reference_problem(monkeypatch):
+    # tests/test_reduced_integrands.py:160-176: the reference problem
+    # (cosh^4 on [0, 5]) through the range-reduced twin, scouting and
+    # double buffer on, within 1e-6 of the closed form, in both packages.
+    # The reference's interpret mode contracts multiply-adds (5.3e-8 off
+    # the closed form, measured; the port 5.5e-10), so the two are held
+    # to each other at that contract and to 1e-2 task drift.
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
+    kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
+              refill_slots=2, seg_iters=32, min_active_frac=0.05,
+              scout_dtype="f32", double_buffer=True)
+    theta = np.array([1.0])
+    exact = family_exact("cosh4_scaled", 0.0, 5.0, theta)[0]
+    got = integrate_family_walker(
+        get_family("cosh4_scaled"), get_family_ds("cosh4_scaled",
+                                                  reduced=True),
+        theta, (0.0, 5.0), 1e-6, device="cpu", **kw)
+    ref = ref_walker(ref_family("cosh4_scaled"),
+                     ref_family_ds("cosh4_scaled", reduced=True), theta,
+                     (0.0, 5.0), 1e-6, **kw)
+    assert abs(got.areas[0] - exact) / exact < 1e-6
+    assert abs(got.areas[0] - ref.areas[0]) / exact < 1e-6
+    assert abs(got.metrics.tasks - ref.metrics.tasks) \
+        / ref.metrics.tasks < 1e-2
+    assert got.scout_evals > 0 and got.attribution()["reconciles"]
+
+
+def test_walker_gauss_family_matches_reference(monkeypatch):
+    # tests/test_walker.py:150-168: three Gaussians of width 1e-3 near
+    # the dyadic points, through ds_exp. Every peak resolved, the walker
+    # within 3e-9 of the float64 bag of both packages (torch.exp and
+    # XLA's exp may differ by an ulp: the two bags are 8.7e-19 apart,
+    # measured) and of the reference walker, task drift below 1e-2
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
+    kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=1, seg_iters=32,
+              min_active_frac=0.05)
+    theta = np.array([0.4995, 0.5, 0.5005])
+    bounds, eps = (0.4, 0.6), 1e-9
+    got = integrate_family_walker(get_family("gauss_center"),
+                                  get_family_ds("gauss_center"), theta,
+                                  bounds, eps, device="cpu", **kw)
+    bag = integrate_family(get_family("gauss_center"), theta, bounds, eps,
+                           chunk=1 << 10, capacity=1 << 16, device="cpu")
+    rbag = ref_bag(ref_family("gauss_center"), theta, bounds, eps,
+                   chunk=1 << 10, capacity=1 << 16)
+    ref = ref_walker(ref_family("gauss_center"),
+                     ref_family_ds("gauss_center"), theta, bounds, eps,
+                     **kw)
+    assert np.all(bag.areas > 1e-3)
+    for other in (bag, rbag, ref):
+        assert np.max(np.abs(got.areas - other.areas)) < 3e-9
+        assert abs(got.metrics.tasks - other.metrics.tasks) \
+            / other.metrics.tasks < 1e-2
+    assert got.walker_fraction > 0.2
+    assert np.max(np.abs(got.areas - family_exact(
+        "gauss_center", *bounds, theta))) < 1e-6
+
+
+@pytest.mark.parametrize("refill", list(REFILL))
+def test_walker_quad_scaled_is_exact_as_the_reference(monkeypatch, refill):
+    # the dyadic-exact family: every credit and sum is exact, so the
+    # port's walker, the port's float64 bag and the reference walker
+    # give the same areas bit for bit
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
+    theta = 1.0 + np.arange(8) / 4.0
+    bounds, eps = (0.0, 1.0), 1e-9
+    kw = dict(KW, **REFILL[refill])
+    got = integrate_family_walker(get_family("quad_scaled"),
+                                  get_family_ds("quad_scaled"), theta,
+                                  bounds, eps, device="cpu", **kw)
+    bag = integrate_family(get_family("quad_scaled"), theta, bounds, eps,
+                           chunk=1 << 10, capacity=1 << 16, device="cpu")
+    ref = ref_walker(ref_family("quad_scaled"), ref_family_ds("quad_scaled"),
+                     theta, bounds, eps, **kw)
+    assert np.array_equal(got.areas, bag.areas)
+    assert np.array_equal(got.areas, ref.areas)
+    assert got.metrics.tasks == bag.metrics.tasks == ref.metrics.tasks
+    assert got.walker_fraction > 0.5 and got.attribution()["reconciles"]
+    assert np.max(np.abs(got.areas - theta / 3.0)) < 1e-6
 
 
 def _port_bag(eps):
