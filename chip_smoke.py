@@ -110,7 +110,7 @@ Phases, each of which must pass (any failure exits nonzero):
    sin(theta x), gauss_center, quad_scaled), and the paths that run them.
    a. Each body against the plain segment at lanes=16384, cap=256, on its
       bank (ppls_tpu_torch/tools/time_k1.py body_bank: the flagship's
-      domain; cosh^4 on [0, 5] with theta <= 4.4; sin(theta x) on [0, 1],
+      domain; cosh^4 on [0, 5] with theta <= 2.5; sin(theta x) on [0, 1],
       theta from linspace(1, 4); Gaussians centred in [0.4995, 0.5005]
       on [0.4, 0.6]; theta x^2 on [0, 1], theta = 1 + i/4): K1 on a bred,
       dealt bank (R=8) and K2 on seeded lanes in the trapezoid, scouting
@@ -416,59 +416,30 @@ def fmt_cmp(what: str, c: dict, times) -> str:
         line += (f"; reference twin on the same inputs, alternated: "
                  f"{ref['ms']:.3f} ms (runs "
                  f"{', '.join(f'{t:.3f}' for t in ref['runs'])}), "
-                 f"{ref['us_per_step']:.3f} us/step, {ref['counters'][0]} "
-                 f"steps; reduced / reference us/step "
-                 f"{c['us_per_step'] / ref['us_per_step']:.3f}")
+                 f"{ref['us_per_step']:.3f} us/step, {ref['steps']} "
+                 f"steps; reduced / reference us/step {ref['ratio']:.3f}")
     return line
 
 
-def kernel_runs(run, ref_run, runs):
-    """(outputs, median ms, the ms of each run) of ``runs`` launches of
-    ``run()`` after a warm-up; with ``ref_run`` (a reference twin on the
-    same inputs) the two alternate, A B then B A, and its record is the
-    fourth element (else None)."""
-    import numpy as np
-    if ref_run is None:
-        return (*median_runs(run, runs), None)
-    run(), ref_run()                                    # warm-ups
-    times, ref_times, outs, ref_outs = [], [], None, None
-    for j in range(runs):
-        for which in ((0, 1) if j % 2 == 0 else (1, 0)):
-            if which == 0:
-                outs, ms = run()
-                times.append(ms)
-            else:
-                ref_outs, ms = ref_run()
-                ref_times.append(ms)
-    ref_ms = float(np.median(ref_times))
-    ctr = ref_outs[-1].tolist()
-    return outs, float(np.median(times)), times, dict(
-        ms=ref_ms, runs=ref_times, counters=ctr,
-        us_per_step=1e3 * ref_ms / ctr[0])
-
-
-def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1,
-           ref_ds=None):
+def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
     """K1 on copies of one dealt bank, CMP_CAP steps: the median of
-    ``runs`` kernel launches by CUDA events (alternated with the
-    reference twin ``ref_ds``, when given), then the plain segment,
+    ``runs`` kernel launches by CUDA events, then the plain segment,
     every output held bit-equal. Returns (record, the kernel ms of each
     run)."""
     rule, scout = mode_args(mode)
     kw = dict(theta_block=theta_block) if theta_block > 1 else {}
 
-    def run(fn, twin=f_ds):
+    def run(fn):
         inp = clone(base)
         (resh, resl, ctr), ms = timed(lambda: fn(
             inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
             inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
-            f_ds=twin, eps=eps, scout=scout, rule=rule, **kw))
+            f_ds=f_ds, eps=eps, scout=scout, rule=rule, **kw))
         return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
                 ctr], ms
 
-    outs_k, kernel_ms, times, ref = kernel_runs(
-        lambda: run(W.run_segment_rf),
-        ref_ds and (lambda: run(W.run_segment_rf, ref_ds)), runs)
+    outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment_rf),
+                                           runs)
     outs_p, plain_ms = run(W.segment_rf_plain)
     ctr = outs_k[-1].tolist()
     bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7], ops,
@@ -477,21 +448,19 @@ def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1,
                max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
                bound_by=bound_by, counters=ctr,
                us_per_step=1e3 * kernel_ms / ctr[0])
-    if ref is not None:
-        rec["reference_twin"] = ref
     return rec, times
 
 
-def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, ref_ds=None):
+def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5):
     """K2 on copies of seeded lanes, CMP_CAP steps at the seeding's exit
     threshold, as :func:`cmp_k1`; the waste must reconcile."""
     import torch
     rule, scout = mode_args(mode)
 
-    def run(fn, twin=f_ds):
+    def run(fn):
         inp = clone(base)
         ctr, ms = timed(lambda: fn(inp["state"], inp["thresh"], CMP_CAP,
-                                   f_ds=twin, eps=eps, scout=scout,
+                                   f_ds=f_ds, eps=eps, scout=scout,
                                    rule=rule))
         return [*inp["state"], ctr], ms
 
@@ -499,8 +468,7 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, ref_ds=None):
         _, steps, waste, evals = W.run_segment_ee(*args, **kw)
         return torch.cat([steps.reshape(1), waste, evals])
 
-    outs_k, kernel_ms, times, ref = kernel_runs(
-        lambda: run(kernel), ref_ds and (lambda: run(kernel, ref_ds)), runs)
+    outs_k, kernel_ms, times = median_runs(lambda: run(kernel), runs)
     outs_p, plain_ms = run(W.segment_ee_plain)
     ctr = outs_k[-1].tolist()
     if sum(ctr[1:5]) != ctr[0] * LANES:
@@ -511,9 +479,30 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, ref_ds=None):
                max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
                bound_by=bound_by, counters=ctr,
                us_per_step=1e3 * kernel_ms / ctr[0])
-    if ref is not None:
-        rec["reference_twin"] = ref
     return rec, times
+
+
+def twin_pair(kernel, base, f_ds, ref_ds, eps, mode, runs):
+    """The range-reduced twin ``f_ds`` and its reference twin ``ref_ds``
+    on copies of the same K1 bank or K2 lanes, ``runs`` CAP-step launches
+    each in alternation (ppls_tpu_torch/tools/time_k1.py _timed_pairs):
+    the reference twin's median ms, runs and us/step, and the ratio of
+    the two medians (reduced / reference)."""
+    import numpy as np
+    from ppls_tpu_torch.tools.time_k1 import (_timed_pairs, k1_prepare,
+                                              k2_prepare)
+    rule, scout = mode_args(mode)
+
+    def prep(twin):
+        if kernel == "k1":
+            return k1_prepare(base, twin, eps, scout, rule=rule)
+        return k2_prepare(base, twin, eps, scout, base["thresh"], rule=rule)
+    got = _timed_pairs({"reduced": prep(f_ds), "reference": prep(ref_ds)},
+                       runs)
+    (red, red_steps), (ref, steps) = got["reduced"], got["reference"]
+    ms = float(np.median(ref))
+    return dict(ms=ms, runs=ref, steps=steps, us_per_step=1e3 * ms / steps,
+                ratio=float(np.median(red)) / red_steps / (ms / steps))
 
 
 def cmp_k3(W, what, base, f_ds, eps, mode, ops, runs=5):
@@ -1192,8 +1181,10 @@ def phase_bodies(W, ops_of) -> dict:
                                       ("k2", cmp_k2, seeded[rule])):
                 what = f"{kernel.upper()} {name} {mode}"
                 rec[kernel][mode], times = cmp(W, what, base, f_ds, eps,
-                                               mode, ops, BODY_RUNS,
-                                               ref_ds=ref_ds)
+                                               mode, ops, BODY_RUNS)
+                if ref_ds is not None:
+                    rec[kernel][mode]["reference_twin"] = twin_pair(
+                        kernel, base, f_ds, ref_ds, eps, mode, BODY_RUNS)
                 log(fmt_cmp(what, rec[kernel][mode], times)
                     + (f"; {int(base['nslots'].sum())} roots dealt"
                        if kernel == "k1" else ""))
@@ -1308,17 +1299,24 @@ def phase_reference_problem(W) -> dict:
         **REF_PROBLEM_KW))
     check_walk("reference problem (reduced cosh^4)", r, 1)
     rel = abs(float(r.areas[0]) - REF_PROBLEM_AREA) / REF_PROBLEM_AREA
+    att = r.attribution()
+    # live K1 lane-steps: each evaluates the reduced cosh^4 body on the card
+    live = att["buckets"]["eval_active"]
     out = dict(area=float(r.areas[0]), rel_err=rel, wall_s=wall,
                tasks=r.metrics.tasks, kernel_steps=r.kernel_steps,
                launches=launches, scout_evals=r.scout_evals,
+               confirm_evals=r.confirm_evals, live_lane_steps=live,
                walker_fraction=r.walker_fraction)
     log(f"[smoke] reference problem through the reduced cosh^4 twin "
         f"({LANES} lanes, R=2, scout f32, double buffer): area "
         f"{r.areas[0]:.6f}, |area - {REF_PROBLEM_AREA}| / area {rel:.3e} "
         f"(tol {REF_PROBLEM_TOL}), {r.metrics.tasks} tasks, kernel steps "
-        f"{r.kernel_steps}, walker fraction {r.walker_fraction:.4f}, "
-        f"launches {launches}, wall {wall:.3f} s")
-    if not rel < REF_PROBLEM_TOL or launches["run_segment_rf"] <= 0:
+        f"{r.kernel_steps}, K1 live lane-steps {live} of "
+        f"{att['lane_steps']} (scout evals {r.scout_evals}, ds confirm "
+        f"evals {r.confirm_evals}), walker fraction "
+        f"{r.walker_fraction:.4f}, launches {launches}, wall {wall:.3f} s")
+    if not rel < REF_PROBLEM_TOL or launches["run_segment_rf"] <= 0 \
+            or not live > 0 or not att["reconciles"]:
         raise AssertionError(f"reference problem failed: {out}")
     return out
 

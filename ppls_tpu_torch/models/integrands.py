@@ -28,7 +28,6 @@ import torch
 FAMILIES: Dict[str, Callable] = {}
 DS_FAMILIES: Dict[str, Callable] = {}
 DS_FAMILIES_REDUCED: Dict[str, Callable] = {}
-FAMILY_EXACT: Dict[str, Callable] = {}
 FAMILY_EXACT_VEC: Dict[str, Callable] = {}
 
 # Cody-Waite validity limits of the ds transcendentals: beyond these the
@@ -333,85 +332,22 @@ def _quad_scaled_exact_vec(a, b, th):
     return th * (np.float64(b) ** 3 - np.float64(a) ** 3) / 3.0
 
 
-# 40-digit scalar forms (mpmath, imported at the call: it is not needed
-# on the card's machine)
-
-def _sin_recip_scaled_exact(a, b, th):
-    import mpmath
-    with mpmath.workdps(40):
-        t = mpmath.mpf(th)
-
-        def F(x):
-            return x * mpmath.sin(t / x) - t * mpmath.ci(t / x)
-
-        return float(F(mpmath.mpf(b)) - F(mpmath.mpf(a)))
+FAMILY_EXACT_VEC["sin_recip_scaled"] = _sin_recip_scaled_exact_vec
+FAMILY_EXACT_VEC["sin_scaled"] = _sin_scaled_exact_vec
+FAMILY_EXACT_VEC["cosh4_scaled"] = _cosh4_scaled_exact_vec
+FAMILY_EXACT_VEC["gauss_center"] = _gauss_center_exact_vec
+FAMILY_EXACT_VEC["quad_scaled"] = _quad_scaled_exact_vec
 
 
-def _sin_scaled_exact(a, b, th):
-    import mpmath
-    with mpmath.workdps(40):
-        t = mpmath.mpf(th)
-        return float((mpmath.cos(t * a) - mpmath.cos(t * b)) / t)
-
-
-def _gauss_center_exact(a, b, c):
-    import mpmath
-    with mpmath.workdps(40):
-        s = mpmath.mpf("1e-3")
-
-        def g(x):
-            return s * mpmath.sqrt(mpmath.pi / 2) * mpmath.erf(
-                (mpmath.mpf(x) - c) / (s * mpmath.sqrt(2)))
-
-        return float(g(b) - g(a))
-
-
-def _cosh4_scaled_exact(a, b, th):
-    import mpmath
-    with mpmath.workdps(40):
-        t = mpmath.mpf(th)
-
-        def F(x):
-            u = t * mpmath.mpf(x)
-            return (3 * u / 8 + mpmath.sinh(2 * u) / 4
-                    + mpmath.sinh(4 * u) / 32) / t
-
-        return float(F(b) - F(a))
-
-
-def _quad_scaled_exact(a, b, th):
-    return float(th) * (float(b) ** 3 - float(a) ** 3) / 3.0
-
-
-for _name, _fn, _vec in (
-        ("sin_recip_scaled", _sin_recip_scaled_exact,
-         _sin_recip_scaled_exact_vec),
-        ("sin_scaled", _sin_scaled_exact, _sin_scaled_exact_vec),
-        ("gauss_center", _gauss_center_exact, _gauss_center_exact_vec),
-        ("cosh4_scaled", _cosh4_scaled_exact, _cosh4_scaled_exact_vec),
-        ("quad_scaled", _quad_scaled_exact, _quad_scaled_exact_vec)):
-    FAMILY_EXACT[_name] = _fn
-    FAMILY_EXACT_VEC[_name] = _vec
-
-
-def family_exact(name: str, a: float, b: float, theta,
-                 prefer_vec: bool = True) -> Optional[np.ndarray]:
+def family_exact(name: str, a: float, b: float, theta) -> Optional[np.ndarray]:
     """Exact integrals over [a, b] for every theta (float64 array of
-    theta's shape), or None if the family has no closed form. The
-    vectorised numpy / scipy form by default; ``prefer_vec=False`` takes
-    the 40-digit mpmath form (the reference picks it for fewer than 64
-    thetas; here it is asked for, since mpmath is not on the card's
-    machine)."""
-    fn, vfn = FAMILY_EXACT.get(name), FAMILY_EXACT_VEC.get(name)
-    if fn is None and vfn is None:
+    theta's shape), or None if the family has no closed form."""
+    vfn = FAMILY_EXACT_VEC.get(name)
+    if vfn is None:
         return None
     th = np.asarray(theta, dtype=np.float64)
-    if vfn is not None and (prefer_vec or fn is None):
-        return np.asarray(vfn(float(a), float(b), th.reshape(-1)),
-                          dtype=np.float64).reshape(th.shape)
-    return np.array([fn(float(a), float(b), float(t))
-                     for t in th.reshape(-1)],
-                    dtype=np.float64).reshape(th.shape)
+    return np.asarray(vfn(float(a), float(b), th.reshape(-1)),
+                      dtype=np.float64).reshape(th.shape)
 
 
 # --- float64 models of the reduced forms (host side, numpy) ------------------

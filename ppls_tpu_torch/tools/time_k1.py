@@ -58,20 +58,20 @@ def body_bank(family: str, m: int = BODY_M):
     """(thetas, bounds, eps, Simpson eps) of the bank each integrand body
     is timed and checked on (chip_smoke.py phase 12): the flagship's
     domain for sin(theta / x); sin(theta x) on the theta leg's [0, 1];
-    cosh^4 on [0, 5] with theta <= 4.4, so |theta x| <= 22; Gaussians of
+    cosh^4 on [0, 5] with theta <= 2.5, so |theta x| <= 12.5; Gaussians of
     width 1e-3 centred in [0.4995, 0.5005] on [0.4, 0.6]; theta x^2 on
     [0, 1] with theta = 1 + i/4. The eps keep most lanes walking through
     a 256-step launch where the family allows: on the smooth families
     Simpson's breed accepts every root at the trapezoid's eps, so its
     eps is the ds rounding's (1e-16). cosh^4's lanes at theta above ~3
-    split to the depth cap and park, so its launches end early; theta
-    x^2 is exact under Simpson at any eps."""
+    split to the depth cap and park and would end its launches early;
+    theta x^2 is exact under Simpson at any eps."""
     import numpy as np
     i = np.arange(m)
     return {
         "sin_recip_scaled": (1.0 + i / m, (1e-4, 1.0), 1e-10, 1e-10),
         "sin_scaled": (np.linspace(1.0, 4.0, m), (0.0, 1.0), 1e-12, 1e-16),
-        "cosh4_scaled": (np.linspace(0.5, 4.4, m), (0.0, 5.0), 1e-6, 1e-6),
+        "cosh4_scaled": (np.linspace(0.5, 2.5, m), (0.0, 5.0), 1e-6, 1e-6),
         "gauss_center": (np.linspace(0.4995, 0.5005, m), (0.4, 0.6), 1e-12,
                          1e-16),
         "quad_scaled": (1.0 + i / 4.0, (0.0, 1.0), 1e-12, 1e-12),
@@ -104,38 +104,47 @@ def _timed_pairs(prepares, launches: int):
     return {n: (times[n], steps[n]) for n in names}
 
 
+def k1_prepare(base, f_ds, eps, scout, T=1, **rule):
+    """A ``_timed_pairs`` prepare: copies of K1's dealt bank ``base``,
+    and one CAP-step launch of the ds twin ``f_ds`` on them."""
+    from ppls_tpu_torch.parallel import walker as W
+
+    def prepare():
+        state = W.WalkState(*(t.clone() for t in base["state"]))
+        slot = base["slot"].clone()
+        bank = tuple(t.clone() for t in base["bank"])
+        resm = tuple(t.clone() for t in base["resm"])
+        kw = dict(theta_block=T) if T > 1 else {}
+
+        def launch():
+            out = W.run_segment_rf(state, slot, base["thresh"], CAP,
+                                   base["batch"], base["nslots"], bank,
+                                   resm, f_ds=f_ds, eps=eps, scout=scout,
+                                   **kw, **rule)
+            return out[2][0]
+        return launch
+    return prepare
+
+
+def k2_prepare(base, f_ds, eps, scout, thresh, **rule):
+    """As :func:`k1_prepare`, for K2 on the seeded lanes ``base``."""
+    from ppls_tpu_torch.parallel import walker as W
+
+    def prepare():
+        state = W.WalkState(*(t.clone() for t in base["state"]))
+
+        def launch():
+            return W.run_segment_ee(state, thresh, CAP, f_ds=f_ds, eps=eps,
+                                    scout=scout, **rule)[1]
+        return launch
+    return prepare
+
+
 def time_root(launches: int, family: str = "sin_recip_scaled",
               reduced: bool = False) -> dict:
     import numpy as np
     from ppls_tpu_torch.models.integrands import get_family, get_family_ds
     from ppls_tpu_torch.parallel import walker as W
-
-    def k1(base, f_ds, eps, scout, T=1):
-        def prepare():
-            state = W.WalkState(*(t.clone() for t in base["state"]))
-            slot = base["slot"].clone()
-            bank = tuple(t.clone() for t in base["bank"])
-            resm = tuple(t.clone() for t in base["resm"])
-            kw = dict(theta_block=T) if T > 1 else {}
-
-            def launch():
-                out = W.run_segment_rf(state, slot, base["thresh"], CAP,
-                                       base["batch"], base["nslots"], bank,
-                                       resm, f_ds=f_ds, eps=eps, scout=scout,
-                                       **kw)
-                return out[2][0]
-            return launch
-        return prepare
-
-    def k2(base, f_ds, eps, scout, thresh):
-        def prepare():
-            state = W.WalkState(*(t.clone() for t in base["state"]))
-
-            def launch():
-                return W.run_segment_ee(state, thresh, CAP, f_ds=f_ds,
-                                        eps=eps, scout=scout)[1]
-            return launch
-        return prepare
 
     def k3(base, f_ds, eps):
         def prepare():
@@ -161,22 +170,22 @@ def time_root(launches: int, family: str = "sin_recip_scaled",
         base = W.first_phase_inputs(f, theta, bounds, eps, refill_slots=8,
                                     scout=scout, **flagship)
         for tag, twin in twins.items():
-            runs[mode + tag] = k1(base, twin, eps, scout)
+            runs[mode + tag] = k1_prepare(base, twin, eps, scout)
     fs, fs_ds = get_family("sin_scaled"), get_family_ds("sin_scaled")
     for T in (128, 256):
         thetas = np.linspace(1.0, 4.0, LANES).reshape(LANES // T, T)
         base = W.first_phase_inputs(fs, thetas, (0.0, 1.0), 1e-5,
                                     refill_slots=8, scout=False,
                                     theta_block=T, **flagship)
-        runs[f"theta_{T}"] = k1(base, fs_ds, 1e-5, False, T)
+        runs[f"theta_{T}"] = k1_prepare(base, fs_ds, 1e-5, False, T)
     seeded = W.first_phase_inputs(f, theta, bounds, eps, refill_slots=0,
                                   scout=False, **flagship)
     for tag, twin in twins.items():
-        runs["k2_step" + tag] = k2(seeded, twin, eps, False,
-                                   seeded["thresh"])
-        runs["k2_step_scout" + tag] = k2(seeded, twin, eps, True,
-                                         seeded["thresh"])
-    runs["k2_noexit"] = k2(seeded, f_ds, eps, False, -1)
+        runs["k2_step" + tag] = k2_prepare(seeded, twin, eps, False,
+                                           seeded["thresh"])
+        runs["k2_step_scout" + tag] = k2_prepare(seeded, twin, eps, True,
+                                                 seeded["thresh"])
+    runs["k2_noexit"] = k2_prepare(seeded, f_ds, eps, False, -1)
     runs["k3_step"] = k3(seeded, f_ds, eps)
     out = {}
     for name, prepare in runs.items():

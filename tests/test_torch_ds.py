@@ -219,7 +219,7 @@ def test_integrand_ds_twins_vs_f64_and_reference(fam, lo, hi, truth, tol):
     assert _rel(got, ref, floor=1.0) <= (tol if "@" in fam else TOL)
     ref_pair = _ref_twin(fam)(_j(x), _j(th), dsm=jdk)
     for g, r in zip(got_pair, ref_pair):
-        _bits_equal_but_ftz(g.numpy(), r)
+        assert _bits_equal_but_ftz(g.numpy(), r) == 0
 
 
 @pytest.mark.parametrize("fam,lo,hi", [("sin_recip_scaled", 1e-2, 1.0),
@@ -256,7 +256,8 @@ def test_scout_twins_are_float32_accurate(fam, lo, hi):
 ])
 def test_scout_twins_bit_equal_to_reference(fam, sample):
     # run op by op (eager jax), the reference's scout surface rounds
-    # exactly as the port's does (but for XLA's flush of subnormals)
+    # exactly as the port's does; only gauss_center, whose exp reaches the
+    # subnormal range in float32, may differ where XLA flushed one
     from ppls_tpu.ops import scout_kernel as jsk
     rng = np.random.default_rng(8)
     x = sample(rng).astype(np.float32)
@@ -265,7 +266,9 @@ def test_scout_twins_bit_equal_to_reference(fam, sample):
     z = np.zeros(N, dtype=np.float32)
     got = _twin(fam)[1](_t((x, z)), _t((th, z)), dsm=tsk)
     ref = _ref_twin(fam)(_j((x, z)), _j((th, z)), dsm=jsk)
-    _bits_equal_but_ftz(got[0].numpy(), ref[0])
+    flushed = _bits_equal_but_ftz(got[0].numpy(), ref[0])
+    if fam != "gauss_center":
+        assert flushed == 0
     assert np.all(got[1].numpy() == 0.0)
     if fam.startswith("sin_recip_scaled"):
         # the float32 rounding of theta / x alone moves sin by up to ~1e-3
@@ -459,15 +462,13 @@ def test_reduced_registry_fallback_and_domain_checks(name):
     ("quad_scaled", 0.0, 1.0, list(1.0 + np.arange(8) / 4.0)),
 ])
 def test_closed_forms_match_reference(name, a, b, theta):
-    # the vectorised forms equal the reference's; the 40-digit mpmath
-    # forms too, and the two within 1e-13 relative of each other
+    # the vectorised forms equal the reference's, and lie within 1e-13
+    # relative of the reference's 40-digit mpmath forms
     from ppls_tpu.models import integrands as RI
     vec = tint.family_exact(name, a, b, theta)
     assert np.array_equal(vec, RI.family_exact(name, a, b, theta,
                                                prefer_vec=True))
-    mp = tint.family_exact(name, a, b, theta, prefer_vec=False)
-    assert np.array_equal(mp, RI.family_exact(name, a, b, theta,
-                                              prefer_vec=False))
+    mp = RI.family_exact(name, a, b, theta, prefer_vec=False)
     assert np.max(np.abs(vec - mp) / np.abs(mp)) < 1e-13
     if name == "quad_scaled":
         assert np.array_equal(vec, np.asarray(theta) / 3.0)
