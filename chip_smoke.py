@@ -138,11 +138,38 @@ Phases, each of which must pass (any failure exits nonzero):
       requests/s against phase 11's, the closed form, and |stream - cold|
       <= 1e-8 on the ds walk.
 
+13. Checkpoint and kill-and-resume (snapshots in a temporary directory of
+   the checkout, removed at the end), each check in the same process as
+   the run it is held to:
+   a. phase 4's flagship through K1 with a snapshot every cycle: without
+      a crash bit-equal to phase 4 (areas, tasks, splits, cycles, kernel
+      steps, waste), its snapshot gone after; killed after 3 of its
+      cycles and resumed with ``resume_family_walker``: bit-equal to
+      phase 4, the two legs' K1 launches summing to phase 4's. Printed:
+      the snapshot bytes per leg, the seconds of each snapshot's device
+      read and file write and of the load, and the wall against a run
+      without snapshots (host clock, noisy).
+   b. the same on phase 6's fallback (refill_slots=0, scout f64) through
+      K2.
+   c. the reference problem through the float64 bag (cosh^4 on [0, 5],
+      eps 1e-3), killed after 2 legs of 2 rounds and resumed: 6567 tasks
+      and 7583461.801486, bit-equal to the run without snapshots.
+   d. phase 11's stream leg in the open loop at 2 requests per phase,
+      a snapshot every phase, killed after 3 phases, resumed with
+      ``StreamEngine.resume`` and the rest of the arrivals replayed:
+      areas, phases, completed records, stats rows and shed records
+      bit-equal to the run without snapshots, K1 launches summing; with
+      the synchronous and with the background writer.
+   e. phase 12d's gauss_center (K2), cut to one segment of 8 steps per
+      cycle, killed on the card after one cycle and resumed on the CPU:
+      bit-equal to the card's run without a crash.
+
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
 per T under ``theta``; the stream's launches under ``stream_launches``;
 phase 12's records per body and step machine under ``bodies`` and its
-paths' launches under ``body_launches``)
+paths' launches under ``body_launches``; phase 13's under
+``checkpoint_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -152,8 +179,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1455,6 +1484,281 @@ def phase_reduced_stream(W, TS, f_theta, family_exact, plain_rps) -> dict:
     return out
 
 
+class SnapshotProbe:
+    """Times each snapshot's device read (``HostSyncs.pull_arrays``),
+    file write and load, and records each written file's bytes, by
+    wrapping the checkpoint functions the engines call while the probe
+    is entered. With the background writer the write happens on its
+    thread and is not timed."""
+
+    def __init__(self, modules):
+        self.modules = modules
+        self.pulls, self.writes, self.loads, self.bytes = [], [], [], []
+
+    def __enter__(self):
+        from ppls_tpu_torch.utils.device import HostSyncs
+        self._saved = [(m, n, getattr(m, n)) for m in self.modules
+                       for n in ("save_family_checkpoint",
+                                 "load_family_checkpoint")
+                       if hasattr(m, n)]
+        self._saved.append((HostSyncs, "pull_arrays",
+                            HostSyncs.pull_arrays))
+        for m, n, fn in self._saved:
+            setattr(m, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+
+    def _wrap(self, name, fn):
+        def timed_call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            dt = time.perf_counter() - t0
+            if name == "pull_arrays":
+                self.pulls.append(dt)
+            elif name == "load_family_checkpoint":
+                self.loads.append(dt)
+            else:
+                self.writes.append(dt)
+                if kw.get("writer") is None:
+                    self.bytes.append(os.path.getsize(a[0]))
+            return out
+        return timed_call
+
+    def summary(self) -> dict:
+        return dict(snapshots=len(self.writes), bytes=list(self.bytes),
+                    pull_s=list(self.pulls), write_s=list(self.writes),
+                    load_s=list(self.loads))
+
+
+def same_walk(a, b) -> dict:
+    """Which of two walker results' areas, tasks, splits, cycles, kernel
+    steps and waste buckets are bit-equal."""
+    import numpy as np
+    return dict(areas=bool(np.array_equal(a.areas, b.areas)),
+                tasks=a.metrics.tasks == b.metrics.tasks,
+                splits=a.metrics.splits == b.metrics.splits,
+                cycles=a.cycles == b.cycles,
+                kernel_steps=a.kernel_steps == b.kernel_steps,
+                waste=bool(np.array_equal(a.waste, b.waste)))
+
+
+def ckpt_walker(W, what, args, kw, base, base_launches, counter, ckpt_dir,
+                crash_legs=3) -> dict:
+    """13a/13b. The main path of phase 4 or 6 again, snapshotting every
+    cycle: once without a crash (bit-equal to ``base``, the snapshot
+    gone after), once killed after ``crash_legs`` legs (fewer where the
+    base run's last walking cycle comes sooner, so that the resumed leg
+    walks too) and resumed with ``resume_family_walker``: bit-equal to
+    ``base``, the two legs' launches of ``counter`` summing to
+    ``base_launches``, each leg launching it. Its wall against a run
+    without snapshots, on the host clock."""
+    import numpy as np
+    name = counter.__name__
+    segs = base.cycle_stats[:, W.CYCLE_STAT_FIELDS.index("segments")]
+    legs = min(crash_legs, int(np.nonzero(segs)[0][-1]))
+    if legs < 1:
+        raise AssertionError(f"{what}: only its first cycle walks, so no "
+                             f"crash leaves a walking leg to resume")
+    path = os.path.join(ckpt_dir, f"{name}.ckpt")
+    plain, plain_wall, _ = counted(
+        W, lambda: W.integrate_family_walker(*args, **kw))
+    with SnapshotProbe([W]) as probe:
+        ck, ck_wall, ck_launches = counted(W, lambda: W.integrate_family_walker(
+            *args, checkpoint_path=path, checkpoint_every=1, **kw))
+    left = os.path.exists(path)
+    with SnapshotProbe([W]) as crash_probe:
+        try:
+            counted(W, lambda: W.integrate_family_walker(
+                *args, checkpoint_path=path, checkpoint_every=1,
+                _crash_after_legs=legs, **kw))
+            crashed = False
+        except RuntimeError as e:
+            crashed = "simulated crash" in str(e)
+        crash_launches = counter.launches
+        res, res_wall, res_launches = counted(
+            W, lambda: W.resume_family_walker(path, *args,
+                                               checkpoint_every=1, **kw))
+    same_ck, same_res = same_walk(ck, base), same_walk(res, base)
+    sizes = probe.bytes
+    out = dict(cycles=base.cycles, crash_after_legs=legs, crashed=crashed,
+               plain_wall_s=plain_wall, checkpoint_wall_s=ck_wall,
+               resumed_wall_s=res_wall, uninterrupted_equal=same_ck,
+               resumed_equal=same_res, launches=dict(
+                   checkpointed=ck_launches[name], crashed=crash_launches,
+                   resumed=res_launches[name], base=base_launches),
+               snapshot_left=left or os.path.exists(path),
+               snapshot=probe.summary(), resume=crash_probe.summary(),
+               plain_equal=same_walk(plain, base))
+    log(f"[smoke] {what} checkpoint_every=1: {len(sizes)} snapshots, bytes "
+        f"{sizes} (max {max(sizes) / 2**20:.2f} MiB), device read s "
+        f"{[round(x, 4) for x in probe.pulls]}, write s "
+        f"{[round(x, 4) for x in probe.writes]}; wall {ck_wall:.3f} s "
+        f"against {plain_wall:.3f} s without snapshots (host clock, noisy); "
+        f"bit-equal to the main path {same_ck}")
+    log(f"[smoke] {what} killed after {legs} of {base.cycles} cycles, "
+        f"resumed: load s {[round(x, 4) for x in crash_probe.loads]}, "
+        f"bit-equal {same_res}; {name} launches {crash_launches} + "
+        f"{res_launches[name]} (main path {base_launches}); resumed wall "
+        f"{res_wall:.3f} s; snapshot left {out['snapshot_left']}")
+    if (not all(same_ck.values()) or not all(same_res.values())
+            or not crashed or out["snapshot_left"]
+            or ck_launches[name] != base_launches
+            or crash_launches + res_launches[name] != base_launches
+            or crash_launches <= 0 or res_launches[name] <= 0):
+        raise AssertionError(f"{what} checkpoint failed: {out}")
+    return out
+
+
+def ckpt_bag(integrate_family, resume_family, get_family, ckpt_dir) -> dict:
+    """13c. The reference problem (cosh^4 on [0, 5], eps 1e-3) through the
+    float64 bag on the card, killed after 2 legs of 2 rounds and
+    resumed: 6567 tasks and 7583461.801486, bit-equal to the run without
+    snapshots."""
+    import numpy as np
+    f = get_family("cosh4_scaled")
+    args = (f, [1.0], (0.0, 5.0), 1e-3)
+    kw = dict(chunk=1 << 10, capacity=1 << 16, device=DEVICE)
+    path = os.path.join(ckpt_dir, "bag.ckpt")
+    base = integrate_family(*args, **kw)
+    try:
+        integrate_family(*args, checkpoint_path=path, checkpoint_every=2,
+                         _crash_after_legs=2, **kw)
+        crashed = False
+    except RuntimeError as e:
+        crashed = "simulated crash" in str(e)
+    res = resume_family(path, *args, checkpoint_every=2, **kw)
+    out = dict(crashed=crashed, tasks=res.metrics.tasks,
+               rounds=res.metrics.rounds, area=f"{res.areas[0]:.6f}",
+               bit_equal=bool(np.array_equal(res.areas, base.areas)),
+               snapshot_left=os.path.exists(path))
+    log(f"[smoke] bag (reference problem) killed after 2 legs of 2 rounds, "
+        f"resumed: {out}")
+    if (not crashed or res.metrics.tasks != 6567
+            or out["area"] != "7583461.801486" or not out["bit_equal"]
+            or base.metrics.tasks != 6567 or out["snapshot_left"]):
+        raise AssertionError(f"bag checkpoint failed: {out}")
+    return out
+
+
+def ckpt_stream(W, TS, ckpt_dir) -> dict:
+    """13d. Phase 11's stream leg, open loop at 2 requests per phase:
+    snapshots every phase, killed after 3 phases, resumed with
+    ``StreamEngine.resume`` and the rest of the arrivals replayed; areas,
+    phases, completed records, stats rows and shed records bit-equal to
+    the run without snapshots. Once with the synchronous writer, once
+    with the background writer."""
+    import dataclasses
+
+    import numpy as np
+    k = STREAM_K
+    reqs = [(float(t), BOUNDS) for t in 1.0 + np.arange(k) / k]
+    arr = stream_sweep_arrivals(2.0, k, STREAM_SWEEP_SEED)
+    ekw = dict(STREAM_KW, device=DEVICE)
+
+    def records(res):
+        return sorted((c.rid, c.failed, c.failure, c.submit_phase,
+                       c.admit_phase, c.retire_phase, c.last_credited_phase,
+                       c.first_seeded_phase) for c in res.completed)
+
+    def replay(eng):
+        j = eng.next_rid
+        while not eng.idle or j < k:
+            while j < k and arr[j] <= eng.phase:
+                eng.submit(*reqs[j])
+                j += 1
+            eng.step()
+        return eng.result()
+
+    base, base_wall, base_launches = counted(
+        W, lambda: TS.StreamEngine(STREAM_FAMILY, EPS, **ekw).run(
+            reqs, arrival_phase=arr))
+    out = dict(phases=base.phases, base_wall_s=base_wall,
+               base_launches=base_launches)
+    for background in (False, True):
+        path = os.path.join(ckpt_dir, f"stream{int(background)}.ckpt")
+        with SnapshotProbe([TS]) as probe:
+            eng = TS.StreamEngine(STREAM_FAMILY, EPS, checkpoint_path=path,
+                                  checkpoint_every=1,
+                                  checkpoint_background=background, **ekw)
+            try:
+                _, crash_wall, crash_launches = counted(W, lambda: eng.run(
+                    reqs, arrival_phase=arr, _crash_after_phases=3))
+                crashed = False
+            except RuntimeError as e:
+                crashed = "simulated crash" in str(e)
+                crash_launches = W.run_segment_rf.launches
+            eng = TS.StreamEngine.resume(path, STREAM_FAMILY, EPS,
+                                         checkpoint_every=1,
+                                         checkpoint_background=background,
+                                         **ekw)
+            res, res_wall, res_launches = counted(W, lambda: replay(eng))
+            eng.clear_snapshot()
+        same = dict(
+            areas=bool(np.array_equal(res.areas, base.areas)),
+            phases=res.phases == base.phases,
+            completed=records(res) == records(base),
+            phase_stats=bool(np.array_equal(res.phase_stats,
+                                            base.phase_stats)),
+            shed=[dataclasses.astuple(x) for x in res.shed]
+            == [dataclasses.astuple(x) for x in base.shed])
+        row = dict(crashed=crashed, equal=same, snapshot=probe.summary(),
+                   launches=dict(crashed=crash_launches,
+                                 resumed=res_launches["run_segment_rf"]),
+                   resumed_wall_s=res_wall)
+        out["background" if background else "synchronous"] = row
+        tag = "background" if background else "synchronous"
+        log(f"[smoke] stream leg at 2 requests/phase ({base.phases} phases),"
+            f" {tag} writer, killed after 3 phases and resumed: bit-equal "
+            f"{same}; snapshot bytes {probe.bytes}, device read s "
+            f"{[round(x, 4) for x in probe.pulls]}, write s "
+            f"{[round(x, 4) for x in probe.writes]}, load s "
+            f"{[round(x, 4) for x in probe.loads]}; run_segment_rf launches "
+            f"{crash_launches} + {res_launches['run_segment_rf']} (without "
+            f"snapshots {base_launches['run_segment_rf']})")
+        if (not crashed or not all(same.values())
+                or crash_launches + res_launches["run_segment_rf"]
+                != base_launches["run_segment_rf"]):
+            raise AssertionError(f"stream checkpoint failed: {row}")
+    return out
+
+
+def ckpt_card_to_cpu(W, ckpt_dir) -> dict:
+    """13e. gauss_center at phase 12d's configuration, cut to one segment
+    of 8 steps per cycle so that it has cycle boundaries: killed on the
+    card after one cycle, resumed on the CPU, bit-equal to the card's
+    run without a crash."""
+    _, f_theta, f_ds = twin("gauss_center")
+    kw = dict(GAUSS_KW, seg_iters=8, max_segments=1, max_cycles=256)
+    args = (f_theta, f_ds, GAUSS_THETA, GAUSS_BOUNDS, GAUSS_EPS)
+    path = os.path.join(ckpt_dir, "gauss.ckpt")
+    card, _, launches = counted(W, lambda: W.integrate_family_walker(
+        *args, device=DEVICE, **kw))
+    try:
+        counted(W, lambda: W.integrate_family_walker(
+            *args, device=DEVICE, checkpoint_path=path, checkpoint_every=1,
+            _crash_after_legs=1, **kw))
+        crashed = False
+    except RuntimeError as e:
+        crashed = "simulated crash" in str(e)
+    crash_launches = W.run_segment_ee.launches
+    cpu = W.resume_family_walker(path, *args, device="cpu",
+                                 checkpoint_every=1, **kw)
+    same = same_walk(cpu, card)
+    out = dict(cycles=card.cycles, crashed=crashed, equal=same,
+               launches=launches, crash_launches=crash_launches,
+               device=cpu.device)
+    log(f"[smoke] gauss_center ({card.cycles} cycles, K2) killed on the "
+        f"card after 1 cycle ({crash_launches} run_segment_ee launches), "
+        f"resumed on the CPU: bit-equal to the card's run {same}")
+    if (not crashed or not all(same.values()) or cpu.device != "cpu"
+            or card.cycles < 2 or crash_launches <= 0):
+        raise AssertionError(f"card-to-CPU resume failed: {out}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1468,7 +1772,8 @@ def main() -> int:
     from ppls_tpu_torch.models.integrands import (family_exact, get_family,
                                                   get_family_ds)
     from ppls_tpu_torch.parallel import walker as W
-    from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    from ppls_tpu_torch.parallel.bag_engine import (integrate_family,
+                                                    resume_family)
     from ppls_tpu_torch.runtime import stream as TS
     from ppls_tpu_torch.tools.profile_walker import kernel_ceiling_slope
     from ppls_tpu_torch.utils.cuda_build import load_all_kernels
@@ -1797,6 +2102,38 @@ def main() -> int:
     report["multihost_quad"] = phase_multihost_quad(W, TS)
     report["reduced_stream"] = phase_reduced_stream(
         W, TS, f_theta, family_exact, report["stream"]["requests_per_sec"])
+    # 13. checkpoint and kill-and-resume, on the card and card to CPU
+    ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        wargs = (f_theta, f_ds, theta, BOUNDS, EPS)
+        report["checkpoint"] = ckpt = dict(
+            flagship=ckpt_walker(
+                W, "flagship (K1)", wargs, dict(kw, scout_dtype="f32"), res,
+                launches["run_segment_rf"], W.run_segment_rf, ckpt_dir),
+            fallback=ckpt_walker(
+                W, "fallback (K2)", wargs, dict(kw0, scout_dtype="f64"),
+                res0, launches0["run_segment_ee"], W.run_segment_ee,
+                ckpt_dir),
+            bag=ckpt_bag(integrate_family, resume_family, get_family,
+                         ckpt_dir),
+            stream=ckpt_stream(W, TS, ckpt_dir),
+            card_to_cpu=ckpt_card_to_cpu(W, ckpt_dir))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # phase 13's launches: each walker's three runs, the stream's crashed
+    # and resumed legs (both writers), gauss_center's card runs
+    ckpt_launches = {
+        "run_segment_rf": (
+            sum(ckpt["flagship"]["launches"][k]
+                for k in ("checkpointed", "crashed", "resumed"))
+            + sum(ckpt["stream"][w]["launches"][k]
+                  for w in ("synchronous", "background")
+                  for k in ("crashed", "resumed"))),
+        "run_segment_ee": (
+            sum(ckpt["fallback"]["launches"][k]
+                for k in ("checkpointed", "crashed", "resumed"))
+            + ckpt["card_to_cpu"]["launches"]["run_segment_ee"]
+            + ckpt["card_to_cpu"]["crash_launches"])}
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -1852,12 +2189,14 @@ def main() -> int:
             "ppls_tpu/parallel/walker.py:993",
             main_launches["run_segment_rf"] + theta_launches
             + stream_launches["run_segment_rf"]
-            + body_launches["run_segment_rf"],
+            + body_launches["run_segment_rf"]
+            + ckpt_launches["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
             stream_launches=stream_launches["run_segment_rf"],
             body_launches=body_launches["run_segment_rf"],
+            checkpoint_launches=ckpt_launches["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -1865,9 +2204,11 @@ def main() -> int:
             reduced_main_path_ms=red["profile_k1"]["kernel_ms"]),
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
             "ppls_tpu/parallel/walker.py:1279",
-            main_launches["run_segment_ee"] + body_launches["run_segment_ee"],
+            main_launches["run_segment_ee"] + body_launches["run_segment_ee"]
+            + ckpt_launches["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
+            checkpoint_launches=ckpt_launches["run_segment_ee"],
             stream_launches=report["stream"]["overload"]["k2"]["launches"]),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",

@@ -108,33 +108,25 @@ def get_family_ds(name: str, reduced: bool = False) -> Callable:
                        f"{sorted(DS_FAMILIES)}") from None
 
 
-def _sin_recip_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
-    return torch.sin(th / x)
-
-
-def _sin_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
-    return torch.sin(th * x)
-
-
 def _cosh4_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     c = torch.cosh(th * x)
     c2 = c * c
     return c2 * c2
 
 
-def _gauss_center(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    # the divisor is a tensor on x's device: PyTorch on CUDA multiplies
-    # by the reciprocal of a Python-scalar divisor, on the CPU it divides
-    return torch.exp(-0.5 * ((x - c) / x.new_tensor(1e-3)) ** 2)
-
-
 def _quad_scaled(x: torch.Tensor, th: torch.Tensor) -> torch.Tensor:
     return th * x * x
 
 
-FAMILIES["sin_recip_scaled"] = _sin_recip_scaled
-FAMILIES["sin_scaled"] = _sin_scaled
-FAMILIES["gauss_center"] = _gauss_center
+# registered as the reference registers them, lambdas among them: a
+# snapshot's identity names the integrand by its ``__name__``, so a
+# snapshot of one package resumes in the other
+register_family("sin_recip_scaled", lambda x, s: torch.sin(s / x))
+register_family("sin_scaled", lambda x, s: torch.sin(s * x))
+# the divisor is a tensor on x's device: PyTorch on CUDA multiplies by the
+# reciprocal of a Python-scalar divisor, on the CPU it divides
+register_family("gauss_center", lambda x, c: torch.exp(
+    -0.5 * ((x - c) / x.new_tensor(1e-3)) ** 2))
 FAMILIES["cosh4_scaled"] = _cosh4_scaled
 FAMILIES["quad_scaled"] = _quad_scaled
 

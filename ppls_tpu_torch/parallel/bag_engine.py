@@ -17,6 +17,7 @@ one device value, the split count).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Optional, Sequence
 
@@ -26,6 +27,9 @@ import torch
 from ppls_tpu_torch.config import Rule
 from ppls_tpu_torch.ops.reduction import segment_sum_auto
 from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
+from ppls_tpu_torch.runtime.checkpoint import (
+    _family_identity, engine_name, load_family_checkpoint,
+    save_family_checkpoint)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import RunMetrics
 
@@ -133,12 +137,16 @@ def bag_step(state: BagState, f_theta: Callable, eps: float, rule: Rule,
 
 def run_bag(state: BagState, *, f_theta: Callable, eps: float, rule: Rule,
             chunk: int, capacity: int, max_iters: int, syncs: HostSyncs,
-            stop_count: Optional[int] = None) -> BagState:
+            stop_count: Optional[int] = None,
+            leg_end: Optional[int] = None) -> BagState:
     """Run the bag to empty, or until it holds >= ``stop_count`` tasks
-    (the walker's drain), or ``max_iters`` rounds."""
+    (the walker's drain), or ``max_iters`` rounds, or (a checkpoint leg)
+    until its cumulative round count reaches ``leg_end``. The bounds only
+    stop the loop: a round computes the same whatever they are."""
     while (state.count > 0 and not state.overflow
            and state.iters < max_iters
-           and (stop_count is None or state.count < stop_count)):
+           and (stop_count is None or state.count < stop_count)
+           and (leg_end is None or state.iters < leg_end)):
         state = bag_step(state, f_theta, eps, rule, chunk, capacity, syncs)
     return state
 
@@ -185,29 +193,122 @@ class FamilyResult:
     host_syncs: int = 0
 
 
+def _family_ckpt_identity(engine: str, f_theta: Callable, eps: float,
+                          m: int, theta: np.ndarray,
+                          bounds: np.ndarray) -> dict:
+    """A family run's snapshot identity; ``fname`` is the integrand's
+    ``__name__``, as the reference keys it."""
+    return _family_identity(engine, getattr(f_theta, "__name__", "f"),
+                            float(eps), m, theta, bounds)
+
+
+def _clear_snapshot(path) -> None:
+    """Remove a finished run's snapshot, so the same command run again
+    starts fresh instead of resuming the finished run's tail."""
+    if path is not None and os.path.exists(path):
+        os.unlink(path)
+
+
+def _pull_prefix(bag: BagState, syncs: HostSyncs, *extra: torch.Tensor):
+    """``(bag_cols, extra)``: host copies of the live prefix's four
+    columns, keyed as a snapshot stores them, and of ``extra``, in one
+    sync."""
+    n = bag.count
+    out = syncs.pull_arrays(bag.bag_l[:n], bag.bag_r[:n], bag.bag_th[:n],
+                            bag.bag_meta[:n], *extra)
+    return dict(zip(("l", "r", "th", "meta"), out[:4])), out[4:]
+
+
+def _snapshot_bag(path: str, identity: dict, s: BagState,
+                  syncs: HostSyncs) -> None:
+    """Pull the live prefix, accumulator and counters (one sync) and
+    write an atomic snapshot."""
+    cols, (acc, maxd) = _pull_prefix(s, syncs, s.acc, s.max_depth)
+    save_family_checkpoint(
+        path, identity=identity, bag_cols=cols, count=s.count, acc=acc,
+        totals={"tasks": s.tasks, "splits": s.splits, "iters": s.iters,
+                "max_depth": int(maxd)})
+
+
+def _restore_bag(state: BagState, bag_cols: dict, count: int,
+                 acc: np.ndarray, totals: dict) -> BagState:
+    """Overlay a snapshot's live prefix, accumulator and counters on a
+    fresh bag (in place: the store is the fresh bag's)."""
+    dev = state.bag_l.device
+    for col, k in ((state.bag_l, "l"), (state.bag_r, "r"),
+                   (state.bag_th, "th"), (state.bag_meta, "meta")):
+        col[:count] = torch.as_tensor(bag_cols[k][:count], dtype=col.dtype,
+                                      device=dev)
+    return dataclasses.replace(
+        state, count=int(count),
+        acc=torch.tensor(np.asarray(acc), dtype=torch.float64, device=dev),
+        tasks=int(totals["tasks"]), splits=int(totals["splits"]),
+        iters=int(totals["iters"]),
+        max_depth=torch.tensor(int(totals["max_depth"]), dtype=torch.int32,
+                               device=dev))
+
+
+def _family_problem(theta, bounds):
+    """theta as (m,) float64 and bounds as (m, 2) float64 (one (a, b)
+    pair is shared by every member)."""
+    theta = np.asarray(theta, dtype=np.float64).reshape(-1)
+    bounds = np.asarray(bounds, dtype=np.float64)
+    if bounds.ndim == 1:
+        bounds = np.tile(bounds.reshape(1, 2), (theta.shape[0], 1))
+    return theta, bounds
+
+
 def integrate_family(f_theta: Callable, theta: Sequence[float],
                      bounds, eps: float,
                      rule: Rule = Rule.TRAPEZOID,
                      chunk: int = 1 << 15,
                      capacity: int = 1 << 22,
                      max_iters: int = 1 << 20,
-                     device="cuda") -> FamilyResult:
+                     checkpoint_path: Optional[str] = None,
+                     checkpoint_every: int = 256,
+                     device="cuda",
+                     _state_override: Optional[BagState] = None,
+                     _crash_after_legs: Optional[int] = None
+                     ) -> FamilyResult:
     """Integrate ``n`` independent problems ``f_theta(x, theta_i)`` over
-    ``bounds`` (one (a, b) pair or an (n, 2) array) in float64."""
+    ``bounds`` (one (a, b) pair or an (n, 2) array) in float64.
+
+    With ``checkpoint_path`` the run goes in legs of ``checkpoint_every``
+    bag rounds and snapshots the live bag prefix, the accumulator and the
+    counters at every leg boundary (:func:`resume_family` continues it,
+    bit-identical to an uninterrupted run: a leg only bounds the round
+    count). A finished run deletes its snapshot. ``_crash_after_legs``
+    is a test hook that raises after that many snapshots."""
     dev = resolve_device(device)
-    theta = np.asarray(theta, dtype=np.float64)
+    theta, bounds = _family_problem(theta, bounds)
     m = theta.shape[0]
-    bounds = np.asarray(bounds, dtype=np.float64)
-    if bounds.ndim == 1:
-        bounds = np.tile(bounds.reshape(1, 2), (m, 1))
     if chunk > capacity:
         raise ValueError(f"chunk={chunk} exceeds capacity={capacity}")
     syncs = HostSyncs()
     t0 = time.perf_counter()
-    state = initial_bag(bounds, capacity, m, chunk, theta=theta, device=dev)
-    out = run_bag(state, f_theta=f_theta, eps=float(eps), rule=Rule(rule),
-                  chunk=int(chunk), capacity=int(capacity),
-                  max_iters=int(max_iters), syncs=syncs)
+    state = (_state_override if _state_override is not None else
+             initial_bag(bounds, capacity, m, chunk, theta=theta,
+                         device=dev))
+    kw = dict(f_theta=f_theta, eps=float(eps), rule=Rule(rule),
+              chunk=int(chunk), capacity=int(capacity),
+              max_iters=int(max_iters), syncs=syncs)
+    if checkpoint_path is None:
+        out = run_bag(state, **kw)
+    else:
+        identity = _family_ckpt_identity(engine_name("bag", rule), f_theta,
+                                         eps, m, theta, bounds)
+        legs = 0
+        while True:
+            out = run_bag(state, leg_end=state.iters + int(checkpoint_every),
+                          **kw)
+            if out.count == 0 or out.overflow or out.iters >= max_iters:
+                break
+            _snapshot_bag(checkpoint_path, identity, out, syncs)
+            legs += 1
+            if _crash_after_legs is not None and legs >= _crash_after_legs:
+                raise RuntimeError(
+                    f"simulated crash after {legs} legs (test hook)")
+            state = out
     acc_np = np.asarray(syncs.pull(out.acc), dtype=np.float64)
     max_depth = int(syncs.pull(out.max_depth))
     wall = time.perf_counter() - t0
@@ -222,6 +323,7 @@ def integrate_family(f_theta: Callable, theta: Sequence[float],
         raise FloatingPointError(
             f"bag engine produced {bad}/{acc_np.size} non-finite areas "
             f"(NaN/inf); refusing to report them")
+    _clear_snapshot(checkpoint_path)
     metrics = RunMetrics(
         tasks=out.tasks, splits=out.splits,
         leaves=out.tasks - out.splits, rounds=out.iters,
@@ -233,3 +335,32 @@ def integrate_family(f_theta: Callable, theta: Sequence[float],
         lane_efficiency=(out.tasks / (out.iters * chunk)
                          if out.iters else 0.0),
         host_syncs=syncs.n)
+
+
+def resume_family(path: str, f_theta: Callable, theta: Sequence[float],
+                  bounds, eps: float,
+                  rule: Rule = Rule.TRAPEZOID,
+                  chunk: int = 1 << 15,
+                  capacity: int = 1 << 22,
+                  max_iters: int = 1 << 20,
+                  checkpoint_every: int = 256,
+                  device="cuda") -> FamilyResult:
+    """Continue an interrupted :func:`integrate_family` run from its last
+    snapshot, on ``device``. The snapshot's identity (integrand name,
+    rule, eps, m, theta and bounds hashes) must match or a ``ValueError``
+    is raised; the result is bit-identical to the uninterrupted run. The
+    wall time covers this process only."""
+    dev = resolve_device(device)
+    theta_np, bounds_np = _family_problem(theta, bounds)
+    m = theta_np.shape[0]
+    identity = _family_ckpt_identity(engine_name("bag", rule), f_theta,
+                                     eps, m, theta_np, bounds_np)
+    bag_cols, count, acc, totals = load_family_checkpoint(path, identity)
+    fresh = initial_bag(bounds_np, capacity, m, chunk, theta=theta_np,
+                        device=dev)
+    state = _restore_bag(fresh, bag_cols, count, acc, totals)
+    return integrate_family(f_theta, theta, bounds, eps, rule=rule,
+                            chunk=chunk, capacity=capacity,
+                            max_iters=max_iters, checkpoint_path=path,
+                            checkpoint_every=checkpoint_every, device=dev,
+                            _state_override=state)

@@ -54,8 +54,14 @@ in m * T accumulators. Breeding only splits, and the float64 drain is
 the union-refinement bag round (``_theta_bag_round``).
 
 The streaming engine (``runtime/stream.py``) runs one cycle per phase
-through :func:`run_stream_cycle`. Not ported: checkpoint/resume and the
-multi-chip and CLI surfaces (ROADMAP.md).
+through :func:`run_stream_cycle`.
+
+Checkpoints: with ``checkpoint_path`` the run snapshots the live bag
+prefix, the accumulator and the totals at cycle edges, where every lane
+and bank has been folded back into the bag, in the reference's
+container (``runtime/checkpoint.py``); :func:`resume_family_walker`
+continues it bit-identically, from a snapshot of either package. Not
+ported: the multi-chip and CLI surfaces (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -78,8 +84,11 @@ from ppls_tpu_torch.ops.pow2 import pow2_f32, pow2_f64
 from ppls_tpu_torch.ops.reduction import kahan_add, segment_sum_auto
 from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
 from ppls_tpu_torch.parallel.bag_engine import (
-    ACCEPT_BIT, DEPTH_BITS, DEPTH_MASK, MAX_FAMILIES, BagState, bag_step,
-    dyn_slice, dyn_update, initial_bag, run_bag)
+    ACCEPT_BIT, DEPTH_BITS, DEPTH_MASK, MAX_FAMILIES, BagState,
+    _clear_snapshot, _family_ckpt_identity, _family_problem, _pull_prefix,
+    _restore_bag, bag_step, dyn_slice, dyn_update, initial_bag, run_bag)
+from ppls_tpu_torch.runtime.checkpoint import (
+    engine_name, load_family_checkpoint, save_family_checkpoint)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import RunMetrics, round_stats_from_rows
 
@@ -163,8 +172,8 @@ def scout_twin(f_ds: Callable) -> Callable:
 def _is_reduced_twin(f_ds: Callable) -> bool:
     """Whether ``f_ds`` is a registered range-reduced ds twin. The walker
     receives the twin itself, so membership in the registry is the
-    detection; the reduced schedule is a checkpoint identity key (ROADMAP
-    Queue 1 item 6)."""
+    detection; the reduced schedule is a checkpoint identity key
+    (``_walker_identity``)."""
     from ppls_tpu_torch.models.integrands import DS_FAMILIES_REDUCED
     return any(f_ds is v for v in DS_FAMILIES_REDUCED.values())
 
@@ -1794,6 +1803,7 @@ class WalkerResult:
     waste: Optional[np.ndarray] = None        # (N_WASTE,) lane-steps
     scout_evals: int = 0
     confirm_evals: int = 0
+    evals_estimated: bool = False             # a legacy snapshot's share
     host_syncs: int = 0                       # device reads by the host
     host_syncs_per_cycle: Optional[list] = None
     device: str = ""
@@ -1863,14 +1873,39 @@ class WalkerResult:
         return out
 
 
-def _family_problem(theta, bounds):
-    """theta as (m,) float64 and bounds as (m, 2) float64 (one (a, b)
-    pair is shared by every member)."""
-    theta = np.asarray(theta, dtype=np.float64).reshape(-1)
-    bounds = np.asarray(bounds, dtype=np.float64)
-    if bounds.ndim == 1:
-        bounds = np.tile(bounds.reshape(1, 2), (theta.shape[0], 1))
-    return theta, bounds
+def estimate_legacy_kernel_evals(totals: dict, rule: Rule) -> int:
+    """The host-model kernel evals of a restored snapshot whose totals
+    predate the device counters (no waste buckets, no scout counts, but
+    walker tasks): the pre-resume share, estimated where it is still
+    separable from the legs the resumed run adds. 0 otherwise."""
+    waste = totals.get("waste") or [0] * 4
+    wtasks = int(totals.get("wtasks", 0))
+    if any(int(v) for v in np.asarray(waste).reshape(-1)) \
+            or int(totals.get("sevals", 0)) or wtasks == 0:
+        return 0
+    wsplits = int(totals.get("wsplits", 0))
+    roots = int(totals.get("roots", 0))
+    return (2 * wtasks - wsplits + roots
+            if Rule(rule) == Rule.TRAPEZOID else
+            4 * wtasks - 2 * wsplits + roots)
+
+
+def _walker_identity(f_theta, f_ds, eps, theta2d, bounds, rule, scout,
+                     double_buffer, theta_block) -> dict:
+    """The walker's snapshot identity, the reference's keys: the problem,
+    plus the schedule modes (scouting, double-buffered banks, the
+    reduced twin, theta_block > 1) as conditional keys."""
+    identity = _family_ckpt_identity(engine_name("walker", rule), f_theta,
+                                     eps, theta2d.shape[0], theta2d, bounds)
+    if scout:
+        identity["scout"] = True
+    if double_buffer:
+        identity["double_buffer"] = True
+    if _is_reduced_twin(f_ds):
+        identity["reduced"] = True
+    if int(theta_block) > 1:
+        identity["theta_block"] = int(theta_block)
+    return identity
 
 
 def integrate_family_walker(
@@ -1891,7 +1926,12 @@ def integrate_family_walker(
         scout_dtype: Optional[str] = None,
         double_buffer: bool = False,
         theta_block: int = 1,
-        device="cuda") -> WalkerResult:
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 1,
+        device="cuda",
+        _state_override: Optional[BagState] = None,
+        _totals_override: Optional[dict] = None,
+        _crash_after_legs: Optional[int] = None) -> WalkerResult:
     """Flagship integration of the family ``f_theta(x, theta_i)`` over
     ``bounds``: cycles of breed -> sort -> deal -> walk -> expand ->
     drain. ``f_ds`` is the family's ds twin (``get_family_ds``); on CUDA
@@ -1908,7 +1948,18 @@ def integrate_family_walker(
     ``theta_block`` = T > 1 (in-kernel refill, trapezoid rule) takes
     ``theta`` as (m, T) (or (T,) for m = 1): groups of T lanes walk each
     interval for T thetas under the union vote, and ``areas`` come back
-    (m, T)."""
+    (m, T).
+
+    With ``checkpoint_path`` the run goes in legs of ``checkpoint_every``
+    cycles and snapshots the live bag prefix, the accumulator and the
+    totals at every leg boundary, the last one before a ``max_cycles``
+    exit; a finished run deletes its snapshot. At a cycle edge every
+    lane, bank and half-bank has been folded back into the bag, so the
+    snapshot is the whole state, and :func:`resume_family_walker`
+    continues the run bit-identical to an uninterrupted one.
+    ``seg_stats`` and ``cycle_stats`` then hold this process's segments
+    and cycles. ``_crash_after_legs`` is a test hook that raises after
+    that many snapshots."""
     dev = resolve_device(device)
     if lanes % 128:
         raise ValueError(f"lanes must be a multiple of 128, got {lanes}")
@@ -1932,8 +1983,20 @@ def integrate_family_walker(
 
     syncs = HostSyncs()
     t0 = time.perf_counter()
-    bag = initial_bag(bounds, capacity, m * T, slack_chunk, theta=rep_theta,
-                      device=dev)
+    if _state_override is not None:
+        # a store of another sizing would make the push windows and the
+        # expand grid clamp onto live entries
+        want = capacity + 2 * slack_chunk
+        if _state_override.bag_l.shape[0] != want:
+            raise ValueError(
+                f"seed-state store size {_state_override.bag_l.shape[0]} "
+                f"does not match this call's sizing {want} (= capacity + "
+                f"2*slack); build it with the same chunk, capacity, lanes "
+                f"and roots_per_lane as the run")
+        bag = _state_override
+    else:
+        bag = initial_bag(bounds, capacity, m * T, slack_chunk,
+                          theta=rep_theta, device=dev)
     ckw = dict(f_theta=f_theta, f_ds=f_ds, eps=float(eps), m=m,
                seg_iters=int(seg_iters), max_segments=int(max_segments),
                min_active_frac=float(min_active_frac),
@@ -1946,20 +2009,59 @@ def integrate_family_walker(
                theta_table=(torch.tensor(theta2d, dtype=torch.float64,
                                          device=dev) if T > 1 else None))
     f64 = torch.float64
-    acc = torch.zeros(m * T, dtype=f64, device=dev)
+    # the totals under the snapshot's key names; the waste buckets and
+    # the scout / confirm counts stay numpy vectors between snapshots
     tot = dict(tasks=0, splits=0, btasks=0, wtasks=0, wsplits=0, roots=0,
-               rounds=0, segs=0, wsteps=0, srows=0, maxd=0)
+               rounds=0, segs=0, wsteps=0, srows=0, max_depth=0)
     waste = np.zeros(N_WASTE, dtype=np.int64)
     evals = np.zeros(2, dtype=np.int64)
+    cycles = est_kevals = 0
+    if _totals_override is not None:
+        t = dict(_totals_override)
+        # the accumulator re-enters the same addition chain
+        acc = torch.tensor(np.asarray(t.pop("acc"), dtype=np.float64),
+                           dtype=f64, device=dev)
+        w = [int(v) for v in t.pop("waste")]
+        waste[:len(w)] = w
+        evals[:] = (int(t.pop("sevals")), int(t.pop("cevals")))
+        cycles = int(t.pop("cycles"))
+        est_kevals = int(t.pop("est_kevals", 0))
+        tot.update({k: int(v) for k, v in t.items()})
+    else:
+        acc = torch.zeros(m * T, dtype=f64, device=dev)
+    identity = (None if checkpoint_path is None else _walker_identity(
+        f_theta, f_ds, eps, theta2d, bounds, rule, scout, double_buffer, T))
     seg_stats = np.zeros((S_CAP, len(SEG_STAT_FIELDS)), dtype=np.int64)
+    psegs = 0                   # segments walked by this process
     cyc_rows = []
     syncs_per_cycle = []
-    cycles = 0
     overflow = False
-    while bag.count > 0 and cycles < max_cycles and not overflow:
+    legs = 0
+    leg_end = max_cycles if checkpoint_path is None \
+        else cycles + int(checkpoint_every)
+    while bag.count > 0 and not overflow:
+        if cycles >= leg_end:
+            if checkpoint_path is None:
+                break
+            cols, (acc_np,) = _pull_prefix(bag, syncs, acc)
+            save_family_checkpoint(
+                checkpoint_path, identity=identity, bag_cols=cols,
+                count=bag.count, acc=acc_np, totals=dict(
+                    tot, cycles=cycles, waste=waste.tolist(),
+                    sevals=int(evals[0]), cevals=int(evals[1]),
+                    **({} if _totals_override is None
+                       else {"est_kevals": est_kevals})))
+            legs += 1
+            if _crash_after_legs is not None and legs >= _crash_after_legs:
+                raise RuntimeError(
+                    f"simulated crash after {legs} legs (test hook)")
+            # the snapshot comes before the max_cycles exit, so "raise
+            # max_cycles and resume" continues from this leg
+            if cycles >= max_cycles:
+                break
+            leg_end = cycles + int(checkpoint_every)
         n0 = syncs.n
-        o = _cycle_once(bag, gsegs0=tot["segs"], seg_stats0=seg_stats,
-                        **ckw)
+        o = _cycle_once(bag, gsegs0=psegs, seg_stats0=seg_stats, **ckw)
         bred, walk, bag3 = o.bred, o.walk, o.bag3
         s = walk.lanes
         wt, ws, wmaxd, bmaxd, dmaxd = syncs.pull(torch.stack([
@@ -1984,7 +2086,8 @@ def integrate_family_walker(
         tot["segs"] += walk.segs
         tot["wsteps"] += walk.steps
         tot["srows"] += o.srows
-        tot["maxd"] = max(tot["maxd"], wmaxd, bmaxd, dmaxd)
+        tot["max_depth"] = max(tot["max_depth"], wmaxd, bmaxd, dmaxd)
+        psegs += walk.segs
         waste += w_waste
         evals += w_evals
         overflow = bred.overflow or bag3.overflow
@@ -2008,23 +2111,27 @@ def integrate_family_walker(
             f"walker produced {int(np.sum(~np.isfinite(areas)))}/"
             f"{areas.size} non-finite areas (NaN/inf); refusing to report "
             f"them")
+    _clear_snapshot(checkpoint_path)
     if T > 1:
         areas = areas.reshape(m, T)     # one row of T areas per slot
     tasks, wtasks = tot["tasks"], tot["wtasks"]
     sevals, cevals = int(evals[0]), int(evals[1])
     # kernel evals are device-counted: scout + confirm in scout mode,
-    # the eval_active bucket otherwise (one real eval per live step)
-    kernel_evals = (sevals + cevals) if sevals else int(waste[0])
+    # the eval_active bucket otherwise (one real eval per live step),
+    # plus a legacy snapshot's estimated share
+    kernel_evals = ((sevals + cevals) if sevals else int(waste[0])) \
+        + est_kevals
     ept = EVALS_PER_TASK[Rule(rule)]       # float64 evals per bag task
     cyc_stats = (np.asarray(cyc_rows, dtype=np.int64)[:C_CAP]
                  if cyc_rows else None)
     metrics = RunMetrics(
         tasks=tasks, splits=tot["splits"], leaves=tasks - tot["splits"],
-        rounds=tot["rounds"] + tot["segs"], max_depth=tot["maxd"],
+        rounds=tot["rounds"] + tot["segs"], max_depth=tot["max_depth"],
         integrand_evals=ept * tot["btasks"] + kernel_evals
         + ept * tot["srows"],
         wall_time_s=wall, n_chips=1, tasks_per_chip=[tasks])
-    if cyc_stats is not None and cycles <= C_CAP:
+    # per-round records only when this process holds every cycle's row
+    if cyc_stats is not None and cycles <= len(cyc_stats):
         metrics.per_round = round_stats_from_rows(
             cyc_stats, CYCLE_STAT_FIELDS, padded_width=int(lanes))
     denom = tot["wsteps"] * lanes
@@ -2033,13 +2140,78 @@ def integrate_family_walker(
         lane_efficiency=wtasks / denom if denom else 0.0,
         walker_fraction=wtasks / tasks if tasks else 0.0,
         cycles=cycles,
-        seg_stats=seg_stats[:min(tot["segs"], S_CAP)].copy(),
+        seg_stats=seg_stats[:min(psegs, S_CAP)].copy(),
         cycle_stats=cyc_stats, lanes=int(lanes),
         kernel_steps=tot["wsteps"], refill_slots=int(refill_slots),
         waste=waste, scout_evals=sevals,
         confirm_evals=cevals if sevals else int(waste[0]),
+        evals_estimated=est_kevals > 0,
         host_syncs=syncs.n,
         host_syncs_per_cycle=syncs_per_cycle, device=str(dev))
+
+
+def resume_family_walker(
+        path: str, f_theta: Callable, f_ds: Callable,
+        theta: Sequence[float], bounds, eps: float,
+        chunk: int = 1 << 15,
+        capacity: int = 1 << 23,
+        lanes: int = DEFAULT_LANES,
+        roots_per_lane: int = 12,
+        seg_iters: int = 2048,
+        max_segments: int = 1 << 18,
+        min_active_frac: float = 0.1,
+        exit_frac: Optional[float] = None,
+        suspend_frac: Optional[float] = None,
+        max_cycles: int = 64,
+        rule: Rule = Rule.TRAPEZOID,
+        refill_slots: int = 0,
+        scout_dtype: Optional[str] = None,
+        double_buffer: bool = False,
+        theta_block: int = 1,
+        checkpoint_every: int = 1,
+        device="cuda") -> WalkerResult:
+    """Continue an interrupted checkpointed walker run from its last
+    cycle-boundary snapshot, on ``device`` (CUDA by default). The
+    snapshot's identity, schedule modes included, must match this call's
+    or a ``ValueError`` is raised. The wall time covers this process."""
+    dev = resolve_device(device)
+    scout = resolve_scout_dtype(scout_dtype, rule)
+    theta2d, rep_theta = normalize_theta_batch(theta, theta_block)
+    T = int(theta_block)
+    rep_theta, bounds_np = _family_problem(rep_theta, bounds)
+    identity = _walker_identity(f_theta, f_ds, eps, theta2d, bounds_np,
+                                rule, scout, double_buffer, T)
+    bag_cols, count, acc, totals = load_family_checkpoint(path, identity)
+    # the same store sizing as integrate_family_walker
+    _, _, slack_chunk = walker_sizing(lanes, roots_per_lane, capacity,
+                                      chunk, T)
+    fresh = initial_bag(bounds_np, capacity, theta2d.shape[0] * T,
+                        slack_chunk, theta=rep_theta, device=dev)
+    state = _restore_bag(
+        fresh, bag_cols, count, acc=np.zeros(fresh.acc.shape[0]),
+        totals={"tasks": 0, "splits": 0, "iters": 0, "max_depth": 0})
+    # the reference's defaults for snapshots written before a key existed
+    totals = dict(totals)
+    totals.setdefault("wsteps", int(totals.get("segs", 0)) * int(seg_iters))
+    totals.setdefault("srows", 0)
+    totals.setdefault("waste", [0] * N_WASTE)
+    totals["waste"] = list(totals["waste"]) + [0] * (
+        N_WASTE - len(totals["waste"]))
+    totals.setdefault("sevals", 0)
+    totals.setdefault("cevals", 0)
+    totals.setdefault(
+        "est_kevals", estimate_legacy_kernel_evals(totals, Rule(rule)))
+    totals["acc"] = acc
+    return integrate_family_walker(
+        f_theta, f_ds, theta, bounds, eps, chunk=chunk, capacity=capacity,
+        lanes=lanes, roots_per_lane=roots_per_lane, seg_iters=seg_iters,
+        max_segments=max_segments, min_active_frac=min_active_frac,
+        exit_frac=exit_frac, suspend_frac=suspend_frac,
+        max_cycles=max_cycles, rule=rule, refill_slots=refill_slots,
+        scout_dtype=scout_dtype, double_buffer=double_buffer,
+        theta_block=theta_block, checkpoint_path=path,
+        checkpoint_every=checkpoint_every, device=dev,
+        _state_override=state, _totals_override=totals)
 
 
 def first_phase_inputs(f_theta: Callable, theta, bounds, eps: float, *,

@@ -26,16 +26,26 @@ mode (``f64_rounds`` > 0) runs bag rounds only. Every decision is a
 function of the schedule and of device-counted state, so reruns repeat
 exactly.
 
-Not ported (the constructor refuses them with the ROADMAP.md item):
-snapshot/resume and checkpointing, the multi-chip engine
-(``walker-dd``), CPU spillover, SLO evaluation, online adaptation, fault
-injection and the unsorted root queue.
+With ``checkpoint_path`` the engine snapshots its whole state every
+``checkpoint_every`` phases, at the phase close
+(:meth:`StreamEngine.snapshot`: the live bag prefix, the ``(acc,
+acc_c)`` pair and the host bookkeeping, in the reference's container
+and keys, so either package resumes the other's snapshot), and
+:meth:`StreamEngine.resume` rebuilds the engine from it; the continued
+stream replays the identical phases.
+``client_state`` is the caller's own JSON-serialisable record, carried
+by every snapshot.
+
+Not ported (the constructor refuses them with the ROADMAP.md item): the
+multi-chip engine (``walker-dd``), CPU spillover, SLO evaluation, online
+adaptation, fault injection and the unsorted root queue.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -48,12 +58,16 @@ from ppls_tpu_torch.models.integrands import (check_ds_domain, get_family,
 from ppls_tpu_torch.obs.registry import (PHASE_BUCKETS, SECONDS_BUCKETS,
                                          Histogram)
 from ppls_tpu_torch.obs.telemetry import Telemetry, build_attribution
-from ppls_tpu_torch.parallel.bag_engine import DEPTH_BITS, BagState
+from ppls_tpu_torch.parallel.bag_engine import (DEPTH_BITS, BagState,
+                                                _pull_prefix, _restore_bag)
 from ppls_tpu_torch.parallel.walker import (
     DEFAULT_LANES, SORT_SKIP_RATIO, STREAM_STAT_FIELDS, WASTE_FIELDS,
     _is_reduced_twin, pull_stream_cycle, resolve_cadence,
     resolve_scout_dtype, run_stream_cycle, validate_double_buffer,
     validate_theta_block, walker_sizing)
+from ppls_tpu_torch.runtime.checkpoint import (
+    background_writer, engine_name, flush_background_writer,
+    load_family_checkpoint, save_family_checkpoint)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import round_stats_from_rows
 
@@ -310,18 +324,11 @@ def _cancel_program(bag: BagState, kill: torch.Tensor,
         count=int(syncs.pull(keep.sum(dtype=torch.int64))))
 
 
-def _engine_name(base: str, rule: Rule) -> str:
-    """The rule is part of the engine identity; trapezoid keeps the bare
-    name."""
-    rule = Rule(rule)
-    return base if rule == Rule.TRAPEZOID else f"{base}-{rule.value}"
-
-
 def _stream_identity(engine: str, family: str, eps: float, rule: Rule,
                      slots: int, lanes: int, chunk: int, capacity: int,
                      roots_per_lane: int, refill_slots: int,
                      n_dev: int = 1) -> dict:
-    return {"engine": _engine_name(engine, rule), "fname": family,
+    return {"engine": engine_name(engine, rule), "fname": family,
             "eps": float(eps), "m": int(slots), "lanes": int(lanes),
             "chunk": int(chunk), "capacity": int(capacity),
             "roots_per_lane": int(roots_per_lane),
@@ -353,11 +360,15 @@ class StreamEngine:
 
     The reference's parameters and defaults, with ``device`` in place of
     ``interpret``. Unported options raise ``ValueError``: ``engine=
-    "walker-dd"``, ``mesh``/``n_devices``, ``checkpoint_path``,
-    ``checkpoint_background``, ``spillover``, ``slo_config``,
-    ``adapt``, ``fault_injector``, ``sort_roots=False`` and
-    ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
+    "walker-dd"``, ``mesh``/``n_devices``, ``spillover``,
+    ``slo_config``, ``adapt``, ``fault_injector``, ``sort_roots=False``
+    and ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
     the family's range-reduced ds twin where it has one.
+
+    ``checkpoint_path`` snapshots the engine every ``checkpoint_every``
+    phases (:meth:`snapshot`; :meth:`resume` continues it);
+    ``checkpoint_background`` moves the file writes to the background
+    writer (write mechanics, not identity).
     """
 
     def __init__(self, family: str, eps: float,
@@ -385,6 +396,7 @@ class StreamEngine:
                  engine: str = "walker",
                  mesh=None, n_devices: Optional[int] = None,
                  checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 8,
                  telemetry: Optional[Telemetry] = None,
                  quarantine: bool = False,
                  fault_injector=None,
@@ -401,9 +413,6 @@ class StreamEngine:
                               "item 7, behind item 8")
         if engine != "walker":
             raise ValueError(f"unknown stream engine {engine!r}")
-        if checkpoint_path or checkpoint_background:
-            raise _not_ported("stream snapshot/resume (checkpoint_path, "
-                              "checkpoint_background)", "item 6")
         if fault_injector is not None:
             raise _not_ported("fault injection (fault_injector)", "item 7")
         if spillover:
@@ -586,6 +595,14 @@ class StreamEngine:
         self._rid_spans: dict = {}
         self._token_waits: dict = {}
 
+        # snapshots: every checkpoint_every phases at the phase close;
+        # client_state is the caller's JSON-serialisable scratch record
+        # (a serve loop's cursors), carried by every snapshot
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = max(int(checkpoint_every), 1)
+        self.checkpoint_background = bool(checkpoint_background)
+        self.client_state: dict = {}
+
     # ------------------------------------------------------------------
     # identity
     # ------------------------------------------------------------------
@@ -606,11 +623,215 @@ class StreamEngine:
         return ident
 
     def snapshot(self):
-        raise _not_ported("stream snapshot/resume", "item 6")
+        """Atomically write the queue, the slots, the records and the
+        device state to ``checkpoint_path``: the live bag prefix, the
+        ``(acc, acc_c)`` pair and ``fam_last`` (one device read), and the
+        host bookkeeping under the reference's keys (its spillover keys
+        empty), so the reference's ``resume`` reads it too."""
+        if not self.checkpoint_path:
+            raise ValueError("no checkpoint_path configured")
+        m_eff = self.slots * self._theta_block
+        if self._dev is None:
+            bag_cols, count = {}, 0
+            acc_pair = np.zeros((2, m_eff))
+            fam_last = [-1] * self.slots
+        else:
+            d = self._dev
+            count = d["bag"].count
+            bag_cols, (acc, acc_c, fl) = _pull_prefix(
+                d["bag"], self._syncs, d["acc"], d["acc_c"], d["fam_last"])
+            acc_pair = np.stack([acc, acc_c])
+            fam_last = fl.tolist()
+        totals = {
+            "phase": self.phase,
+            "next_rid": self._next_rid,
+            "fill": self._fill,
+            "fam_first": self._fam_first.tolist(),
+            "fam_last": fam_last,
+            "phase_rows": [r.tolist() for r in self._phase_rows],
+            "pending": [dataclasses.asdict(r) for r in self._pending],
+            "resident": {
+                str(slot): dict(dataclasses.asdict(req),
+                                **self._records[req.rid])
+                for slot, req in self._slot_req.items()},
+            "completed": [dict(dataclasses.asdict(c), spillover=False)
+                          for c in self.completed],
+            "shed": [dataclasses.asdict(s) for s in self.shed],
+            "spill_queue": [],
+            "spill_requests_total": 0,
+            "spill_tasks_total": 0,
+            "tokens": dict(self._tokens),
+            "token_waits": {str(k): int(v)
+                            for k, v in self._token_waits.items()},
+            "client_state": dict(self.client_state),
+        }
+        if self._theta_block > 1 and self._fill is not None:
+            totals["theta_table"] = self._theta_table.tolist()
+        save_family_checkpoint(
+            self.checkpoint_path, identity=self._identity(),
+            bag_cols=bag_cols, count=count, acc=acc_pair, totals=totals,
+            writer=(background_writer() if self.checkpoint_background
+                    else None))
+        self.telemetry.event(
+            "checkpoint", phase=self.phase, count=count,
+            pending=len(self._pending), resident=len(self._slot_req),
+            completed=len(self.completed))
 
     @classmethod
-    def resume(cls, *args, **kwargs):
-        raise _not_ported("stream snapshot/resume", "item 6")
+    def resume(cls, checkpoint_path: str, family: str, eps: float,
+               mesh_resize: bool = False, **kwargs) -> "StreamEngine":
+        """Rebuild an engine from its last snapshot, on the device of
+        ``kwargs`` (CUDA by default). The configuration must match the
+        snapshotted run's (identity-checked); the continued stream
+        replays the identical phases. A snapshot that carries multi-chip,
+        spillover or online-adaptation state is refused with its ROADMAP
+        item."""
+        if mesh_resize:
+            raise _not_ported("elastic resume (mesh_resize)",
+                              "item 7, behind item 8")
+        eng = cls(family, eps, checkpoint_path=checkpoint_path, **kwargs)
+        bag_cols, count, acc_pair, totals = load_family_checkpoint(
+            checkpoint_path, eng._identity())
+        if "dd" in totals:
+            raise _not_ported("resuming a walker-dd snapshot",
+                              "item 7, behind item 8")
+        if "adapt" in totals:
+            raise _not_ported("resuming online-adaptation state", "item 7")
+        if (totals.get("spill_queue") or totals.get("spill_requests_total")
+                or totals.get("spill_tasks_total")
+                or any(c.get("spillover") for c in totals["completed"])):
+            raise _not_ported("resuming CPU spillover state", "item 7")
+        eng.phase = int(totals["phase"])
+        eng._next_rid = int(totals["next_rid"])
+        eng._fam_first = np.asarray(totals["fam_first"], dtype=np.int32)
+        eng._last_fam_last = np.asarray(totals["fam_last"], dtype=np.int32)
+
+        def _pad_row(r):
+            # rows of snapshots older than a tail column pad with zeros
+            row = np.asarray(r, dtype=np.int64)
+            return np.concatenate([row, np.zeros(
+                len(STREAM_STAT_FIELDS) - row.shape[0], np.int64)])
+
+        eng._phase_rows = [_pad_row(r) for r in totals["phase_rows"]]
+
+        def _theta_in(v):
+            # JSON carries theta batches as lists
+            return tuple(v) if isinstance(v, list) else v
+
+        def _req_in(d):
+            return StreamRequest(
+                rid=d["rid"], theta=_theta_in(d["theta"]),
+                bounds=tuple(d["bounds"]),
+                submit_phase=d["submit_phase"],
+                submit_t=time.perf_counter(),
+                tenant=d.get("tenant", "default"),
+                priority=int(d.get("priority", 1)),
+                deadline_phases=d.get("deadline_phases"))
+
+        def _record_in(kind, d):
+            return kind(**{k: (tuple(v) if k == "bounds"
+                               else _theta_in(v) if k == "theta" else v)
+                           for k, v in d.items() if k != "spillover"})
+
+        eng._pending = [_req_in(d) for d in totals["pending"]]
+        eng.completed = [_record_in(CompletedRequest, d)
+                         for d in totals["completed"]]
+        eng.shed = [_record_in(ShedRecord, d)
+                    for d in totals.get("shed", [])]
+        eng._tokens = {str(k): float(v)
+                       for k, v in totals.get("tokens", {}).items()}
+        eng._token_waits = {int(k): int(v) for k, v in
+                            totals.get("token_waits", {}).items()}
+        eng.client_state = dict(totals.get("client_state", {}))
+        for slot_s, d in totals["resident"].items():
+            slot = int(slot_s)
+            req = _req_in(d)
+            eng._slot_req[slot] = req
+            eng._records[req.rid] = dict(slot=slot,
+                                         admit_phase=d["admit_phase"])
+            eng._free.remove(slot)
+        eng._count = int(count)
+        if totals["fill"] is not None:
+            eng._fill = tuple(totals["fill"])
+            eng._theta_table = (
+                np.asarray(totals["theta_table"], dtype=np.float64)
+                if "theta_table" in totals else
+                np.full((eng.slots, eng._theta_block), eng._fill[1],
+                        dtype=np.float64))
+            eng._build_store()
+            eng._restore_device(bag_cols, count, acc_pair,
+                                totals["fam_last"])
+        eng._replay_registry()
+        # the live rids reopen their request spans
+        for req in list(eng._pending) + list(eng._slot_req.values()):
+            eng._rid_spans[req.rid] = eng.telemetry.request_span(
+                req.rid, tenant=req.tenant, priority=req.priority,
+                submit_phase=req.submit_phase)
+        eng.telemetry.event(
+            "resume", phase=eng.phase, count=eng._count,
+            pending=len(eng._pending), resident=len(eng._slot_req),
+            completed=len(eng.completed))
+        return eng
+
+    def _restore_device(self, bag_cols, count, acc_pair, fam_last):
+        """Overlay the snapshot's live prefix on the fresh store and
+        restore the accumulator pair and the last-credit marks."""
+        dev, f64 = self.device, torch.float64
+        m_eff = self.slots * self._theta_block
+        d = self._dev
+        bag = _restore_bag(d["bag"], bag_cols, count, np.zeros(m_eff),
+                           {"tasks": 0, "splits": 0, "iters": 0,
+                            "max_depth": 0})
+        acc_pair = np.asarray(acc_pair, dtype=np.float64)
+        self._dev = dict(
+            bag=bag,
+            acc=torch.tensor(acc_pair[0], dtype=f64, device=dev),
+            acc_c=torch.tensor(acc_pair[1], dtype=f64, device=dev),
+            fam_last=torch.tensor(fam_last, dtype=torch.int32, device=dev))
+        if self._theta_block > 1:
+            self._theta_dev = torch.as_tensor(self._theta_table, dtype=f64,
+                                              device=dev)
+
+    def _replay_registry(self) -> None:
+        """Rebuild the registry from the restored record (the
+        device-counted phase rows, the completed and shed records), so a
+        resumed run's registry totals and latency quantiles in phases
+        equal the uninterrupted run's."""
+        for row in self._phase_rows:
+            self._publish_phase_row(np.asarray(row, dtype=np.int64))
+        n_admitted = len(self.completed) + len(self._slot_req)
+        if n_admitted:
+            self._c_admitted.inc(n_admitted)
+        for c in self.completed:
+            self._c_retired.inc()
+            self._c_tenant_retired.labels(tenant=c.tenant).inc()
+            if c.failed:
+                if c.failure == "deadline_exceeded":
+                    self._c_deadline.labels(tenant=c.tenant).inc()
+                else:
+                    self._c_quarantined.inc()
+            self._h_lat_phases.observe(c.latency_phases)
+            self._h_lat_seconds.observe(c.latency_s)
+            self._h_class_lat.labels(priority=str(c.priority)) \
+                .observe(c.latency_phases)
+            self._h_tenant_lat.labels(tenant=c.tenant) \
+                .observe(c.latency_phases)
+        for s in self.shed:
+            self._c_shed.labels(tenant=s.tenant, reason=s.reason).inc()
+        self._publish_gauges()
+
+    def clear_snapshot(self) -> None:
+        """Delete this engine's snapshot (after any queued write)."""
+        if self.checkpoint_background:
+            flush_background_writer()
+        if self.checkpoint_path and os.path.exists(self.checkpoint_path):
+            os.unlink(self.checkpoint_path)
+
+    def _maybe_snapshot(self) -> None:
+        """The phase close's snapshot, every ``checkpoint_every`` phases."""
+        if self.checkpoint_path and \
+                self.phase % self.checkpoint_every == 0:
+            self.snapshot()
 
     # ------------------------------------------------------------------
     # request intake
@@ -1004,6 +1225,7 @@ class StreamEngine:
             self.phase += 1
             self._publish_gauges()
             span.close(idle=True, retired=0)
+            self._maybe_snapshot()
             return []
         (fam_live, acc, acc_c, fam_last, count, overflow,
          stats) = self._cycle_pull(launch)
@@ -1115,16 +1337,24 @@ class StreamEngine:
         self.phase += 1
         self._publish_gauges()
         span.close(retired=len(retired), **vals)
+        self._maybe_snapshot()
         return retired
 
-    def drain(self, max_phases: int = 1 << 14) -> List[CompletedRequest]:
+    def drain(self, max_phases: int = 1 << 14,
+              _crash_after_phases: Optional[int] = None
+              ) -> List[CompletedRequest]:
         """Run phases until the engine is idle; returns everything
-        retired during the drain."""
+        retired during the drain. ``_crash_after_phases`` is a test hook
+        that raises after that many phases."""
         done: List[CompletedRequest] = []
         phases = 0
         while not self.idle:
             done.extend(self.step())
             phases += 1
+            if _crash_after_phases is not None \
+                    and phases >= _crash_after_phases:
+                raise RuntimeError(
+                    f"simulated crash after {phases} phases (test hook)")
             if phases >= max_phases:
                 raise RuntimeError(
                     f"stream did not drain in {max_phases} phases "
@@ -1133,12 +1363,15 @@ class StreamEngine:
         return done
 
     def run(self, requests: Sequence[Tuple[float, Tuple[float, float]]],
-            arrival_phase: Optional[Sequence[int]] = None) -> StreamResult:
+            arrival_phase: Optional[Sequence[int]] = None,
+            _crash_after_phases: Optional[int] = None) -> StreamResult:
         """Submit ``requests`` — (theta, bounds) pairs, or (theta,
         bounds, kwargs) triples carrying tenant/priority/deadline_phases
         — all at once or on the open-loop ``arrival_phase`` schedule
         (one phase per request, counted from this call), and run phases
-        until every request has retired or been shed."""
+        until every request has retired or been shed.
+        ``_crash_after_phases`` is a test hook that raises after that
+        many phases."""
         t0 = time.perf_counter()
         sched = ([0] * len(requests) if arrival_phase is None
                  else [int(p) for p in arrival_phase])
@@ -1160,6 +1393,10 @@ class StreamEngine:
                 k += 1
             self.step()
             phases += 1
+            if _crash_after_phases is not None \
+                    and phases >= _crash_after_phases:
+                raise RuntimeError(
+                    f"simulated crash after {phases} phases (test hook)")
             if phases > (1 << 14):
                 raise RuntimeError("stream did not converge")
         run_span.close(phases=phases, completed=len(self.completed))

@@ -35,3 +35,9 @@ class HostSyncs:
         as one sync."""
         self.n += 1
         return t.tolist()
+
+    def pull_arrays(self, *ts: torch.Tensor):
+        """Host numpy copies of ``ts`` (never views of a live tensor),
+        counted as one sync."""
+        self.n += 1
+        return tuple(t.to("cpu", copy=True).numpy() for t in ts)

@@ -11,8 +11,9 @@ group's votes, commit every lane) in the trapezoid and scouting machines
 on sin(theta x), its reduced twin and sin(theta / x).
 
 The ``cuda`` tests hold the CUDA kernels themselves against the plain
-segments, and the walker on the card against the walker on the CPU;
-they skip where there is no card. This file imports nothing of JAX, so
+segments, the walker on the card against the walker on the CPU, and a
+walker killed and resumed on the card (through K1 and K2) against its
+uninterrupted run; they skip where there is no card. This file imports nothing of JAX, so
 on a machine without it the card tests run with
 ``python -m pytest --noconftest tests/test_torch_kernel_host.py -m cuda``.
 """
@@ -811,3 +812,34 @@ def test_cuda_ceiling_probe_runs(cuda_device):
     s = P.kernel_ceiling_slope(lanes=1 << 12, outer_lo=4, outer_hi=16)
     assert s["lane_steps_per_sec"] > 0 and s["us_per_step"] > 0
     assert W.run_segment.launches == before + s["launches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refill_slots", [1, 0])
+def test_cuda_walker_kill_and_resume_bit_identical(tmp_path, cuda_device,
+                                                   refill_slots):
+    """tests/test_device_checkpoint.py's walker configuration through K1
+    (in-kernel refill) and K2 (boundary refill): killed after 2 legs of 2
+    cycles and resumed, bit-identical to the uninterrupted run, the two
+    legs launching as often as it."""
+    kernel = W.run_segment_rf if refill_slots else W.run_segment_ee
+    fam = "sin_recip_scaled"
+    args = (get_family(fam), get_family_ds(fam), 1.0 + np.arange(4) / 4.0,
+            (1e-2, 1.0), 1e-7)
+    kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=1, seg_iters=8,
+              max_segments=1, max_cycles=256, min_active_frac=0.05,
+              refill_slots=refill_slots, device=cuda_device)
+    n0 = kernel.launches
+    base = W.integrate_family_walker(*args, **kw)
+    n1 = kernel.launches
+    path = str(tmp_path / "w.ckpt")
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        W.integrate_family_walker(*args, checkpoint_path=path,
+                                  checkpoint_every=2, _crash_after_legs=2,
+                                  **kw)
+    res = W.resume_family_walker(path, *args, checkpoint_every=2, **kw)
+    assert np.array_equal(res.areas, base.areas)
+    assert (res.metrics.tasks, res.cycles, res.kernel_steps) == (
+        base.metrics.tasks, base.cycles, base.kernel_steps)
+    assert np.array_equal(res.waste, base.waste)
+    assert n1 > n0 and kernel.launches - n1 == n1 - n0

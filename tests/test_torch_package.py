@@ -28,7 +28,9 @@ PKG = Path(__file__).resolve().parent.parent / "ppls_tpu_torch"
 def test_sources_import_no_jax_and_no_reference():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ppls_tpu)(\.|\s|$)",
                      re.M)
-    bad = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    sources = list(PKG.rglob("*.py"))
+    assert PKG / "runtime" / "checkpoint.py" in sources
+    bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
     dtype_pat = re.compile(r"set_default_dtype|set_default_tensor_type")
     assert not [p for p in PKG.rglob("*.py")
@@ -41,7 +43,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys\nbefore = set(sys.modules)\n"
             "import ppls_tpu_torch, ppls_tpu_torch.interop, "
             "ppls_tpu_torch.utils.cuda_build, "
-            "ppls_tpu_torch.runtime.stream\n"
+            "ppls_tpu_torch.runtime.stream, "
+            "ppls_tpu_torch.runtime.checkpoint\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
             "print(','.join(sorted(bad)))\n")

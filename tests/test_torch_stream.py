@@ -24,6 +24,11 @@ tests/test_theta_walker.py):
 * the admit, cancel and live-count programs bit-equal to the
   reference's on numpy-seeded bag columns;
 * the host-only obs copies: equal quantiles and exposition;
+* kill-and-resume (tests/test_stream.py's own cases, synchronous and
+  background writer) bit-identical to the run with no crash; the port's
+  snapshot at a phase equal to the reference's (every totals key, the
+  bag columns, the (acc, acc_c) pair within 3e-9), each package resuming
+  the other's; ``client_state`` and the ``checkpoint_every`` cadence;
 * every unported option refused with its ROADMAP item.
 
 The reference resolves its cadence with the tuning table off, so both
@@ -31,6 +36,8 @@ engines use the hand-tuned tier.
 """
 
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -539,8 +546,6 @@ def test_obs_copies_match_reference():
 REFUSED = {
     "walker-dd": (dict(engine="walker-dd"), "item 7"),
     "mesh": (dict(n_devices=2), "item 7"),
-    "checkpoint_path": (dict(checkpoint_path="x.ckpt"), "item 6"),
-    "checkpoint_background": (dict(checkpoint_background=True), "item 6"),
     "spillover": (dict(spillover=True), "item 7"),
     "slo_config": (dict(slo_config={}), "item 7"),
     "adapt": (dict(adapt=True), "item 7"),
@@ -605,15 +610,196 @@ def test_unported_options_raise(arg):
         _port(FAM, EPS, **dict(KW, **over))
 
 
-def test_snapshot_and_resume_raise_and_cuda_is_the_default():
-    eng = _port(FAM, EPS, **KW)
-    with pytest.raises(ValueError, match="item 6"):
-        eng.snapshot()
-    with pytest.raises(ValueError, match="item 6"):
-        TS.StreamEngine.resume("x.ckpt", FAM, EPS)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            TS.StreamEngine(FAM, EPS, **KW)
+def test_cuda_is_the_default(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.StreamEngine(FAM, EPS, **KW)
+    # a resume restores onto the caller's device, CUDA by default
+    path = str(tmp_path / "s.ckpt")
+    _port(FAM, EPS, checkpoint_path=path, checkpoint_every=1,
+          **KW).run(REQS[:1])
+    assert os.path.exists(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.StreamEngine.resume(path, FAM, EPS, **KW)
+
+
+# ---------------------------------------------------------------------------
+# snapshot and resume
+# ---------------------------------------------------------------------------
+
+
+def _crash_run(make, path, crash=3, **over):
+    eng = make(FAM, EPS, checkpoint_path=path, checkpoint_every=1,
+               **dict(KW, **over))
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        eng.run(REQS, arrival_phase=ARRIVALS, _crash_after_phases=crash)
+    return eng
+
+
+def _replay(eng):
+    """Run the rest of the arrival schedule on a resumed engine: rids
+    follow the submission order, so the replay skips the submitted
+    prefix (tests/test_stream.py:135-143)."""
+    k = eng.next_rid
+    while not eng.idle or k < len(REQS):
+        while k < len(REQS) and ARRIVALS[k] <= eng.phase:
+            eng.submit(*REQS[k])
+            k += 1
+        eng.step()
+    return eng.result()
+
+
+def _same_stream(res, base):
+    assert np.array_equal(res.areas, base.areas)          # bit for bit
+    assert res.phases == base.phases
+    assert _records(res.completed) == _records(base.completed)
+    assert np.array_equal(res.phase_stats, base.phase_stats)
+    assert _sheds(res.shed) == _sheds(base.shed)
+    assert res.totals == base.totals
+
+
+@pytest.fixture(scope="module")
+def stream_base():
+    return _port(FAM, EPS, **KW).run(REQS, arrival_phase=ARRIVALS)
+
+
+@pytest.mark.parametrize("background", [False, True])
+def test_stream_kill_and_resume_matches_uninterrupted(tmp_path, stream_base,
+                                                      background):
+    """tests/test_stream.py:123 and :152 on the port: killed after 3
+    phases, resumed and replayed, bit-identical to the run with no
+    crash, with the synchronous and the background writer (write
+    mechanics, not identity: either mode resumes the other's file)."""
+    path = str(tmp_path / "stream.ckpt")
+    _crash_run(_port, path, checkpoint_background=background)
+    eng = TS.StreamEngine.resume(path, FAM, EPS, checkpoint_every=1,
+                                 checkpoint_background=not background,
+                                 device="cpu", **KW)
+    assert eng.phase == 3
+    _same_stream(_replay(eng), stream_base)
+
+
+def test_stream_resume_rejects_mismatched_identity(tmp_path):
+    path = str(tmp_path / "stream.ckpt")
+    _crash_run(_port, path, crash=1)
+    with pytest.raises(ValueError, match="different run"):
+        TS.StreamEngine.resume(path, FAM, 1e-8, device="cpu", **KW)
+    with pytest.raises(ValueError, match="different run"):
+        TS.StreamEngine.resume(path, FAM, EPS, device="cpu",
+                               **dict(KW, scout_dtype="f32"))
+
+
+@pytest.fixture(scope="module")
+def stream_pair(tmp_path_factory):
+    """Each package's snapshot after 3 phases of the same stream, and the
+    reference's uninterrupted run."""
+    d = tmp_path_factory.mktemp("stream_pair")
+    paths = {k: str(d / f"{k}.ckpt") for k in ("reference", "port")}
+    _crash_run(_ref, paths["reference"])
+    _crash_run(_port, paths["port"])
+    return _ref(FAM, EPS, **KW).run(REQS, arrival_phase=ARRIVALS), paths
+
+
+def _container(path):
+    with np.load(path) as z:
+        return (json.loads(bytes(z["meta"]).decode()),
+                {k: np.asarray(z[k]) for k in z.files if k != "meta"})
+
+
+def test_stream_snapshot_matches_reference_at_the_same_phase(stream_pair):
+    _, paths = stream_pair
+    (mr, ar), (mp, ap) = (_container(paths[k])
+                          for k in ("reference", "port"))
+    assert mp["identity"] == mr["identity"]
+    assert mp["count"] == mr["count"]
+    tr, tp = mr["totals"], mp["totals"]
+    assert set(tp) == set(tr)
+    # every key but the host clock (submit_t, latency_s) and the areas,
+    # which the reference's interpret mode holds within 3e-9
+    for k in tr:
+        if k in ("pending", "resident", "completed"):
+            continue
+        assert tp[k] == tr[k], k
+
+    def strip(d):
+        return {k: v for k, v in d.items()
+                if k not in ("submit_t", "latency_s", "area", "areas")}
+
+    for k in ("pending", "completed"):
+        assert [strip(d) for d in tp[k]] == [strip(d) for d in tr[k]], k
+    assert {s: strip(d) for s, d in tp["resident"].items()} ==         {s: strip(d) for s, d in tr["resident"].items()}
+    for k in ("bag_l", "bag_r", "bag_th", "bag_meta"):
+        assert ap[k].dtype == ar[k].dtype and np.array_equal(ap[k], ar[k])
+    assert ap["acc"].shape == ar["acc"].shape == (2, KW["slots"])
+    assert np.max(np.abs(ap["acc"] - ar["acc"])) < 3e-9
+
+
+@pytest.mark.parametrize("direction", ["reference-to-port",
+                                       "port-to-reference"])
+def test_stream_resumes_across_packages(stream_pair, direction, tmp_path):
+    base, paths = stream_pair
+    src = paths["reference" if direction == "reference-to-port"
+                else "port"]
+    path = str(tmp_path / "x.ckpt")
+    with open(src, "rb") as fh_in, open(path, "wb") as fh_out:
+        fh_out.write(fh_in.read())
+    if direction == "reference-to-port":
+        eng = TS.StreamEngine.resume(path, FAM, EPS, checkpoint_every=1,
+                                     device="cpu", **KW)
+    else:
+        eng = RS.StreamEngine.resume(path, FAM, EPS, checkpoint_every=1,
+                                     **KW)
+    res = _replay(eng)
+    assert res.phases == base.phases
+    assert _phases(res) == _phases(base)
+    assert np.max(np.abs(res.areas - base.areas)) < 3e-9
+
+
+def test_client_state_rides_the_snapshot(tmp_path):
+    path = str(tmp_path / "c.ckpt")
+    eng = _port(FAM, EPS, checkpoint_path=path, checkpoint_every=1, **KW)
+    eng.client_state["cursor"] = {"batch": 4, "acked": [0, 1, 2]}
+    eng.submit(*REQS[0])
+    eng.step()
+    back = TS.StreamEngine.resume(path, FAM, EPS, device="cpu", **KW)
+    assert back.client_state == {"cursor": {"batch": 4,
+                                            "acked": [0, 1, 2]}}
+    assert back.phase == 1 and back.next_rid == 1
+    assert _container(path)[0]["totals"]["client_state"] ==         back.client_state
+
+
+def test_checkpoint_every_sets_the_cadence(tmp_path, monkeypatch):
+    written = []
+    eng = _port(FAM, EPS, checkpoint_path=str(tmp_path / "e.ckpt"),
+                checkpoint_every=3, **KW)
+    monkeypatch.setattr(eng, "snapshot", lambda: written.append(eng.phase))
+    res = eng.run(REQS, arrival_phase=ARRIVALS)
+    assert written == list(range(3, res.phases + 1, 3)) and written
+    assert TS.StreamEngine(FAM, EPS, device="cpu", **KW).checkpoint_every \
+        == 8                                    # the reference's default
+    with pytest.raises(ValueError, match="no checkpoint_path"):
+        _port(FAM, EPS, **KW).snapshot()
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"dd": {}}, "item 7, behind item 8"),
+    ({"adapt": {}}, "item 7"),
+    ({"spill_requests_total": 2}, "item 7"),
+])
+def test_resume_refuses_unported_state(tmp_path, extra, item):
+    """A snapshot carrying multi-chip, online-adaptation or spillover
+    state is refused with the ROADMAP item of the missing restore."""
+    from ppls_tpu_torch.runtime.checkpoint import (load_family_checkpoint,
+                                                   save_family_checkpoint)
+    path = str(tmp_path / "u.ckpt")
+    eng = _port(FAM, EPS, checkpoint_path=path, checkpoint_every=1, **KW)
+    eng.submit(*REQS[0])
+    eng.step()
+    cols, count, acc, totals = load_family_checkpoint(path, eng._identity())
+    save_family_checkpoint(path, identity=eng._identity(), bag_cols=cols,
+                           count=count, acc=acc, totals=dict(totals, **extra))
+    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+        TS.StreamEngine.resume(path, FAM, EPS, device="cpu", **KW)
 
 
 def test_scout_stream_areas_move_with_the_schedule_as_the_reference():
