@@ -163,13 +163,52 @@ Phases, each of which must pass (any failure exits nonzero):
    e. phase 12d's gauss_center (K2), cut to one segment of 8 steps per
       cycle, killed on the card after one cycle and resumed on the CPU:
       bit-equal to the card's run without a crash.
+14. ``python -m ppls_tpu_torch serve`` (``ppls_tpu_torch/__main__.py``) at
+   phase 11's stream leg (flags as ``serve_argv`` builds them: 24
+   synthetic requests, thetas linspace(1, 2, 24, endpoint=False), the open
+   loop at 2 requests per phase, seed 17), called in this process with its
+   stdout captured unless it says otherwise; snapshots in a temporary
+   directory of the checkout, removed at the end.
+   a. Through K1: every retire record (area, admit, retire, phases) bit-
+      equal to ``StreamEngine.run`` on the same requests in this process,
+      the summary's completed, phases and totals equal to that run's, the
+      ledger valid (``utils/artifact_schema.validate_serve_output_text``).
+   b. With ``--checkpoint``, ``--checkpoint-every 1``, ``--events`` and a
+      fault-plan SIGTERM at phase 3: terminated, its snapshot kept; the
+      same command again without the plan: the two ledgers together equal
+      14a's bit for bit, every rid once; both events segments balanced.
+   c. Under ``--supervise`` and ``--watchdog`` 300 (the loop in a worker
+      thread; far above a cold kernel build): tools/chaos_plan_ckpt.json
+      (a corrupt snapshot, then a crash; the resume starts fresh) drains
+      to 14a's ledger; a NaN-poisoned rid 2 and a crash at phase 4: rid 2
+      retires failed with area null, every other rid bit-equal to a
+      ``StreamEngine`` run with the same poison in this process and within
+      1e-6 of 14a (with scouting the areas move with the work mix, phase
+      5). Both summaries' recoveries and faults equal those of the same
+      flags on the CPU at the CPU tests' size.
+   d. Phase 11d's overload leg with the reference's fault plan (NaN at rid
+      2, a 0.05 s straggler at phase 3) through K1 (R=2) and K2 (R=0):
+      completed and shed records, the failed rid, the stats rows and the
+      fired faults equal to the CPU's, areas within 1e-12.
+   e. The real entry point: ``python -m ppls_tpu_torch serve`` in a
+      subprocess with ``--checkpoint``, ``--metrics-port 0`` and
+      ``--ingest-port 0``: ``/metrics`` and ``/health`` scraped, two
+      requests posted and acknowledged with rids, SIGTERM after four
+      retire lines; the same command again, stopped when every rid has
+      retired: no acknowledged rid lost. The process start is taken apart
+      in another fresh interpreter (import, CUDA context, K1 and K2 load).
+   Printed for each: the serve wall, requests/s, p50/p99 latency in
+   phases, host syncs per phase (not for 14e's processes), phases and
+   completed; the snapshot bytes and load time at the restart, the
+   supervisor's recovery wall, the POST and scrape round trips.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
 per T under ``theta``; the stream's launches under ``stream_launches``;
 phase 12's records per body and step machine under ``bodies`` and its
 paths' launches under ``body_launches``; phase 13's under
-``checkpoint_launches``)
+``checkpoint_launches``; phase 14's in-process ones under
+``serve_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -283,6 +322,23 @@ MULTIHOST_K = 8
 MULTIHOST_WKW = dict(slots=4, chunk=1 << 10, capacity=1 << 16, lanes=256,
                      roots_per_lane=2, refill_slots=2, seg_iters=32,
                      min_active_frac=0.05, f64_rounds=2)
+# phase 14: `python -m ppls_tpu_torch serve` at phase 11's stream leg, in
+# the open loop at 2 requests per phase
+SERVE_RATE = 2.0
+# 14c's per-attempt hang deadline: far above a cold kernel build (15-20 s,
+# PERF.md section 6), so a build is never read as a hang
+SERVE_WATCHDOG = 300
+# the NaN-poisoned run against 14a: with scouting the schedule, and so the
+# areas, move with the work mix (up to 7.3e-7, PERF.md section 6)
+SERVE_SCHEDULE_TOL = 1e-6
+# the CPU run that 14c's recoveries are held to: the CPU tests' size
+# (tests/test_torch_serve.py), where the same flags run in seconds
+CPU_SERVE = dict(eps=1e-6, a=1e-2, slots=4, chunk=512, capacity=1 << 16,
+                 lanes=256, refill_slots=2, scout_dtype=None,
+                 double_buffer=False, synthetic=8)
+# the overload leg's fault plan (tools/bench_history.py:115-118)
+SLO_FAULTS = ({"kind": "nan_poison", "at": 2},
+              {"kind": "straggler", "at": 3, "seconds": 0.05})
 
 
 def log(msg: str) -> None:
@@ -1759,6 +1815,611 @@ def ckpt_card_to_cpu(W, ckpt_dir) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# 14. python -m ppls_tpu_torch serve
+# ---------------------------------------------------------------------------
+
+
+def serve_argv(**over) -> list:
+    """Phase 11's stream leg as ``serve`` flags: the open loop at
+    SERVE_RATE requests per phase (seed STREAM_SWEEP_SEED), the
+    synthetic thetas linspace(1, 2, STREAM_K, endpoint=False)."""
+    kw = dict(STREAM_KW, family=STREAM_FAMILY, eps=EPS, a=BOUNDS[0],
+              b=BOUNDS[1], synthetic=STREAM_K, arrival_rate=SERVE_RATE,
+              seed=STREAM_SWEEP_SEED, device=DEVICE)
+    kw.update(over)
+    argv = ["serve"]
+    for k, v in kw.items():
+        flag = f"-{k}" if len(k) == 1 else "--" + k.replace("_", "-")
+        if v is True:
+            argv.append(flag)
+        elif v is not None and v is not False:
+            argv += [flag, str(v)]
+    return argv
+
+
+def serve_requests():
+    """The CLI's synthetic request list and arrival phases, rebuilt."""
+    import numpy as np
+    theta = np.linspace(1.0, 2.0, STREAM_K, endpoint=False)
+    return ([(float(t), BOUNDS) for t in theta],
+            stream_sweep_arrivals(SERVE_RATE, STREAM_K, STREAM_SWEEP_SEED))
+
+
+class ResultTap:
+    """Keeps every ``StreamResult`` that ``StreamEngine.result`` returns
+    while entered: the serve CLI's engines' host-sync counts."""
+
+    def __init__(self, TS):
+        self.TS, self.results = TS, []
+
+    def __enter__(self):
+        self._orig = orig = self.TS.StreamEngine.result
+
+        def result(eng, *a, **kw):
+            out = orig(eng, *a, **kw)
+            self.results.append(out)
+            return out
+
+        self.TS.StreamEngine.result = result
+        return self
+
+    def __exit__(self, *exc):
+        self.TS.StreamEngine.result = self._orig
+
+
+def run_cli(W, TS, argv) -> dict:
+    """``ppls_tpu_torch.__main__.main(argv)`` in this process, stdout and
+    stderr captured, every kernel's launch count set to 0 before and read
+    after: the ledger's records, the host wall, the launches, the
+    engine's result."""
+    import contextlib
+    import io
+
+    from ppls_tpu_torch import __main__ as cli
+    out, err = io.StringIO(), io.StringIO()
+    with ResultTap(TS) as tap, contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err):
+        rc, wall, launches = counted(W, lambda: cli.main(argv))
+    if rc != 0:
+        raise AssertionError(f"serve {argv} exited {rc}: {err.getvalue()}")
+    text = out.getvalue()
+    recs = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    return dict(text=text, records=recs, summary=recs[-1], wall_s=wall,
+                launches=launches, stderr=err.getvalue(),
+                result=tap.results[-1] if tap.results else None)
+
+
+def ledger(*runs) -> dict:
+    """rid -> retire record over ``runs`` (a later line replaces an
+    earlier one: a resume replays at least once)."""
+    out = {}
+    for run in runs:
+        for r in run["records"]:
+            if "rid" in r and "area" in r and not r.get("summary"):
+                out[r["rid"]] = r
+    return out
+
+
+RECORD_KEYS = ("area", "admit_phase", "retire_phase", "phases_in_flight",
+               "latency_phases", "failed", "failure", "theta")
+
+
+def record_of(c) -> dict:
+    """A ``CompletedRequest`` as the ledger's fields (latency_s aside)."""
+    return dict(area=None if c.failed else c.area,
+                admit_phase=c.admit_phase, retire_phase=c.retire_phase,
+                phases_in_flight=c.phases_in_flight,
+                latency_phases=c.latency_phases, failed=c.failed or None,
+                failure=c.failure, theta=c.theta)
+
+
+def same_records(got: dict, want: dict) -> list:
+    """The rids whose ledger fields differ (areas bit for bit)."""
+    bad = [rid for rid in set(got) | set(want)
+           if rid not in got or rid not in want
+           or {k: got[rid].get(k) for k in RECORD_KEYS}
+           != {k: want[rid].get(k) for k in RECORD_KEYS}]
+    return sorted(bad)
+
+
+def serve_stats(what: str, run: dict) -> dict:
+    """Phase 14's printed numbers of one serve run."""
+    s = run["summary"]
+    res = run["result"]
+    syncs = res.host_syncs_per_phase if res is not None else []
+    row = dict(wall_s=s["wall_s"], host_wall_s=run["wall_s"],
+               requests_per_sec=s["requests_per_sec"],
+               p50_phases=s["latency"].get("p50_phases"),
+               p99_phases=s["latency"].get("p99_phases"),
+               host_syncs_per_phase=(sum(syncs) / len(syncs) if syncs
+                                     else None),
+               phases=s["phases"], completed=s["completed"],
+               launches=run["launches"])
+    log(f"[smoke] serve {what}: wall {s['wall_s']} s (host "
+        f"{run['wall_s']:.3f} s), {s['requests_per_sec']} req/s, p50/p99 "
+        f"{row['p50_phases']}/{row['p99_phases']} phases, host syncs per "
+        f"phase {row['host_syncs_per_phase']}, {s['phases']} phases, "
+        f"{s['completed']} completed, launches {run['launches']}")
+    return row
+
+
+def serve_full_width(W, TS, ckpt_dir) -> dict:
+    """14a and 14b: serve at the stream leg's width through K1, against
+    an in-process StreamEngine run; then killed by a fault-plan SIGTERM
+    and restarted from its snapshot."""
+    import numpy as np
+
+    from ppls_tpu_torch.utils.artifact_schema import (
+        validate_events_text, validate_serve_output_text)
+    reqs, arr = serve_requests()
+
+    def engine_run():
+        return counted(W, lambda: TS.StreamEngine(
+            STREAM_FAMILY, EPS, **dict(STREAM_KW, device=DEVICE)).run(
+                reqs, arrival_phase=arr))
+
+    # in turns: engine, CLI, CLI, engine (the first CLI run is 14a's)
+    eng_res, eng_wall, _ = engine_run()
+    a = run_cli(W, TS, serve_argv())
+    a2 = run_cli(W, TS, serve_argv())
+    eng2, eng_wall2, _ = engine_run()
+    want = {c.rid: record_of(c) for c in eng_res.completed}
+    out = dict(a=serve_stats("14a (K1)", a), engine_walls_s=[eng_wall,
+                                                            eng_wall2],
+               cli_walls_s=[a["wall_s"], a2["wall_s"]],
+               engine_requests_per_sec=eng_res.requests_per_sec)
+    bad = same_records(ledger(a), want) + same_records(ledger(a2), want) \
+        + same_records({c.rid: record_of(c) for c in eng2.completed}, want)
+    problems = validate_serve_output_text(a["text"])
+    log(f"[smoke] serve 14a against StreamEngine.run in this process, in "
+        f"turns (engine, CLI, CLI, engine; host walls {eng_wall:.3f}, "
+        f"{a['wall_s']:.3f}, {a2['wall_s']:.3f}, {eng_wall2:.3f} s; "
+        f"{eng_res.phases} phases): records differing {bad}; summary "
+        f"phases {a['summary']['phases']} / {eng_res.phases}, totals equal "
+        f"{a['summary']['totals'] == eng_res.totals}; ledger problems "
+        f"{problems}")
+    if (bad or problems or a["summary"]["completed"] != len(reqs)
+            or a["summary"]["phases"] != eng_res.phases
+            or a["summary"]["totals"] != eng_res.totals
+            or a["launches"]["run_segment_rf"] <= 0):
+        raise AssertionError("serve 14a differs from the engine run")
+
+    # 14b: SIGTERM at phase 3's open, then the same command again
+    ck = os.path.join(ckpt_dir, "serve_b.ckpt")
+    ev = os.path.join(ckpt_dir, "serve_b.jsonl")
+    ckpt_flags = dict(checkpoint=ck, checkpoint_every=1, events=ev)
+    b1 = run_cli(W, TS, serve_argv(
+        fault_plan='[{"kind": "sigterm", "at": 3}]', **ckpt_flags))
+    kept = os.path.exists(ck)
+    snap_bytes = os.path.getsize(ck) if kept else 0
+    events1 = validate_events_text(open(ev).read())
+    with SnapshotProbe([TS]) as probe:
+        b2 = run_cli(W, TS, serve_argv(**ckpt_flags))
+    events2 = validate_events_text(open(ev).read())
+    union = ledger(b1, b2)
+    bad_b = same_records(union, ledger(a))
+    out["b"] = dict(killed=serve_stats("14b killed", b1),
+                    restarted=serve_stats("14b restart", b2),
+                    terminated=b1["summary"].get("terminated"),
+                    snapshot_bytes=snap_bytes,
+                    load_s=probe.loads, retired_before_kill=len(ledger(b1)))
+    log(f"[smoke] serve 14b: SIGTERM at phase 3 -> terminated "
+        f"{out['b']['terminated']!r} after {b1['summary']['phases']} phases, "
+        f"{len(ledger(b1))} retired, snapshot kept {kept} ({snap_bytes} "
+        f"bytes); restart load s {[round(x, 4) for x in probe.loads]}, "
+        f"{len(ledger(b2))} retired; union of the two ledgers against 14a: "
+        f"records differing {bad_b}, rids {len(union)} of {len(reqs)}; "
+        f"events problems {events1} / {events2}; snapshot cleared "
+        f"{not os.path.exists(ck)}")
+    if (out["b"]["terminated"] != "SIGTERM" or not kept or bad_b
+            or len(union) != len(reqs) or events1 or events2
+            or os.path.exists(ck) or not probe.loads
+            or b2["summary"]["completed"] != len(reqs)):
+        raise AssertionError(f"serve 14b failed: {out['b']}")
+    out["launches"] = {k: a["launches"][k] + a2["launches"][k]
+                       + b1["launches"][k] + b2["launches"][k]
+                       for k in a["launches"]}
+    out["ledger_a"] = ledger(a)
+    return out
+
+
+def serve_chaos(W, TS, base: dict, ckpt_dir) -> dict:
+    """14c: under --supervise, a corrupt snapshot then a crash (the
+    resume starts fresh), and a NaN-poisoned request then a crash; the
+    recoveries held to the same flags on the CPU at the CPU tests'
+    size."""
+    import numpy as np
+    reqs, arr = serve_requests()
+    plans = {"corrupt": "@" + os.path.join(ROOT, "tools",
+                                           "chaos_plan_ckpt.json"),
+             "poison": json.dumps([{"kind": "nan_poison", "at": 2},
+                                   {"kind": "crash", "at": 4}])}
+    out, launches = {}, {}
+    for tag, plan in plans.items():
+        ck = os.path.join(ckpt_dir, f"serve_c_{tag}.ckpt")
+        flags = dict(checkpoint=ck, checkpoint_every=1, supervise=True,
+                     watchdog=SERVE_WATCHDOG, fault_plan=plan)
+        run = run_cli(W, TS, serve_argv(**flags))
+        got = ledger(run)
+        s = run["summary"]
+        cpu = run_cli(W, TS, serve_argv(**dict(
+            flags, checkpoint=ck + ".cpu", device="cpu", **CPU_SERVE)))
+        row = dict(stats=serve_stats(f"14c {tag}", run),
+                   recoveries=s.get("recoveries"),
+                   faults_injected=s.get("faults_injected"),
+                   cpu_recoveries=cpu["summary"].get("recoveries"),
+                   cpu_faults_injected=cpu["summary"].get("faults_injected"),
+                   recovery_wall_s=run["wall_s"] - base["a"]["host_wall_s"])
+        same_plan = (row["recoveries"] == row["cpu_recoveries"]
+                     and row["faults_injected"] == row["cpu_faults_injected"]
+                     and row["recoveries"] == [{"kind": "transient",
+                                                "action": "backoff_resume"}])
+        if tag == "corrupt":
+            bad = same_records(got, base["ledger_a"])
+            fresh = "starting fresh" in run["stderr"]
+            log(f"[smoke] serve 14c corrupt snapshot + crash: resume "
+                f"started fresh {fresh}; records differing from 14a {bad}; "
+                f"recoveries {row['recoveries']}, faults "
+                f"{row['faults_injected']} (CPU at the tests' size: "
+                f"{row['cpu_recoveries']}, {row['cpu_faults_injected']}); "
+                f"wall over 14a {row['recovery_wall_s']:.3f} s (backoff "
+                f"0.25 s)")
+            if bad or not fresh or not same_plan:
+                raise AssertionError(f"serve 14c (corrupt) failed: {row}")
+        else:
+            # the in-process engine with the same poison and no crash
+            from ppls_tpu_torch.runtime.faults import FaultInjector, FaultPlan
+            poisoned = TS.StreamEngine(
+                STREAM_FAMILY, EPS, quarantine=True,
+                fault_injector=FaultInjector(FaultPlan.from_events(
+                    [{"kind": "nan_poison", "at": 2}])),
+                **dict(STREAM_KW, device=DEVICE)).run(
+                    reqs, arrival_phase=arr)
+            want = {c.rid: record_of(c) for c in poisoned.completed}
+            bad = same_records(got, want)
+            healthy = [r for r in got if r != 2]
+            d14a = max(abs(got[r]["area"] - base["ledger_a"][r]["area"])
+                       for r in healthy)
+            bit_14a = all(got[r]["area"] == base["ledger_a"][r]["area"]
+                          for r in healthy)
+            row.update(d_14a=d14a, bit_equal_14a=bit_14a,
+                       failed=[r for r in got if got[r].get("failed")])
+            log(f"[smoke] serve 14c NaN poison at rid 2 + crash at phase 4: "
+                f"failed rids {row['failed']} (area {got[2]['area']}); "
+                f"records differing from the poisoned StreamEngine run "
+                f"{bad}; healthy rids against 14a: bit-equal {bit_14a}, max "
+                f"|d| {d14a:.3e} (tol {SERVE_SCHEDULE_TOL}: the scout "
+                f"schedule moves with the work mix); recoveries "
+                f"{row['recoveries']}, faults {row['faults_injected']} (CPU:"
+                f" {row['cpu_recoveries']}, {row['cpu_faults_injected']})")
+            if (bad or row["failed"] != [2] or got[2]["area"] is not None
+                    or not d14a <= SERVE_SCHEDULE_TOL or not same_plan
+                    or len(got) != len(reqs)):
+                raise AssertionError(f"serve 14c (poison) failed: {row}")
+        out[tag] = row
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def serve_overload_faults(W, TS) -> dict:
+    """14d: phase 11d's overload leg with the reference's fault plan
+    (tools/bench_history.py:115-118), through K1 (R=2) and K2 (R=0), card
+    against CPU."""
+    import dataclasses
+
+    import numpy as np
+    from ppls_tpu_torch.runtime.faults import FaultInjector, FaultPlan
+    out, launches = {}, {}
+
+    def run(device, over):
+        reqs = []
+        for i in range(SLO_K):
+            tenant, pri = SLO_TENANTS[i % len(SLO_TENANTS)]
+            reqs.append((1.0 + i / SLO_K, SLO_BOUNDS,
+                         {"tenant": tenant, "priority": pri}))
+        inj = FaultInjector(FaultPlan.from_events(
+            [dict(e) for e in SLO_FAULTS]))
+        res = TS.StreamEngine(
+            STREAM_FAMILY, SLO_EPS, queue_limit=SLO_QUEUE_LIMIT,
+            quarantine=True, fault_injector=inj, device=device,
+            **dict(SLO_KW, **over)).run(
+                reqs, arrival_phase=stream_sweep_arrivals(
+                    SLO_RATE, SLO_K, SLO_SEED))
+        return res, [e.describe() for e in inj.plan.events if e.fired]
+
+    for tag, over, counter in (("k1", {}, "run_segment_rf"),
+                               ("k2", dict(refill_slots=0),
+                                "run_segment_ee")):
+        (card, fired), wall, ov = counted(W, lambda: run(DEVICE, over))
+        cpu, cpu_fired = run("cpu", over)
+
+        def recs(r):
+            return {c.rid: (c.submit_phase, c.admit_phase, c.retire_phase,
+                            c.last_credited_phase, c.failed, c.failure)
+                    for c in r.completed}
+
+        ok = [c.rid for c in card.completed if not c.failed]
+        a = {c.rid: c.area for c in card.completed}
+        b = {c.rid: c.area for c in cpu.completed}
+        d = max(abs(a[r] - b[r]) for r in ok)
+        failed = sorted(c.rid for c in card.completed if c.failed)
+        row = dict(completed=len(card.completed), shed=len(card.shed),
+                   failed=failed, phases=card.phases, wall_s=wall,
+                   launches=ov[counter], d_card_cpu=d, faults=fired,
+                   requests_per_sec=card.requests_per_sec,
+                   latency=card.latency_percentiles(),
+                   host_syncs_per_phase=(card.host_syncs
+                                         / max(len(card.host_syncs_per_phase),
+                                               1)))
+        same = (recs(card) == recs(cpu)
+                and [dataclasses.astuple(x) for x in card.shed]
+                == [dataclasses.astuple(x) for x in cpu.shed]
+                and np.array_equal(card.phase_stats, cpu.phase_stats)
+                and fired == cpu_fired)
+        log(f"[smoke] serve 14d overload leg with its fault plan through "
+            f"{counter}: {row['completed']} completed, {row['shed']} shed, "
+            f"failed {failed}, {card.phases} phases, wall {wall:.3f} s, "
+            f"{card.requests_per_sec:.2f} req/s, p50/p99 "
+            f"{row['latency']['p50_phases']}/{row['latency']['p99_phases']} "
+            f"phases, host syncs per phase "
+            f"{row['host_syncs_per_phase']:.2f}, launches {ov[counter]}, "
+            f"faults {fired}; card = CPU (records, sheds, stats rows, "
+            f"faults) {same}, max |card - CPU| {d:.3e} (tol "
+            f"{AREA_TOL_DEVICES})")
+        if (not same or failed != [2] or not d < AREA_TOL_DEVICES
+                or ov[counter] <= 0
+                or len(card.completed) + len(card.shed) != SLO_K):
+            raise AssertionError(f"serve 14d ({tag}) failed: {row}")
+        out[tag] = row
+        for k, v in ov.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def http(url: str, body: bytes = None):
+    """(status, body, ms) of one request to the serve process."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body,
+                                 method="POST" if body else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            status, text = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, text = e.code, e.read().decode()
+    return status, text, 1e3 * (time.perf_counter() - t0)
+
+
+class ServeProcess:
+    """``python -m ppls_tpu_torch serve`` in a subprocess: stdout and
+    stderr read on threads, every line timestamped."""
+
+    def __init__(self, argv):
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ppls_tpu_torch", *argv], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out, self.err = [], []
+        self.lock = threading.Lock()
+        self.threads = [threading.Thread(target=self._read, args=(f, dst),
+                                         daemon=True)
+                        for f, dst in ((self.proc.stdout, self.out),
+                                       (self.proc.stderr, self.err))]
+        for t in self.threads:
+            t.start()
+
+    def _read(self, f, dst):
+        for ln in f:
+            with self.lock:
+                dst.append((time.perf_counter() - self.t0, ln))
+
+    def lines(self):
+        with self.lock:
+            return list(self.out) + list(self.err)
+
+    def wait_until(self, cond, what, timeout=300.0):
+        """Poll ``cond()`` until it returns a true value, and return it."""
+        t_end = time.perf_counter() + timeout
+        while time.perf_counter() < t_end:
+            exited = self.proc.poll() is not None
+            hit = cond()
+            if hit:
+                return hit
+            if exited:
+                raise AssertionError(
+                    f"serve process exited {self.proc.returncode} before "
+                    f"{what}: {''.join(l for _, l in self.err)[-2000:]}")
+            time.sleep(0.01)
+        raise AssertionError(f"serve process: no {what} in {timeout} s")
+
+    def wait_for(self, pred, what, timeout=300.0):
+        """The first (t, line) of stdout or stderr that ``pred`` accepts."""
+        return self.wait_until(
+            lambda: next((x for x in self.lines() if pred(x[1])), None),
+            what, timeout)
+
+    def retired(self) -> dict:
+        with self.lock:
+            lines = [ln for _, ln in self.out]
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        return {r["rid"]: r for r in recs
+                if "area" in r and not r.get("summary")}
+
+    def stop(self, timeout=120.0) -> dict:
+        """SIGTERM, wait, and the summary line."""
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=timeout)
+        for t in self.threads:
+            t.join(timeout=10)
+        if rc != 0:
+            raise AssertionError(f"serve process exited {rc}: "
+                                 f"{''.join(l for _, l in self.err)[-2000:]}")
+        return json.loads(self.out[-1][1])
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def serve_process_start() -> dict:
+    """The pieces of a serve process's start, in a fresh interpreter:
+    importing torch and the CLI, the CUDA context, loading K1 and K2."""
+    code = (
+        "import json, time\nt0 = time.perf_counter()\nimport torch\n"
+        "import ppls_tpu_torch.__main__\nt1 = time.perf_counter()\n"
+        f"dev = {DEVICE!r}\n"
+        "torch.zeros(1, device=dev)\n"
+        "if dev == 'cuda': torch.cuda.synchronize()\n"
+        "t2 = time.perf_counter()\n"
+        "from ppls_tpu_torch.utils import cuda_build as cb\n"
+        "if dev == 'cuda': cb.load_walk_rf(); cb.load_walk_ee()\n"
+        "t3 = time.perf_counter()\n"
+        "print(json.dumps(dict(import_s=t1 - t0, context_s=t2 - t1, "
+        "kernel_load_s=t3 - t2)))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"start probe failed: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def serve_entry_point(ckpt_dir) -> dict:
+    """14e: the real entry point. One ``serve`` process with --checkpoint,
+    --metrics-port 0 and --ingest-port 0: /metrics and /health scraped,
+    two requests posted and acknowledged, SIGTERM after a few retire
+    lines; the same command again, stopped when every acknowledged rid
+    has retired across the two ledgers."""
+    import re
+
+    from ppls_tpu_torch.utils.artifact_schema import \
+        validate_serve_output_text
+    ck = os.path.join(ckpt_dir, "serve_e.ckpt")
+    argv = serve_argv(checkpoint=ck, metrics_port=0, ingest_port=0)
+    start = serve_process_start()
+    body = "".join(json.dumps({"theta": 1.0 + i / 7.0,
+                               "bounds": list(BOUNDS), "tenant": "live"})
+                   + "\n" for i in (1, 3)).encode()
+    procs = []
+    try:
+        p1 = ServeProcess(argv)
+        procs.append(p1)
+        t_m, ln = p1.wait_for(lambda x: "metrics on" in x, "metrics URL")
+        metrics_url = re.search(r"metrics on (\S+)", ln).group(1)
+        _, ln = p1.wait_for(lambda x: "ingest on" in x, "ingest URL")
+        ingest_url = re.search(r"ingest on (\S+)", ln).group(1)
+        t_first, _ = p1.wait_for(lambda x: x.startswith('{"rid"'),
+                                 "a first retire line")
+        st, text, scrape_ms = http(metrics_url)
+        health_url = metrics_url.rsplit("/", 1)[0] + "/health"
+        hst, htext, health_ms = http(health_url)
+        acks, post_ms = [], []
+        while len(acks) < 2:
+            pst, ptext, ms = http(ingest_url, body)
+            post_ms.append(ms)
+            recs = [json.loads(x) for x in ptext.splitlines() if x]
+            if pst == 200 and all(r.get("accepted") for r in recs):
+                acks = recs
+            elif len(post_ms) > 50:
+                raise AssertionError(f"ingest refused: {ptext}")
+            else:
+                time.sleep(0.05)
+        p1.wait_until(lambda: len(p1.retired()) >= 4, "4 retire lines")
+        s1 = p1.stop()
+        snap_bytes = os.path.getsize(ck)
+        r1 = p1.retired()
+        total = STREAM_K + len(acks)
+        p2 = ServeProcess(argv)
+        procs.append(p2)
+        t_first2, _ = p2.wait_for(lambda x: x.startswith('{"rid"'),
+                                  "a first retire line after the restart")
+        p2.wait_until(lambda: len({**r1, **p2.retired()}) >= total,
+                      "every acknowledged rid retired")
+        s2 = p2.stop()
+    finally:
+        for p in procs:
+            p.kill()
+    union = {**r1, **p2.retired()}
+    acked = sorted(a["rid"] for a in acks)
+    ledger_text = "".join(ln for p in procs for _, ln in p.out
+                          if '"summary": true' not in ln) + json.dumps(s2)
+    problems = validate_serve_output_text(ledger_text)
+    out = dict(start=start, metrics_announce_s=t_m,
+               first_retire_s=t_first, restart_first_retire_s=t_first2,
+               scrape_ms=scrape_ms, scrape_status=st,
+               scrape_bytes=len(text), health_ms=health_ms,
+               health_status=hst, health=json.loads(htext),
+               post_ms=post_ms, acked=acked, snapshot_bytes=snap_bytes,
+               retired_before_kill=len(r1), terminated=s1.get("terminated"),
+               restart=dict(completed=s2["completed"], phases=s2["phases"],
+                            wall_s=s2["wall_s"],
+                            requests_per_sec=s2["requests_per_sec"],
+                            latency=s2["latency"]),
+               killed=dict(completed=s1["completed"], phases=s1["phases"],
+                           wall_s=s1["wall_s"],
+                           requests_per_sec=s1["requests_per_sec"],
+                           latency=s1["latency"]),
+               lost=sorted(set(range(total)) - set(union)),
+               ledger_problems=problems)
+    log(f"[smoke] serve 14e process start: import {start['import_s']:.2f} s,"
+        f" CUDA context {start['context_s']:.2f} s, K1+K2 load "
+        f"{start['kernel_load_s']:.3f} s (a separate probe process, "
+        f"{start['process_s']:.2f} s in all); the serve process: metrics "
+        f"announced at {t_m:.2f} s, first retire line at {t_first:.2f} s "
+        f"after spawn")
+    log(f"[smoke] serve 14e: /metrics {st} ({len(text)} bytes) in "
+        f"{scrape_ms:.1f} ms, /health {hst} {htext.strip()} in "
+        f"{health_ms:.1f} ms; ingest POST of 2 requests acknowledged rids "
+        f"{acked} in {post_ms[-1]:.1f} ms ({len(post_ms)} posts); SIGTERM "
+        f"after {len(r1)} retire lines -> terminated "
+        f"{s1.get('terminated')!r} (wall {s1['wall_s']} s, "
+        f"{s1['requests_per_sec']} req/s, p50/p99 "
+        f"{s1['latency'].get('p50_phases')}/{s1['latency'].get('p99_phases')}"
+        f" phases), snapshot {snap_bytes} bytes; restart: first retire at "
+        f"{t_first2:.2f} s after spawn, {s2['completed']} completed in "
+        f"{s2['phases']} phases (wall {s2['wall_s']} s, "
+        f"{s2['requests_per_sec']} req/s, p50/p99 "
+        f"{s2['latency'].get('p50_phases')}/{s2['latency'].get('p99_phases')}"
+        f" phases); lost acks {out['lost']}; ledger problems {problems}")
+    if (out["lost"] or len(acked) != 2 or st != 200 or hst != 200
+            or not out["health"].get("ok") or problems
+            or s1.get("terminated") != "SIGTERM"
+            or s2["completed"] != total):
+        raise AssertionError(f"serve 14e failed: {out}")
+    return out
+
+
+def phase_serve(W, TS, ckpt_dir) -> dict:
+    """14. ``python -m ppls_tpu_torch serve`` at the stream leg's width:
+    14a-14e. Returns the records and phase 14's in-process launches."""
+    import torch
+    t0 = time.perf_counter()
+    full = serve_full_width(W, TS, ckpt_dir)
+    chaos = serve_chaos(W, TS, full, ckpt_dir)
+    overload = serve_overload_faults(W, TS)
+    entry = serve_entry_point(ckpt_dir)
+    torch.cuda.synchronize()
+    launches = {k: full["launches"][k] + chaos["launches"][k]
+                + overload["launches"][k] for k in full["launches"]}
+    full.pop("ledger_a")
+    seconds = time.perf_counter() - t0
+    log(f"[smoke] phase 14 (serve): {seconds:.1f} s; in-process launches "
+        f"{launches}")
+    return dict(full=full, chaos=chaos, overload=overload, entry=entry,
+                launches=launches, seconds=seconds)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2134,6 +2795,16 @@ def main() -> int:
                 for k in ("checkpointed", "crashed", "resumed"))
             + ckpt["card_to_cpu"]["launches"]["run_segment_ee"]
             + ckpt["card_to_cpu"]["crash_launches"])}
+    # 14. python -m ppls_tpu_torch serve (its snapshots in another
+    # temporary directory of the checkout)
+    serve_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["serve"] = phase_serve(W, TS, serve_dir)
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_launches = report["serve"]["launches"]
+    if serve_launches["run_segment"] != 0:
+        raise AssertionError(f"K3 ran on the serve path: {serve_launches}")
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -2190,13 +2861,15 @@ def main() -> int:
             main_launches["run_segment_rf"] + theta_launches
             + stream_launches["run_segment_rf"]
             + body_launches["run_segment_rf"]
-            + ckpt_launches["run_segment_rf"],
+            + ckpt_launches["run_segment_rf"]
+            + serve_launches["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
             stream_launches=stream_launches["run_segment_rf"],
             body_launches=body_launches["run_segment_rf"],
             checkpoint_launches=ckpt_launches["run_segment_rf"],
+            serve_launches=serve_launches["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -2205,10 +2878,12 @@ def main() -> int:
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
             "ppls_tpu/parallel/walker.py:1279",
             main_launches["run_segment_ee"] + body_launches["run_segment_ee"]
-            + ckpt_launches["run_segment_ee"],
+            + ckpt_launches["run_segment_ee"]
+            + serve_launches["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
+            serve_launches=serve_launches["run_segment_ee"],
             stream_launches=report["stream"]["overload"]["k2"]["launches"]),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",

@@ -1,0 +1,960 @@
+"""CLI: ``python -m ppls_tpu_torch serve [options]``.
+
+The port's copy of the JAX package's ``__main__.py`` for its ``serve``
+command (one ``StreamEngine``): the request list from a JSONL file or a
+seeded synthetic load, one JSON line per retirement and per shed, the
+zero-lost-acks restart from ``--checkpoint`` after SIGTERM,
+``--watchdog``/``--supervise``/``--fault-plan`` with quarantine, the
+admission policy flags, ``--events``, ``--metrics-port``,
+``--ingest-port`` and the summary line. The parser is the reference's,
+flag for flag, plus ``--device`` (default ``cuda``; without a card the
+command exits non-zero unless ``--device cpu`` is given). The modes and
+options not ported yet exit non-zero naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+_REST_OF_CLI = "item 9, the rest of the __main__.py CLI"
+
+
+def _not_ported(what: str, item: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported to ppls_tpu_torch yet "
+                      f"(ROADMAP.md Queue 1 {item})")
+
+
+def theta_batch_arg(s: str):
+    """Shared ``--theta`` argparse type (family + serve): a scalar
+    ("1.5"), a comma-separated list ("1,1.5,2"), or ``@file.json``
+    holding a number, a flat list, or a list of per-slot lists (the
+    (m, T) theta-block batch form). Returns a float, a list of floats,
+    or a list of lists of floats."""
+    s = s.strip()
+    if s.startswith("@"):
+        with open(s[1:], encoding="utf-8") as fh:
+            v = json.load(fh)
+        if isinstance(v, (int, float)):
+            return float(v)
+        if isinstance(v, list):
+            if v and all(isinstance(r, list) for r in v):
+                return [[float(x) for x in r] for r in v]
+            return [float(x) for x in v]
+        raise argparse.ArgumentTypeError(
+            f"{s}: JSON must be a number, a list, or a list of lists")
+    if "," in s:
+        return [float(x) for x in s.split(",") if x.strip() != ""]
+    return float(s)
+
+
+def tenant_quotas_arg(s: str) -> dict:
+    """``--tenant-quotas`` argparse type: inline JSON or ``@file.json``
+    mapping tenant name -> {"rate": R, "burst": B} token-bucket quota
+    (``"*"`` is the default for tenants without their own entry)."""
+    s = s.strip()
+    try:
+        if s.startswith("@"):
+            with open(s[1:], encoding="utf-8") as fh:
+                data = json.load(fh)
+        else:
+            data = json.loads(s)
+    except (OSError, json.JSONDecodeError) as e:
+        raise argparse.ArgumentTypeError(
+            f"tenant quotas must be JSON or @file: {e}")
+    if not isinstance(data, dict) or not all(
+            isinstance(v, dict) for v in data.values()):
+        raise argparse.ArgumentTypeError(
+            "tenant quotas must be an object of per-tenant "
+            '{"rate": R, "burst": B} objects')
+    return data
+
+
+def tenants_arg(s: str) -> list:
+    """``--tenants`` argparse type (synthetic load): either an integer
+    N (tenants t0..tN-1, weight 1, priority i mod 3) or a
+    ``name:weight:priority`` comma list — the deterministic tenant mix
+    the bench/CI overload legs drive."""
+    s = s.strip()
+    if s.isdigit():
+        if int(s) < 1:
+            raise argparse.ArgumentTypeError(
+                "tenant count must be >= 1")
+        return [(f"t{i}", 1, i % 3) for i in range(int(s))]
+    out = []
+    for part in s.split(","):
+        bits = part.strip().split(":")
+        name = bits[0]
+        try:
+            weight = int(bits[1]) if len(bits) > 1 else 1
+            pri = int(bits[2]) if len(bits) > 2 else 1
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"bad tenant spec {part!r}: want name:weight:priority")
+        if not name or weight < 1:
+            raise argparse.ArgumentTypeError(
+                f"bad tenant spec {part!r}: non-empty name, "
+                f"weight >= 1")
+        out.append((name, weight, pri))
+    if not out:
+        raise argparse.ArgumentTypeError("empty tenant spec")
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m ppls_tpu_torch",
+        description="adaptive quadrature on NVIDIA GPUs (ppls_tpu_torch, "
+                    "the PyTorch / CUDA port of ppls_tpu)",
+        # no prefix abbreviation: the ROOT parser classifies every argv
+        # string before subcommand dispatch, so a subcommand's exact
+        # flag (`qmc --n`) would otherwise die as an "ambiguous"
+        # abbreviation of the root's --n-devices/--n-workers
+        allow_abbrev=False,
+    )
+    p.add_argument("--integrand", default="cosh4",
+                   help="registered integrand name (default: cosh4, the "
+                        "reference problem)")
+    p.add_argument("-a", type=float, default=0.0, help="lower bound")
+    p.add_argument("-b", type=float, default=5.0, help="upper bound")
+    p.add_argument("--eps", type=float, default=1e-3,
+                   help="per-interval split tolerance (reference EPSILON)")
+    p.add_argument("--rule", choices=["trapezoid", "simpson"],
+                   default="trapezoid")
+    p.add_argument("--engine", choices=["host", "device", "sharded"],
+                   default="host",
+                   help="host: unbounded frontier, host loop; device: one "
+                        "jitted while_loop; sharded: multi-chip shard_map")
+    p.add_argument("--backend", choices=["jax", "mpi", "spillover"],
+                   default="jax",
+                   help="jax: TPU-native path; mpi: the C farmer/worker "
+                        "binary (requires an MPI toolchain); spillover: "
+                        "pure-f64 bag rounds pinned to the host CPU "
+                        "(off-mesh)")
+    p.add_argument("--capacity", type=int, default=1 << 16)
+    p.add_argument("--max-rounds", type=int, default=4096)
+    p.add_argument("--n-devices", type=int, default=None)
+    p.add_argument("--n-workers", type=int, default=4,
+                   help="MPI backend only: worker process count")
+    p.add_argument("--checkpoint", default=None,
+                   help="snapshot path; resumes from it if it exists "
+                        "(host engine only)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="print one JSON line instead of the table")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="capture a profiler trace of the run into "
+                        "DIR (not ported)")
+    p.add_argument("--device", default="cuda",
+                   help="the device every engine runs on (default cuda; "
+                        "without a card only --device cpu runs)")
+
+    sub = p.add_subparsers(
+        dest="mode",
+        description="additional problem modes (default: single 1D "
+                    "integral with the flags above)")
+
+    for mode, what in (("family", "batch of independent 1D integrals"),
+                       ("2d", "2D adaptive tensor-product cubature"),
+                       ("qmc", "8D Genz suite via shifted-lattice QMC")):
+        sub.add_parser(mode, help=f"{what} (not ported)", add_help=False)
+
+    srv = sub.add_parser(
+        "serve",
+        help="continuous-batching streaming integration service "
+             "(phase-boundary admission/retirement of concurrent "
+             "requests; runtime/stream.py)")
+    srv.add_argument("--family", default="sin_recip_scaled",
+                     help="registered family name f(x, theta); "
+                          "eps/rule are per-engine (static compile "
+                          "args), theta/bounds are per-request")
+    srv.add_argument("--eps", type=float, default=1e-8)
+    srv.add_argument("--rule", choices=["trapezoid", "simpson"],
+                     default="trapezoid")
+    srv.add_argument("--engine", choices=["walker", "walker-dd"],
+                     default="walker",
+                     help="walker: single-chip streaming flagship; "
+                          "walker-dd: demand-driven multi-chip stream "
+                          "(admission rides the phase reshard)")
+    srv.add_argument("--slots", type=int, default=64,
+                     help="concurrently resident request cap (family "
+                          "slot pool; the pending queue is unbounded)")
+    srv.add_argument("--chunk", type=int, default=1 << 13)
+    srv.add_argument("--capacity", type=int, default=1 << 20)
+    srv.add_argument("--lanes", type=int, default=None,
+                     help="walker lanes (default: engine default)")
+    srv.add_argument("--refill-slots", type=int, default=8)
+    srv.add_argument("--scout-dtype", choices=["f64", "f32"],
+                     default=None, dest="scout_dtype",
+                     help="per-engine compile static: 'f32' = round-12 "
+                          "mixed-precision scouting (see the family "
+                          "subcommand's flag)")
+    srv.add_argument("--double-buffer", action="store_true",
+                     dest="double_buffer",
+                     help="rolling half-bank refill deals (even "
+                          "--refill-slots >= 2)")
+    srv.add_argument("--reduced-integrands", action="store_true",
+                     dest="reduced_integrands",
+                     help="prefer the family's range-reduced ds twin")
+    srv.add_argument("--n-devices", type=int, default=None)
+    srv.add_argument("--processes", type=int, default=None,
+                     help="run the service as a MULTI-"
+                          "PROCESS cluster — N worker processes "
+                          "(each with its own host-local engine over "
+                          "its own devices) behind one coordinator "
+                          "that deals requests, collects retirements "
+                          "and, under --supervise, discovers the "
+                          "surviving topology on host loss and "
+                          "re-deals onto it")
+    srv.add_argument("--spillover", action="store_true",
+                     help="graceful degradation: queue-"
+                          "overflow victims without a deadline run "
+                          "as pure-f64 bag rounds on the host CPU "
+                          "(slower-but-correct, off-mesh) instead of "
+                          "being shed; requires --queue-limit to "
+                          "have any effect. NOTE: deadline-bearing "
+                          "requests are never spill-eligible (slower "
+                          "capacity cannot bound latency), so a "
+                          "--deadline-phases DEFAULT applied to every "
+                          "request disables spillover entirely — "
+                          "everything sheds queue_full")
+    srv.add_argument("--spillover-limit", type=int, default=4,
+                     dest="spillover_limit",
+                     help="max spillover completions per phase "
+                          "boundary (default 4)")
+    srv.add_argument("--f64-rounds", type=int, default=0,
+                     dest="f64_rounds",
+                     help="K > 0 runs the engine in PURE-F64 "
+                          "streaming mode (K LIFO bag rounds per "
+                          "phase, no walk kernel) — the provably "
+                          "batch-identical mode the determinism "
+                          "contracts are stated on")
+    srv.add_argument("--requests", default=None, metavar="FILE",
+                     help="JSONL request stream: one "
+                          '{"theta": T, "bounds": [A, B], '
+                          '"arrival_phase": P?} per line; "-" = stdin. '
+                          "Default: synthetic load (--synthetic)")
+    srv.add_argument("--synthetic", type=int, default=16, metavar="K",
+                     help="generated request count when --requests is "
+                          "not given")
+    srv.add_argument("--arrival-rate", type=float, default=2.0,
+                     help="synthetic load: mean requests per phase "
+                          "(open-loop Poisson arrivals, deterministic "
+                          "via --seed)")
+    srv.add_argument("--seed", type=int, default=0)
+    srv.add_argument("--theta0", type=float, default=1.0)
+    srv.add_argument("--theta1", type=float, default=2.0)
+    srv.add_argument("--theta", type=theta_batch_arg, default=None,
+                     help="synthetic-mode theta source: scalar, "
+                          "comma-separated list, or @file.json "
+                          "(replaces the theta0..theta1 linspace; "
+                          "with --theta-block the list is chunked "
+                          "into per-request blocks of up to T)")
+    srv.add_argument("--theta-block", type=int, default=1,
+                     dest="theta_block",
+                     help="per-engine compile static: T > 1 makes "
+                          "each request a THETA BATCH of up to T "
+                          "per-user thetas over one shared frontier "
+                          "(JSONL requests may then pass a theta "
+                          "list); retirement emits per-theta areas")
+    srv.add_argument("-a", type=float, default=1e-3)
+    srv.add_argument("-b", type=float, default=1.0)
+    srv.add_argument("--checkpoint", default=None,
+                     help="stream snapshot path (queue + walker state, "
+                          "written every --checkpoint-every phases); "
+                          "resumes from it if it exists")
+    srv.add_argument("--checkpoint-every", type=int, default=8)
+    srv.add_argument("--events", default=None, metavar="FILE",
+                     help="structured JSONL event log (obs.spans): the "
+                          "run -> phase span timeline with admit/"
+                          "retire/checkpoint events and device-counter "
+                          "deltas attached; schema-validated shape "
+                          "(tools/check_artifacts.py --events FILE); a "
+                          "resumed run APPENDS a new segment")
+    srv.add_argument("--metrics-port", type=int, default=None,
+                     metavar="PORT",
+                     help="serve Prometheus-style exposition text "
+                          "(queue depth, slot occupancy, per-phase "
+                          "counters, compile-cache size, rolling "
+                          "p50/p99 retire latency) on 127.0.0.1:PORT "
+                          "for the lifetime of the run (0 = ephemeral "
+                          "port, printed to stderr). With --processes "
+                          "this is the FEDERATED cluster "
+                          "surface: every worker's registry merged "
+                          "under a process label plus the "
+                          "coordinator's own (process=coordinator), "
+                          "cluster totals reconciling exactly. GET "
+                          "/health returns the SLO burn verdict when "
+                          "--slo-config is armed")
+    srv.add_argument("--events-max-mb", type=float, default=None,
+                     dest="events_max_mb", metavar="MB",
+                     help="size-cap the --events file — "
+                          "past the cap the timeline rolls to "
+                          "FILE.1, FILE.2, ... at a span-safe "
+                          "boundary and continues in a fresh segment "
+                          "at FILE (every rolled file is a valid "
+                          "multi-meta-segment timeline; "
+                          "tools/analyze_request.py reads the whole "
+                          "chain automatically)")
+    srv.add_argument("--slo-config", default=None, dest="slo_config",
+                     metavar="JSON|@FILE",
+                     help="arm SLO burn-rate alerting — "
+                          "per-tenant/per-class targets "
+                          '({"slos": [{"slo": "p99_latency_phases", '
+                          '"target": 12, "objective": 0.99, '
+                          '"class": "2"}, ...]}) evaluated at every '
+                          "phase boundary over the registry the "
+                          "boundary already publishes (fast/slow "
+                          "phase windows; slo_burn events + "
+                          "ppls_slo_burn_total + the /health verdict "
+                          "on --metrics-port)")
+    srv.add_argument("--watchdog", type=float, default=None,
+                     metavar="SECONDS",
+                     help="hang watchdog around the serve loop "
+                          "(runtime.guard): on expiry the loop is "
+                          "retried once, resuming from --checkpoint "
+                          "when a snapshot exists. CAVEAT: a timed-out "
+                          "attempt cannot be killed (guard.py's "
+                          "deadline contract), so after an expiry the "
+                          "JSONL stream may carry duplicate rids — "
+                          "the stale attempt's lines plus the "
+                          "resume's replay since the last snapshot; "
+                          "consumers must dedupe by rid. Size the "
+                          "deadline well above a healthy phase")
+    srv.add_argument("--supervise", action="store_true",
+                     help="run the serve loop under the round-14 "
+                          "self-healing Supervisor (runtime.guard): "
+                          "transient failures get deterministic "
+                          "exponential backoff + checkpoint resume, "
+                          "chip loss gets resize-resume onto the "
+                          "surviving mesh, corrupt snapshots fall "
+                          "back to a fresh start, and NaN-poisoned "
+                          "requests are quarantined (implies "
+                          "--quarantine). Auto-enabled when a fault "
+                          "plan is armed. --watchdog then sizes the "
+                          "per-attempt hang deadline")
+    srv.add_argument("--quarantine", action="store_true",
+                     help="per-request NaN quarantine: a request "
+                          "whose area goes non-finite retires as a "
+                          "failed record (failed=true, area=null) "
+                          "while healthy concurrent requests retire "
+                          "normally, instead of an engine-wide "
+                          "FloatingPointError")
+    srv.add_argument("--ingest-port", type=int, default=None,
+                     metavar="PORT", dest="ingest_port",
+                     help="accept request records over HTTP "
+                          "for the lifetime of the run (POST /submit, "
+                          "JSONL body; one JSONL verdict per line — "
+                          "rid ack, shed record, or per-line "
+                          "rejection; 0 = ephemeral port, announced "
+                          "on stderr and the summary line). An "
+                          "accepted ack means the request is in the "
+                          "checkpointed queue: a SIGTERM after it is "
+                          "never lost. The loop then runs until "
+                          "SIGTERM/SIGINT")
+    srv.add_argument("--queue-limit", type=int, default=None,
+                     dest="queue_limit",
+                     help="bound the pending queue: an arrival that "
+                          "would overflow it triggers the "
+                          "deterministic shed policy (lowest-priority-"
+                          "oldest victim; the arrival itself when it "
+                          "does not outrank one), each shed an "
+                          "explicit JSONL rejection record + "
+                          "request_shed event (default: unbounded)")
+    srv.add_argument("--tenant-quotas", type=tenant_quotas_arg,
+                     default=None, dest="tenant_quotas",
+                     metavar="JSON|@FILE",
+                     help="per-tenant token-bucket admission quotas: "
+                          '{"pro": {"rate": 4, "burst": 8}, '
+                          '"*": {...}} — rate tokens/phase up to '
+                          "burst; an out-of-tokens tenant's requests "
+                          "wait, they are not shed")
+    srv.add_argument("--deadline-phases", type=int, default=None,
+                     dest="deadline_phases",
+                     help="default per-request deadline (device "
+                          "phases from submit): a queued request that "
+                          "can no longer meet it is shed, an in-"
+                          "flight one retires failed with "
+                          "deadline_exceeded and its work is "
+                          "cancelled; JSONL requests may override "
+                          "per-request")
+    srv.add_argument("--tenants", type=tenants_arg, default=None,
+                     metavar="N|SPEC",
+                     help="synthetic load only: assign tenants/"
+                          "priorities to the generated requests — an "
+                          "integer N (t0..tN-1, priority i mod 3) or "
+                          "a name:weight:priority comma list "
+                          "(deterministic weighted round-robin)")
+    srv.add_argument("--fault-plan", default=None, metavar="SPEC",
+                     dest="fault_plan",
+                     help="arm seeded fault injection "
+                          "(runtime/faults.py): inline JSON event "
+                          "list, @file.json, or seed:<n>[:<k>]; "
+                          "PPLS_FAULT_PLAN is the env spelling (flag "
+                          "wins). Injected faults fire at phase/"
+                          "checkpoint/admit boundaries, emit "
+                          "fault_injected events, and the supervisor "
+                          "(auto-enabled) recovers the run")
+    srv.add_argument("--adapt", action="store_true",
+                     help="online host-knob adaptation at "
+                          "phase boundaries — the engine nudges its "
+                          "admission budget and spillover limit "
+                          "within declared safe bands from the "
+                          "phase-stats row it already fetched "
+                          "(hysteresis + per-phase step clamps; "
+                          "knob_adapt events; adapted values ride the "
+                          "snapshot so kill-and-resume replays bit-"
+                          "identically). Cadence/sizing defaults come "
+                          "from the committed tuning table "
+                          "(tools/tuning_table.json; override or "
+                          "disable via PPLS_TUNING_TABLE)")
+    srv.add_argument("--dispatch", action="store_true",
+                     help="heterogeneous-shape dispatcher — "
+                          "a bounded pool of engines keyed by "
+                          "canonicalized (eps band, rule, theta "
+                          "bucket) compile statics behind one serving "
+                          "surface (runtime/dispatch.py). Requests "
+                          "may then carry per-request 'eps'/'rule' "
+                          "routing keys (JSONL and POST /submit); "
+                          "--eps/--rule become the POOL DEFAULTS for "
+                          "requests that omit them, --theta-block is "
+                          "ignored (batches bucket to powers of two "
+                          "automatically), and the summary gains the "
+                          "per-engine decomposition plus the pool "
+                          "recompile count (pinned 0 on mixed-shape "
+                          "traffic — the tier's whole invariant)")
+    srv.add_argument("--max-engines", type=int, default=4,
+                     dest="max_engines", metavar="N",
+                     help="--dispatch pool cap: at most N live "
+                          "engines; an over-cap key parks the LRU "
+                          "victim through a checkpoint and resumes "
+                          "it bit-identically when its shape returns "
+                          "(default 4)")
+    srv.add_argument("--lease", action="store_true",
+                     help="slot-credit leasing across the "
+                          "--dispatch pool — engines with idle slots "
+                          "(and parked engines) donate their per-turn "
+                          "phase credit to the deepest-backlog engine "
+                          "(deterministic donor/borrower policy with "
+                          "hysteresis; the lease ledger rides the "
+                          "coordinated snapshot so kill-and-resume "
+                          "replays every grant bit-identically)")
+    srv.add_argument("--overlap-boundaries", action="store_true",
+                     dest="overlap_boundaries",
+                     help="overlapped phase boundaries — "
+                          "launch every due engine's compiled cycle "
+                          "before blocking on the first stats fetch "
+                          "(asynchronous dispatch) and run checkpoint "
+                          "serialization on a background writer that "
+                          "keeps the atomic-rename commit point; "
+                          "requires --dispatch")
+    srv.add_argument("--json", action="store_true", dest="as_json")
+    srv.add_argument("--device", default=argparse.SUPPRESS,
+                     help="the device every engine runs on (default: "
+                          "the root parser's --device, cuda); without a "
+                          "card only --device cpu runs")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """Exit non-zero, naming its ROADMAP.md item, on an option of
+    ``serve`` this port does not run yet; the reference's own checks
+    keep their wording."""
+    if args.processes is not None:
+        if args.processes < 1:
+            raise SystemExit(
+                f"--processes must be >= 1 (got {args.processes}); "
+                f"drop the flag to run the single-process engine")
+        raise _not_ported("the multi-process cluster (--processes)",
+                          "item 9")
+    if args.dispatch:
+        raise _not_ported("the heterogeneous-shape dispatcher "
+                          "(--dispatch)", "item 9")
+    if args.lease or args.overlap_boundaries:
+        raise SystemExit(
+            "--lease/--overlap-boundaries require --dispatch (they "
+            "are cross-engine pool policies); add --dispatch or drop "
+            "the flags")
+    if args.spillover:
+        raise _not_ported("CPU spillover (--spillover)", "item 7")
+    if args.slo_config is not None or args.adapt:
+        raise _not_ported("SLO evaluation and online adaptation "
+                          "(--slo-config, --adapt)", "item 7")
+    if args.engine == "walker-dd" or args.n_devices:
+        raise _not_ported("the multi-chip stream engine (--engine "
+                          "walker-dd, --n-devices)", "item 7, behind item 8")
+
+
+def _main_serve(args) -> int:
+    """Streaming service loop: submit requests on their arrival
+    schedule, emit one JSON line per retirement, end with a summary
+    line (``"summary": true``)."""
+    import os
+    import threading
+    import time
+
+    import numpy as np
+
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.runtime.ingest import parse_request_record
+    from ppls_tpu_torch.utils.device import resolve_device
+
+    _refuse_unported(args)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"serve: {e}") from e
+
+    # ---- materialize the request list + open-loop arrival schedule ----
+    # every request is a (theta, bounds, kwargs) triple, kwargs carrying
+    # tenant/priority/deadline_phases. A malformed JSONL line emits a
+    # per-line rejection record and the loop continues; the same parser
+    # backs the --ingest-port HTTP path.
+    T = int(args.theta_block)
+    if args.requests:
+        fh = sys.stdin if args.requests == "-" else open(args.requests)
+        try:
+            reqs, arrivals = [], []
+            for lineno, line in enumerate(fh, 1):
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = parse_request_record(json.loads(line),
+                                               theta_block=T)
+                except (json.JSONDecodeError, ValueError) as e:
+                    print(json.dumps({
+                        "rejected": True, "line": lineno,
+                        "error": str(e)[:200]}), flush=True)
+                    continue
+                arrivals.append(int(rec.pop("arrival_phase", 0)))
+                reqs.append((rec.pop("theta"), rec.pop("bounds"),
+                             rec))
+        finally:
+            if fh is not sys.stdin:
+                fh.close()
+    else:
+        # deterministic Poisson-ish open-loop load: exponential
+        # interarrivals at --arrival-rate requests/phase, seeded
+        rng = np.random.default_rng(args.seed)
+        k = int(args.synthetic)
+        if args.theta is not None:
+            tv = args.theta
+            if isinstance(tv, float):
+                tv = [tv]
+            if tv and isinstance(tv[0], list):
+                blocks = [tuple(float(x) for x in r) for r in tv]
+            else:
+                flat = [float(x) for x in tv]
+                step = max(T, 1)
+                blocks = [tuple(flat[i:i + step])
+                          for i in range(0, len(flat), step)]
+            k = len(blocks)
+        else:
+            thetas = np.linspace(args.theta0, args.theta1, k * max(T, 1),
+                                 endpoint=False)
+            blocks = [tuple(thetas[i * T:(i + 1) * T]) for i in range(k)]
+        if k:
+            gaps = rng.exponential(1.0 / max(args.arrival_rate, 1e-9),
+                                   k)
+            arrivals = [int(p) for p in
+                        np.floor(np.cumsum(gaps) - gaps[0]).astype(int)]
+        else:
+            arrivals = []          # pure-ingest service: no batch load
+        # deterministic weighted round-robin tenant/priority mix
+        cycle = [("default", 1)]
+        if args.tenants:
+            cycle = [(name, pri) for name, weight, pri in args.tenants
+                     for _ in range(weight)]
+        reqs = [((b if T > 1 else float(b[0])), (args.a, args.b),
+                 {"tenant": cycle[i % len(cycle)][0],
+                  "priority": cycle[i % len(cycle)][1]})
+                for i, b in enumerate(blocks)]
+
+    # the loop admits in list order gated on arrival_phase, so sort
+    # (stably) by arrival phase first; rids then follow sorted order,
+    # which the resume's batch_cursor relies on
+    order = sorted(range(len(reqs)), key=lambda i: arrivals[i])
+    reqs = [reqs[i] for i in order]
+    arrivals = [arrivals[i] for i in order]
+
+    kw = dict(rule=Rule(args.rule), slots=args.slots, chunk=args.chunk,
+              capacity=args.capacity, refill_slots=args.refill_slots,
+              scout_dtype=args.scout_dtype,
+              double_buffer=args.double_buffer,
+              reduced_integrands=args.reduced_integrands,
+              theta_block=T, engine=args.engine,
+              f64_rounds=args.f64_rounds,
+              checkpoint_every=args.checkpoint_every,
+              queue_limit=args.queue_limit,
+              tenant_quotas=args.tenant_quotas,
+              default_deadline_phases=args.deadline_phases,
+              device=device)
+    if args.lanes:
+        kw["lanes"] = args.lanes
+
+    # seeded fault injection + self-healing supervision. The injector
+    # outlives engine attempts (a consumed fault must not re-fire in the
+    # resumed run); supervision arms itself with a plan.
+    from ppls_tpu_torch.runtime.faults import FaultInjector, FaultPlan
+    plan = (FaultPlan.from_spec(args.fault_plan)
+            if args.fault_plan else FaultPlan.from_env())
+    supervise = bool(args.supervise or plan is not None
+                     or os.environ.get("PPLS_CHAOS") == "1")
+    quarantine = bool(args.quarantine or supervise)
+
+    # one Telemetry per engine attempt (registry served on
+    # --metrics-port, the --events timeline), built in make_engine so a
+    # retry gets a fresh registry and appends a resume segment
+    holder = {}
+
+    class _TelProxy:
+        """Forwarder onto the CURRENT attempt's telemetry: the injector
+        and the supervisor outlive engine attempts."""
+
+        def event(self, name, **attrs):
+            if "tel" in holder:
+                holder["tel"].event(name, **attrs)
+
+        @property
+        def registry(self):
+            from ppls_tpu_torch.obs.registry import MetricsRegistry
+            if "tel" in holder:
+                return holder["tel"].registry
+            return holder.setdefault("_early_reg", MetricsRegistry())
+
+    tel_proxy = _TelProxy()
+    injector = (FaultInjector(plan, telemetry=tel_proxy)
+                if plan is not None else None)
+
+    # one lock for every stdout JSONL line: shed records print from
+    # ingest handler threads (inside eng.submit) while retire records
+    # print from the serve loop
+    io_lock = threading.Lock()
+
+    def _print_shed(rec):
+        with io_lock:
+            print(json.dumps(_serve_shed_record(rec)), flush=True)
+
+    def make_engine():
+        from ppls_tpu_torch.obs.telemetry import Telemetry
+        from ppls_tpu_torch.runtime.checkpoint import CheckpointCorruptError
+        from ppls_tpu_torch.runtime.stream import StreamEngine
+        resuming = bool(args.checkpoint
+                        and os.path.exists(args.checkpoint))
+        if "tel" in holder:
+            # a retry releases the previous attempt's events file handle
+            # before the new segment opens it
+            holder["tel"].close()
+        tel = Telemetry(
+            events_path=args.events,
+            meta={"mode": "serve", "engine": args.engine,
+                  "family": args.family, "eps": args.eps,
+                  "rule": args.rule, "slots": args.slots,
+                  "lanes": args.lanes or 0, "seed": args.seed,
+                  "requests": len(reqs), "resumed": resuming},
+            append=resuming,
+            events_max_bytes=(int(args.events_max_mb * (1 << 20))
+                              if args.events_max_mb else None))
+        holder["tel"] = tel
+        ekw = dict(kw, quarantine=quarantine, fault_injector=injector,
+                   telemetry=tel, on_shed=_print_shed)
+        if resuming:
+            try:
+                # mesh_resize: the reference's elastic rule, a no-op at
+                # equal sizes (one card)
+                return StreamEngine.resume(
+                    args.checkpoint, args.family, args.eps,
+                    mesh_resize=True, **ekw)
+            except CheckpointCorruptError as e:
+                # self-healing: a damaged snapshot cannot be resumed;
+                # discard it and start fresh (rids are deterministic, so
+                # the re-run drains to a correct summary; pre-crash JSONL
+                # lines dedupe by rid)
+                print(f"serve: {e}; starting fresh", file=sys.stderr,
+                      flush=True)
+                tel.event("checkpoint_corrupt", path=args.checkpoint,
+                          detail=str(e)[:200])
+                if os.path.exists(args.checkpoint):
+                    os.unlink(args.checkpoint)
+        return StreamEngine(args.family, args.eps,
+                            checkpoint_path=args.checkpoint, **ekw)
+
+    # cooperative SIGTERM/SIGINT: the loop reads the flag at phase
+    # boundaries and winds down with a final checkpoint, a balanced span
+    # close and the summary. One EngineHandle per attempt, resolved
+    # through the holder: a hung attempt keeps its own lock, the retry
+    # and the ingest threads move to the new one.
+    from ppls_tpu_torch.runtime.guard import GracefulShutdown
+    from ppls_tpu_torch.runtime.ingest import EngineHandle
+    stop = GracefulShutdown()
+    holder["handle"] = EngineHandle()
+
+    metrics_srv = None
+    if args.metrics_port is not None:
+        from ppls_tpu_torch.obs.registry import MetricsRegistry
+        from ppls_tpu_torch.obs.server import MetricsServer
+        _empty = MetricsRegistry()
+
+        def _health():
+            # a supervisor backoff window (no live engine) reports
+            # not-ok so a load balancer drains during recovery
+            eng = holder["handle"].peek()
+            if eng is None:
+                return {"ok": False, "burning": [], "ready": False}
+            return eng.slo_health()
+
+        metrics_srv = MetricsServer(
+            lambda: (holder["tel"].registry if "tel" in holder
+                     else _empty),
+            port=args.metrics_port, health_fn=_health)
+        # the bound port is announced before the first phase (and again
+        # on the summary line), so --metrics-port 0 is discoverable
+        print(f"serve: metrics on {metrics_srv.url}", file=sys.stderr,
+              flush=True)
+
+    ingest_srv = None
+    if args.ingest_port is not None:
+        from ppls_tpu_torch.runtime.ingest import IngestServer
+
+        def ingest_submit(d):
+            rec = parse_request_record(d, theta_block=T)
+            rec.pop("arrival_phase", None)     # live ingest is "now"
+            h = holder["handle"]          # the CURRENT attempt's
+            with h.lock():
+                eng = h.peek()
+                if eng is None or stop.requested:
+                    raise ValueError("service not accepting requests")
+                n0 = len(eng.shed)
+                rid = eng.submit(rec.pop("theta"),
+                                 rec.pop("bounds"), **rec)
+                if len(eng.shed) > n0 and eng.shed[-1].rid == rid:
+                    return {"rid": rid, "accepted": False,
+                            "shed": True,
+                            "reason": eng.shed[-1].reason}
+                return {"rid": rid, "accepted": True}
+
+        def ingest_stats():
+            eng = holder["handle"].peek()
+            if eng is None:
+                return {"ready": False}
+            return {"ready": True, "phase": eng.phase,
+                    "pending": eng.pending, "resident": eng.resident,
+                    "completed": len(eng.completed),
+                    "shed": len(eng.shed)}
+
+        ingest_srv = IngestServer(ingest_submit,
+                                  port=args.ingest_port,
+                                  stats_fn=ingest_stats)
+        print(f"serve: ingest on {ingest_srv.url}", file=sys.stderr,
+              flush=True)
+
+    def serve_loop():
+        t0 = time.perf_counter()
+        handle = EngineHandle()
+        holder["handle"] = handle
+        eng = make_engine()
+        handle.publish(eng)
+        span = eng.telemetry.span("run", mode="serve",
+                                  engine=f"{args.engine}-stream",
+                                  requests=len(reqs))
+        # a resumed engine skips the request-list prefix it submitted
+        # before the crash: the cursor rides the snapshot's client_state
+        # (sheds and ingest submissions consume rids too, so next_rid
+        # alone would mis-skip)
+        k = int(eng.client_state.setdefault("batch_cursor",
+                                            eng.next_rid))
+        # replay the retire records the snapshot holds but this ledger
+        # never printed (a cut inside step() precedes its phase's
+        # prints): at-least-once, consumers dedupe by rid
+        done = int(eng.client_state.setdefault("printed_cursor", 0))
+        if done < len(eng.completed):
+            with io_lock:
+                for c in eng.completed[done:]:
+                    print(json.dumps(_serve_completed_record(c)),
+                          flush=True)
+        eng.client_state["printed_cursor"] = len(eng.completed)
+        ingest_on = ingest_srv is not None
+        while (k < len(reqs) or not eng.idle or ingest_on) \
+                and not stop.requested:
+            with handle.lock():
+                try:
+                    while k < len(reqs) and arrivals[k] <= eng.phase:
+                        r = reqs[k]
+                        eng.submit(r[0], r[1],
+                                   **(r[2] if len(r) > 2 else {}))
+                        k += 1
+                        eng.client_state["batch_cursor"] = k
+                    idle_wait = ingest_on and k >= len(reqs) \
+                        and eng.idle
+                    retired = [] if idle_wait else eng.step()
+                except BaseException:
+                    # a failed attempt's engine is dead state: clearing
+                    # the handle under the lock makes ingest refuse
+                    # (clients retry) until the next attempt publishes
+                    handle.clear()
+                    raise
+            with io_lock:
+                for c in retired:
+                    print(json.dumps(_serve_completed_record(c)),
+                          flush=True)
+            # only this thread moves the cursor; the next step()'s
+            # snapshot (under the engine lock) persists it
+            eng.client_state["printed_cursor"] = len(eng.completed)
+            if idle_wait:
+                time.sleep(0.02)
+        if stop.requested:
+            # graceful shutdown: the pending queue rides the final
+            # snapshot, so a restart loses no acknowledged request
+            holder["stopped"] = stop.signal_name or "signal"
+            with handle.lock():
+                if args.checkpoint:
+                    eng.snapshot()
+                eng.telemetry.event(
+                    "graceful_shutdown", signal=holder["stopped"],
+                    phase=eng.phase, pending=eng.pending,
+                    resident=eng.resident,
+                    completed=len(eng.completed))
+        span.close(phases=eng.phase, completed=len(eng.completed),
+                   **({"terminated": holder["stopped"]}
+                      if stop.requested else {}))
+        return eng, time.perf_counter() - t0
+
+    supervisor = None
+    try:
+        stop.__enter__()
+        if supervise:
+            from ppls_tpu_torch.runtime.guard import Supervisor
+            # one card: a chip loss leaves nothing to resume onto, so
+            # it propagates (no resize_fn)
+            supervisor = Supervisor(
+                serve_loop, deadline=args.watchdog, telemetry=tel_proxy,
+                backoff_base=0.25, backoff_cap=30.0)
+            eng, wall = supervisor.run()
+        elif args.watchdog:
+            from ppls_tpu_torch.runtime.guard import run_with_watchdog
+            eng, wall = run_with_watchdog(
+                serve_loop, args.watchdog, what="serve loop",
+                resume_fn=serve_loop if args.checkpoint else None,
+                telemetry=tel_proxy,
+                checkpoint_path=args.checkpoint)
+        else:
+            eng, wall = serve_loop()
+
+        if args.checkpoint and not holder.get("stopped"):
+            # a graceful shutdown keeps its snapshot (the restart state);
+            # a drained run clears it
+            eng.clear_snapshot()
+        res = eng.result(wall_s=wall)
+        summary = {
+            "summary": True,
+            "engine": args.engine, "family": args.family,
+            "eps": args.eps,
+            "rule": args.rule, "slots": args.slots,
+            "completed": len(res.completed), "phases": res.phases,
+            "wall_s": round(wall, 3),
+            "requests_per_sec": round(res.requests_per_sec, 3),
+            "latency": res.latency_percentiles(),
+            "latency_by_class": res.class_latency_percentiles(),
+            "tenants": res.tenant_summary(),
+            "shed": len(res.shed),
+            "occupancy": res.occupancy_summary(eng.lanes),
+            "totals": res.totals,
+        }
+        if res.shed:
+            reasons = {}
+            for s in res.shed:
+                reasons[s.reason] = reasons.get(s.reason, 0) + 1
+            summary["shed_reasons"] = reasons
+        summary["spillover"] = eng.spillover_summary()
+        if holder.get("stopped"):
+            summary["terminated"] = holder["stopped"]
+        failed = sum(1 for c in res.completed if c.failed)
+        if quarantine or failed:
+            summary["failed"] = failed
+        deadline_failed = sum(1 for c in res.completed
+                              if c.failure == "deadline_exceeded")
+        if deadline_failed:
+            summary["deadline_exceeded"] = deadline_failed
+        if supervisor is not None:
+            summary["supervised"] = True
+            summary["attempts"] = supervisor.attempts
+            summary["recoveries"] = [
+                {"kind": k, "action": a}
+                for k, a in supervisor.recoveries]
+        if injector is not None:
+            summary["faults_injected"] = [
+                ev.describe() for ev in injector.plan.events
+                if ev.fired]
+        if metrics_srv is not None:
+            summary["metrics_port"] = metrics_srv.port
+            summary["metrics_url"] = metrics_srv.url
+        if ingest_srv is not None:
+            summary["ingest_port"] = ingest_srv.port
+            summary["ingest_url"] = ingest_srv.url
+        print(json.dumps(summary))
+        return 0
+    finally:
+        stop.__exit__()
+        if ingest_srv is not None:
+            ingest_srv.close()
+        if "tel" in holder:
+            holder["tel"].close()
+        if metrics_srv is not None:
+            metrics_srv.close()
+
+
+def _serve_completed_record(c) -> dict:
+    """One completed request as its stdout-JSONL ledger record. A failed
+    request (NaN quarantine, deadline expiry) reports area null (the
+    non-finite payload is not strict JSON) plus the failed marker and
+    its failure reason."""
+    return {
+        "rid": c.rid,
+        "theta": (list(c.theta)
+                  if isinstance(c.theta, (tuple, list)) else c.theta),
+        **({"areas": c.areas}
+           if c.areas is not None and not c.failed else {}),
+        "bounds": list(c.bounds),
+        "area": (None if c.failed else c.area),
+        **({"failed": True} if c.failed else {}),
+        **({"failure": c.failure} if c.failure else {}),
+        "tenant": c.tenant, "priority": c.priority,
+        "admit_phase": c.admit_phase,
+        "retire_phase": c.retire_phase,
+        "phases_in_flight": c.phases_in_flight,
+        "latency_phases": c.latency_phases,
+        "latency_s": round(c.latency_s, 4)}
+
+
+def _serve_shed_record(s) -> dict:
+    """One shed request as its explicit JSONL rejection record, in the
+    same stream as the retirements, so a consumer can account for every
+    acknowledged rid."""
+    return {
+        "rid": s.rid, "shed": True, "reason": s.reason,
+        "tenant": s.tenant, "priority": s.priority,
+        "phase": s.phase,
+        "theta": (list(s.theta)
+                  if isinstance(s.theta, (tuple, list)) else s.theta),
+        "bounds": list(s.bounds)}
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    # the modes not ported take their own flags: refuse them whatever
+    # follows the mode, and parse serve strictly
+    args, extra = parser.parse_known_args(argv)
+    if args.mode == "serve" and extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.mode != "serve":
+        what = (f"the {args.mode} mode" if args.mode
+                else "the single-integral mode (no subcommand)")
+        raise _not_ported(what, _REST_OF_CLI)
+    if args.trace:
+        raise _not_ported("--trace", _REST_OF_CLI)
+    return _main_serve(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

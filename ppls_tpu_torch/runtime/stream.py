@@ -36,9 +36,14 @@ stream replays the identical phases.
 ``client_state`` is the caller's own JSON-serialisable record, carried
 by every snapshot.
 
+A ``fault_injector`` (``runtime/faults.py``) fires its plan at the
+engine's boundaries: phase open (before admission), admission (a
+``nan_poison`` request's theta turns NaN after validation), phase close
+(after the snapshot) and checkpoint write (after the rename).
+
 Not ported (the constructor refuses them with the ROADMAP.md item): the
 multi-chip engine (``walker-dd``), CPU spillover, SLO evaluation, online
-adaptation, fault injection and the unsorted root queue.
+adaptation and the unsorted root queue.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ from ppls_tpu_torch.parallel.walker import (
     validate_theta_block, walker_sizing)
 from ppls_tpu_torch.runtime.checkpoint import (
     background_writer, engine_name, flush_background_writer,
-    load_family_checkpoint, save_family_checkpoint)
+    load_family_checkpoint, peek_checkpoint_identity,
+    save_family_checkpoint)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import round_stats_from_rows
 
@@ -361,8 +367,8 @@ class StreamEngine:
     The reference's parameters and defaults, with ``device`` in place of
     ``interpret``. Unported options raise ``ValueError``: ``engine=
     "walker-dd"``, ``mesh``/``n_devices``, ``spillover``,
-    ``slo_config``, ``adapt``, ``fault_injector``, ``sort_roots=False``
-    and ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
+    ``slo_config``, ``adapt``, ``sort_roots=False`` and
+    ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
     the family's range-reduced ds twin where it has one.
 
     ``checkpoint_path`` snapshots the engine every ``checkpoint_every``
@@ -413,8 +419,6 @@ class StreamEngine:
                               "item 7, behind item 8")
         if engine != "walker":
             raise ValueError(f"unknown stream engine {engine!r}")
-        if fault_injector is not None:
-            raise _not_ported("fault injection (fault_injector)", "item 7")
         if spillover:
             raise _not_ported("CPU spillover", "item 7")
         if slo_config is not None or adapt:
@@ -578,6 +582,7 @@ class StreamEngine:
         # a non-finite area retires as a FAILED record with quarantine on;
         # off (the default), it raises
         self.quarantine = bool(quarantine)
+        self.fault_injector = fault_injector
         self._c_quarantined = tel.registry.counter(
             "ppls_stream_quarantined_total",
             "requests retired as failed through the NaN quarantine")
@@ -667,15 +672,23 @@ class StreamEngine:
         }
         if self._theta_block > 1 and self._fill is not None:
             totals["theta_table"] = self._theta_table.tolist()
+        writer = (background_writer() if self.checkpoint_background
+                  else None)
         save_family_checkpoint(
             self.checkpoint_path, identity=self._identity(),
             bag_cols=bag_cols, count=count, acc=acc_pair, totals=totals,
-            writer=(background_writer() if self.checkpoint_background
-                    else None))
+            writer=writer)
         self.telemetry.event(
             "checkpoint", phase=self.phase, count=count,
             pending=len(self._pending), resident=len(self._slot_req),
             completed=len(self.completed))
+        if self.fault_injector is not None:
+            # checkpoint-write fault boundary: ckpt_truncate/ckpt_corrupt
+            # damage the file just renamed into place, so a background
+            # write lands first
+            if writer is not None:
+                writer.flush()
+            self.fault_injector.on_checkpoint_write(self.checkpoint_path)
 
     @classmethod
     def resume(cls, checkpoint_path: str, family: str, eps: float,
@@ -683,15 +696,21 @@ class StreamEngine:
         """Rebuild an engine from its last snapshot, on the device of
         ``kwargs`` (CUDA by default). The configuration must match the
         snapshotted run's (identity-checked); the continued stream
-        replays the identical phases. A snapshot that carries multi-chip,
-        spillover or online-adaptation state is refused with its ROADMAP
-        item."""
-        if mesh_resize:
-            raise _not_ported("elastic resume (mesh_resize)",
-                              "item 7, behind item 8")
+        replays the identical phases. ``mesh_resize=True`` is the
+        reference's elastic rule, a no-op at equal mesh sizes: a
+        snapshot of one card resumes, one of another mesh size is
+        refused. A snapshot that carries multi-chip, spillover or
+        online-adaptation state is refused with its ROADMAP item."""
         eng = cls(family, eps, checkpoint_path=checkpoint_path, **kwargs)
         bag_cols, count, acc_pair, totals = load_family_checkpoint(
-            checkpoint_path, eng._identity())
+            checkpoint_path, eng._identity(), mesh_resize=mesh_resize)
+        if mesh_resize:
+            n_old = int(peek_checkpoint_identity(checkpoint_path)
+                        .get("n_dev", 1))
+            if n_old != 1:
+                raise _not_ported(
+                    f"elastic resume of a {n_old}-chip snapshot onto one "
+                    f"card (mesh_resize)", "item 7, behind item 8")
         if "dd" in totals:
             raise _not_ported("resuming a walker-dd snapshot",
                               "item 7, behind item 8")
@@ -832,6 +851,24 @@ class StreamEngine:
         if self.checkpoint_path and \
                 self.phase % self.checkpoint_every == 0:
             self.snapshot()
+
+    def _phase_closed(self) -> None:
+        """The phase-close fault boundary, after the snapshot (a close-keyed
+        crash resumes from this phase's state), keyed on the phase that
+        just closed."""
+        if self.fault_injector is not None:
+            self.fault_injector.on_phase_close(self.phase - 1)
+
+    def slo_health(self) -> dict:
+        """The ``/health`` verdict: the reference's green default (SLO
+        evaluation is not ported, so nothing burns)."""
+        return {"ok": True, "burning": [], "phase": self.phase}
+
+    def spillover_summary(self) -> dict:
+        """The serve summary's spillover block in the reference's shape:
+        no request runs on the CPU spillover (not ported)."""
+        return {"spillover_completed": 0, "spillover_fraction": 0.0,
+                "spillover_tasks": 0}
 
     # ------------------------------------------------------------------
     # request intake
@@ -1074,6 +1111,14 @@ class StreamEngine:
             if self._theta_block > 1:
                 pad = row + (row[0],) * (self._theta_block - len(row))
                 self._theta_table[slot] = pad
+            if self.fault_injector is not None \
+                    and self.fault_injector.on_admit(req.rid):
+                # nan_poison: the admitted theta turns NaN after
+                # submit-time validation; the engine computes with it and
+                # the slot's area goes non-finite at retirement
+                sth[i] = float("nan")
+                if self._theta_block > 1:
+                    self._theta_table[slot] = float("nan")
             sm[i] = np.int32(slot << DEPTH_BITS)
             clear[slot] = True       # recycle: zero the slot's acc pair
             self._slot_req[slot] = req
@@ -1205,6 +1250,10 @@ class StreamEngine:
         """First half of one phase: the phase span, the admission policy
         and the cycle. Returns the token for :meth:`step_finish`;
         nothing else may drive this engine in between."""
+        if self.fault_injector is not None:
+            # phase-open fault boundary, before the phase span and the
+            # admissions: a crash here replays this phase's admissions
+            self.fault_injector.on_phase_open(self.phase)
         n0 = self._syncs.n
         span = self.telemetry.span("phase", phase=self.phase)
         self._refill_tokens()
@@ -1226,6 +1275,7 @@ class StreamEngine:
             self._publish_gauges()
             span.close(idle=True, retired=0)
             self._maybe_snapshot()
+            self._phase_closed()
             return []
         (fam_live, acc, acc_c, fam_last, count, overflow,
          stats) = self._cycle_pull(launch)
@@ -1338,6 +1388,7 @@ class StreamEngine:
         self._publish_gauges()
         span.close(retired=len(retired), **vals)
         self._maybe_snapshot()
+        self._phase_closed()
         return retired
 
     def drain(self, max_phases: int = 1 << 14,

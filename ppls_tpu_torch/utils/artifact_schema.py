@@ -1,0 +1,320 @@
+"""Schema checks for the serve contract's documents: the telemetry
+event log (``serve --events``) and the serve stdout ledger.
+
+The port's copy of the part of the JAX package's
+``utils/artifact_schema.py`` that ``python -m ppls_tpu_torch serve``
+and ``chip_smoke.py`` read (host-only Python, unchanged):
+:func:`validate_events_text` checks the span/event JSONL shape (record
+kinds, required keys, per-segment monotonic timestamps, span-nesting
+balance), :func:`validate_serve_output_text` the retire/shed/rejection
+records and the summary's accounting, and :func:`dedup_by_rid` collapses
+the lines a resume replays. The bench-record, graftlint and tuning-table
+validators stay in the reference.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+from typing import List
+
+
+def _is_finite_number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool) \
+        and math.isfinite(v)
+
+
+EVENT_KINDS = ("meta", "span_open", "span_close", "event")
+
+# the per-rid trace event vocabulary: every one of these
+# must link to an OPEN request span for its rid when the rid-linkage
+# check is armed
+RID_TRACE_EVENTS = ("admit", "request_dealt", "token_wait",
+                    "request_phase", "spillover_enqueued",
+                    "request_redeal", "quarantine",
+                    "deadline_exceeded", "retire", "request_shed")
+
+
+def validate_events_text(text: str, *, where: str = "events",
+                         require_balanced: bool = True,
+                         check_rid_linkage: bool = False) -> List[str]:
+    """Validate a telemetry event log (``obs.spans`` JSONL timeline).
+
+    Per line: a JSON object with ``ev`` in :data:`EVENT_KINDS`; every
+    non-meta record carries a finite ``t`` that is non-decreasing
+    WITHIN its segment (a ``meta`` line starts a new segment — the
+    serve resume path appends one, restarting the monotonic clock);
+    ``span_open`` carries int ``id``, non-empty ``name`` and a
+    ``parent`` that is null or an OPEN span id; ``span_close`` closes
+    an open id; ``event`` carries a non-empty ``name``; ``attrs``
+    (when present) is an object. ``require_balanced=False`` tolerates
+    unclosed spans — the shape a killed run leaves behind.
+
+    ``check_rid_linkage=True`` additionally enforces the
+    REQUEST-TRACE contract on timelines that carry it: every
+    rid-bearing trace event (:data:`RID_TRACE_EVENTS`) must link to a
+    ``request`` span OPEN for that rid in its segment (resumed
+    segments re-open live rids' spans, so this holds across
+    kill-and-resume), and a terminal event (retire / request_shed)
+    must be followed by that rid's span close within the segment —
+    zero orphan spans, zero orphan hops. Timelines predating the
+    request-trace tier fail this check; leave it off for them.
+
+    Returns a list of problem strings (empty = clean).
+    """
+    problems: List[str] = []
+    open_spans: set = set()
+    last_t = None
+    found = 0
+    # rid-linkage state (reset per segment, like span ids)
+    req_sids: dict = {}          # open request-span id -> rid
+    rid_open: set = set()        # rids with an open request span
+    rid_terminal_open: set = set()   # terminal seen, span still open
+    for i, line in enumerate(text.splitlines(), 1):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            problems.append(f"{where}:{i}: unparseable event line")
+            continue
+        if not isinstance(rec, dict):
+            problems.append(f"{where}:{i}: not a JSON object")
+            continue
+        found += 1
+        ev = rec.get("ev")
+        if ev not in EVENT_KINDS:
+            problems.append(f"{where}:{i}: unknown ev {ev!r}")
+            continue
+        if ev == "meta":
+            # new segment (the resume-append path): the monotonic
+            # clock AND the span-id space restart. Spans the previous
+            # segment left open are the crashed-run shape — flagged
+            # only under require_balanced, then forgotten so the new
+            # segment's ids (restarting at 0) don't read as reopens.
+            last_t = None
+            if require_balanced and open_spans:
+                problems.append(
+                    f"{where}:{i}: {len(open_spans)} span(s) left "
+                    f"open at segment boundary: {sorted(open_spans)}")
+            open_spans.clear()
+            if check_rid_linkage and rid_terminal_open:
+                problems.append(
+                    f"{where}:{i}: request span(s) for retired/shed "
+                    f"rid(s) {sorted(rid_terminal_open)[:8]} never "
+                    f"closed in their segment")
+            req_sids.clear()
+            rid_open.clear()
+            rid_terminal_open.clear()
+            if rec.get("schema") != "ppls-events-v1":
+                problems.append(f"{where}:{i}: meta without "
+                                f"schema=ppls-events-v1")
+            continue
+        t = rec.get("t")
+        if not _is_finite_number(t):
+            problems.append(f"{where}:{i}: missing/non-finite 't'")
+        elif last_t is not None and t < last_t:
+            problems.append(f"{where}:{i}: timestamp goes backwards "
+                            f"({t} < {last_t})")
+        else:
+            last_t = t
+        attrs = rec.get("attrs")
+        if attrs is not None and not isinstance(attrs, dict):
+            problems.append(f"{where}:{i}: 'attrs' must be an object")
+        if ev == "span_open":
+            sid = rec.get("id")
+            if not isinstance(sid, int):
+                problems.append(f"{where}:{i}: span_open without int "
+                                f"'id'")
+                continue
+            parent = rec.get("parent")
+            if parent is not None and parent not in open_spans:
+                problems.append(f"{where}:{i}: parent {parent} is not "
+                                f"an open span")
+            if not isinstance(rec.get("name"), str) or not rec["name"]:
+                problems.append(f"{where}:{i}: span_open without "
+                                f"'name'")
+            if sid in open_spans:
+                problems.append(f"{where}:{i}: span id {sid} reopened")
+            open_spans.add(sid)
+            if check_rid_linkage and rec.get("name") == "request":
+                rid = (attrs or {}).get("rid")
+                if not isinstance(rid, int):
+                    problems.append(f"{where}:{i}: request span "
+                                    f"without int 'rid'")
+                else:
+                    req_sids[sid] = rid
+                    rid_open.add(rid)
+        elif ev == "span_close":
+            sid = rec.get("id")
+            if sid not in open_spans:
+                problems.append(f"{where}:{i}: span_close for "
+                                f"unopened id {sid!r}")
+            else:
+                open_spans.discard(sid)
+            if check_rid_linkage and sid in req_sids:
+                rid = req_sids.pop(sid)
+                rid_open.discard(rid)
+                rid_terminal_open.discard(rid)
+        elif ev == "event":
+            if not isinstance(rec.get("name"), str) or not rec["name"]:
+                problems.append(f"{where}:{i}: event without 'name'")
+            elif check_rid_linkage \
+                    and rec["name"] in RID_TRACE_EVENTS:
+                rid = (attrs or {}).get("rid")
+                if not isinstance(rid, int):
+                    problems.append(
+                        f"{where}:{i}: trace event "
+                        f"{rec['name']!r} without int 'rid'")
+                elif rid not in rid_open:
+                    problems.append(
+                        f"{where}:{i}: orphan trace event "
+                        f"{rec['name']!r} — rid {rid} has no open "
+                        f"request span in this segment")
+                elif rec["name"] in ("retire", "request_shed"):
+                    rid_terminal_open.add(rid)
+    if not found:
+        problems.append(f"{where}: no event records found")
+    elif require_balanced and open_spans:
+        problems.append(f"{where}: {len(open_spans)} span(s) never "
+                        f"closed: {sorted(open_spans)}")
+    if check_rid_linkage and rid_terminal_open:
+        problems.append(
+            f"{where}: request span(s) for retired/shed rid(s) "
+            f"{sorted(rid_terminal_open)[:8]} never closed")
+    return problems
+
+
+def validate_serve_output_text(text: str, *, where: str = "serve"
+                               ) -> List[str]:
+    """Validate a ``serve`` stdout stream: the JSONL request ledger a
+    multi-tenant overload run leaves behind.
+
+    Shape: every JSON line is a RETIRE record (``rid`` + ``area``),
+    a SHED record (``shed: true`` with rid/tenant/reason — the
+    explicit rejection every load-shed request must get), a REJECTION
+    (``rejected: true`` with an error — malformed input lines), or
+    the single SUMMARY line (``summary: true``). Accounting
+    invariants, deduped by rid because a watchdog/supervisor resume
+    may legitimately replay post-snapshot lines: distinct retire rids
+    == ``summary.completed``; distinct shed rids == ``summary.shed``
+    (when reported); no rid both retires and sheds; failed retire
+    records carry ``area: null``. Returns problem strings (empty =
+    clean).
+
+    SCOPE: one ledger must cover one PROCESS LINEAGE's whole request
+    set. In-process supervisor resumes are covered (their stdout
+    accumulates every line). A zero-downtime RESTART (SIGTERM + new
+    process) splits the ledger: the second process's summary counts
+    snapshot-restored records its own stdout never printed —
+    CONCATENATE the processes' outputs (minus the earlier summaries)
+    before validating, as the restart tests do."""
+    problems: List[str] = []
+    summaries = []
+    retire_rids, shed_rids = set(), set()
+    failed_rids = set()
+    for i, line in enumerate(text.splitlines(), 1):
+        line = line.strip()
+        if not line.startswith("{"):
+            continue
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            problems.append(f"{where}:{i}: unparseable JSON line")
+            continue
+        if not isinstance(rec, dict):
+            problems.append(f"{where}:{i}: not a JSON object")
+            continue
+        if rec.get("summary"):
+            summaries.append((i, rec))
+        elif rec.get("shed"):
+            if not isinstance(rec.get("rid"), int) \
+                    or not isinstance(rec.get("tenant"), str) \
+                    or not isinstance(rec.get("reason"), str):
+                problems.append(f"{where}:{i}: shed record without "
+                                f"rid/tenant/reason")
+            else:
+                shed_rids.add(rec["rid"])
+        elif rec.get("rejected"):
+            if not isinstance(rec.get("error"), str):
+                problems.append(f"{where}:{i}: rejection record "
+                                f"without 'error'")
+        elif "rid" in rec and "area" in rec:
+            if not isinstance(rec["rid"], int):
+                problems.append(f"{where}:{i}: non-int rid")
+                continue
+            retire_rids.add(rec["rid"])
+            if rec.get("failed"):
+                failed_rids.add(rec["rid"])
+                if rec["area"] is not None:
+                    problems.append(
+                        f"{where}:{i}: failed retire record must "
+                        f"carry area null, got {rec['area']!r}")
+            elif not _is_finite_number(rec.get("area")):
+                problems.append(
+                    f"{where}:{i}: retire record with non-finite "
+                    f"area {rec.get('area')!r}")
+        else:
+            problems.append(f"{where}:{i}: unrecognized serve record "
+                            f"shape (not retire/shed/rejected/"
+                            f"summary)")
+    if len(summaries) != 1:
+        problems.append(f"{where}: expected exactly 1 summary line, "
+                        f"found {len(summaries)}")
+        return problems
+    _, s = summaries[0]
+    for key in ("completed", "phases", "totals", "latency"):
+        if key not in s:
+            problems.append(f"{where}: summary missing {key!r}")
+    if isinstance(s.get("completed"), int) \
+            and len(retire_rids) != s["completed"]:
+        problems.append(
+            f"{where}: summary.completed={s['completed']} but "
+            f"{len(retire_rids)} distinct retire rids in the stream")
+    if isinstance(s.get("shed"), int) \
+            and len(shed_rids) != s["shed"]:
+        problems.append(
+            f"{where}: summary.shed={s['shed']} but "
+            f"{len(shed_rids)} distinct shed rids in the stream")
+    both = retire_rids & shed_rids
+    if both:
+        problems.append(f"{where}: rid(s) both retired and shed: "
+                        f"{sorted(both)[:8]}")
+    if isinstance(s.get("failed"), int) \
+            and len(failed_rids) != s["failed"]:
+        problems.append(
+            f"{where}: summary.failed={s['failed']} but "
+            f"{len(failed_rids)} distinct failed retire rids")
+    return problems
+
+
+def dedup_replayed(records: List[dict], key_fn) -> List[dict]:
+    """Collapse replayed duplicates out of an events stream: after a
+    kill-and-resume, the replayed turns re-emit their events with
+    IDENTICAL content (that is the determinism contract), so each
+    record collapses onto its original. First occurrence wins — file
+    order is emission order, so the original precedes its replay —
+    which also keeps the analyzers order-stable. Records whose key is
+    None are kept verbatim (no identity to collapse on).
+
+    One definition for every reader of a replayed ledger or
+    timeline."""
+    out: List[dict] = []
+    seen = set()
+    for r in records:
+        k = key_fn(r)
+        if k is None:
+            out.append(r)
+            continue
+        if k in seen:
+            continue
+        seen.add(k)
+        out.append(r)
+    return out
+
+
+def dedup_by_rid(records: List[dict]) -> List[dict]:
+    """Replay dedup keyed on the request id — the common case: one
+    retire/shed event per rid survives, replays collapse."""
+    return dedup_replayed(records, lambda r: r.get("rid"))

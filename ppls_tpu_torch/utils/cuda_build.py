@@ -4,7 +4,10 @@ plain C interface and load them through ``ctypes``.
 Each CUDA source is compiled by ``nvcc`` at first use into
 ``ppls_tpu_torch/csrc/build/<hash>/``, keyed by a hash of the sources and
 flags, so a fresh checkout builds them on its first call and later
-calls reuse the library. A failed build raises. The same header also
+calls reuse the library. A build holds an exclusive file lock in its
+directory, so threads (a serve attempt under a watchdog and its retry)
+and processes that reach the first use at once build it once. A failed
+build raises. The same header also
 compiles with ``g++`` into a host library the CPU tests use.
 """
 
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -65,8 +69,11 @@ def build_library(name: str, compiler: str, flags: Sequence[str],
                   sources: Sequence[Path], depends: Sequence[Path],
                   out_root: Path) -> BuiltLib:
     """Compile ``sources`` into ``out_root/<hash>/lib<name>.so`` unless
-    that file exists, and load it. Raises ``RuntimeError`` with the
-    compiler output when the build fails."""
+    that file exists, and load it. The build runs under an exclusive
+    ``flock`` of ``<name>.lock`` in that directory (the kernel drops it
+    when its holder exits), so concurrent first uses build once and the
+    others load the result. Raises ``RuntimeError`` with the compiler
+    output when the build fails."""
     cmd = [compiler, *flags]
     key = _digest([*sources, *depends], cmd)
     out_dir = Path(out_root) / key
@@ -75,22 +82,35 @@ def build_library(name: str, compiler: str, flags: Sequence[str],
     seconds = 0.0
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [*cmd, "-I", str(CSRC), "-o", str(tmp),
-             *[str(s) for s in sources]],
-            capture_output=True, text=True, check=False)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} with {compiler} failed "
-                f"(exit {proc.returncode}):\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
+        with open(out_dir / f"{name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.exists():
+                seconds = _compile(name, compiler, cmd, sources, out_dir,
+                                   lib_path, log_path)
     log = log_path.read_text() if log_path.exists() else ""
     return BuiltLib(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)
+
+
+def _compile(name: str, compiler: str, cmd: Sequence[str],
+             sources: Sequence[Path], out_dir: Path, lib_path: Path,
+             log_path: Path) -> float:
+    """Run the compiler into a temporary file and rename it into place;
+    returns the seconds it took."""
+    tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [*cmd, "-I", str(CSRC), "-o", str(tmp),
+         *[str(s) for s in sources]],
+        capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {name} with {compiler} failed "
+            f"(exit {proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)
+    return seconds
 
 
 def _load_nvcc(name: str) -> BuiltLib:

@@ -843,3 +843,98 @@ def test_cuda_walker_kill_and_resume_bit_identical(tmp_path, cuda_device,
         base.metrics.tasks, base.cycles, base.kernel_steps)
     assert np.array_equal(res.waste, base.waste)
     assert n1 > n0 and kernel.launches - n1 == n1 - n0
+
+
+# tests/test_multitenant.py's serve configuration with the stream leg's
+# knobs (scout f32, double buffer), at 256 lanes
+SERVE_CARD_ARGS = ["serve", "--family", "sin_recip_scaled", "--slots", "8",
+                   "--chunk", "512", "--capacity", "65536", "--lanes", "256",
+                   "--refill-slots", "2", "--scout-dtype", "f32",
+                   "--double-buffer", "--eps", "1e-7", "-a", "1e-2",
+                   "-b", "1.0", "--synthetic", "8", "--arrival-rate", "2",
+                   "--seed", "17"]
+
+
+def _serve(argv):
+    import contextlib
+    import io
+    import json
+
+    from ppls_tpu_torch import __main__ as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(argv) == 0
+    return [json.loads(ln) for ln in buf.getvalue().splitlines()
+            if ln.startswith("{")]
+
+
+@pytest.mark.cuda
+def test_cuda_serve_cli_matches_engine_and_cpu(cuda_device):
+    """``serve`` on the card through K1: every retire record bit-equal to
+    an in-process ``StreamEngine.run`` on the same requests, and the same
+    records as ``serve --device cpu`` with areas within 1e-12."""
+    from ppls_tpu_torch.runtime.stream import StreamEngine
+    before = W.run_segment_rf.launches
+    card = _serve(SERVE_CARD_ARGS)
+    assert W.run_segment_rf.launches > before
+    cpu = _serve(SERVE_CARD_ARGS + ["--device", "cpu"])
+    theta = np.linspace(1.0, 2.0, 8, endpoint=False)
+    gaps = np.random.default_rng(17).exponential(0.5, 8)
+    arrivals = np.floor(np.cumsum(gaps) - gaps[0]).astype(int).tolist()
+    res = StreamEngine(
+        "sin_recip_scaled", 1e-7, slots=8, chunk=512, capacity=65536,
+        lanes=256, refill_slots=2, scout_dtype="f32", double_buffer=True,
+        device=cuda_device).run([(float(t), (1e-2, 1.0)) for t in theta],
+                                arrival_phase=arrivals)
+    by_rid = {c.rid: c for c in res.completed}
+    recs = card[:-1]
+    assert len(recs) == 8 and card[-1]["completed"] == 8
+    for r in recs:
+        c = by_rid[r["rid"]]
+        assert (r["area"], r["admit_phase"], r["retire_phase"]) == (
+            c.area, c.admit_phase, c.retire_phase)
+    assert card[-1]["totals"] == res.totals
+    assert card[-1]["phases"] == res.phases == cpu[-1]["phases"]
+    for a, b in zip(recs, cpu[:-1]):
+        assert a["rid"] == b["rid"] and abs(a["area"] - b["area"]) < 1e-12
+        assert (a["admit_phase"], a["retire_phase"]) == (
+            b["admit_phase"], b["retire_phase"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refill_slots", [2, 0])
+def test_cuda_nan_poison_matches_plain_segments(cuda_device, refill_slots):
+    """A NaN-poisoned request through K1 (R = 2) and K2 (R = 0) on the
+    card: the same failed rid, records and totals as the plain segments
+    on the CPU, healthy areas within 1e-12."""
+    from ppls_tpu_torch.runtime.faults import FaultInjector, FaultPlan
+    from ppls_tpu_torch.runtime.stream import StreamEngine
+    kernel = W.run_segment_rf if refill_slots else W.run_segment_ee
+    reqs = [(1.0 + i / 8, (1e-2, 1.0)) for i in range(8)]
+
+    def run(device):
+        inj = FaultInjector(FaultPlan.from_events(
+            [{"kind": "nan_poison", "at": 2}]))
+        return StreamEngine(
+            "sin_recip_scaled", 1e-6, slots=4, chunk=1024, capacity=65536,
+            lanes=256, roots_per_lane=2, refill_slots=refill_slots,
+            seg_iters=32, min_active_frac=0.05, quarantine=True,
+            fault_injector=inj, device=device).run(
+                reqs, arrival_phase=[0, 0, 1, 1, 2, 3, 3, 4])
+
+    before = kernel.launches
+    card = run(cuda_device)
+    assert kernel.launches > before
+    cpu = run("cpu")
+
+    def recs(r):
+        return {c.rid: (c.admit_phase, c.retire_phase, c.failed, c.failure)
+                for c in r.completed}
+
+    assert recs(card) == recs(cpu)
+    assert [c.rid for c in card.completed if c.failed] == [2]
+    assert card.totals == cpu.totals
+    ok = [c.rid for c in cpu.completed if not c.failed]
+    a = {c.rid: c.area for c in card.completed}
+    b = {c.rid: c.area for c in cpu.completed}
+    assert max(abs(a[k] - b[k]) for k in ok) < 1e-12

@@ -30,6 +30,7 @@ def test_sources_import_no_jax_and_no_reference():
                      re.M)
     sources = list(PKG.rglob("*.py"))
     assert PKG / "runtime" / "checkpoint.py" in sources
+    assert PKG / "__main__.py" in sources
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
     dtype_pat = re.compile(r"set_default_dtype|set_default_tensor_type")
@@ -44,7 +45,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "import ppls_tpu_torch, ppls_tpu_torch.interop, "
             "ppls_tpu_torch.utils.cuda_build, "
             "ppls_tpu_torch.runtime.stream, "
-            "ppls_tpu_torch.runtime.checkpoint\n"
+            "ppls_tpu_torch.runtime.checkpoint, "
+            "ppls_tpu_torch.__main__, ppls_tpu_torch.runtime.guard, "
+            "ppls_tpu_torch.runtime.faults, ppls_tpu_torch.runtime.ingest, "
+            "ppls_tpu_torch.obs.server, "
+            "ppls_tpu_torch.utils.artifact_schema\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
             "print(','.join(sorted(bad)))\n")

@@ -549,7 +549,6 @@ REFUSED = {
     "spillover": (dict(spillover=True), "item 7"),
     "slo_config": (dict(slo_config={}), "item 7"),
     "adapt": (dict(adapt=True), "item 7"),
-    "fault_injector": (dict(fault_injector=object()), "item 7"),
     "sort_roots": (dict(sort_roots=False), "item 4"),
     "sort_skip_ratio": (dict(sort_skip_ratio=4.0), "item 4"),
 }
