@@ -201,6 +201,53 @@ Phases, each of which must pass (any failure exits nonzero):
    phases, host syncs per phase (not for 14e's processes), phases and
    completed; the snapshot bytes and load time at the restart, the
    supervisor's recovery wall, the POST and scrape round trips.
+15. ``python -m ppls_tpu_torch`` (the root command) and ``python -m
+   ppls_tpu_torch family``, called in this process through
+   ``__main__.main(argv)`` on the card, the kernels' launches counted
+   around each call; snapshots and traces in a temporary directory of the
+   checkout, removed at the end.
+   a. The reference problem (cosh^4 on [0, 5], eps 1e-3) through the host
+      engine, the device engine and the spillover backend, each with
+      ``--json``: 7583461.801486 at the reference's printed precision,
+      6567 tasks (3283 splits, 3284 leaves), 15 rounds, depth 14; the C
+      sequential driver and the single-process MPI stub give the same;
+      ``--backend mpi`` runs only where ``mpirun`` is on PATH (printed
+      either way, never counted as a pass without it); ``--rule
+      simpson`` beside it, its global error printed.
+   b. BASELINE's SIN_CONFIG, OSC_CONFIG and OSC_DEEP_CONFIG through both
+      wavefront engines on the card: equal tasks, rounds and depth, areas
+      within 1e-12 relative; the C driver on each within 1e-9 relative
+      (the reference bench's gate 1), its task difference printed;
+      OSC_DEEP_CONFIG at capacity 2^12 overflows (OSC_CONFIG's peak
+      frontier, 2508, fits there) and comes back equal to the host
+      engine. The device reads of every run are printed.
+   c. The flagship from the shell at full width (``family --engine
+      walker --m 1024 -a 1e-4 -b 1 --eps 1e-10 --capacity 8388608 --chunk
+      32768``): through K1 (``--refill-slots 8 --scout-dtype f32
+      --double-buffer``) and through K2 (``--refill-slots 0 --scout-dtype
+      f64``), each line's ``areas_head`` and ``tasks`` bit-equal to
+      phases 4 and 6, ``abs_error`` < 1e-3, each kernel launched; the bag
+      at the CLI defaults card against CPU (equal counts, areas within
+      1e-12); ``--theta-block 256`` on the bench theta leg's integrand
+      (sin(theta x) on [0, 1], eps 1e-5, R = 8, 16384 thetas) equal to
+      the same call in this process; the K1 flagship with
+      ``--checkpoint`` equal to the run without, its snapshot gone.
+   d. ``serve --spillover --spillover-limit 4`` on phase 11d's overload
+      leg (24 requests at 8 per phase into 4 slots, queue limit 6, three
+      priority classes) through K1: card against CPU (retire and shed
+      records, spillover flags, summary counts; walker areas within
+      1e-12, spillover areas, computed on the CPU either way, bit-equal);
+      the spilled areas within 1e-9 of the walk's for the same thetas;
+      SIGTERM at phase 3 with a non-empty spill queue in the kept
+      snapshot, and the restart: the two ledgers together bit-equal to
+      the uninterrupted run.
+   e. ``--trace DIR`` around ``family --engine walker --m 64`` through K1:
+      the Chrome trace is written, holds the CPU-side operator spans, and
+      whether it names K1's launches is printed.
+   Printed: the reference problem's walls (host, device, spillover, C),
+   the CLI flagship's wall against its in-process run, the device reads
+   and the spillover share of the overload leg, with the card's name and
+   power limit.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -208,7 +255,7 @@ per T under ``theta``; the stream's launches under ``stream_launches``;
 phase 12's records per body and step machine under ``bodies`` and its
 paths' launches under ``body_launches``; phase 13's under
 ``checkpoint_launches``; phase 14's in-process ones under
-``serve_launches``)
+``serve_launches``; phase 15's under ``cli_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -339,6 +386,19 @@ CPU_SERVE = dict(eps=1e-6, a=1e-2, slots=4, chunk=512, capacity=1 << 16,
 # the overload leg's fault plan (tools/bench_history.py:115-118)
 SLO_FAULTS = ({"kind": "nan_poison", "at": 2},
               {"kind": "straggler", "at": 3, "seconds": 0.05})
+# phase 15: the root command and `family`
+REF_PRINTED = "7583461.801486"
+REF_COUNTS = dict(tasks=6567, splits=3283, leaves=3284, rounds=15,
+                  max_depth=14)
+WAVEFRONT_TOL = 1e-12          # host against device engine, relative
+C_GATE_REL = 1e-9              # the reference bench's gate 1
+K1_FLAGS = ["--refill-slots", str(REFILL_SLOTS), "--scout-dtype", "f32",
+            "--double-buffer"]
+K2_FLAGS = ["--refill-slots", "0", "--scout-dtype", "f64"]
+THETA_CLI_T = 256              # the bench theta leg's T, over 16384 thetas
+SPILL_LIMIT = 4
+SPILL_CONTRACT = 1e-9          # spillover against the walk (spillover.py)
+TRACE_M = 64
 
 
 def log(msg: str) -> None:
@@ -1883,7 +1943,8 @@ def run_cli(W, TS, argv) -> dict:
             contextlib.redirect_stderr(err):
         rc, wall, launches = counted(W, lambda: cli.main(argv))
     if rc != 0:
-        raise AssertionError(f"serve {argv} exited {rc}: {err.getvalue()}")
+        raise AssertionError(f"ppls_tpu_torch {argv} exited {rc}: "
+                             f"{err.getvalue()}")
     text = out.getvalue()
     recs = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
     return dict(text=text, records=recs, summary=recs[-1], wall_s=wall,
@@ -2420,6 +2481,402 @@ def phase_serve(W, TS, ckpt_dir) -> dict:
                 launches=launches, seconds=seconds)
 
 
+def cli_json(W, TS, argv) -> tuple:
+    """One root or ``family`` command on DEVICE: (its JSON line, the run
+    of ``run_cli``)."""
+    run = run_cli(W, TS, argv + ["--json", "--device", DEVICE])
+    return run["records"][-1], run
+
+
+def flagship_argv() -> list:
+    """Phases 4 and 6's flagship as ``family`` flags."""
+    return ["family", "--engine", "walker", "--m", str(M), "-a",
+            str(BOUNDS[0]), "-b", str(BOUNDS[1]), "--eps", str(EPS),
+            "--capacity", str(CAPACITY), "--chunk", str(1 << 15),
+            "--theta0", "1", "--theta1", "2"]
+
+
+def same_ref_problem(r) -> bool:
+    return (f"{r['area']:.6f}" == REF_PRINTED
+            and all(r[k] == v for k, v in REF_COUNTS.items()))
+
+
+def cli_reference_problem(W, TS, smi: str) -> dict:
+    """15a. The reference problem from the shell through the host engine,
+    the device engine and the spillover backend; the C driver and the MPI
+    stub; --backend mpi where mpirun exists; Simpson beside it."""
+    from ppls_tpu_torch.backends import mpi_backend as MB
+    from ppls_tpu_torch.config import REFERENCE_CONFIG
+    out = {}
+    for tag, extra in (("host", []), ("device", ["--engine", "device"]),
+                       ("spillover", ["--backend", "spillover"]),
+                       ("simpson", ["--rule", "simpson"])):
+        r, run = cli_json(W, TS, extra)
+        out[tag] = dict(area=r["area"], tasks=r["tasks"],
+                        rounds=r["rounds"], max_depth=r["max_depth"],
+                        global_error=r["global_error"],
+                        engine_wall_s=r["wall_time_s"],
+                        host_wall_s=run["wall_s"],
+                        launches=run["launches"])
+        if tag != "simpson" and not same_ref_problem(r):
+            raise AssertionError(f"15a {tag}: not the reference's numbers: "
+                                 f"{r}")
+    for tag, fn in (("c_seq", MB.run_seq), ("mpi_stub", MB.run_mpi_stub)):
+        t0 = time.perf_counter()
+        res = fn(REFERENCE_CONFIG)
+        m = res.metrics
+        out[tag] = dict(area=res.area, tasks=m.tasks,
+                        engine_wall_s=m.wall_time_s,
+                        host_wall_s=time.perf_counter() - t0)
+        if (f"{res.area:.6f}" != REF_PRINTED or m.tasks != 6567
+                or m.splits != 3283 or m.max_depth != 14):
+            raise AssertionError(f"15a {tag}: {out[tag]}")
+    if MB.mpi_available():
+        r, run = cli_json(W, TS, ["--backend", "mpi"])
+        out["mpi"] = dict(area=r["area"], tasks=r["tasks"],
+                          engine_wall_s=r["wall_time_s"])
+        if f"{r['area']:.6f}" != REF_PRINTED or r["tasks"] != 6567:
+            raise AssertionError(f"15a --backend mpi: {r}")
+        mpi = "ran, the reference's numbers"
+    else:
+        out["mpi"] = None
+        mpi = "not run (no mpirun on PATH; not counted)"
+    log(f"[smoke] 15a reference problem from the shell: host, device, "
+        f"spillover, C seq and MPI stub all {REF_PRINTED} with 6567 tasks, "
+        f"15 rounds, depth 14; --backend mpi {mpi}; Simpson "
+        f"{out['simpson']['area']:.6f} in {out['simpson']['tasks']} tasks, "
+        f"global error {out['simpson']['global_error']:.3e} (trapezoid "
+        f"{out['host']['global_error']:.3e})")
+    log(f"[smoke] 15a walls ({smi}): engine host "
+        f"{out['host']['engine_wall_s']:.4f} s, device "
+        f"{out['device']['engine_wall_s']:.4f} s, spillover (CPU) "
+        f"{out['spillover']['engine_wall_s']:.4f} s, C seq "
+        f"{out['c_seq']['engine_wall_s']:.4f} s; whole CLI calls host "
+        f"{out['host']['host_wall_s']:.3f} s, device "
+        f"{out['device']['host_wall_s']:.3f} s, spillover "
+        f"{out['spillover']['host_wall_s']:.3f} s")
+    return out
+
+
+def wavefront_configs(W) -> dict:
+    """15b. BASELINE's configurations through both wavefront engines on
+    the card, against the C driver; the deep one overflowing 2^12 slots."""
+    from ppls_tpu_torch.backends.mpi_backend import run_seq
+    from ppls_tpu_torch.config import OSC_CONFIG, OSC_DEEP_CONFIG, SIN_CONFIG
+    from ppls_tpu_torch.parallel.device_engine import device_integrate
+    from ppls_tpu_torch.runtime.host_frontier import integrate
+    out, hosts = {}, {}
+    for name, cfg in (("sin", SIN_CONFIG), ("osc", OSC_CONFIG),
+                      ("osc_deep", OSC_DEEP_CONFIG)):
+        h, wh, _ = counted(W, lambda: integrate(cfg, device=DEVICE))
+        d, wd, _ = counted(W, lambda: device_integrate(cfg, device=DEVICE))
+        c = run_seq(cfg)
+        hosts[name] = h
+        rel_hd = abs(h.area - d.area) / abs(h.area)
+        rel_c = abs(d.area - c.area) / abs(c.area)
+        same = all(getattr(h.metrics, k) == getattr(d.metrics, k)
+                   for k in ("tasks", "splits", "rounds", "max_depth"))
+        out[name] = dict(area=d.area, tasks=d.metrics.tasks,
+                         rounds=d.metrics.rounds, rel_host_device=rel_hd,
+                         rel_c=rel_c, c_tasks=c.metrics.tasks,
+                         host_reads=h.host_syncs, device_reads=d.host_syncs,
+                         host_wall_s=wh, device_wall_s=wd,
+                         c_wall_s=c.metrics.wall_time_s,
+                         global_error=d.global_error)
+        log(f"[smoke] 15b {name} ({cfg.integrand} on [{cfg.a}, {cfg.b}], "
+            f"eps {cfg.eps}, capacity {cfg.capacity}): {d.metrics.tasks} "
+            f"tasks in {d.metrics.rounds} rounds on both engines {same}; "
+            f"|host - device| / area {rel_hd:.3e} (tol {WAVEFRONT_TOL}); "
+            f"|device - C| / area {rel_c:.3e} (tol {C_GATE_REL}), C tasks "
+            f"{c.metrics.tasks} ({c.metrics.tasks - d.metrics.tasks:+d}); "
+            f"device reads: host engine {h.host_syncs}, device engine "
+            f"{d.host_syncs}; walls host {wh:.4f} s, device {wd:.4f} s, C "
+            f"{c.metrics.wall_time_s:.4f} s; global error "
+            f"{d.global_error:.3e}")
+        if (not same or not rel_hd < WAVEFRONT_TOL or not rel_c < C_GATE_REL
+                or d.state is None):
+            raise AssertionError(f"15b {name} failed: {out[name]}")
+    deep = OSC_DEEP_CONFIG.replace(capacity=1 << 12)
+    d, wd, _ = counted(W, lambda: device_integrate(deep, device=DEVICE))
+    fit = device_integrate(OSC_CONFIG.replace(capacity=1 << 12),
+                           device=DEVICE)
+    h = hosts["osc_deep"]
+    out["overflow"] = dict(rerun_on_host=d.state is None, reads=d.host_syncs,
+                           wall_s=wd, osc_fits=fit.state is not None)
+    log(f"[smoke] 15b OSC_DEEP_CONFIG at capacity 2^12: overflowed and "
+        f"reran on the host engine {d.state is None}, area equal to the host "
+        f"engine's {d.area == h.area}, tasks {d.metrics.tasks}, reads "
+        f"{d.host_syncs}, wall {wd:.4f} s; OSC_CONFIG at 2^12 fits (peak "
+        f"frontier 2508) {fit.state is not None}")
+    if (d.state is not None or d.area != h.area
+            or d.metrics.tasks != h.metrics.tasks or fit.state is None):
+        raise AssertionError(f"15b overflow failed: {out['overflow']}")
+    return out
+
+
+def cli_flagship(W, TS, k1_res, k2_res, walls, ckpt_dir, smi) -> dict:
+    """15c. The flagship from the shell through K1 and K2 against phases 4
+    and 6; the bag card against CPU; --theta-block 256 against the same
+    call in this process; the K1 flagship with --checkpoint."""
+    import numpy as np
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    out, launches = {}, {}
+
+    def add(ls):
+        for k, v in ls.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for tag, flags, want, counter in (
+            ("k1", K1_FLAGS, k1_res, "run_segment_rf"),
+            ("k2", K2_FLAGS, k2_res, "run_segment_ee")):
+        r, run = cli_json(W, TS, flagship_argv() + flags)
+        add(run["launches"])
+        head = [float(v) for v in np.asarray(want.areas)[:4]]
+        ok = (r["areas_head"] == head and r["tasks"] == want.metrics.tasks
+              and r["abs_error"] < AREA_TOL_EXACT
+              and run["launches"][counter] > 0)
+        out[tag] = dict(tasks=r["tasks"], abs_error=r["abs_error"],
+                        cli_wall_s=run["wall_s"],
+                        engine_wall_s=r["wall_time_s"],
+                        in_process_wall_s=walls[tag],
+                        launches=run["launches"], same=ok)
+        log(f"[smoke] 15c CLI flagship through {counter}: {r['tasks']} "
+            f"tasks, areas_head and tasks bit-equal to phase "
+            f"{4 if tag == 'k1' else 6} {ok}, abs_error {r['abs_error']:.3e}"
+            f", launches {run['launches']}; wall ({smi}): CLI call "
+            f"{run['wall_s']:.3f} s (engine {r['wall_time_s']:.3f} s) "
+            f"against {walls[tag]:.3f} s in process")
+        if not ok:
+            raise AssertionError(f"15c flagship ({tag}) failed: {r}")
+
+    bag_card, run = cli_json(W, TS, ["family"])
+    add(run["launches"])
+    bag_cpu = run_cli(W, TS, ["family", "--json", "--device",
+                              "cpu"])["records"][-1]
+    d_bag = float(np.max(np.abs(np.asarray(bag_card["areas_head"])
+                                - bag_cpu["areas_head"])))
+    same_bag = all(bag_card[k] == bag_cpu[k] for k in (
+        "tasks", "splits", "rounds", "max_depth", "m"))
+    out["bag"] = dict(tasks=bag_card["tasks"], d_card_cpu=d_bag,
+                      card_wall_s=bag_card["wall_time_s"],
+                      cpu_wall_s=bag_cpu["wall_time_s"])
+    log(f"[smoke] 15c family --engine bag at the CLI defaults: "
+        f"{bag_card['tasks']} tasks, card = CPU counts {same_bag}, max "
+        f"|card - CPU| {d_bag:.3e} (tol {AREA_TOL_DEVICES}), walls card "
+        f"{bag_card['wall_time_s']:.3f} s, CPU {bag_cpu['wall_time_s']:.3f} s")
+    if not same_bag or not d_bag < AREA_TOL_DEVICES:
+        raise AssertionError(f"15c bag failed: {out['bag']}")
+
+    m = LANES // THETA_CLI_T
+    theta = np.linspace(THETA_RANGE[0], THETA_RANGE[1], LANES,
+                        endpoint=False).reshape(m, THETA_CLI_T)
+    r, run = cli_json(W, TS, [
+        "family", "--engine", "walker", "--family", THETA_FAMILY, "-a",
+        str(THETA_BOUNDS[0]), "-b", str(THETA_BOUNDS[1]), "--eps",
+        str(THETA_EPS), "--refill-slots", str(REFILL_SLOTS), "--m",
+        str(LANES), "--theta0", str(THETA_RANGE[0]), "--theta1",
+        str(THETA_RANGE[1]), "--theta-block", str(THETA_CLI_T)])
+    add(run["launches"])
+    inproc = W.integrate_family_walker(
+        get_family(THETA_FAMILY), get_family_ds(THETA_FAMILY), theta,
+        THETA_BOUNDS, THETA_EPS, refill_slots=REFILL_SLOTS,
+        theta_block=THETA_CLI_T, chunk=1 << 13, capacity=1 << 20,
+        device=DEVICE)
+    head = [float(v) for v in np.asarray(inproc.areas).reshape(-1)[:4]]
+    ok = (r["areas_head"] == head and r["tasks"] == inproc.metrics.tasks
+          and r["m"] == m and run["launches"]["run_segment_rf"] > 0)
+    out["theta_block"] = dict(tasks=r["tasks"], m=r["m"],
+                              abs_error=r["abs_error"],
+                              launches=run["launches"], same=ok)
+    log(f"[smoke] 15c --theta-block {THETA_CLI_T} ({THETA_FAMILY}, {LANES} "
+        f"thetas in {m} slots): {r['tasks']} tasks, equal to the in-process "
+        f"call {ok}, abs_error {r['abs_error']:.3e}, launches "
+        f"{run['launches']}")
+    if not ok:
+        raise AssertionError(f"15c theta block failed: {r}")
+
+    ck = os.path.join(ckpt_dir, "flagship_cli.ckpt")
+    r, run = cli_json(W, TS, flagship_argv() + K1_FLAGS
+                      + ["--checkpoint", ck])
+    add(run["launches"])
+    head = [float(v) for v in np.asarray(k1_res.areas)[:4]]
+    ok = (r["areas_head"] == head and r["tasks"] == k1_res.metrics.tasks
+          and not os.path.exists(ck))
+    out["checkpoint"] = dict(cli_wall_s=run["wall_s"], same=ok,
+                             launches=run["launches"])
+    log(f"[smoke] 15c CLI flagship with --checkpoint: equal to phase 4 and "
+        f"its snapshot gone {ok}, wall {run['wall_s']:.3f} s, launches "
+        f"{run['launches']}")
+    if not ok:
+        raise AssertionError("15c flagship with --checkpoint failed")
+    out["launches"] = launches
+    return out
+
+
+def spill_serve_argv(device: str, **over) -> list:
+    """Phase 11d's overload leg as ``serve`` flags, with CPU spillover."""
+    kw = dict(family=STREAM_FAMILY, eps=SLO_EPS, a=SLO_BOUNDS[0],
+              b=SLO_BOUNDS[1], synthetic=SLO_K, theta0=1.0, theta1=2.0,
+              arrival_rate=SLO_RATE, seed=SLO_SEED, slots=SLO_KW["slots"],
+              chunk=SLO_KW["chunk"], capacity=SLO_KW["capacity"],
+              lanes=SLO_KW["lanes"], refill_slots=SLO_KW["refill_slots"],
+              tenants=",".join(f"{t}:1:{p}" for t, p in SLO_TENANTS),
+              quarantine=True, queue_limit=SLO_QUEUE_LIMIT, spillover=True,
+              spillover_limit=SPILL_LIMIT, device=device)
+    kw.update(over)
+    argv = ["serve"]
+    for k, v in kw.items():
+        flag = f"-{k}" if len(k) == 1 else "--" + k.replace("_", "-")
+        if v is True:
+            argv.append(flag)
+        elif v is not None and v is not False:
+            argv += [flag, str(v)]
+    return argv
+
+
+def serve_ledger(run) -> dict:
+    """(rid, shed) -> the ledger's record, without its latency
+    seconds."""
+    body = {(r["rid"], bool(r.get("shed"))):
+            {k: v for k, v in r.items() if k != "latency_s"}
+            for r in run["records"] if "rid" in r}
+    return body
+
+
+def cli_spillover(W, TS, ckpt_dir) -> dict:
+    """15d. serve --spillover on the overload leg through K1: card against
+    CPU, the spillover contract against the walk, SIGTERM with a queued
+    spill and the restart."""
+    import numpy as np
+    card = run_cli(W, TS, spill_serve_argv(DEVICE))
+    cpu = run_cli(W, TS, spill_serve_argv("cpu"))
+    plain = run_cli(W, TS, spill_serve_argv(DEVICE, queue_limit=None,
+                                            spillover=False,
+                                            spillover_limit=None))
+    a, b = serve_ledger(card), serve_ledger(cpu)
+    keys = set(a) == set(b)
+    d_walk, bad = 0.0, []
+    for key, ra in a.items():
+        rb = b.get(key, {})
+        if {k: v for k, v in ra.items() if k != "area"} \
+                != {k: v for k, v in rb.items() if k != "area"}:
+            bad.append(key)
+        elif "area" in ra and not ra.get("failed"):
+            gap = abs(ra["area"] - rb["area"])
+            if ra.get("spillover") is True:
+                if gap != 0.0:
+                    bad.append(key)
+            else:
+                d_walk = max(d_walk, gap)
+    walk = {r["rid"]: r["area"] for r in plain["records"]
+            if "area" in r and "rid" in r}
+    spilled = [r for r in card["records"] if r.get("spillover") is True]
+    d_spill = max((abs(r["area"] - walk[r["rid"]]) for r in spilled),
+                  default=float("nan"))
+    s_card, s_cpu = card["summary"], cpu["summary"]
+    counts = ("completed", "shed", "phases", "spillover", "totals")
+    same_summary = all(s_card[k] == s_cpu[k] for k in counts)
+    out = dict(summary={k: s_card[k] for k in counts},
+               spilled=len(spilled), d_walk_card_cpu=d_walk,
+               d_spill_walk=d_spill, launches=card["launches"],
+               wall_s=s_card["wall_s"], cpu_wall_s=s_cpu["wall_s"],
+               plain_wall_s=plain["summary"]["wall_s"])
+    share = s_card["spillover"]["spillover_fraction"]
+    log(f"[smoke] 15d serve --spillover on the overload leg: "
+        f"{s_card['completed']} completed, {s_card['shed']} shed, "
+        f"{len(spilled)} on the CPU spillover (share {share:.3f}, "
+        f"{s_card['spillover']['spillover_tasks']} tasks), "
+        f"{s_card['phases']} phases, wall {s_card['wall_s']} s (CPU run "
+        f"{s_cpu['wall_s']} s; without spillover {plain['summary']['wall_s']}"
+        f" s in {plain['summary']['phases']} phases); card = CPU records "
+        f"{keys and not bad} (walk areas max gap {d_walk:.3e}, tol "
+        f"{AREA_TOL_DEVICES}; spillover areas bit-equal), summaries "
+        f"{same_summary}; max |spillover - walk| {d_spill:.3e} (tol "
+        f"{SPILL_CONTRACT}); launches {card['launches']}")
+    if (not keys or bad or not same_summary or not spilled
+            or not d_walk < AREA_TOL_DEVICES or not d_spill < SPILL_CONTRACT
+            or card["launches"]["run_segment_rf"] <= 0):
+        raise AssertionError(f"15d failed: {out}, bad {bad}")
+
+    ck = os.path.join(ckpt_dir, "spill.ckpt")
+    flags = dict(checkpoint=ck, checkpoint_every=1)
+    k1 = run_cli(W, TS, spill_serve_argv(
+        DEVICE, fault_plan='[{"kind": "sigterm", "at": 3}]', **flags))
+    with np.load(ck) as z:
+        totals = json.loads(bytes(z["meta"]).decode())["totals"]
+    queued = len(totals["spill_queue"])
+    k2 = run_cli(W, TS, spill_serve_argv(DEVICE, **flags))
+    union = {**serve_ledger(k1), **serve_ledger(k2)}
+    bad_r = sorted(str(k) for k in set(union) | set(a)
+                   if union.get(k) != a.get(k))
+    out["restart"] = dict(terminated=k1["summary"].get("terminated"),
+                          spill_queue_at_kill=queued, differing=bad_r,
+                          launches={k: k1["launches"][k] + k2["launches"][k]
+                                    for k in k1["launches"]})
+    log(f"[smoke] 15d SIGTERM at phase 3: terminated "
+        f"{out['restart']['terminated']!r}, {queued} requests in the kept "
+        f"snapshot's spill queue; restart: the two ledgers against the "
+        f"uninterrupted run differ at {bad_r}; snapshot cleared "
+        f"{not os.path.exists(ck)}")
+    if (out["restart"]["terminated"] != "SIGTERM" or queued <= 0 or bad_r
+            or os.path.exists(ck)):
+        raise AssertionError(f"15d restart failed: {out['restart']}")
+    out["launches"] = {k: card["launches"][k] + plain["launches"][k]
+                       + out["restart"]["launches"][k]
+                       for k in card["launches"]}
+    return out
+
+
+def cli_trace(W, TS, ckpt_dir) -> dict:
+    """15e. --trace around a K1 family run: the Chrome trace, its CPU
+    spans and whether it names K1's launches."""
+    d = os.path.join(ckpt_dir, "trace")
+    argv = ["--trace", d] + flagship_argv() + K1_FLAGS
+    argv[argv.index("--m") + 1] = str(TRACE_M)
+    r, run = cli_json(W, TS, argv)
+    path = os.path.join(d, "trace.json")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    cpu_ops = sum(1 for e in events
+                  if str(e.get("name", "")).startswith("aten::"))
+    k1_events = sum(1 for e in events if "walk_rf" in str(e.get("name", ""))
+                    and e.get("cat") == "kernel")
+    out = dict(bytes=os.path.getsize(path), events=len(events),
+               cpu_ops=cpu_ops, k1_kernel_events=k1_events,
+               launches=run["launches"], wall_s=run["wall_s"])
+    log(f"[smoke] 15e --trace: {out['bytes']} bytes, {len(events)} events, "
+        f"{cpu_ops} CPU operator spans, K1 kernel events {k1_events} (K1 "
+        f"launches counted {run['launches']['run_segment_rf']}), wall "
+        f"{run['wall_s']:.3f} s")
+    if not cpu_ops or run["launches"]["run_segment_rf"] <= 0:
+        raise AssertionError(f"15e failed: {out}")
+    return out
+
+
+def phase_cli(W, TS, k1_res, k2_res, walls, ckpt_dir, smi) -> dict:
+    """15. The root command and ``family`` from the shell: 15a-15e.
+    Returns the records and phase 15's launches."""
+    import torch
+    t0 = time.perf_counter()
+    out = dict(reference=cli_reference_problem(W, TS, smi),
+               wavefront=wavefront_configs(W),
+               flagship=cli_flagship(W, TS, k1_res, k2_res, walls, ckpt_dir,
+                                     smi),
+               spillover=cli_spillover(W, TS, ckpt_dir),
+               trace=cli_trace(W, TS, ckpt_dir))
+    torch.cuda.synchronize()
+    parts = ([v["launches"] for v in out["reference"].values()
+              if isinstance(v, dict) and "launches" in v]
+             + [out["flagship"]["launches"], out["spillover"]["launches"],
+                out["trace"]["launches"]])
+    out["launches"] = {k: sum(p.get(k, 0) for p in parts)
+                       for k in parts[0]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] phase 15 (root command and family): {out['seconds']:.1f} "
+        f"s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2805,6 +3262,16 @@ def main() -> int:
     serve_launches = report["serve"]["launches"]
     if serve_launches["run_segment"] != 0:
         raise AssertionError(f"K3 ran on the serve path: {serve_launches}")
+    # 15. python -m ppls_tpu_torch and its family command
+    cli_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["cli"] = phase_cli(W, TS, res, res0,
+                                  dict(k1=wall, k2=wall0), cli_dir, smi)
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    cli_launches = report["cli"]["launches"]
+    if cli_launches["run_segment"] != 0:
+        raise AssertionError(f"K3 ran on the CLI path: {cli_launches}")
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -2862,7 +3329,8 @@ def main() -> int:
             + stream_launches["run_segment_rf"]
             + body_launches["run_segment_rf"]
             + ckpt_launches["run_segment_rf"]
-            + serve_launches["run_segment_rf"],
+            + serve_launches["run_segment_rf"]
+            + cli_launches["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -2870,6 +3338,7 @@ def main() -> int:
             body_launches=body_launches["run_segment_rf"],
             checkpoint_launches=ckpt_launches["run_segment_rf"],
             serve_launches=serve_launches["run_segment_rf"],
+            cli_launches=cli_launches["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -2879,11 +3348,13 @@ def main() -> int:
             "ppls_tpu/parallel/walker.py:1279",
             main_launches["run_segment_ee"] + body_launches["run_segment_ee"]
             + ckpt_launches["run_segment_ee"]
-            + serve_launches["run_segment_ee"],
+            + serve_launches["run_segment_ee"]
+            + cli_launches["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
             serve_launches=serve_launches["run_segment_ee"],
+            cli_launches=cli_launches["run_segment_ee"],
             stream_launches=report["stream"]["overload"]["k2"]["launches"]),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",

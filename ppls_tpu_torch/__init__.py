@@ -1,35 +1,49 @@
 """ppls_tpu_torch: the PyTorch / CUDA port of ppls_tpu for NVIDIA Hopper.
 
 The JAX package ``ppls_tpu`` is the reference; this package imports
-nothing of it and nothing of JAX. It carries the flagship family walker
-(``integrate_family_walker``, in-kernel or boundary refill, trapezoid or
-Simpson, and its many-theta mode ``theta_block`` > 1), the float64
-family bag engine (``integrate_family``) and the streaming engine
-(``StreamEngine``: requests admitted into family slots and retired one
-by one, one walker cycle per phase), each with leg-boundary checkpoints
-and kill-and-resume (``resume_family``, ``resume_family_walker``,
-``StreamEngine.resume``; ``runtime/checkpoint.py`` keeps the reference's
-container, so either package resumes the other's snapshot); the
-walk segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
-``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on the
-CPU. Entry points run on CUDA unless ``device="cpu"`` is passed.
+nothing of it and nothing of JAX. It carries the single-integral API
+(``QuadConfig``, the host-driven wavefront ``integrate`` and the
+device-resident ``device_integrate``, the integrand registry
+``get_integrand``/``register_integrand``/``INTEGRANDS``, the rules
+``eval_batch``/``eval_interval``, the backends of ``backends/``), the
+flagship family walker (``integrate_family_walker``, in-kernel or
+boundary refill, trapezoid or Simpson, and its many-theta mode
+``theta_block`` > 1), the float64 family bag engine
+(``integrate_family``) and the streaming engine (``StreamEngine``:
+requests admitted into family slots and retired one by one, one walker
+cycle per phase, queue-overflow victims optionally run on the CPU
+spillover backend), each with checkpoints and kill-and-resume
+(``resume_family``, ``resume_family_walker``, ``StreamEngine.resume``;
+``runtime/checkpoint.py`` keeps the reference's containers, so either
+package resumes the other's snapshot); the walk segments run in
+hand-written CUDA kernels (``csrc/walk_rf.cu``, ``walk_ee.cu``,
+``walk_seg.cu``) on the card and in plain PyTorch on the CPU. Entry
+points run on CUDA unless ``device="cpu"`` is passed; the command line
+is ``python -m ppls_tpu_torch`` (``__main__.py``).
 
 No global dtype is set: every tensor is created with an explicit dtype.
 """
 
-from ppls_tpu_torch.config import Rule
+from ppls_tpu_torch.config import Backend, QuadConfig, Rule
 from ppls_tpu_torch.models.integrands import (
-    FAMILIES, family_exact, get_family, get_family_ds)
+    FAMILIES, INTEGRANDS, family_exact, get_family, get_family_ds,
+    get_integrand, register_integrand)
+from ppls_tpu_torch.ops.rules import eval_batch, eval_interval
+from ppls_tpu_torch.parallel.device_engine import device_integrate
 from ppls_tpu_torch.parallel.bag_engine import (FamilyResult,
                                                 integrate_family,
                                                 resume_family)
 from ppls_tpu_torch.parallel.walker import (
     WalkerResult, integrate_family_walker, resume_family_walker)
+from ppls_tpu_torch.runtime.host_frontier import IntegrationResult, integrate
 from ppls_tpu_torch.runtime.stream import StreamEngine, StreamResult
 
 __all__ = [
-    "FAMILIES", "FamilyResult", "Rule", "StreamEngine", "StreamResult",
-    "WalkerResult", "family_exact",
-    "get_family", "get_family_ds", "integrate_family",
-    "integrate_family_walker", "resume_family", "resume_family_walker",
+    "Backend", "FAMILIES", "FamilyResult", "INTEGRANDS",
+    "IntegrationResult", "QuadConfig", "Rule", "StreamEngine",
+    "StreamResult", "WalkerResult", "device_integrate", "eval_batch",
+    "eval_interval", "family_exact", "get_family", "get_family_ds",
+    "get_integrand", "integrate", "integrate_family",
+    "integrate_family_walker", "register_integrand", "resume_family",
+    "resume_family_walker",
 ]

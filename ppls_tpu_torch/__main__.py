@@ -1,15 +1,34 @@
-"""CLI: ``python -m ppls_tpu_torch serve [options]``.
+"""CLI: ``python -m ppls_tpu_torch [flags]``, ``python -m ppls_tpu_torch
+family [flags]`` and ``python -m ppls_tpu_torch serve [flags]``.
 
-The port's copy of the JAX package's ``__main__.py`` for its ``serve``
-command (one ``StreamEngine``): the request list from a JSONL file or a
-seeded synthetic load, one JSON line per retirement and per shed, the
-zero-lost-acks restart from ``--checkpoint`` after SIGTERM,
-``--watchdog``/``--supervise``/``--fault-plan`` with quarantine, the
-admission policy flags, ``--events``, ``--metrics-port``,
-``--ingest-port`` and the summary line. The parser is the reference's,
-flag for flag, plus ``--device`` (default ``cuda``; without a card the
-command exits non-zero unless ``--device cpu`` is given). The modes and
-options not ported yet exit non-zero naming their ROADMAP.md item.
+The port's copy of the JAX package's ``__main__.py``:
+
+* the root command integrates one registered integrand (the reference
+  C program's problem by default): ``--engine host`` (the host-driven
+  wavefront, ``runtime/host_frontier.py``) or ``--engine device``
+  (``parallel/device_engine.py``), ``--backend jax`` (those engines; the
+  reference's name for the accelerator path, here the card), ``mpi``
+  (the C farmer/worker program) or ``spillover`` (float64 bag rounds on
+  the host CPU, where the reference pins that arm), ``--checkpoint`` on
+  the host engine, ``--json``;
+* ``family`` integrates a batch of family members with the float64 bag
+  (``--engine bag``) or the walker (``--engine walker``: K1 with
+  ``--refill-slots`` > 0, K2 with 0), with ``--checkpoint``,
+  ``--watchdog``, ``--theta``, ``--theta-block`` and
+  ``--reduced-integrands``;
+* ``serve`` runs one ``StreamEngine`` over a JSONL or seeded synthetic
+  request list (one JSON line per retirement and per shed, the summary
+  last), with ``--spillover``, snapshots and restarts, supervision and
+  fault injection, admission policy, ``--events``, ``--metrics-port``
+  and ``--ingest-port``.
+
+``--trace DIR`` wraps any mode in a ``torch.profiler`` capture. The
+parsers are the reference's, flag for flag, plus ``--device`` (default
+``cuda``; without a card a command that runs an engine on it exits
+non-zero unless ``--device cpu`` is given). The modes and options not
+ported yet (the sharded engines, the 2d and qmc modes, and serve's
+multi-chip, cluster, dispatcher and SLO options) exit non-zero naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,7 +37,8 @@ import argparse
 import json
 import sys
 
-_REST_OF_CLI = "item 9, the rest of the __main__.py CLI"
+_MODES_NOT_PORTED = "item 9, the 2d and qmc modes"
+_SHARDED = "item 8"
 
 
 def _not_ported(what: str, item: str) -> SystemExit:
@@ -124,14 +144,16 @@ def build_parser() -> argparse.ArgumentParser:
                    default="trapezoid")
     p.add_argument("--engine", choices=["host", "device", "sharded"],
                    default="host",
-                   help="host: unbounded frontier, host loop; device: one "
-                        "jitted while_loop; sharded: multi-chip shard_map")
+                   help="host: unbounded frontier, host loop; device: the "
+                        "frontier on the device, one read per 16 rounds; "
+                        "sharded: multi-chip (not ported)")
     p.add_argument("--backend", choices=["jax", "mpi", "spillover"],
                    default="jax",
-                   help="jax: TPU-native path; mpi: the C farmer/worker "
-                        "binary (requires an MPI toolchain); spillover: "
-                        "pure-f64 bag rounds pinned to the host CPU "
-                        "(off-mesh)")
+                   help="jax: the engines on --device (the reference's "
+                        "name for the accelerator path); mpi: the C "
+                        "farmer/worker binary (requires an MPI "
+                        "toolchain); spillover: float64 bag rounds on the "
+                        "host CPU, by design")
     p.add_argument("--capacity", type=int, default=1 << 16)
     p.add_argument("--max-rounds", type=int, default=4096)
     p.add_argument("--n-devices", type=int, default=None)
@@ -143,8 +165,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="print one JSON line instead of the table")
     p.add_argument("--trace", default=None, metavar="DIR",
-                   help="capture a profiler trace of the run into "
-                        "DIR (not ported)")
+                   help="capture a torch.profiler trace of the run into "
+                        "DIR (a Chrome trace, trace.json)")
     p.add_argument("--device", default="cuda",
                    help="the device every engine runs on (default cuda; "
                         "without a card only --device cpu runs)")
@@ -154,8 +176,85 @@ def build_parser() -> argparse.ArgumentParser:
         description="additional problem modes (default: single 1D "
                     "integral with the flags above)")
 
-    for mode, what in (("family", "batch of independent 1D integrals"),
-                       ("2d", "2D adaptive tensor-product cubature"),
+    fam = sub.add_parser(
+        "family", help="batch of independent 1D integrals "
+                       "(BASELINE config #3)")
+    fam.add_argument("--family", default="sin_recip_scaled",
+                     help="registered family name f(x, theta)")
+    fam.add_argument("--m", type=int, default=64, help="family size")
+    fam.add_argument("--theta0", type=float, default=1.0)
+    fam.add_argument("--theta1", type=float, default=2.0)
+    fam.add_argument("--theta", type=theta_batch_arg, default=None,
+                     help="explicit theta batch instead of the "
+                          "theta0..theta1 linspace: a scalar, a "
+                          "comma-separated list, or @file.json (a "
+                          "flat list, or a list of per-slot lists "
+                          "for --theta-block runs)")
+    fam.add_argument("--theta-block", type=int, default=1,
+                     dest="theta_block",
+                     help="walker engine: T > 1 vectorizes theta — "
+                          "one union-refinement frontier scores T "
+                          "per-user thetas per interval (theta "
+                          "becomes (m, T); requires --refill-slots "
+                          "> 0, trapezoid rule, T a power of two "
+                          "dividing the lane count)")
+    fam.add_argument("-a", type=float, default=1e-4)
+    fam.add_argument("-b", type=float, default=1.0)
+    fam.add_argument("--eps", type=float, default=1e-8)
+    fam.add_argument("--engine",
+                     choices=["bag", "walker", "sharded-bag",
+                              "sharded-walker", "sharded-walker-dd"],
+                     default="bag",
+                     help="bag: chunked-LIFO f64; walker: the ds "
+                          "flagship (K1 with --refill-slots > 0, K2 "
+                          "with 0); the sharded engines are not "
+                          "ported")
+    fam.add_argument("--rule", choices=["trapezoid", "simpson"],
+                     default="trapezoid")
+    fam.add_argument("--chunk", type=int, default=1 << 13)
+    fam.add_argument("--capacity", type=int, default=1 << 20)
+    fam.add_argument("--refill-slots", type=int, default=0,
+                     help="walker engine: R > 0 deals R work-sorted "
+                          "roots per lane into a private bank and the "
+                          "kernel refills its own lanes (K1; the "
+                          "flagship bench config uses 8); 0 = "
+                          "boundary refill (K2)")
+    fam.add_argument("--scout-dtype", choices=["f64", "f32"],
+                     default=None, dest="scout_dtype",
+                     help="walker engine, trapezoid rule: 'f32' "
+                          "enables mixed-precision scouting (f32 scout "
+                          "test with a conservative guard band; "
+                          "accepts re-confirmed in full ds); 'f64' "
+                          "forces it off; default defers to the "
+                          "PPLS_SCOUT=1 environment lane")
+    fam.add_argument("--double-buffer", action="store_true",
+                     dest="double_buffer",
+                     help="walker engine with --refill-slots (even, "
+                          ">= 2): rolling half-bank deals")
+    fam.add_argument("--reduced-integrands", action="store_true",
+                     dest="reduced_integrands",
+                     help="prefer the range-reduced ds twin of the "
+                          "family in the kernel; families without one "
+                          "keep their ds twin")
+    fam.add_argument("--n-devices", type=int, default=None)
+    fam.add_argument("--checkpoint", default=None,
+                     help="snapshot path (bag and walker engines); "
+                          "resumes from it if it exists")
+    fam.add_argument("--watchdog", type=float, default=None,
+                     metavar="SECONDS",
+                     help="run the engine under a hang watchdog: on "
+                          "deadline expiry the run is retried ONCE, "
+                          "resuming from --checkpoint when a snapshot "
+                          "exists. Size it WELL ABOVE the worst "
+                          "healthy run time (kernel build included): "
+                          "a timed-out attempt cannot be killed")
+    fam.add_argument("--json", action="store_true", dest="as_json")
+    fam.add_argument("--device", default=argparse.SUPPRESS,
+                     help="the device the engine runs on (default: the "
+                          "root parser's --device, cuda); without a "
+                          "card only --device cpu runs")
+
+    for mode, what in (("2d", "2D adaptive tensor-product cubature"),
                        ("qmc", "8D Genz suite via shifted-lattice QMC")):
         sub.add_parser(mode, help=f"{what} (not ported)", add_help=False)
 
@@ -475,8 +574,6 @@ def _refuse_unported(args) -> None:
             "--lease/--overlap-boundaries require --dispatch (they "
             "are cross-engine pool policies); add --dispatch or drop "
             "the flags")
-    if args.spillover:
-        raise _not_ported("CPU spillover (--spillover)", "item 7")
     if args.slo_config is not None or args.adapt:
         raise _not_ported("SLO evaluation and online adaptation "
                           "(--slo-config, --adapt)", "item 7")
@@ -497,13 +594,9 @@ def _main_serve(args) -> int:
 
     from ppls_tpu_torch.config import Rule
     from ppls_tpu_torch.runtime.ingest import parse_request_record
-    from ppls_tpu_torch.utils.device import resolve_device
 
     _refuse_unported(args)
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(f"serve: {e}") from e
+    device = _resolve(args, "serve")
 
     # ---- materialize the request list + open-loop arrival schedule ----
     # every request is a (theta, bounds, kwargs) triple, kwargs carrying
@@ -589,6 +682,8 @@ def _main_serve(args) -> int:
               queue_limit=args.queue_limit,
               tenant_quotas=args.tenant_quotas,
               default_deadline_phases=args.deadline_phases,
+              spillover=args.spillover,
+              spillover_limit=args.spillover_limit,
               device=device)
     if args.lanes:
         kw["lanes"] = args.lanes
@@ -919,6 +1014,7 @@ def _serve_completed_record(c) -> dict:
         "area": (None if c.failed else c.area),
         **({"failed": True} if c.failed else {}),
         **({"failure": c.failure} if c.failure else {}),
+        **({"spillover": True} if c.spillover else {}),
         "tenant": c.tenant, "priority": c.priority,
         "admit_phase": c.admit_phase,
         "retire_phase": c.retire_phase,
@@ -940,20 +1036,242 @@ def _serve_shed_record(s) -> dict:
         "bounds": list(s.bounds)}
 
 
+def _resolve(args, mode: str):
+    """``--device`` as a torch device; without a card the command exits
+    non-zero with ``resolve_device``'s message."""
+    from ppls_tpu_torch.utils.device import resolve_device
+    try:
+        return resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"{mode}: {e}") from e
+
+
+def _main_family(args) -> int:
+    import os
+
+    import numpy as np
+
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.models.integrands import (family_exact, get_family,
+                                                  get_family_ds)
+
+    if args.engine.startswith("sharded"):
+        raise _not_ported(f"the {args.engine} family engine", _SHARDED)
+    device = _resolve(args, "family")
+    T = int(args.theta_block)
+    if args.theta is not None:
+        tv = args.theta
+        if isinstance(tv, float):
+            tv = [tv]
+        theta = np.asarray(tv, dtype=np.float64)
+    else:
+        theta = np.linspace(args.theta0, args.theta1, args.m,
+                            endpoint=False)
+    if T > 1:
+        if theta.ndim == 1:
+            if theta.size % T == 0 and theta.size > T:
+                theta = theta.reshape(-1, T)    # m = size/T slots
+            else:
+                theta = theta.reshape(1, -1)    # one slot
+        if theta.shape[1] < T:
+            # short blocks pad by replicating the row head (padded
+            # thetas vote and credit identically; dropped from output)
+            theta = np.concatenate(
+                [theta, np.repeat(theta[:, :1],
+                                  T - theta.shape[1], axis=1)], axis=1)
+        if args.engine != "walker":
+            raise SystemExit(
+                "--theta-block > 1 requires the walker or "
+                "sharded-walker-dd engine")
+    elif theta.ndim != 1:
+        theta = theta.reshape(-1)
+    bounds = (args.a, args.b)
+    f = get_family(args.family)
+
+    # every branch builds a zero-argument call that RESUMES from the
+    # snapshot when one exists and runs fresh otherwise, so a watchdog
+    # retry after a mid-run hang picks up the wedged attempt's last leg
+    if args.engine == "bag":
+        from ppls_tpu_torch.parallel.bag_engine import (integrate_family,
+                                                        resume_family)
+        kw = dict(chunk=args.chunk, capacity=args.capacity,
+                  rule=Rule(args.rule), device=device)
+
+        def engine_call():
+            if args.checkpoint and os.path.exists(args.checkpoint):
+                return resume_family(args.checkpoint, f, theta, bounds,
+                                     args.eps, **kw)
+            return integrate_family(f, theta, bounds, args.eps,
+                                    checkpoint_path=args.checkpoint, **kw)
+    else:
+        from ppls_tpu_torch.parallel.walker import (
+            integrate_family_walker, resume_family_walker)
+        fds = get_family_ds(args.family, reduced=args.reduced_integrands)
+        wkw = dict(chunk=args.chunk, capacity=args.capacity,
+                   rule=Rule(args.rule), refill_slots=args.refill_slots,
+                   scout_dtype=args.scout_dtype,
+                   double_buffer=args.double_buffer, theta_block=T,
+                   device=device)
+
+        def engine_call():
+            if args.checkpoint and os.path.exists(args.checkpoint):
+                return resume_family_walker(args.checkpoint, f, fds,
+                                            theta, bounds, args.eps, **wkw)
+            return integrate_family_walker(
+                f, fds, theta, bounds, args.eps,
+                checkpoint_path=args.checkpoint, **wkw)
+
+    if args.watchdog:
+        from ppls_tpu_torch.runtime.guard import run_with_watchdog
+
+        def first_attempt():
+            # hang-injection hook (consumed on first use): drives the
+            # watchdog and checkpoint-resume recovery end to end without
+            # a wedged device
+            if os.environ.pop("PPLS_CLI_INJECT_HANG", None):
+                import threading
+                threading.Event().wait(args.watchdog + 60)
+            return engine_call()
+
+        res = run_with_watchdog(first_attempt, args.watchdog,
+                                what=f"{args.engine} engine",
+                                resume_fn=engine_call)
+    else:
+        res = engine_call()
+
+    m = res.metrics
+    exact = family_exact(args.family, args.a, args.b, theta)
+    abs_err = (float(np.max(np.abs(np.asarray(res.areas)
+                                   - np.asarray(exact))))
+               if exact is not None else None)
+    areas_flat = np.asarray(res.areas).reshape(-1)
+    if args.as_json:
+        print(json.dumps({
+            "engine": args.engine,
+            "m": int(theta.shape[0] if theta.ndim else args.m),
+            "eps": args.eps,
+            "theta_block": T,
+            "areas_head": [float(v) for v in areas_flat[:4]],
+            "abs_error": abs_err,
+            "tasks": m.tasks, "splits": m.splits, "rounds": m.rounds,
+            "max_depth": m.max_depth, "wall_time_s": m.wall_time_s,
+            "tasks_per_sec": m.tasks / m.wall_time_s if m.wall_time_s
+            else None,
+            "tasks_per_chip": m.tasks_per_chip,
+            "walker_fraction": getattr(res, "walker_fraction", None),
+        }))
+    else:
+        print(f"{int(theta.size)} x {args.family} on [{args.a}, {args.b}] "
+              f"@ eps={args.eps} ({args.engine}"
+              + (f", theta_block={T}" if T > 1 else "") + ")")
+        print(f"areas[:4] = "
+              f"{[round(float(v), 9) for v in areas_flat[:4]]}")
+        if abs_err is not None:
+            print(f"max abs error vs exact: {abs_err:.3e}")
+        print(m.histogram_str())
+        print(f"Tasks: {m.tasks} in {m.rounds} rounds, depth "
+              f"{m.max_depth}, {m.wall_time_s:.3f}s "
+              f"({m.tasks / max(m.wall_time_s, 1e-12) / 1e6:.1f} M "
+              f"tasks/s)")
+    return 0
+
+
+def _main_single(args) -> int:
+    """The root command: one integrand through the backend and engine
+    the flags name."""
+    import os
+
+    from ppls_tpu_torch.config import Backend, QuadConfig, Rule
+
+    cfg = QuadConfig(
+        integrand=args.integrand, a=args.a, b=args.b, eps=args.eps,
+        rule=Rule(args.rule), capacity=args.capacity,
+        max_rounds=args.max_rounds, n_devices=args.n_devices,
+        backend=Backend(args.backend))
+
+    if cfg.backend == Backend.MPI:
+        from ppls_tpu_torch.backends import run_mpi
+        res = run_mpi(cfg, n_workers=args.n_workers)
+    elif cfg.backend == Backend.SPILLOVER:
+        # float64 bag rounds on the host CPU, by design (the same
+        # executor the stream engine sheds overload to)
+        from ppls_tpu_torch.backends import run_spillover_single
+        res = run_spillover_single(cfg)
+    elif args.engine == "sharded":
+        raise _not_ported("the sharded engine (--engine sharded)",
+                          _SHARDED)
+    elif args.engine == "host":
+        from ppls_tpu_torch.runtime.host_frontier import integrate
+        device = _resolve(args, "integrate")
+        if args.checkpoint:
+            from ppls_tpu_torch.runtime.checkpoint import (Checkpointer,
+                                                           resume)
+            ckpt = Checkpointer(args.checkpoint, config=cfg)
+            if os.path.exists(args.checkpoint):
+                res = resume(args.checkpoint, cfg, on_round=ckpt.hook,
+                             device=device)
+            else:
+                res = integrate(cfg, on_round=ckpt.hook, device=device)
+        else:
+            res = integrate(cfg, device=device)
+    else:
+        from ppls_tpu_torch.parallel.device_engine import device_integrate
+        res = device_integrate(cfg, device=_resolve(args, "integrate"))
+
+    m = res.metrics
+    if args.as_json:
+        print(json.dumps({
+            "area": res.area,
+            "exact": res.exact,
+            "global_error": res.global_error,
+            "tasks": m.tasks,
+            "splits": m.splits,
+            "leaves": m.leaves,
+            "rounds": m.rounds,
+            "max_depth": m.max_depth,
+            "integrand_evals": m.integrand_evals,
+            "wall_time_s": m.wall_time_s,
+            "evals_per_sec_per_chip": m.evals_per_sec_per_chip,
+            "tasks_per_chip": m.tasks_per_chip,
+        }))
+    else:
+        # the reference C program's report, plus what it lacks
+        print(f"Area={res.area:.6f}")
+        print()
+        print(m.histogram_str())
+        print()
+        if res.global_error is not None:
+            print(f"Global error: {res.global_error:.6e} "
+                  f"(exact {res.exact:.6f})")
+        print(f"Tasks: {m.tasks} ({m.splits} splits, {m.leaves} leaves) "
+              f"in {m.rounds} rounds, depth {m.max_depth}")
+        print(f"Integrand evals: {m.integrand_evals} "
+              f"({m.evals_per_sec_per_chip:.0f}/s/chip over "
+              f"{m.wall_time_s:.3f}s)")
+    return 0
+
+
+def _dispatch(args) -> int:
+    if args.mode == "family":
+        return _main_family(args)
+    if args.mode == "serve":
+        return _main_serve(args)
+    return _main_single(args)
+
+
 def main(argv=None) -> int:
+    from ppls_tpu_torch.utils.tracing import trace
+
     parser = build_parser()
     # the modes not ported take their own flags: refuse them whatever
-    # follows the mode, and parse serve strictly
+    # follows the mode, and parse the others strictly
     args, extra = parser.parse_known_args(argv)
-    if args.mode == "serve" and extra:
+    if args.mode in ("2d", "qmc"):
+        raise _not_ported(f"the {args.mode} mode", _MODES_NOT_PORTED)
+    if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    if args.mode != "serve":
-        what = (f"the {args.mode} mode" if args.mode
-                else "the single-integral mode (no subcommand)")
-        raise _not_ported(what, _REST_OF_CLI)
-    if args.trace:
-        raise _not_ported("--trace", _REST_OF_CLI)
-    return _main_serve(args)
+    with trace(args.trace):
+        return _dispatch(args)
 
 
 if __name__ == "__main__":

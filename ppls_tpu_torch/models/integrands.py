@@ -1,6 +1,12 @@
-"""Integrand families of the port: ``f(x, theta)`` in float64, their
-double-single twins for the walk kernel, domain checks, and closed
-forms.
+"""Integrands of the port: the single-integrand registry (``f(x)`` in
+float64 with a host antiderivative: ``INTEGRANDS``, ``get_integrand``),
+and the families ``f(x, theta)`` in float64 with their double-single
+twins for the walk kernel, domain checks, and closed forms.
+
+The single integrands: ``cosh4`` (the reference C program's problem),
+``sin``, ``sin_recip`` (sin(1/x), whose antiderivative needs the cosine
+integral: ``scipy.special.sici``), ``gauss_peak``, ``poly3``, ``exp``
+and ``runge``.
 
 The families: ``sin_recip_scaled`` (sin(theta / x), the flagship bench
 family), ``sin_scaled`` (sin(theta x), the many-theta walker's bench
@@ -20,6 +26,8 @@ the CUDA walk kernels compile in (``kernel_family``), matching the
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -47,6 +55,102 @@ KERNEL_GAUSS_CENTER = 4
 KERNEL_SIN_RECIP_REDUCED = 5
 KERNEL_COSH4_REDUCED = 6
 KERNEL_SIN_SCALED_REDUCED = 7
+
+
+@dataclasses.dataclass(frozen=True)
+class Integrand:
+    """One registered integrand: ``fn`` maps a float64 tensor to a
+    float64 tensor elementwise; ``antiderivative`` is a host ``math``
+    function (F' = f), or None."""
+
+    name: str
+    fn: Callable
+    antiderivative: Optional[Callable] = None
+    doc: str = ""
+
+    def exact(self, a: float, b: float) -> Optional[float]:
+        """Closed-form integral over [a, b], or None if unknown."""
+        if self.antiderivative is None:
+            return None
+        return float(self.antiderivative(float(b))
+                     - self.antiderivative(float(a)))
+
+
+INTEGRANDS: Dict[str, Integrand] = {}
+
+
+def register_integrand(name: str, fn: Callable,
+                       antiderivative: Optional[Callable] = None,
+                       doc: str = "") -> Integrand:
+    entry = Integrand(name=name, fn=fn, antiderivative=antiderivative,
+                      doc=doc)
+    INTEGRANDS[name] = entry
+    return entry
+
+
+def get_integrand(name: str) -> Integrand:
+    try:
+        return INTEGRANDS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown integrand {name!r}; registered: {sorted(INTEGRANDS)}"
+        ) from None
+
+
+def _cosh4(x: torch.Tensor) -> torch.Tensor:
+    c = torch.cosh(x)
+    c2 = c * c
+    return c2 * c2
+
+
+def _cosh4_anti(x: float) -> float:
+    # int cosh^4 x dx = 3x/8 + sinh(2x)/4 + sinh(4x)/32
+    return 3.0 * x / 8.0 + math.sinh(2.0 * x) / 4.0 + math.sinh(4.0 * x) / 32.0
+
+
+def _sin_recip_anti(x: float) -> float:
+    # int sin(1/x) dx = x sin(1/x) - Ci(1/x) for x > 0, with limit 0 at
+    # x -> 0+
+    if x < 0:
+        raise ValueError("sin_recip antiderivative defined for x >= 0")
+    if x == 0:
+        return 0.0
+    from scipy import special
+    _si, ci = special.sici(1.0 / x)
+    return float(x * math.sin(1.0 / x) - ci)
+
+
+def _gauss_peak(x: torch.Tensor) -> torch.Tensor:
+    # sigma 1e-3 at 0.5; the divisor is a tensor on x's device (see
+    # gauss_center below)
+    return torch.exp(-0.5 * ((x - 0.5) / x.new_tensor(1e-3)) ** 2)
+
+
+def _gauss_peak_anti(x: float) -> float:
+    s = 1e-3
+    return s * math.sqrt(math.pi / 2.0) * math.erf(
+        (x - 0.5) / (s * math.sqrt(2.0)))
+
+
+register_integrand(
+    "cosh4", _cosh4, _cosh4_anti,
+    doc="The reference problem: cosh^4(x); exact integral over [0, 5] = "
+        "7583461.361497.")
+register_integrand("sin", torch.sin, lambda x: -math.cos(x),
+                   doc="sin(x) on [0, 1], eps 1e-6 (BASELINE.json).")
+register_integrand(
+    "sin_recip", lambda x: torch.sin(1.0 / x), _sin_recip_anti,
+    doc="sin(1/x) on [1e-4, 1] (BASELINE.json): deep splitting near the "
+        "left end.")
+register_integrand("gauss_peak", _gauss_peak, _gauss_peak_anti,
+                   doc="Gaussian of width 1e-3 at 0.5: clustered "
+                       "refinement.")
+register_integrand("poly3", lambda x: x * x * x, lambda x: 0.25 * x ** 4,
+                   doc="x^3: Simpson integrates it exactly.")
+register_integrand("exp", torch.exp, math.exp, doc="exp(x).")
+register_integrand("runge", lambda x: 1.0 / (1.0 + 25.0 * x * x),
+                   lambda x: math.atan(5.0 * x) / 5.0,
+                   doc="The Runge function on [-1, 1].")
 
 
 def register_family(name: str, f_theta: Callable) -> Callable:

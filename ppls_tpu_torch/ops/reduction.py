@@ -16,6 +16,36 @@ import torch
 from ppls_tpu_torch.ops.pow2 import pow2_f64
 
 
+def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum of ``values`` where ``mask``; deterministic for a fixed shape
+    and device."""
+    return torch.where(mask, values, torch.zeros_like(values)).sum()
+
+
+def kahan_init(dtype=torch.float64, device="cpu"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum, compensation) carried across wavefront rounds."""
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return zero, zero.clone()
+
+
+def kahan_sum(acc: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The compensated value of a (sum, compensation) pair."""
+    s, c = acc
+    return s + c
+
+
+def neumaier_add_host(s: float, c: float, x: float) -> Tuple[float, float]:
+    """:func:`kahan_add` on Python floats, for the host-driven engine's
+    accumulation across rounds."""
+    t = s + x
+    if abs(s) >= abs(x):
+        c += (s - t) + x
+    else:
+        c += (x - t) + s
+    return t, c
+
+
 def kahan_add(acc: Tuple[torch.Tensor, torch.Tensor],
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Neumaier compensated add: ``acc + x`` with error carry."""

@@ -70,3 +70,13 @@ def eval_batch(l: torch.Tensor, r: torch.Tensor, f: Callable, eps: float,
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Score a batch of intervals: ``(value, err_est, split_mask)``."""
     return _RULES[Rule(rule)](l, r, f, eps)
+
+
+def eval_interval(l: float, r: float, f: Callable, eps: float,
+                  rule: Rule = Rule.TRAPEZOID, device="cpu"):
+    """:func:`eval_batch` on one interval (0-dim float64 tensors on
+    ``device``)."""
+    return eval_batch(torch.tensor(float(l), dtype=torch.float64,
+                                   device=device),
+                      torch.tensor(float(r), dtype=torch.float64,
+                                   device=device), f, eps, rule)

@@ -1,7 +1,15 @@
-"""Leg-boundary snapshots of the family engines (the bag, the walker and
-the streaming engine): the reference's family container, kept
-byte-compatible, so a snapshot that either package writes, the other
-loads.
+"""Snapshots: round-boundary snapshots of the single-integral host
+engine (``save_checkpoint``, ``Checkpointer``, ``resume``: the
+frontier, the compensated accumulator and the metrics) and leg-boundary
+snapshots of the family engines (the bag, the walker and the streaming
+engine). Both are the reference's containers, kept byte-compatible, so
+a snapshot that either package writes, the other loads.
+
+The single-integral container holds ``meta`` (the metrics, their
+``per_round`` records, the problem identity under ``config``,
+``format_version`` and ``checksums``), ``frontier`` ((n, 2) float64) and
+``acc`` (the (sum, compensation) pair). The family container is
+described below.
 
 A snapshot is one ``np.savez`` container holding
 
@@ -32,17 +40,20 @@ Host-only: numpy and the standard library.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
 import tempfile
 import threading
+import warnings
 from collections import deque
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from ppls_tpu_torch.config import Rule
+from ppls_tpu_torch.config import QuadConfig, Rule
+from ppls_tpu_torch.utils.metrics import RoundStats, RunMetrics
 
 # absent = unverified legacy container; 1 = checksummed
 CKPT_FORMAT_VERSION = 1
@@ -317,3 +328,114 @@ def load_family_checkpoint(path: str, identity: dict, *,
                 f"refusing to blend (stored vs requested): {diff}")
     return bag_cols, int(meta["count"]), acc, meta["totals"]
 
+
+
+# --- the single-integral host engine: round-boundary snapshots -----------
+
+_META_KEYS = ("tasks", "splits", "leaves", "rounds", "max_depth",
+              "integrand_evals", "wall_time_s", "n_chips")
+
+
+def _config_identity(config: QuadConfig) -> dict:
+    """The fields that say which problem a snapshot belongs to; resuming
+    under another identity would blend two runs."""
+    return {"integrand": config.integrand, "a": config.a, "b": config.b,
+            "eps": config.eps, "rule": str(Rule(config.rule).value)}
+
+
+def save_checkpoint(path: str, frontier: np.ndarray,
+                    area_acc: Tuple[float, float],
+                    metrics: RunMetrics,
+                    config: Optional[QuadConfig] = None) -> None:
+    """Atomically write (frontier, accumulator, metrics) to ``path``."""
+    meta = {k: getattr(metrics, k) for k in _META_KEYS}
+    meta["per_round"] = [dataclasses.asdict(s) for s in metrics.per_round]
+    if config is not None:
+        meta["config"] = _config_identity(config)
+    payload = {
+        "frontier": np.asarray(frontier, dtype=np.float64).reshape(-1, 2),
+        "acc": np.asarray(area_acc, dtype=np.float64),
+    }
+    meta["format_version"] = CKPT_FORMAT_VERSION
+    meta["checksums"] = _payload_checksums(payload)
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt.tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            np.savez(
+                fh,
+                meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+                **payload)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    _chaos_verify_on_write(path)
+
+
+def load_checkpoint(path: str):
+    """Returns ``(frontier, (s, c), RunMetrics, stored_config_or_None)``.
+    Raises :class:`CheckpointCorruptError` on a damaged snapshot and
+    ``FileNotFoundError`` on a missing one."""
+    try:
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["meta"]).decode())
+            _verify_payload(path, z, meta)
+            frontier = z["frontier"]
+            s, c = (float(x) for x in z["acc"])
+    except (CheckpointCorruptError, FileNotFoundError):
+        raise
+    except Exception as e:  # noqa: BLE001 - any container damage
+        raise CheckpointCorruptError(
+            path, f"unreadable container ({type(e).__name__}: {e})"
+        ) from e
+    meta.pop("format_version", None)
+    meta.pop("checksums", None)
+    stored_cfg = meta.pop("config", None)
+    per_round = [RoundStats(**d) for d in meta.pop("per_round")]
+    metrics = RunMetrics(**meta, per_round=per_round)
+    return frontier, (s, c), metrics, stored_cfg
+
+
+class Checkpointer:
+    """``on_round`` hook that snapshots every ``every`` rounds. With
+    ``config`` the snapshots carry the problem identity, so ``resume``
+    refuses a mismatched run."""
+
+    def __init__(self, path: str, every: int = 1,
+                 config: Optional[QuadConfig] = None):
+        self.path = path
+        self.every = max(int(every), 1)
+        self.config = config
+
+    def hook(self, round_index: int, frontier, area_acc, metrics) -> None:
+        if round_index % self.every == 0:
+            save_checkpoint(self.path, frontier, area_acc, metrics,
+                            config=self.config)
+
+
+def resume(path: str, config: QuadConfig,
+           on_round: Optional[Callable] = None, device="cuda"):
+    """Continue an interrupted host-engine run from its last snapshot, on
+    ``device`` (CUDA by default). Raises ``ValueError`` for a snapshot of
+    another problem (integrand, bounds, eps, rule); warns when the
+    snapshot is of a finished run (empty frontier: the result is
+    replayed)."""
+    from ppls_tpu_torch.runtime.host_frontier import integrate
+
+    frontier, acc, metrics, stored_cfg = load_checkpoint(path)
+    if stored_cfg is not None:
+        now = _config_identity(config)
+        if stored_cfg != now:
+            diff = {k: (stored_cfg.get(k), now[k]) for k in now
+                    if stored_cfg.get(k) != now[k]}
+            raise ValueError(
+                f"checkpoint {path!r} belongs to a different problem; "
+                f"refusing to blend runs (stored vs requested): {diff}")
+    if frontier.size == 0:
+        warnings.warn(
+            f"checkpoint {path!r} has an empty frontier (finished run); "
+            f"resume just replays the stored result", stacklevel=2)
+    return integrate(config, frontier=frontier, area_acc=acc,
+                     metrics=metrics, on_round=on_round, device=device)

@@ -41,9 +41,16 @@ engine's boundaries: phase open (before admission), admission (a
 ``nan_poison`` request's theta turns NaN after validation), phase close
 (after the snapshot) and checkpoint write (after the rename).
 
+With ``spillover=True`` a queue-overflow victim without a deadline runs
+to completion as float64 bag rounds on the host CPU
+(``backends/spillover.py``, the reference's design) instead of being
+shed: up to ``spillover_limit`` of them at each phase boundary, busy or
+idle, each retiring with ``spillover=True``. The spill queue and the
+executor's totals ride every snapshot.
+
 Not ported (the constructor refuses them with the ROADMAP.md item): the
-multi-chip engine (``walker-dd``), CPU spillover, SLO evaluation, online
-adaptation and the unsorted root queue.
+multi-chip engine (``walker-dd``), SLO evaluation, online adaptation and
+the unsorted root queue.
 """
 
 from __future__ import annotations
@@ -153,6 +160,8 @@ class CompletedRequest:
     tenant: str = "default"
     priority: int = 1
     failure: Optional[str] = None
+    # completed on the CPU spillover backend instead of the engine
+    spillover: bool = False
 
     @property
     def phases_in_flight(self) -> int:
@@ -216,6 +225,16 @@ class StreamResult:
             "p99_phases": float(hp.quantile(0.99)),
             "p50_s": float(hs.quantile(0.5)),
             "p99_s": float(hs.quantile(0.99)),
+        }
+
+    def spillover_summary(self) -> dict:
+        """How much of the completed work ran on the CPU spillover
+        backend instead of the engine."""
+        done = [c for c in self.completed if c.spillover]
+        return {
+            "spillover_completed": len(done),
+            "spillover_fraction": (len(done) / len(self.completed)
+                                   if self.completed else 0.0),
         }
 
     def class_latency_percentiles(self) -> dict:
@@ -365,8 +384,9 @@ class StreamEngine:
     or the one-shot ``run(requests, arrival_phase=...)``.
 
     The reference's parameters and defaults, with ``device`` in place of
-    ``interpret``. Unported options raise ``ValueError``: ``engine=
-    "walker-dd"``, ``mesh``/``n_devices``, ``spillover``,
+    ``interpret``. ``spillover`` runs queue-overflow victims on the host
+    CPU (``spillover_limit`` per phase). Unported options raise
+    ``ValueError``: ``engine="walker-dd"``, ``mesh``/``n_devices``,
     ``slo_config``, ``adapt``, ``sort_roots=False`` and
     ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
     the family's range-reduced ds twin where it has one.
@@ -411,6 +431,7 @@ class StreamEngine:
                  default_deadline_phases: Optional[int] = None,
                  on_shed=None,
                  spillover: bool = False,
+                 spillover_limit: int = 4,
                  slo_config=None,
                  adapt: bool = False,
                  checkpoint_background: bool = False):
@@ -419,8 +440,6 @@ class StreamEngine:
                               "item 7, behind item 8")
         if engine != "walker":
             raise ValueError(f"unknown stream engine {engine!r}")
-        if spillover:
-            raise _not_ported("CPU spillover", "item 7")
         if slo_config is not None or adapt:
             raise _not_ported("SLO evaluation and online adaptation "
                               "(slo_config, adapt)", "item 7")
@@ -557,6 +576,24 @@ class StreamEngine:
         self.on_shed = on_shed
         self.shed: List[ShedRecord] = []
         self._tokens: dict = {}
+        # CPU spillover: queue-overflow victims without a deadline run as
+        # float64 bag rounds on the host CPU instead of being shed. Host
+        # boundary policy, off the snapshot identity; the spill queue
+        # rides every snapshot. The queue is bounded: beyond ~8 phases of
+        # backlog a victim sheds ("spill_queue_full")
+        self.spillover_limit = int(spillover_limit)
+        self._spill_cap = 8 * max(self.spillover_limit, 1)
+        self._spill = None
+        if spillover:
+            from ppls_tpu_torch.backends.spillover import SpilloverExecutor
+            self._spill = SpilloverExecutor(
+                family, self.eps, rule=self.rule, chunk=int(chunk),
+                capacity=int(capacity), telemetry=tel)
+        self._spill_queue: List[StreamRequest] = []
+        self._c_spillover = tel.registry.counter(
+            "ppls_stream_spillover_total",
+            "requests completed on the CPU spillover backend "
+            "instead of being shed")
 
         # host bookkeeping
         self._pending: List[StreamRequest] = []
@@ -631,8 +668,9 @@ class StreamEngine:
         """Atomically write the queue, the slots, the records and the
         device state to ``checkpoint_path``: the live bag prefix, the
         ``(acc, acc_c)`` pair and ``fam_last`` (one device read), and the
-        host bookkeeping under the reference's keys (its spillover keys
-        empty), so the reference's ``resume`` reads it too."""
+        host bookkeeping under the reference's keys (the spill queue and
+        the spillover totals among them), so the reference's ``resume``
+        reads it too."""
         if not self.checkpoint_path:
             raise ValueError("no checkpoint_path configured")
         m_eff = self.slots * self._theta_block
@@ -659,12 +697,14 @@ class StreamEngine:
                 str(slot): dict(dataclasses.asdict(req),
                                 **self._records[req.rid])
                 for slot, req in self._slot_req.items()},
-            "completed": [dict(dataclasses.asdict(c), spillover=False)
-                          for c in self.completed],
+            "completed": [dataclasses.asdict(c) for c in self.completed],
             "shed": [dataclasses.asdict(s) for s in self.shed],
-            "spill_queue": [],
-            "spill_requests_total": 0,
-            "spill_tasks_total": 0,
+            "spill_queue": [dataclasses.asdict(r)
+                            for r in self._spill_queue],
+            "spill_requests_total": int(
+                self._spill.requests_total if self._spill else 0),
+            "spill_tasks_total": int(
+                self._spill.tasks_total if self._spill else 0),
             "tokens": dict(self._tokens),
             "token_waits": {str(k): int(v)
                             for k, v in self._token_waits.items()},
@@ -699,8 +739,9 @@ class StreamEngine:
         replays the identical phases. ``mesh_resize=True`` is the
         reference's elastic rule, a no-op at equal mesh sizes: a
         snapshot of one card resumes, one of another mesh size is
-        refused. A snapshot that carries multi-chip, spillover or
-        online-adaptation state is refused with its ROADMAP item."""
+        refused. A snapshot that carries multi-chip or online-adaptation
+        state is refused with its ROADMAP item, and one with a non-empty
+        spill queue unless ``spillover=True``."""
         eng = cls(family, eps, checkpoint_path=checkpoint_path, **kwargs)
         bag_cols, count, acc_pair, totals = load_family_checkpoint(
             checkpoint_path, eng._identity(), mesh_resize=mesh_resize)
@@ -716,10 +757,6 @@ class StreamEngine:
                               "item 7, behind item 8")
         if "adapt" in totals:
             raise _not_ported("resuming online-adaptation state", "item 7")
-        if (totals.get("spill_queue") or totals.get("spill_requests_total")
-                or totals.get("spill_tasks_total")
-                or any(c.get("spillover") for c in totals["completed"])):
-            raise _not_ported("resuming CPU spillover state", "item 7")
         eng.phase = int(totals["phase"])
         eng._next_rid = int(totals["next_rid"])
         eng._fam_first = np.asarray(totals["fam_first"], dtype=np.int32)
@@ -750,9 +787,29 @@ class StreamEngine:
         def _record_in(kind, d):
             return kind(**{k: (tuple(v) if k == "bounds"
                                else _theta_in(v) if k == "theta" else v)
-                           for k, v in d.items() if k != "spillover"})
+                           for k, v in d.items()})
 
         eng._pending = [_req_in(d) for d in totals["pending"]]
+        eng._spill_queue = [_req_in(d)
+                            for d in totals.get("spill_queue", [])]
+        if eng._spill_queue and eng._spill is None:
+            # without the backend the spill queue never drains: refuse
+            # rather than strand acknowledged requests
+            raise ValueError(
+                f"snapshot carries {len(eng._spill_queue)} "
+                f"spillover-queued request(s) but spillover is not "
+                f"armed on this resume; pass spillover=True")
+        if eng._spill is not None:
+            # the pre-crash engagement totals, and their registry
+            # counters, so the exposition matches them
+            eng._spill.requests_total = int(
+                totals.get("spill_requests_total", 0))
+            eng._spill.tasks_total = int(
+                totals.get("spill_tasks_total", 0))
+            if eng._spill.requests_total:
+                eng._spill._c_req.inc(eng._spill.requests_total)
+            if eng._spill.tasks_total:
+                eng._spill._c_tasks.inc(eng._spill.tasks_total)
         eng.completed = [_record_in(CompletedRequest, d)
                          for d in totals["completed"]]
         eng.shed = [_record_in(ShedRecord, d)
@@ -818,12 +875,16 @@ class StreamEngine:
         equal the uninterrupted run's."""
         for row in self._phase_rows:
             self._publish_phase_row(np.asarray(row, dtype=np.int64))
-        n_admitted = len(self.completed) + len(self._slot_req)
+        # spillover completions never held a slot
+        n_admitted = sum(1 for c in self.completed if not c.spillover) \
+            + len(self._slot_req)
         if n_admitted:
             self._c_admitted.inc(n_admitted)
         for c in self.completed:
             self._c_retired.inc()
             self._c_tenant_retired.labels(tenant=c.tenant).inc()
+            if c.spillover:
+                self._c_spillover.inc()
             if c.failed:
                 if c.failure == "deadline_exceeded":
                     self._c_deadline.labels(tenant=c.tenant).inc()
@@ -865,10 +926,16 @@ class StreamEngine:
         return {"ok": True, "burning": [], "phase": self.phase}
 
     def spillover_summary(self) -> dict:
-        """The serve summary's spillover block in the reference's shape:
-        no request runs on the CPU spillover (not ported)."""
-        return {"spillover_completed": 0, "spillover_fraction": 0.0,
-                "spillover_tasks": 0}
+        """The serve summary's spillover block: the completed records
+        that ran on the CPU spillover backend, and its task total."""
+        done = [c for c in self.completed if c.spillover]
+        total = len(self.completed)
+        tasks = self._spill.tasks_total if self._spill is not None else 0
+        return {
+            "spillover_completed": len(done),
+            "spillover_fraction": (len(done) / total if total else 0.0),
+            "spillover_tasks": int(tasks),
+        }
 
     # ------------------------------------------------------------------
     # request intake
@@ -935,12 +1002,27 @@ class StreamEngine:
                          key=lambda r: (r.priority, r.rid))
             if victim.priority < req.priority:
                 self._pending.remove(victim)
-                self._shed(victim, "queue_full")
+                self._shed_or_spill(victim)
             else:
-                self._shed(req, "queue_full")
+                self._shed_or_spill(req)
                 return rid
         self._pending.append(req)
         return rid
+
+    def _shed_or_spill(self, req: StreamRequest) -> None:
+        """Queue-overflow policy: a victim without a deadline goes to the
+        CPU spillover queue when spillover is armed and the queue has
+        room (slower capacity cannot bound a deadline); otherwise it
+        sheds with its record."""
+        spillable = self._spill is not None and req.deadline_phases is None
+        if spillable and len(self._spill_queue) < self._spill_cap:
+            self._spill_queue.append(req)
+            self.telemetry.request_event(
+                self._rid_spans.get(req.rid), "spillover_enqueued",
+                rid=req.rid, tenant=req.tenant, phase=self.phase,
+                submit_phase=req.submit_phase)
+            return
+        self._shed(req, "spill_queue_full" if spillable else "queue_full")
 
     def _quota_for(self, tenant: str) -> Optional[dict]:
         if self.tenant_quotas is None:
@@ -983,9 +1065,10 @@ class StreamEngine:
 
     @property
     def idle(self) -> bool:
-        """Nothing queued, resident or live on the device."""
+        """Nothing queued, resident, live on the device or waiting for
+        the spillover backend."""
         return not self._pending and not self._slot_req \
-            and self._count == 0
+            and self._count == 0 and not self._spill_queue
 
     # ------------------------------------------------------------------
     # device state
@@ -1215,6 +1298,7 @@ class StreamEngine:
                if c.areas is not None and ok else {}),
             failed=c.failed,
             **({"failure": c.failure} if c.failure else {}),
+            **({"spillover": True} if c.spillover else {}),
             submit_phase=c.submit_phase,
             admit_phase=c.admit_phase,
             retire_phase=c.retire_phase,
@@ -1269,14 +1353,17 @@ class StreamEngine:
         kind, span, n0, launch = token
         tel = self.telemetry
         if kind == "idle":
-            # nothing live and nothing admissible: no device work, but
-            # the phase counter advances so arrival gaps make progress
+            # nothing live and nothing admissible: no device work (a
+            # queued spillover batch still runs on the CPU), and the
+            # phase counter advances so arrival gaps make progress
+            spilled = self._run_spillover_phase()
+            self.completed.extend(spilled)
             self.phase += 1
             self._publish_gauges()
-            span.close(idle=True, retired=0)
+            span.close(idle=not spilled, retired=len(spilled))
             self._maybe_snapshot()
             self._phase_closed()
-            return []
+            return spilled
         (fam_live, acc, acc_c, fam_last, count, overflow,
          stats) = self._cycle_pull(launch)
         self._last_fam_live = fam_live
@@ -1382,6 +1469,7 @@ class StreamEngine:
         if kill is not None:
             self._cancel_slots(kill)
         self._free.sort()
+        retired.extend(self._run_spillover_phase())
         self.completed.extend(retired)
         self._phase_syncs.append(self._syncs.n - n0)
         self.phase += 1
@@ -1390,6 +1478,48 @@ class StreamEngine:
         self._maybe_snapshot()
         self._phase_closed()
         return retired
+
+    def _run_spillover_phase(self) -> List[CompletedRequest]:
+        """The phase boundary's spillover batch: up to
+        ``spillover_limit`` queued victims, in queue order, run to
+        completion on the CPU backend and retire with
+        ``spillover=True``."""
+        if self._spill is None or not self._spill_queue:
+            return []
+        out = []
+        while self._spill_queue and len(out) < self.spillover_limit:
+            req = self._spill_queue.pop(0)
+            failed = False
+            areas = None
+            try:
+                areas, _tasks, _wall = self._spill.run(req.theta,
+                                                       req.bounds)
+            except FloatingPointError:
+                # the quarantine covers the spillover path too: a
+                # poisoned request retires failed, healthy work goes on
+                if not self.quarantine:
+                    raise
+                failed = True
+                self.telemetry.request_event(
+                    self._rid_spans.get(req.rid), "quarantine",
+                    rid=req.rid, phase=self.phase, spillover=True)
+                self._c_quarantined.inc()
+            batched = isinstance(req.theta, (tuple, list))
+            c = CompletedRequest(
+                rid=req.rid, theta=req.theta, bounds=req.bounds,
+                area=(float("nan") if failed else areas[0]),
+                areas=(list(areas) if batched and not failed else None),
+                submit_phase=req.submit_phase,
+                admit_phase=self.phase, retire_phase=self.phase,
+                latency_s=time.perf_counter() - req.submit_t,
+                first_seeded_phase=-1, last_credited_phase=-1,
+                failed=failed, failure=("nan" if failed else None),
+                tenant=req.tenant, priority=req.priority,
+                spillover=True)
+            out.append(c)
+            self._c_spillover.inc()
+            self._account_retirement(c, slot=-1)
+        return out
 
     def drain(self, max_phases: int = 1 << 14,
               _crash_after_phases: Optional[int] = None

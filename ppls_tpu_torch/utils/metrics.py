@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import List, Optional, Sequence
 
 
@@ -47,6 +48,30 @@ class RunMetrics:
         if self.wall_time_s <= 0:
             return 0.0
         return self.tasks / self.wall_time_s / max(self.n_chips, 1)
+
+    def record_round(self, stats: RoundStats) -> None:
+        """The wavefront engines' hook: append the round and accumulate
+        the aggregate counters from it (the walker and stream engines
+        count their aggregates on the device and fill ``per_round``
+        through :func:`round_stats_from_rows` instead)."""
+        self.per_round.append(stats)
+        self.rounds = len(self.per_round)
+        self.tasks += stats.frontier_width
+        self.splits += stats.splits
+        self.leaves += stats.leaves
+
+    def histogram_str(self) -> str:
+        """The tasks-per-chip table, as the reference C program prints
+        its tasks per process."""
+        counts = self.tasks_per_chip or [self.tasks]
+        head = "\t".join(str(i) for i in range(len(counts)))
+        body = "\t".join(str(c) for c in counts)
+        return f"Tasks Per Chip\n{head}\n{body}"
+
+    def to_json(self) -> str:
+        d = dataclasses.asdict(self)
+        d["evals_per_sec_per_chip"] = self.evals_per_sec_per_chip
+        return json.dumps(d)
 
 
 def round_stats_from_rows(rows, fields: Sequence[str],

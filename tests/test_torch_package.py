@@ -2,7 +2,8 @@
 
 * ``ppls_tpu_torch`` imports neither JAX nor anything of the reference
   package, and sets no global dtype (checked in its sources and in a
-  fresh interpreter's ``sys.modules``).
+  fresh interpreter's ``sys.modules``); its backends keep their own C
+  sources.
 * ``ppls_tpu_torch.interop`` carries the reference's (rows, 128) lane
   layout, (R, rows, 128) banks and bag columns into the port's tensors
   and back without loss, and gives every field its own storage.
@@ -31,6 +32,12 @@ def test_sources_import_no_jax_and_no_reference():
     sources = list(PKG.rglob("*.py"))
     assert PKG / "runtime" / "checkpoint.py" in sources
     assert PKG / "__main__.py" in sources
+    for new in (PKG / "runtime" / "host_frontier.py",
+                PKG / "parallel" / "device_engine.py",
+                PKG / "backends" / "spillover.py",
+                PKG / "backends" / "mpi_backend.py",
+                PKG / "utils" / "tracing.py"):
+        assert new in sources, new
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
     dtype_pat = re.compile(r"set_default_dtype|set_default_tensor_type")
@@ -49,7 +56,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "ppls_tpu_torch.__main__, ppls_tpu_torch.runtime.guard, "
             "ppls_tpu_torch.runtime.faults, ppls_tpu_torch.runtime.ingest, "
             "ppls_tpu_torch.obs.server, "
-            "ppls_tpu_torch.utils.artifact_schema\n"
+            "ppls_tpu_torch.utils.artifact_schema, "
+            "ppls_tpu_torch.runtime.host_frontier, "
+            "ppls_tpu_torch.parallel.device_engine, "
+            "ppls_tpu_torch.backends, ppls_tpu_torch.backends.spillover, "
+            "ppls_tpu_torch.backends.mpi_backend, "
+            "ppls_tpu_torch.utils.tracing\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
             "print(','.join(sorted(bad)))\n")
@@ -57,6 +69,24 @@ def test_import_pulls_in_no_jax_and_no_reference():
                          text=True, cwd=str(PKG.parent), timeout=120,
                          check=True)
     assert out.stdout.strip() == ""
+
+
+def test_backends_keep_their_own_sources():
+    """``ppls_tpu_torch/backends`` (Python and C) names neither JAX nor the
+    reference package in an import or an include, and builds into its
+    own directory."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ppls_tpu)(\.|\s|$)",
+                     re.M)
+    back = PKG / "backends"
+    py = list(back.rglob("*.py"))
+    assert {p.name for p in py} >= {"__init__.py", "spillover.py",
+                                    "mpi_backend.py"}
+    assert not [str(p) for p in py if pat.search(p.read_text())]
+    inc = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+    for src in back.glob("csrc/*.[ch]"):
+        for name in inc.findall(src.read_text()):
+            assert (back / "csrc" / name).exists(), (src, name)
+            assert "ppls_tpu/" not in name
 
 
 def test_walk_state_and_banks_round_trip():

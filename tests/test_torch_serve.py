@@ -504,17 +504,13 @@ REFUSED = {
     "lease": (["serve", "--dispatch", "--lease"], "item 9"),
     "lease_alone": (["serve", "--lease"], "require --dispatch"),
     "overlap": (["serve", "--overlap-boundaries"], "require --dispatch"),
-    "spillover": (["serve", "--spillover"], "item 7"),
     "slo_config": (["serve", "--slo-config", '{"slos": []}'], "item 7"),
     "adapt": (["serve", "--adapt"], "item 7"),
     "walker_dd": (["serve", "--engine", "walker-dd"],
                   "item 7, behind item 8"),
     "n_devices": (["serve", "--n-devices", "2"], "item 7, behind item 8"),
-    "root_mode": ([], "item 9, the rest of the __main__.py CLI"),
-    "family": (["family", "--m", "4"], "item 9, the rest"),
-    "2d": (["2d"], "item 9, the rest"),
-    "qmc": (["qmc", "--n", "1024"], "item 9, the rest"),
-    "trace": (["--trace", "/nonexistent", "serve"], "item 9, the rest"),
+    "2d": (["2d"], "item 9, the 2d and qmc modes"),
+    "qmc": (["qmc", "--n", "1024"], "item 9, the 2d and qmc modes"),
 }
 
 

@@ -546,7 +546,6 @@ def test_obs_copies_match_reference():
 REFUSED = {
     "walker-dd": (dict(engine="walker-dd"), "item 7"),
     "mesh": (dict(n_devices=2), "item 7"),
-    "spillover": (dict(spillover=True), "item 7"),
     "slo_config": (dict(slo_config={}), "item 7"),
     "adapt": (dict(adapt=True), "item 7"),
     "sort_roots": (dict(sort_roots=False), "item 4"),
@@ -783,11 +782,10 @@ def test_checkpoint_every_sets_the_cadence(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     ({"dd": {}}, "item 7, behind item 8"),
     ({"adapt": {}}, "item 7"),
-    ({"spill_requests_total": 2}, "item 7"),
 ])
 def test_resume_refuses_unported_state(tmp_path, extra, item):
-    """A snapshot carrying multi-chip, online-adaptation or spillover
-    state is refused with the ROADMAP item of the missing restore."""
+    """A snapshot carrying multi-chip or online-adaptation state is
+    refused with the ROADMAP item of the missing restore."""
     from ppls_tpu_torch.runtime.checkpoint import (load_family_checkpoint,
                                                    save_family_checkpoint)
     path = str(tmp_path / "u.ckpt")
