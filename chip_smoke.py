@@ -2696,16 +2696,23 @@ def cli_flagship(W, TS, k1_res, k2_res, walls, ckpt_dir, smi) -> dict:
         raise AssertionError(f"15c theta block failed: {r}")
 
     ck = os.path.join(ckpt_dir, "flagship_cli.ckpt")
-    r, run = cli_json(W, TS, flagship_argv() + K1_FLAGS
-                      + ["--checkpoint", ck])
+    with SnapshotProbe([W]) as probe:
+        r, run = cli_json(W, TS, flagship_argv() + K1_FLAGS
+                          + ["--checkpoint", ck])
     add(run["launches"])
     head = [float(v) for v in np.asarray(k1_res.areas)[:4]]
+    # the snapshot was written during the run (each write's file size
+    # is read right after it) and deleted at its end
+    written = probe.bytes
     ok = (r["areas_head"] == head and r["tasks"] == k1_res.metrics.tasks
+          and len(written) > 0 and min(written) > 0
           and not os.path.exists(ck))
     out["checkpoint"] = dict(cli_wall_s=run["wall_s"], same=ok,
+                             snapshots=len(written), bytes=written,
                              launches=run["launches"])
-    log(f"[smoke] 15c CLI flagship with --checkpoint: equal to phase 4 and "
-        f"its snapshot gone {ok}, wall {run['wall_s']:.3f} s, launches "
+    log(f"[smoke] 15c CLI flagship with --checkpoint: equal to phase 4, "
+        f"{len(written)} snapshots written ({written} bytes) and gone at "
+        f"the end {ok}, wall {run['wall_s']:.3f} s, launches "
         f"{run['launches']}")
     if not ok:
         raise AssertionError("15c flagship with --checkpoint failed")
@@ -2829,7 +2836,7 @@ def cli_spillover(W, TS, ckpt_dir) -> dict:
 
 def cli_trace(W, TS, ckpt_dir) -> dict:
     """15e. --trace around a K1 family run: the Chrome trace, its CPU
-    spans and whether it names K1's launches."""
+    spans, and one K1 kernel event in it for each counted K1 launch."""
     d = os.path.join(ckpt_dir, "trace")
     argv = ["--trace", d] + flagship_argv() + K1_FLAGS
     argv[argv.index("--m") + 1] = str(TRACE_M)
@@ -2848,7 +2855,10 @@ def cli_trace(W, TS, ckpt_dir) -> dict:
         f"{cpu_ops} CPU operator spans, K1 kernel events {k1_events} (K1 "
         f"launches counted {run['launches']['run_segment_rf']}), wall "
         f"{run['wall_s']:.3f} s")
-    if not cpu_ops or run["launches"]["run_segment_rf"] <= 0:
+    # CUPTI sees the ctypes-launched kernels: one kernel event for each
+    # counted K1 launch
+    n_k1 = run["launches"]["run_segment_rf"]
+    if not cpu_ops or n_k1 <= 0 or k1_events != n_k1:
         raise AssertionError(f"15e failed: {out}")
     return out
 

@@ -11,6 +11,7 @@ CPU golden baseline.
 
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import shutil
@@ -61,11 +62,30 @@ def _compile(cmd: list) -> None:
 
 def _build(name: str, src: str, cmd_head: list, newest: float,
            force: bool, libs: list) -> str:
+    """Compile ``src`` into ``build/<name>`` unless a binary newer than
+    the sources is there. The build holds an exclusive ``flock`` of
+    ``<name>.lock`` and compiles to a temporary name that is renamed
+    into place, so processes that race build once and none of them
+    runs a half-written binary."""
     out = os.path.join(_BUILD, name)
-    if os.path.exists(out) and not force and os.path.getmtime(out) >= newest:
+
+    def fresh() -> bool:
+        return os.path.exists(out) and os.path.getmtime(out) >= newest
+
+    if fresh() and not force:
         return out
     os.makedirs(_BUILD, exist_ok=True)
-    _compile(cmd_head + ["-o", out, src] + libs)
+    with open(os.path.join(_BUILD, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh() and not force:
+            return out
+        tmp = f"{out}.{os.getpid()}.tmp"
+        try:
+            _compile(cmd_head + ["-o", tmp, src] + libs)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return out
 
 

@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from ppls_tpu_torch.ops.pow2 import pow2_f64
+from ppls_tpu_torch.utils.device import resolve_device
 
 
 def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -22,10 +23,11 @@ def masked_sum(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, values, torch.zeros_like(values)).sum()
 
 
-def kahan_init(dtype=torch.float64, device="cpu"
+def kahan_init(dtype=torch.float64, device="cuda"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum, compensation) carried across wavefront rounds."""
-    zero = torch.zeros((), dtype=dtype, device=device)
+    """(sum, compensation) carried across wavefront rounds, on ``device``
+    (CUDA by default, raising without a card unless ``device="cpu"``)."""
+    zero = torch.zeros((), dtype=dtype, device=resolve_device(device))
     return zero, zero.clone()
 
 

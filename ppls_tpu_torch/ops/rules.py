@@ -15,6 +15,7 @@ from typing import Callable, Tuple
 import torch
 
 from ppls_tpu_torch.config import Rule
+from ppls_tpu_torch.utils.device import resolve_device
 
 EVALS_PER_TASK = {Rule.TRAPEZOID: 3, Rule.SIMPSON: 5}
 
@@ -73,10 +74,12 @@ def eval_batch(l: torch.Tensor, r: torch.Tensor, f: Callable, eps: float,
 
 
 def eval_interval(l: float, r: float, f: Callable, eps: float,
-                  rule: Rule = Rule.TRAPEZOID, device="cpu"):
+                  rule: Rule = Rule.TRAPEZOID, device="cuda"):
     """:func:`eval_batch` on one interval (0-dim float64 tensors on
-    ``device``)."""
+    ``device``: CUDA by default, raising without a card unless
+    ``device="cpu"``)."""
+    dev = resolve_device(device)
     return eval_batch(torch.tensor(float(l), dtype=torch.float64,
-                                   device=device),
+                                   device=dev),
                       torch.tensor(float(r), dtype=torch.float64,
-                                   device=device), f, eps, rule)
+                                   device=dev), f, eps, rule)

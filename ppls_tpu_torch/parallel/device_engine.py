@@ -30,7 +30,7 @@ import torch
 
 from ppls_tpu_torch.config import QuadConfig, Rule
 from ppls_tpu_torch.models.integrands import get_integrand
-from ppls_tpu_torch.ops.reduction import kahan_add
+from ppls_tpu_torch.ops.reduction import kahan_add, kahan_init, masked_sum
 from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import RunMetrics
@@ -86,9 +86,11 @@ def compact_children(l: torch.Tensor, r: torch.Tensor, split: torch.Tensor,
 
 
 def initial_state(a: float, b: float, capacity: int,
-                  dtype=torch.float64, device="cpu") -> DeviceState:
-    """The frontier seeded with [a, b]; the other slots hold the
-    midpoint, an in-domain value."""
+                  dtype=torch.float64, device="cuda") -> DeviceState:
+    """The frontier seeded with [a, b] on ``device`` (CUDA by default,
+    raising without a card unless ``device="cpu"``); the other slots
+    hold the midpoint, an in-domain value."""
+    device = resolve_device(device)
     fill = 0.5 * (a + b)
     l = torch.full((capacity,), fill, dtype=dtype, device=device)
     r = torch.full((capacity,), fill, dtype=dtype, device=device)
@@ -100,8 +102,9 @@ def initial_state(a: float, b: float, capacity: int,
     def zero(dt):
         return torch.zeros((), dtype=dt, device=device)
 
-    return DeviceState(l=l, r=r, active=active, acc_s=zero(dtype),
-                       acc_c=zero(dtype), tasks=zero(torch.int64),
+    acc_s, acc_c = kahan_init(dtype, device)
+    return DeviceState(l=l, r=r, active=active, acc_s=acc_s,
+                       acc_c=acc_c, tasks=zero(torch.int64),
                        splits=zero(torch.int64), rounds=zero(torch.int64),
                        overflow=zero(torch.bool))
 
@@ -112,8 +115,8 @@ def round_body(state: DeviceState, f: Callable, eps: float, rule: Rule,
     value, _err, split = eval_batch(state.l, state.r, f, eps, rule)
     split = split & state.active
     accept = state.active & ~split
-    leaf_sum = torch.where(accept, value, torch.zeros_like(value)).sum()
-    acc_s, acc_c = kahan_add((state.acc_s, state.acc_c), leaf_sum)
+    acc_s, acc_c = kahan_add((state.acc_s, state.acc_c),
+                             masked_sum(value, accept))
     n_active = state.active.to(torch.int64).sum()
     n_split = split.to(torch.int64).sum()
     new_l, new_r, new_active, n_children = compact_children(

@@ -25,7 +25,7 @@ import torch
 
 from ppls_tpu_torch.config import QuadConfig, Rule
 from ppls_tpu_torch.models.integrands import get_integrand
-from ppls_tpu_torch.ops.reduction import neumaier_add_host
+from ppls_tpu_torch.ops.reduction import masked_sum, neumaier_add_host
 from ppls_tpu_torch.ops.rules import EVALS_PER_TASK, eval_batch
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import RoundStats, RunMetrics
@@ -64,7 +64,7 @@ def _round_step(l: torch.Tensor, r: torch.Tensor, active: torch.Tensor,
     value, _err, split = eval_batch(l, r, f, eps, rule)
     split = split & active
     accept = active & ~split
-    leaf_sum = torch.where(accept, value, torch.zeros_like(value)).sum()
+    leaf_sum = masked_sum(value, accept)
     (packed,) = syncs.pull_arrays(
         torch.cat((leaf_sum.reshape(1).to(torch.float64),
                    split.to(torch.float64))))

@@ -41,6 +41,41 @@ def test_sources_are_the_ports_own_copies():
     assert TM._BUILD == os.path.join(csrc, "build")
 
 
+def test_concurrent_builds_compile_once(tmp_path, monkeypatch):
+    """Four threads build the sequential driver into an empty build
+    directory at once: one compile, every caller gets the finished
+    binary (it runs and prints the golden area), no temporary is left."""
+    import threading
+    if TM._cc() is None:
+        pytest.skip("no C compiler on PATH")
+    monkeypatch.setattr(TM, "_BUILD", str(tmp_path / "build"))
+    compiles = []
+    real = TM._compile
+
+    def counted(cmd):
+        compiles.append(cmd)
+        real(cmd)
+
+    monkeypatch.setattr(TM, "_compile", counted)
+    out, gate = [], threading.Barrier(4)
+
+    def build():
+        gate.wait()
+        out.append(TM.build_seq())
+
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(compiles) == 1
+    assert out == [str(tmp_path / "build" / "aquad_seq")] * 4
+    assert sorted(os.listdir(tmp_path / "build")) == ["aquad_seq",
+                                                      "aquad_seq.lock"]
+    res = TM.run_seq(REFERENCE_CONFIG)      # runs the binary just built
+    assert f"{res.area:.6f}" == "7583461.801486" and len(compiles) == 1
+
+
 def test_seq_backend_golden(seq):
     assert f"{seq.area:.6f}" == "7583461.801486"
     m = seq.metrics

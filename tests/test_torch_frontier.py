@@ -17,11 +17,15 @@ import torch
 import jax.numpy as jnp
 from ppls_tpu import config as RCfg
 from ppls_tpu.models import integrands as RI
+from ppls_tpu.ops import reduction as RRed
+from ppls_tpu.ops import rules as RR
 from ppls_tpu.parallel import device_engine as RD
 from ppls_tpu.runtime import checkpoint as RC
 from ppls_tpu.runtime import host_frontier as RH
 from ppls_tpu_torch import config as TCfg
 from ppls_tpu_torch.models import integrands as TI
+from ppls_tpu_torch.ops import reduction as TRed
+from ppls_tpu_torch.ops import rules as TR
 from ppls_tpu_torch.parallel import device_engine as TD
 from ppls_tpu_torch.runtime import checkpoint as TC
 from ppls_tpu_torch.runtime import host_frontier as TH
@@ -222,6 +226,94 @@ def test_device_engine_deep_overflow_equals_host():
     dev = TD.device_integrate(osc, **CPU)
     assert dev.state is not None
     assert dev.area == TH.integrate(osc, **CPU).area
+
+
+def test_initial_state_and_round_body_equal_reference():
+    """The seeded frontier and three rounds of ``round_body`` on it, field
+    for field against the reference's (the accumulator through
+    ``kahan_init`` and ``masked_sum``); CUDA is the default device."""
+    f_r = RI.get_integrand("cosh4").fn
+    f_t = TI.get_integrand("cosh4").fn
+    ref = RD.initial_state(0.0, 5.0, 64)
+    got = TD.initial_state(0.0, 5.0, 64, **CPU)
+    for _ in range(4):
+        for k in TD.DeviceState.__dataclass_fields__:
+            a, b = getattr(got, k).numpy(), np.asarray(getattr(ref, k))
+            if k in ("acc_s", "acc_c"):
+                assert abs(float(a) - float(b)) <= AREA_REL * abs(float(b))
+            else:
+                assert np.array_equal(a, b), k
+        ref = RD.round_body(ref, f_r, 1e-3, RCfg.Rule.TRAPEZOID, 64, 2.5)
+        got = TD.round_body(got, f_t, 1e-3, TCfg.Rule.TRAPEZOID, 64, 2.5)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TD.initial_state(0.0, 5.0, 64)
+
+
+@pytest.mark.parametrize("rule", ["trapezoid", "simpson"])
+@pytest.mark.parametrize("name,l,r,eps", [
+    ("cosh4", 0.0, 5.0, 1e-3), ("cosh4", 2.5, 2.5 + 2.0 ** -12, 1e-3),
+    ("sin_recip", 1e-4, 1e-3, 1e-10), ("runge", -1.0, 0.25, 1e-6)])
+def test_eval_interval_matches_reference(rule, name, l, r, eps):
+    """One interval scored by both packages: value and error within
+    1e-14 relative (the same float64 operations in the same order; the
+    integrands' libm calls may differ in the last bit), the split
+    decision equal. CUDA is the default device."""
+    rv, re, rs = RR.eval_interval(l, r, RI.get_integrand(name).fn, eps,
+                                  RCfg.Rule(rule))
+    tv, te, ts = TR.eval_interval(l, r, TI.get_integrand(name).fn, eps,
+                                  TCfg.Rule(rule), **CPU)
+    assert tv.dtype == torch.float64 and tv.shape == ()
+    assert abs(float(tv) - float(rv)) <= AREA_REL * abs(float(rv))
+    assert abs(float(te) - float(re)) <= AREA_REL * abs(float(rv))
+    assert bool(ts) == bool(rs)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TR.eval_interval(l, r, TI.get_integrand(name).fn, eps)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduction_helpers_match_reference(seed):
+    """``masked_sum``, and ``kahan_init``/``kahan_add``/``kahan_sum``
+    over 64 numpy-seeded rounds of mixed magnitude, against the
+    reference's: the masked sums within 1e-15 relative (torch.sum and
+    XLA's sum order their additions differently), the compensated
+    totals within 1e-15 of each other and of math.fsum."""
+    import math
+    rng = np.random.default_rng(seed)
+    rs, ts = RRed.kahan_init(), TRed.kahan_init(**CPU)
+    assert float(ts[0]) == float(ts[1]) == 0.0
+    total = []
+    for _ in range(64):
+        v = rng.standard_normal(256) * 10.0 ** rng.integers(-8, 9, 256)
+        m = rng.random(256) < 0.5
+        ref = RRed.masked_sum(jnp.asarray(v), jnp.asarray(m))
+        got = TRed.masked_sum(torch.from_numpy(v), torch.from_numpy(m))
+        exact = math.fsum(v[m])
+        assert abs(float(got) - float(ref)) <= 1e-15 * np.abs(v[m]).sum()
+        rs = RRed.kahan_add(rs, jnp.asarray(exact))
+        ts = TRed.kahan_add(ts, torch.tensor(exact, dtype=torch.float64))
+        total.append(exact)
+    assert float(TRed.kahan_sum(ts)) == float(RRed.kahan_sum(rs))
+    assert abs(float(TRed.kahan_sum(ts)) - math.fsum(total)) <= \
+        1e-15 * abs(math.fsum(total))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TRed.kahan_init()
+
+
+def test_run_metrics_json_matches_reference(golden):
+    """``RunMetrics.to_json`` of the golden run: the reference's keys and
+    values, apart from the wall clock and the rate derived from it."""
+    import json
+    ref, got = golden
+    a, b = json.loads(ref.metrics.to_json()), json.loads(
+        got.metrics.to_json())
+    assert set(a) == set(b)
+    for k in set(a) - {"wall_time_s", "evals_per_sec_per_chip"}:
+        assert a[k] == b[k], k
+    assert b["evals_per_sec_per_chip"] == \
+        got.metrics.evals_per_sec_per_chip
 
 
 def test_device_rounds_stop_at_max_rounds():
