@@ -17,12 +17,19 @@ Phases, each of which must pass (any failure exits nonzero):
    a. K1 on a bred and dealt flagship bank (R=8), cap=256, in the
       trapezoid, scouting and Simpson step machines.
    b. K2 on the flagship's seeded lanes (bred, work-sorted, the first
-      boundary refill), cap=256, thresh 0.80 * lanes, in the same three.
+      boundary refill), cap=256, thresh 0.80 * lanes, in the same three;
+      its ptxas registers, and its co-resident blocks in all 24 (family,
+      step machine) variants, which must hold the 128-block grid.
    c. K3, 256 steps on the same seeded lanes, trapezoid and Simpson; then
       the reference's probe (tools/profile_walker.py) at lanes=16384, on
       restarted lanes that mostly park (not an all-live rate). K3 has no
-      grid barrier, so its time per step against K2's on the seeded
-      lanes is the barrier's share of K2's step.
+      grid count, so its time per step against K2's with no exit on the
+      seeded lanes is the share of K2's step that the count, its
+      barriers and the speculative step's copy cost.
+   Every record carries its operation bound with the kernels' FMA
+   two-products (and with Dekker's, as the plain twins compute them)
+   and the step's dependent chain at one warp per scheduler (in the log
+   and report.json; the kernels line carries bound_ms alone).
    d. K1's theta variants (theta_block T > 1) on a bred, dealt theta bank
       of sin(theta x) on [0, 1], eps 1e-5, lanes/T slots of T thetas
       from linspace(1, 4, lanes), R=8, cap=256: trapezoid at T = 8, 64,
@@ -263,8 +270,10 @@ The full report, the profiles and the build logs go to ``out_dir``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -292,6 +301,9 @@ SAMPLE_STRIDE = 128            # members held to the float64 bag
 # operations/s outside the tensor cores (an FMA counted as two)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# cycles from a float32 add, multiply or FMA to its first dependent use on
+# Hopper (the chain estimates take the card's top SM clock from nvidia-smi)
+DEP_LATENCY_CYCLES = 4
 STATE_BYTES = 26 * 4           # one lane's WalkState
 MODES = ("step", "step_scout", "step_simpson")
 DEVICE = "cuda"
@@ -462,47 +474,101 @@ def compare(what: str, outs_k, outs_p) -> float:
     return max_err
 
 
-def operation_counts(f_ds) -> dict:
+def operation_counts(f_ds, fma=None) -> dict:
     """float32 arithmetic operations (add, sub, mul, div, neg, abs,
     round) of one ds eval, one scout eval and the non-eval work of one
     trapezoid and one Simpson step, counted by running the plain PyTorch
-    twins on one lane under a counting function mode."""
+    twins on one lane under a counting function mode; and the depth of
+    their longest chain of dependent operations (a select counted as
+    one), the step's latency at one warp per scheduler.
+
+    The twins compute each two-product in Dekker's form (17 operations,
+    about 9 deep). With ``fma`` (default: the kernels' choice for this
+    body, every body but gauss_center: csrc/walk_step.cuh fma_product,
+    held by tests/test_torch_two_prod.py) the kernels' FMA form is
+    counted in its place: a multiply and an FMA, 3 operations (the FMA
+    counted as two, as the float32 peak counts it) and 2 deep. The
+    Dekker counts stay beside them under ``dekker``."""
     import torch
     from torch.overrides import TorchFunctionMode
+    from ppls_tpu_torch.ops import ds_kernel, scout_kernel
     from ppls_tpu_torch.parallel import walker as W
 
+    if fma is None:
+        from ppls_tpu_torch.models.integrands import KERNEL_GAUSS_CENTER
+        fma = f_ds.kernel_family != KERNEL_GAUSS_CENTER
     arith = {"add", "sub", "mul", "div", "true_divide", "neg", "abs",
              "round", "__radd__", "__rsub__", "__rmul__", "__rtruediv__"}
 
+    def depth(x):
+        return getattr(x, "_chain", 0) if isinstance(x, torch.Tensor) else 0
+
     class Count(TorchFunctionMode):
         n = 0
+        off = False
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            if getattr(func, "__name__", "") in arith and any(
-                    isinstance(a, torch.Tensor) and a.is_floating_point()
-                    for a in args):
-                Count.n += 1
-            return func(*args, **(kwargs or {}))
+            out = func(*args, **(kwargs or {}))
+            if Count.off:
+                return out
+            name = getattr(func, "__name__", "")
+            floats = any(isinstance(a, torch.Tensor) and a.is_floating_point()
+                         for a in args)
+            step = 1 if (name in arith and floats) or name == "where" else 0
+            Count.n += 1 if name in arith and floats else 0
+            d = step + max([depth(a) for a in args] + [0])
+            if isinstance(out, torch.Tensor) and d:
+                out._chain = d
+            return out
+
+    dekker = ds_kernel.two_prod
+
+    def fma_two_prod(a, b):
+        # the kernels' p = a * b, e = fma(a, b, -p): the same bits
+        Count.off = True
+        try:
+            p, e = dekker(a, b)
+        finally:
+            Count.off = False
+        Count.n += 3
+        p._chain = 1 + max(depth(a), depth(b))
+        e._chain = p._chain + 1
+        return p, e
 
     def count(fn, *args):
         Count.n = 0
         with Count():
-            fn(*args)
-        return Count.n
+            out = fn(*args)
+        leaves = out if isinstance(out, tuple) else (out,)
+        return Count.n, max(depth(t) for t in leaves)
 
     one = torch.full((1,), 0.5, dtype=torch.float32)
     zero = torch.zeros(1, dtype=torch.float32)
     x, th = (one, zero), (one * 2, zero)
-    ds_eval = count(f_ds, x, th)
-    sc_eval = count(W.scout_twin(f_ds), x, th)
     s = W._fresh_lanes(1, "cpu")._replace(
         flags=torch.zeros(1, dtype=torch.int32),
         w_h=torch.full((1,), 0.25, dtype=torch.float32))
-    trap = count(W._step_trap, s, f_ds, 1e-10)
-    simpson = count(W._step_simpson, s, f_ds, 1e-10)
-    return dict(ds_eval=ds_eval, scout_eval=sc_eval,
-                step_overhead=trap - ds_eval,
-                simpson_overhead=simpson - ds_eval)
+
+    def counts():
+        ds_eval, ds_depth = count(f_ds, x, th)
+        sc_eval, sc_depth = count(W.scout_twin(f_ds), x, th)
+        trap, trap_depth = count(W._step_trap, s, f_ds, 1e-10)
+        simpson, simpson_depth = count(W._step_simpson, s, f_ds, 1e-10)
+        return dict(ds_eval=ds_eval, scout_eval=sc_eval,
+                    step_overhead=trap - ds_eval,
+                    simpson_overhead=simpson - ds_eval,
+                    chain=dict(ds_eval=ds_depth, scout_eval=sc_depth,
+                               step=trap_depth, simpson_step=simpson_depth))
+
+    out = dict(counts(), fma=bool(fma))
+    out["dekker"] = dict(out)
+    if fma:
+        ds_kernel.two_prod = scout_kernel.two_prod = fma_two_prod
+        try:
+            out.update(counts())
+        finally:
+            ds_kernel.two_prod = scout_kernel.two_prod = dekker
+    return out
 
 
 def bound_ms(n_bytes: int, live_steps: int, scout_evals: int,
@@ -526,6 +592,54 @@ def bound_ms(n_bytes: int, live_steps: int, scout_evals: int,
                                        else "operations")
 
 
+def chain_us(ops: dict, mode: str) -> float:
+    """The step's longest chain of dependent operations at
+    DEP_LATENCY_CYCLES each and the card's top SM clock: the least time
+    of one step at one warp per scheduler, where nothing hides a
+    dependent operation's latency (a division counted as one operation,
+    so an underestimate). The scouting step is its scout eval's chain and
+    then the trapezoid step's (the confirm and the tail)."""
+    c = ops["chain"]
+    depth = {"step_scout": c["scout_eval"] + c["step"],
+             "step_simpson": c["simpson_step"]}.get(mode, c["step"])
+    return depth * DEP_LATENCY_CYCLES / (sm_clock_ghz() * 1e3)
+
+
+@functools.lru_cache(maxsize=1)
+def sm_clock_ghz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) / 1e3
+
+
+def ptxas_registers(log: str) -> dict:
+    """Registers per kernel variant from an nvcc -Xptxas -v log:
+    {"FAM,MODE[,THETA]": registers}, the template arguments read from
+    each entry's mangled name."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            args = re.findall(r"L[ib](\d+)E", entry.split("_kernel")[-1])
+            regs[",".join(args)] = int(m.group(1))
+            entry = None
+    return regs
+
+
+def regs_line(name: str, regs: dict, family: int) -> str:
+    """One kernel's registers: per step machine of `family`, and the
+    range over every variant."""
+    own = {k: v for k, v in regs.items() if k.split(",")[0] == str(family)}
+    return (f"{name} registers: family {family} {own}; all "
+            f"{len(regs)} variants {min(regs.values())}-"
+            f"{max(regs.values())}")
+
+
 def k1_bytes(inp: dict) -> int:
     lanes = inp["slot"].shape[0]
     R = inp["bank"][0].shape[0]
@@ -535,16 +649,15 @@ def k1_bytes(inp: dict) -> int:
     return bytes_in + bytes_out
 
 
-def median_runs(fn, n: int = 5):
-    """(last outputs, median ms, the n ms) of n runs of fn() after one
-    warm-up run, which is not counted."""
+def kernel_runs(prepare, n: int = 5):
+    """(last outputs, median ms, the n ms) of n launches after one
+    warm-up launch, each on the fresh copies prepare() makes before it
+    returns the launch, timed by CUDA events around the launch's device
+    work (ppls_tpu_torch/tools/time_k1.py kernel_times)."""
     import numpy as np
-    fn()
-    times, outs = [], None
-    for _ in range(n):
-        outs, ms = fn()
-        times.append(ms)
-    return outs, float(np.median(times)), times
+    from ppls_tpu_torch.tools.time_k1 import kernel_times
+    outs, ms = kernel_times([prepare() for _ in range(n + 1)])
+    return outs[-1], float(np.median(ms[1:])), ms[1:]
 
 
 def fmt_cmp(what: str, c: dict, times) -> str:
@@ -554,7 +667,9 @@ def fmt_cmp(what: str, c: dict, times) -> str:
             f"{c['counters'][0]} steps; kernel {c['ms']:.3f} ms (runs "
             f"{', '.join(f'{t:.3f}' for t in times)}), "
             f"{c['us_per_step']:.3f} us/step, plain {c['plain_ms']:.1f} ms, "
-            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}); counters "
+            f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}; with Dekker "
+            f"two-products {c['bound_dekker_ms']:.4f}), dependent chain "
+            f"{c['chain_us_per_step']:.3f} us/step; counters "
             f"{c['counters']}")
     ref = c.get("reference_twin")
     if ref is not None:
@@ -568,31 +683,37 @@ def fmt_cmp(what: str, c: dict, times) -> str:
 
 def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
     """K1 on copies of one dealt bank, CMP_CAP steps: the median of
-    ``runs`` kernel launches by CUDA events, then the plain segment,
+    ``runs`` kernel launches (kernel_runs), then the plain segment,
     every output held bit-equal. Returns (record, the kernel ms of each
     run)."""
     rule, scout = mode_args(mode)
     kw = dict(theta_block=theta_block) if theta_block > 1 else {}
 
-    def run(fn):
+    def prepare(fn):
         inp = clone(base)
-        (resh, resl, ctr), ms = timed(lambda: fn(
-            inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
-            inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
-            f_ds=f_ds, eps=eps, scout=scout, rule=rule, **kw))
-        return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
-                ctr], ms
 
-    outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment_rf),
-                                           runs)
-    outs_p, plain_ms = run(W.segment_rf_plain)
+        def launch():
+            resh, resl, ctr = fn(
+                inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
+                inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
+                f_ds=f_ds, eps=eps, scout=scout, rule=rule, **kw)
+            return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
+                    ctr]
+        return launch
+
+    outs_k, kernel_ms, times = kernel_runs(
+        lambda: prepare(W.run_segment_rf), runs)
+    outs_p, plain_ms = timed(prepare(W.segment_rf_plain))
     ctr = outs_k[-1].tolist()
     bound, bound_by = bound_ms(k1_bytes(base), ctr[1], ctr[6], ctr[7], ops,
                                mode)
     rec = dict(ms=kernel_ms, plain_ms=plain_ms,
                max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
                bound_by=bound_by, counters=ctr,
-               us_per_step=1e3 * kernel_ms / ctr[0])
+               us_per_step=1e3 * kernel_ms / ctr[0],
+               bound_dekker_ms=bound_ms(k1_bytes(base), ctr[1], ctr[6],
+                                        ctr[7], ops["dekker"], mode)[0],
+               chain_us_per_step=chain_us(ops, mode))
     return rec, times
 
 
@@ -602,19 +723,21 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5):
     import torch
     rule, scout = mode_args(mode)
 
-    def run(fn):
+    def prepare(fn):
         inp = clone(base)
-        ctr, ms = timed(lambda: fn(inp["state"], inp["thresh"], CMP_CAP,
-                                   f_ds=f_ds, eps=eps, scout=scout,
-                                   rule=rule))
-        return [*inp["state"], ctr], ms
+
+        def launch():
+            ctr = fn(inp["state"], inp["thresh"], CMP_CAP, f_ds=f_ds,
+                     eps=eps, scout=scout, rule=rule)
+            return [*inp["state"], ctr]
+        return launch
 
     def kernel(*args, **kw):          # the wrapper's counters, as one tensor
         _, steps, waste, evals = W.run_segment_ee(*args, **kw)
         return torch.cat([steps.reshape(1), waste, evals])
 
-    outs_k, kernel_ms, times = median_runs(lambda: run(kernel), runs)
-    outs_p, plain_ms = run(W.segment_ee_plain)
+    outs_k, kernel_ms, times = kernel_runs(lambda: prepare(kernel), runs)
+    outs_p, plain_ms = timed(prepare(W.segment_ee_plain))
     ctr = outs_k[-1].tolist()
     if sum(ctr[1:5]) != ctr[0] * LANES:
         raise AssertionError(f"{what}: waste does not reconcile")
@@ -623,7 +746,10 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5):
     rec = dict(ms=kernel_ms, plain_ms=plain_ms,
                max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
                bound_by=bound_by, counters=ctr,
-               us_per_step=1e3 * kernel_ms / ctr[0])
+               us_per_step=1e3 * kernel_ms / ctr[0],
+               bound_dekker_ms=bound_ms(n_bytes, ctr[1], ctr[5], ctr[6],
+                                        ops["dekker"], mode)[0],
+               chain_us_per_step=chain_us(ops, mode))
     return rec, times
 
 
@@ -656,14 +782,17 @@ def cmp_k3(W, what, base, f_ds, eps, mode, ops, runs=5):
     whose counters give the live lane-steps."""
     rule, _ = mode_args(mode)
 
-    def run(fn):
+    def prepare(fn):
         inp = clone(base)
-        _, ms = timed(lambda: fn(inp["state"], CMP_CAP, f_ds=f_ds, eps=eps,
-                                 rule=rule))
-        return list(inp["state"]), ms
 
-    outs_k, kernel_ms, times = median_runs(lambda: run(W.run_segment), runs)
-    outs_p, plain_ms = run(W.segment_plain)
+        def launch():
+            fn(inp["state"], CMP_CAP, f_ds=f_ds, eps=eps, rule=rule)
+            return list(inp["state"])
+        return launch
+
+    outs_k, kernel_ms, times = kernel_runs(lambda: prepare(W.run_segment),
+                                           runs)
+    outs_p, plain_ms = timed(prepare(W.segment_plain))
     max_err = compare(what, outs_k, outs_p)
     twin = clone(base)
     _, steps, waste, evals = W.run_segment_ee(
@@ -675,8 +804,10 @@ def cmp_k3(W, what, base, f_ds, eps, mode, ops, runs=5):
                                mode)
     return dict(ms=kernel_ms, plain_ms=plain_ms, max_abs_err=max_err,
                 bound_ms=bound, bound_by=bound_by, live_lane_steps=live,
-                counters=[CMP_CAP], us_per_step=1e3 * kernel_ms / CMP_CAP), \
-        times
+                counters=[CMP_CAP], us_per_step=1e3 * kernel_ms / CMP_CAP,
+                bound_dekker_ms=bound_ms(2 * LANES * STATE_BYTES, live, 0,
+                                         0, ops["dekker"], mode)[0],
+                chain_us_per_step=chain_us(ops, mode)), times
 
 
 def phase_k1(W, f_theta, f_ds, theta, ops) -> dict:
@@ -712,52 +843,76 @@ def seeded_lanes(W, f_theta, theta, rule) -> dict:
     return base
 
 
-def phase_k2(W, f_ds, seeded, ops) -> dict:
+def phase_k2(W, f_ds, seeded, ops, regs) -> tuple:
+    """K2 against its plain segment in the three step machines, its
+    registers, and its co-resident blocks in every variant (the
+    cooperative grid of LANES lanes must fit, never shrunk): (records,
+    blocks per variant)."""
+    import torch
     cmp = {}
     for mode in MODES:
         cmp[mode], times = cmp_k2(W, f"K2 {mode}", seeded[mode_args(mode)[0]],
                                   f_ds, EPS, mode, ops)
         log(fmt_cmp(f"K2 {mode}", cmp[mode], times))
-    return cmp
+    log(f"[smoke] {regs_line('K2', regs, f_ds.kernel_family)}")
+    index = torch.cuda.current_device()
+    blocks = {f"{fam},{mode}": W._max_blocks("walk_ee", index, fam, mode)
+              for fam in range(8) for mode in range(3)}
+    need = LANES // W.KERNEL_THREADS
+    log(f"[smoke] K2 co-resident blocks: {min(blocks.values())}-"
+        f"{max(blocks.values())} over {len(blocks)} variants (the grid "
+        f"needs {need})")
+    if min(blocks.values()) < need:
+        raise AssertionError(f"K2: a variant holds fewer than {need} "
+                             f"co-resident blocks: {blocks}")
+    return cmp, blocks
 
 
-def phase_k3(W, f_ds, seeded, ops) -> dict:
+def phase_k3(W, f_ds, seeded, ops, regs) -> dict:
     cmp = {}
     for mode in ("step", "step_simpson"):
         cmp[mode], times = cmp_k3(W, f"K3 {mode}", seeded[mode_args(mode)[0]],
                                   f_ds, EPS, mode, ops)
         log(fmt_cmp(f"K3 {mode} (and K2 with no exit)", cmp[mode], times)
             + f"; {cmp[mode]['live_lane_steps']} live lane-steps")
+    log(f"[smoke] {regs_line('K3', regs, f_ds.kernel_family)}")
     return cmp
 
 
-def phase_barrier(W, f_ds, base, pairs: int = 7) -> dict:
+def phase_barrier(W, f_ds, base, regs, pairs: int = 7) -> dict:
     """K2 with no exit (thresh -1) does K3's work step for step, plus
-    the block reduction and the packed count-and-barrier per step: the
-    two alternated on copies of the same lanes, medians by CUDA
-    events."""
+    the block reductions, the split count (arrive, then wait after the
+    speculative step) and the state copy per step: the two alternated on
+    copies of the same lanes, medians by CUDA events around each
+    launch's device work."""
     import numpy as np
-    k2, k3 = [], []
-    for j in range(pairs + 1):
-        a, b = clone(base), clone(base)
-        _, ms2 = timed(lambda: W.run_segment_ee(
-            a["state"], -1, CMP_CAP, f_ds=f_ds, eps=EPS, scout=False))
-        _, ms3 = timed(lambda: W.run_segment(b["state"], CMP_CAP, f_ds=f_ds,
-                                             eps=EPS))
-        if j:                       # the first pair warms up
-            k2.append(ms2)
-            k3.append(ms3)
+    from ppls_tpu_torch.tools.time_k1 import kernel_times
+
+    def prepare_k2():               # with no exit
+        state = clone(base)["state"]
+        return lambda: W.run_segment_ee(state, -1, CMP_CAP, f_ds=f_ds,
+                                        eps=EPS, scout=False)
+
+    def prepare_k3():
+        state = clone(base)["state"]
+        return lambda: W.run_segment(state, CMP_CAP, f_ds=f_ds, eps=EPS)
+    _, ms = kernel_times([prep() for _ in range(pairs + 1)
+                          for prep in (prepare_k2, prepare_k3)])
+    k2, k3 = ms[2::2], ms[3::2]          # the first pair warms up
     us2 = 1e3 * float(np.median(k2)) / CMP_CAP
     us3 = 1e3 * float(np.median(k3)) / CMP_CAP
+    trap = f"{f_ds.kernel_family},0"
     out = dict(k2_us_per_step=us2, k3_us_per_step=us3,
                barrier_us_per_step=us2 - us3, barrier_share=1 - us3 / us2,
-               k2_ms=k2, k3_ms=k3)
-    log(f"[smoke] barrier: K2 with no exit {us2:.3f} us/step, K3 "
-        f"{us3:.3f} us/step on the same lanes ({pairs} alternated pairs, "
-        f"K2 ms {', '.join(f'{t:.3f}' for t in k2)}; K3 ms "
-        f"{', '.join(f'{t:.3f}' for t in k3)}): the grid count and barrier "
-        f"cost {us2 - us3:.3f} us per step, {out['barrier_share']:.3f} of "
-        f"K2's step")
+               k2_ms=k2, k3_ms=k3, k2_registers=regs["walk_ee"][trap],
+               k3_registers=regs["walk_seg"][trap])
+    log(f"[smoke] barrier: K2 with no exit {us2:.3f} us/step "
+        f"({out['k2_registers']} registers), K3 {us3:.3f} us/step "
+        f"({out['k3_registers']} registers) on the same lanes ({pairs} "
+        f"alternated pairs, K2 ms {', '.join(f'{t:.3f}' for t in k2)}; K3 "
+        f"ms {', '.join(f'{t:.3f}' for t in k3)}): the grid count and "
+        f"barrier cost {us2 - us3:.3f} us per step, "
+        f"{out['barrier_share']:.3f} of K2's step")
     return out
 
 
@@ -2922,6 +3077,7 @@ def main() -> int:
     built = load_all_kernels()
     log(f"[smoke] build: {time.perf_counter() - t0:.1f} s for "
         f"{len(built)} kernels in parallel")
+    regs = {}
     for name, b in built.items():
         log(f"[smoke] {name}: {b.build_seconds:.1f} s -> {b.path}")
         with open(os.path.join(out_dir, f"{name}_build.log"), "w") as fh:
@@ -2929,6 +3085,10 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[smoke]   ptxas: {line.strip()}")
+        regs[name] = ptxas_registers(b.log)
+    log(f"[smoke] top SM clock {sm_clock_ghz():.3f} GHz (nvidia-smi "
+        f"clocks.max.sm): the dependent-chain estimates use it at "
+        f"{DEP_LATENCY_CYCLES} cycles per operation")
 
     f_theta = get_family("sin_recip_scaled")
     f_ds = get_family_ds("sin_recip_scaled")
@@ -2938,16 +3098,21 @@ def main() -> int:
 
     # 3. kernels vs plain on the card
     ops = operation_counts(f_ds)
-    log(f"[smoke] float32 ops: ds eval {ops['ds_eval']}, scout eval "
-        f"{ops['scout_eval']}, trapezoid step overhead "
+    dk = ops["dekker"]
+    log(f"[smoke] float32 ops ({'FMA' if ops['fma'] else 'Dekker'} "
+        f"two-products, as the kernels): ds eval {ops['ds_eval']}, scout "
+        f"eval {ops['scout_eval']}, trapezoid step overhead "
         f"{ops['step_overhead']}, Simpson step overhead "
-        f"{ops['simpson_overhead']}")
+        f"{ops['simpson_overhead']}; dependent chains {ops['chain']}; with "
+        f"Dekker two-products (the plain twins): {dk['ds_eval']}, "
+        f"{dk['scout_eval']}, {dk['step_overhead']}, "
+        f"{dk['simpson_overhead']}; chains {dk['chain']}")
     k1 = phase_k1(W, f_theta, f_ds, theta, ops)
     seeded = {rule: seeded_lanes(W, f_theta, theta, rule)
               for rule in (Rule.TRAPEZOID, Rule.SIMPSON)}
-    k2 = phase_k2(W, f_ds, seeded, ops)
-    k3 = phase_k3(W, f_ds, seeded, ops)
-    barrier = phase_barrier(W, f_ds, seeded[Rule.TRAPEZOID])
+    k2, k2_blocks = phase_k2(W, f_ds, seeded, ops, regs["walk_ee"])
+    k3 = phase_k3(W, f_ds, seeded, ops, regs["walk_seg"])
+    barrier = phase_barrier(W, f_ds, seeded[Rule.TRAPEZOID], regs)
     probe = kernel_ceiling_slope(lanes=LANES)
     log(f"[smoke] K3 probe on restarted lanes that mostly park, not a "
         f"ceiling (lanes {LANES}, {probe['launches']} launches): "
@@ -2970,7 +3135,8 @@ def main() -> int:
     log("[smoke] library_ms: no single PyTorch call computes a walk "
         "segment, so there is none")
     report.update(k1=k1, k2=k2, k3=k3, probe=probe, barrier_share=barrier,
-                  k1_theta=k1_theta, k1_attribution=attribution)
+                  k1_theta=k1_theta, k1_attribution=attribution,
+                  registers=regs, k2_coresident_blocks=k2_blocks, ops=ops)
 
     # 4. main path, in-kernel refill: the flagship, scouting on,
     # double-buffered banks
@@ -3332,6 +3498,12 @@ def main() -> int:
                                          "bound_by", "us_per_step",
                                          "max_abs_err")}
                   for k, v in k1_theta.items()}
+
+    def steps_256(cmp):
+        """The 256-step launches of phase 3, per step machine."""
+        return {mode: {f: c[f] for f in ("ms", "us_per_step", "bound_ms")}
+                | {"steps": c["counters"][0]}
+            for mode, c in cmp.items()}
     print(json.dumps({"kernels": [
         row("walk_rf", "ppls_tpu_torch/csrc/walk_rf.cu",
             "ppls_tpu/parallel/walker.py:993",
@@ -3353,7 +3525,8 @@ def main() -> int:
             theta=theta_rows,
             step_attribution=attribution,
             main_path_ms=report["profile_k1"]["kernel_ms"],
-            reduced_main_path_ms=red["profile_k1"]["kernel_ms"]),
+            reduced_main_path_ms=red["profile_k1"]["kernel_ms"],
+            steps_256=steps_256(k1), registers=regs["walk_rf"]),
         row("walk_ee", "ppls_tpu_torch/csrc/walk_ee.cu",
             "ppls_tpu/parallel/walker.py:1279",
             main_launches["run_segment_ee"] + body_launches["run_segment_ee"]
@@ -3365,11 +3538,17 @@ def main() -> int:
             checkpoint_launches=ckpt_launches["run_segment_ee"],
             serve_launches=serve_launches["run_segment_ee"],
             cli_launches=cli_launches["run_segment_ee"],
-            stream_launches=report["stream"]["overload"]["k2"]["launches"]),
+            stream_launches=report["stream"]["overload"]["k2"]["launches"],
+            main_path_ms=report["profile_k2"]["kernel_ms"],
+            main_path_launches=launches0["run_segment_ee"],
+            main_path_steps=res0.kernel_steps, steps_256=steps_256(k2),
+            barrier=barrier, registers=regs["walk_ee"],
+            coresident_blocks_min=min(k2_blocks.values())),
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",
             main_launches["run_segment"], k3, "step", bodies("k3"),
-            probe_launches=probe["launches"]),
+            probe_launches=probe["launches"], steps_256=steps_256(k3),
+            registers=regs["walk_seg"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

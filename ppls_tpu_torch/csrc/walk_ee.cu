@@ -10,22 +10,40 @@
 // is a template parameter: trapezoid, scouting or Simpson.
 //
 // Design. One thread owns one lane, its state in registers for the whole
-// launch, updated in place. Each lane classifies itself before its step
-// and sums its own counts; they are reduced once at the end.
+// launch. Each lane classifies itself before its step and sums its own
+// counts; they are reduced once at the end.
 //
-// What bounds it on this card, and what the design does about it: as K1
-// (walk_rf.cu), the latency of the ds arithmetic's dependent float32
-// chains at one warp per scheduler (16384 lanes are one block of 4 warps
-// on each of 128 SMs; the state is ~1.7 MB, so memory is no bound), plus
-// the grid-wide live count the exit test reads after every step. To keep
-// that count exact (and so the reference's step counts and waste), the
-// kernel is launched cooperatively and every step ends in K1's packed
-// count-and-barrier (wg::grid_count with one count: one 64-bit atomic and
-// one spin per block, where a cooperative-groups grid.sync() after an
-// atomic cost 1.42 of a 2.79 us step, H100 80GB HBM3, 700 W). The grid
-// is checked for co-residency and never shrunk. The scouting step
-// confirms its three points side by side, as K1's. K3 (walk_seg.cu) runs
-// the same step code with no barrier, which measures the barrier's share.
+// What bounds it on this card, and what the design does about it. At
+// 16384 lanes a block of 4 lane warps sits on each of 128 SMs, one warp
+// per scheduler, and the state is ~1.7 MB: memory is no bound, and each
+// step runs at the latency of its dependent float32 chain, plus the exact
+// grid-wide live count the exit test needs after every step.
+// - The chain. The ds products take their error from one FMA, not
+//   Dekker's split (walk_step.cuh two_prod): a trapezoid step of
+//   sin(theta / x) falls from 787 float32 operations to 501 and its
+//   longest dependent chain from 248 to 202 (chip_smoke.py
+//   operation_counts). K3, the same step with no count, went from 0.890
+//   to 0.565 us/step (tools/time_k1.py --compare, H100 80GB HBM3, 700 W;
+//   PERF.md, run 8).
+// - The count. Step k + 1 does not need the count after step k; only the
+//   decision to keep it does. So each block has a fifth warp, the count
+//   warp (walk_grid.cuh count_serve), which takes the count while the
+//   lanes compute step k + 1 on a register copy of their state and
+//   counters; the lanes then read the count and keep the copy or drop
+//   it. Step counts, the k == 0 rule, the cap and every counter stay
+//   segment_ee_plain's; at the cap no step is computed. The launch stays
+//   cooperative (the count warp spins while others arrive) and the grid
+//   is checked for co-residency and never shrunk. On the fallback
+//   flagship (163 launches, 16,719 steps) K2 took 24.146 ms before this
+//   design and 18.637 ms after (k2_main_path of tools/time_k1.py
+//   --compare, parent and change in one call, H100 80GB HBM3, 700 W;
+//   PERF.md, run 8). With the count split in the lanes themselves
+//   (arrive, speculative step, thread 0's spin) it took 21.453 ms
+//   against the count warp's 18.662 and the old loop's 24.198, the
+//   three in one such call (PERF.md, run 2).
+// The scouting step confirms its three points side by side, as K1's.
+// K3 (walk_seg.cu) runs the same step code with no count, which measures
+// what the count still costs.
 
 #include <cuda_runtime.h>
 
@@ -37,30 +55,48 @@ namespace {
 using wg::kThreads;
 
 template <int FAM, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(wg::kCountBlock)
     walk_ee_kernel(void* const* p, float eps32, int thresh, int cap) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  __shared__ wg::CountShared cs;
   uint64_t* sync = static_cast<uint64_t*>(p[ws::P_EE_SYNC]);
-
-  ws::Lane s = ws::load_lane(p, lane);
   ws::WasteEE w = {0, 0, 0};
   int sc_n = 0, cf_n = 0;
 
-  int k = 0, c = 0;
-  int live[1] = {!ws::is_parked(s)};
-  wg::grid_count(live, sync, c);
-  while (k == 0 || (k < cap && live[0] > thresh)) {
+  // Step 1 always runs (the reference's k == 0); after step k, step
+  // k + 1 is kept when k < cap and the live count after step k exceeds
+  // thresh. The lanes compute it on a register copy while the count
+  // warp takes that count, and drop it (the state stays that after step
+  // k) when the count says stop. At the cap nothing is counted or
+  // computed. Lanes and count warp take the same exit at the same k.
+  int k = 1;
+  if (threadIdx.x >= kThreads) {
+    for (int c = 0; k < cap; ++c, ++k)
+      if (wg::count_serve(cs, sync, c) <= thresh) break;
+  } else {
+    const int lane = blockIdx.x * kThreads + threadIdx.x;
+    ws::Lane s = ws::load_lane(p, lane);
     ws::lane_classify_ee(s, w);
     ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
-    ++k;
-    ++c;
-    live[0] = !ws::is_parked(s);
-    wg::grid_count(live, sync, c);
+    for (int c = 0; k < cap; ++c) {
+      wg::count_arrive(!ws::is_parked(s), cs);
+      ws::Lane t = s;
+      ws::WasteEE tw = w;
+      int tsc = sc_n, tcf = cf_n;
+      ws::lane_classify_ee(t, tw);
+      ws::step<FAM, MODE>(t, eps32, tsc, tcf);
+      if (wg::count_wait(cs) <= thresh) break;
+      s = t;
+      w = tw;
+      sc_n = tsc;
+      cf_n = tcf;
+      ++k;
+    }
+    ws::store_lane(p, lane, s);
   }
-  ws::store_lane(p, lane, s);
 
   // counters: steps, eval_active, masked_dead, parked with a root,
   // theta_overwalk (0: no theta groups here), scout evals, confirm evals
+  // (the count warp adds zeros)
   int* out = static_cast<int*>(p[ws::P_EE_COUNTERS]);
   const int vals[6] = {w.active, w.dead, w.parked_root, 0, sc_n, cf_n};
   wg::add_counters(vals, 6, out + 1);
@@ -82,10 +118,12 @@ const void* pick_kernel(int family, int mode) {
 
 extern "C" {
 
-// Blocks of kThreads the current device holds at once for this variant,
-// or -1 on error (queried once per family, mode and device).
+// Blocks (kThreads lanes and the count warp) the current device holds at
+// once for this variant, or -1 on error (queried once per family, mode
+// and device).
 int walk_ee_max_coresident_blocks(int family, int mode) {
-  return wg::max_coresident_blocks(pick_kernel(family, mode));
+  return wg::max_coresident_blocks(pick_kernel(family, mode),
+                                   wg::kCountBlock);
 }
 
 // One cooperative launch on `stream`, whose device must be current.
@@ -100,7 +138,8 @@ int walk_ee_launch(void* const* d_ptrs, int lanes, int family, int mode,
   const void* fn = pick_kernel(family, mode);
   if (fn == nullptr) return -2;
   void* args[] = {(void*)&d_ptrs, &eps32, &thresh, &cap};
-  return wg::launch_cooperative(fn, lanes, max_blocks, args, stream);
+  return wg::launch_cooperative(fn, lanes, max_blocks, args, stream,
+                                wg::kCountBlock);
 }
 
 }  // extern "C"

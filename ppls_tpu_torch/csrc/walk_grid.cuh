@@ -1,5 +1,7 @@
 // The grid-wide counts and K1's theta-group vote, shared by the
-// cooperative walk kernels (K1 in walk_rf.cu, K2 in walk_ee.cu).
+// cooperative walk kernels: K1 (walk_rf.cu) counts in its lane threads
+// after each step (grid_count), K2 (walk_ee.cu) in a count warp beside
+// its lanes while they compute the next step (count_serve).
 //
 // The packing and slot arithmetic at the top is plain C++ that the host
 // build (walk_host.cpp) runs too, so the CPU tests hold it; the device
@@ -107,7 +109,7 @@ __device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
   return v;
 }
 
-// Grid-wide sums of the N (1 or 2) per-thread counts v[] = {live, nref},
+// K1's grid-wide sums of the per-thread counts v[] = {live, nref},
 // written back into v[] of every thread; also the step's grid barrier.
 // Every thread of the grid calls it once per step c.
 //
@@ -136,26 +138,24 @@ __device__ __forceinline__ uint32_t ld_relaxed(const uint32_t* p) {
 // measured ~0.5 us a step slower on the H100 80GB HBM3, 700 W, PERF.md.)
 // The launch stays cooperative, which guarantees that every block is
 // resident while others spin.
-template <int N>
-__device__ __forceinline__ void grid_count(int (&v)[N], uint64_t* slots,
+__device__ __forceinline__ void grid_count(int (&v)[2], uint64_t* slots,
                                            int c) {
-  static_assert(N == 1 || N == 2, "live, or live and nref");
-  __shared__ int part[N][kWarps];
-  __shared__ int total[N];
+  __shared__ int part[2][kWarps];
+  __shared__ int total[2];
   __shared__ uint64_t base[3];  // each slot's word after its previous step
 #pragma unroll
-  for (int j = 0; j < N; ++j)
+  for (int j = 0; j < 2; ++j)
     for (int off = 16; off > 0; off >>= 1)
       v[j] += __shfl_down_sync(0xffffffffu, v[j], off);
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) part[j][threadIdx.x >> 5] = v[j];
+    for (int j = 0; j < 2; ++j) part[j][threadIdx.x >> 5] = v[j];
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     int sum[2] = {0, 0};
 #pragma unroll
-    for (int j = 0; j < N; ++j)
+    for (int j = 0; j < 2; ++j)
       for (int w = 0; w < kWarps; ++w) sum[j] += part[j][w];
     const int s = c % 3;
     const uint64_t b = c < 3 ? 0 : base[s];
@@ -166,11 +166,102 @@ __device__ __forceinline__ void grid_count(int (&v)[N], uint64_t* slots,
       w = ld_relaxed(slot) - b;
     base[s] = w + b;
     total[0] = count_live(w);
-    if constexpr (N == 2) total[1] = count_nref(w);
+    total[1] = count_nref(w);
   }
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = total[j];
+  for (int j = 0; j < 2; ++j) v[j] = total[j];
+}
+
+// --- K2's count warp: the count, split in arrive and wait --------------------
+//
+// K2 (walk_ee.cu) runs its kThreads lane threads and one more warp per
+// block, the count warp, which takes the grid-wide live count off the
+// lanes' path. Per step c:
+//   count_arrive (lanes)      each warp's live lanes by one ballot, into
+//                             shared memory; then a named barrier's
+//                             arrive, which does not wait
+//   count_serve (count warp)  waits for the block's arrivals, then its
+//                             thread 0 adds the block's packed (1, live)
+//                             into slot c % 3 in one relaxed atomic,
+//                             spins on the word until all blocks have
+//                             arrived, and leaves the grid's live count in
+//                             shared memory; a second named barrier's
+//                             arrive
+//   count_wait (lanes)        that barrier's wait, then the count
+// Between arrive and wait the lanes compute the next step on a copy, so
+// the atomic's round trip, the other blocks' arrivals and the spin's
+// loads all run under a step's arithmetic; the lanes' share of the count
+// is a ballot, a shared store, two named-barrier instructions and a
+// shared load. (With the arrive and wait in the lane threads
+// themselves, thread 0 spinning after the speculative step, K2 took
+// 21.453 ms on the fallback flagship against the count warp's 18.662,
+// in one call on the H100 80GB HBM3, 700 W (PERF.md, run 2): the spin's
+// first load after the step, a five-shuffle reduction and two block
+// barriers stayed on the lanes' path.)
+//
+// The slot rotation stays correct, as grid_count's (its note): a block's
+// count warp serves step c + 1 only after its lanes arrived at step
+// c + 1, which they do only after their wait on step c returned, that is
+// after the count warp's spin on step c ended, which needs every block's
+// arrival at step c, each made after its own spin on step c - 1 ended.
+// So when any block adds step c + 3 into slot c % 3, every block has
+// served step c + 1, hence ended its spin on step c: no spin on step c
+// reads a later step's addition, and each block's base of the slot (the
+// word when its spin on step c ended) holds all of step c's arrivals and
+// nothing later. The speculative step reads and writes no count word.
+//
+// Shared words: `part` is written by the lanes at step c + 1 only after
+// their wait on step c, which follows the count warp's read of it; the
+// count warp writes `total` for step c + 1 only after the lanes' arrival
+// at step c + 1, which follows their read of it.
+constexpr int kCountBlock = kThreads + 32;  // lanes and the count warp
+constexpr int kBarArrived = 1;              // named barriers (0 is
+constexpr int kBarCounted = 2;              // __syncthreads)
+
+struct CountShared {
+  int part[kWarps];
+  int total;
+  uint64_t base[3];  // each slot's word after its previous step
+};
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" : : "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void count_arrive(bool live, CountShared& cs) {
+  const unsigned b = __ballot_sync(0xffffffffu, live);
+  if ((threadIdx.x & 31) == 0) cs.part[threadIdx.x >> 5] = __popc(b);
+  bar_arrive(kBarArrived, kCountBlock);
+}
+
+__device__ __forceinline__ int count_wait(CountShared& cs) {
+  bar_sync(kBarCounted, kCountBlock);
+  return cs.total;
+}
+
+__device__ __forceinline__ int count_serve(CountShared& cs, uint64_t* slots,
+                                           int c) {
+  bar_sync(kBarArrived, kCountBlock);
+  if (threadIdx.x == kThreads) {
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) sum += cs.part[w];
+    const int s = c % 3;
+    const uint64_t b = c < 3 ? 0 : cs.base[s];
+    const uint64_t mine = pack_count(1, sum, 0);
+    uint64_t w = atom_add_relaxed(slots + s, mine) + mine - b;
+    while (count_arrivals(w) < static_cast<int>(gridDim.x))
+      w = ld_relaxed(slots + s) - b;
+    cs.base[s] = w + b;
+    cs.total = count_live(w);
+  }
+  __syncwarp();
+  const int total = cs.total;
+  bar_arrive(kBarCounted, kCountBlock);
+  return total;
 }
 
 // The union vote of theta groups: true in every thread whose group of T
@@ -226,7 +317,8 @@ __device__ __forceinline__ bool group_any(bool vote, int T, uint32_t* slots,
   return group_vote != 0;
 }
 
-// Block-wide sum of v, valid in thread 0.
+// Block-wide sum of v over the block's warps (K2's count warp too),
+// valid in thread 0.
 __device__ __forceinline__ int block_sum(int v, int* scratch) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
@@ -235,7 +327,8 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
   __syncthreads();
   int s = 0;
   if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) s += scratch[w];
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      s += scratch[w];
   return s;
 }
 
@@ -243,20 +336,20 @@ __device__ __forceinline__ int block_sum(int v, int* scratch) {
 // per block and counter (out zeroed before launch).
 __device__ __forceinline__ void add_counters(const int* vals, int n,
                                              int* out) {
-  __shared__ int scratch[kWarps];
+  __shared__ int scratch[kCountBlock / 32];
   for (int j = 0; j < n; ++j) {
     int tot = block_sum(vals[j], scratch);
     if (threadIdx.x == 0 && tot != 0) atomicAdd(&out[j], tot);
   }
 }
 
-// How many blocks of kThreads the current device holds at once for
+// How many blocks of `threads` the current device holds at once for
 // kernel `fn` (occupancy per SM times the SM count), or -1 on error.
-inline int max_coresident_blocks(const void* fn) {
+inline int max_coresident_blocks(const void* fn, int threads = kThreads) {
   int device = 0, per_sm = 0, sms = 0;
   if (fn == nullptr) return -1;
   if (cudaGetDevice(&device) != cudaSuccess) return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                     0) != cudaSuccess)
     return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -265,20 +358,23 @@ inline int max_coresident_blocks(const void* fn) {
   return per_sm * sms;
 }
 
-// One cooperative launch of `fn` over lanes / kThreads blocks. Returns 0,
-// a cudaError_t code, -3 when lanes is not a multiple of the block size,
-// -4 when the grid exceeds `max_blocks`, the co-resident limit (the grid
+// One cooperative launch of `fn` over lanes / kThreads blocks of
+// `threads` threads (kThreads lanes, and in K2 its count warp). Returns
+// 0, a cudaError_t code, -3 when lanes is not a multiple of kThreads, -4
+// when the grid exceeds `max_blocks`, the co-resident limit (the grid
 // is never shrunk), or -5 when lanes or the grid exceed the packed
 // count's fields (packed_fits). The cooperative launch is what lets
-// grid_count and group_any spin: every block of the grid is resident.
+// grid_count, count_serve and group_any spin: every block of the grid
+// is resident.
 inline int launch_cooperative(const void* fn, int lanes, int max_blocks,
-                              void** args, void* stream) {
+                              void** args, void* stream,
+                              int threads = kThreads) {
   if (lanes <= 0 || lanes % kThreads != 0) return -3;
   if (!packed_fits(lanes)) return -5;
   int grid = lanes / kThreads;
   if (grid > max_blocks) return -4;
   cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kThreads), args, 0,
+      fn, dim3(grid), dim3(threads), args, 0,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -10,12 +10,14 @@
 //                  of each group of T lanes (beyond one block through
 //                  the kernel's own vote words, walk_grid.cuh), then
 //                  commits all lanes
-//   walk_ee_host   K2 (walk_ee.cu), the early-exit segment
+//   walk_ee_host   K2 (walk_ee.cu), the early-exit segment, in the
+//                  kernel's speculate-then-commit order
 //   walk_seg_host  K3 (walk_seg.cu), the fixed-length segment
 // The counts between steps go through the kernels' packed count
 // (walk_grid.cuh): one word per block, summed. The wg_* entries expose
 // the packing, the limits and the vote arithmetic to the tests, and
-// ws_f_*_host the N-point integrand evaluations.
+// ws_f_*_host the N-point integrand evaluations, ws_two_prod_host and
+// ws_fma_product the two-product.
 
 #include <stdint.h>
 
@@ -148,21 +150,38 @@ int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
   return 0;
 }
 
+// K2's order (walk_ee.cu): the first step; then, while k < cap, the
+// count of the state after step k, step k + 1 on copies of every lane
+// and of the counters, and the copies kept only when the count exceeds
+// thresh. The state after step k stays in `p` until a step is kept.
 template <int FAM, int MODE>
 int ee(void* const* p, int lanes, float eps32, int thresh, int cap) {
   ws::WasteEE w = {0, 0, 0};
   int sc_n = 0, cf_n = 0;
-  int k = 0, live, nref;
-  if (!packed_counts(p, lanes, nullptr, nullptr, live, nref)) return -6;
-  while (k == 0 || (k < cap && live > thresh)) {
-    for (int lane = 0; lane < lanes; ++lane) {
-      ws::Lane s = ws::load_lane(p, lane);
-      ws::lane_classify_ee(s, w);
-      ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
-      ws::store_lane(p, lane, s);
-    }
-    ++k;
+  std::vector<ws::Lane> next(lanes);
+  for (int lane = 0; lane < lanes; ++lane) {
+    ws::Lane s = ws::load_lane(p, lane);
+    ws::lane_classify_ee(s, w);
+    ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
+    ws::store_lane(p, lane, s);
+  }
+  int k = 1, live, nref;
+  while (k < cap) {
     if (!packed_counts(p, lanes, nullptr, nullptr, live, nref)) return -6;
+    ws::WasteEE tw = w;
+    int tsc = sc_n, tcf = cf_n;
+    for (int lane = 0; lane < lanes; ++lane) {
+      next[lane] = ws::load_lane(p, lane);
+      ws::lane_classify_ee(next[lane], tw);
+      ws::step<FAM, MODE>(next[lane], eps32, tsc, tcf);
+    }
+    if (live <= thresh) break;
+    for (int lane = 0; lane < lanes; ++lane)
+      ws::store_lane(p, lane, next[lane]);
+    w = tw;
+    sc_n = tsc;
+    cf_n = tcf;
+    ++k;
   }
   int* out = static_cast<int*>(p[ws::P_EE_COUNTERS]);
   out[0] = k;
@@ -240,6 +259,26 @@ int wg_group_any_host(const int* votes, int lanes, int T, int rounds,
       any_out[c * lanes + lane] = any[lane];
   }
   return 0;
+}
+
+// The kernels' two-product of n float32 pairs, in the FMA form when
+// `fma`, else Dekker's: p + e == a * b.
+void ws_two_prod_host(int fma, int n, const float* a, const float* b,
+                      float* p, float* e) {
+  for (int j = 0; j < n; ++j) {
+    const ws::ds2 r = fma ? ws::two_prod<true>(a[j], b[j])
+                          : ws::two_prod<false>(a[j], b[j]);
+    p[j] = r.h;
+    e[j] = r.l;
+  }
+}
+
+// The two-product form each integrand body's step runs: 1 FMA, 0 Dekker,
+// -2 for an unknown family.
+int ws_fma_product(int family) {
+  return ws::dispatch(family, ws::STEP_TRAP, []<int FAM, int MODE>() {
+    return ws::fma_product(FAM) ? 1 : 0;
+  }, -2);
 }
 
 // The integrand at n points of one theta, the scouting confirm's way

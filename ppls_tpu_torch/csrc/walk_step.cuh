@@ -12,7 +12,9 @@
 // with nvcc -fmad=false -ftz=false -prec-div=true -prec-sqrt=true (never
 // --use_fast_math) and with g++ -ffp-contract=off. Every function below
 // performs the float32 operations of its twin in ops/ds_kernel.py,
-// ops/scout_kernel.py and models/integrands.py, in the same order.
+// ops/scout_kernel.py and models/integrands.py, in the same order, but
+// for two_prod, whose one explicit FMA reaches the same bits by another
+// exact route (its note).
 
 #pragma once
 
@@ -303,14 +305,64 @@ WS_HD void dekker_split(F a, F& hi, F& lo) {
   lo = a - hi;
 }
 
-template <class F>
+// One correctly rounded fused multiply-add: the only contraction in the
+// kernels, written out (-fmad=false and -ffp-contract=off forbid any
+// other). glibc's fmaf is correctly rounded too.
+WS_HD float fma_f(float a, float b, float c) {
+#ifdef __CUDA_ARCH__
+  return __fmaf_rn(a, b, c);
+#else
+  return fmaf(a, b, c);
+#endif
+}
+template <int N>
+WS_HD fv<N> fma_f(fv<N> a, fv<N> b, fv<N> c) {
+  fv<N> r;
+#pragma unroll
+  for (int j = 0; j < N; ++j) r.v[j] = fma_f(a.v[j], b.v[j], c.v[j]);
+  return r;
+}
+
+// The error-free product p + e == a * b. The plain segments
+// (ops/ds_kernel.two_prod) and the reference use Dekker's split, since
+// the TPU's vector unit has no float32 FMA: a split of each operand, four
+// products and three adds, about 16 instructions on a critical path about
+// 9 deep, and the ds chains call it 18-20 times per sin evaluation. With
+// FMA = true the kernels take e = fma(a, b, -p) instead: two instructions,
+// two deep. A trapezoid step of sin(theta / x) falls from 787 float32
+// operations to 501 and from 248 dependent ones to 202, and K3's step
+// (no grid count) from 0.890 to 0.565 us on the H100 80GB HBM3, 700 W
+// (tools/time_k1.py --compare, parent and change in one call; PERF.md,
+// run 8). At one warp per scheduler the chain, not the operation count,
+// is what K1-K3 wait on; the measured step is still about 1.4 times its
+// chain at 4 cycles an operation (0.41 us, with each IEEE division
+// counted as one operation).
+// The FMA's e is the exact a * b - p rounded once, and Dekker's
+// is exact, so the two give the same bits wherever Dekker's partial
+// products are exact: every product of normal float32 values with |a * b|
+// above ~2^-100 and |a|, |b| below ~8.3e34 (where 4097 |a| overflows and
+// Dekker gives NaN). Below ~2^-100 e is subnormal and the forms may part.
+//
+// FMA is a compile-time choice per integrand body (fma_product), never a
+// runtime test. gauss_center keeps Dekker: its exp tails give values down
+// to 2^-126 with subnormal lo limbs, and a step multiplies them by node
+// widths (la = (fl + fq) * w / 4), so its products reach the range where
+// the forms part (tests/test_torch_two_prod.py builds such a lane). Every
+// other body's products stay above it on every bank the tests and
+// chip_smoke.py walk, so those run FMA and stay bit-equal to the plain
+// Dekker segments.
+template <bool FMA, class F>
 WS_HD dsT<F> two_prod(F a, F b) {
   F p = a * b;
-  F ah, al, bh, bl;
-  dekker_split(a, ah, al);
-  dekker_split(b, bh, bl);
-  F e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
-  return {p, e};
+  if constexpr (FMA) {
+    return {p, fma_f(a, b, -p)};
+  } else {
+    F ah, al, bh, bl;
+    dekker_split(a, ah, al);
+    dekker_split(b, bh, bl);
+    F e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+    return {p, e};
+  }
 }
 
 template <class F>
@@ -333,16 +385,16 @@ WS_HD dsT<F> ds_add_f32(dsT<F> x, F b) {
   return quick_two_sum(s.h, e);
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> ds_mul(dsT<F> x, dsT<F> y) {
-  dsT<F> p = two_prod(x.h, y.h);
+  dsT<F> p = two_prod<FMA>(x.h, y.h);
   F e = p.l + (x.h * y.l + x.l * y.h);
   return quick_two_sum(p.h, e);
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> ds_mul_f32(dsT<F> x, F b) {
-  dsT<F> p = two_prod(x.h, b);
+  dsT<F> p = two_prod<FMA>(x.h, b);
   F e = p.l + x.l * b;
   return quick_two_sum(p.h, e);
 }
@@ -353,10 +405,10 @@ WS_HD dsT<F> ds_mul_pow2(dsT<F> x, float k) { return {x.h * k, x.l * k}; }
 // With F = fv<N>, each IEEE float32 division (-prec-div=true, which ends
 // a basic block at its slow-path branch) is followed by the other values'
 // divisions, so the work between two division stages stays in one block.
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> ds_div(dsT<F> x, dsT<F> y) {
   F q1 = x.h / y.h;
-  dsT<F> p = two_prod(q1, y.h);
+  dsT<F> p = two_prod<FMA>(q1, y.h);
   dsT<F> r = ds_sub(x, dsT<F>{p.h, p.l + q1 * y.l});
   F q2 = (r.h + r.l) / y.h;
   return quick_two_sum(q1, q2);
@@ -373,34 +425,34 @@ WS_HD dsT<F> ds_abs(dsT<F> x) {
   return ds_sel(x.h < 0.0f, ds_neg(x), x);
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> sin_poly(dsT<F> y) {
-  dsT<F> y2 = ds_mul(y, y);
+  dsT<F> y2 = ds_mul<FMA>(y, y);
   F tail = K_S11 + y2.h * K_S13;
-  dsT<F> p = ds_add(dsc<F>(K_S9_H, K_S9_L), ds_mul_f32(y2, tail));
-  p = ds_add(dsc<F>(K_S7_H, K_S7_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_S5_H, K_S5_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_S3_H, K_S3_L), ds_mul(y2, p));
-  return ds_add(y, ds_mul(ds_mul(y, y2), p));
+  dsT<F> p = ds_add(dsc<F>(K_S9_H, K_S9_L), ds_mul_f32<FMA>(y2, tail));
+  p = ds_add(dsc<F>(K_S7_H, K_S7_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_S5_H, K_S5_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_S3_H, K_S3_L), ds_mul<FMA>(y2, p));
+  return ds_add(y, ds_mul<FMA>(ds_mul<FMA>(y, y2), p));
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> cos_poly(dsT<F> y) {
-  dsT<F> y2 = ds_mul(y, y);
+  dsT<F> y2 = ds_mul<FMA>(y, y);
   F tail = K_C10 + y2.h * K_C12;
-  dsT<F> p = ds_add(dsc<F>(K_C8_H, K_C8_L), ds_mul_f32(y2, tail));
-  p = ds_add(dsc<F>(K_C6_H, K_C6_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_C4_H, K_C4_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_C2_H, K_C2_L), ds_mul(y2, p));
-  return ds_add(dsc<F>(1.0f, 0.0f), ds_mul(y2, p));
+  dsT<F> p = ds_add(dsc<F>(K_C8_H, K_C8_L), ds_mul_f32<FMA>(y2, tail));
+  p = ds_add(dsc<F>(K_C6_H, K_C6_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_C4_H, K_C4_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_C2_H, K_C2_L), ds_mul<FMA>(y2, p));
+  return ds_add(dsc<F>(1.0f, 0.0f), ds_mul<FMA>(y2, p));
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> ds_sin(dsT<F> x) {
   F k = rint_f(x.h * K_TWO_OVER_PI);
-  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PIO2_1));
+  dsT<F> t1 = two_prod<FMA>(k, Splat<F>::of(K_PIO2_1));
   F h = x.h - t1.h;  // exact by Sterbenz
-  dsT<F> t2 = two_prod(k, Splat<F>::of(K_PIO2_2));
+  dsT<F> t2 = two_prod<FMA>(k, Splat<F>::of(K_PIO2_2));
   dsT<F> y = {h, Splat<F>::of(0.0f)};
   y = ds_add_f32(y, -t1.l);
   y = ds_add_f32(y, x.l);
@@ -408,8 +460,8 @@ WS_HD dsT<F> ds_sin(dsT<F> x) {
   y = ds_add_f32(y, -t2.l);
   y = ds_add_f32(y, -(k * K_PIO2_3));
   auto q = to_int(k) & 3;
-  dsT<F> sin_y = sin_poly(y);
-  dsT<F> cos_y = cos_poly(y);
+  dsT<F> sin_y = sin_poly<FMA>(y);
+  dsT<F> cos_y = cos_poly<FMA>(y);
   dsT<F> res = ds_sel((q & 1) == 1, cos_y, sin_y);
   return ds_sel(q >= 2, ds_neg(res), res);
 }
@@ -417,72 +469,73 @@ WS_HD dsT<F> ds_sin(dsT<F> x) {
 // sin by pi reduction and one polynomial (ops/ds_kernel.ds_sin_pi): the
 // remainder lies in [-pi/2, pi/2], so no cos chain and no quadrant select,
 // only the parity sign of k
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> sin_poly_pi(dsT<F> y) {
-  dsT<F> y2 = ds_mul(y, y);
+  dsT<F> y2 = ds_mul<FMA>(y, y);
   F tail = K_S15P + y2.h * (K_S17P + y2.h * (K_S19P + y2.h * K_S21P));
-  dsT<F> p = ds_add(dsc<F>(K_S13P_H, K_S13P_L), ds_mul_f32(y2, tail));
-  p = ds_add(dsc<F>(K_S11P_H, K_S11P_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_S9_H, K_S9_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_S7_H, K_S7_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_S5_H, K_S5_L), ds_mul(y2, p));
-  p = ds_add(dsc<F>(K_S3_H, K_S3_L), ds_mul(y2, p));
-  return ds_add(y, ds_mul(ds_mul(y, y2), p));
+  dsT<F> p = ds_add(dsc<F>(K_S13P_H, K_S13P_L), ds_mul_f32<FMA>(y2, tail));
+  p = ds_add(dsc<F>(K_S11P_H, K_S11P_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_S9_H, K_S9_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_S7_H, K_S7_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_S5_H, K_S5_L), ds_mul<FMA>(y2, p));
+  p = ds_add(dsc<F>(K_S3_H, K_S3_L), ds_mul<FMA>(y2, p));
+  return ds_add(y, ds_mul<FMA>(ds_mul<FMA>(y, y2), p));
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> ds_sin_pi(dsT<F> x) {
   F k = rint_f(x.h * K_INV_PI);
-  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PI_1));
+  dsT<F> t1 = two_prod<FMA>(k, Splat<F>::of(K_PI_1));
   F h = x.h - t1.h;  // exact by Sterbenz
-  dsT<F> t2 = two_prod(k, Splat<F>::of(K_PI_2));
+  dsT<F> t2 = two_prod<FMA>(k, Splat<F>::of(K_PI_2));
   dsT<F> y = {h, Splat<F>::of(0.0f)};
   y = ds_add_f32(y, -t1.l);
   y = ds_add_f32(y, x.l);
   y = ds_add_f32(y, -t2.h);
   y = ds_add_f32(y, -t2.l);
   y = ds_add_f32(y, -(k * K_PI_3));
-  dsT<F> res = sin_poly_pi(y);
+  dsT<F> res = sin_poly_pi<FMA>(y);
   return ds_sel((to_int(k) & 1) == 1, ds_neg(res), res);
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> exp_poly(dsT<F> r) {
   F tail = K_E10 + r.h * (K_E11 + r.h * K_E12);
-  dsT<F> p = ds_add(dsc<F>(K_E9_H, K_E9_L), ds_mul_f32(r, tail));
-  p = ds_add(dsc<F>(K_E8_H, K_E8_L), ds_mul(r, p));
-  p = ds_add(dsc<F>(K_E7_H, K_E7_L), ds_mul(r, p));
-  p = ds_add(dsc<F>(K_E6_H, K_E6_L), ds_mul(r, p));
-  p = ds_add(dsc<F>(K_E5_H, K_E5_L), ds_mul(r, p));
-  p = ds_add(dsc<F>(K_E4_H, K_E4_L), ds_mul(r, p));
-  p = ds_add(dsc<F>(K_E3_H, K_E3_L), ds_mul(r, p));
-  p = ds_add(dsc<F>(0.5f, 0.0f), ds_mul(r, p));
-  return ds_add(ds_add(dsc<F>(1.0f, 0.0f), r), ds_mul(ds_mul(r, r), p));
+  dsT<F> p = ds_add(dsc<F>(K_E9_H, K_E9_L), ds_mul_f32<FMA>(r, tail));
+  p = ds_add(dsc<F>(K_E8_H, K_E8_L), ds_mul<FMA>(r, p));
+  p = ds_add(dsc<F>(K_E7_H, K_E7_L), ds_mul<FMA>(r, p));
+  p = ds_add(dsc<F>(K_E6_H, K_E6_L), ds_mul<FMA>(r, p));
+  p = ds_add(dsc<F>(K_E5_H, K_E5_L), ds_mul<FMA>(r, p));
+  p = ds_add(dsc<F>(K_E4_H, K_E4_L), ds_mul<FMA>(r, p));
+  p = ds_add(dsc<F>(K_E3_H, K_E3_L), ds_mul<FMA>(r, p));
+  p = ds_add(dsc<F>(0.5f, 0.0f), ds_mul<FMA>(r, p));
+  return ds_add(ds_add(dsc<F>(1.0f, 0.0f), r),
+                ds_mul<FMA>(ds_mul<FMA>(r, r), p));
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD dsT<F> ds_exp(dsT<F> x) {
   F k = rint_f(x.h * K_LOG2E);
-  dsT<F> t1 = two_prod(k, Splat<F>::of(K_LN2_1));
+  dsT<F> t1 = two_prod<FMA>(k, Splat<F>::of(K_LN2_1));
   F h = x.h - t1.h;  // exact by Sterbenz
-  dsT<F> t2 = two_prod(k, Splat<F>::of(K_LN2_2));
+  dsT<F> t2 = two_prod<FMA>(k, Splat<F>::of(K_LN2_2));
   dsT<F> y = {h, Splat<F>::of(0.0f)};
   y = ds_add_f32(y, -t1.l);
   y = ds_add_f32(y, x.l);
   y = ds_add_f32(y, -t2.h);
   y = ds_add_f32(y, -t2.l);
   y = ds_add_f32(y, -(k * K_LN2_3));
-  dsT<F> e = exp_poly(y);
+  dsT<F> e = exp_poly<FMA>(y);
   F s = pow2_f32(to_int(k));
   return {e.h * s, e.l * s};
 }
 
 // --- scout arithmetic (ops/scout_kernel.py): plain float32 ------------------
 
-template <class F>
+template <bool FMA, class F>
 WS_HD F sc_sin(F xv) {
   F k = rint_f(xv * K_TWO_OVER_PI);
-  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PIO2_1));
+  dsT<F> t1 = two_prod<FMA>(k, Splat<F>::of(K_PIO2_1));
   F y = (xv - t1.h) - (t1.l + k * K_PIO2_2);
   F y2 = y * y;
   F sp = K_SC_S9 + y2 * K_SC_S11;
@@ -501,10 +554,10 @@ WS_HD F sc_sin(F xv) {
 }
 
 // float32 sin by pi reduction (ops/scout_kernel.ds_sin_pi)
-template <class F>
+template <bool FMA, class F>
 WS_HD F sc_sin_pi(F xv) {
   F k = rint_f(xv * K_INV_PI);
-  dsT<F> t1 = two_prod(k, Splat<F>::of(K_PI_1));
+  dsT<F> t1 = two_prod<FMA>(k, Splat<F>::of(K_PI_1));
   F y = (xv - t1.h) - (t1.l + k * K_PI_2);
   F y2 = y * y;
   F p = K_SC_S11 + y2 * K_SC_S13;
@@ -516,10 +569,10 @@ WS_HD F sc_sin_pi(F xv) {
   return sel((to_int(k) & 1) == 1, -res, res);
 }
 
-template <class F>
+template <bool FMA, class F>
 WS_HD F sc_exp(F xv) {
   F k = rint_f(xv * K_LOG2E);
-  dsT<F> t1 = two_prod(k, Splat<F>::of(K_LN2_1));
+  dsT<F> t1 = two_prod<FMA>(k, Splat<F>::of(K_LN2_1));
   F r = (xv - t1.h) - (t1.l + k * K_LN2_2);
   F p = K_SC_E6 + r * K_SC_E7;
   p = K_SC_E5 + r * p;
@@ -543,50 +596,59 @@ WS_HD F sc_exp(F xv) {
 // ds_sin chains one after another (SASS, PERF.md). The scout twins the
 // same way.
 
+// The two-product of each body's step (two_prod's note): FMA but for
+// gauss_center, whose products reach the subnormal range.
+WS_HD constexpr bool fma_product(int fam) {
+  return fam != FAMILY_GAUSS_CENTER;
+}
+
 template <int FAM, class F>
 WS_HD dsT<F> f_ds_of(dsT<F> x, dsT<F> th) {
+  constexpr bool FMA = fma_product(FAM);
   if constexpr (FAM == FAMILY_SIN_SCALED) {  // sin(theta x)
-    return ds_sin(ds_mul(th, x));
+    return ds_sin<FMA>(ds_mul<FMA>(th, x));
   } else if constexpr (FAM == FAMILY_SIN_RECIP) {  // sin(theta / x)
-    return ds_sin(ds_div(th, x));
+    return ds_sin<FMA>(ds_div<FMA>(th, x));
   } else if constexpr (FAM == FAMILY_COSH4) {  // cosh(theta x)^4
-    dsT<F> u = ds_mul(th, x);
-    dsT<F> e = ds_exp(u);
-    dsT<F> inv = ds_div(dsc<F>(1.0f, 0.0f), e);
+    dsT<F> u = ds_mul<FMA>(th, x);
+    dsT<F> e = ds_exp<FMA>(u);
+    dsT<F> inv = ds_div<FMA>(dsc<F>(1.0f, 0.0f), e);
     dsT<F> c = ds_mul_pow2(ds_add(e, inv), 0.5f);
-    dsT<F> c2 = ds_mul(c, c);
-    return ds_mul(c2, c2);
+    dsT<F> c2 = ds_mul<FMA>(c, c);
+    return ds_mul<FMA>(c2, c2);
   } else if constexpr (FAM == FAMILY_QUAD_SCALED) {  // theta x^2
-    return ds_mul(th, ds_mul(x, x));
+    return ds_mul<FMA>(th, ds_mul<FMA>(x, x));
   } else if constexpr (FAM == FAMILY_GAUSS_CENTER) {  // theta: the centre
     dsT<F> d = ds_sub(x, th);
-    return ds_exp(ds_mul_f32(ds_mul(d, d), Splat<F>::of(K_GAUSS_SCALE)));
+    return ds_exp<FMA>(
+        ds_mul_f32<FMA>(ds_mul<FMA>(d, d), Splat<F>::of(K_GAUSS_SCALE)));
   } else if constexpr (FAM == FAMILY_SIN_RECIP_REDUCED) {
-    return ds_sin_pi(ds_div(th, x));
+    return ds_sin_pi<FMA>(ds_div<FMA>(th, x));
   } else if constexpr (FAM == FAMILY_SIN_SCALED_REDUCED) {
-    return ds_sin_pi(ds_mul(th, x));
+    return ds_sin_pi<FMA>(ds_mul<FMA>(th, x));
   } else {  // ((1 + cosh 2|u|) / 2)^2 with one exp of 2|u|
     static_assert(FAM == FAMILY_COSH4_REDUCED, "unknown integrand family");
-    dsT<F> u = ds_mul(th, x);
-    dsT<F> e2 = ds_exp(ds_mul_pow2(ds_abs(u), 2.0f));
+    dsT<F> u = ds_mul<FMA>(th, x);
+    dsT<F> e2 = ds_exp<FMA>(ds_mul_pow2(ds_abs(u), 2.0f));
     dsT<F> one = dsc<F>(1.0f, 0.0f);
-    dsT<F> inv = ds_div(one, e2);
+    dsT<F> inv = ds_div<FMA>(one, e2);
     dsT<F> c2u = ds_mul_pow2(ds_add(e2, inv), 0.5f);
     dsT<F> half = ds_mul_pow2(ds_add(one, c2u), 0.5f);
-    return ds_mul(half, half);
+    return ds_mul<FMA>(half, half);
   }
 }
 
 // scout twins: only the hi limbs matter (the lo limbs are +0.0)
 template <int FAM, class F>
 WS_HD F f_sc_of(F x, F th) {
+  constexpr bool FMA = fma_product(FAM);
   if constexpr (FAM == FAMILY_SIN_SCALED) {
-    return sc_sin(th * x);
+    return sc_sin<FMA>(th * x);
   } else if constexpr (FAM == FAMILY_SIN_RECIP) {
-    return sc_sin(th / x);
+    return sc_sin<FMA>(th / x);
   } else if constexpr (FAM == FAMILY_COSH4) {
     F u = th * x;
-    F e = sc_exp(u);
+    F e = sc_exp<FMA>(u);
     F inv = 1.0f / e;
     F c = (e + inv) * 0.5f;
     F c2 = c * c;
@@ -595,15 +657,15 @@ WS_HD F f_sc_of(F x, F th) {
     return th * (x * x);
   } else if constexpr (FAM == FAMILY_GAUSS_CENTER) {
     F d = x - th;
-    return sc_exp((d * d) * K_GAUSS_SCALE);
+    return sc_exp<FMA>((d * d) * K_GAUSS_SCALE);
   } else if constexpr (FAM == FAMILY_SIN_RECIP_REDUCED) {
-    return sc_sin_pi(th / x);
+    return sc_sin_pi<FMA>(th / x);
   } else if constexpr (FAM == FAMILY_SIN_SCALED_REDUCED) {
-    return sc_sin_pi(th * x);
+    return sc_sin_pi<FMA>(th * x);
   } else {
     static_assert(FAM == FAMILY_COSH4_REDUCED, "unknown integrand family");
     F u = th * x;
-    F e2 = sc_exp(abs_f(u) * 2.0f);
+    F e2 = sc_exp<FMA>(abs_f(u) * 2.0f);
     F inv = 1.0f / e2;
     F c2u = (e2 + inv) * 0.5f;
     F half = (1.0f + c2u) * 0.5f;
@@ -797,13 +859,14 @@ WS_HD void lane_classify_ee(const Lane& s, WasteEE& w) {
 
 // --- geometry and steps (walker.py _node_geometry / step / step_scout) ------
 
+template <bool FMA>
 WS_HD void node_geometry(const Lane& s, ds2& w, ds2& x0, ds2& x1) {
   float scale = pow2_f32(-s.d);
   w = ds2{s.w_h * scale, s.w_l * scale};
   float il = static_cast<float>(s.i & 0x7FFF);
   float ih = static_cast<float>(s.i >> 15);
-  ds2 step = ds_add(ds_mul_f32(ds_mul_pow2(w, 32768.0f), ih),
-                    ds_mul_f32(w, il));
+  ds2 step = ds_add(ds_mul_f32<FMA>(ds_mul_pow2(w, 32768.0f), ih),
+                    ds_mul_f32<FMA>(w, il));
   x0 = ds_add(ds2{s.a_h, s.a_l}, step);
   x1 = ds_add(x0, w);
 }
@@ -870,13 +933,14 @@ struct Eval {
 // INIT/LOAD cache modes
 template <int FAM, bool THETA>
 WS_HD Eval eval_trap(const Lane& s, float eps32) {
+  constexpr bool FMA = fma_product(FAM);
   Eval e;
   bool parked = is_parked(s);
   e.mode_load = (s.flags & MODE_LOAD) != 0;
   e.mode_init = (s.flags & MODE_INIT) != 0;
   bool live = !parked;
   ds2 w, x0, x1;
-  node_geometry(s, w, x0, x1);
+  node_geometry<FMA>(s, w, x0, x1);
   ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
   ds2 xq = e.mode_load ? x1 : mid;
   xq = e.mode_init ? x0 : xq;
@@ -887,10 +951,10 @@ WS_HD Eval eval_trap(const Lane& s, float eps32) {
   ds2 quarter = ds_mul_pow2(w, 0.25f);
   e.fl = ds2{s.fl_h, s.fl_l};
   e.fr = ds2{s.fr_h, s.fr_l};
-  ds2 la = ds_mul(ds_add(e.fl, e.fq), quarter);
-  ds2 ra = ds_mul(ds_add(e.fq, e.fr), quarter);
+  ds2 la = ds_mul<FMA>(ds_add(e.fl, e.fq), quarter);
+  ds2 ra = ds_mul<FMA>(ds_add(e.fq, e.fr), quarter);
   e.val = ds_add(la, ra);
-  ds2 lr = ds_mul(ds_add(e.fl, e.fr), ds_mul_pow2(w, 0.5f));
+  ds2 lr = ds_mul<FMA>(ds_add(e.fl, e.fr), ds_mul_pow2(w, 0.5f));
   ds2 err = ds_abs(ds_sub(e.val, lr));
   e.split = (err.h + err.l) > eps32;
   e.testing = live && !(e.mode_load || e.mode_init);
@@ -907,13 +971,14 @@ WS_HD Eval eval_trap(const Lane& s, float eps32) {
 // counters.
 template <int FAM, bool THETA>
 WS_HD Eval eval_scout(const Lane& s, float eps32, int& sc_n, int& cf_n) {
+  constexpr bool FMA = fma_product(FAM);
   Eval e;
   bool parked = is_parked(s);
   bool mode_load = (s.flags & MODE_LOAD) != 0;
   bool mode_init = (s.flags & MODE_INIT) != 0;
   bool live = !parked;
   ds2 w, x0, x1;
-  node_geometry(s, w, x0, x1);
+  node_geometry<FMA>(s, w, x0, x1);
   ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
   ds2 th = {s.th_h, s.th_l};
 
@@ -951,10 +1016,10 @@ WS_HD Eval eval_scout(const Lane& s, float eps32, int& sc_n, int& cf_n) {
     f_ds_n<FAM, 3>(xd, th, gd);
     ds2 g0 = gd[0], gm = gd[1], g1 = gd[2];
     ds2 quarter = ds_mul_pow2(w, 0.25f);
-    ds2 la = ds_mul(ds_add(g0, gm), quarter);
-    ds2 ra = ds_mul(ds_add(gm, g1), quarter);
+    ds2 la = ds_mul<FMA>(ds_add(g0, gm), quarter);
+    ds2 ra = ds_mul<FMA>(ds_add(gm, g1), quarter);
     e.val = ds_add(la, ra);
-    ds2 lr = ds_mul(ds_add(g0, g1), ds_mul_pow2(w, 0.5f));
+    ds2 lr = ds_mul<FMA>(ds_add(g0, g1), ds_mul_pow2(w, 0.5f));
     ds2 errd = ds_abs(ds_sub(e.val, lr));
     split_ds = (errd.h + errd.l) > eps32;
   }
@@ -1015,6 +1080,7 @@ WS_HD void commit(Lane& s, const Eval& e, bool group_split) {
 // (f(q1), stashed in fq) -> TESTB (f(q3), decide)
 template <int FAM>
 WS_HD void step_simpson(Lane& s, float eps32) {
+  constexpr bool FMA = fma_product(FAM);
   bool parked = is_parked(s);
   bool mode_load = (s.flags & MODE_LOAD) != 0;
   bool mode_init = (s.flags & MODE_INIT) != 0;
@@ -1023,7 +1089,7 @@ WS_HD void step_simpson(Lane& s, float eps32) {
   bool live = !parked;
   bool testa = live && !(mode_load || mode_init || mode_loadm || mode_testb);
   ds2 w, x0, x1;
-  node_geometry(s, w, x0, x1);
+  node_geometry<FMA>(s, w, x0, x1);
   ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
   ds2 q1 = ds_add(x0, ds_mul_pow2(w, 0.25f));
   ds2 q3 = ds_add(mid, ds_mul_pow2(w, 0.25f));
@@ -1040,14 +1106,15 @@ WS_HD void step_simpson(Lane& s, float eps32) {
   ds2 fm = {s.fm_h, s.fm_l};
   ds2 fq1 = {s.fq_h, s.fq_l};
   ds2 four_fm = ds_mul_pow2(fm, 4.0f);
-  ds2 s1 = ds_mul(ds_mul(w, ds2{K_SIXTH_H, K_SIXTH_L}),
+  ds2 s1 = ds_mul<FMA>(ds_mul<FMA>(w, ds2{K_SIXTH_H, K_SIXTH_L}),
                   ds_add(ds_add(fl, four_fm), fr));
   ds2 inner = ds_add(ds_add(fl, fr),
                      ds_add(ds_mul_pow2(ds_add(fq1, fq), 4.0f),
                             ds_mul_pow2(fm, 2.0f)));
-  ds2 s2 = ds_mul(ds_mul(w, ds2{K_TWELFTH_H, K_TWELFTH_L}), inner);
+  ds2 s2 =
+      ds_mul<FMA>(ds_mul<FMA>(w, ds2{K_TWELFTH_H, K_TWELFTH_L}), inner);
   ds2 diff = ds_sub(s2, s1);
-  ds2 corr = ds_mul(diff, ds2{K_FIFTEENTH_H, K_FIFTEENTH_L});
+  ds2 corr = ds_mul<FMA>(diff, ds2{K_FIFTEENTH_H, K_FIFTEENTH_L});
   ds2 err = ds_abs(corr);
   ds2 val = ds_add(s2, corr);
   bool split = (err.h + err.l) > eps32;

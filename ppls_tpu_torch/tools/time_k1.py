@@ -7,8 +7,9 @@ alternation on one card:
         [--rounds 3] [--out FILE] [--family NAME] [--reduced]
 
 With ``--root`` (default: the checkout this file is in) it imports
-``ppls_tpu_torch`` from PATH and times, by CUDA events after one warm-up
-launch each, ``--launches`` 256-step launches of:
+``ppls_tpu_torch`` from PATH and times, by CUDA events around each
+launch's device work (:func:`kernel_times`) after one warm-up launch
+each, ``--launches`` 256-step launches of:
 
 - K1 at T = 1 on the first dealt bank of ``--family`` (default the
   flagship's: sin(theta/x), 1024 thetas on [1e-4, 1], eps 1e-10; the
@@ -24,7 +25,12 @@ launch each, ``--launches`` 256-step launches of:
   ``k2_step`` and ``k2_step_scout`` at thresh 0.80 * lanes (with
   ``--reduced`` their ``_reduced`` twins too), and ``k2_noexit`` (thresh
   -1) beside ``k3_step``, K3 on the same lanes: the same work with and
-  without the grid count and barrier.
+  without the grid count and barrier;
+- ``k2_main_path``: the fallback flagship of chip_smoke.py phase 6
+  (M = 1024 thetas of sin(theta/x) on [1e-4, 1], eps 1e-10, 16384
+  lanes, 12 roots a lane, refill_slots=0, scout f64) run once to warm
+  up, then once under ``torch.profiler``: K2's summed kernel time over
+  that run, its kernel steps and launches.
 
 It prints one JSON line: the root and, per kernel, the launch times in
 ms and the launch's steps. Only the wrappers' public signatures are
@@ -50,6 +56,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 CAP = 256
 LANES = 1 << 14
+SPIN_CYCLES = 4_000_000      # ~2 ms of the card's clock before each launch
 DEVICE = "cuda"
 BODY_M = 1024
 
@@ -78,30 +85,50 @@ def body_bank(family: str, m: int = BODY_M):
     }[family]
 
 
+def kernel_times(fns):
+    """Call each of ``fns`` in turn, each launching one walk kernel and
+    returning without waiting for it, and time it by CUDA events: (their
+    results, the ms of each). Before each start event the card spins
+    (``torch.cuda._sleep``, ~2 ms) while the host runs the wrapper, so
+    the launch's device work (the wrapper's zeroed counters, its
+    pointer-table copy, the kernel) is queued when the start event fires
+    and the events hold that work only. With the wrapper's host work
+    inside them (operand checks, the launch call), during which the card
+    waited, a 256-step launch read up to twice its kernel time
+    (PERF.md)."""
+    import torch
+    outs, ms = [], []
+    for fn in fns:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        outs.append(fn())
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return outs, ms
+
+
 def _timed_pairs(prepares, launches: int):
-    """Launch times in ms by CUDA events, and the last launch's steps, of
-    launches + 1 launches of each kernel (the first warms up), in
-    alternation (A B, then B A, ...) so that a reduced twin and its
+    """Kernel times in ms (:func:`kernel_times`), and the last launch's
+    steps, of launches + 1 launches of each kernel (the first warms up),
+    in alternation (A B, then B A, ...) so that a reduced twin and its
     reference twin see the card alike. ``prepares[name]()`` copies the
     inputs and returns the launch, which returns its step count:
     {name: (times, steps)}."""
-    import torch
     names = list(prepares)
+    order = [name for j in range(launches + 1)
+             for name in (names if j % 2 == 0 else names[::-1])]
+    outs, ms = kernel_times([prepares[name]() for name in order])
+    steps = [int(n) for n in outs]
     times = {n: [] for n in names}
-    steps = {}
-    for j in range(launches + 1):
-        for name in (names if j % 2 == 0 else names[::-1]):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            launch = prepares[name]()
-            torch.cuda.synchronize()
-            start.record()
-            steps[name] = int(launch())
-            stop.record()
-            torch.cuda.synchronize()
-            if j:
-                times[name].append(start.elapsed_time(stop))
-    return {n: (times[n], steps[n]) for n in names}
+    for j, (name, t) in enumerate(zip(order, ms)):
+        if j >= len(names):                  # the first round warms up
+            times[name].append(t)
+    last = {name: n for name, n in zip(order, steps)}
+    return {n: (times[n], last[n]) for n in names}
 
 
 def k1_prepare(base, f_ds, eps, scout, T=1, **rule):
@@ -138,6 +165,37 @@ def k2_prepare(base, f_ds, eps, scout, thresh, **rule):
                                     scout=scout, **rule)[1]
         return launch
     return prepare
+
+
+def k2_main_path() -> dict:
+    """K2's device time over one fallback flagship run (after a warm-up
+    run), by ``torch.profiler``: {"ms": [ms], "steps": kernel steps,
+    "launches": K2 launches}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    from ppls_tpu_torch.parallel import walker as W
+    f, f_ds = get_family("sin_recip_scaled"), get_family_ds("sin_recip_scaled")
+    theta = 1.0 + np.arange(BODY_M) / BODY_M
+
+    def run():
+        return W.integrate_family_walker(
+            f, f_ds, theta, (1e-4, 1.0), 1e-10, lanes=LANES,
+            roots_per_lane=12, capacity=1 << 23, refill_slots=0,
+            scout_dtype="f64", device=DEVICE)
+    run()
+    torch.cuda.synchronize()
+    before = W.run_segment_ee.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    ms = sum(float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+             for e in prof.key_averages() if "walk_ee_kernel" in e.key) / 1e3
+    return {"ms": [ms], "steps": res.kernel_steps,
+            "launches": W.run_segment_ee.launches - before}
 
 
 def time_root(launches: int, family: str = "sin_recip_scaled",
@@ -196,6 +254,7 @@ def time_root(launches: int, family: str = "sin_recip_scaled",
             pair[name + "_reduced"] = runs[name + "_reduced"]
         for n, (times, steps) in _timed_pairs(pair, launches).items():
             out[n] = {"ms": times, "steps": steps}
+    out["k2_main_path"] = k2_main_path()
     return out
 
 

@@ -173,7 +173,9 @@ def build_walk_host(out_root: Path) -> BuiltLib:
     """Build the host (g++) twin of the walk kernels' step machine into
     ``out_root`` and load it: ``walk_rf_host``, ``walk_ee_host`` and
     ``walk_seg_host``, and the packed-count, vote and integrand checks
-    (``wg_*``, ``ws_f_*_host``). Used by the CPU tests only."""
+    (``wg_*``, ``ws_f_*_host``), and the two-product
+    (``ws_two_prod_host``, ``ws_fma_product``). Used by the CPU tests
+    only."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found")
@@ -189,4 +191,6 @@ def build_walk_host(out_root: Path) -> BuiltLib:
     _sig(lib.wg_group_any_host, [_P, _I, _I, _I, ctypes.c_uint32, _P])
     _sig(lib.ws_f_ds_host, [_I, _I, _I, _P, _P, _F, _F, _P, _P])
     _sig(lib.ws_f_sc_host, [_I, _I, _I, _P, _F, _P])
+    _sig(lib.ws_two_prod_host, [_I, _I, _P, _P, _P, _P], None)
+    _sig(lib.ws_fma_product, [_I])
     return built

@@ -333,6 +333,50 @@ def _same_floats(a, b):
     return torch.equal(na, nb) and torch.equal(_bits(a)[~na], _bits(b)[~nb])
 
 
+def _fma_two_prod(a, b):
+    """The kernels' FMA two-product computed independently of them: p
+    and the exact a * b - p (a float64 product of two float32 values is
+    exact, and so is its difference from p) rounded once to float32."""
+    p = a * b
+    b64 = (b if isinstance(b, torch.Tensor)
+           else torch.tensor(b, dtype=torch.float32)).double()
+    return p, (a.double() * b64 - p.double()).float()
+
+
+def _split_overflow(fn, *args):
+    """Run ``fn(*args)`` (a plain twin over n points) twice: as it is,
+    and with its two-product in the FMA form (``_fma_two_prod``). Mark
+    the points whose arithmetic took Dekker's split of an operand past
+    the float32 range (4097 |a| = inf for a finite a). There Dekker's
+    two-product is NaN, and the kernels' FMA two-product
+    (csrc/walk_step.cuh two_prod), which needs no split, is not: the one
+    place the two forms part above the subnormal range. Returns (fn's
+    result, its result in the FMA form, the mask)."""
+    from ppls_tpu_torch.ops import ds_kernel, scout_kernel
+    two_prod = ds_kernel.two_prod
+    mask = None
+
+    def probe(a, b):
+        nonlocal mask
+        hit = torch.isfinite(a) & torch.isinf(ds_kernel._SPLIT * a)
+        if isinstance(b, torch.Tensor):
+            hit = hit | (torch.isfinite(b) & torch.isinf(ds_kernel._SPLIT * b))
+        mask = hit if mask is None else mask | hit
+        return two_prod(a, b)
+
+    outs = []
+    for form in (probe, _fma_two_prod):
+        ds_kernel.two_prod = scout_kernel.two_prod = form
+        try:
+            outs.append(fn(*args))
+        finally:
+            ds_kernel.two_prod = scout_kernel.two_prod = two_prod
+    if mask is None:                      # no two-product on this path
+        mask = torch.zeros((outs[0][0] if isinstance(outs[0], tuple)
+                            else outs[0]).shape, dtype=torch.bool)
+    return outs[0], outs[1], mask
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("fam", ["sin_recip_scaled", "sin_scaled",
                                  "cosh4_scaled", "sin_recip_scaled@reduced",
@@ -360,12 +404,30 @@ def test_host_three_point_confirm_bit_equal_to_single_evals(host_lib, fam,
         outs[wide] = (oh, ol, sc)
     for a, b in zip(outs[1], outs[0]):
         assert _same_floats(a, b)
+    # against the plain twins, whose two-product is Dekker's: bit-equal
+    # but where Dekker's split overflowed (the plain twin NaN there); in
+    # a body that keeps Dekker, everywhere. A body in the FMA form is
+    # held at every point, those included, to the plain twin run with
+    # the FMA form: there sin(theta / x)'s scout eval (x = 3e-39, theta /
+    # x ~ 3.4e38) is inf where the reference's is NaN
+    fma = host_lib.ws_fma_product(f_ds.kernel_family) == 1
     th_t = (torch.full((n,), th_h), torch.full((n,), th_l))
-    ph, pl = f_ds((x_h, x_l), th_t)
-    assert _same_floats(outs[1][0], ph) and _same_floats(outs[1][1], pl)
     zero = torch.zeros(n)
-    psc = W.scout_twin(f_ds)((x_h, zero), (th_t[0], zero))[0]
-    assert _same_floats(outs[1][2], psc)
+    (ph, pl), (fh, fl), over_ds = _split_overflow(f_ds, (x_h, x_l), th_t)
+    psc, fsc, over_sc = _split_overflow(
+        lambda *a: W.scout_twin(f_ds)(*a)[0], (x_h, zero), (th_t[0], zero))
+    for got, want, want_fma, over in ((outs[1][0], ph, fh, over_ds),
+                                      (outs[1][1], pl, fl, over_ds),
+                                      (outs[1][2], psc, fsc, over_sc)):
+        keep = ~over if fma else torch.ones_like(over)
+        assert _same_floats(got[keep], want[keep])
+        assert bool(torch.isnan(want[~keep]).all())
+        if fma:
+            assert _same_floats(got, want_fma)
+    if _family(fam) == "sin_recip_scaled" and seed == 0:
+        assert bool(over_sc.any())        # the edge x = 3e-39 reaches it
+    if fma and bool(over_sc.any()):
+        assert bool(torch.isinf(outs[1][2][over_sc]).all())
     assert int(torch.isfinite(outs[1][0]).sum()) > n - 12
 
 
