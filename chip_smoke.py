@@ -255,6 +255,40 @@ Phases, each of which must pass (any failure exits nonzero):
    the CLI flagship's wall against its in-process run, the device reads
    and the spillover share of the overload leg, with the card's name and
    power limit.
+16. The reference bench's timed pipeline and the walker and stream
+   options that came with it (snapshots and event files in a temporary
+   directory of the checkout, removed at the end):
+   a. ``seed_family_walker_state`` once, ``REPEATS = 16`` runs
+      (bench.py:119) queued with ``dispatch_family_walker`` on that seed
+      and collected in order, at phase 4's configuration through K1:
+      every run bit-equal to phase 4's (areas, tasks, splits, cycles,
+      kernel steps, waste), the launches 16 x phase 4's. Printed: the
+      wall of the 16, the deltas between collects, and one more run of
+      the pipeline under ``torch.profiler`` (its idle share).
+   b. The same with 4 queued runs at phase 6's fallback (refill_slots=0,
+      scout f64) through K2, each bit-equal to phase 6's.
+   c. ``nan_policy`` at full width: M families of theta x^2 on [0, 1]
+      at eps 1e-9 whose float64 integrand turns NaN where theta > 8 and
+      x > 0.5 (tests/test_faults.py:80), walked through quad_scaled's ds
+      twin; member M/2's theta is 9.0. Through K1 (R=8, double buffer)
+      and K2: "quarantine" marks exactly that family and every other
+      area is bit-equal to the unpoisoned run; "raise" raises.
+   d. ``sort_roots=False`` and ``sort_skip_ratio=0.0`` on the flagship
+      through K1 (the ds walk, scout f64): within 3e-9 of the float64 bag
+      on every 128th member and 1e-3 of the closed form; tasks and wall
+      beside phase 4's ds run.
+   e. ``serve --adapt --slo-config`` on phase 14's stream leg: records and
+      ``knob_adapt``/``slo_burn`` events equal to the same configuration
+      through ``StreamEngine`` in this process, the ``/health`` verdict
+      of the port's metrics server; a SIGTERM restart from its snapshot
+      losing no request, its events equal to the uninterrupted run's.
+      On phase 15d's overload leg with CPU spillover at a spillover limit
+      of 1, so that the spill backlog moves the adapter: records equal to
+      the engine run on the CPU (areas within 1e-12), the adapter's and
+      the SLO evaluator's events equal.
+   f. ``device_kind()`` and the cadence tier every phase-16 walker run
+      and the stream resolved: the hand tier (the tuning table has no
+      rows for this card).
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -262,7 +296,8 @@ per T under ``theta``; the stream's launches under ``stream_launches``;
 phase 12's records per body and step machine under ``bodies`` and its
 paths' launches under ``body_launches``; phase 13's under
 ``checkpoint_launches``; phase 14's in-process ones under
-``serve_launches``; phase 15's under ``cli_launches``)
+``serve_launches``; phase 15's under ``cli_launches``; phase 16's
+under ``bench_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -411,6 +446,23 @@ THETA_CLI_T = 256              # the bench theta leg's T, over 16384 thetas
 SPILL_LIMIT = 4
 SPILL_CONTRACT = 1e-9          # spillover against the walk (spillover.py)
 TRACE_M = 64
+# phase 16: the reference bench's timed pipeline (bench.py:119, :290-293,
+# :416-441) and its fallback leg (bench.py:329-357)
+BENCH_REPEATS = 16             # bench.py:119
+FALLBACK_REPEATS = 4
+# 16c: one of the M families poisoned (tests/test_faults.py:80, :421-423)
+POISON_INDEX = M // 2
+POISON_THETA = 9.0
+POISON_BOUNDS = (0.0, 1.0)
+POISON_EPS = 1e-9
+# 16e: serve --slo-config's targets, and the overload leg's spillover
+# limit (a spill backlog above it moves the adapter)
+ADAPT_SPILL_LIMIT = 1
+ADAPT_SLO = {"windows": {"fast": 2, "slow": 8},
+             "burn_thresholds": {"fast": 1.0, "slow": 1.0},
+             "slos": [{"slo": "p99_latency_phases", "target": 2,
+                       "objective": 0.9},
+                      {"slo": "shed_fraction", "objective": 0.9}]}
 
 
 def log(msg: str) -> None:
@@ -3042,6 +3094,381 @@ def phase_cli(W, TS, k1_res, k2_res, walls, ckpt_dir, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the reference bench's timed pipeline, nan_policy, the sort
+# options, serve --adapt --slo-config, the tuning table on the card
+# ---------------------------------------------------------------------------
+
+
+def bench_pipeline(W, what, args, kw, base, base_launches, counter, repeats,
+                   out_dir, tag) -> dict:
+    """16a/16b: one seed (``seed_family_walker_state``), ``repeats`` runs
+    queued with ``dispatch_family_walker`` on it and collected in order,
+    every kernel's launch count set to 0 before the queue and read after
+    the last collect. Each run must be bit-equal to ``base`` and the
+    launches ``repeats`` times ``base_launches``. Then one more run of
+    the pipeline under ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from ppls_tpu_torch.runtime.tune import last_resolution
+    theta, bounds = args[2], args[3]
+    seed = W.seed_family_walker_state(
+        theta, bounds, capacity=kw["capacity"], lanes=kw["lanes"],
+        roots_per_lane=kw["roots_per_lane"], device=kw["device"])
+    torch.cuda.synchronize()
+    kernels = (W.run_segment_rf, W.run_segment_ee, W.run_segment)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    queued = [W.dispatch_family_walker(*args, _state_override=seed, **kw)
+              for _ in range(repeats)]
+    tier = last_resolution()["tier"]
+    t_queue = time.perf_counter() - t0
+    runs, done = [], []
+    for d in queued:
+        runs.append(W.collect_family_walker(d))
+        torch.cuda.synchronize()
+        done.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    deltas = [done[0]] + [b - a for a, b in zip(done, done[1:])]
+    differ = [i for i, r in enumerate(runs)
+              if not all(same_walk(r, base).values())]
+    want = {k: repeats * v for k, v in base_launches.items()}
+    prof = profile_fn(lambda: W.collect_family_walker(
+        W.dispatch_family_walker(*args, _state_override=seed, **kw)),
+        "walk_rf_kernel" if counter is W.run_segment_rf
+        else "walk_ee_kernel", out_dir, tag)
+    row = dict(repeats=repeats, wall_s=done[-1], queue_s=t_queue,
+               collect_deltas_s=deltas,
+               wall_time_s=[r.metrics.wall_time_s for r in runs],
+               median_delta_s=float(np.median(deltas)), launches=launches,
+               tasks=base.metrics.tasks, differing_runs=differ, tier=tier,
+               profile=prof)
+    log(f"[smoke] 16 {what}: {repeats} dispatches on one seed queued in "
+        f"{t_queue * 1e3:.1f} ms, collected in {done[-1]:.3f} s (per run: "
+        f"median {row['median_delta_s']:.3f} s, deltas "
+        f"{[round(x, 4) for x in deltas]}); launches {launches} (phase "
+        f"{'4' if counter is W.run_segment_rf else '6'} x {repeats}: "
+        f"{want}); runs differing from that phase's run {differ}; cadence "
+        f"tier {tier}; profiled run idle share {prof['idle_share']}")
+    if (differ or launches != want or launches[counter.__name__] <= 0
+            or len(runs) != repeats):
+        raise AssertionError(f"16 {what}: the pipeline differs: {row}")
+    return row
+
+
+def _poison(x, th):
+    """tests/test_faults.py:80: NaN where theta > 8 and x > 0.5, theta x^2
+    elsewhere (float64; the kernels walk quad_scaled's ds twin)."""
+    import torch
+    return torch.where((th > 8.0) & (x > 0.5), torch.nan, th * x * x)
+
+
+def phase_quarantine(W, get_family_ds) -> dict:
+    """16c: nan_policy at full width through K1 and K2: one of M families
+    poisoned; quarantine marks exactly it, every other area is bit-equal
+    to the unpoisoned run, "raise" raises."""
+    import numpy as np
+    fd = get_family_ds("quad_scaled")
+    theta = 1.0 + np.arange(M) / M
+    poisoned = theta.copy()
+    poisoned[POISON_INDEX] = POISON_THETA
+    healthy = np.arange(M) != POISON_INDEX
+    out, launches = {}, {}
+    for tag, over, counter in (
+            ("k1", dict(refill_slots=REFILL_SLOTS, double_buffer=True),
+             W.run_segment_rf),
+            ("k2", dict(refill_slots=0), W.run_segment_ee)):
+        kw = dict(capacity=CAPACITY, lanes=LANES,
+                  roots_per_lane=ROOTS_PER_LANE, device=DEVICE, **over)
+        base = W.integrate_family_walker(_poison, fd, theta, POISON_BOUNDS,
+                                         POISON_EPS, **kw)
+        res, wall, ov = counted(W, lambda: W.integrate_family_walker(
+            _poison, fd, poisoned, POISON_BOUNDS, POISON_EPS,
+            nan_policy="quarantine", **kw))
+        failed = [] if res.failed is None else \
+            [int(i) for i in np.flatnonzero(res.failed)]
+        same = bool(np.array_equal(res.areas[healthy], base.areas[healthy]))
+        try:
+            W.integrate_family_walker(_poison, fd, poisoned, POISON_BOUNDS,
+                                      POISON_EPS, nan_policy="raise", **kw)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        exact = theta[healthy] / 3.0
+        row = dict(failed=failed, healthy_bit_equal=same, raised=raised,
+                   tasks=res.metrics.tasks, base_tasks=base.metrics.tasks,
+                   wall_s=wall, launches=ov[counter.__name__],
+                   d_exact=float(np.max(np.abs(res.areas[healthy] - exact))))
+        log(f"[smoke] 16c nan_policy through {counter.__name__}: theta "
+            f"{POISON_THETA} at member {POISON_INDEX} of {M}: failed "
+            f"{failed}, the other {M - 1} areas bit-equal to the unpoisoned "
+            f"run {same} (max |area - theta/3| {row['d_exact']:.3e}), "
+            f"{res.metrics.tasks} tasks ({base.metrics.tasks} unpoisoned), "
+            f"wall {wall:.3f} s, launches {ov[counter.__name__]}; "
+            f"nan_policy='raise': {raised!r}")
+        if (base.failed is not None or failed != [POISON_INDEX] or not same
+                or raised is None or "non-finite" not in raised
+                or ov[counter.__name__] <= 0):
+            raise AssertionError(f"16c ({tag}) failed: {row}")
+        out[tag] = row
+        for k, v in ov.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def phase_sort_options(W, f_theta, f_ds, theta, kw, exact, sample, bag,
+                       ds_run, ds_wall) -> dict:
+    """16d: sort_roots=False and sort_skip_ratio=0.0 on the flagship
+    through K1, the ds walk (scout f64): within 3e-9 of the float64 bag on
+    every 128th member and 1e-3 of the closed form; tasks and wall beside
+    phase 4's ds run."""
+    import numpy as np
+    out, launches = {}, {}
+    for tag, over in (("unsorted", dict(sort_roots=False)),
+                      ("always_sort", dict(sort_skip_ratio=0.0))):
+        r, wall, ov = counted(W, lambda: W.integrate_family_walker(
+            f_theta, f_ds, theta, BOUNDS, EPS, scout_dtype="f64",
+            **dict(kw, **over)))
+        check_walk(f"16d {tag}", r, len(theta))
+        areas = np.asarray(r.areas)
+        d_bag = float(np.max(np.abs(areas[sample] - bag.areas)))
+        d_exact = float(np.max(np.abs(areas - exact)))
+        srows = int(r.cycle_stats[:, W.CYCLE_STAT_FIELDS.index(
+            "sort_rows")].sum())
+        row = dict(tasks=r.metrics.tasks, wall_s=wall,
+                   kernel_steps=r.kernel_steps, cycles=r.cycles,
+                   sort_rows=srows, d_bag=d_bag, d_exact=d_exact,
+                   launches=ov["run_segment_rf"])
+        log(f"[smoke] 16d {tag} (K1, ds walk): {r.metrics.tasks} tasks "
+            f"(phase 4's ds run {ds_run.metrics.tasks}), wall {wall:.3f} s "
+            f"({ds_wall:.3f}), kernel steps {r.kernel_steps} "
+            f"({ds_run.kernel_steps}), cycles {r.cycles}, rows scored by "
+            f"the sort {srows}, K1 launches {ov['run_segment_rf']}; max "
+            f"|walker - f64 bag| {d_bag:.3e} (tol {AREA_TOL_BAG}), max "
+            f"|walker - closed form| {d_exact:.3e} (tol {AREA_TOL_EXACT})")
+        if (not d_bag < AREA_TOL_BAG or not d_exact < AREA_TOL_EXACT
+                or ov["run_segment_rf"] <= 0
+                or (srows == 0) != (tag == "unsorted")):
+            raise AssertionError(f"16d ({tag}) failed: {row}")
+        out[tag] = row
+        for k, v in ov.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    return out
+
+
+def _named_events(path, *names) -> list:
+    """The (name, attrs) of the events file's ``names`` events, each
+    once (a restart replays from its snapshot), in phase order."""
+    seen, out = set(), []
+    with open(path, encoding="utf-8") as fh:
+        for ln in fh:
+            r = json.loads(ln)
+            if r.get("ev") != "event" or r.get("name") not in names:
+                continue
+            key = json.dumps([r["name"], r["attrs"]], sort_keys=True)
+            if key not in seen:
+                seen.add(key)
+                out.append((r["name"], r["attrs"]))
+    return sorted(out, key=lambda e: (e[1]["phase"], e[0],
+                                      json.dumps(e[1], sort_keys=True)))
+
+
+def _health_verdict(eng) -> dict:
+    """GET /health of the port's metrics server with ``eng.slo_health``
+    as its verdict."""
+    from ppls_tpu_torch.obs.server import MetricsServer
+    srv = MetricsServer(lambda: eng.telemetry.registry, port=0,
+                        health_fn=eng.slo_health)
+    try:
+        status, text, _ms = http(srv.url.rsplit("/", 1)[0] + "/health")
+    finally:
+        srv.close()
+    return dict(status=status, verdict=json.loads(text))
+
+
+def phase_serve_adapt(W, TS, ckpt_dir) -> dict:
+    """16e: ``serve --adapt --slo-config`` on phase 14's stream leg (the
+    card CLI against the same configuration through ``StreamEngine`` in
+    this process; a SIGTERM restart from its snapshot) and on the overload
+    leg (the card CLI against the in-process engine on the CPU)."""
+    from ppls_tpu_torch.obs.telemetry import Telemetry
+    slo = json.dumps(ADAPT_SLO)
+    names = ("knob_adapt", "slo_burn")
+    out, launches = {}, {}
+
+    def add(ov):
+        for k, v in ov.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # the stream leg on the card
+    reqs, arr = serve_requests()
+    ev = [os.path.join(ckpt_dir, f"adapt_{k}.jsonl")
+          for k in ("cli", "eng", "sig")]
+    a = run_cli(W, TS, serve_argv(adapt=True, slo_config=slo, events=ev[0]))
+    tel = Telemetry(events_path=ev[1])
+    eng = TS.StreamEngine(STREAM_FAMILY, EPS, telemetry=tel, adapt=True,
+                          slo_config=ADAPT_SLO,
+                          **dict(STREAM_KW, device=DEVICE))
+    res, eng_wall, eov = counted(W, lambda: eng.run(reqs,
+                                                    arrival_phase=arr))
+    tel.close()
+    health = _health_verdict(eng)
+    want = {c.rid: record_of(c) for c in res.completed}
+    bad = same_records(ledger(a), want)
+    ev_cli, ev_eng = _named_events(ev[0], *names), \
+        _named_events(ev[1], *names)
+    tier = eng.telemetry.registry.value("ppls_tuning_resolution",
+                                        tier="default")
+    # SIGTERM at phase 3's open, then the same command again
+    ck = os.path.join(ckpt_dir, "adapt.ckpt")
+    flags = dict(adapt=True, slo_config=slo, checkpoint=ck,
+                 checkpoint_every=1, events=ev[2])
+    b1 = run_cli(W, TS, serve_argv(
+        fault_plan='[{"kind": "sigterm", "at": 3}]', **flags))
+    kept = os.path.exists(ck)
+    b2 = run_cli(W, TS, serve_argv(**flags))
+    union = ledger(b1, b2)
+    bad_b = same_records(union, ledger(a))
+    ev_sig = _named_events(ev[2], *names)
+    for run in (a, b1, b2):
+        add(run["launches"])
+    add(eov)
+    out["stream"] = dict(
+        cli=serve_stats("16e stream leg --adapt --slo-config", a),
+        engine_wall_s=eng_wall, records_differing=bad,
+        events_equal=ev_cli == ev_eng, knob_adapt=[
+            e for n, e in ev_cli if n == "knob_adapt"],
+        slo_burn=[e for n, e in ev_cli if n == "slo_burn"], health=health,
+        tuning_tier_default=tier, restart=dict(
+            terminated=b1["summary"].get("terminated"), snapshot_kept=kept,
+            retired_before=len(ledger(b1)), records_differing=bad_b,
+            rids=len(union), events_equal=ev_sig == ev_cli))
+    s = out["stream"]
+    log(f"[smoke] 16e stream leg, serve --adapt --slo-config on the card "
+        f"against StreamEngine in this process: records differing {bad}, "
+        f"knob_adapt/slo_burn events equal {s['events_equal']} "
+        f"(knob_adapt {s['knob_adapt']}); slo_burn events {s['slo_burn']}; "
+        f"/health {health}; SIGTERM at phase 3 -> "
+        f"{s['restart']['terminated']!r}, snapshot kept {kept}, restart: "
+        f"records differing {bad_b}, rids {len(union)} of {len(reqs)}, "
+        f"events across the restart equal {s['restart']['events_equal']}")
+    if (bad or not s["events_equal"] or health["status"] not in (200, 503)
+            or health["verdict"]["ok"] != (health["status"] == 200)
+            or s["restart"]["terminated"] != "SIGTERM" or not kept or bad_b
+            or len(union) != len(reqs) or not s["restart"]["events_equal"]
+            or tier != 1.0 or a["launches"]["run_segment_rf"] <= 0):
+        raise AssertionError(f"16e stream leg failed: {s}")
+
+    # the overload leg: the card CLI against the in-process CPU engine
+    ev_o = [os.path.join(ckpt_dir, f"adapt_over_{k}.jsonl")
+            for k in ("card", "cpu")]
+    o = run_cli(W, TS, spill_serve_argv(
+        DEVICE, adapt=True, slo_config=slo, events=ev_o[0],
+        spillover_limit=ADAPT_SPILL_LIMIT))
+    add(o["launches"])
+    reqs_o = []
+    for i in range(SLO_K):
+        t, p = SLO_TENANTS[i % len(SLO_TENANTS)]
+        reqs_o.append((float(1.0 + i / SLO_K), SLO_BOUNDS,
+                       {"tenant": t, "priority": p}))
+    # the engine as serve builds it: serve has no sizing flags beyond these
+    ckw = {k: SLO_KW[k] for k in ("slots", "chunk", "capacity", "lanes",
+                                  "refill_slots")}
+    tel = Telemetry(events_path=ev_o[1])
+    cpu = TS.StreamEngine(
+        STREAM_FAMILY, SLO_EPS, telemetry=tel, adapt=True,
+        slo_config=ADAPT_SLO, queue_limit=SLO_QUEUE_LIMIT, quarantine=True,
+        spillover=True, spillover_limit=ADAPT_SPILL_LIMIT, device="cpu",
+        **ckw).run(
+            reqs_o, arrival_phase=stream_sweep_arrivals(SLO_RATE, SLO_K,
+                                                        SLO_SEED))
+    tel.close()
+    got = ledger(o)
+    d = max(abs(got[c.rid]["area"] - c.area) for c in cpu.completed
+            if not c.failed)
+    keys = ("admit_phase", "retire_phase", "failed", "spillover")
+    bad_o = sorted(c.rid for c in cpu.completed
+                   if {k: got.get(c.rid, {}).get(k) for k in keys}
+                   != dict({k: v for k, v in record_of(c).items()
+                            if k in keys}, spillover=c.spillover or None))
+    ev_card, ev_cpu = _named_events(ev_o[0], *names), \
+        _named_events(ev_o[1], *names)
+    out["overload"] = dict(
+        cli=serve_stats("16e overload leg --adapt --slo-config", o),
+        records_differing=bad_o, d_card_cpu=d,
+        events_equal=ev_card == ev_cpu,
+        knob_adapt=[e for n, e in ev_card if n == "knob_adapt"],
+        slo_burn=[e for n, e in ev_card if n == "slo_burn"],
+        shed=o["summary"]["shed"], cpu_shed=len(cpu.shed),
+        spilled=o["summary"]["spillover"]["spillover_completed"])
+    v = out["overload"]
+    log(f"[smoke] 16e overload leg, serve --adapt --slo-config on the card "
+        f"against the engine on the CPU: records differing {bad_o}, max "
+        f"|card - CPU| {d:.3e} (tol {AREA_TOL_DEVICES}), knob_adapt/"
+        f"slo_burn events equal {v['events_equal']}; knob_adapt "
+        f"{v['knob_adapt']}; slo_burn {v['slo_burn']}")
+    if (bad_o or not d < AREA_TOL_DEVICES or not v["events_equal"]
+            or v["shed"] != v["cpu_shed"] or not v["knob_adapt"]
+            or o["launches"]["run_segment_rf"] <= 0):
+        raise AssertionError(f"16e overload leg failed: {v}")
+    out["launches"] = launches
+    return out
+
+
+def phase_bench(W, TS, get_family_ds, base, out_dir, ckpt_dir) -> dict:
+    """16. The reference bench's timed pipeline through K1 (16a) and its
+    fallback leg through K2 (16b), nan_policy (16c), the sort options
+    (16d), ``serve --adapt --slo-config`` (16e) and the tuning table's
+    tier on the card (16f). ``base`` holds phases 4 and 6's runs."""
+    from ppls_tpu_torch.runtime import tune
+    t0 = time.perf_counter()
+    out = dict(
+        k1=bench_pipeline(W, "16a bench pipeline (K1)", base["args"],
+                          dict(base["kw"], scout_dtype="f32"), base["k1"],
+                          base["k1_launches"], W.run_segment_rf,
+                          BENCH_REPEATS, out_dir, "bench_k1"),
+        k2=bench_pipeline(W, "16b fallback leg (K2)", base["args"],
+                          dict(base["kw0"], scout_dtype="f64"), base["k2"],
+                          base["k2_launches"], W.run_segment_ee,
+                          FALLBACK_REPEATS, out_dir, "bench_k2"),
+        quarantine=phase_quarantine(W, get_family_ds),
+        sort=phase_sort_options(W, *base["args"][:3], base["kw"],
+                                base["exact"], base["sample"], base["bag"],
+                                base["ds_run"], base["ds_wall"]),
+        serve=phase_serve_adapt(W, TS, ckpt_dir))
+    # 16f: the table's rows are keyed by device kind; this card has none
+    kind = tune.device_kind(DEVICE)
+    tiers = dict(k1=out["k1"]["tier"], k2=out["k2"]["tier"])
+    for tag, args, kw in (
+            ("flagship", base["args"], dict(base["kw"], scout_dtype="f32")),
+            ("fallback", base["args"], dict(base["kw0"],
+                                            scout_dtype="f64"))):
+        W.dispatch_family_walker(*args, **kw)
+        tiers[tag] = tune.last_resolution()["tier"]
+    out["tuning"] = dict(device_kind=kind, tiers=tiers,
+                         stream_tier_default=out["serve"]["stream"][
+                             "tuning_tier_default"])
+    log(f"[smoke] 16f tuning table on the card: device_kind {kind!r}, "
+        f"tiers {tiers}, the stream's ppls_tuning_resolution gauge "
+        f"tier=default {out['tuning']['stream_tier_default']}")
+    if any(t != "default" for t in tiers.values()):
+        raise AssertionError(f"16f: a cadence resolved off the hand tier "
+                             f"on the card: {tiers}")
+    out["launches"] = {
+        k: (out["k1"]["launches"][k] + out["k2"]["launches"][k]
+            + out["quarantine"]["launches"][k] + out["sort"]["launches"][k]
+            + out["serve"]["launches"][k])
+        for k in out["k1"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[smoke] phase 16: {out['seconds']:.1f} s; launches "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3058,6 +3485,7 @@ def main() -> int:
     from ppls_tpu_torch.parallel.bag_engine import (integrate_family,
                                                     resume_family)
     from ppls_tpu_torch.runtime import stream as TS
+    from ppls_tpu_torch.runtime import tune
     from ppls_tpu_torch.tools.profile_walker import kernel_ceiling_slope
     from ppls_tpu_torch.utils.cuda_build import load_all_kernels
 
@@ -3212,7 +3640,11 @@ def main() -> int:
     t0 = time.perf_counter()
     on_card = W.integrate_family_walker(f_theta, f_ds, sub, BOUNDS, EPS,
                                         **skw)
-    skw["device"] = "cpu"
+    # the CPU leg walks the card's cadence: the tuning table's rows are
+    # keyed by device, and its cpu rows would give the CPU another one
+    cad = tune.last_resolution()
+    skw.update(device="cpu", exit_frac=cad["exit_frac"],
+               suspend_frac=cad["suspend_frac"])
     on_cpu = W.integrate_family_walker(f_theta, f_ds, sub, BOUNDS, EPS,
                                        **skw)
     sub_bag = integrate_family(f_theta, sub, BOUNDS, EPS, capacity=1 << 22,
@@ -3448,6 +3880,20 @@ def main() -> int:
     cli_launches = report["cli"]["launches"]
     if cli_launches["run_segment"] != 0:
         raise AssertionError(f"K3 ran on the CLI path: {cli_launches}")
+    # 16. the reference bench's pipeline, nan_policy, the sort options,
+    # serve --adapt --slo-config, the tuning table's tier on the card
+    bench_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["bench"] = phase_bench(W, TS, get_family_ds, dict(
+            args=(f_theta, f_ds, theta, BOUNDS, EPS), kw=kw, kw0=kw0,
+            k1=res, k1_launches=launches, k2=res0, k2_launches=launches0,
+            exact=exact, sample=sample, bag=bag, ds_run=res_ds,
+            ds_wall=wall_ds), out_dir, bench_dir)
+    finally:
+        shutil.rmtree(bench_dir, ignore_errors=True)
+    bench_launches = report["bench"]["launches"]
+    if bench_launches["run_segment"] != 0:
+        raise AssertionError(f"K3 ran on phase 16's paths: {bench_launches}")
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -3512,7 +3958,8 @@ def main() -> int:
             + body_launches["run_segment_rf"]
             + ckpt_launches["run_segment_rf"]
             + serve_launches["run_segment_rf"]
-            + cli_launches["run_segment_rf"],
+            + cli_launches["run_segment_rf"]
+            + bench_launches["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -3521,6 +3968,7 @@ def main() -> int:
             checkpoint_launches=ckpt_launches["run_segment_rf"],
             serve_launches=serve_launches["run_segment_rf"],
             cli_launches=cli_launches["run_segment_rf"],
+            bench_launches=bench_launches["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -3532,12 +3980,14 @@ def main() -> int:
             main_launches["run_segment_ee"] + body_launches["run_segment_ee"]
             + ckpt_launches["run_segment_ee"]
             + serve_launches["run_segment_ee"]
-            + cli_launches["run_segment_ee"],
+            + cli_launches["run_segment_ee"]
+            + bench_launches["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
             serve_launches=serve_launches["run_segment_ee"],
             cli_launches=cli_launches["run_segment_ee"],
+            bench_launches=bench_launches["run_segment_ee"],
             stream_launches=report["stream"]["overload"]["k2"]["launches"],
             main_path_ms=report["profile_k2"]["kernel_ms"],
             main_path_launches=launches0["run_segment_ee"],

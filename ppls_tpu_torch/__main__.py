@@ -19,16 +19,17 @@ The port's copy of the JAX package's ``__main__.py``:
 * ``serve`` runs one ``StreamEngine`` over a JSONL or seeded synthetic
   request list (one JSON line per retirement and per shed, the summary
   last), with ``--spillover``, snapshots and restarts, supervision and
-  fault injection, admission policy, ``--events``, ``--metrics-port``
-  and ``--ingest-port``.
+  fault injection, admission policy, ``--slo-config`` (the ``/health``
+  verdict of ``--metrics-port``), ``--adapt``, ``--events``,
+  ``--metrics-port`` and ``--ingest-port``.
 
 ``--trace DIR`` wraps any mode in a ``torch.profiler`` capture. The
 parsers are the reference's, flag for flag, plus ``--device`` (default
 ``cuda``; without a card a command that runs an engine on it exits
 non-zero unless ``--device cpu`` is given). The modes and options not
 ported yet (the sharded engines, the 2d and qmc modes, and serve's
-multi-chip, cluster, dispatcher and SLO options) exit non-zero naming
-their ROADMAP.md item.
+multi-chip, cluster and dispatcher options) exit non-zero naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -89,6 +90,17 @@ def tenant_quotas_arg(s: str) -> dict:
             "tenant quotas must be an object of per-tenant "
             '{"rate": R, "burst": B} objects')
     return data
+
+
+def slo_config_arg(s: str) -> dict:
+    """``--slo-config`` argparse type: inline JSON or ``@file.json``
+    declaring per-tenant/per-class SLO targets and burn-rate windows
+    (``obs.slo.parse_slo_config`` is the one validator)."""
+    from ppls_tpu_torch.obs.slo import parse_slo_config
+    try:
+        return parse_slo_config(s)
+    except (OSError, ValueError) as e:
+        raise argparse.ArgumentTypeError(f"bad SLO config: {e}")
 
 
 def tenants_arg(s: str) -> list:
@@ -395,7 +407,8 @@ def build_parser() -> argparse.ArgumentParser:
                           "multi-meta-segment timeline; "
                           "tools/analyze_request.py reads the whole "
                           "chain automatically)")
-    srv.add_argument("--slo-config", default=None, dest="slo_config",
+    srv.add_argument("--slo-config", type=slo_config_arg,
+                     default=None, dest="slo_config",
                      metavar="JSON|@FILE",
                      help="arm SLO burn-rate alerting — "
                           "per-tenant/per-class targets "
@@ -574,9 +587,6 @@ def _refuse_unported(args) -> None:
             "--lease/--overlap-boundaries require --dispatch (they "
             "are cross-engine pool policies); add --dispatch or drop "
             "the flags")
-    if args.slo_config is not None or args.adapt:
-        raise _not_ported("SLO evaluation and online adaptation "
-                          "(--slo-config, --adapt)", "item 7")
     if args.engine == "walker-dd" or args.n_devices:
         raise _not_ported("the multi-chip stream engine (--engine "
                           "walker-dd, --n-devices)", "item 7, behind item 8")
@@ -684,6 +694,7 @@ def _main_serve(args) -> int:
               default_deadline_phases=args.deadline_phases,
               spillover=args.spillover,
               spillover_limit=args.spillover_limit,
+              slo_config=args.slo_config, adapt=bool(args.adapt),
               device=device)
     if args.lanes:
         kw["lanes"] = args.lanes

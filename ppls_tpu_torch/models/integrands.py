@@ -187,6 +187,16 @@ def get_family(name: str) -> Callable:
                        f"{sorted(FAMILIES)}") from None
 
 
+def family_name_of(f_theta: Callable) -> Optional[str]:
+    """The registered name of a family callable, None for an ad-hoc
+    one. The walker's tuning-table signature needs the name; an
+    unregistered integrand resolves through the hand-default tier."""
+    for name, fn in FAMILIES.items():
+        if fn is f_theta:
+            return name
+    return None
+
+
 def register_family_ds_reduced(name: str, f_ds: Callable,
                                domain_check: Optional[Callable] = None
                                ) -> Callable:

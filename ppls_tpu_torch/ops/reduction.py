@@ -120,8 +120,15 @@ def exact_segment_sum(fam: torch.Tensor, leaf: torch.Tensor, m: int,
        integer below 2^24 times a power of two, added plane by plane).
 
     The only loss is the truncation of digits beyond P*B >= 72 bits
-    below the largest |leaf|: at most n * amax * 2^-73 per segment.
-    Requires m <= 65536.
+    below the largest finite |leaf|: at most n * amax * 2^-73 per
+    segment. Requires m <= 65536.
+
+    A non-finite leaf stays in its own segment: the digits carry the
+    finite leaves only, one more plane counts the non-finite leaves per
+    segment, and a segment holding one sums to NaN. (The JAX package's
+    contraction scales by the largest |leaf| including the non-finite
+    ones, so there one NaN turns every segment NaN; the two agree bit
+    for bit on finite leaves.)
     """
     if m > 65536:
         raise ValueError(f"exact_segment_sum supports m <= 65536, got {m}")
@@ -132,6 +139,12 @@ def exact_segment_sum(fam: torch.Tensor, leaf: torch.Tensor, m: int,
     fa_n, fb_n = _segment_factors(m, planes)
     dev = leaf.device
 
+    # non-finite leaves count as 0 in the digits and 1 in one more plane
+    # of the same contraction: an exact integer count per segment (on an
+    # H100 cheaper than an index_add_ count of the mask: PERF.md §6)
+    finite_leaf = torch.nan_to_num(leaf, nan=0.0, posinf=0.0, neginf=0.0)
+    bad = (finite_leaf != leaf).to(torch.float32)
+    leaf = finite_leaf
     amax = torch.max(torch.abs(leaf))
     e = torch.ceil(torch.log2(torch.clamp(amax, min=2.0 ** -40))) + 1.0
     scale = pow2_f64(torch.clamp(e, -250.0, 250.0))
@@ -142,7 +155,8 @@ def exact_segment_sum(fam: torch.Tensor, leaf: torch.Tensor, m: int,
         d = torch.round(t)
         r = t - d
         digs.append(d.to(torch.float32))
-    digits = torch.stack(digs)                               # (P, n)
+    digs.append(bad)
+    digits = torch.stack(digs)                               # (P + 1, n)
 
     fam = fam.to(torch.int32)
     fa = torch.div(fam, fb_n, rounding_mode="floor")
@@ -154,12 +168,14 @@ def exact_segment_sum(fam: torch.Tensor, leaf: torch.Tensor, m: int,
                                         device=dev)[None, :]
             ).to(torch.float32)
     lhs = (digits[:, None, :] * mask_a[None, :, :]).reshape(
-        planes * fa_n, n)
-    out = _matmul_full_f32(lhs, oh_b)                        # (P*FA, FB)
-    out = out.reshape(planes, fa_n, fb_n).to(torch.float64)
+        (planes + 1) * fa_n, n)
+    out = _matmul_full_f32(lhs, oh_b)                  # ((P + 1)*FA, FB)
+    out = out.reshape(planes + 1, fa_n, fb_n)
+    n_bad = out[planes].reshape(fa_n * fb_n)[:m]
+    out = out[:planes].to(torch.float64)
     w = pow2_f64(-bbits * (torch.arange(planes, dtype=torch.float64,
                                         device=dev) + 1)) * scale
     acc = out[0] * w[0]
     for p in range(1, planes):
         acc = acc + out[p] * w[p]
-    return acc.reshape(fa_n * fb_n)[:m]
+    return torch.where(n_bad > 0, torch.nan, acc.reshape(fa_n * fb_n)[:m])

@@ -60,8 +60,14 @@ Checkpoints: with ``checkpoint_path`` the run snapshots the live bag
 prefix, the accumulator and the totals at cycle edges, where every lane
 and bank has been folded back into the bag, in the reference's
 container (``runtime/checkpoint.py``); :func:`resume_family_walker`
-continues it bit-identically, from a snapshot of either package. Not
-ported: the multi-chip and CLI surfaces (ROADMAP.md).
+continues it bit-identically, from a snapshot of either package.
+
+The reference bench's pipeline: :func:`seed_family_walker_state` builds
+a seed bag once, :func:`dispatch_family_walker` validates and queues a
+run on it, :func:`collect_family_walker` walks it. The host loop reads
+the device inside every cycle, so a queued run cannot run ahead of the
+host; the results and the meaning of ``wall_time_s`` are the
+reference's. Not ported: the multi-chip surfaces (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -75,7 +81,7 @@ import numpy as np
 import torch
 
 from ppls_tpu_torch.config import Rule
-from ppls_tpu_torch.models.integrands import check_ds_domain
+from ppls_tpu_torch.models.integrands import check_ds_domain, family_name_of
 from ppls_tpu_torch.ops import ds_kernel as dsk
 from ppls_tpu_torch.ops import scout_kernel
 from ppls_tpu_torch.ops.ds import ds_from_f64, ds_to_f64
@@ -89,6 +95,8 @@ from ppls_tpu_torch.parallel.bag_engine import (
     _restore_bag, bag_step, dyn_slice, dyn_update, initial_bag, run_bag)
 from ppls_tpu_torch.runtime.checkpoint import (
     engine_name, load_family_checkpoint, save_family_checkpoint)
+from ppls_tpu_torch.runtime.tune import (resolve_cadence_tuned,
+                                         workload_signature)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import RunMetrics, round_stats_from_rows
 
@@ -199,16 +207,17 @@ def validate_double_buffer(double_buffer: bool, refill_slots: int) -> None:
 
 def resolve_cadence(exit_frac: Optional[float],
                     suspend_frac: Optional[float], scout: bool,
-                    refill_slots: int = 0) -> Tuple[float, float]:
-    """The reference's hand-tuned cadence tier: explicit values win;
-    otherwise exit 0.95 / suspend 0.65 with scouting and in-kernel
-    refill, 0.80 / 0.50 without. (The reference's tuning table has no
-    rows for this card, so the port does not read it.)"""
-    tight = bool(scout) and int(refill_slots) > 0
-    if exit_frac is None:
-        exit_frac = 0.95 if tight else 0.80
-    if suspend_frac is None:
-        suspend_frac = 0.65 if tight else 0.50
+                    refill_slots: int = 0, *, signature=None,
+                    device="cuda") -> Tuple[float, float]:
+    """The refill cadence, as the reference resolves it
+    (``runtime/tune.py``): explicit values win; otherwise the tuning
+    table's rows for ``device`` (exact signature, then nearest), then
+    the hand-tuned tier: exit 0.95 / suspend 0.65 with scouting and
+    in-kernel refill, 0.80 / 0.50 without. ``signature`` is a
+    ``tune.workload_signature`` dict, or None to skip the table."""
+    exit_frac, suspend_frac, _tier = resolve_cadence_tuned(
+        exit_frac, suspend_frac, scout, refill_slots, signature=signature,
+        device=device)
     return float(exit_frac), float(suspend_frac)
 
 
@@ -1110,20 +1119,25 @@ def _breed(bag: BagState, *, f_theta, eps, chunk, capacity, target, rule,
 
 
 def _breed_and_sort(bag: BagState, *, f_theta, eps, capacity, rule,
-                    breed_chunk, target, syncs, breed_eps=None):
+                    breed_chunk, target, syncs, breed_eps=None,
+                    sort_roots: bool = True,
+                    sort_skip_ratio: float = SORT_SKIP_RATIO):
     """Graduated breed (rising chunk widths bound each round's wasted
     lanes ~2x) up to ``target`` roots at ``breed_eps`` (default
-    ``eps``; -1 splits every row), then the work sort of the queue top
-    at ``eps``. Returns ``(bred, scored_rows)``."""
+    ``eps``; -1 splits every row), then, with ``sort_roots``, the work
+    sort of the queue top at ``eps``. Returns ``(bred, scored_rows)``
+    (0 rows scored without the sort)."""
     bkw = dict(f_theta=f_theta, eps=eps if breed_eps is None else breed_eps,
                capacity=capacity, rule=rule, syncs=syncs)
     for pc in (1 << 14, 1 << 16, 1 << 18):
         if pc < breed_chunk:
             bag = _breed(bag, chunk=pc, target=min(pc // 2, target), **bkw)
     bag = _breed(bag, chunk=breed_chunk, target=target, **bkw)
+    if not sort_roots:
+        return bag, 0
     return _order_roots_by_work(bag, f_theta=f_theta, eps=eps, rule=rule,
                                 window=2 * breed_chunk,
-                                skip_ratio=SORT_SKIP_RATIO, syncs=syncs)
+                                skip_ratio=sort_skip_ratio, syncs=syncs)
 
 
 def _order_roots_by_work(bag: BagState, *, f_theta, eps, rule, window,
@@ -1131,8 +1145,9 @@ def _order_roots_by_work(bag: BagState, *, f_theta, eps, rule, window,
     """Stable-sort the top ``window`` of the root queue ascending by the
     one-step float64 error estimate (a proxy for subtree work), in
     place. NaN keys become +inf so a NaN root stays in the live prefix
-    and surfaces loudly later. Skips the sort when every live key is
-    finite and within ``skip_ratio`` of each other. Returns
+    and surfaces loudly later. With ``skip_ratio`` > 0 the sort is
+    skipped when every live key is finite and within ``skip_ratio`` of
+    each other (one read of the decision); 0 always sorts. Returns
     ``(bag, scored_rows)``."""
     count = bag.count
     s = max(count - window, 0)
@@ -1145,13 +1160,15 @@ def _order_roots_by_work(bag: BagState, *, f_theta, eps, rule, window,
     live = torch.arange(window, device=dev) < (count - s)
     err_key = torch.where(torch.isnan(err), torch.inf, err)
     key = torch.where(live, err_key, torch.inf)
-    fin = live & torch.isfinite(err_key)
-    emax = torch.max(torch.where(fin, err_key, -torch.inf))
-    emin = torch.min(torch.where(fin, err_key, torch.inf))
-    all_fin = (live & ~fin).sum() == 0
-    homogeneous = bool(syncs.pull(
-        all_fin & (emax > 0)
-        & (emax <= skip_ratio * torch.clamp(emin, min=1e-300))))
+    homogeneous = False
+    if skip_ratio > 0.0:
+        fin = live & torch.isfinite(err_key)
+        emax = torch.max(torch.where(fin, err_key, -torch.inf))
+        emin = torch.min(torch.where(fin, err_key, torch.inf))
+        all_fin = (live & ~fin).sum() == 0
+        homogeneous = bool(syncs.pull(
+            all_fin & (emax > 0)
+            & (emax <= skip_ratio * torch.clamp(emin, min=1e-300))))
     if not homogeneous:
         _, order = torch.sort(key, stable=True)
         sorted_cols = [c[order] for c in cols]
@@ -1741,8 +1758,11 @@ def _cycle_once(bag: BagState, *, f_theta, f_ds, eps, m, seg_iters,
                 max_segments, min_active_frac, exit_frac, suspend_frac,
                 lanes, capacity, breed_chunk, target, rule, refill_slots,
                 gsegs0, seg_stats0, scout, double_buffer, syncs,
-                theta_block: int = 1, theta_table=None) -> _CycleOut:
-    """One engine cycle: graduated breed -> work sort -> walk (in-kernel
+                theta_block: int = 1, theta_table=None,
+                sort_roots: bool = True,
+                sort_skip_ratio: float = SORT_SKIP_RATIO) -> _CycleOut:
+    """One engine cycle: graduated breed -> work sort (``sort_roots``) ->
+    walk (in-kernel
     refill when ``refill_slots`` > 0, boundary refill otherwise) ->
     expand -> drain (only below the walker's engagement floor, and only
     until the frontier regrows past the root target).
@@ -1759,7 +1779,8 @@ def _cycle_once(bag: BagState, *, f_theta, f_ds, eps, m, seg_iters,
     bred, srows = _breed_and_sort(
         bag, f_theta=f_theta, eps=eps, capacity=capacity, rule=rule,
         breed_chunk=breed_chunk, target=target, syncs=syncs,
-        breed_eps=-1.0 if T > 1 else eps)
+        breed_eps=-1.0 if T > 1 else eps, sort_roots=sort_roots,
+        sort_skip_ratio=sort_skip_ratio)
     wkw = dict(f_ds=f_ds, eps=eps, m=m, seg_iters=seg_iters,
                max_segments=max_segments, min_active_frac=min_active_frac,
                exit_frac=exit_frac, suspend_frac=suspend_frac, lanes=lanes,
@@ -1807,6 +1828,7 @@ class WalkerResult:
     host_syncs: int = 0                       # device reads by the host
     host_syncs_per_cycle: Optional[list] = None
     device: str = ""
+    failed: Optional[np.ndarray] = None       # nan_policy="quarantine"
 
     def attribution(self) -> Optional[dict]:
         """Where every kernel lane-step went. ``reconciles``: the
@@ -1908,6 +1930,74 @@ def _walker_identity(f_theta, f_ds, eps, theta2d, bounds, rule, scout,
     return identity
 
 
+def seed_family_walker_state(theta, bounds, *, chunk: int = 1 << 15,
+                             capacity: int = 1 << 23,
+                             lanes: int = DEFAULT_LANES,
+                             roots_per_lane: int = 12,
+                             theta_block: int = 1,
+                             device="cuda") -> BagState:
+    """Build the walker's initial seed bag once, on ``device``, for
+    reuse across repeated runs of the same problem (pass it as
+    ``_state_override=`` to :func:`dispatch_family_walker`). The seed is
+    pure input: each run walks its own copy, so one seed backs any
+    number of dispatches, each equal to a fresh run."""
+    dev = resolve_device(device)
+    theta2d, rep_theta = normalize_theta_batch(theta, theta_block)
+    rep_theta, bounds = _family_problem(rep_theta, bounds)
+    _, _, slack_chunk = walker_sizing(lanes, roots_per_lane, capacity,
+                                      chunk, theta_block)
+    return initial_bag(bounds, capacity, theta2d.shape[0] * int(theta_block),
+                       slack_chunk, theta=rep_theta, device=dev)
+
+
+def _copy_bag(bag: BagState) -> BagState:
+    """A bag on fresh storage (the cycle updates its store in place)."""
+    return dataclasses.replace(
+        bag, bag_l=bag.bag_l.clone(), bag_r=bag.bag_r.clone(),
+        bag_th=bag.bag_th.clone(), bag_meta=bag.bag_meta.clone(),
+        acc=bag.acc.clone(), max_depth=bag.max_depth.clone())
+
+
+class WalkerDispatch(NamedTuple):
+    """A walker run queued by :func:`dispatch_family_walker`; redeem it
+    with :func:`collect_family_walker`.
+
+    The port's cycle loop reads device values on the host inside every
+    cycle, so a queued run cannot run ahead of the host as the
+    reference's asynchronous dispatch does: ``run`` holds the validated
+    run, and the collect walks it. ``t0`` is the dispatch time, so, as
+    in the reference, a queued run's ``wall_time_s`` spans every run
+    collected before it; the deltas between consecutive collects are the
+    per-run walls."""
+
+    run: Callable
+    t0: float
+    lanes: int
+    rule: Rule = Rule.TRAPEZOID
+    refill_slots: int = 0
+    theta_block: int = 1
+    nan_policy: str = "raise"
+    checkpoint_path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class _RunOut:
+    """What a finished cycle loop hands :func:`collect_family_walker`."""
+    areas: np.ndarray
+    tot: dict
+    waste: np.ndarray
+    evals: np.ndarray
+    cycles: int
+    est_kevals: int
+    left: int
+    overflow: bool
+    seg_stats: np.ndarray
+    cyc_rows: list
+    host_syncs: int
+    syncs_per_cycle: list
+    device: str
+
+
 def integrate_family_walker(
         f_theta: Callable, f_ds: Callable, theta: Sequence[float],
         bounds, eps: float,
@@ -1922,16 +2012,20 @@ def integrate_family_walker(
         suspend_frac: Optional[float] = None,
         max_cycles: int = 64,
         rule: Rule = Rule.TRAPEZOID,
+        sort_roots: bool = True,
         refill_slots: int = 0,
+        sort_skip_ratio: float = SORT_SKIP_RATIO,
         scout_dtype: Optional[str] = None,
         double_buffer: bool = False,
         theta_block: int = 1,
+        nan_policy: str = "raise",
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 1,
         device="cuda",
         _state_override: Optional[BagState] = None,
         _totals_override: Optional[dict] = None,
-        _crash_after_legs: Optional[int] = None) -> WalkerResult:
+        _crash_after_legs: Optional[int] = None,
+        _dispatch_only: bool = False) -> WalkerResult:
     """Flagship integration of the family ``f_theta(x, theta_i)`` over
     ``bounds``: cycles of breed -> sort -> deal -> walk -> expand ->
     drain. ``f_ds`` is the family's ds twin (``get_family_ds``); on CUDA
@@ -1940,10 +2034,14 @@ def integrate_family_walker(
     The reference entry point's parameters and defaults, plus ``device``
     (CUDA by default; raises without a card unless ``device="cpu"`` is
     passed, which runs the plain PyTorch segments). ``refill_slots`` = 0
-    walks with boundary refill (K2), R > 0 with in-kernel refill (K1);
-    the root sort always runs (the reference's
-    ``sort_roots``/``sort_skip_ratio`` are fixed at their defaults) and
-    a non-finite area always raises (no ``nan_policy``).
+    walks with boundary refill (K2), R > 0 with in-kernel refill (K1).
+    Unless ``exit_frac``/``suspend_frac`` are given, a registered family
+    resolves its cadence through the tuning table's rows for this
+    device (``resolve_cadence``). ``sort_roots=False`` walks the bred
+    queue unsorted; ``sort_skip_ratio`` skips the sort when the queue's
+    errors lie within that ratio (0 always sorts). ``nan_policy=
+    "quarantine"`` reports non-finite families in ``failed`` instead of
+    raising ``FloatingPointError``.
 
     ``theta_block`` = T > 1 (in-kernel refill, trapezoid rule) takes
     ``theta`` as (m, T) (or (T,) for m = 1): groups of T lanes walk each
@@ -1959,7 +2057,8 @@ def integrate_family_walker(
     continues the run bit-identical to an uninterrupted one.
     ``seg_stats`` and ``cycle_stats`` then hold this process's segments
     and cycles. ``_crash_after_legs`` is a test hook that raises after
-    that many snapshots."""
+    that many snapshots; ``_dispatch_only`` returns the
+    :class:`WalkerDispatch` (:func:`dispatch_family_walker`)."""
     dev = resolve_device(device)
     if lanes % 128:
         raise ValueError(f"lanes must be a multiple of 128, got {lanes}")
@@ -1968,8 +2067,16 @@ def integrate_family_walker(
                          f"{roots_per_lane}], got {refill_slots}")
     scout = resolve_scout_dtype(scout_dtype, rule)
     validate_double_buffer(double_buffer, refill_slots)
-    exit_frac, suspend_frac = resolve_cadence(exit_frac, suspend_frac,
-                                              scout, refill_slots)
+    # a registered family resolves its cadence through the tuning table
+    # (the single-card signature); an ad-hoc callable has no signature
+    # and keeps the hand tier
+    fam = family_name_of(f_theta)
+    sig = None if fam is None else workload_signature(
+        fam, eps, rule, theta_block=int(theta_block), mesh_shape=1,
+        scout=scout, refill_slots=int(refill_slots))
+    exit_frac, suspend_frac = resolve_cadence(
+        exit_frac, suspend_frac, scout, refill_slots, signature=sig,
+        device=dev)
     theta2d, rep_theta = normalize_theta_batch(theta, theta_block)
     m = theta2d.shape[0]
     T = validate_theta_block(theta_block, lanes=lanes,
@@ -1981,22 +2088,18 @@ def integrate_family_walker(
     target, breed_chunk, slack_chunk = walker_sizing(
         lanes, roots_per_lane, capacity, chunk, T)
 
-    syncs = HostSyncs()
     t0 = time.perf_counter()
     if _state_override is not None:
         # a store of another sizing would make the push windows and the
         # expand grid clamp onto live entries
         want = capacity + 2 * slack_chunk
-        if _state_override.bag_l.shape[0] != want:
+        got = int(_state_override.bag_l.shape[0])
+        if got != want:
             raise ValueError(
-                f"seed-state store size {_state_override.bag_l.shape[0]} "
-                f"does not match this call's sizing {want} (= capacity + "
-                f"2*slack); build it with the same chunk, capacity, lanes "
-                f"and roots_per_lane as the run")
-        bag = _state_override
-    else:
-        bag = initial_bag(bounds, capacity, m * T, slack_chunk,
-                          theta=rep_theta, device=dev)
+                f"seed-state store size {got} does not match this call's "
+                f"sizing {want} (= capacity + 2*slack); build the seed "
+                f"with seed_family_walker_state using the SAME chunk/"
+                f"capacity/lanes/roots_per_lane as the run")
     ckw = dict(f_theta=f_theta, f_ds=f_ds, eps=float(eps), m=m,
                seg_iters=int(seg_iters), max_segments=int(max_segments),
                min_active_frac=float(min_active_frac),
@@ -2004,8 +2107,37 @@ def integrate_family_walker(
                lanes=int(lanes), capacity=int(capacity),
                breed_chunk=int(breed_chunk), target=int(target),
                rule=Rule(rule), refill_slots=int(refill_slots),
-               scout=scout, double_buffer=bool(double_buffer), syncs=syncs,
-               theta_block=T,
+               scout=scout, double_buffer=bool(double_buffer),
+               theta_block=T, sort_roots=bool(sort_roots),
+               sort_skip_ratio=float(sort_skip_ratio))
+    identity = (None if checkpoint_path is None else _walker_identity(
+        f_theta, f_ds, eps, theta2d, bounds, rule, scout, double_buffer, T))
+    run = functools.partial(
+        _run_cycles, seed=_state_override, bounds=bounds,
+        rep_theta=rep_theta, theta2d=theta2d, slack_chunk=slack_chunk,
+        dev=dev, ckw=ckw, max_cycles=int(max_cycles),
+        checkpoint_path=checkpoint_path,
+        checkpoint_every=int(checkpoint_every), identity=identity,
+        totals_override=_totals_override, crash_after_legs=_crash_after_legs)
+    d = WalkerDispatch(run=run, t0=t0, lanes=int(lanes), rule=Rule(rule),
+                       refill_slots=int(refill_slots), theta_block=T,
+                       nan_policy=str(nan_policy),
+                       checkpoint_path=checkpoint_path)
+    return d if _dispatch_only else collect_family_walker(d)
+
+
+def _run_cycles(*, seed, bounds, rep_theta, theta2d, slack_chunk, dev, ckw,
+                max_cycles, checkpoint_path, checkpoint_every, identity,
+                totals_override, crash_after_legs) -> _RunOut:
+    """The cycle loop of one run, from the seed bag (a copy of
+    ``seed``, or a fresh one), with snapshots at leg edges when
+    ``checkpoint_path`` is set."""
+    m, T = theta2d.shape[0], ckw["theta_block"]
+    bag = (initial_bag(bounds, ckw["capacity"], m * T, slack_chunk,
+                       theta=rep_theta, device=dev)
+           if seed is None else _copy_bag(seed))
+    syncs = HostSyncs()
+    ckw = dict(ckw, syncs=syncs,
                theta_table=(torch.tensor(theta2d, dtype=torch.float64,
                                          device=dev) if T > 1 else None))
     f64 = torch.float64
@@ -2016,8 +2148,8 @@ def integrate_family_walker(
     waste = np.zeros(N_WASTE, dtype=np.int64)
     evals = np.zeros(2, dtype=np.int64)
     cycles = est_kevals = 0
-    if _totals_override is not None:
-        t = dict(_totals_override)
+    if totals_override is not None:
+        t = dict(totals_override)
         # the accumulator re-enters the same addition chain
         acc = torch.tensor(np.asarray(t.pop("acc"), dtype=np.float64),
                            dtype=f64, device=dev)
@@ -2029,8 +2161,6 @@ def integrate_family_walker(
         tot.update({k: int(v) for k, v in t.items()})
     else:
         acc = torch.zeros(m * T, dtype=f64, device=dev)
-    identity = (None if checkpoint_path is None else _walker_identity(
-        f_theta, f_ds, eps, theta2d, bounds, rule, scout, double_buffer, T))
     seg_stats = np.zeros((S_CAP, len(SEG_STAT_FIELDS)), dtype=np.int64)
     psegs = 0                   # segments walked by this process
     cyc_rows = []
@@ -2038,7 +2168,7 @@ def integrate_family_walker(
     overflow = False
     legs = 0
     leg_end = max_cycles if checkpoint_path is None \
-        else cycles + int(checkpoint_every)
+        else cycles + checkpoint_every
     while bag.count > 0 and not overflow:
         if cycles >= leg_end:
             if checkpoint_path is None:
@@ -2049,17 +2179,17 @@ def integrate_family_walker(
                 count=bag.count, acc=acc_np, totals=dict(
                     tot, cycles=cycles, waste=waste.tolist(),
                     sevals=int(evals[0]), cevals=int(evals[1]),
-                    **({} if _totals_override is None
+                    **({} if totals_override is None
                        else {"est_kevals": est_kevals})))
             legs += 1
-            if _crash_after_legs is not None and legs >= _crash_after_legs:
+            if crash_after_legs is not None and legs >= crash_after_legs:
                 raise RuntimeError(
                     f"simulated crash after {legs} legs (test hook)")
             # the snapshot comes before the max_cycles exit, so "raise
             # max_cycles and resume" continues from this leg
             if cycles >= max_cycles:
                 break
-            leg_end = cycles + int(checkpoint_every)
+            leg_end = cycles + checkpoint_every
         n0 = syncs.n
         o = _cycle_once(bag, gsegs0=psegs, seg_stats0=seg_stats, **ckw)
         bred, walk, bag3 = o.bred, o.walk, o.bag3
@@ -2095,35 +2225,75 @@ def integrate_family_walker(
         bag = bag3.fresh_counters()
         syncs_per_cycle.append(syncs.n - n0)
     areas = np.asarray(syncs.pull(acc), dtype=np.float64)
-    wall = time.perf_counter() - t0
+    return _RunOut(
+        areas=areas, tot=tot, waste=waste, evals=evals, cycles=cycles,
+        est_kevals=est_kevals, left=bag.count, overflow=overflow,
+        seg_stats=seg_stats[:min(psegs, S_CAP)].copy(), cyc_rows=cyc_rows,
+        host_syncs=syncs.n, syncs_per_cycle=syncs_per_cycle,
+        device=str(dev))
 
-    if overflow:
+
+def quarantine_failed_mask(areas: np.ndarray, nan_policy: str,
+                           engine: str) -> Optional[np.ndarray]:
+    """The per-family NaN containment decision. ``nan_policy="raise"``:
+    any non-finite area is an engine-wide ``FloatingPointError``.
+    ``"quarantine"``: the boolean failed mask over ``areas`` (None when
+    all are finite); each family's accumulator is its own slot, so a
+    poisoned family cannot have touched the others' credits. Quarantined
+    families count into ``ppls_quarantined_total{engine}`` of the
+    process registry."""
+    if nan_policy not in ("raise", "quarantine"):
+        raise ValueError(
+            f"nan_policy must be 'raise' or 'quarantine', got "
+            f"{nan_policy!r}")
+    finite = np.isfinite(areas)
+    if np.all(finite):
+        return None
+    if nan_policy == "raise":
+        bad = int(np.sum(~finite))
+        raise FloatingPointError(
+            f"{engine} produced {bad}/{areas.size} non-finite areas "
+            f"(NaN/inf) — refusing to report garbage")
+    failed = ~finite
+    from ppls_tpu_torch.obs.telemetry import default_telemetry
+    default_telemetry().registry.counter(
+        "ppls_quarantined_total",
+        "per-family results quarantined as non-finite "
+        "(nan_policy='quarantine')",
+        ("engine",)).labels(engine=engine).inc(int(failed.sum()))
+    return failed
+
+
+def collect_family_walker(d: WalkerDispatch) -> WalkerResult:
+    """Walk a queued :class:`WalkerDispatch`, validate it and assemble
+    its :class:`WalkerResult` (a finished run deletes its snapshot)."""
+    r = d.run()
+    wall = time.perf_counter() - d.t0
+    if r.overflow:
         raise RuntimeError(
             "walker bag overflowed; raise capacity (on theta_block "
             "runs this also fires when a walk phase's step budget "
             "expired mid-root — raise max_segments/seg_iters; see "
             "_expand_pending's theta-suspension note)")
-    if bag.count > 0:
-        raise RuntimeError(f"walker did not converge in {cycles} cycles "
-                           f"({bag.count} tasks left); raise max_cycles")
-    if not np.all(np.isfinite(areas)):
-        raise FloatingPointError(
-            f"walker produced {int(np.sum(~np.isfinite(areas)))}/"
-            f"{areas.size} non-finite areas (NaN/inf); refusing to report "
-            f"them")
-    _clear_snapshot(checkpoint_path)
-    if T > 1:
-        areas = areas.reshape(m, T)     # one row of T areas per slot
+    if r.left > 0:
+        raise RuntimeError(f"walker did not converge in {r.cycles} cycles "
+                           f"({r.left} tasks left); raise max_cycles")
+    areas = r.areas
+    if d.theta_block > 1:
+        areas = areas.reshape(-1, d.theta_block)  # T areas per slot
+    failed = quarantine_failed_mask(areas, d.nan_policy, "walker")
+    _clear_snapshot(d.checkpoint_path)
+    tot, waste, lanes = r.tot, r.waste, d.lanes
     tasks, wtasks = tot["tasks"], tot["wtasks"]
-    sevals, cevals = int(evals[0]), int(evals[1])
+    sevals, cevals = int(r.evals[0]), int(r.evals[1])
     # kernel evals are device-counted: scout + confirm in scout mode,
     # the eval_active bucket otherwise (one real eval per live step),
     # plus a legacy snapshot's estimated share
     kernel_evals = ((sevals + cevals) if sevals else int(waste[0])) \
-        + est_kevals
-    ept = EVALS_PER_TASK[Rule(rule)]       # float64 evals per bag task
-    cyc_stats = (np.asarray(cyc_rows, dtype=np.int64)[:C_CAP]
-                 if cyc_rows else None)
+        + r.est_kevals
+    ept = EVALS_PER_TASK[Rule(d.rule)]     # float64 evals per bag task
+    cyc_stats = (np.asarray(r.cyc_rows, dtype=np.int64)[:C_CAP]
+                 if r.cyc_rows else None)
     metrics = RunMetrics(
         tasks=tasks, splits=tot["splits"], leaves=tasks - tot["splits"],
         rounds=tot["rounds"] + tot["segs"], max_depth=tot["max_depth"],
@@ -2131,7 +2301,7 @@ def integrate_family_walker(
         + ept * tot["srows"],
         wall_time_s=wall, n_chips=1, tasks_per_chip=[tasks])
     # per-round records only when this process holds every cycle's row
-    if cyc_stats is not None and cycles <= len(cyc_stats):
+    if cyc_stats is not None and r.cycles <= len(cyc_stats):
         metrics.per_round = round_stats_from_rows(
             cyc_stats, CYCLE_STAT_FIELDS, padded_width=int(lanes))
     denom = tot["wsteps"] * lanes
@@ -2139,15 +2309,30 @@ def integrate_family_walker(
         areas=areas, metrics=metrics,
         lane_efficiency=wtasks / denom if denom else 0.0,
         walker_fraction=wtasks / tasks if tasks else 0.0,
-        cycles=cycles,
-        seg_stats=seg_stats[:min(psegs, S_CAP)].copy(),
-        cycle_stats=cyc_stats, lanes=int(lanes),
-        kernel_steps=tot["wsteps"], refill_slots=int(refill_slots),
-        waste=waste, scout_evals=sevals,
+        cycles=r.cycles, seg_stats=r.seg_stats, cycle_stats=cyc_stats,
+        lanes=int(lanes), kernel_steps=tot["wsteps"],
+        refill_slots=d.refill_slots, waste=waste, scout_evals=sevals,
         confirm_evals=cevals if sevals else int(waste[0]),
-        evals_estimated=est_kevals > 0,
-        host_syncs=syncs.n,
-        host_syncs_per_cycle=syncs_per_cycle, device=str(dev))
+        evals_estimated=r.est_kevals > 0, host_syncs=r.host_syncs,
+        host_syncs_per_cycle=r.syncs_per_cycle, device=r.device,
+        failed=failed)
+
+
+def dispatch_family_walker(
+        f_theta: Callable, f_ds: Callable, theta: Sequence[float],
+        bounds, eps: float, **kwargs) -> WalkerDispatch:
+    """Queue a walker run: the parameters of
+    :func:`integrate_family_walker` (checkpointing excluded: a
+    checkpointed run syncs at its leg boundaries), validated now, walked
+    by :func:`collect_family_walker`. Pass a
+    :func:`seed_family_walker_state` bag as ``_state_override`` to skip
+    the seed construction per run."""
+    for bad in ("checkpoint_path", "checkpoint_every"):
+        if kwargs.get(bad) is not None:
+            raise ValueError(f"dispatch_family_walker does not support "
+                             f"{bad}; use integrate_family_walker")
+    return integrate_family_walker(f_theta, f_ds, theta, bounds, eps,
+                                   _dispatch_only=True, **kwargs)
 
 
 def resume_family_walker(
@@ -2164,10 +2349,13 @@ def resume_family_walker(
         suspend_frac: Optional[float] = None,
         max_cycles: int = 64,
         rule: Rule = Rule.TRAPEZOID,
+        sort_roots: bool = True,
         refill_slots: int = 0,
+        sort_skip_ratio: float = SORT_SKIP_RATIO,
         scout_dtype: Optional[str] = None,
         double_buffer: bool = False,
         theta_block: int = 1,
+        nan_policy: str = "raise",
         checkpoint_every: int = 1,
         device="cuda") -> WalkerResult:
     """Continue an interrupted checkpointed walker run from its last
@@ -2207,11 +2395,12 @@ def resume_family_walker(
         lanes=lanes, roots_per_lane=roots_per_lane, seg_iters=seg_iters,
         max_segments=max_segments, min_active_frac=min_active_frac,
         exit_frac=exit_frac, suspend_frac=suspend_frac,
-        max_cycles=max_cycles, rule=rule, refill_slots=refill_slots,
+        max_cycles=max_cycles, rule=rule, sort_roots=sort_roots,
+        refill_slots=refill_slots, sort_skip_ratio=sort_skip_ratio,
         scout_dtype=scout_dtype, double_buffer=double_buffer,
-        theta_block=theta_block, checkpoint_path=path,
-        checkpoint_every=checkpoint_every, device=dev,
-        _state_override=state, _totals_override=totals)
+        theta_block=theta_block, nan_policy=nan_policy,
+        checkpoint_path=path, checkpoint_every=checkpoint_every,
+        device=dev, _state_override=state, _totals_override=totals)
 
 
 def first_phase_inputs(f_theta: Callable, theta, bounds, eps: float, *,
@@ -2344,6 +2533,8 @@ def run_stream_cycle(bag: BagState, acc: torch.Tensor, acc_c: torch.Tensor,
                      rule: Rule = Rule.TRAPEZOID, refill_slots: int = 0,
                      f64_rounds: int = 0, scout: bool = False,
                      double_buffer: bool = False, theta_block: int = 1,
+                     sort_roots: bool = True,
+                     sort_skip_ratio: float = SORT_SKIP_RATIO,
                      syncs: HostSyncs) -> StreamCycleOut:
     """ONE phase of the streaming walker: the breed -> sort -> walk ->
     expand -> drain cycle of :func:`integrate_family_walker` (the shared
@@ -2396,7 +2587,8 @@ def run_stream_cycle(bag: BagState, acc: torch.Tensor, acc_c: torch.Tensor,
             seg_stats0=np.zeros((S_CAP, len(SEG_STAT_FIELDS)),
                                 dtype=np.int64),
             scout=scout, double_buffer=double_buffer, syncs=syncs,
-            theta_block=T, theta_table=theta_table)
+            theta_block=T, theta_table=theta_table, sort_roots=sort_roots,
+            sort_skip_ratio=sort_skip_ratio)
         bred, walk, bag3 = o.bred, o.walk, o.bag3
         # this phase's exact per-family credit, in the reference's order
         credit = bred.acc + walk.acc + bag3.acc

@@ -48,9 +48,15 @@ shed: up to ``spillover_limit`` of them at each phase boundary, busy or
 idle, each retiring with ``spillover=True``. The spill queue and the
 executor's totals ride every snapshot.
 
-Not ported (the constructor refuses them with the ROADMAP.md item): the
-multi-chip engine (``walker-dd``), SLO evaluation, online adaptation and
-the unsorted root queue.
+``slo_config`` arms the SLO burn-rate evaluator (``obs/slo.py``) at
+every phase close, over the registry the boundary already published;
+``slo_health`` is its ``/health`` verdict. ``adapt=True`` moves the
+admission budget and the spillover batch limit within their safe bands
+at every phase close (``runtime/tune.py`` ``OnlineAdapter``, from the
+stats row the phase already read); its state rides every snapshot.
+
+Not ported (the constructor refuses it with the ROADMAP.md item): the
+multi-chip engine (``walker-dd``).
 """
 
 from __future__ import annotations
@@ -81,6 +87,8 @@ from ppls_tpu_torch.runtime.checkpoint import (
     background_writer, engine_name, flush_background_writer,
     load_family_checkpoint, peek_checkpoint_identity,
     save_family_checkpoint)
+from ppls_tpu_torch.runtime.tune import (ADAPT_WASTE_FRAC, OnlineAdapter,
+                                         last_resolution, workload_signature)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 from ppls_tpu_torch.utils.metrics import round_stats_from_rows
 
@@ -385,11 +393,13 @@ class StreamEngine:
 
     The reference's parameters and defaults, with ``device`` in place of
     ``interpret``. ``spillover`` runs queue-overflow victims on the host
-    CPU (``spillover_limit`` per phase). Unported options raise
-    ``ValueError``: ``engine="walker-dd"``, ``mesh``/``n_devices``,
-    ``slo_config``, ``adapt``, ``sort_roots=False`` and
-    ``sort_skip_ratio`` other than 8.0. ``reduced_integrands`` walks
-    the family's range-reduced ds twin where it has one.
+    CPU (``spillover_limit`` per phase). The unported multi-chip engine
+    raises ``ValueError`` (``engine="walker-dd"``,
+    ``mesh``/``n_devices``). ``reduced_integrands`` walks the family's
+    range-reduced ds twin where it has one. Unless ``exit_frac`` and
+    ``suspend_frac`` are given the cadence resolves through the tuning
+    table's rows for this device; the ``ppls_tuning_resolution`` gauge
+    names the tier.
 
     ``checkpoint_path`` snapshots the engine every ``checkpoint_every``
     phases (:meth:`snapshot`; :meth:`resume` continues it);
@@ -440,13 +450,6 @@ class StreamEngine:
                               "item 7, behind item 8")
         if engine != "walker":
             raise ValueError(f"unknown stream engine {engine!r}")
-        if slo_config is not None or adapt:
-            raise _not_ported("SLO evaluation and online adaptation "
-                              "(slo_config, adapt)", "item 7")
-        if not sort_roots or float(sort_skip_ratio) != SORT_SKIP_RATIO:
-            raise _not_ported("an unsorted root queue or another sort "
-                              "skip ratio (sort_roots, sort_skip_ratio)",
-                              "item 4")
         self.device = resolve_device(device)
         if lanes % 128:
             raise ValueError(
@@ -463,12 +466,14 @@ class StreamEngine:
                            and not f64_rounds)
         validate_double_buffer(double_buffer, refill_slots)
         self._double_buffer = bool(double_buffer)
-        # the reference's tier names: explicit values, else the hand tier
-        # (the port reads no tuning table)
-        tier = ("explicit" if exit_frac is not None
-                and suspend_frac is not None else "default")
         exit_frac, suspend_frac = resolve_cadence(
-            exit_frac, suspend_frac, self._scout, refill_slots)
+            exit_frac, suspend_frac, self._scout, refill_slots,
+            signature=workload_signature(
+                family, eps, Rule(rule), theta_block=int(theta_block),
+                mesh_shape=1, scout=self._scout,
+                refill_slots=int(refill_slots)),
+            device=self.device)
+        tier = last_resolution()["tier"]
         self._theta_block = validate_theta_block(
             theta_block, lanes=int(lanes), refill_slots=refill_slots,
             rule=rule, m=slots)
@@ -501,7 +506,8 @@ class StreamEngine:
             rule=self.rule, refill_slots=int(refill_slots),
             f64_rounds=int(f64_rounds), scout=self._scout,
             double_buffer=self._double_buffer,
-            theta_block=self._theta_block, syncs=self._syncs)
+            theta_block=self._theta_block, sort_roots=bool(sort_roots),
+            sort_skip_ratio=float(sort_skip_ratio), syncs=self._syncs)
         # admit window: the fixed seed-array width, capped by the store's
         # slack so the push always fits
         aw = slots if admit_window is None else int(admit_window)
@@ -594,6 +600,28 @@ class StreamEngine:
             "ppls_stream_spillover_total",
             "requests completed on the CPU spillover backend "
             "instead of being shed")
+        # online adaptation of the host knobs: the admission budget starts
+        # at half the admit window and opens toward it under backlog with
+        # underfed lanes; the spillover batch limit grows under spill
+        # backlog; both decay back when the pressure clears
+        self._adapt = None
+        self._g_adapt = {}
+        if adapt:
+            defaults = {
+                "admit_budget": max(1, self._admit_window // 2),
+                "spillover_limit": self.spillover_limit,
+            }
+            bands = {
+                "admit_budget": (1, self._admit_window),
+                "spillover_limit": (1, max(1, self._spill_cap // 2)),
+            }
+            self._adapt = OnlineAdapter(defaults, bands)
+            self._g_adapt = {
+                k: tel.stream_gauge(
+                    f"adapt_{k}", f"online-adapted value of the {k} knob")
+                for k in sorted(defaults)}
+            for k, g in self._g_adapt.items():
+                g.set(float(self._adapt.values[k]))
 
         # host bookkeeping
         self._pending: List[StreamRequest] = []
@@ -633,6 +661,12 @@ class StreamEngine:
             "requests retired, by tenant", ("tenant",))
         self._h_class_lat = tel.class_latency_histogram()
         self._h_tenant_lat = tel.tenant_latency_histogram()
+        # SLO burn-rate evaluation over the registry the phase close
+        # publishes
+        self._slo = None
+        if slo_config is not None:
+            from ppls_tpu_torch.obs.slo import SloEvaluator
+            self._slo = SloEvaluator(slo_config, tel)
         # per-rid request spans (open at submit, closed at retire/shed)
         self._rid_spans: dict = {}
         self._token_waits: dict = {}
@@ -662,6 +696,9 @@ class StreamEngine:
             ident["reduced"] = True
         if self._theta_block > 1:
             ident["theta_block"] = int(self._theta_block)
+        # online adaptation changes the admission and spillover schedule
+        if self._adapt is not None:
+            ident["adapt"] = True
         return ident
 
     def snapshot(self):
@@ -710,6 +747,10 @@ class StreamEngine:
                             for k, v in self._token_waits.items()},
             "client_state": dict(self.client_state),
         }
+        if self._adapt is not None:
+            # the adapted values and pressure streaks: the resumed
+            # boundary continues the same trajectory mid-hysteresis
+            totals["adapt"] = self._adapt.state()
         if self._theta_block > 1 and self._fill is not None:
             totals["theta_table"] = self._theta_table.tolist()
         writer = (background_writer() if self.checkpoint_background
@@ -739,9 +780,11 @@ class StreamEngine:
         replays the identical phases. ``mesh_resize=True`` is the
         reference's elastic rule, a no-op at equal mesh sizes: a
         snapshot of one card resumes, one of another mesh size is
-        refused. A snapshot that carries multi-chip or online-adaptation
-        state is refused with its ROADMAP item, and one with a non-empty
-        spill queue unless ``spillover=True``."""
+        refused. A snapshot that carries multi-chip state is refused with
+        its ROADMAP item, one with a non-empty spill queue unless
+        ``spillover=True``, and one with online-adaptation state unless
+        ``adapt=True``. The SLO evaluator's windows re-base at the
+        resumed phase."""
         eng = cls(family, eps, checkpoint_path=checkpoint_path, **kwargs)
         bag_cols, count, acc_pair, totals = load_family_checkpoint(
             checkpoint_path, eng._identity(), mesh_resize=mesh_resize)
@@ -755,8 +798,6 @@ class StreamEngine:
         if "dd" in totals:
             raise _not_ported("resuming a walker-dd snapshot",
                               "item 7, behind item 8")
-        if "adapt" in totals:
-            raise _not_ported("resuming online-adaptation state", "item 7")
         eng.phase = int(totals["phase"])
         eng._next_rid = int(totals["next_rid"])
         eng._fam_first = np.asarray(totals["fam_first"], dtype=np.int32)
@@ -819,6 +860,17 @@ class StreamEngine:
         eng._token_waits = {int(k): int(v) for k, v in
                             totals.get("token_waits", {}).items()}
         eng.client_state = dict(totals.get("client_state", {}))
+        adapt_state = totals.get("adapt")
+        if adapt_state is not None:
+            if eng._adapt is None:
+                # the adapt key of the identity refuses this first; a
+                # hand-edited snapshot must not replay un-adapted either
+                raise ValueError(
+                    "snapshot carries online-adaptation state but adapt "
+                    "is not armed on this resume; pass adapt=True")
+            eng._adapt.restore(adapt_state)
+            for k, g in eng._g_adapt.items():
+                g.set(float(eng._adapt.values[k]))
         for slot_s, d in totals["resident"].items():
             slot = int(slot_s)
             req = _req_in(d)
@@ -838,6 +890,10 @@ class StreamEngine:
             eng._restore_device(bag_cols, count, acc_pair,
                                 totals["fam_last"])
         eng._replay_registry()
+        if eng._slo is not None:
+            # the burn windows re-base at the resume point: the replayed
+            # cumulative counters must not read as one window
+            eng._slo.seed_base(eng.phase)
         # the live rids reopen their request spans
         for req in list(eng._pending) + list(eng._slot_req.values()):
             eng._rid_spans[req.rid] = eng.telemetry.request_span(
@@ -921,9 +977,11 @@ class StreamEngine:
             self.fault_injector.on_phase_close(self.phase - 1)
 
     def slo_health(self) -> dict:
-        """The ``/health`` verdict: the reference's green default (SLO
-        evaluation is not ported, so nothing burns)."""
-        return {"ok": True, "burning": [], "phase": self.phase}
+        """The ``/health`` verdict: the SLO evaluator's burning set, or
+        a green default when no SLO config is armed."""
+        if self._slo is None:
+            return {"ok": True, "burning": [], "phase": self.phase}
+        return self._slo.health()
 
     def spillover_summary(self) -> dict:
         """The serve summary's spillover block: the completed records
@@ -1137,6 +1195,9 @@ class StreamEngine:
         token per admission."""
         room = self._capacity - self._count
         budget = max(0, min(len(self._free), self._admit_window, room))
+        if self._adapt is not None:
+            # the online budget narrows the admit window within its band
+            budget = min(budget, self._adapt.values["admit_budget"])
         if not budget or not self._pending:
             return []
         chosen: List[StreamRequest] = []
@@ -1358,8 +1419,12 @@ class StreamEngine:
             # phase counter advances so arrival gaps make progress
             spilled = self._run_spillover_phase()
             self.completed.extend(spilled)
+            # idle phases adapt too, on the queue-depth pressures alone
+            self._maybe_adapt(None)
             self.phase += 1
             self._publish_gauges()
+            if self._slo is not None:
+                self._slo.evaluate_slo(self.phase)
             span.close(idle=not spilled, retired=len(spilled))
             self._maybe_snapshot()
             self._phase_closed()
@@ -1472,8 +1537,12 @@ class StreamEngine:
         retired.extend(self._run_spillover_phase())
         self.completed.extend(retired)
         self._phase_syncs.append(self._syncs.n - n0)
+        # this phase's stats row feeds the adapter (effective next phase)
+        self._maybe_adapt(vals)
         self.phase += 1
         self._publish_gauges()
+        if self._slo is not None:
+            self._slo.evaluate_slo(self.phase)
         span.close(retired=len(retired), **vals)
         self._maybe_snapshot()
         self._phase_closed()
@@ -1487,7 +1556,9 @@ class StreamEngine:
         if self._spill is None or not self._spill_queue:
             return []
         out = []
-        while self._spill_queue and len(out) < self.spillover_limit:
+        limit = (self.spillover_limit if self._adapt is None
+                 else self._adapt.values["spillover_limit"])
+        while self._spill_queue and len(out) < limit:
             req = self._spill_queue.pop(0)
             failed = False
             areas = None
@@ -1520,6 +1591,39 @@ class StreamEngine:
             self._c_spillover.inc()
             self._account_retirement(c, slot=-1)
         return out
+
+    def _maybe_adapt(self, vals: Optional[dict]) -> None:
+        """Online adaptation at the phase close: per-knob pressures from
+        this phase's stats row (``vals``; None on an idle phase) and the
+        host queue depths, folded through the adapter (hysteresis, one
+        step per phase, safe bands), one ``knob_adapt`` event per change.
+        Host arithmetic on values already read: no device read."""
+        if self._adapt is None:
+            return
+        a = self._adapt
+        pressures = {}
+        pending = len(self._pending)
+        lazy = 0.0
+        if vals is not None:
+            denom = max(1, int(vals.get("wsteps", 0)) * self.lanes)
+            lazy = (int(vals.get("drain_tail", 0))
+                    + int(vals.get("masked_dead", 0))) / denom
+        if pending > 0 and (vals is None or lazy >= ADAPT_WASTE_FRAC):
+            # backlog with underfed lanes: open the admission budget
+            pressures["admit_budget"] = 1
+        elif pending == 0 and a.values["admit_budget"] \
+                > a.defaults["admit_budget"]:
+            pressures["admit_budget"] = -1
+        backlog = len(self._spill_queue)
+        if backlog > a.values["spillover_limit"]:
+            pressures["spillover_limit"] = 1
+        elif backlog == 0 and a.values["spillover_limit"] \
+                > a.defaults["spillover_limit"]:
+            pressures["spillover_limit"] = -1
+        for ch in a.observe(pressures):
+            self.telemetry.event("knob_adapt", phase=self.phase, **ch)
+        for k, g in self._g_adapt.items():
+            g.set(float(a.values[k]))
 
     def drain(self, max_phases: int = 1 << 14,
               _crash_after_phases: Optional[int] = None

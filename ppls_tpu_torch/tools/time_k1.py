@@ -26,23 +26,29 @@ each, ``--launches`` 256-step launches of:
   ``--reduced`` their ``_reduced`` twins too), and ``k2_noexit`` (thresh
   -1) beside ``k3_step``, K3 on the same lanes: the same work with and
   without the grid count and barrier;
-- ``k2_main_path``: the fallback flagship of chip_smoke.py phase 6
-  (M = 1024 thetas of sin(theta/x) on [1e-4, 1], eps 1e-10, 16384
-  lanes, 12 roots a lane, refill_slots=0, scout f64) run once to warm
-  up, then once under ``torch.profiler``: K2's summed kernel time over
-  that run, its kernel steps and launches.
+- ``k1_main_path`` and ``k2_main_path``: the flagship of chip_smoke.py
+  phase 4 (M = 1024 thetas of sin(theta/x) on [1e-4, 1], eps 1e-10,
+  16384 lanes, 12 roots a lane, refill_slots=8, scout f32,
+  double-buffered) and its fallback of phase 6 (refill_slots=0, scout
+  f64), each run once to warm up, ``MAIN_RUNS`` times on the host clock
+  around a synchronised ``integrate_family_walker`` call, then once
+  under ``torch.profiler``: the kernel's summed time over that run, its
+  kernel steps and launches, the device busy time (every device event's
+  self time), the idle share of the run's wall, the tasks and a sha256
+  of the areas' bytes (equal hashes: equal areas bit for bit).
 
 It prints one JSON line: the root and, per kernel, the launch times in
-ms and the launch's steps. Only the wrappers' public signatures are
-used, so a parent checkout that lacks newer kernel code is timed the
-same way.
+ms and the launch's steps (and the main paths' other numbers). Only the
+wrappers' public signatures are used, so a parent checkout that lacks
+newer kernel code is timed the same way.
 
 With ``--compare`` it runs one such process per root in the order
 given, then in reverse, ``--rounds`` times (two roots, three rounds:
 A B B A A B B A A B B A), and prints per root and kernel the median and
 interquartile range of the per-process median times and the us per
-step, and the card's ``nvidia-smi`` name and power limit. Needs an
-NVIDIA GPU.
+step (for the main paths also each process's busy time, idle share and
+median wall, and the distinct tasks and area hashes), and the card's
+``nvidia-smi`` name and power limit. Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ LANES = 1 << 14
 SPIN_CYCLES = 4_000_000      # ~2 ms of the card's clock before each launch
 DEVICE = "cuda"
 BODY_M = 1024
+MAIN_RUNS = 5
 
 
 def body_bank(family: str, m: int = BODY_M):
@@ -167,10 +174,14 @@ def k2_prepare(base, f_ds, eps, scout, thresh, **rule):
     return prepare
 
 
-def k2_main_path() -> dict:
-    """K2's device time over one fallback flagship run (after a warm-up
-    run), by ``torch.profiler``: {"ms": [ms], "steps": kernel steps,
-    "launches": K2 launches}."""
+def main_path(**kw) -> dict:
+    """One flagship walk with ``kw`` (after a warm-up run): its host
+    walls, and by ``torch.profiler`` the walk kernel's summed time, its
+    kernel steps and launches, the device busy time and idle share, the
+    tasks and the areas' sha256."""
+    import hashlib
+    import time
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -178,24 +189,40 @@ def k2_main_path() -> dict:
     from ppls_tpu_torch.parallel import walker as W
     f, f_ds = get_family("sin_recip_scaled"), get_family_ds("sin_recip_scaled")
     theta = 1.0 + np.arange(BODY_M) / BODY_M
+    seg, kernel = ((W.run_segment_rf, "walk_rf_kernel") if kw["refill_slots"]
+                   else (W.run_segment_ee, "walk_ee_kernel"))
 
     def run():
-        return W.integrate_family_walker(
+        res = W.integrate_family_walker(
             f, f_ds, theta, (1e-4, 1.0), 1e-10, lanes=LANES,
-            roots_per_lane=12, capacity=1 << 23, refill_slots=0,
-            scout_dtype="f64", device=DEVICE)
+            roots_per_lane=12, capacity=1 << 23, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        return res
     run()
-    torch.cuda.synchronize()
-    before = W.run_segment_ee.launches
+    walls = []
+    for _ in range(MAIN_RUNS):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    before = seg.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         res = run()
-        torch.cuda.synchronize()
-    ms = sum(float(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)))
-             for e in prof.key_averages() if "walk_ee_kernel" in e.key) / 1e3
-    return {"ms": [ms], "steps": res.kernel_steps,
-            "launches": W.run_segment_ee.launches - before}
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = seg.launches - before
+
+    def self_ms(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))) / 1e3
+    events = prof.key_averages()
+    busy_ms = sum(self_ms(e) for e in events)
+    return {"ms": [sum(self_ms(e) for e in events if kernel in e.key)],
+            "steps": res.kernel_steps, "launches": launches,
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "walls_s": walls, "tasks": res.metrics.tasks,
+            "areas_sha256": hashlib.sha256(
+                np.asarray(res.areas).tobytes()).hexdigest()}
 
 
 def time_root(launches: int, family: str = "sin_recip_scaled",
@@ -254,7 +281,9 @@ def time_root(launches: int, family: str = "sin_recip_scaled",
             pair[name + "_reduced"] = runs[name + "_reduced"]
         for n, (times, steps) in _timed_pairs(pair, launches).items():
             out[n] = {"ms": times, "steps": steps}
-    out["k2_main_path"] = k2_main_path()
+    out["k1_main_path"] = main_path(refill_slots=8, double_buffer=True,
+                                    scout_dtype="f32")
+    out["k2_main_path"] = main_path(refill_slots=0, scout_dtype="f64")
     return out
 
 
@@ -287,6 +316,15 @@ def compare(roots, rounds: int, launches: int, out_path,
                 median_ms=float(q50), iqr_ms=float(q75 - q25),
                 us_per_step=1e3 * float(q50) / steps, steps=steps,
                 process_medians_ms=meds)
+            if "busy_ms" in recs[0][name]:            # a main path
+                summary[root][name].update(
+                    busy_ms=[r[name]["busy_ms"] for r in recs],
+                    idle_share=[r[name]["idle_share"] for r in recs],
+                    median_wall_s=[float(np.median(r[name]["walls_s"]))
+                                   for r in recs],
+                    tasks=sorted({r[name]["tasks"] for r in recs}),
+                    areas_sha256=sorted({r[name]["areas_sha256"]
+                                         for r in recs}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()

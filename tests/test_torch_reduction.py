@@ -42,6 +42,38 @@ def test_exact_segment_sum_bit_equal(m, n):
     assert np.array_equal(got, ref)
 
 
+POISONS = {"nan": [np.nan], "inf": [np.inf], "-inf": [-np.inf],
+           "both_infs": [np.inf, -np.inf], "nan_and_inf": [np.nan, np.inf]}
+
+
+@pytest.mark.parametrize("poison", list(POISONS))
+def test_exact_segment_sum_keeps_non_finite_leaves_in_their_segment(poison):
+    """A non-finite leaf makes its own segment NaN and no other
+    (nan_policy's quarantine rests on it), every other segment bit-equal
+    to the sum without it; the reference's contraction scales by the
+    largest |leaf|, so there the poison reaches every segment
+    (pinned)."""
+    m, n = 300, 1000
+    rng = np.random.default_rng(7)
+    fam = rng.integers(0, m, n).astype(np.int32)
+    fam[:2] = 17                       # the poisoned segment
+    clean = _leaves(rng, n)
+    clean[:2] = 0.0
+    leaf = clean.copy()
+    vals = POISONS[poison]
+    leaf[:len(vals)] = vals
+    got = tred.exact_segment_sum(torch.from_numpy(fam),
+                                 torch.from_numpy(leaf), m, n).numpy()
+    base = tred.exact_segment_sum(torch.from_numpy(fam),
+                                  torch.from_numpy(clean), m, n).numpy()
+    others = np.arange(m) != 17
+    assert np.array_equal(got[others], base[others])
+    assert np.isnan(got[17])
+    ref = np.asarray(jred.exact_segment_sum(jnp.asarray(fam),
+                                            jnp.asarray(leaf), m, n))
+    assert not np.isfinite(ref).any()
+
+
 def test_exact_segment_sum_all_zero_is_zero():
     fam = torch.zeros(64, dtype=torch.int32)
     out = tred.exact_segment_sum(fam, torch.zeros(64, dtype=torch.float64),

@@ -504,8 +504,6 @@ REFUSED = {
     "lease": (["serve", "--dispatch", "--lease"], "item 9"),
     "lease_alone": (["serve", "--lease"], "require --dispatch"),
     "overlap": (["serve", "--overlap-boundaries"], "require --dispatch"),
-    "slo_config": (["serve", "--slo-config", '{"slos": []}'], "item 7"),
-    "adapt": (["serve", "--adapt"], "item 7"),
     "walker_dd": (["serve", "--engine", "walker-dd"],
                   "item 7, behind item 8"),
     "n_devices": (["serve", "--n-devices", "2"], "item 7, behind item 8"),

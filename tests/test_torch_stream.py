@@ -546,10 +546,6 @@ def test_obs_copies_match_reference():
 REFUSED = {
     "walker-dd": (dict(engine="walker-dd"), "item 7"),
     "mesh": (dict(n_devices=2), "item 7"),
-    "slo_config": (dict(slo_config={}), "item 7"),
-    "adapt": (dict(adapt=True), "item 7"),
-    "sort_roots": (dict(sort_roots=False), "item 4"),
-    "sort_skip_ratio": (dict(sort_skip_ratio=4.0), "item 4"),
 }
 
 
@@ -779,13 +775,17 @@ def test_checkpoint_every_sets_the_cadence(tmp_path, monkeypatch):
         _port(FAM, EPS, **KW).snapshot()
 
 
-@pytest.mark.parametrize("extra,item", [
-    ({"dd": {}}, "item 7, behind item 8"),
-    ({"adapt": {}}, "item 7"),
+@pytest.mark.parametrize("extra,pattern", [
+    pytest.param({"dd": {}}, "ROADMAP.md Queue 1 item 7, behind item 8",
+                 id="extra0-item 7, behind item 8"),
+    pytest.param({"adapt": {}}, "snapshot carries online-adaptation state "
+                 "but adapt is not armed on this resume; pass adapt=True",
+                 id="extra1-adapt is not armed"),
 ])
-def test_resume_refuses_unported_state(tmp_path, extra, item):
-    """A snapshot carrying multi-chip or online-adaptation state is
-    refused with the ROADMAP item of the missing restore."""
+def test_resume_refuses_unported_state(tmp_path, extra, pattern):
+    """A snapshot carrying multi-chip state is refused with the ROADMAP
+    item of the missing restore; one carrying online-adaptation state
+    onto an engine without ``adapt`` with the reference's refusal."""
     from ppls_tpu_torch.runtime.checkpoint import (load_family_checkpoint,
                                                    save_family_checkpoint)
     path = str(tmp_path / "u.ckpt")
@@ -795,7 +795,7 @@ def test_resume_refuses_unported_state(tmp_path, extra, item):
     cols, count, acc, totals = load_family_checkpoint(path, eng._identity())
     save_family_checkpoint(path, identity=eng._identity(), bag_cols=cols,
                            count=count, acc=acc, totals=dict(totals, **extra))
-    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+    with pytest.raises(ValueError, match=pattern):
         TS.StreamEngine.resume(path, FAM, EPS, device="cpu", **KW)
 
 
