@@ -289,6 +289,42 @@ Phases, each of which must pass (any failure exits nonzero):
    f. ``device_kind()`` and the cadence tier every phase-16 walker run
       and the stream resolved: the hand tier (the tuning table has no
       rows for this card).
+17. The 2D cubature (``parallel/cubature.py``, the reference bench's 2D
+   leg, bench.py:679-761, at its sizes; no walk kernel is on this path,
+   and none may launch in phases 17-18):
+   a. gauss2d_peak on [0, 1]^2: Simpson at eps 1e-8 (chunk 2^12,
+      capacity 2^21), global error <= 1e-6; trapezoid at 1e-10 (chunk
+      2^13, capacity 2^22), <= 1e-5. Cells, rounds, depth, wall.
+   b. gauss2d_ring, trapezoid, eps 1e-12, chunk 2^13, capacity 2^23,
+      against the C rectangle bag (``run_seq_2d``) on the same bounds:
+      global error <= 1e-6, cells and splits equal to C's exactly, area
+      within 1e-9 of C's.
+   c. One ``seed_rect_state``, 2 ``dispatch_2d`` runs on it, collected:
+      each equal to 17b's; cells/s against C's, rounds and host syncs
+      per run; one run of the ring at eps 1e-10 under ``torch.profiler``
+      (device busy, idle share, top ops).
+   d. Card against CPU at tests/test_bench_secondary.py's size
+      (gauss2d_peak and gauss2d_ring, trapezoid, eps 1e-8, chunk 2^11,
+      capacity 2^20): tasks, splits, rounds and depth equal, areas
+      within 1e-12, cells equal to C's.
+   e. ``python -m ppls_tpu_torch 2d --json`` in this process: area and
+      cells bit-equal to ``integrate_2d`` with the same arguments;
+      ``2d --n-devices 2`` exits naming ROADMAP.md item 8.
+18. The QMC lattice (``parallel/qmc.py``, the reference bench's QMC leg,
+   bench.py:826-925):
+   a. The six Genz families at N = 2^22, 8 shifts, d = 8
+      (``genz_params(name, 8, seed=0)``): worst relative error <= 1e-2;
+      points/s over the six, timed as bench.py:854-862; peak device
+      memory.
+   b. The numpy denominator (bench.py:791-823, copied as
+      ``qmc_numpy_baseline``) on the oscillatory family with the same
+      shifts (seed 17): within 1e-11 of the card's value; both points/s
+      and their ratio.
+   c. The error slope of the oscillatory family over N = 2^16 ... 2^22.
+   d. Card against CPU at N = 2^16, six families: every shift's
+      estimate within 1e-12 relative.
+   e. ``python -m ppls_tpu_torch qmc --json`` (N = 2^18): every value
+      bit-equal to ``integrate_qmc`` in this process.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -305,7 +341,9 @@ The full report, the profiles and the build logs go to ``out_dir``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
 import re
@@ -463,6 +501,27 @@ ADAPT_SLO = {"windows": {"fast": 2, "slow": 8},
              "slos": [{"slo": "p99_latency_phases", "target": 2,
                        "objective": 0.9},
                       {"slo": "shed_fraction", "objective": 0.9}]}
+# phase 17: the reference bench's 2D leg (bench.py:704-761) at its sizes
+BOUNDS_2D = (0.0, 1.0, 0.0, 1.0)
+GATES_2D = (("simpson", "SIMPSON", 1e-8, 1 << 12, 1 << 21, 1e-6),
+            ("trapezoid", "TRAPEZOID", 1e-10, 1 << 13, 1 << 22, 1e-5))
+RING_EPS = 1e-12
+RING_KW = dict(chunk=1 << 13, capacity=1 << 23)
+RING_GATE = 1e-6
+RING_PROFILE_EPS = 1e-10       # 17c's profiled run: 75 of the 761 rounds
+RING_C_AREA_TOL = 1e-9
+REPEATS_2D = 2                 # bench.py:654
+# 17d: tests/test_bench_secondary.py:29-45's size, card against CPU
+CPU_2D = dict(eps=1e-8, chunk=1 << 11, capacity=1 << 20)
+AREA_TOL_2D = 1e-12
+# phase 18: the reference bench's QMC leg (bench.py:826-925)
+QMC_N = 1 << 22
+QMC_SHIFTS = 8
+QMC_DIM = 8
+QMC_GATE = 1e-2
+QMC_NUMPY_TOL = 1e-11          # tests/test_bench_secondary.py:80
+QMC_CPU_N = 1 << 16
+QMC_CPU_REL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -1081,6 +1140,9 @@ def profile_fn(fn, kernel: str, out_dir, tag):
     idle share and ``kernel``'s time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ppls_tpu_torch.utils.tracing import device_busy_us
+    from ppls_tpu_torch.utils.tracing import device_self_us as dev_us
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1088,12 +1150,11 @@ def profile_fn(fn, kernel: str, out_dir, tag):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-
-    def dev_us(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)))
-
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    post_s = time.perf_counter() - t0 - wall_ms / 1e3
+    busy_ms = device_busy_us(events) / 1e3
+    # the sum over every entry, CPU ops included, as PR 11 and earlier
+    # read it: each kernel twice
+    all_ms = sum(dev_us(e) for e in events) / 1e3
     k_ms = sum(dev_us(e) for e in events if kernel in e.key) / 1e3
     by_dev = sorted(events, key=dev_us, reverse=True)
     with open(os.path.join(out_dir, f"chip_smoke_profile_{tag}.txt"),
@@ -1102,8 +1163,9 @@ def profile_fn(fn, kernel: str, out_dir, tag):
             fh.write(f"{dev_us(e) / 1e3:12.3f} ms  {e.count:8d}  {e.key}\n")
     if busy_ms > 0:
         log(f"[smoke] profile {tag}: wall {wall_ms:.1f} ms, device busy "
-            f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}), "
-            f"{kernel} {k_ms:.1f} ms")
+            f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}; "
+            f"every entry summed: {all_ms:.1f} ms), {kernel} {k_ms:.1f} "
+            f"ms; the profile's processing {post_s:.1f} s")
         for e in by_dev[:8]:
             log(f"[smoke]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{e.key[:80]}")
@@ -1111,6 +1173,7 @@ def profile_fn(fn, kernel: str, out_dir, tag):
         log(f"[smoke] profile {tag}: the profiler recorded no device time "
             f"(device busy share not measured)")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=k_ms,
+                busy_ms_every_entry=all_ms, processing_s=post_s,
                 idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0 else None)
 
 
@@ -3469,6 +3532,304 @@ def phase_bench(W, TS, get_family_ds, base, out_dir, ckpt_dir) -> dict:
     return out
 
 
+def phase_2d(out_dir) -> dict:
+    """17. The 2D cubature: the reference bench's gates (17a), the ring
+    against the C rectangle bag (17b), the pipelined timing and one
+    profiled run (17c), card against CPU (17d), the ``2d`` command
+    (17e)."""
+    import torch
+    from ppls_tpu_torch import __main__ as CLI
+    from ppls_tpu_torch.backends.mpi_backend import run_seq_2d
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.models.integrands import get_integrand_2d
+    from ppls_tpu_torch.parallel import cubature as C2
+    t_phase = time.perf_counter()
+    out = {"gates": {}}
+    peak = get_integrand_2d("gauss2d_peak")
+    exact = peak.exact(*BOUNDS_2D)
+    for tag, rule, eps, chunk, cap, gate in GATES_2D:
+        r = C2.integrate_2d(peak.fn, BOUNDS_2D, eps, rule=Rule[rule],
+                            chunk=chunk, capacity=cap, exact=exact,
+                            device=DEVICE)
+        m = r.metrics
+        log(f"[smoke] 17a gauss2d_peak {tag} eps {eps:g}: {m.tasks} cells, "
+            f"{m.rounds} rounds, depth {m.max_depth}, wall "
+            f"{m.wall_time_s:.3f} s, global error {r.global_error:.3e} "
+            f"(gate {gate:g})")
+        if not r.global_error <= gate:
+            raise AssertionError(f"17a: 2D {tag} global error "
+                                 f"{r.global_error:.3e} > {gate:g}")
+        out["gates"][tag] = dict(cells=m.tasks, splits=m.splits,
+                                 rounds=m.rounds, depth=m.max_depth,
+                                 wall_s=m.wall_time_s,
+                                 global_error=r.global_error)
+
+    # 17b: the timed workload against the C twin
+    ring = get_integrand_2d("gauss2d_ring")
+    ring_exact = ring.exact(*BOUNDS_2D)
+    kw = dict(RING_KW, rule=Rule.TRAPEZOID)
+    c = run_seq_2d("gauss2d_ring", *BOUNDS_2D, RING_EPS)
+    c_rate = c["tasks"] / c["wall_time_s"]
+    res = C2.integrate_2d(ring.fn, BOUNDS_2D, RING_EPS, exact=ring_exact,
+                          device=DEVICE, **kw)
+    m = res.metrics
+    d_c = abs(res.area - c["area"])
+    log(f"[smoke] 17b gauss2d_ring trapezoid eps {RING_EPS:g}: {m.tasks} "
+        f"cells, {m.splits} splits, {m.rounds} rounds, depth "
+        f"{m.max_depth}, wall {m.wall_time_s:.3f} s, global error "
+        f"{res.global_error:.3e} (gate {RING_GATE:g}); C: {c['tasks']} "
+        f"cells, {c['splits']} splits, {c['wall_time_s']:.3f} s "
+        f"({c_rate / 1e6:.3f} M cells/s); |area - C| {d_c:.3e} (tol "
+        f"{RING_C_AREA_TOL:g}); {time.perf_counter() - t_phase:.1f} s into "
+        f"the phase")
+    if not res.global_error <= RING_GATE:
+        raise AssertionError(f"17b: ring global error "
+                             f"{res.global_error:.3e}")
+    if (m.tasks, m.splits) != (c["tasks"], c["splits"]):
+        raise AssertionError(f"17b: cells/splits {m.tasks}/{m.splits} != "
+                             f"C's {c['tasks']}/{c['splits']}")
+    if not d_c <= RING_C_AREA_TOL:
+        raise AssertionError(f"17b: ring area {d_c:.3e} from C's")
+    out["ring"] = dict(cells=m.tasks, splits=m.splits, rounds=m.rounds,
+                       depth=m.max_depth, wall_s=m.wall_time_s,
+                       global_error=res.global_error, d_c=d_c,
+                       host_syncs=res.host_syncs, c=c)
+
+    # 17c: one prebuilt seed, REPEATS_2D dispatches, collected in order
+    seed = C2.seed_rect_state(BOUNDS_2D, kw["chunk"], kw["capacity"],
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = [C2.dispatch_2d(ring.fn, BOUNDS_2D, RING_EPS, exact=ring_exact,
+                         device=DEVICE, _state_override=seed, **kw)
+          for _ in range(REPEATS_2D)]
+    rs = [C2.collect_2d(d) for d in ds]
+    wall = time.perf_counter() - t0
+    cells = sum(r.metrics.tasks for r in rs)
+    rate = cells / wall
+    if any(r.area != res.area or r.metrics.tasks != m.tasks for r in rs):
+        raise AssertionError("17c: a pipelined run differs from 17b's")
+    # profiled: the ring at RING_PROFILE_EPS (same chunk and store, so
+    # the same rounds' shape; the timed run's ~150k profiler events take
+    # ~45 s to process)
+    prof = profile_fn(lambda: C2.integrate_2d(
+        ring.fn, BOUNDS_2D, RING_PROFILE_EPS, device=DEVICE,
+        _state_override=seed, **kw), "Sort", out_dir, "ring_2d")
+    log(f"[smoke] 17c pipelined: {REPEATS_2D} runs, {cells} cells in "
+        f"{wall:.3f} s: {rate / 1e6:.3f} M cells/s, {rate / c_rate:.3f}x "
+        f"C's; {m.rounds} rounds and {rs[0].host_syncs} host syncs a run "
+        f"({rs[0].host_syncs / m.rounds:.4f} per round); profiled run (eps "
+        f"{RING_PROFILE_EPS:g}): busy {prof['busy_ms']:.1f} ms of "
+        f"{prof['wall_ms']:.1f}, idle share {prof['idle_share']}")
+    out["pipeline"] = dict(repeats=REPEATS_2D, cells=cells, wall_s=wall,
+                           cells_per_s=rate, c_cells_per_s=c_rate,
+                           vs_c=rate / c_rate, rounds=m.rounds,
+                           host_syncs_per_run=rs[0].host_syncs,
+                           profile=prof)
+
+    # 17d: card against CPU at the tests' size, and both against C
+    out["card_cpu"] = {}
+    for name in ("gauss2d_peak", "gauss2d_ring"):
+        f = get_integrand_2d(name).fn
+        kw_d = dict(rule=Rule.TRAPEZOID, chunk=CPU_2D["chunk"],
+                    capacity=CPU_2D["capacity"])
+        card = C2.integrate_2d(f, BOUNDS_2D, CPU_2D["eps"], device=DEVICE,
+                               **kw_d)
+        cpu = C2.integrate_2d(f, BOUNDS_2D, CPU_2D["eps"], device="cpu",
+                              **kw_d)
+        cc = run_seq_2d(name, *BOUNDS_2D, CPU_2D["eps"])
+        a, b = card.metrics, cpu.metrics
+        d = abs(card.area - cpu.area)
+        log(f"[smoke] 17d {name} eps {CPU_2D['eps']:g}: card {a.tasks} "
+            f"cells / {a.rounds} rounds ({a.wall_time_s:.3f} s), CPU "
+            f"{b.tasks} / {b.rounds} ({b.wall_time_s:.3f} s), C "
+            f"{cc['tasks']} ({cc['wall_time_s']:.3f} s); |card - CPU| "
+            f"{d:.3e} (tol {AREA_TOL_2D:g}); "
+            f"{time.perf_counter() - t_phase:.1f} s into the phase")
+        if ((a.tasks, a.splits, a.rounds, a.max_depth)
+                != (b.tasks, b.splits, b.rounds, b.max_depth)
+                or a.tasks != cc["tasks"] or not d <= AREA_TOL_2D):
+            raise AssertionError(f"17d: {name} card and CPU differ")
+        out["card_cpu"][name] = dict(cells=a.tasks, rounds=a.rounds,
+                                     d_area=d)
+
+    # 17e: the 2d command in this process, against integrate_2d
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = CLI.main(["2d", "--json", "--device", DEVICE])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    direct = C2.integrate_2d(peak.fn, BOUNDS_2D, 1e-8, exact=exact,
+                             device=DEVICE)
+    if rc != 0 or rec["area"] != direct.area \
+            or rec["tasks"] != direct.metrics.tasks:
+        raise AssertionError(f"17e: 2d --json {rec} differs from "
+                             f"integrate_2d's {direct.area!r}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            CLI.main(["2d", "--n-devices", "2", "--device", DEVICE])
+    except SystemExit as e:
+        refusal = str(e.code)
+    else:
+        raise AssertionError("17e: 2d --n-devices 2 ran")
+    if "item 8" not in refusal:
+        raise AssertionError(f"17e: 2d --n-devices 2: {refusal}")
+    log(f"[smoke] 17e 2d --json: area {rec['area']!r}, {rec['tasks']} cells "
+        f"(equal to integrate_2d); --n-devices 2: {refusal}")
+    out["cli"] = dict(area=rec["area"], tasks=rec["tasks"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] phase 17: {out['seconds']:.1f} s")
+    return out
+
+
+def qmc_numpy_baseline(n, shifts, a, u) -> dict:
+    """Host numpy twin of the device QMC leg on the oscillatory Genz
+    family (bench.py:791-823): the same Korobov lattice and shift set,
+    vectorized numpy on the host CPU, chunked so the (n, d) block never
+    materializes."""
+    import numpy as np
+    from ppls_tpu_torch.parallel.qmc import KOROBOV_A
+    a_gen = KOROBOV_A[n]
+    d = a.shape[0]
+    z = np.empty(d, dtype=np.int64)
+    zj = 1
+    for j in range(d):
+        z[j] = zj
+        zj = (zj * a_gen) % n
+    block = 1 << 19
+    t0 = time.perf_counter()
+    estimates = []
+    for shift in shifts:
+        total = 0.0
+        for s0 in range(0, n, block):
+            k = np.arange(s0, min(s0 + block, n), dtype=np.int64)
+            x = (((k[:, None] % n) * z[None, :]) % n) / float(n)
+            x = (x + shift[None, :]) % 1.0
+            total += float(np.sum(np.cos(2.0 * np.pi * u[0] + x @ a)))
+        estimates.append(total / n)
+    wall = time.perf_counter() - t0
+    points = n * len(shifts)
+    return {"points": points, "wall_s": wall,
+            "points_per_sec": points / wall,
+            "value": float(np.mean(estimates))}
+
+
+def phase_qmc(out_dir) -> dict:
+    """18. The QMC lattice: six Genz families at N = 2^22 (18a), the
+    numpy denominator (18b), the error slope (18c), card against CPU
+    (18d), the ``qmc`` command (18e)."""
+    import numpy as np
+    import torch
+    from ppls_tpu_torch import __main__ as CLI
+    from ppls_tpu_torch.models.genz import GENZ, genz_params
+    from ppls_tpu_torch.parallel.qmc import KOROBOV_A, integrate_qmc
+    t_phase = time.perf_counter()
+    out = {"families": {}}
+    kw = dict(n_points=QMC_N, n_shifts=QMC_SHIFTS, device=DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    worst = 0.0
+    for name, fam in sorted(GENZ.items()):
+        a, u = genz_params(name, QMC_DIM, seed=0)
+        exact = fam.exact(a, u)
+        integrate_qmc(fam.fn, a, u, **kw)              # first call
+        r = integrate_qmc(fam.fn, a, u, exact=exact, **kw)
+        rel = abs(r.value - exact) / max(abs(exact), 1e-300)
+        worst = max(worst, rel)
+        out["families"][name] = dict(value=r.value, exact=exact, rel=rel,
+                                     std_error=r.std_error,
+                                     wall_s=r.metrics.wall_time_s)
+        log(f"[smoke] 18a {name}: value {r.value:+.10e}, rel error "
+            f"{rel:.3e}, stderr {r.std_error:.2e}, wall "
+            f"{r.metrics.wall_time_s * 1e3:.2f} ms")
+    if not worst <= QMC_GATE:
+        raise AssertionError(f"18a: worst rel error {worst:.3e}")
+    t0 = time.perf_counter()
+    evals = 0
+    for name, fam in sorted(GENZ.items()):
+        a, u = genz_params(name, QMC_DIM, seed=0)
+        evals += integrate_qmc(fam.fn, a, u, **kw).metrics.integrand_evals
+    wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if DEVICE == "cuda" else None)
+    log(f"[smoke] 18a: worst rel error {worst:.3e} (gate {QMC_GATE:g}); "
+        f"{evals / wall / 1e6:.1f} M points/s over the six families "
+        f"({evals} points in {wall:.3f} s); peak device memory "
+        f"{peak_gb} GB")
+    out.update(worst_rel=worst, points_per_s=evals / wall,
+               timed_points=evals, timed_wall_s=wall, peak_gb=peak_gb)
+
+    # 18b: the numpy denominator, oscillatory on both sides
+    a_osc, u_osc = genz_params("oscillatory", QMC_DIM, seed=0)
+    osc = GENZ["oscillatory"]
+    t0 = time.perf_counter()
+    r_osc = integrate_qmc(osc.fn, a_osc, u_osc, **kw)
+    osc_rate = QMC_N * QMC_SHIFTS / (time.perf_counter() - t0)
+    shifts = np.random.default_rng(17).random((QMC_SHIFTS, QMC_DIM))
+    cpu = qmc_numpy_baseline(QMC_N, shifts, a_osc, u_osc)
+    d_np = abs(cpu["value"] - r_osc.value)
+    log(f"[smoke] 18b oscillatory: device {osc_rate / 1e6:.1f} M points/s, "
+        f"numpy {cpu['points_per_sec'] / 1e6:.2f} M points/s ("
+        f"{cpu['wall_s']:.2f} s) -> {osc_rate / cpu['points_per_sec']:.1f}x; "
+        f"|numpy - device| {d_np:.3e} (tol {QMC_NUMPY_TOL:g})")
+    if not d_np <= QMC_NUMPY_TOL:
+        raise AssertionError(f"18b: numpy value {d_np:.3e} from the card's")
+    out["numpy"] = dict(device_points_per_s=osc_rate,
+                        numpy_points_per_s=cpu["points_per_sec"],
+                        numpy_wall_s=cpu["wall_s"],
+                        ratio=osc_rate / cpu["points_per_sec"], d=d_np)
+
+    # 18c: the error slope, oscillatory over every lattice size
+    errs = {}
+    exact_osc = osc.exact(a_osc, u_osc)
+    for nn in sorted(k for k in KOROBOV_A if k <= QMC_N):
+        rr = integrate_qmc(osc.fn, a_osc, u_osc, n_points=nn,
+                           n_shifts=QMC_SHIFTS, device=DEVICE)
+        errs[nn] = float(abs(rr.value - exact_osc))
+    xs = np.log2(np.array(sorted(errs), dtype=np.float64))
+    ys = np.log2(np.maximum([errs[k] for k in sorted(errs)], 1e-300))
+    slope = float(np.polyfit(xs, ys, 1)[0])
+    log(f"[smoke] 18c error slope (oscillatory): "
+        f"{ {int(np.log2(k)): v for k, v in sorted(errs.items())} } -> "
+        f"d log2 err / d log2 N {slope:.3f}")
+    out["slope"] = dict(abs_error_by_log2n={int(np.log2(k)): v
+                                            for k, v in errs.items()},
+                        slope=slope)
+
+    # 18d: card against CPU, every shift's estimate
+    out["card_cpu"] = {}
+    for name, fam in sorted(GENZ.items()):
+        a, u = genz_params(name, QMC_DIM, seed=0)
+        card = integrate_qmc(fam.fn, a, u, n_points=QMC_CPU_N,
+                             device=DEVICE)
+        host = integrate_qmc(fam.fn, a, u, n_points=QMC_CPU_N, device="cpu")
+        rel = float(np.max(np.abs(card.estimates - host.estimates)
+                           / np.abs(host.estimates)))
+        out["card_cpu"][name] = rel
+        if not rel <= QMC_CPU_REL:
+            raise AssertionError(f"18d: {name} card and CPU estimates "
+                                 f"{rel:.3e} apart")
+    log(f"[smoke] 18d card against CPU at N = {QMC_CPU_N}: max relative "
+        f"difference per family {out['card_cpu']} (tol {QMC_CPU_REL:g})")
+
+    # 18e: the qmc command in this process, against integrate_qmc
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = CLI.main(["qmc", "--json", "--device", DEVICE])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    for name, fam in sorted(GENZ.items()):
+        a, u = genz_params(name, QMC_DIM, seed=0)
+        direct = integrate_qmc(fam.fn, a, u, device=DEVICE)
+        if rc != 0 or rec["families"][name]["value"] != direct.value:
+            raise AssertionError(f"18e: qmc --json {name} "
+                                 f"{rec['families'][name]} differs from "
+                                 f"integrate_qmc's {direct.value!r}")
+    log(f"[smoke] 18e qmc --json (N = {rec['n_points']}): six values equal "
+        f"to integrate_qmc's")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3894,6 +4255,15 @@ def main() -> int:
     bench_launches = report["bench"]["launches"]
     if bench_launches["run_segment"] != 0:
         raise AssertionError(f"K3 ran on phase 16's paths: {bench_launches}")
+    # 17. the 2D cubature; 18. the QMC lattice (neither reaches a walk
+    # kernel: their launches stay out of the kernel rows)
+    before = {k.__name__: k.launches for k in (
+        W.run_segment_rf, W.run_segment_ee, W.run_segment)}
+    report["cubature_2d"] = phase_2d(out_dir)
+    report["qmc"] = phase_qmc(out_dir)
+    for k in (W.run_segment_rf, W.run_segment_ee, W.run_segment):
+        if k.launches != before[k.__name__]:
+            raise AssertionError(f"phases 17-18 launched {k.__name__}")
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],

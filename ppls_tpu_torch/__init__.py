@@ -15,9 +15,12 @@ cycle per phase, queue-overflow victims optionally run on the CPU
 spillover backend), each with checkpoints and kill-and-resume
 (``resume_family``, ``resume_family_walker``, ``StreamEngine.resume``;
 ``runtime/checkpoint.py`` keeps the reference's containers, so either
-package resumes the other's snapshot); the walk segments run in
-hand-written CUDA kernels (``csrc/walk_rf.cu``, ``walk_ee.cu``,
-``walk_seg.cu``) on the card and in plain PyTorch on the CPU. Entry
+package resumes the other's snapshot); the 2D adaptive cubature
+(``integrate_2d``, a rectangle bag) and the 8D Genz suite by
+shifted-lattice QMC (``integrate_qmc``), on one device; the walk
+segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
+``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on
+the CPU. Entry
 points run on CUDA unless ``device="cpu"`` is passed; the command line
 is ``python -m ppls_tpu_torch`` (``__main__.py``).
 
@@ -33,17 +36,19 @@ from ppls_tpu_torch.parallel.device_engine import device_integrate
 from ppls_tpu_torch.parallel.bag_engine import (FamilyResult,
                                                 integrate_family,
                                                 resume_family)
+from ppls_tpu_torch.parallel.cubature import CubatureResult, integrate_2d
+from ppls_tpu_torch.parallel.qmc import QMCResult, integrate_qmc
 from ppls_tpu_torch.parallel.walker import (
     WalkerResult, integrate_family_walker, resume_family_walker)
 from ppls_tpu_torch.runtime.host_frontier import IntegrationResult, integrate
 from ppls_tpu_torch.runtime.stream import StreamEngine, StreamResult
 
 __all__ = [
-    "Backend", "FAMILIES", "FamilyResult", "INTEGRANDS",
-    "IntegrationResult", "QuadConfig", "Rule", "StreamEngine",
+    "Backend", "CubatureResult", "FAMILIES", "FamilyResult", "INTEGRANDS",
+    "IntegrationResult", "QMCResult", "QuadConfig", "Rule", "StreamEngine",
     "StreamResult", "WalkerResult", "device_integrate", "eval_batch",
     "eval_interval", "family_exact", "get_family", "get_family_ds",
-    "get_integrand", "integrate", "integrate_family",
-    "integrate_family_walker", "register_integrand", "resume_family",
-    "resume_family_walker",
+    "get_integrand", "integrate", "integrate_2d", "integrate_family",
+    "integrate_family_walker", "integrate_qmc", "register_integrand",
+    "resume_family", "resume_family_walker",
 ]

@@ -1,5 +1,5 @@
-"""CLI: ``python -m ppls_tpu_torch [flags]``, ``python -m ppls_tpu_torch
-family [flags]`` and ``python -m ppls_tpu_torch serve [flags]``.
+"""CLI: ``python -m ppls_tpu_torch [flags]`` and its modes ``family``,
+``serve``, ``2d`` and ``qmc`` (``python -m ppls_tpu_torch MODE [flags]``).
 
 The port's copy of the JAX package's ``__main__.py``:
 
@@ -21,15 +21,19 @@ The port's copy of the JAX package's ``__main__.py``:
   last), with ``--spillover``, snapshots and restarts, supervision and
   fault injection, admission policy, ``--slo-config`` (the ``/health``
   verdict of ``--metrics-port``), ``--adapt``, ``--events``,
-  ``--metrics-port`` and ``--ingest-port``.
+  ``--metrics-port`` and ``--ingest-port``;
+* ``2d`` integrates a registered 2D integrand with the rectangle bag
+  (``parallel/cubature.py``), Simpson or trapezoid, ``--json``;
+* ``qmc`` integrates the 8D Genz suite (or one family) with the shifted
+  rank-1 lattice (``parallel/qmc.py``), ``--json``.
 
 ``--trace DIR`` wraps any mode in a ``torch.profiler`` capture. The
 parsers are the reference's, flag for flag, plus ``--device`` (default
 ``cuda``; without a card a command that runs an engine on it exits
-non-zero unless ``--device cpu`` is given). The modes and options not
-ported yet (the sharded engines, the 2d and qmc modes, and serve's
-multi-chip, cluster and dispatcher options) exit non-zero naming their
-ROADMAP.md item.
+non-zero unless ``--device cpu`` is given). The options not ported yet
+(the sharded engines, ``2d --n-devices``, ``qmc --n-devices`` above 1,
+and serve's multi-chip, cluster and dispatcher options) exit non-zero
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -38,7 +42,6 @@ import argparse
 import json
 import sys
 
-_MODES_NOT_PORTED = "item 9, the 2d and qmc modes"
 _SHARDED = "item 8"
 
 
@@ -266,9 +269,30 @@ def build_parser() -> argparse.ArgumentParser:
                           "root parser's --device, cuda); without a "
                           "card only --device cpu runs")
 
-    for mode, what in (("2d", "2D adaptive tensor-product cubature"),
-                       ("qmc", "8D Genz suite via shifted-lattice QMC")):
-        sub.add_parser(mode, help=f"{what} (not ported)", add_help=False)
+    t2d = sub.add_parser(
+        "2d", help="2D adaptive tensor-product cubature "
+                   "(BASELINE config #4)")
+    t2d.add_argument("--integrand", default="gauss2d_peak",
+                     help="registered 2D integrand name")
+    t2d.add_argument("--bounds", type=float, nargs=4,
+                     default=[0.0, 1.0, 0.0, 1.0],
+                     metavar=("AX", "BX", "AY", "BY"))
+    t2d.add_argument("--eps", type=float, default=1e-8)
+    t2d.add_argument("--rule", choices=["trapezoid", "simpson"],
+                     default="simpson")
+    t2d.add_argument("--chunk", type=int, default=1 << 12)
+    t2d.add_argument("--capacity", type=int, default=1 << 20)
+    t2d.add_argument("--n-devices", type=int, default=None,
+                     help="run the sharded engine over this many chips "
+                          "(not ported; default: the one-device engine)")
+    t2d.add_argument("--checkpoint", default=None,
+                     help="snapshot path (sharded engine only); resumes "
+                          "from it if it exists")
+    t2d.add_argument("--json", action="store_true", dest="as_json")
+    t2d.add_argument("--device", default=argparse.SUPPRESS,
+                     help="the device the engine runs on (default: the "
+                          "root parser's --device, cuda); without a "
+                          "card only --device cpu runs")
 
     srv = sub.add_parser(
         "serve",
@@ -564,6 +588,25 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--device", default=argparse.SUPPRESS,
                      help="the device every engine runs on (default: "
                           "the root parser's --device, cuda); without a "
+                          "card only --device cpu runs")
+
+    qmc = sub.add_parser(
+        "qmc", help="8D Genz suite via shifted-lattice QMC "
+                    "(BASELINE config #5)")
+    qmc.add_argument("--genz", default="all",
+                     help="Genz family name, or 'all'")
+    qmc.add_argument("--n", type=int, default=1 << 18,
+                     help="lattice size (2^16/2^18/2^20/2^22)")
+    qmc.add_argument("--shifts", type=int, default=8)
+    qmc.add_argument("--dim", type=int, default=8)
+    qmc.add_argument("--seed", type=int, default=0,
+                     help="Genz parameter draw seed")
+    qmc.add_argument("--n-devices", type=int, default=None,
+                     help="more than one device is not ported")
+    qmc.add_argument("--json", action="store_true", dest="as_json")
+    qmc.add_argument("--device", default=argparse.SUPPRESS,
+                     help="the device the lattice runs on (default: the "
+                          "root parser's --device, cuda); without a "
                           "card only --device cpu runs")
     return p
 
@@ -1262,25 +1305,93 @@ def _main_single(args) -> int:
     return 0
 
 
+def _main_2d(args) -> int:
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.models.integrands import get_integrand_2d
+    from ppls_tpu_torch.parallel.cubature import integrate_2d
+
+    if args.n_devices:
+        raise _not_ported("the sharded 2D engine (2d --n-devices)",
+                          _SHARDED)
+    if args.checkpoint:
+        raise SystemExit(
+            "--checkpoint on the 2d mode requires --n-devices (only "
+            "the sharded 2D engine snapshots; the single-chip run "
+            "is one uninterruptible device program)")
+    entry = get_integrand_2d(args.integrand)
+    exact = entry.exact(*args.bounds) if entry.exact else None
+    res = integrate_2d(entry.fn, args.bounds, args.eps,
+                       rule=Rule(args.rule), chunk=args.chunk,
+                       capacity=args.capacity, exact=exact,
+                       device=_resolve(args, "2d"))
+    m = res.metrics
+    if args.as_json:
+        print(json.dumps({
+            "area": res.area, "exact": res.exact,
+            "global_error": res.global_error, "rule": args.rule,
+            "eps": args.eps, "tasks": m.tasks, "max_depth": m.max_depth,
+            "wall_time_s": m.wall_time_s}))
+    else:
+        print(f"Area={res.area:.12f}  ({args.rule}, eps={args.eps})")
+        if res.global_error is not None:
+            print(f"Global error: {res.global_error:.3e} "
+                  f"(exact {res.exact:.12f})")
+        print(f"Cells: {m.tasks} ({m.splits} splits) in {m.rounds} "
+              f"rounds, depth {m.max_depth}, {m.wall_time_s:.3f}s")
+    return 0
+
+
+def _main_qmc(args) -> int:
+    from ppls_tpu_torch.models.genz import GENZ, genz_params, get_genz
+    from ppls_tpu_torch.parallel.qmc import integrate_qmc
+
+    if args.n_devices is not None and args.n_devices > 1:
+        raise _not_ported("the QMC lattice across devices (qmc "
+                          "--n-devices > 1)", _SHARDED)
+    device = _resolve(args, "qmc")
+    names = sorted(GENZ) if args.genz == "all" else [args.genz]
+    rows = []
+    for name in names:
+        fam = get_genz(name)
+        a, u = genz_params(name, args.dim, seed=args.seed)
+        exact = fam.exact(a, u)
+        r = integrate_qmc(fam.fn, a, u, n_points=args.n,
+                          n_shifts=args.shifts, n_devices=args.n_devices,
+                          exact=exact, device=device)
+        rel = abs(r.value - exact) / max(abs(exact), 1e-300)
+        rows.append((name, r, rel))
+    if args.as_json:
+        print(json.dumps({
+            "n_points": args.n, "shifts": args.shifts, "dim": args.dim,
+            "families": {name: {"value": r.value, "exact": r.exact,
+                                "rel_error": rel,
+                                "std_error": r.std_error}
+                         for name, r, rel in rows}}))
+    else:
+        print(f"Genz 8D via shifted lattice: N={args.n}, "
+              f"{args.shifts} shifts")
+        for name, r, rel in rows:
+            print(f"  {name:14s} value={r.value:+.8e} "
+                  f"rel_err={rel:.2e} stderr={r.std_error:.2e}")
+    return 0
+
+
 def _dispatch(args) -> int:
     if args.mode == "family":
         return _main_family(args)
     if args.mode == "serve":
         return _main_serve(args)
+    if args.mode == "2d":
+        return _main_2d(args)
+    if args.mode == "qmc":
+        return _main_qmc(args)
     return _main_single(args)
 
 
 def main(argv=None) -> int:
     from ppls_tpu_torch.utils.tracing import trace
 
-    parser = build_parser()
-    # the modes not ported take their own flags: refuse them whatever
-    # follows the mode, and parse the others strictly
-    args, extra = parser.parse_known_args(argv)
-    if args.mode in ("2d", "qmc"):
-        raise _not_ported(f"the {args.mode} mode", _MODES_NOT_PORTED)
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     with trace(args.trace):
         return _dispatch(args)
 

@@ -185,6 +185,34 @@ def run_seq_family(family: str, scale: float, a: float, b: float,
     return json.loads(proc.stdout)
 
 
+# 2D integrands the C backend implements (ids must match f2/g2_fid in
+# aquad_seq.c); values are (fid2, default_param). The param is the
+# Gaussian width sigma for both.
+_C_INTEGRANDS_2D = {"gauss2d_peak": (0, 0.05), "gauss2d_ring": (1, 0.05)}
+
+
+def run_seq_2d(integrand: str, ax: float, bx: float, ay: float,
+               by: float, eps: float) -> dict:
+    """Run the sequential C rectangle-bag driver (the 2D CPU baseline) on
+    one registered 2D integrand; returns the raw JSON record (area,
+    tasks=cells, splits, evals, max_depth, wall_time_s). Cells and split
+    decisions match ``parallel/cubature.integrate_2d`` with the
+    trapezoid rule exactly (the same float64 9-point test)."""
+    if integrand not in _C_INTEGRANDS_2D:
+        raise ValueError(
+            f"C 2D backend supports {sorted(_C_INTEGRANDS_2D)}; "
+            f"got {integrand!r}")
+    fid2, param = _C_INTEGRANDS_2D[integrand]
+    binary = build_seq()
+    if binary is None:
+        raise RuntimeError("no C compiler available for the seq backend")
+    proc = subprocess.run(
+        [binary, "2d", str(fid2), repr(ax), repr(bx), repr(ay),
+         repr(by), repr(eps), repr(param)],
+        capture_output=True, text=True, check=True)
+    return json.loads(proc.stdout)
+
+
 def run_mpi_stub(config: QuadConfig, n_workers: int = 4
                  ) -> IntegrationResult:
     """The farmer/worker protocol in one process over the MPI stub (one

@@ -1,7 +1,8 @@
 """Carry state between the reference's layouts and the port's tensors.
 
 The reference keeps walker lane state as (rows, 128) arrays, root and
-result banks as (R, rows, 128), and the task bag as flat columns. The
+result banks as (R, rows, 128), and the task bags (1D and 2D) as flat
+columns. The
 port keeps lanes flat: lane = row * 128 + col. These helpers convert
 numpy arrays in the reference's layout (as ``jax.device_get`` returns
 them) into the port's tensors and back, so one set of inputs can be fed
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ppls_tpu_torch.parallel.bag_engine import BagState
+from ppls_tpu_torch.parallel.cubature import RectBag
 from ppls_tpu_torch.parallel.walker import N_F32_FIELDS, WalkState
 
 LANE_MINOR = 128
@@ -113,3 +115,36 @@ def bag_state_to_numpy(state: BagState) -> dict:
         acc=state.acc.cpu().numpy(), tasks=state.tasks,
         splits=state.splits, iters=state.iters,
         max_depth=int(state.max_depth), overflow=state.overflow)
+
+
+def rect_bag_from_numpy(fields: Sequence, device="cpu") -> RectBag:
+    """The reference's 2D RectBag as numpy values, in its field order
+    (lx, rx, ly, ry, meta, count, acc, tasks, splits, iters, max_depth,
+    overflow; ``jax.device_get`` of the NamedTuple) -> the port's
+    RectBag, on fresh storage."""
+    if len(fields) != len(RectBag.__dataclass_fields__):
+        raise ValueError(f"expected {len(RectBag.__dataclass_fields__)} "
+                         f"fields, got {len(fields)}")
+    lx, rx, ly, ry, meta, count, acc, tasks, splits, iters, maxd, ovf = \
+        fields
+    dev = torch.device(device)
+
+    def col(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    f64 = torch.float64
+    return RectBag(
+        lx=col(lx, f64), rx=col(rx, f64), ly=col(ly, f64), ry=col(ry, f64),
+        meta=col(meta, torch.int32), count=int(count), acc=col(acc, f64),
+        tasks=int(tasks), splits=int(splits), iters=int(iters),
+        max_depth=col(maxd, torch.int32), overflow=bool(ovf))
+
+
+def rect_bag_to_numpy(state: RectBag) -> tuple:
+    """The port's RectBag -> numpy values in the reference's field
+    order."""
+    return (state.lx.cpu().numpy(), state.rx.cpu().numpy(),
+            state.ly.cpu().numpy(), state.ry.cpu().numpy(),
+            state.meta.cpu().numpy(), state.count,
+            state.acc.cpu().numpy(), state.tasks, state.splits, state.iters,
+            state.max_depth.cpu().numpy(), state.overflow)

@@ -1,7 +1,10 @@
 """Integrands of the port: the single-integrand registry (``f(x)`` in
 float64 with a host antiderivative: ``INTEGRANDS``, ``get_integrand``),
-and the families ``f(x, theta)`` in float64 with their double-single
-twins for the walk kernel, domain checks, and closed forms.
+the families ``f(x, theta)`` in float64 with their double-single
+twins for the walk kernel, domain checks, and closed forms, and the 2D
+integrands ``f(x, y)`` of the cubature engine (``INTEGRANDS_2D``,
+``get_integrand_2d``: ``gauss2d_peak``, ``gauss2d_ring``, ``cos_prod``,
+``poly_xy``).
 
 The single integrands: ``cosh4`` (the reference C program's problem),
 ``sin``, ``sin_recip`` (sin(1/x), whose antiderivative needs the cosine
@@ -32,6 +35,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from ppls_tpu_torch.ops.rules2d import div
 
 FAMILIES: Dict[str, Callable] = {}
 DS_FAMILIES: Dict[str, Callable] = {}
@@ -495,3 +500,110 @@ def sin_recip_scaled_reduced_f64(x, th):
     y = (arg - t) - (e + k * pl)   # arg - t exact by Sterbenz
     s = np.sin(y)
     return np.where((k.astype(np.int64) & 1) == 1, -s, s)
+
+
+# --- 2D integrands (adaptive tensor-product cubature; consumed by
+# parallel.cubature.integrate_2d) -------------------------------------------
+# ``fn(x, y)`` is elementwise float64 torch; ``exact`` is host ``math``.
+# Squares are products (the reference's ``** 2`` is a product), and a
+# division by a constant divides by a tensor on the operands' device.
+
+@dataclasses.dataclass(frozen=True)
+class Integrand2D:
+    name: str
+    fn: Callable                      # f(x, y) -> z, elementwise
+    exact: Optional[Callable] = None  # exact(ax, bx, ay, by) -> float
+    doc: str = ""
+
+
+INTEGRANDS_2D: Dict[str, Integrand2D] = {}
+
+
+def register_integrand_2d(name: str, fn: Callable,
+                          exact: Optional[Callable] = None,
+                          doc: str = "") -> Integrand2D:
+    entry = Integrand2D(name=name, fn=fn, exact=exact, doc=doc)
+    INTEGRANDS_2D[name] = entry
+    return entry
+
+
+def get_integrand_2d(name: str) -> Integrand2D:
+    try:
+        return INTEGRANDS_2D[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown 2D integrand {name!r}; registered: "
+            f"{sorted(INTEGRANDS_2D)}") from None
+
+
+_G2_S = 0.05  # gauss2d_peak sigma
+
+
+def _gauss2d(x, y):
+    dx = div(x - 0.5, _G2_S)
+    dy = div(y - 0.5, _G2_S)
+    return torch.exp(-0.5 * (dx * dx + dy * dy))
+
+
+def _gauss2d_exact(ax, bx, ay, by):
+    # separable: product of 1D Gaussian integrals (erf closed form)
+    def g1(a, b):
+        s = _G2_S
+        return s * math.sqrt(math.pi / 2.0) * (
+            math.erf((b - 0.5) / (s * math.sqrt(2.0)))
+            - math.erf((a - 0.5) / (s * math.sqrt(2.0))))
+    return g1(ax, bx) * g1(ay, by)
+
+
+register_integrand_2d(
+    "gauss2d_peak", _gauss2d, _gauss2d_exact,
+    doc="Sharply peaked 2D Gaussian at (0.5, 0.5), sigma=0.05: the "
+        "clustered-refinement stress case.")
+
+_G2R_S = 0.05    # gauss2d_ring ridge width
+_G2R_R0 = 0.3    # gauss2d_ring radius
+
+
+def _gauss2d_ring(x, y):
+    dx = x - 0.5
+    dy = y - 0.5
+    r = torch.sqrt(dx * dx + dy * dy)
+    u = div(r - _G2R_R0, _G2R_S)
+    return torch.exp(-(u * u))
+
+
+def _gauss2d_ring_exact(ax, bx, ay, by):
+    # Polar closed form over the plane: 2*pi * int_0^inf r *
+    # exp(-((r - r0)/s)^2) dr = 2*pi * (s*r0*(sqrt(pi)/2)*(1 +
+    # erf(r0/s)) + (s^2/2)*exp(-(r0/s)^2)). Valid for the standard
+    # [0,1]^2 domain: the ridge sits >= 4 sigma inside it, so the
+    # truncated tail mass is < 3e-9 absolute (erfc(4) bound).
+    if (ax, bx, ay, by) != (0.0, 1.0, 0.0, 1.0):
+        raise ValueError("gauss2d_ring's closed form assumes the "
+                         "standard [0,1]^2 domain (ridge well inside)")
+    s, r0 = _G2R_S, _G2R_R0
+    q = r0 / s
+    return 2.0 * math.pi * (
+        s * r0 * (math.sqrt(math.pi) / 2.0) * (1.0 + math.erf(q))
+        + 0.5 * s * s * math.exp(-q * q))
+
+
+register_integrand_2d(
+    "gauss2d_ring", _gauss2d_ring, _gauss2d_ring_exact,
+    doc="Gaussian ridge along the circle r=0.3 (width sigma=0.05): "
+        "refinement hugs a 1D curve, so the cell count scales like "
+        "curve-length/h (~6M cells at eps=1e-12). C twin: "
+        "backends/csrc/aquad_seq.c 2d mode, fid2=1.")
+
+register_integrand_2d(
+    "cos_prod", lambda x, y: torch.cos(x) * torch.cos(y),
+    lambda ax, bx, ay, by: ((math.sin(bx) - math.sin(ax))
+                            * (math.sin(by) - math.sin(ay))),
+    doc="cos(x)cos(y): smooth separable benchmark with closed form.")
+
+register_integrand_2d(
+    "poly_xy", lambda x, y: x * x * y + x * y * y,
+    lambda ax, bx, ay, by: (
+        (bx ** 3 - ax ** 3) / 3.0 * (by ** 2 - ay ** 2) / 2.0
+        + (bx ** 2 - ax ** 2) / 2.0 * (by ** 3 - ay ** 3) / 3.0),
+    doc="x^2 y + x y^2: low-order polynomial sanity check.")

@@ -187,6 +187,7 @@ def main_path(**kw) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from ppls_tpu_torch.models.integrands import get_family, get_family_ds
     from ppls_tpu_torch.parallel import walker as W
+    from ppls_tpu_torch.utils.tracing import device_busy_us, device_self_us
     f, f_ds = get_family("sin_recip_scaled"), get_family_ds("sin_recip_scaled")
     theta = 1.0 + np.arange(BODY_M) / BODY_M
     seg, kernel = ((W.run_segment_rf, "walk_rf_kernel") if kw["refill_slots"]
@@ -212,12 +213,10 @@ def main_path(**kw) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     launches = seg.launches - before
 
-    def self_ms(e):
-        return float(getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))) / 1e3
     events = prof.key_averages()
-    busy_ms = sum(self_ms(e) for e in events)
-    return {"ms": [sum(self_ms(e) for e in events if kernel in e.key)],
+    busy_ms = device_busy_us(events) / 1e3
+    return {"ms": [sum(device_self_us(e) for e in events
+                       if kernel in e.key) / 1e3],
             "steps": res.kernel_steps, "launches": launches,
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "walls_s": walls, "tasks": res.metrics.tasks,

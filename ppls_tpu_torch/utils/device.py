@@ -3,6 +3,8 @@ points."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -16,7 +18,22 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the port's "
             "plain PyTorch path on the CPU")
+    if dev.type == "cpu":
+        _warm_cpu_exp()
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _warm_cpu_exp() -> None:
+    """One float64 ``torch.exp`` over every CPU worker thread, once per
+    process. torch's CPU exp (2.13, AVX-512) can return values ~3.3e-9
+    off in relative terms on the chunk a worker thread computes in its
+    first call (``tests/test_torch_qmc.py``); later calls are right to
+    the ulp. Entry points on the CPU pay this first call here, on values
+    nobody reads."""
+    n = 1 << 15                      # ATen's grain size
+    torch.exp(torch.zeros(n * max(torch.get_num_threads(), 32),
+                          dtype=torch.float64))
 
 
 class HostSyncs:

@@ -7,7 +7,8 @@ writes a Chrome trace (``trace.json``, for Perfetto or
         integrate_family_walker(...)
 
 Exposed on the CLI as ``--trace DIR`` (every mode). ``annotate(name)``
-names a span inside a trace.
+names a span inside a trace. ``device_busy_us`` reads a profile's device
+time.
 """
 
 from __future__ import annotations
@@ -49,3 +50,19 @@ def annotate(name: str):
     from torch import profiler
 
     return profiler.record_function(name)
+
+
+def device_self_us(event) -> float:
+    """A profiler entry's self device time in us."""
+    return float(getattr(event, "self_device_time_total",
+                         getattr(event, "self_cuda_time_total", 0.0)))
+
+
+def device_busy_us(events) -> float:
+    """The device time of a profile's ``key_averages()``: the kernels,
+    copies and fills themselves. A CPU op's self device time holds the
+    kernels it launched, which appear again under their own names, so a
+    sum over every entry counts each of them twice."""
+    from torch.autograd import DeviceType
+    return sum(device_self_us(e) for e in events
+               if e.device_type != DeviceType.CPU)

@@ -22,9 +22,9 @@
   leg snapshot (tests/test_guard.py:159).
 * ``--trace`` on a recorder and for real on the CPU (tests/
   test_tracing.py's cases), for the root command and ``serve``.
-* The refusals that stay (the sharded engines, the 2d and qmc modes),
-  and without a card and without ``--device cpu`` both commands exit
-  non-zero before they run.
+* The refusals that stay (the sharded engines, ``2d --n-devices`` and
+  ``qmc --n-devices 2``), and without a card and without ``--device
+  cpu`` both commands exit non-zero before they run.
 """
 
 import contextlib
@@ -393,8 +393,8 @@ REFUSED = {
     "sharded_walker": (["family", "--engine", "sharded-walker"], "item 8"),
     "sharded_walker_dd": (["family", "--engine", "sharded-walker-dd"],
                           "item 8"),
-    "2d": (["2d"], "item 9, the 2d and qmc modes"),
-    "qmc": (["qmc", "--n", "1024"], "item 9, the 2d and qmc modes"),
+    "2d": (["2d", "--n-devices", "2"], "item 8"),
+    "qmc": (["qmc", "--n-devices", "2"], "item 8"),
 }
 
 
@@ -402,8 +402,7 @@ REFUSED = {
 def test_unported_engines_and_modes_exit_nonzero(name, capsys):
     argv, what = REFUSED[name]
     with pytest.raises(SystemExit) as ei:
-        CLI.main(argv + (["--device", "cpu"] if name[:2] not in ("2d", "qm")
-                         else []))
+        CLI.main(argv + ["--device", "cpu"])
     assert what in str(ei.value.code)
     assert "ROADMAP.md Queue 1" in str(ei.value.code)
     assert capsys.readouterr().out == ""

@@ -507,8 +507,8 @@ REFUSED = {
     "walker_dd": (["serve", "--engine", "walker-dd"],
                   "item 7, behind item 8"),
     "n_devices": (["serve", "--n-devices", "2"], "item 7, behind item 8"),
-    "2d": (["2d"], "item 9, the 2d and qmc modes"),
-    "qmc": (["qmc", "--n", "1024"], "item 9, the 2d and qmc modes"),
+    "2d": (["2d", "--n-devices", "2"], "item 8"),
+    "qmc": (["qmc", "--n-devices", "2"], "item 8"),
 }
 
 
