@@ -325,6 +325,36 @@ Phases, each of which must pass (any failure exits nonzero):
       estimate within 1e-12 relative.
    e. ``python -m ppls_tpu_torch qmc --json`` (N = 2^18): every value
       bit-equal to ``integrate_qmc`` in this process.
+19. The family engines across ranks (``parallel/mesh.py``,
+   ``sharded_bag.py``, ``sharded_walker.py``). Every multi-rank launch
+   has its own time limit (``DD_TIMEOUT``): a rank that hangs fails the
+   phase.
+   k. K1 (scouting, R = 8) and K2 (trapezoid) bit-equal to their plain
+      segments at a dd rank's shapes (2^12 lanes, the dd leg's bank and
+      lanes).
+   a. The reference bench's dd leg at its size (bench.py:961-981): 64
+      thetas 1 + i/64 on [1e-4, 1], eps 1e-10, chunk 2^12, capacity 2^20,
+      lanes 2^12, roots_per_lane 12; the refill leg (R = 8, scout f32,
+      double buffer: K1 on every rank) and the legacy leg (R = 0, scout
+      f64: K2 on every rank), on 1 rank (in this process, NCCL) and on 4
+      ranks of the one card (spawned, gloo staged through host memory).
+      Each run within 1e-3 of the closed form; the ds (legacy) leg's
+      every 8th member within 3e-9 of the float64 bag; tasks = splits +
+      leaves; refill's collective rounds per cycle below legacy's; each
+      rank launched its kernel. Printed per run: walls, tasks, cycles,
+      tasks per rank, collective rounds, launches and host syncs per
+      rank, the transport, rank 0's collective calls by kind beside the
+      reference's census; one profiled world-1 run's idle share.
+   b. Card against CPU at tests/test_sharded_walker.py's shapes, 4 ranks,
+      both modes, the hand cadence on both: equal schedules (tasks,
+      splits, cycles, kernel steps, collective rounds, tasks per rank),
+      areas within 1e-12.
+   c. The refill leg on 4 ranks killed after one leg and resumed:
+      bit-equal; the tests' shapes' 4-rank snapshot resumed on 2 ranks
+      (``mesh_resize``) on the card and on the CPU: equal.
+   d. ``family --engine sharded-walker-dd --n-devices 4`` (the refill
+      leg's flags) and ``family --engine sharded-bag --n-devices 4``:
+      areas, tasks and tasks per rank bit-equal to the in-process calls.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -333,7 +363,8 @@ phase 12's records per body and step machine under ``bodies`` and its
 paths' launches under ``body_launches``; phase 13's under
 ``checkpoint_launches``; phase 14's in-process ones under
 ``serve_launches``; phase 15's under ``cli_launches``; phase 16's
-under ``bench_launches``)
+under ``bench_launches``; phase 19's, every rank's, under
+``dd_launches``, and 19k's records under ``dd``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -522,6 +553,26 @@ QMC_GATE = 1e-2
 QMC_NUMPY_TOL = 1e-11          # tests/test_bench_secondary.py:80
 QMC_CPU_N = 1 << 16
 QMC_CPU_REL = 1e-12
+# phase 19: the family engines across ranks; the reference bench's dd leg
+# (bench.py:961-981) at its full size, and tests/test_sharded_walker.py's
+# shapes for card against CPU
+DD_FAMILY = "sin_recip_scaled"
+DD_M = 64
+DD_EPS = 1e-10
+DD_KW = dict(chunk=1 << 12, capacity=1 << 20, lanes=1 << 12,
+             roots_per_lane=12)
+DD_LEGS = {"refill": dict(refill_slots=8, scout_dtype="f32",
+                          double_buffer=True),
+           "legacy": dict(refill_slots=0, scout_dtype="f64")}
+DD_WORLDS = (1, 4)
+DD_SAMPLE_STRIDE = 8           # members held to the float64 bag
+DD_TEST_ARGS = (DD_FAMILY, [1.0], (1e-3, 1.0), 1e-9)
+DD_TEST_KW = dict(chunk=1 << 8, capacity=1 << 16, lanes=256,
+                  roots_per_lane=2, seg_iters=32, min_active_frac=0.05)
+DD_TEST_LEGS = {"refill": dict(refill_slots=2), "legacy": {}}
+DD_BAG_EPS = 1e-9              # 19d's sharded bag
+DD_TIMEOUT = 600               # s, every multi-rank launch of phase 19
+DD_CENSUS = "9 psum, 11 all_gather, 2 axis_index call sites"
 
 
 def log(msg: str) -> None:
@@ -850,9 +901,10 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5):
     outs_k, kernel_ms, times = kernel_runs(lambda: prepare(kernel), runs)
     outs_p, plain_ms = timed(prepare(W.segment_ee_plain))
     ctr = outs_k[-1].tolist()
-    if sum(ctr[1:5]) != ctr[0] * LANES:
+    lanes = base["state"].a_h.shape[0]
+    if sum(ctr[1:5]) != ctr[0] * lanes:
         raise AssertionError(f"{what}: waste does not reconcile")
-    n_bytes = 2 * LANES * STATE_BYTES + 7 * 4
+    n_bytes = 2 * lanes * STATE_BYTES + 7 * 4
     bound, bound_by = bound_ms(n_bytes, ctr[1], ctr[5], ctr[6], ops, mode)
     rec = dict(ms=kernel_ms, plain_ms=plain_ms,
                max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
@@ -3830,6 +3882,268 @@ def phase_qmc(out_dir) -> dict:
     return out
 
 
+def dd_cadence(W, leg_kw: dict) -> dict:
+    """The hand tier's cadence for a dd leg, passed explicitly where a
+    CPU run is held against the card (the CPU has tuning-table rows the
+    card has not; phase 5 does the same)."""
+    scout = leg_kw.get("scout_dtype") == "f32"
+    exit_frac, suspend_frac = W.resolve_cadence(
+        None, None, scout, leg_kw.get("refill_slots", 0))
+    return dict(exit_frac=exit_frac, suspend_frac=suspend_frac)
+
+
+def dd_kernels(W, ops) -> dict:
+    """19k: K1 (scouting, R = 8) and K2 (trapezoid) against their plain
+    segments at a dd rank's shapes: the bench dd leg's bred bank and
+    seeded lanes at 2^12 lanes."""
+    import numpy as np
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    f_theta, f_ds = get_family(DD_FAMILY), get_family_ds(DD_FAMILY)
+    theta = 1.0 + np.arange(DD_M) / DD_M
+    kw = dict(lanes=DD_KW["lanes"], roots_per_lane=DD_KW["roots_per_lane"],
+              capacity=DD_KW["capacity"], device="cuda")
+    out = {}
+    base = W.first_phase_inputs(f_theta, theta, BOUNDS, DD_EPS,
+                                refill_slots=8, scout=True, **kw)
+    out["k1"], times = cmp_k1(W, "K1 step_scout (dd)", base, f_ds, DD_EPS,
+                              "step_scout", ops)
+    log(fmt_cmp(f"K1 step_scout at a dd rank's shapes ({DD_KW['lanes']} "
+                f"lanes, R 8)", out["k1"], times))
+    seeded = W.first_phase_inputs(f_theta, theta, BOUNDS, DD_EPS,
+                                  refill_slots=0, scout=False,
+                                  rule=Rule.TRAPEZOID, **kw)
+    out["k2"], times = cmp_k2(W, "K2 step (dd)", seeded, f_ds, DD_EPS,
+                              "step", ops)
+    log(fmt_cmp(f"K2 step at a dd rank's shapes ({DD_KW['lanes']} lanes)",
+                out["k2"], times))
+    return out
+
+
+def dd_record(what: str, r, exact, bag, sample, wall_s) -> dict:
+    """One dd run, checked and logged: the closed form, the float64 bag
+    (held only on the ds leg), tasks = splits + leaves, the waste, and
+    every rank's K1 or K2 launches."""
+    import numpy as np
+    m = r.mesh
+    d_ex = float(np.max(np.abs(r.areas - exact)))
+    d_bag = float(np.max(np.abs(r.areas[sample] - bag)))
+    check_walk(what, r, len(exact))
+    kernel = "run_segment_rf" if r.refill_slots else "run_segment_ee"
+    other = "run_segment_ee" if r.refill_slots else "run_segment_rf"
+    if not d_ex < AREA_TOL_EXACT:
+        raise AssertionError(f"{what}: {d_ex:.3e} from the closed form")
+    if min(m["launches"][kernel]) <= 0 or max(m["launches"][other]) != 0:
+        raise AssertionError(f"{what}: launches per rank {m['launches']}")
+    rec = dict(wall_s=wall_s, engine_wall_s=r.metrics.wall_time_s,
+               tasks=r.metrics.tasks, cycles=r.cycles,
+               kernel_steps=r.kernel_steps,
+               tasks_per_chip=r.metrics.tasks_per_chip,
+               collective_rounds=r.collective_rounds,
+               collective_rounds_per_cycle=r.collective_rounds_per_cycle,
+               launches=m["launches"], host_syncs=m["host_syncs"],
+               transport=dict(backend=m["backend"],
+                              host_staged=m["host_staged"]),
+               collective_calls=m["collective_calls"], d_exact=d_ex,
+               d_bag=d_bag, lane_efficiency=r.lane_efficiency)
+    log(f"[smoke] {what}: wall {wall_s:.3f} s (engine "
+        f"{r.metrics.wall_time_s:.3f} s), {r.metrics.tasks} tasks, "
+        f"{r.cycles} cycles, {r.kernel_steps} kernel steps, per rank "
+        f"{r.metrics.tasks_per_chip}; collective rounds "
+        f"{r.collective_rounds} ({r.collective_rounds_per_cycle:.3f} per "
+        f"cycle); {kernel} launches per rank {m['launches'][kernel]}; host "
+        f"syncs per rank {m['host_syncs']}; transport {m['backend']}"
+        f"{' staged through host memory' if m['host_staged'] else ''}; "
+        f"collective calls of rank 0 {m['collective_calls']} (the "
+        f"reference's census: {DD_CENSUS}); {d_ex:.3e} from the closed "
+        f"form, every {DD_SAMPLE_STRIDE}th member {d_bag:.3e} from the "
+        f"float64 bag")
+    return rec
+
+
+def dd_same(what: str, a, b, tol: float) -> float:
+    """Raise unless two dd runs have the same schedule (tasks, splits,
+    cycles, kernel steps, collective rounds, tasks per rank) and areas
+    within ``tol``; returns the areas' largest difference."""
+    import numpy as np
+    got = [(x.metrics.tasks, x.metrics.splits, x.cycles, x.kernel_steps,
+            x.collective_rounds, x.metrics.tasks_per_chip) for x in (a, b)]
+    d = float(np.max(np.abs(np.asarray(a.areas) - np.asarray(b.areas))))
+    if got[0] != got[1] or not d <= tol:
+        raise AssertionError(f"{what}: {got[0]} vs {got[1]}, areas {d:.3e}")
+    return d
+
+
+def dd_launches(*recs) -> dict:
+    """Every rank's K1 and K2 launches summed over dd runs."""
+    return {k: sum(sum(r.mesh["launches"][k]) for r in recs)
+            for k in ("run_segment_rf", "run_segment_ee")}
+
+
+def phase_dd(W, TS, ckpt_dir, out_dir) -> dict:
+    """19: the family engines across ranks (module docstring)."""
+    import numpy as np
+    import torch
+    from ppls_tpu_torch.models.integrands import family_exact, get_family
+    from ppls_tpu_torch.parallel import mesh as MESH
+    from ppls_tpu_torch.parallel import sharded_walker as SW
+    from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    from ppls_tpu_torch.parallel.sharded_bag import integrate_family_sharded
+    MESH.LAUNCH_TIMEOUT_S = DD_TIMEOUT       # the CLI's launches too
+    t_phase = time.perf_counter()
+    theta = 1.0 + np.arange(DD_M) / DD_M
+    args = (DD_FAMILY, theta, BOUNDS, DD_EPS)
+    exact = family_exact(DD_FAMILY, *BOUNDS, theta)
+    sample = np.arange(0, DD_M, DD_SAMPLE_STRIDE)
+    bag = integrate_family(get_family(DD_FAMILY), theta[sample], BOUNDS,
+                           DD_EPS, chunk=1 << 15, capacity=1 << 22,
+                           device=DEVICE).areas
+    out, runs = {"runs": {}}, {}
+    card = dict(device=DEVICE)
+
+    # a. world 1 in this process (NCCL on the card), a warm-up each leg
+    for leg, lkw in DD_LEGS.items():
+        kw = dict(DD_KW, **lkw, n_devices=1, **card)
+        SW.integrate_family_walker_dd(*args, **kw)
+        t0 = time.perf_counter()
+        r = SW.integrate_family_walker_dd(*args, **kw)
+        torch.cuda.synchronize()
+        runs[(1, leg)] = r
+        out["runs"][f"1/{leg}"] = dd_record(
+            f"19a dd {leg}, world 1", r, exact, bag, sample,
+            time.perf_counter() - t0)
+    out["profile"] = profile_fn(
+        lambda: SW.integrate_family_walker_dd(
+            *args, **DD_KW, **DD_LEGS["refill"], n_devices=1, **card),
+        "walk_rf_kernel", out_dir, "dd_world1_refill")
+
+    # a, b, c, d on 4 ranks of the card: one launch, every call in order
+    paths = {k: os.path.join(ckpt_dir, f"dd_{k}.ckpt")
+             for k in ("resume", "resize")}
+    test_kw = {leg: dict(DD_TEST_KW, **lkw, **dd_cadence(W, lkw))
+               for leg, lkw in DD_TEST_LEGS.items()}
+    w4 = dict(n_devices=4, device=DEVICE)
+    refill4 = dict(DD_KW, **DD_LEGS["refill"], **w4)
+    calls = [("warm_refill", SW.integrate_family_walker_dd, args, refill4),
+             ("warm_legacy", SW.integrate_family_walker_dd, args,
+              dict(DD_KW, **DD_LEGS["legacy"], **w4)),
+             ("refill", SW.integrate_family_walker_dd, args, refill4),
+             ("legacy", SW.integrate_family_walker_dd, args,
+              dict(DD_KW, **DD_LEGS["legacy"], **w4)),
+             ("crash", SW.integrate_family_walker_dd, args,
+              dict(refill4, checkpoint_path=paths["resume"],
+                   checkpoint_every=1, _crash_after_legs=1)),
+             ("resume", SW.resume_family_walker_dd,
+              (paths["resume"], *args), dict(refill4, checkpoint_every=1)),
+             ("bag", integrate_family_sharded,
+              (DD_FAMILY, theta, BOUNDS, DD_BAG_EPS),
+              dict(chunk=DD_KW["chunk"], capacity=DD_KW["capacity"], **w4)),
+             ("test_refill", SW.integrate_family_walker_dd, DD_TEST_ARGS,
+              dict(test_kw["refill"], **w4)),
+             ("test_legacy", SW.integrate_family_walker_dd, DD_TEST_ARGS,
+              dict(test_kw["legacy"], **w4)),
+             ("test_crash", SW.integrate_family_walker_dd, DD_TEST_ARGS,
+              dict(test_kw["refill"], checkpoint_path=paths["resize"],
+                   checkpoint_every=1, _crash_after_legs=2, **w4))]
+    t0 = time.perf_counter()
+    got = MESH.launch(MESH.run_calls, 4, DEVICE,
+                      ([c[1:] for c in calls],), timeout=DD_TIMEOUT)
+    w4_wall = time.perf_counter() - t0
+    got = {c[0]: g for c, g in zip(calls, got)}
+    for k, g in got.items():
+        if isinstance(g, Exception) and k not in ("crash", "test_crash"):
+            raise AssertionError(f"19 world 4 {k}: {g!r}")
+    log(f"[smoke] 19 world 4 on one card: {len(calls)} calls in "
+        f"{w4_wall:.1f} s (4 spawned ranks, their start included)")
+    for leg in DD_LEGS:
+        runs[(4, leg)] = r = got[leg]
+        out["runs"][f"4/{leg}"] = dd_record(
+            f"19a dd {leg}, world 4 (one card)", r, exact, bag, sample,
+            r.metrics.wall_time_s)
+        dd_same(f"19a {leg} world 4, warm-up against the timed run",
+                r, got[f"warm_{leg}"], 0.0)
+    for w in DD_WORLDS:
+        ds_leg = out["runs"][f"{w}/legacy"]
+        if not ds_leg["d_bag"] < AREA_TOL_BAG:
+            raise AssertionError(f"19a world {w}: the ds leg is "
+                                 f"{ds_leg['d_bag']:.3e} from the bag")
+        rf, lg = runs[(w, "refill")], runs[(w, "legacy")]
+        if not rf.collective_rounds_per_cycle \
+                < lg.collective_rounds_per_cycle:
+            raise AssertionError(f"19a world {w}: refill's collective "
+                                 f"rounds per cycle are not below legacy's")
+
+    # b. card against CPU at the tests' shapes, 4 ranks each
+    t0 = time.perf_counter()
+    cpu = MESH.launch(MESH.run_calls, 4, "cpu", ([
+        (SW.integrate_family_walker_dd, DD_TEST_ARGS,
+         dict(test_kw[leg], n_devices=4, device="cpu"))
+        for leg in ("refill", "legacy")],), timeout=DD_TIMEOUT)
+    out["card_cpu"] = {}
+    for leg, c in zip(("refill", "legacy"), cpu):
+        out["card_cpu"][leg] = dd_same(
+            f"19b {leg}: card against CPU", got[f"test_{leg}"], c,
+            AREA_TOL_DEVICES)
+    log(f"[smoke] 19b card = CPU at the tests' shapes, 4 ranks, both "
+        f"modes (areas {out['card_cpu']}); the CPU world in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # c. kill-and-resume on 4 ranks; the 4-rank snapshot resumed on 2
+    if not isinstance(got["crash"], RuntimeError):
+        raise AssertionError(f"19c: the crash run returned {got['crash']}")
+    dd_same("19c refill resumed after one leg against the uninterrupted "
+            "run", got["resume"], runs[(4, "refill")], 0.0)
+    shutil.copy(paths["resize"], paths["resize"] + ".cpu")
+    rkw = dict(test_kw["refill"], mesh_resize=True, checkpoint_every=1,
+               n_devices=2)
+    resized = {where: MESH.launch(
+        SW.resume_family_walker_dd, 2, dev, (path, *DD_TEST_ARGS),
+        dict(rkw, device=dev), timeout=DD_TIMEOUT)
+        for where, dev, path in (("card", DEVICE, paths["resize"]),
+                                 ("cpu", "cpu", paths["resize"] + ".cpu"))}
+    out["resize"] = dd_same("19c a 4-rank snapshot on 2 ranks, card "
+                            "against CPU", resized["card"], resized["cpu"],
+                            AREA_TOL_DEVICES)
+    log(f"[smoke] 19c kill-and-resume bit-equal on 4 ranks; the 4-rank "
+        f"snapshot on 2 ranks: card = CPU ({resized['card'].metrics.tasks}"
+        f" tasks, per rank {resized['card'].metrics.tasks_per_chip})")
+
+    # d. the CLI against the in-process calls
+    dd_argv = ["family", "--engine", "sharded-walker-dd", "--n-devices",
+               "4", "--m", str(DD_M), "-a", str(BOUNDS[0]), "-b",
+               str(BOUNDS[1]), "--eps", str(DD_EPS), "--chunk",
+               str(DD_KW["chunk"]), "--capacity", str(DD_KW["capacity"]),
+               "--theta0", "1", "--theta1", "2", "--refill-slots",
+               str(DD_LEGS["refill"]["refill_slots"]), "--scout-dtype",
+               DD_LEGS["refill"]["scout_dtype"], "--double-buffer"]
+    bag_argv = ["family", "--engine", "sharded-bag", "--n-devices", "4",
+                "--m", str(DD_M), "-a", str(BOUNDS[0]), "-b",
+                str(BOUNDS[1]), "--eps", str(DD_BAG_EPS), "--chunk",
+                str(DD_KW["chunk"]), "--capacity", str(DD_KW["capacity"]),
+                "--theta0", "1", "--theta1", "2"]
+    out["cli"] = {}
+    for name, argv, want in (("sharded-walker-dd", dd_argv,
+                              runs[(4, "refill")]),
+                             ("sharded-bag", bag_argv, got["bag"])):
+        rec, run = cli_json(W, TS, argv)
+        head = [float(v) for v in np.asarray(want.areas)[:4]]
+        if rec["areas_head"] != head or rec["tasks"] != want.metrics.tasks \
+                or rec["tasks_per_chip"] != want.metrics.tasks_per_chip:
+            raise AssertionError(f"19d {name}: {rec} against {head}")
+        out["cli"][name] = dict(wall_s=run["wall_s"], tasks=rec["tasks"])
+        log(f"[smoke] 19d family --engine {name} --n-devices 4: bit-equal "
+            f"to the in-process call ({rec['tasks']} tasks, CLI wall "
+            f"{run['wall_s']:.2f} s)")
+    # every rank's launches in the timed runs, the resumed leg, the
+    # tests' shapes and the resized resume
+    out["launches"] = dd_launches(*runs.values(), got["resume"],
+                                  got["test_refill"], got["test_legacy"],
+                                  resized["card"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] 19 done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4264,6 +4578,16 @@ def main() -> int:
     for k in (W.run_segment_rf, W.run_segment_ee, W.run_segment):
         if k.launches != before[k.__name__]:
             raise AssertionError(f"phases 17-18 launched {k.__name__}")
+    # 19. the family engines across ranks: K1 and K2 at a rank's shapes,
+    # then the dd walker and the sharded bag on 1 and 4 ranks
+    dd_cmp = dd_kernels(W, ops)
+    dd_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["dd"] = phase_dd(W, TS, dd_dir, out_dir)
+    finally:
+        shutil.rmtree(dd_dir, ignore_errors=True)
+    report["dd"]["kernels"] = dd_cmp
+    dd_l = report["dd"]["launches"]
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -4302,7 +4626,8 @@ def main() -> int:
     def row(name, source, replaces, launches, cmp, mode, body, **extra):
         c = cmp[mode]
         errs = [v["max_abs_err"] for v in cmp.values()] + [
-            v["max_abs_err"] for b in body.values() for v in b.values()]
+            v["max_abs_err"] for b in body.values() for v in b.values()] + (
+            [extra["dd"]["max_abs_err"]] if "dd" in extra else [])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs),
@@ -4314,6 +4639,11 @@ def main() -> int:
                                          "bound_by", "us_per_step",
                                          "max_abs_err")}
                   for k, v in k1_theta.items()}
+
+    def dd_row(c):
+        """A kernel's record at a dd rank's shapes (19k)."""
+        return {f: c[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "us_per_step", "max_abs_err")}
 
     def steps_256(cmp):
         """The 256-step launches of phase 3, per step machine."""
@@ -4329,7 +4659,7 @@ def main() -> int:
             + ckpt_launches["run_segment_rf"]
             + serve_launches["run_segment_rf"]
             + cli_launches["run_segment_rf"]
-            + bench_launches["run_segment_rf"],
+            + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -4339,6 +4669,7 @@ def main() -> int:
             serve_launches=serve_launches["run_segment_rf"],
             cli_launches=cli_launches["run_segment_rf"],
             bench_launches=bench_launches["run_segment_rf"],
+            dd_launches=dd_l["run_segment_rf"], dd=dd_row(dd_cmp["k1"]),
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -4351,13 +4682,14 @@ def main() -> int:
             + ckpt_launches["run_segment_ee"]
             + serve_launches["run_segment_ee"]
             + cli_launches["run_segment_ee"]
-            + bench_launches["run_segment_ee"],
+            + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
             serve_launches=serve_launches["run_segment_ee"],
             cli_launches=cli_launches["run_segment_ee"],
             bench_launches=bench_launches["run_segment_ee"],
+            dd_launches=dd_l["run_segment_ee"], dd=dd_row(dd_cmp["k2"]),
             stream_launches=report["stream"]["overload"]["k2"]["launches"],
             main_path_ms=report["profile_k2"]["kernel_ms"],
             main_path_launches=launches0["run_segment_ee"],

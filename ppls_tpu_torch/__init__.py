@@ -17,7 +17,10 @@ spillover backend), each with checkpoints and kill-and-resume
 ``runtime/checkpoint.py`` keeps the reference's containers, so either
 package resumes the other's snapshot); the 2D adaptive cubature
 (``integrate_2d``, a rectangle bag) and the 8D Genz suite by
-shifted-lattice QMC (``integrate_qmc``), on one device; the walk
+shifted-lattice QMC (``integrate_qmc``), on one device; the family
+bag and the demand-driven walker across ``n_devices`` ranks on
+``torch.distributed`` (``integrate_family_sharded``,
+``integrate_family_walker_dd``, ``parallel/mesh.py``); the walk
 segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
 ``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on
 the CPU. Entry
@@ -38,6 +41,10 @@ from ppls_tpu_torch.parallel.bag_engine import (FamilyResult,
                                                 resume_family)
 from ppls_tpu_torch.parallel.cubature import CubatureResult, integrate_2d
 from ppls_tpu_torch.parallel.qmc import QMCResult, integrate_qmc
+from ppls_tpu_torch.parallel.sharded_bag import (integrate_family_sharded,
+                                                 resume_family_sharded)
+from ppls_tpu_torch.parallel.sharded_walker import (
+    integrate_family_walker_dd, resume_family_walker_dd)
 from ppls_tpu_torch.parallel.walker import (
     WalkerResult, integrate_family_walker, resume_family_walker)
 from ppls_tpu_torch.runtime.host_frontier import IntegrationResult, integrate
@@ -49,6 +56,8 @@ __all__ = [
     "StreamResult", "WalkerResult", "device_integrate", "eval_batch",
     "eval_interval", "family_exact", "get_family", "get_family_ds",
     "get_integrand", "integrate", "integrate_2d", "integrate_family",
-    "integrate_family_walker", "integrate_qmc", "register_integrand",
-    "resume_family", "resume_family_walker",
+    "integrate_family_sharded", "integrate_family_walker",
+    "integrate_family_walker_dd", "integrate_qmc", "register_integrand",
+    "resume_family", "resume_family_sharded", "resume_family_walker",
+    "resume_family_walker_dd",
 ]

@@ -30,10 +30,12 @@ The port's copy of the JAX package's ``__main__.py``:
 ``--trace DIR`` wraps any mode in a ``torch.profiler`` capture. The
 parsers are the reference's, flag for flag, plus ``--device`` (default
 ``cuda``; without a card a command that runs an engine on it exits
-non-zero unless ``--device cpu`` is given). The options not ported yet
-(the sharded engines, ``2d --n-devices``, ``qmc --n-devices`` above 1,
-and serve's multi-chip, cluster and dispatcher options) exit non-zero
-naming their ROADMAP.md item.
+non-zero unless ``--device cpu`` is given). ``family --engine
+sharded-bag|sharded-walker|sharded-walker-dd`` run ``--n-devices`` ranks
+(``parallel/mesh.py``; several ranks share one card over gloo). The
+options not ported yet (``--engine sharded``, ``2d --n-devices``, ``qmc
+--n-devices`` above 1, and serve's multi-chip, cluster and dispatcher
+options) exit non-zero naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -222,18 +224,22 @@ def build_parser() -> argparse.ArgumentParser:
                      default="bag",
                      help="bag: chunked-LIFO f64; walker: the ds "
                           "flagship (K1 with --refill-slots > 0, K2 "
-                          "with 0); the sharded engines are not "
-                          "ported")
+                          "with 0); sharded-bag: the bag across "
+                          "--n-devices ranks; sharded-walker / "
+                          "sharded-walker-dd (aliases): the flagship "
+                          "across the ranks via demand-driven "
+                          "cross-rank root rebalancing")
     fam.add_argument("--rule", choices=["trapezoid", "simpson"],
                      default="trapezoid")
     fam.add_argument("--chunk", type=int, default=1 << 13)
     fam.add_argument("--capacity", type=int, default=1 << 20)
     fam.add_argument("--refill-slots", type=int, default=0,
-                     help="walker engine: R > 0 deals R work-sorted "
-                          "roots per lane into a private bank and the "
-                          "kernel refills its own lanes (K1; the "
-                          "flagship bench config uses 8); 0 = "
-                          "boundary refill (K2)")
+                     help="walker and sharded-walker-dd engines: R > "
+                          "0 deals R work-sorted roots per lane into a "
+                          "private bank and the kernel refills its own "
+                          "lanes (K1; the flagship bench config uses "
+                          "8; on the dd engine also one rebalance per "
+                          "walk phase); 0 = boundary refill (K2)")
     fam.add_argument("--scout-dtype", choices=["f64", "f32"],
                      default=None, dest="scout_dtype",
                      help="walker engine, trapezoid rule: 'f32' "
@@ -253,8 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
                           "keep their ds twin")
     fam.add_argument("--n-devices", type=int, default=None)
     fam.add_argument("--checkpoint", default=None,
-                     help="snapshot path (bag and walker engines); "
-                          "resumes from it if it exists")
+                     help="snapshot path (bag, walker, sharded-bag, and "
+                          "sharded-walker-dd engines); resumes from it "
+                          "if it exists")
     fam.add_argument("--watchdog", type=float, default=None,
                      metavar="SECONDS",
                      help="run the engine under a hang watchdog: on "
@@ -1109,8 +1116,6 @@ def _main_family(args) -> int:
     from ppls_tpu_torch.models.integrands import (family_exact, get_family,
                                                   get_family_ds)
 
-    if args.engine.startswith("sharded"):
-        raise _not_ported(f"the {args.engine} family engine", _SHARDED)
     device = _resolve(args, "family")
     T = int(args.theta_block)
     if args.theta is not None:
@@ -1133,7 +1138,8 @@ def _main_family(args) -> int:
             theta = np.concatenate(
                 [theta, np.repeat(theta[:, :1],
                                   T - theta.shape[1], axis=1)], axis=1)
-        if args.engine != "walker":
+        if args.engine not in ("walker", "sharded-walker-dd",
+                               "sharded-walker"):
             raise SystemExit(
                 "--theta-block > 1 requires the walker or "
                 "sharded-walker-dd engine")
@@ -1157,6 +1163,41 @@ def _main_family(args) -> int:
                                      args.eps, **kw)
             return integrate_family(f, theta, bounds, args.eps,
                                     checkpoint_path=args.checkpoint, **kw)
+    elif args.engine in ("sharded-walker-dd", "sharded-walker"):
+        # one flagship path across devices (the reference retired its
+        # family-deal variant; both names run the demand-driven walker)
+        from ppls_tpu_torch.parallel.sharded_walker import (
+            integrate_family_walker_dd, resume_family_walker_dd)
+        dkw = dict(chunk=args.chunk, capacity=args.capacity,
+                   n_devices=args.n_devices, rule=Rule(args.rule),
+                   refill_slots=args.refill_slots,
+                   scout_dtype=args.scout_dtype,
+                   double_buffer=args.double_buffer,
+                   reduced_integrands=args.reduced_integrands,
+                   theta_block=T, device=str(device))
+
+        def engine_call():
+            if args.checkpoint and os.path.exists(args.checkpoint):
+                return resume_family_walker_dd(
+                    args.checkpoint, args.family, theta, bounds, args.eps,
+                    **dkw)
+            return integrate_family_walker_dd(
+                args.family, theta, bounds, args.eps,
+                checkpoint_path=args.checkpoint, **dkw)
+    elif args.engine == "sharded-bag":
+        from ppls_tpu_torch.parallel.sharded_bag import (
+            integrate_family_sharded, resume_family_sharded)
+        skw = dict(rule=Rule(args.rule), chunk=args.chunk,
+                   capacity=args.capacity, n_devices=args.n_devices,
+                   device=str(device))
+
+        def engine_call():
+            if args.checkpoint and os.path.exists(args.checkpoint):
+                return resume_family_sharded(args.checkpoint, args.family,
+                                             theta, bounds, args.eps, **skw)
+            return integrate_family_sharded(
+                args.family, theta, bounds, args.eps,
+                checkpoint_path=args.checkpoint, **skw)
     else:
         from ppls_tpu_torch.parallel.walker import (
             integrate_family_walker, resume_family_walker)

@@ -191,6 +191,7 @@ class FamilyResult:
     metrics: RunMetrics
     lane_efficiency: float      # tasks / (iters * chunk)
     host_syncs: int = 0
+    mesh: Optional[dict] = None  # the sharded engine's transport and calls
 
 
 def _family_ckpt_identity(engine: str, f_theta: Callable, eps: float,

@@ -67,7 +67,8 @@ a seed bag once, :func:`dispatch_family_walker` validates and queues a
 run on it, :func:`collect_family_walker` walks it. The host loop reads
 the device inside every cycle, so a queued run cannot run ahead of the
 host; the results and the meaning of ``wall_time_s`` are the
-reference's. Not ported: the multi-chip surfaces (ROADMAP.md).
+reference's. Across devices the same phases run per rank under the
+demand-driven cycle of ``sharded_walker.py``.
 """
 
 from __future__ import annotations
@@ -1829,6 +1830,16 @@ class WalkerResult:
     host_syncs_per_cycle: Optional[list] = None
     device: str = ""
     failed: Optional[np.ndarray] = None       # nan_policy="quarantine"
+    # the engines across devices only (sharded_walker.py):
+    collective_rounds: int = 0                # breed rounds + phase reshards
+    waste_per_chip: Optional[np.ndarray] = None   # (n, N_WASTE)
+    mesh: Optional[dict] = None               # transport, calls, launches
+
+    @property
+    def collective_rounds_per_cycle(self) -> float:
+        """Collective boundaries per engine cycle, the refill mode's
+        acceptance number across devices (strictly below legacy's)."""
+        return self.collective_rounds / self.cycles if self.cycles else 0.0
 
     def attribution(self) -> Optional[dict]:
         """Where every kernel lane-step went. ``reconciles``: the

@@ -22,7 +22,11 @@
   leg snapshot (tests/test_guard.py:159).
 * ``--trace`` on a recorder and for real on the CPU (tests/
   test_tracing.py's cases), for the root command and ``serve``.
-* The refusals that stay (the sharded engines, ``2d --n-devices`` and
+* ``family --engine sharded-bag|sharded-walker|sharded-walker-dd`` at
+  ``--n-devices 4`` (gloo ranks on the CPU; the reference on 4 of its 8
+  host devices), with the walker patched to 256 lanes in both packages
+  as above; the JSON lines as for ``family``.
+* The refusals that stay (``--engine sharded``, ``2d --n-devices`` and
   ``qmc --n-devices 2``), and without a card and without ``--device
   cpu`` both commands exit non-zero before they run.
 """
@@ -38,8 +42,10 @@ import pytest
 import torch
 
 from ppls_tpu import __main__ as RCLI
+from ppls_tpu.parallel import sharded_walker as RSW
 from ppls_tpu.parallel import walker as RW
 from ppls_tpu_torch import __main__ as CLI
+from ppls_tpu_torch.parallel import sharded_walker as TSW
 from ppls_tpu_torch.parallel import walker as TW
 from ppls_tpu_torch.utils import tracing
 
@@ -55,8 +61,14 @@ WALK_KW = dict(lanes=256, roots_per_lane=8, seg_iters=32,
 def _env():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("PPLS_TUNING_TABLE", "off")
-        for mod in (RW, TW):
-            for name in ("integrate_family_walker", "resume_family_walker"):
+        for mod, names in (
+                (RW, ("integrate_family_walker", "resume_family_walker")),
+                (TW, ("integrate_family_walker", "resume_family_walker")),
+                (RSW, ("integrate_family_walker_dd",
+                       "resume_family_walker_dd")),
+                (TSW, ("integrate_family_walker_dd",
+                       "resume_family_walker_dd"))):
+            for name in names:
                 mp.setattr(mod, name, functools.partial(getattr(mod, name),
                                                         **WALK_KW))
         yield
@@ -205,6 +217,33 @@ def test_family_command_matches_reference(name):
     assert got["abs_error"] < 1e-3
     if walker:
         # the walk ran: the kernels' plain segments did part of the work
+        assert got["walker_fraction"] > 0.0
+
+
+# the family engines across devices, at --n-devices 4: gloo ranks on the
+# CPU in the port, 4 of the reference's 8 host devices
+SHARDED = {
+    "sharded_bag": ["family", "--engine", "sharded-bag", "--m", "4",
+                    "--eps", "1e-5", "--chunk", "512", "--capacity",
+                    "32768", "-a", "1e-2"],
+    "sharded_walker": ["family", "--engine", "sharded-walker", "--m", "8",
+                       "--eps", "1e-7", "-a", "1e-2", "--chunk", "1024",
+                       "--capacity", "65536", "--refill-slots", "8"],
+    "sharded_walker_dd": ["family", "--engine", "sharded-walker-dd",
+                          "--m", "8", "--eps", "1e-7", "-a", "1e-2",
+                          "--chunk", "1024", "--capacity", "65536"],
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_sharded_family_engines_match_reference(name):
+    got, ref = _both(SHARDED[name] + ["--n-devices", "4", "--json"])
+    walker = "walker" in name
+    _assert_same(got, ref, ("areas_head", "abs_error"),
+                 WALK_TOL if walker else AREA_REL)
+    assert len(got["tasks_per_chip"]) == 4 and min(got["tasks_per_chip"]) > 0
+    assert got["abs_error"] < 1e-3
+    if walker:
         assert got["walker_fraction"] > 0.0
 
 
@@ -389,10 +428,6 @@ def test_trace_real_capture(tmp_path, argv):
 
 REFUSED = {
     "sharded": (["--engine", "sharded"], "item 8"),
-    "sharded_bag": (["family", "--engine", "sharded-bag"], "item 8"),
-    "sharded_walker": (["family", "--engine", "sharded-walker"], "item 8"),
-    "sharded_walker_dd": (["family", "--engine", "sharded-walker-dd"],
-                          "item 8"),
     "2d": (["2d", "--n-devices", "2"], "item 8"),
     "qmc": (["qmc", "--n-devices", "2"], "item 8"),
 }

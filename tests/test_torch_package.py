@@ -39,7 +39,9 @@ def test_sources_import_no_jax_and_no_reference():
                 PKG / "utils" / "tracing.py",
                 PKG / "parallel" / "cubature.py",
                 PKG / "parallel" / "qmc.py", PKG / "models" / "genz.py",
-                PKG / "ops" / "rules2d.py"):
+                PKG / "ops" / "rules2d.py", PKG / "parallel" / "mesh.py",
+                PKG / "parallel" / "sharded_bag.py",
+                PKG / "parallel" / "sharded_walker.py"):
         assert new in sources, new
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
@@ -65,7 +67,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "ppls_tpu_torch.backends, ppls_tpu_torch.backends.spillover, "
             "ppls_tpu_torch.backends.mpi_backend, "
             "ppls_tpu_torch.utils.tracing, ppls_tpu_torch.parallel.cubature, "
-            "ppls_tpu_torch.parallel.qmc, ppls_tpu_torch.models.genz\n"
+            "ppls_tpu_torch.parallel.qmc, ppls_tpu_torch.models.genz, "
+            "ppls_tpu_torch.parallel.mesh, "
+            "ppls_tpu_torch.parallel.sharded_bag, "
+            "ppls_tpu_torch.parallel.sharded_walker\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
             "print(','.join(sorted(bad)))\n")
