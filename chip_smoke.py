@@ -308,8 +308,8 @@ Phases, each of which must pass (any failure exits nonzero):
       capacity 2^20): tasks, splits, rounds and depth equal, areas
       within 1e-12, cells equal to C's.
    e. ``python -m ppls_tpu_torch 2d --json`` in this process: area and
-      cells bit-equal to ``integrate_2d`` with the same arguments;
-      ``2d --n-devices 2`` exits naming ROADMAP.md item 8.
+      cells bit-equal to ``integrate_2d`` with the same arguments (``2d
+      --n-devices``: phase 20f).
 18. The QMC lattice (``parallel/qmc.py``, the reference bench's QMC leg,
    bench.py:826-925):
    a. The six Genz families at N = 2^22, 8 shifts, d = 8
@@ -355,6 +355,39 @@ Phases, each of which must pass (any failure exits nonzero):
    d. ``family --engine sharded-walker-dd --n-devices 4`` (the refill
       leg's flags) and ``family --engine sharded-bag --n-devices 4``:
       areas, tasks and tasks per rank bit-equal to the in-process calls.
+20. The offline tuning search on the card, and the single-integral
+   wavefront (``parallel/sharded.py``), the 2D bag and the QMC lattice
+   across ranks. The phase has one time limit (``ACROSS_TIMEOUT``) that
+   every launch in it shares; its time is printed.
+   a. ``ppls_tpu_torch/tools/tune_table.py``'s sweep (budget 16, the
+      three tune workloads) on the card into a scratch table, its K1
+      launches counted: every entry equal to the same sweep on the CPU
+      apart from ``device_kind`` and ``recompiles``, its knobs, moves,
+      acceptances, trials and gain the committed ``cpu`` row's; every
+      workload resolves ``exact`` through the scratch table on the card.
+      The committed table still resolves ``default`` on the card (phase
+      16f) and phases 4 and 6 kept 13 K1 launches over 15,625 steps and
+      163 K2 launches over 16,719.
+   b. The reference problem (``QuadConfig()``) and BASELINE's OSC_CONFIG
+      through ``sharded_integrate`` on 1 rank (NCCL, in this process):
+      the host engine's tasks and rounds, areas within 1e-12 relative.
+   c. The same two on 4 ranks sharing the card (gloo, host-staged; one
+      spawned world runs every 4-rank call of 20c-e): world 1's counts
+      and areas within 1e-12, card = CPU (a CPU world of 4), a
+      kill-and-resume bit-equal and a snapshot of another eps refused.
+      Printed: tasks per rank, collective calls by kind beside the
+      reference's sites, rounds, host syncs, the engine wall.
+   d. The bench's ring (phase 17, eps 1e-12) through
+      ``integrate_2d_sharded`` on 1 rank: C's cells and splits; the ring
+      at eps 1e-10 and gauss2d_peak at the tests' shapes on 4 ranks, card
+      against CPU (cells, splits, rounds, tasks per rank equal, areas
+      within 1e-12); a 4-rank kill-and-resume bit-equal.
+   e. The six Genz families at N = 2^22 on 1 and 4 ranks: within 1e-12
+      relative of phase 18's one-card estimates (1 rank bit-equal); card
+      against CPU at N = 2^16 on 4 ranks; points/s of both.
+   f. ``--engine sharded --n-devices 4``, ``2d --n-devices 4
+      --checkpoint`` and ``qmc --n-devices 4`` (each starting its own
+      ranks) bit-equal to the in-process calls.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -364,7 +397,8 @@ paths' launches under ``body_launches``; phase 13's under
 ``checkpoint_launches``; phase 14's in-process ones under
 ``serve_launches``; phase 15's under ``cli_launches``; phase 16's
 under ``bench_launches``; phase 19's, every rank's, under
-``dd_launches``, and 19k's records under ``dd``)
+``dd_launches``, and 19k's records under ``dd``; phase 20a's under
+``tune_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -573,6 +607,22 @@ DD_TEST_LEGS = {"refill": dict(refill_slots=2), "legacy": {}}
 DD_BAG_EPS = 1e-9              # 19d's sharded bag
 DD_TIMEOUT = 600               # s, every multi-rank launch of phase 19
 DD_CENSUS = "9 psum, 11 all_gather, 2 axis_index call sites"
+# phase 20: the offline tuning search on the card; the single-integral
+# wavefront, the 2D bag and the QMC lattice across ranks
+ACROSS_TIMEOUT = 480           # s, the whole of phase 20, its launches too
+ACROSS_N = 4
+TUNE_BUDGET = 16               # bench.py tune's default budget
+K1_MAIN = (13, 15625)          # phase 4: K1 launches, kernel steps
+K2_MAIN = (163, 16719)         # phase 6: K2 launches, kernel steps
+SHARDED_TOL = 1e-12            # relative: the wavefront across ranks
+TEST_2D = dict(chunk=1 << 8, capacity=1 << 15)   # tests/test_cubature.py
+TEST_2D_EPS = 1e-9
+TEST_2D_RESUME_EPS = 1e-7
+QMC_CLI_N = 1 << 18            # the qmc command's default lattice
+# the reference's collective call sites per wavefront round
+# (ppls_tpu/parallel/sharded.py:130, mesh.py strided_reshard): the loop
+# condition's psum, the counts' and two columns' all_gathers, axis_index
+SHARDED_SITES = "1 psum, 3 all_gather, 1 axis_index per round"
 
 
 def log(msg: str) -> None:
@@ -3716,17 +3766,8 @@ def phase_2d(out_dir) -> dict:
             or rec["tasks"] != direct.metrics.tasks:
         raise AssertionError(f"17e: 2d --json {rec} differs from "
                              f"integrate_2d's {direct.area!r}")
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            CLI.main(["2d", "--n-devices", "2", "--device", DEVICE])
-    except SystemExit as e:
-        refusal = str(e.code)
-    else:
-        raise AssertionError("17e: 2d --n-devices 2 ran")
-    if "item 8" not in refusal:
-        raise AssertionError(f"17e: 2d --n-devices 2: {refusal}")
     log(f"[smoke] 17e 2d --json: area {rec['area']!r}, {rec['tasks']} cells "
-        f"(equal to integrate_2d); --n-devices 2: {refusal}")
+        f"(equal to integrate_2d); 2d --n-devices: phase 20f")
     out["cli"] = dict(area=rec["area"], tasks=rec["tasks"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[smoke] phase 17: {out['seconds']:.1f} s")
@@ -4141,6 +4182,418 @@ def phase_dd(W, TS, ckpt_dir, out_dir) -> dict:
                                   resized["card"])
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[smoke] 19 done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the tuning search on the card; the wavefront, the 2D bag and the
+# QMC lattice across ranks
+# ---------------------------------------------------------------------------
+
+
+class Deadline:
+    """Phase 20's one time limit: every launch in it gets what is left."""
+
+    def __init__(self, seconds: float):
+        self.end = time.perf_counter() + seconds
+
+    def left(self) -> float:
+        left = self.end - time.perf_counter()
+        if left <= 0:
+            raise TimeoutError(f"phase 20 ran past its {ACROSS_TIMEOUT} s")
+        return left
+
+
+def _strip_device(e: dict) -> dict:
+    """A tuning entry without what differs between devices by design."""
+    out = {k: v for k, v in e.items() if k != "device_kind"}
+    out["provenance"] = {k: v for k, v in e["provenance"].items()
+                         if k != "recompiles"}
+    return out
+
+
+def across_tune(W, base, ckpt_dir) -> dict:
+    """20a. ``tools/tune_table.py``'s sweep on the card into a scratch
+    table, held to the same sweep on the CPU and to the committed rows'
+    decisions; the committed table still gives the card the hand tier."""
+    from ppls_tpu_torch.runtime import tune
+    from ppls_tpu_torch.tools import tune_table
+    paths = {d: os.path.join(ckpt_dir, f"tune_{d}.json")
+             for d in ("card", "cpu")}
+    rec, wall, launches = counted(W, lambda: tune_table.run_sweep(
+        paths["card"], TUNE_BUDGET, device=DEVICE))
+    t0 = time.perf_counter()
+    cpu_rec = tune_table.run_sweep(paths["cpu"], TUNE_BUDGET, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    tables = {}
+    for d, path in paths.items():
+        with open(path, encoding="utf-8") as fh:
+            tables[d] = json.load(fh)["entries"]
+    with open(tune.DEFAULT_TABLE_PATH, encoding="utf-8") as fh:
+        committed = json.load(fh)["entries"]
+    out = {"families": {}}
+    for fam, _eps, _b in tune.TUNE_WORKLOADS:
+        fc = rec["tuning"]["families"][fam]
+        key_cpu = cpu_rec["tuning"]["families"][fam]["key"]
+        card, cpu = tables["card"][fc["key"]], tables["cpu"][key_cpu]
+        com = committed[key_cpu]
+        if _strip_device(card) != _strip_device(cpu):
+            raise AssertionError(f"20a {fam}: the card's entry differs from "
+                                 f"the CPU's: {card} / {cpu}")
+        moves = [(t["moved"], t["accepted"]) for t in
+                 card["provenance"]["path"]]
+        if (card["knobs"] != com["knobs"]
+                or moves != [(t["moved"], t["accepted"])
+                             for t in com["provenance"]["path"]]
+                or any(card["provenance"][k] != com["provenance"][k]
+                       for k in ("trials", "improved"))):
+            raise AssertionError(f"20a {fam}: the card's decisions differ "
+                                 f"from the committed row's")
+        same = _strip_device(card) == _strip_device(com)
+        out["families"][fam] = dict(
+            key=fc["key"], knobs=card["knobs"], baseline=card["baseline"],
+            tuned=card["tuned"], tier_after=fc["tier_after"],
+            recompiles=card["provenance"]["recompiles"],
+            committed_numbers_equal=same)
+        log(f"[smoke] 20a {fam}: {card['provenance']['trials']} trials, "
+            f"knobs {card['knobs']} (the committed row's), baseline "
+            f"{card['baseline']} -> tuned {card['tuned']}; equal to the CPU "
+            f"sweep's entry; every number the committed row's: {same}; tier "
+            f"after the write {fc['tier_after']}, recompiles "
+            f"{card['provenance']['recompiles']}")
+    # the committed table has no row for this card: still the hand tier
+    tiers = {}
+    for fam, eps, _b in ((("flagship", EPS, None),)
+                         + tuple(tune.TUNE_WORKLOADS)):
+        sig = tune.workload_signature(
+            "sin_recip_scaled" if fam == "flagship" else fam, eps,
+            "trapezoid", scout=True, refill_slots=REFILL_SLOTS)
+        tiers[fam] = tune.resolve_cadence_tuned(
+            None, None, True, REFILL_SLOTS, signature=sig,
+            device=DEVICE)[2]
+    k1 = (base["k1_launches"]["run_segment_rf"], base["k1"].kernel_steps)
+    k2 = (base["k2_launches"]["run_segment_ee"], base["k2"].kernel_steps)
+    log(f"[smoke] 20a the sweep on the card: {wall:.1f} s, K1 launches "
+        f"{launches['run_segment_rf']} (K2 {launches['run_segment_ee']}, K3 "
+        f"{launches['run_segment']}); the same sweep on this machine's CPU "
+        f"{cpu_wall:.1f} s; the committed table on the card: tiers {tiers}; "
+        f"phase 4 K1 {k1}, phase 6 K2 {k2} (launches, kernel steps)")
+    if any(t != "default" for t in tiers.values()):
+        raise AssertionError(f"20a: the committed table moved a cadence on "
+                             f"the card: {tiers}")
+    if k1 != K1_MAIN or k2 != K2_MAIN:
+        raise AssertionError(f"20a: phases 4/6 moved: {k1}, {k2}")
+    if launches["run_segment_rf"] <= 0:
+        raise AssertionError("20a: the trials launched no K1")
+    out.update(wall_s=wall, cpu_wall_s=cpu_wall, launches=launches,
+               tiers=tiers, value=rec["value"])
+    return out
+
+
+def sharded_rec(r) -> dict:
+    """What phase 20 prints and keeps of a run across ranks."""
+    m = r.metrics
+    return dict(area=r.area, tasks=m.tasks, splits=m.splits,
+                rounds=m.rounds, tasks_per_chip=m.tasks_per_chip,
+                wall_s=m.wall_time_s, host_syncs=getattr(r, "host_syncs", 0),
+                mesh=getattr(r, "mesh", None))
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def same_counts(what: str, a, b, tol: float, keys=("tasks", "splits",
+                                                  "rounds")) -> float:
+    """Equal counts (and per-rank tasks when both have as many ranks),
+    areas within ``tol`` relative; returns the relative distance."""
+    for k in keys:
+        if getattr(a.metrics, k) != getattr(b.metrics, k):
+            raise AssertionError(f"{what}: {k} {getattr(a.metrics, k)} != "
+                                 f"{getattr(b.metrics, k)}")
+    d = _rel(a.area, b.area)
+    if not d <= tol:
+        raise AssertionError(f"{what}: areas {a.area!r} / {b.area!r}")
+    return d
+
+
+def across_world1(W) -> dict:
+    """20b. The reference problem and OSC_CONFIG through the wavefront on
+    one rank (NCCL, in process), against the host engine; 20d's ring on
+    one rank against phase 17's C counts."""
+    import torch
+    from ppls_tpu_torch.config import OSC_CONFIG, QuadConfig
+    from ppls_tpu_torch.parallel import cubature as C2
+    from ppls_tpu_torch.parallel.sharded import sharded_integrate
+    from ppls_tpu_torch.runtime.host_frontier import integrate
+    out, runs = {}, {}
+    for name, cfg in (("reference", QuadConfig()), ("osc", OSC_CONFIG)):
+        host = integrate(cfg, device=DEVICE)
+        sharded_integrate(cfg, n_devices=1, device=DEVICE)     # warm-up
+        t0 = time.perf_counter()
+        r = sharded_integrate(cfg, n_devices=1, device=DEVICE)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        d = same_counts(f"20b {name} world 1 against the host engine", r,
+                        host, SHARDED_TOL)
+        if name == "reference" and f"{r.area:.6f}" != REF_PRINTED:
+            raise AssertionError(f"20b: {r.area!r}")
+        runs[name] = r
+        out[name] = dict(sharded_rec(r), call_s=call_s, d_host=d,
+                         host_wall_s=host.metrics.wall_time_s)
+        log(f"[smoke] 20b {name} on 1 rank ({r.mesh['backend']}): area "
+            f"{r.area:.6f}, {r.metrics.tasks} tasks in {r.metrics.rounds} "
+            f"rounds (the host engine's; |area - host| / area {d:.3e}, tol "
+            f"{SHARDED_TOL:g}); engine wall {r.metrics.wall_time_s:.4f} s "
+            f"({call_s:.3f} s around the call), host engine "
+            f"{host.metrics.wall_time_s:.4f} s; host syncs {r.host_syncs}; "
+            f"collective calls {r.mesh['collective_calls']} (the "
+            f"reference's sites: {SHARDED_SITES})")
+    ring = C2.integrate_2d_sharded(
+        "gauss2d_ring", BOUNDS_2D, RING_EPS, rule=C2.Rule.TRAPEZOID,
+        n_devices=1, device=DEVICE, **RING_KW)
+    torch.cuda.synchronize()
+    out["ring"] = sharded_rec(ring)
+    return out, runs
+
+
+def across_calls(paths: dict, device: str, card: bool) -> dict:
+    """Phase 20's calls for one world of ``ACROSS_N`` ranks: the wavefront
+    (20c), the 2D bag (20d), the QMC lattice (20e), and on the card the
+    kill-and-resume cases and 20f's in-process twins."""
+    from ppls_tpu_torch.config import OSC_CONFIG, QuadConfig, Rule
+    from ppls_tpu_torch.models.genz import GENZ, genz_params
+    from ppls_tpu_torch.models.integrands import get_integrand_2d
+    from ppls_tpu_torch.parallel import cubature as C2
+    from ppls_tpu_torch.parallel.qmc import integrate_qmc
+    from ppls_tpu_torch.parallel.sharded import (resume_sharded,
+                                                 sharded_integrate)
+    w = dict(n_devices=ACROSS_N, device=device)
+    t2 = dict(TEST_2D, rule=Rule.TRAPEZOID, **w)
+    calls = {
+        "reference": (sharded_integrate, (QuadConfig(),), w),
+        "osc": (sharded_integrate, (OSC_CONFIG,), w),
+        "ring": (C2.integrate_2d_sharded,
+                 ("gauss2d_ring", BOUNDS_2D, RING_PROFILE_EPS),
+                 dict(RING_KW, rule=Rule.TRAPEZOID, **w)),
+        "peak": (C2.integrate_2d_sharded, ("gauss2d_peak", BOUNDS_2D,
+                                           TEST_2D_EPS), t2),
+    }
+    for name in sorted(GENZ):
+        a, u = genz_params(name, QMC_DIM, seed=0)
+        calls[f"qmc_cpu_n/{name}"] = (integrate_qmc, (GENZ[name].fn, a, u),
+                                      dict(n_points=QMC_CPU_N, **w))
+        if card:
+            calls[f"qmc/{name}"] = (integrate_qmc, (GENZ[name].fn, a, u),
+                                    dict(n_points=QMC_N,
+                                         n_shifts=QMC_SHIFTS, **w))
+            calls[f"qmc_cli/{name}"] = (integrate_qmc,
+                                        (GENZ[name].fn, a, u),
+                                        dict(n_points=QMC_CLI_N, **w))
+    if not card:
+        return calls
+    ref = QuadConfig()
+    peak = get_integrand_2d("gauss2d_peak")
+    calls.update({
+        "crash": (sharded_integrate, (ref,),
+                  dict(w, checkpoint_path=paths["wave"],
+                       checkpoint_every=4, _crash_after_legs=2)),
+        "wrong_eps": (resume_sharded, (paths["wave"], ref.replace(eps=1e-4)),
+                      w),
+        "resume": (resume_sharded, (paths["wave"], ref),
+                   dict(w, checkpoint_every=4)),
+        "peak_base": (C2.integrate_2d_sharded,
+                      ("gauss2d_peak", BOUNDS_2D, TEST_2D_RESUME_EPS), t2),
+        "peak_crash": (C2.integrate_2d_sharded,
+                       ("gauss2d_peak", BOUNDS_2D, TEST_2D_RESUME_EPS),
+                       dict(t2, checkpoint_path=paths["2d"],
+                            checkpoint_every=3, _crash_after_legs=2)),
+        "peak_resume": (C2.resume_2d_sharded,
+                        (paths["2d"], "gauss2d_peak", BOUNDS_2D,
+                         TEST_2D_RESUME_EPS), dict(t2, checkpoint_every=3)),
+        # the 2d command's defaults (20f)
+        "cli_2d": (C2.integrate_2d_sharded, ("gauss2d_peak", BOUNDS_2D, 1e-8),
+                   dict(chunk=1 << 12, capacity=1 << 20,
+                        exact=peak.exact(*BOUNDS_2D), **w)),
+    })
+    return calls
+
+
+def across_cli(W, TS, got, ckpt_dir) -> dict:
+    """20f. The three commands, each starting its own world of
+    ``ACROSS_N`` ranks, against the in-process calls of 20c-e."""
+    from ppls_tpu_torch.models.genz import GENZ
+    path = os.path.join(ckpt_dir, "cli_2d.ckpt")
+    n = str(ACROSS_N)
+    out = {}
+    rec, run = cli_json(W, TS, ["--engine", "sharded", "--n-devices", n])
+    want = got["reference"]
+    if (rec["area"] != want.area or rec["tasks"] != want.metrics.tasks
+            or rec["tasks_per_chip"] != want.metrics.tasks_per_chip):
+        raise AssertionError(f"20f --engine sharded: {rec}")
+    out["sharded"] = dict(wall_s=run["wall_s"], area=rec["area"])
+    rec, run = cli_json(W, TS, ["2d", "--n-devices", n, "--checkpoint", path])
+    want = got["cli_2d"]
+    if (rec["area"] != want.area or rec["tasks"] != want.metrics.tasks
+            or os.path.exists(path)):
+        raise AssertionError(f"20f 2d --n-devices: {rec}")
+    out["2d"] = dict(wall_s=run["wall_s"], area=rec["area"])
+    rec, run = cli_json(W, TS, ["qmc", "--n-devices", n])
+    for name in sorted(GENZ):
+        if rec["families"][name]["value"] != got[f"qmc_cli/{name}"].value:
+            raise AssertionError(f"20f qmc --n-devices {name}: {rec}")
+    out["qmc"] = dict(wall_s=run["wall_s"])
+    log(f"[smoke] 20f --engine sharded, 2d --checkpoint and qmc at "
+        f"--n-devices {n}: bit-equal to the in-process calls; CLI walls "
+        f"(each starting its ranks) "
+        f"{ {k: round(v['wall_s'], 2) for k, v in out.items()} } s")
+    return out
+
+
+def phase_across(W, TS, base, report, ckpt_dir, out_dir) -> dict:
+    """20: the tuning search on the card (20a); the single-integral
+    wavefront (20b-c), the 2D bag (20d) and the QMC lattice (20e) across
+    ranks, and their commands (20f)."""
+    import numpy as np
+    from ppls_tpu_torch.models.genz import GENZ, genz_params
+    from ppls_tpu_torch.parallel import mesh as MESH
+    from ppls_tpu_torch.parallel.qmc import integrate_qmc
+    t_phase = time.perf_counter()
+    deadline = Deadline(ACROSS_TIMEOUT)
+    out = {"tune": across_tune(W, base, ckpt_dir)}
+    before = {k.__name__: k.launches for k in (
+        W.run_segment_rf, W.run_segment_ee, W.run_segment)}
+    out["world1"], w1_runs = across_world1(W)
+    w1 = out["world1"]
+    c_ring = report["cubature_2d"]["ring"]["c"]
+    if (w1["ring"]["tasks"], w1["ring"]["splits"]) != (c_ring["tasks"],
+                                                       c_ring["splits"]):
+        raise AssertionError(f"20d: the ring on 1 rank {w1['ring']} against "
+                             f"C's {c_ring['tasks']}/{c_ring['splits']}")
+    one_card = report["cubature_2d"]["pipeline"]["cells_per_s"]
+    ring_rate = w1["ring"]["tasks"] / w1["ring"]["wall_s"]
+    log(f"[smoke] 20d the ring (eps {RING_EPS:g}) on 1 rank: "
+        f"{w1['ring']['tasks']} cells, {w1['ring']['splits']} splits (C's), "
+        f"{w1['ring']['rounds']} rounds, engine wall "
+        f"{w1['ring']['wall_s']:.3f} s: {ring_rate / 1e6:.3f} M cells/s "
+        f"(phase 17c, one device: {one_card / 1e6:.3f}); host syncs "
+        f"{w1['ring']['host_syncs']}")
+
+    paths = {k: os.path.join(ckpt_dir, f"across_{k}.ckpt")
+             for k in ("wave", "2d")}
+    MESH.LAUNCH_TIMEOUT_S = deadline.left()     # the commands' launches too
+    calls = across_calls(paths, DEVICE, True)
+    t0 = time.perf_counter()
+    got = MESH.launch(MESH.run_calls, ACROSS_N, DEVICE,
+                      ([c for c in calls.values()],), timeout=deadline.left())
+    w4_wall = time.perf_counter() - t0
+    got = dict(zip(calls, got))
+    for k, g in got.items():
+        if isinstance(g, Exception) and k not in ("crash", "wrong_eps",
+                                                  "peak_crash"):
+            raise AssertionError(f"20 world {ACROSS_N} {k}: {g!r}")
+    cpu_calls = across_calls(paths, "cpu", False)
+    t0 = time.perf_counter()
+    cpu = dict(zip(cpu_calls, MESH.launch(
+        MESH.run_calls, ACROSS_N, "cpu", ([c for c in cpu_calls.values()],),
+        timeout=deadline.left())))
+    cpu_wall = time.perf_counter() - t0
+    for k, g in cpu.items():
+        if isinstance(g, Exception):
+            raise AssertionError(f"20 CPU world {k}: {g!r}")
+    log(f"[smoke] 20 world {ACROSS_N} on one card (gloo, host-staged: not a "
+        f"multi-GPU rate): {len(calls)} calls in {w4_wall:.1f} s, their "
+        f"start included; the CPU world: {len(cpu_calls)} calls in "
+        f"{cpu_wall:.1f} s")
+
+    # c. the wavefront on 4 ranks: against world 1, the CPU, and resumed
+    out["world4"] = {}
+    for name in ("reference", "osc"):
+        r = got[name]
+        d1 = same_counts(f"20c {name}: 4 ranks against 1", r,
+                         w1_runs[name], SHARDED_TOL)
+        dc = same_counts(f"20c {name}: card against CPU", r, cpu[name],
+                         SHARDED_TOL, keys=("tasks", "splits", "rounds",
+                                            "tasks_per_chip"))
+        out["world4"][name] = dict(sharded_rec(r), d_world1=d1, d_cpu=dc)
+        log(f"[smoke] 20c {name} on {ACROSS_N} ranks: area {r.area:.6f}, "
+            f"{r.metrics.tasks} tasks in {r.metrics.rounds} rounds, per rank "
+            f"{r.metrics.tasks_per_chip}; engine wall "
+            f"{r.metrics.wall_time_s:.4f} s (1 rank "
+            f"{w1[name]['wall_s']:.4f}); host syncs {r.host_syncs}; "
+            f"collective calls {r.mesh['collective_calls']} ({SHARDED_SITES}"
+            f" in the reference); |4 ranks - 1| / area {d1:.3e}, |card - "
+            f"CPU| / area {dc:.3e}")
+    if not isinstance(got["crash"], RuntimeError) \
+            or not isinstance(got["wrong_eps"], ValueError):
+        raise AssertionError(f"20c: {got['crash']!r} / {got['wrong_eps']!r}")
+    res, base4 = got["resume"], got["reference"]
+    if (res.area != base4.area
+            or res.metrics.tasks_per_chip != base4.metrics.tasks_per_chip
+            or os.path.exists(paths["wave"])):
+        raise AssertionError("20c: the resumed wavefront differs")
+    log("[smoke] 20c kill-and-resume on 4 ranks bit-equal; a snapshot of "
+        "another eps refused")
+
+    # d. the 2D bag on 4 ranks: card against CPU, and resumed
+    out["2d"] = {"ring_world1": w1["ring"]}
+    for name in ("ring", "peak"):
+        d = same_counts(f"20d {name}: card against CPU", got[name],
+                        cpu[name], AREA_TOL_2D,
+                        keys=("tasks", "splits", "rounds", "tasks_per_chip"))
+        out["2d"][name] = dict(sharded_rec(got[name]), d_cpu=d)
+        r = got[name]
+        log(f"[smoke] 20d {name} on {ACROSS_N} ranks: {r.metrics.tasks} "
+            f"cells ({r.metrics.splits} splits) in {r.metrics.rounds} "
+            f"rounds, per rank {r.metrics.tasks_per_chip}, engine wall "
+            f"{r.metrics.wall_time_s:.3f} s "
+            f"({r.metrics.tasks / r.metrics.wall_time_s / 1e6:.3f} M "
+            f"cells/s); card = CPU (|area| rel {d:.3e})")
+    res, b2 = got["peak_resume"], got["peak_base"]
+    if (not isinstance(got["peak_crash"], RuntimeError)
+            or res.area != b2.area
+            or res.metrics.tasks_per_chip != b2.metrics.tasks_per_chip
+            or os.path.exists(paths["2d"])):
+        raise AssertionError("20d: the resumed 2D run differs")
+    log("[smoke] 20d kill-and-resume on 4 ranks bit-equal")
+
+    # e. the QMC lattice on 1 and 4 ranks, against phase 18 and the CPU
+    out["qmc"] = {}
+    t1 = t4 = 0.0
+    for name in sorted(GENZ):
+        a, u = genz_params(name, QMC_DIM, seed=0)
+        kw = dict(n_points=QMC_N, n_shifts=QMC_SHIFTS, device=DEVICE)
+        one = integrate_qmc(GENZ[name].fn, a, u, **kw)       # phase 18's
+        r1 = integrate_qmc(GENZ[name].fn, a, u, n_devices=1, **kw)
+        r4 = got[f"qmc/{name}"]
+        t1 += r1.metrics.wall_time_s
+        t4 += r4.metrics.wall_time_s
+        rel = float(np.max(np.abs(r4.estimates - one.estimates)
+                           / np.abs(one.estimates)))
+        rc = float(np.max(np.abs(got[f"qmc_cpu_n/{name}"].estimates
+                                 - cpu[f"qmc_cpu_n/{name}"].estimates)
+                          / np.abs(cpu[f"qmc_cpu_n/{name}"].estimates)))
+        if (not np.array_equal(r1.estimates, one.estimates)
+                or not rel <= QMC_CPU_REL or not rc <= QMC_CPU_REL):
+            raise AssertionError(f"20e {name}: {rel:.3e} / {rc:.3e}")
+        out["qmc"][name] = dict(rel_world1=rel, rel_cpu=rc,
+                                wall4_s=r4.metrics.wall_time_s,
+                                wall1_s=r1.metrics.wall_time_s)
+    pts = 6 * QMC_N * QMC_SHIFTS
+    out["qmc_rates"] = dict(world1=pts / t1, world4=pts / t4)
+    log(f"[smoke] 20e six Genz families at N = 2^22: 4 ranks within "
+        f"{max(v['rel_world1'] for v in out['qmc'].values()):.3e} relative "
+        f"of one card (world 1 bit-equal to phase 18); card = CPU at N = "
+        f"2^16 on 4 ranks; points/s (each rank's own wall, rank 0's): 1 "
+        f"rank {pts / t1 / 1e6:.1f} M, {ACROSS_N} ranks on one card "
+        f"{pts / t4 / 1e6:.1f} M")
+    for k in (W.run_segment_rf, W.run_segment_ee, W.run_segment):
+        if k.launches != before[k.__name__]:
+            raise AssertionError(f"phase 20b-e launched {k.__name__}")
+    out["cli"] = across_cli(W, TS, got, ckpt_dir)
+    deadline.left()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] 20 done in {out['seconds']:.1f} s")
     return out
 
 
@@ -4588,6 +5041,18 @@ def main() -> int:
         shutil.rmtree(dd_dir, ignore_errors=True)
     report["dd"]["kernels"] = dd_cmp
     dd_l = report["dd"]["launches"]
+    # 20. the tuning search on the card (K1); the wavefront, the 2D bag
+    # and the QMC lattice across ranks (no walk kernel)
+    across_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["across"] = phase_across(
+            W, TS, dict(k1=res, k1_launches=launches, k2=res0,
+                        k2_launches=launches0), report, across_dir, out_dir)
+    finally:
+        shutil.rmtree(across_dir, ignore_errors=True)
+    tune_l = report["across"]["tune"]["launches"]
+    if tune_l["run_segment"] != 0:
+        raise AssertionError(f"K3 ran on the tuning sweep: {tune_l}")
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -4659,7 +5124,8 @@ def main() -> int:
             + ckpt_launches["run_segment_rf"]
             + serve_launches["run_segment_rf"]
             + cli_launches["run_segment_rf"]
-            + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"],
+            + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"]
+            + tune_l["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -4670,6 +5136,7 @@ def main() -> int:
             cli_launches=cli_launches["run_segment_rf"],
             bench_launches=bench_launches["run_segment_rf"],
             dd_launches=dd_l["run_segment_rf"], dd=dd_row(dd_cmp["k1"]),
+            tune_launches=tune_l["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -4682,7 +5149,8 @@ def main() -> int:
             + ckpt_launches["run_segment_ee"]
             + serve_launches["run_segment_ee"]
             + cli_launches["run_segment_ee"]
-            + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"],
+            + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"]
+            + tune_l["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],

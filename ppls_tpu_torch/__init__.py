@@ -17,10 +17,14 @@ spillover backend), each with checkpoints and kill-and-resume
 ``runtime/checkpoint.py`` keeps the reference's containers, so either
 package resumes the other's snapshot); the 2D adaptive cubature
 (``integrate_2d``, a rectangle bag) and the 8D Genz suite by
-shifted-lattice QMC (``integrate_qmc``), on one device; the family
-bag and the demand-driven walker across ``n_devices`` ranks on
-``torch.distributed`` (``integrate_family_sharded``,
-``integrate_family_walker_dd``, ``parallel/mesh.py``); the walk
+shifted-lattice QMC (``integrate_qmc``); across ``n_devices`` ranks on
+``torch.distributed`` (``parallel/mesh.py``): the single-integral
+wavefront (``sharded_integrate``, ``resume_sharded``), the family bag
+and the demand-driven walker (``integrate_family_sharded``,
+``integrate_family_walker_dd``), the 2D bag (``integrate_2d_sharded``,
+``resume_2d_sharded``) and the QMC lattice (``integrate_qmc(n_devices=
+)``); the offline tuning search (``tune_workload``, ``measure_trial``,
+``tools/tune_table.py``); the walk
 segments run in hand-written CUDA kernels (``csrc/walk_rf.cu``,
 ``walk_ee.cu``, ``walk_seg.cu``) on the card and in plain PyTorch on
 the CPU. Entry
@@ -39,8 +43,12 @@ from ppls_tpu_torch.parallel.device_engine import device_integrate
 from ppls_tpu_torch.parallel.bag_engine import (FamilyResult,
                                                 integrate_family,
                                                 resume_family)
-from ppls_tpu_torch.parallel.cubature import CubatureResult, integrate_2d
+from ppls_tpu_torch.parallel.cubature import (CubatureResult, integrate_2d,
+                                              integrate_2d_sharded,
+                                              resume_2d_sharded)
 from ppls_tpu_torch.parallel.qmc import QMCResult, integrate_qmc
+from ppls_tpu_torch.parallel.sharded import (ShardedResult, resume_sharded,
+                                             sharded_integrate)
 from ppls_tpu_torch.parallel.sharded_bag import (integrate_family_sharded,
                                                  resume_family_sharded)
 from ppls_tpu_torch.parallel.sharded_walker import (
@@ -49,15 +57,18 @@ from ppls_tpu_torch.parallel.walker import (
     WalkerResult, integrate_family_walker, resume_family_walker)
 from ppls_tpu_torch.runtime.host_frontier import IntegrationResult, integrate
 from ppls_tpu_torch.runtime.stream import StreamEngine, StreamResult
+from ppls_tpu_torch.runtime.tune import measure_trial, tune_workload
 
 __all__ = [
     "Backend", "CubatureResult", "FAMILIES", "FamilyResult", "INTEGRANDS",
-    "IntegrationResult", "QMCResult", "QuadConfig", "Rule", "StreamEngine",
-    "StreamResult", "WalkerResult", "device_integrate", "eval_batch",
-    "eval_interval", "family_exact", "get_family", "get_family_ds",
-    "get_integrand", "integrate", "integrate_2d", "integrate_family",
-    "integrate_family_sharded", "integrate_family_walker",
-    "integrate_family_walker_dd", "integrate_qmc", "register_integrand",
-    "resume_family", "resume_family_sharded", "resume_family_walker",
-    "resume_family_walker_dd",
+    "IntegrationResult", "QMCResult", "QuadConfig", "Rule", "ShardedResult",
+    "StreamEngine", "StreamResult", "WalkerResult", "device_integrate",
+    "eval_batch", "eval_interval", "family_exact", "get_family",
+    "get_family_ds", "get_integrand", "integrate", "integrate_2d",
+    "integrate_2d_sharded", "integrate_family", "integrate_family_sharded",
+    "integrate_family_walker", "integrate_family_walker_dd",
+    "integrate_qmc", "measure_trial", "register_integrand",
+    "resume_2d_sharded", "resume_family", "resume_family_sharded",
+    "resume_family_walker", "resume_family_walker_dd", "resume_sharded",
+    "sharded_integrate", "tune_workload",
 ]

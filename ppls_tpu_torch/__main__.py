@@ -10,7 +10,8 @@ The port's copy of the JAX package's ``__main__.py``:
   reference's name for the accelerator path, here the card), ``mpi``
   (the C farmer/worker program) or ``spillover`` (float64 bag rounds on
   the host CPU, where the reference pins that arm), ``--checkpoint`` on
-  the host engine, ``--json``;
+  the host engine, ``--engine sharded`` (the wavefront across
+  ``--n-devices`` ranks, ``parallel/sharded.py``), ``--json``;
 * ``family`` integrates a batch of family members with the float64 bag
   (``--engine bag``) or the walker (``--engine walker``: K1 with
   ``--refill-slots`` > 0, K2 with 0), with ``--checkpoint``,
@@ -23,19 +24,22 @@ The port's copy of the JAX package's ``__main__.py``:
   verdict of ``--metrics-port``), ``--adapt``, ``--events``,
   ``--metrics-port`` and ``--ingest-port``;
 * ``2d`` integrates a registered 2D integrand with the rectangle bag
-  (``parallel/cubature.py``), Simpson or trapezoid, ``--json``;
+  (``parallel/cubature.py``), Simpson or trapezoid, on one device or,
+  with ``--n-devices N``, across N ranks (``--checkpoint`` then
+  snapshots and resumes), ``--json``;
 * ``qmc`` integrates the 8D Genz suite (or one family) with the shifted
-  rank-1 lattice (``parallel/qmc.py``), ``--json``.
+  rank-1 lattice (``parallel/qmc.py``), on one device or across
+  ``--n-devices`` ranks, ``--json``.
 
 ``--trace DIR`` wraps any mode in a ``torch.profiler`` capture. The
 parsers are the reference's, flag for flag, plus ``--device`` (default
 ``cuda``; without a card a command that runs an engine on it exits
-non-zero unless ``--device cpu`` is given). ``family --engine
-sharded-bag|sharded-walker|sharded-walker-dd`` run ``--n-devices`` ranks
-(``parallel/mesh.py``; several ranks share one card over gloo). The
-options not ported yet (``--engine sharded``, ``2d --n-devices``, ``qmc
---n-devices`` above 1, and serve's multi-chip, cluster and dispatcher
-options) exit non-zero naming their ROADMAP.md item.
+non-zero unless ``--device cpu`` is given). ``--engine sharded``,
+``family --engine sharded-bag|sharded-walker|sharded-walker-dd``, ``2d
+--n-devices`` and ``qmc --n-devices`` run ranks (``parallel/mesh.py``;
+several ranks share one card over gloo). The options not ported yet
+(serve's multi-chip, cluster and dispatcher options) exit non-zero
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -43,9 +47,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-_SHARDED = "item 8"
-
 
 def _not_ported(what: str, item: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to ppls_tpu_torch yet "
@@ -163,7 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
                    default="host",
                    help="host: unbounded frontier, host loop; device: the "
                         "frontier on the device, one read per 16 rounds; "
-                        "sharded: multi-chip (not ported)")
+                        "sharded: the wavefront across --n-devices ranks")
     p.add_argument("--backend", choices=["jax", "mpi", "spillover"],
                    default="jax",
                    help="jax: the engines on --device (the reference's "
@@ -291,7 +292,7 @@ def build_parser() -> argparse.ArgumentParser:
     t2d.add_argument("--capacity", type=int, default=1 << 20)
     t2d.add_argument("--n-devices", type=int, default=None,
                      help="run the sharded engine over this many chips "
-                          "(not ported; default: the one-device engine)")
+                          "(default: the one-device engine)")
     t2d.add_argument("--checkpoint", default=None,
                      help="snapshot path (sharded engine only); resumes "
                           "from it if it exists")
@@ -609,7 +610,7 @@ def build_parser() -> argparse.ArgumentParser:
     qmc.add_argument("--seed", type=int, default=0,
                      help="Genz parameter draw seed")
     qmc.add_argument("--n-devices", type=int, default=None,
-                     help="more than one device is not ported")
+                     help="split the lattice over this many chips")
     qmc.add_argument("--json", action="store_true", dest="as_json")
     qmc.add_argument("--device", default=argparse.SUPPRESS,
                      help="the device the lattice runs on (default: the "
@@ -1293,8 +1294,8 @@ def _main_single(args) -> int:
         from ppls_tpu_torch.backends import run_spillover_single
         res = run_spillover_single(cfg)
     elif args.engine == "sharded":
-        raise _not_ported("the sharded engine (--engine sharded)",
-                          _SHARDED)
+        from ppls_tpu_torch.parallel.sharded import sharded_integrate
+        res = sharded_integrate(cfg, device=_resolve(args, "integrate"))
     elif args.engine == "host":
         from ppls_tpu_torch.runtime.host_frontier import integrate
         device = _resolve(args, "integrate")
@@ -1349,22 +1350,33 @@ def _main_single(args) -> int:
 def _main_2d(args) -> int:
     from ppls_tpu_torch.config import Rule
     from ppls_tpu_torch.models.integrands import get_integrand_2d
-    from ppls_tpu_torch.parallel.cubature import integrate_2d
+    from ppls_tpu_torch.parallel import cubature as C
 
-    if args.n_devices:
-        raise _not_ported("the sharded 2D engine (2d --n-devices)",
-                          _SHARDED)
-    if args.checkpoint:
-        raise SystemExit(
-            "--checkpoint on the 2d mode requires --n-devices (only "
-            "the sharded 2D engine snapshots; the single-chip run "
-            "is one uninterruptible device program)")
     entry = get_integrand_2d(args.integrand)
     exact = entry.exact(*args.bounds) if entry.exact else None
-    res = integrate_2d(entry.fn, args.bounds, args.eps,
-                       rule=Rule(args.rule), chunk=args.chunk,
-                       capacity=args.capacity, exact=exact,
-                       device=_resolve(args, "2d"))
+    ckpt = args.checkpoint
+    if args.n_devices:
+        import os
+
+        kw2 = dict(rule=Rule(args.rule), chunk=args.chunk,
+                   capacity=args.capacity, exact=exact,
+                   n_devices=args.n_devices, device=_resolve(args, "2d"))
+        if ckpt and os.path.exists(ckpt):
+            res = C.resume_2d_sharded(ckpt, entry.fn, args.bounds,
+                                      args.eps, **kw2)
+        else:
+            res = C.integrate_2d_sharded(entry.fn, args.bounds, args.eps,
+                                         checkpoint_path=ckpt, **kw2)
+    else:
+        if ckpt:
+            raise SystemExit(
+                "--checkpoint on the 2d mode requires --n-devices (only "
+                "the sharded 2D engine snapshots; the single-chip run "
+                "is one uninterruptible device program)")
+        res = C.integrate_2d(entry.fn, args.bounds, args.eps,
+                             rule=Rule(args.rule), chunk=args.chunk,
+                             capacity=args.capacity, exact=exact,
+                             device=_resolve(args, "2d"))
     m = res.metrics
     if args.as_json:
         print(json.dumps({
@@ -1386,20 +1398,31 @@ def _main_qmc(args) -> int:
     from ppls_tpu_torch.models.genz import GENZ, genz_params, get_genz
     from ppls_tpu_torch.parallel.qmc import integrate_qmc
 
-    if args.n_devices is not None and args.n_devices > 1:
-        raise _not_ported("the QMC lattice across devices (qmc "
-                          "--n-devices > 1)", _SHARDED)
     device = _resolve(args, "qmc")
     names = sorted(GENZ) if args.genz == "all" else [args.genz]
-    rows = []
+    calls = []
     for name in names:
         fam = get_genz(name)
         a, u = genz_params(name, args.dim, seed=args.seed)
-        exact = fam.exact(a, u)
-        r = integrate_qmc(fam.fn, a, u, n_points=args.n,
-                          n_shifts=args.shifts, n_devices=args.n_devices,
-                          exact=exact, device=device)
-        rel = abs(r.value - exact) / max(abs(exact), 1e-300)
+        calls.append((integrate_qmc, (fam.fn, a, u), dict(
+            n_points=args.n, n_shifts=args.shifts, fn_name=name,
+            n_devices=args.n_devices, exact=fam.exact(a, u),
+            device=device)))
+    import torch.distributed as dist
+    if (args.n_devices is not None and args.n_devices > 1
+            and not dist.is_initialized()):
+        # one world of ranks runs every family (a call of its own would
+        # start the ranks once per family)
+        from ppls_tpu_torch.parallel.mesh import launch, run_calls
+        results = launch(run_calls, args.n_devices, device, (calls,))
+        for r in results:
+            if isinstance(r, Exception):
+                raise r
+    else:
+        results = [fn(*fargs, **kw) for fn, fargs, kw in calls]
+    rows = []
+    for name, r in zip(names, results):
+        rel = abs(r.value - r.exact) / max(abs(r.exact), 1e-300)
         rows.append((name, r, rel))
     if args.as_json:
         print(json.dumps({

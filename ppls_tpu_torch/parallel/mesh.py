@@ -213,6 +213,9 @@ def _rank_main(rank: int, n: int, port: int, backend: str, device,
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
         _init_rank(backend, device, rank, n, timeout,
                    f"tcp://127.0.0.1:{port}")
+        # every rank finishes connecting before any can fail and close
+        # its end (a peer still connecting would report that instead)
+        dist.barrier()
         fn = functools.reduce(getattr, target[1].split("."),
                               importlib.import_module(target[0]))
         res = fn(*args, **kwargs)

@@ -1854,7 +1854,9 @@ class WalkerResult:
             "buckets": buckets,
             "lane_steps": lane_steps,
             "reconciles": sum(buckets.values()) == lane_steps,
-            "dominant_waste": max(waste_only, key=waste_only.get),
+            # None when no lane-step was wasted (the reference's rule)
+            "dominant_waste": (max(waste_only, key=waste_only.get)
+                               if any(waste_only.values()) else None),
         }
 
     def occupancy_summary(self) -> Optional[dict]:

@@ -1,7 +1,16 @@
-"""The tuning-table cadence tier and online adaptation: the port's copy
-of the JAX package's ``runtime/tune.py``, its resolution and online
-layers.
+"""The tuning table: its offline search, its cadence tier and online
+adaptation, the port's copy of the JAX package's ``runtime/tune.py``.
 
+* **Offline search** (:func:`tune_workload`, driven by
+  ``ppls_tpu_torch/tools/tune_table.py``): a staged coordinate-descent
+  sweep seeded from the hand defaults. The waste attribution of the best
+  configuration so far picks the next knob to move through
+  :data:`BUCKET_KNOB_MAP`; a candidate is kept when it Pareto-beats the
+  best on the device-counted proxies (:func:`pareto_improves`). Each
+  trial (:func:`measure_trial`) runs the port's walker on its device
+  with the cadence passed explicitly, so the table being written never
+  steers the sweep. Entries land in a table keyed by workload signature
+  and device kind (:func:`update_table`, :func:`write_table`).
 * **Table-driven resolution** (:func:`resolve_cadence_tuned`, reached
   through ``walker.resolve_cadence``, the one surface the walker and
   the stream share): explicit values, else the committed tuning table
@@ -20,11 +29,13 @@ layers.
   step per phase, so the trajectory is a function of the schedule;
   the adapter's state rides the stream snapshot.
 
-Not here: the offline search that writes table rows and the
-attribution-to-knob recommendation (ROADMAP.md Queue 1, F3).
+The search writes only where it is told: the committed
+``tools/tuning_table.json`` is the JAX package's, and the port's tool
+refuses to write it.
 
 Host-only: the module imports only the stdlib at import time
-(:func:`device_kind` imports torch when called).
+(:func:`device_kind` and :func:`measure_trial` import torch and the
+walker when called).
 """
 
 from __future__ import annotations
@@ -32,13 +43,61 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# the shared dominant-bucket -> knob map
+# ---------------------------------------------------------------------------
+
+# which knob the search moves when a waste bucket dominates, and what the
+# attribution printers recommend (one definition):
+#   refill_stall   -> the bank deal: more slots / double-buffer swap
+#   masked_dead    -> the exit/suspend cadence thresholds
+#   theta_overwalk -> the theta batch width
+#   drain_tail     -> the breed target (roots_per_lane) / the dd reshard
+#                     window
+BUCKET_KNOB_MAP: Dict[str, Tuple[str, ...]] = {
+    "refill_stall": ("refill_slots", "double_buffer"),
+    "masked_dead": ("exit_frac", "suspend_frac"),
+    "theta_overwalk": ("theta_block",),
+    "drain_tail": ("roots_per_lane", "reshard_window"),
+}
+
+# human hint per bucket, printed next to the knob names
+BUCKET_KNOB_HINTS: Dict[str, str] = {
+    "refill_stall": "raise the in-kernel bank deal (refill_slots) or "
+                    "enable the double-buffer swap cadence",
+    "masked_dead": "tighten the exit/suspend cadence thresholds",
+    "theta_overwalk": "shrink theta_block (union-refinement overwalk "
+                      "outruns the batch win)",
+    "drain_tail": "raise the breed target (roots_per_lane sets it via "
+                  "walker_sizing) or shrink the dd reshard window",
+}
+
+
+def recommend_knob(attribution: Optional[dict]) -> Optional[dict]:
+    """The search's recommendation for an attribution record
+    (``WalkerResult.attribution()``): which knob(s) to move for the
+    dominant waste bucket, from :data:`BUCKET_KNOB_MAP`. None when there
+    is nothing to attack (fully eval-active)."""
+    if not isinstance(attribution, dict):
+        return None
+    dom = attribution.get("dominant_waste")
+    if dom is None or dom == "eval_active" or dom not in BUCKET_KNOB_MAP:
+        return None
+    return {
+        "bucket": dom,
+        "knobs": list(BUCKET_KNOB_MAP[dom]),
+        "hint": BUCKET_KNOB_HINTS[dom],
+    }
+
 
 # ---------------------------------------------------------------------------
 # workload signatures + the committed table
 # ---------------------------------------------------------------------------
 
 TABLE_SCHEMA = "ppls-tuning-table-v1"
+ENTRY_SCHEMA = "ppls-tuning-entry-v1"
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -303,6 +362,258 @@ def resolve_cadence_tuned(exit_frac: Optional[float],
         tier=tier, key=key, exit_frac=exit_frac,
         suspend_frac=suspend_frac, signature=signature)
     return exit_frac, suspend_frac, tier
+
+
+# ---------------------------------------------------------------------------
+# offline search: staged coordinate descent on the quick proxies
+# ---------------------------------------------------------------------------
+
+# the sweep's trial context: flagship mode (scout + in-kernel refill +
+# double buffer) at a small sizing, big enough that the attribution
+# buckets are populated; roots_per_lane sits above the bench-quick
+# sizing so the breed-target lever has room to move
+TUNE_SIZING = dict(capacity=1 << 16, lanes=256, roots_per_lane=8,
+                   refill_slots=4, seg_iters=32, min_active_frac=0.05,
+                   scout_dtype="f32", double_buffer=True)
+TUNE_M = 8
+
+# the tune workloads (family, eps, bounds): tolerances at which the walk
+# phase engages at the trial sizing (sin_scaled converges in breed
+# rounds alone above ~1e-8)
+TUNE_WORKLOADS = (
+    ("sin_recip_scaled", 1e-7, (1e-2, 1.0)),
+    ("sin_scaled", 1e-9, (0.0, 1.0)),
+    ("cosh4_scaled", 1e-8, (0.0, 1.0)),
+)
+
+# value domains of the sweepable knobs (theta_block and reshard_window
+# are in BUCKET_KNOB_MAP for the recommendation, but theta band 1 and a
+# one-device mesh cannot measure them)
+KNOB_DOMAINS: Dict[str, Tuple] = {
+    "exit_frac": (0.80, 0.90, 0.95, 0.98),
+    "suspend_frac": (0.50, 0.65, 0.80),
+    "refill_slots": (2, 4, 8),
+    "double_buffer": (True, False),
+    "roots_per_lane": (4, 8, 12),
+}
+
+# the order once the dominant bucket's own knobs are exhausted: the sweep
+# keeps spending its budget instead of stalling
+_SWEEP_ORDER = ("exit_frac", "suspend_frac", "refill_slots",
+                "double_buffer", "roots_per_lane")
+
+
+def valid_knob_combo(knobs: dict) -> bool:
+    """The walker's own constraints on a knob combination (it refuses
+    the others), so the sweep spends no trial on them."""
+    if knobs["refill_slots"] > knobs["roots_per_lane"]:
+        return False
+    if knobs["double_buffer"] and (
+            knobs["refill_slots"] < 2 or knobs["refill_slots"] % 2):
+        return False
+    if knobs["suspend_frac"] >= knobs["exit_frac"]:
+        return False
+    return True
+
+
+def pareto_improves(cand: dict, base: dict) -> bool:
+    """The "beats the hand default" contract: lane efficiency does not
+    drop, kernel steps do not grow, and at least one strictly improves;
+    the waste buckets must reconcile."""
+    if not cand.get("reconciles", False):
+        return False
+    ce, be = float(cand["lane_efficiency"]), float(base["lane_efficiency"])
+    cs, bs = int(cand["kernel_steps"]), int(base["kernel_steps"])
+    return ce >= be and cs <= bs and (ce > be or cs < bs)
+
+
+def measure_trial(family: str, eps: float, bounds, sizing: dict,
+                  knobs: dict, device="cuda") -> dict:
+    """One sweep trial: the port's walker on ``device`` with the
+    candidate knob values (the cadence passed explicitly, so no table
+    reaches the trial), returning the device-counted quick proxies.
+    ``recompiles`` counts the kernel libraries ``utils/cuda_build.py``
+    compiled during the trial: 0 on the CPU, and 0 once the build
+    directory holds the kernels (the JAX package counts its jit cache's
+    growth instead, so the two counts are not comparable)."""
+    import numpy as np
+
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    from ppls_tpu_torch.parallel.walker import integrate_family_walker
+    from ppls_tpu_torch.utils import cuda_build
+
+    kw = dict(sizing)
+    kw.pop("refill_slots", None)
+    kw.pop("double_buffer", None)
+    kw.pop("roots_per_lane", None)
+    theta = 1.0 + np.arange(TUNE_M) / float(TUNE_M)
+    builds0 = cuda_build.builds_done()
+    r = integrate_family_walker(
+        get_family(family), get_family_ds(family), theta, bounds,
+        float(eps),
+        exit_frac=float(knobs["exit_frac"]),
+        suspend_frac=float(knobs["suspend_frac"]),
+        refill_slots=int(knobs["refill_slots"]),
+        double_buffer=bool(knobs["double_buffer"]),
+        roots_per_lane=int(knobs["roots_per_lane"]),
+        device=device, **kw)
+    attr = r.attribution() or {}
+    return {
+        "tasks": int(r.metrics.tasks),
+        "cycles": int(r.cycles),
+        "kernel_steps": int(r.kernel_steps),
+        "lane_efficiency": round(float(r.lane_efficiency), 6),
+        "dominant_waste": attr.get("dominant_waste"),
+        "reconciles": bool(attr.get("reconciles", False)),
+        "recompiles": cuda_build.builds_done() - builds0,
+    }
+
+
+def _knob_key(knobs: dict) -> tuple:
+    return tuple(sorted((k, knobs[k]) for k in knobs))
+
+
+def _next_candidate(best_knobs: dict, best_proxies: dict,
+                    tried: set) -> Optional[Tuple[str, object]]:
+    """The staged coordinate picker: the dominant waste bucket of the
+    best configuration so far names the next knob through
+    :data:`BUCKET_KNOB_MAP`; its untried domain values go first, then
+    the remaining sweepable knobs in stable order."""
+    dom = best_proxies.get("dominant_waste")
+    order: List[str] = []
+    for k in BUCKET_KNOB_MAP.get(dom, ()):
+        if k in KNOB_DOMAINS:
+            order.append(k)
+    for k in _SWEEP_ORDER:
+        if k not in order:
+            order.append(k)
+    for knob in order:
+        for v in KNOB_DOMAINS[knob]:
+            cand = dict(best_knobs)
+            cand[knob] = v
+            if not valid_knob_combo(cand):
+                continue
+            if _knob_key(cand) in tried:
+                continue
+            return knob, v
+    return None
+
+
+def tune_workload(family: str, eps: float, bounds, *,
+                  rule: str = "trapezoid",
+                  sizing: Optional[dict] = None,
+                  budget: int = 8, seed: int = 0,
+                  measure: Optional[Callable[[dict], dict]] = None,
+                  device="cuda") -> dict:
+    """The staged sweep for one workload signature: coordinate descent
+    seeded from the hand defaults, the attribution-picked knob order,
+    Pareto acceptance (:func:`pareto_improves`), ``budget`` trials
+    including the baseline. Deterministic given (seed, signature,
+    measurement): no randomness is consumed, the seed is provenance.
+
+    ``device`` is the device the trials run on (CUDA by default; raises
+    without a card unless ``device="cpu"``); the entry's ``device_kind``
+    is :func:`device_kind` of it. ``measure`` injects the trial runner
+    (the tests stub it); the default is :func:`measure_trial`."""
+    sizing = dict(TUNE_SIZING if sizing is None else sizing)
+    scout = sizing.get("scout_dtype") == "f32"
+    de, ds = hand_cadence_defaults(scout, sizing.get("refill_slots", 0))
+    base_knobs = {
+        "exit_frac": de, "suspend_frac": ds,
+        "refill_slots": int(sizing.get("refill_slots", 4)),
+        "double_buffer": bool(sizing.get("double_buffer", True)),
+        "roots_per_lane": int(sizing.get("roots_per_lane", 8)),
+    }
+    if measure is None:
+        def measure(knobs):
+            return measure_trial(family, eps, bounds, sizing, knobs,
+                                 device=device)
+    sig = workload_signature(
+        family, eps, rule, theta_block=1, mesh_shape=1, scout=scout,
+        refill_slots=base_knobs["refill_slots"])
+    kind = device_kind(device)
+
+    base_p = measure(base_knobs)
+    trials = [{"knobs": dict(base_knobs), "proxies": base_p,
+               "accepted": True, "moved": None}]
+    tried = {_knob_key(base_knobs)}
+    best_knobs, best_p = dict(base_knobs), base_p
+    recompiles = int(base_p.get("recompiles", 0))
+    while len(trials) < max(1, int(budget)):
+        nxt = _next_candidate(best_knobs, best_p, tried)
+        if nxt is None:
+            break
+        knob, value = nxt
+        cand = dict(best_knobs)
+        cand[knob] = value
+        tried.add(_knob_key(cand))
+        p = measure(cand)
+        recompiles += int(p.get("recompiles", 0))
+        accepted = pareto_improves(p, best_p)
+        trials.append({"knobs": cand, "proxies": p,
+                       "accepted": accepted,
+                       "moved": {"knob": knob, "value": value,
+                                 "bucket": best_p.get(
+                                     "dominant_waste")}})
+        if accepted:
+            best_knobs, best_p = cand, p
+
+    def _prox(p):
+        return {"tasks": int(p["tasks"]),
+                "kernel_steps": int(p["kernel_steps"]),
+                "lane_efficiency": float(p["lane_efficiency"])}
+
+    return {
+        "schema": ENTRY_SCHEMA,
+        "signature": sig,
+        "device_kind": kind,
+        "knobs": {k: best_knobs[k] for k in sorted(best_knobs)},
+        "baseline": _prox(base_p),
+        "tuned": _prox(best_p),
+        "provenance": {
+            "trials": len(trials),
+            "recompiles": recompiles,
+            "reconciles": bool(best_p.get("reconciles", False)
+                               and base_p.get("reconciles", False)),
+            "seed": int(seed),
+            "budget": int(budget),
+            "improved": pareto_improves(best_p, base_p),
+            "eps": float(eps),
+            "bounds": [float(bounds[0]), float(bounds[1])],
+            "sizing": {k: sizing[k] for k in sorted(sizing)},
+            "path": [
+                {"moved": t["moved"], "accepted": t["accepted"],
+                 "kernel_steps": int(t["proxies"]["kernel_steps"]),
+                 "lane_efficiency": float(
+                     t["proxies"]["lane_efficiency"])}
+                for t in trials[1:]],
+        },
+    }
+
+
+def entry_key(entry: dict) -> str:
+    return signature_key(entry["signature"], entry["device_kind"])
+
+
+def update_table(table: Optional[dict], entry: dict) -> dict:
+    """Insert or replace one entry; creates the table envelope when
+    needed. Returns the (mutated) table."""
+    if not isinstance(table, dict) or table.get("schema") != TABLE_SCHEMA:
+        table = {"schema": TABLE_SCHEMA, "entries": {}}
+    table.setdefault("entries", {})[entry_key(entry)] = entry
+    return table
+
+
+def write_table(path: str, table: dict) -> None:
+    """Write ``table`` to ``path`` atomically and drop the path's mtime
+    cache entry, so a rewrite within the same second is read anew."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        json.dump(table, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    os.replace(tmp, path)
+    _TABLE_CACHE.pop(path, None)
+
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Schema checks for the serve contract's documents: the telemetry
-event log (``serve --events``) and the serve stdout ledger.
+"""Schema checks for the serve contract's documents (the telemetry
+event log of ``serve --events`` and the serve stdout ledger) and for
+tuning tables.
 
 The port's copy of the part of the JAX package's
 ``utils/artifact_schema.py`` that ``python -m ppls_tpu_torch serve``
@@ -8,8 +9,9 @@ and ``chip_smoke.py`` read (host-only Python, unchanged):
 kinds, required keys, per-segment monotonic timestamps, span-nesting
 balance), :func:`validate_serve_output_text` the retire/shed/rejection
 records and the summary's accounting, and :func:`dedup_by_rid` collapses
-the lines a resume replays. The bench-record, graftlint and tuning-table
-validators stay in the reference.
+the lines a resume replays; :func:`validate_tuning_table_json` checks a
+tuning table (``tools/tune_table.py``'s output). The bench-record and
+graftlint validators stay in the reference.
 """
 
 from __future__ import annotations
@@ -318,3 +320,98 @@ def dedup_by_rid(records: List[dict]) -> List[dict]:
     """Replay dedup keyed on the request id — the common case: one
     retire/shed event per rid survives, replays collapse."""
     return dedup_replayed(records, lambda r: r.get("rid"))
+
+
+def validate_tuning_table_json(doc, where: str = "tuning") -> List[str]:
+    """Validate a tuning-table document (``tools/tune_table.py``'s
+    output, or the committed table): the knob store the cadence
+    resolution reads. Each entry must carry its full signature (the key
+    string must round-trip from it), the tuned knob values, baseline and
+    tuned quick proxies, and the sweep's provenance (trial count,
+    recompile count, reconciliation status, seed, budget): a table whose
+    provenance is missing cannot be audited. Returns the problems found,
+    in the JAX package's wording; an empty list means valid."""
+    problems: List[str] = []
+    if not isinstance(doc, dict):
+        return [f"{where}: document is not a JSON object"]
+    if doc.get("schema") != "ppls-tuning-table-v1":
+        problems.append(f"{where}: schema != 'ppls-tuning-table-v1' "
+                        f"({doc.get('schema')!r})")
+    entries = doc.get("entries")
+    if not isinstance(entries, dict):
+        return problems + [f"{where}: 'entries' must be an object"]
+    sig_fields = ("family", "eps_band", "rule", "theta_band",
+                  "mesh_shape", "mode")
+    for key in sorted(entries):
+        e = entries[key]
+        w = f"{where}: entries[{key!r}]"
+        if not isinstance(e, dict):
+            problems.append(f"{w}: not an object")
+            continue
+        if e.get("schema") != "ppls-tuning-entry-v1":
+            problems.append(f"{w}: entry schema != "
+                            f"'ppls-tuning-entry-v1'")
+        sig = e.get("signature")
+        if not isinstance(sig, dict):
+            problems.append(f"{w}: missing 'signature'")
+        else:
+            for k in sig_fields:
+                if k not in sig:
+                    problems.append(f"{w}: signature lacks {k!r}")
+            dev = e.get("device_kind")
+            if not isinstance(dev, str) or not dev:
+                problems.append(f"{w}: missing 'device_kind'")
+            elif all(k in sig for k in sig_fields):
+                expect = "|".join(
+                    [f"{k}={sig[k]}" for k in sig_fields]
+                    + [f"device={dev}"])
+                if key != expect:
+                    problems.append(f"{w}: key does not round-trip "
+                                    f"from its signature ({expect!r})")
+        knobs = e.get("knobs")
+        if not isinstance(knobs, dict) or not knobs:
+            problems.append(f"{w}: missing 'knobs'")
+        for blk in ("baseline", "tuned"):
+            b = e.get(blk)
+            if not isinstance(b, dict):
+                problems.append(f"{w}: missing {blk!r} proxies")
+                continue
+            for k in ("tasks", "kernel_steps", "lane_efficiency"):
+                v = b.get(k)
+                if not isinstance(v, (int, float)) \
+                        or isinstance(v, bool) or v < 0:
+                    problems.append(f"{w}: {blk}.{k} missing or "
+                                    f"non-numeric")
+        prov = e.get("provenance")
+        if not isinstance(prov, dict):
+            problems.append(f"{w}: missing 'provenance'")
+            continue
+        for k, t in (("trials", int), ("recompiles", int),
+                     ("reconciles", bool), ("seed", int),
+                     ("budget", int), ("improved", bool)):
+            if not isinstance(prov.get(k), t) \
+                    or (t is int and isinstance(prov.get(k), bool)):
+                problems.append(f"{w}: provenance.{k} missing/invalid")
+        if isinstance(prov.get("trials"), int) \
+                and not isinstance(prov.get("trials"), bool) \
+                and prov["trials"] < 1:
+            problems.append(f"{w}: provenance.trials < 1")
+        path = prov.get("path")
+        if not isinstance(path, list):
+            problems.append(f"{w}: provenance.path must be a list")
+        elif isinstance(prov.get("trials"), int) \
+                and not isinstance(prov.get("trials"), bool) \
+                and len(path) != prov["trials"] - 1:
+            problems.append(
+                f"{w}: provenance.path has {len(path)} move(s) but "
+                f"trials={prov['trials']} (expected trials - 1)")
+    return problems
+
+
+def validate_tuning_table_text(text: str,
+                               where: str = "tuning") -> List[str]:
+    try:
+        doc = json.loads(text)
+    except json.JSONDecodeError as e:
+        return [f"{where}: unparseable JSON: {e}"]
+    return validate_tuning_table_json(doc, where=where)

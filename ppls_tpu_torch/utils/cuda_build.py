@@ -38,6 +38,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 HOST_FLAGS = ("-O2", "-ffp-contract=off", "-std=c++20", "-shared", "-fPIC")
 DEVICE_HEADERS = (CSRC / "walk_step.cuh", CSRC / "walk_grid.cuh")
 
+# libraries this process compiled (a warm build directory compiles none)
+_BUILDS = {"n": 0}
+
+
+def builds_done() -> int:
+    """How many libraries this process has compiled so far."""
+    return _BUILDS["n"]
+
 
 class BuiltLib(NamedTuple):
     lib: ctypes.CDLL
@@ -110,6 +118,7 @@ def _compile(name: str, compiler: str, cmd: Sequence[str],
             f"(exit {proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)
+    _BUILDS["n"] += 1
     return seconds
 
 

@@ -26,9 +26,11 @@
   ``--n-devices 4`` (gloo ranks on the CPU; the reference on 4 of its 8
   host devices), with the walker patched to 256 lanes in both packages
   as above; the JSON lines as for ``family``.
-* The refusals that stay (``--engine sharded``, ``2d --n-devices`` and
-  ``qmc --n-devices 2``), and without a card and without ``--device
-  cpu`` both commands exit non-zero before they run.
+* ``--engine sharded``, ``2d --n-devices 2`` and ``qmc --n-devices 2``
+  run on 2 gloo ranks (one spawned world runs the three commands): the
+  golden area with a two-rank histogram, the 2D default problem's cells
+  and the lattice's estimates of the one-device run; without a card and
+  without ``--device cpu`` both commands exit non-zero before they run.
 """
 
 import contextlib
@@ -46,6 +48,7 @@ from ppls_tpu.parallel import sharded_walker as RSW
 from ppls_tpu.parallel import walker as RW
 from ppls_tpu_torch import __main__ as CLI
 from ppls_tpu_torch.parallel import sharded_walker as TSW
+from ppls_tpu_torch.parallel.mesh import launch, run_calls
 from ppls_tpu_torch.parallel import walker as TW
 from ppls_tpu_torch.utils import tracing
 
@@ -426,21 +429,41 @@ def test_trace_real_capture(tmp_path, argv):
 # refusals and the device
 # ---------------------------------------------------------------------------
 
-REFUSED = {
-    "sharded": (["--engine", "sharded"], "item 8"),
-    "2d": (["2d", "--n-devices", "2"], "item 8"),
-    "qmc": (["qmc", "--n-devices", "2"], "item 8"),
+ACROSS = {
+    "sharded": ["--engine", "sharded", "--n-devices", "2"],
+    "2d": ["2d", "--n-devices", "2"],
+    "qmc": ["qmc", "--n-devices", "2", "--n", "65536", "--genz",
+            "gaussian", "--json"],
 }
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_unported_engines_and_modes_exit_nonzero(name, capsys):
-    argv, what = REFUSED[name]
-    with pytest.raises(SystemExit) as ei:
-        CLI.main(argv + ["--device", "cpu"])
-    assert what in str(ei.value.code)
-    assert "ROADMAP.md Queue 1" in str(ei.value.code)
-    assert capsys.readouterr().out == ""
+@pytest.fixture(scope="module")
+def across():
+    """The three commands in one spawned world of 2 gloo ranks."""
+    import torch_mesh_jobs as J
+    calls = [(J.cli_output, (argv + ["--device", "cpu"],), {})
+             for argv in ACROSS.values()]
+    return dict(zip(ACROSS, launch(run_calls, 2, "cpu", (calls,),
+                                   timeout=600)))
+
+
+@pytest.mark.parametrize("name", list(ACROSS))
+def test_sharded_engines_and_modes_run(name, across):
+    rc, out = across[name]
+    assert rc == 0
+    if name == "sharded":
+        assert out.startswith("Area=7583461.801486\n")
+        assert "Tasks Per Chip\n0\t1\n3284\t3283\n" in out
+        assert "Tasks: 6567 (3283 splits, 3284 leaves) in 15 rounds" in out
+    elif name == "2d":
+        assert "Cells: 213 (53 splits) in 7 rounds, depth 6" in out
+    else:
+        _, one = _run(CLI, ACROSS["qmc"][:1] + ACROSS["qmc"][3:]
+                      + ["--device", "cpu"])
+        got = json.loads(out.strip().splitlines()[-1])["families"]
+        want = json.loads(one.strip().splitlines()[-1])["families"]
+        assert abs(got["gaussian"]["value"] - want["gaussian"]["value"]) \
+            <= 1e-12 * abs(want["gaussian"]["value"])
 
 
 def test_theta_block_needs_the_walker():

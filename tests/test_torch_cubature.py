@@ -14,7 +14,14 @@ Contract:
 * ``integrate_2d``: tasks, splits, rounds and depth equal, areas within
   1e-12 (the reference's float64 sum order is XLA's);
 * the C rectangle bag: cells and splits equal to the port's, areas
-  within 1e-12.
+  within 1e-12;
+* ``integrate_2d_sharded`` on 2 ranks (one spawned gloo world for every
+  call; the reference on 2 of its host devices, at tests/test_cubature.py
+  :70-144's shapes): cells, splits, rounds and ``tasks_per_chip`` equal
+  to the reference's, the cells and the area (within 1e-12) to the
+  one-device engine's; kill-and-resume bit-equal; a snapshot of another
+  run refused; ``2d --n-devices N [--checkpoint]`` equal to the
+  in-process call.
 """
 
 import contextlib
@@ -32,6 +39,7 @@ from ppls_tpu.config import Rule as RRule
 from ppls_tpu.models.integrands import get_integrand_2d as ref_integrand_2d
 from ppls_tpu.ops import rules2d as ref_rules2d
 from ppls_tpu.parallel import cubature as RC
+from ppls_tpu.parallel.mesh import make_mesh
 from ppls_tpu_torch import __main__ as CLI
 from ppls_tpu_torch import interop
 from ppls_tpu_torch.backends.mpi_backend import run_seq_2d
@@ -39,7 +47,10 @@ from ppls_tpu_torch.config import Rule
 from ppls_tpu_torch.models.integrands import get_integrand_2d
 from ppls_tpu_torch.ops import rules2d
 from ppls_tpu_torch.parallel import cubature as TC
+from ppls_tpu_torch.parallel.mesh import launch, run_calls
 from ppls_tpu_torch.utils.device import HostSyncs
+
+import torch_mesh_jobs as J
 
 AREA_TOL = 1e-12
 BOUNDS = (0.0, 1.0, 0.0, 1.0)
@@ -333,8 +344,6 @@ def test_cli_2d_table(capsys):
 
 
 REFUSED_2D = {
-    "n_devices": (["2d", "--n-devices", "2"], "item 8"),
-    "n_devices_one": (["2d", "--n-devices", "1"], "item 8"),
     "checkpoint": (["2d", "--checkpoint", "x.ckpt"],
                    "--checkpoint on the 2d mode requires --n-devices"),
 }
@@ -371,3 +380,127 @@ def test_device_busy_counts_each_kernel_once():
         TC.integrate_2d(get_integrand_2d("poly_xy").fn, BOUNDS, 1e-9,
                         device="cpu")
     assert device_busy_us(prof.key_averages()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the rectangle bag across ranks (tests/test_cubature.py:70-144)
+# ---------------------------------------------------------------------------
+
+SH_N = 2
+SH_KW = dict(chunk=1 << 8, capacity=1 << 15)
+SH_CONSERVE_EPS = 1e-9
+SH_RESUME_EPS = 1e-7
+CLI_2D = ["2d", "--json", "--rule", "trapezoid", "--eps", "1e-7",
+          "--chunk", "256", "--capacity", "32768"]
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Every port call across ranks in one spawned world of 2."""
+    d = tmp_path_factory.mktemp("sharded_2d")
+    paths = {k: str(d / f"{k}.ckpt") for k in ("resume", "ident", "cli")}
+    f = get_integrand_2d("gauss2d_peak").fn
+    kw = dict(SH_KW, rule=Rule.TRAPEZOID, n_devices=SH_N, device="cpu")
+    crash = dict(kw, checkpoint_every=3, _crash_after_legs=2)
+    calls = {
+        "conserve": (TC.integrate_2d_sharded, (f, BOUNDS, SH_CONSERVE_EPS),
+                     dict(kw, exact=get_integrand_2d(
+                         "gauss2d_peak").exact(*BOUNDS))),
+        "base": (TC.integrate_2d_sharded, (f, BOUNDS, SH_RESUME_EPS), kw),
+        "crash": (TC.integrate_2d_sharded, (f, BOUNDS, SH_RESUME_EPS),
+                  dict(crash, checkpoint_path=paths["resume"])),
+        "resume": (TC.resume_2d_sharded,
+                   (paths["resume"], f, BOUNDS, SH_RESUME_EPS),
+                   dict(kw, checkpoint_every=3)),
+        "crash_ident": (TC.integrate_2d_sharded,
+                        (f, BOUNDS, SH_RESUME_EPS),
+                        dict(crash, checkpoint_every=2, _crash_after_legs=1,
+                             checkpoint_path=paths["ident"])),
+        "wrong_eps": (TC.resume_2d_sharded,
+                      (paths["ident"], f, BOUNDS, 1e-8), kw),
+        "cli": (J.cli_output, (CLI_2D + ["--n-devices", "2", "--checkpoint",
+                                         paths["cli"], "--device", "cpu"],),
+                {}),
+    }
+    outs = launch(run_calls, SH_N, "cpu", (list(calls.values()),),
+                  timeout=600)
+    return dict(zip(calls, outs)), paths
+
+
+@pytest.fixture(scope="module")
+def sharded_ref():
+    entry = ref_integrand_2d("gauss2d_peak")
+    kw = dict(SH_KW, rule=RRule.TRAPEZOID, mesh=make_mesh(SH_N))
+    return {eps: RC.integrate_2d_sharded(entry.fn, BOUNDS, eps, **kw)
+            for eps in (SH_CONSERVE_EPS, SH_RESUME_EPS)}
+
+
+@pytest.mark.parametrize("tag,eps", [("conserve", SH_CONSERVE_EPS),
+                                     ("base", SH_RESUME_EPS)])
+def test_sharded_2d_matches_reference_and_conserves(sharded, sharded_ref,
+                                                    tag, eps):
+    s, ref = sharded[0][tag], sharded_ref[eps]
+    for k in ("tasks", "splits", "leaves", "rounds", "max_depth",
+              "integrand_evals", "n_chips", "tasks_per_chip"):
+        assert getattr(s.metrics, k) == getattr(ref.metrics, k), k
+    assert abs(s.area - ref.area) <= AREA_TOL
+    b = TC.integrate_2d(get_integrand_2d("gauss2d_peak").fn, BOUNDS, eps,
+                        rule=Rule.TRAPEZOID, chunk=1 << 10,
+                        capacity=1 << 17, device="cpu")
+    assert s.metrics.tasks == b.metrics.tasks
+    assert s.metrics.splits == b.metrics.splits
+    assert abs(s.area - b.area) < AREA_TOL
+    assert sum(s.metrics.tasks_per_chip) == s.metrics.tasks
+    assert min(s.metrics.tasks_per_chip) > 0
+    # one deal per round: the rank read counts the rounds
+    assert s.mesh["collective_calls"]["rank"] == s.metrics.rounds
+    assert s.mesh["world"] == SH_N
+
+
+def test_sharded_2d_kill_and_resume_bit_identical(sharded):
+    outs, paths = sharded
+    assert isinstance(outs["crash"], RuntimeError)
+    assert "simulated crash after 2 legs" in str(outs["crash"])
+    res, base = outs["resume"], outs["base"]
+    assert res.area == base.area                          # bit for bit
+    assert res.metrics.tasks == base.metrics.tasks
+    assert res.metrics.tasks_per_chip == base.metrics.tasks_per_chip
+    assert res.metrics.rounds == base.metrics.rounds
+    import os
+    assert not os.path.exists(paths["resume"])
+
+
+def test_sharded_2d_resume_rejects_mismatched_identity(sharded):
+    outs, _ = sharded
+    assert isinstance(outs["crash_ident"], RuntimeError)
+    assert isinstance(outs["wrong_eps"], ValueError)
+    assert "different run" in str(outs["wrong_eps"])
+
+
+def test_sharded_2d_needs_a_registered_integrand_to_spawn():
+    with pytest.raises(ValueError, match="is not registered"):
+        TC.integrate_2d_sharded(lambda x, y: x * y, BOUNDS, 1e-6,
+                                n_devices=2, device="cpu")
+
+
+@pytest.mark.parametrize("n_devices", [1, 2])
+def test_cli_2d_across_devices(sharded, n_devices, tmp_path):
+    """``2d --n-devices N [--checkpoint]``: the sharded engine on N ranks
+    (N = 1 in this process), equal to the in-process call."""
+    if n_devices == 2:
+        rc, out = sharded[0]["cli"]
+        want = sharded[0]["base"]
+        import os
+        assert not os.path.exists(sharded[1]["cli"])   # a finished run
+    else:
+        rc, out = _run(CLI, CLI_2D + ["--n-devices", "1", "--checkpoint",
+                                      str(tmp_path / "c.ckpt"),
+                                      "--device", "cpu"])
+        want = TC.integrate_2d_sharded(
+            get_integrand_2d("gauss2d_peak").fn, BOUNDS, SH_RESUME_EPS,
+            rule=Rule.TRAPEZOID, n_devices=1, device="cpu", **SH_KW)
+    assert rc == 0
+    rec = json.loads(out.strip().splitlines()[-1])
+    assert rec["area"] == want.area
+    assert rec["tasks"] == want.metrics.tasks
+    assert rec["max_depth"] == want.metrics.max_depth

@@ -41,7 +41,10 @@ def test_sources_import_no_jax_and_no_reference():
                 PKG / "parallel" / "qmc.py", PKG / "models" / "genz.py",
                 PKG / "ops" / "rules2d.py", PKG / "parallel" / "mesh.py",
                 PKG / "parallel" / "sharded_bag.py",
-                PKG / "parallel" / "sharded_walker.py"):
+                PKG / "parallel" / "sharded_walker.py",
+                PKG / "parallel" / "sharded.py",
+                PKG / "runtime" / "tune.py",
+                PKG / "tools" / "tune_table.py"):
         assert new in sources, new
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
@@ -70,7 +73,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "ppls_tpu_torch.parallel.qmc, ppls_tpu_torch.models.genz, "
             "ppls_tpu_torch.parallel.mesh, "
             "ppls_tpu_torch.parallel.sharded_bag, "
-            "ppls_tpu_torch.parallel.sharded_walker\n"
+            "ppls_tpu_torch.parallel.sharded_walker, "
+            "ppls_tpu_torch.parallel.sharded, "
+            "ppls_tpu_torch.runtime.tune, "
+            "ppls_tpu_torch.tools.tune_table\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
             "print(','.join(sorted(bad)))\n")

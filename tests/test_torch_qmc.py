@@ -1,11 +1,14 @@
 """The port's shifted-lattice QMC (``models/genz.py``, ``parallel/qmc.py``
-and ``python -m ppls_tpu_torch qmc``) against the reference's on a mesh
-of one device, on the CPU.
+and ``python -m ppls_tpu_torch qmc``) against the reference's, on the
+CPU: on one device against a mesh of one, and on 2 ranks (one spawned
+gloo world for every call) against a mesh of 2 host devices.
 
 Contract: the parameter draws, closed forms and lattice points are
 equal; each shift's estimate is within 1e-12 relative (the reference
-sums with XLA's dot and reduction, the port with torch's); the
-refusals name their ROADMAP.md item.
+sums with XLA's dot and reduction, the port with torch's), on one
+device and across ranks, and the estimate does not depend on the world
+size (tests/test_qmc.py:39); ``qmc --n-devices`` equals the in-process
+call; the refusals keep the reference's wording.
 """
 
 import contextlib
@@ -27,6 +30,9 @@ from ppls_tpu.parallel.mesh import make_mesh
 from ppls_tpu_torch import __main__ as CLI
 from ppls_tpu_torch.models import genz as TG
 from ppls_tpu_torch.parallel import qmc as TQ
+from ppls_tpu_torch.parallel.mesh import launch, run_calls
+
+import torch_mesh_jobs as J
 
 N = 1 << 16
 D = 8
@@ -90,8 +96,11 @@ def test_refusals():
     fn = TG.get_genz("gaussian").fn
     with pytest.raises(ValueError, match="n_points must be one of"):
         TQ.integrate_qmc(fn, a, u, n_points=1000, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
-        TQ.integrate_qmc(fn, a, u, n_points=N, n_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        TQ.integrate_qmc(fn, a, u, n_points=N, n_devices=3, device="cpu")
+    with pytest.raises(ValueError, match="not a registered Genz family"):
+        TQ.integrate_qmc(lambda x, a, u: x[:, 0], a, u, n_points=N,
+                         n_devices=2, device="cpu")
     with pytest.raises(KeyError, match="unknown Genz family"):
         TG.get_genz("nope")
     r = TQ.integrate_qmc(fn, a, u, n_points=N, n_devices=1, n_shifts=1,
@@ -157,10 +166,57 @@ def test_cli_qmc_table(capsys):
     assert [ln.split()[0] for ln in lines[1:]] == sorted(TG.GENZ)
 
 
-@pytest.mark.parametrize("n_devices", ["2", "8"])
-def test_cli_qmc_refuses_devices(n_devices, capsys):
-    with pytest.raises(SystemExit) as ei:
-        CLI.main(["qmc", "--n-devices", n_devices, "--device", "cpu"])
-    assert "item 8" in str(ei.value.code)
-    assert "ROADMAP.md Queue 1" in str(ei.value.code)
-    assert capsys.readouterr().out == ""
+# ---------------------------------------------------------------------------
+# the lattice across ranks
+# ---------------------------------------------------------------------------
+
+QN = 2
+CLI_QMC = {"gaussian": ["qmc", "--json", "--n", "65536", "--genz",
+                        "gaussian"],
+           "all": ["qmc", "--n", "65536", "--shifts", "2"]}
+
+
+@pytest.fixture(scope="module")
+def across():
+    """The six families and the two commands on 2 ranks, one world."""
+    calls = []
+    for name in sorted(RG.GENZ):
+        a, u = TG.genz_params(name, D, seed=0)
+        calls.append((TQ.integrate_qmc, (TG.get_genz(name).fn, a, u),
+                      dict(n_points=N, n_devices=QN, device="cpu")))
+    for argv in CLI_QMC.values():
+        calls.append((J.cli_output, (argv + ["--n-devices", str(QN),
+                                             "--device", "cpu"],), {}))
+    outs = launch(run_calls, QN, "cpu", (calls,), timeout=600)
+    names = sorted(RG.GENZ)
+    return dict(zip(names, outs)), dict(zip(CLI_QMC, outs[len(names):]))
+
+
+@pytest.mark.parametrize("name", sorted(RG.GENZ))
+def test_integrate_qmc_across_devices_matches_reference(name, across,
+                                                        runs):
+    got = across[0][name]
+    a, u = RG.genz_params(name, D, seed=0)
+    ref = RQ.integrate_qmc(RG.get_genz(name).fn, a, u, n_points=N,
+                           mesh=make_mesh(QN), fn_name=name)
+    rel = np.abs(got.estimates - ref.estimates) / np.abs(ref.estimates)
+    assert np.max(rel) <= EST_REL, rel
+    assert got.metrics.n_chips == ref.metrics.n_chips == QN
+    assert got.metrics.tasks_per_chip == ref.metrics.tasks_per_chip
+    # mesh-size invariance: the same lattice sum on 1 and 2 ranks
+    one = runs[name][0]
+    assert abs(got.value - one.value) <= EST_REL * abs(one.value)
+
+
+@pytest.mark.parametrize("case", sorted(CLI_QMC))
+def test_cli_qmc_across_devices(case, across):
+    rc, out = across[1][case]
+    assert rc == 0
+    if case == "gaussian":
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["families"]["gaussian"]["value"] \
+            == across[0]["gaussian"].value
+    else:
+        lines = out.splitlines()
+        assert lines[0] == "Genz 8D via shifted lattice: N=65536, 2 shifts"
+        assert [ln.split()[0] for ln in lines[1:]] == sorted(TG.GENZ)

@@ -21,9 +21,10 @@ At the reference tests' sizes (tests/test_multitenant.py's
   equal the undisturbed run's, every acknowledged rid once
   (tests/test_multitenant.py:487, :506); requests posted to
   ``--ingest-port`` acknowledged and retired across a SIGTERM restart;
-* every option and mode not ported exits non-zero naming its ROADMAP.md
-  item; without ``--device cpu`` and without a card, ``serve`` exits
-  non-zero before it runs.
+* every option not ported exits non-zero naming its ROADMAP.md item,
+  and ``2d`` and ``qmc`` with ``--n-devices 2`` run on 2 gloo ranks;
+  without ``--device cpu`` and without a card, ``serve`` exits non-zero
+  before it runs.
 """
 
 import contextlib
@@ -507,8 +508,6 @@ REFUSED = {
     "walker_dd": (["serve", "--engine", "walker-dd"],
                   "item 7, behind item 8"),
     "n_devices": (["serve", "--n-devices", "2"], "item 7, behind item 8"),
-    "2d": (["2d", "--n-devices", "2"], "item 8"),
-    "qmc": (["qmc", "--n-devices", "2"], "item 8"),
 }
 
 
@@ -523,6 +522,35 @@ def test_unported_options_and_modes_exit_nonzero(name, capsys):
     if "item" in what:
         assert "ROADMAP.md Queue 1" in str(ei.value.code)
     assert capsys.readouterr().out == ""
+
+
+ACROSS = {"2d": ["2d", "--n-devices", "2", "--json"],
+          "qmc": ["qmc", "--n-devices", "2", "--json", "--n", "65536",
+                  "--genz", "gaussian"]}
+
+
+@pytest.fixture(scope="module")
+def across():
+    """``2d`` and ``qmc`` with ``--n-devices 2`` in one spawned world of 2
+    gloo ranks."""
+    import torch_mesh_jobs as J
+
+    from ppls_tpu_torch.parallel.mesh import launch, run_calls
+    calls = [(J.cli_output, (argv + ["--device", "cpu"],), {})
+             for argv in ACROSS.values()]
+    return dict(zip(ACROSS, launch(run_calls, 2, "cpu", (calls,),
+                                   timeout=600)))
+
+
+@pytest.mark.parametrize("name", sorted(ACROSS))
+def test_modes_across_devices_run(name, across):
+    rc, out = across[name]
+    assert rc == 0
+    rec = json.loads(out.strip().splitlines()[-1])
+    if name == "2d":
+        assert rec["tasks"] == 213 and rec["max_depth"] == 6
+    else:
+        assert np.isfinite(rec["families"]["gaussian"]["value"])
 
 
 def test_serve_without_a_card_exits_before_running(monkeypatch, capsys):

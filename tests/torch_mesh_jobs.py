@@ -1,4 +1,4 @@
-"""Rank bodies for tests/test_torch_mesh.py. The spawned gloo ranks
+"""Rank bodies for the port's mesh tests. The spawned gloo ranks
 import this module, which imports only torch and the port (a test module
 would pull in JAX and the reference on every rank)."""
 
@@ -80,3 +80,16 @@ def hang_on(rank: int) -> int:
         time.sleep(600)
     mesh.psum_host([1])
     return mesh.rank
+
+
+def cli_output(argv) -> tuple:
+    """``python -m ppls_tpu_torch ARGV`` run in this rank's process (inside
+    its process group): ``(exit code, standard output)``."""
+    import contextlib
+    import io
+
+    from ppls_tpu_torch import __main__ as CLI
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = CLI.main(list(argv))
+    return rc, buf.getvalue()
