@@ -388,6 +388,35 @@ Phases, each of which must pass (any failure exits nonzero):
    f. ``--engine sharded --n-devices 4``, ``2d --n-devices 4
       --checkpoint`` and ``qmc --n-devices 4`` (each starting its own
       ranks) bit-equal to the in-process calls.
+21. The walker-dd stream (``StreamEngine(engine="walker-dd")``: a world
+   of ranks that lives as long as the engine, ``parallel/mesh.py``
+   ``World``). The phase has one time limit (``DD_STREAM_TIMEOUT``), which
+   also bounds every command to the spawned ranks.
+   k. K1 (scouting, R = 8) bit-equal to its plain segment on a dd-stream
+      rank's bank (the stream leg's 24 requests at 2^14 lanes).
+   a. The stream leg's configuration (phase 11: 24 requests of sin(theta
+      / x) on [1e-4, 1], eps 1e-10, slots 64, chunk 2^13, capacity 2^22
+      per rank, lanes 2^14, R = 8, scout f32, double buffer) with
+      ``engine="walker-dd"`` on 1 rank (NCCL, in this process): every
+      request retired within 1e-3 of the closed form; requests/s, p50/p99
+      latency in phases, host syncs and collective calls per phase, K1
+      launches per rank; the ds walk (scouting off): every 4th area
+      within 3e-9 of the float64 bag; one profiled run's idle share.
+   b. The same on 4 ranks sharing the card (gloo, host-staged: not a
+      multi-GPU rate); at the CPU tests' size, 4 ranks on the card
+      against 4 on the CPU: the same retire phases, phase rows and chip
+      spans, areas within 1e-12.
+   c. Kill after phase 3 and resume on 4 ranks: areas and the timeline
+      bit-equal to the run without a crash; the snapshot resized onto 3
+      ranks (``mesh_resize``): within 1e-9 with the ds walk,
+      bit-identical on the dyadic family.
+   d. ``serve --engine walker-dd --n-devices 4 --supervise`` with a
+      ``chip_loss`` at phase 3 (the dyadic family): recoveries
+      [("chip_loss", "resize_resume")], 3 ranks after it, no
+      acknowledged request lost, areas equal the undisturbed engine's.
+   e. Deadline expiry on the dd stream (1 rank): the expired request
+      retires ``deadline_exceeded``, its neighbour within 3e-9 of the
+      float64 bag, a fresh request bit-equal to a solo run.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -398,7 +427,8 @@ paths' launches under ``body_launches``; phase 13's under
 ``serve_launches``; phase 15's under ``cli_launches``; phase 16's
 under ``bench_launches``; phase 19's, every rank's, under
 ``dd_launches``, and 19k's records under ``dd``; phase 20a's under
-``tune_launches``)
+``tune_launches``; phase 21's, every rank's, under ``dd_stream_launches``,
+and 21k's record under ``dd_stream``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -623,6 +653,20 @@ QMC_CLI_N = 1 << 18            # the qmc command's default lattice
 # (ppls_tpu/parallel/sharded.py:130, mesh.py strided_reshard): the loop
 # condition's psum, the counts' and two columns' all_gathers, axis_index
 SHARDED_SITES = "1 psum, 3 all_gather, 1 axis_index per round"
+# phase 21: the walker-dd stream, the stream leg's configuration
+# (STREAM_KW, STREAM_K) with engine="walker-dd", and the CPU tests' size
+# (tests/test_torch_dd_stream.py) for card against CPU and the resumes
+DD_STREAM_TIMEOUT = 420        # s, the whole of phase 21, its worlds too
+DD_STREAM_SAMPLE = 4           # 21a's ds leg: every 4th area to the bag
+DD_STREAM_TEST_EPS = 1e-9
+DD_STREAM_TEST_BOUNDS = (1e-3, 1.0)
+DD_STREAM_TEST_KW = dict(slots=8, chunk=1 << 8, capacity=1 << 16,
+                         lanes=256, roots_per_lane=2, refill_slots=2,
+                         seg_iters=32, min_active_frac=0.05)
+DD_STREAM_TEST_ARR = [0, 0, 1, 2, 3, 4]
+DD_STREAM_DYADIC = (1.0, 1.25, 1.5, 2.0, 0.75, 3.0)  # tests/test_faults.py
+DD_STREAM_RESIZE_TOL = 1e-9    # the ds walk resized (tests/test_faults.py)
+DD_STREAM_SERVE_RATE = 0.5     # 21d: requests per phase, past the loss
 
 
 def log(msg: str) -> None:
@@ -4597,6 +4641,391 @@ def phase_across(W, TS, base, report, ckpt_dir, out_dir) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the walker-dd stream across ranks
+# ---------------------------------------------------------------------------
+
+
+def dd_stream_surface(path) -> tuple:
+    """The deterministic surface of a dd stream's events file: retire
+    records without the wall latency, phase spans, per-rank chip spans
+    (tests/test_torch_dd_stream.py's)."""
+    retires, phases, chips = [], [], []
+    with open(path, encoding="utf-8") as fh:
+        for ln in fh:
+            r = json.loads(ln)
+            if r["ev"] == "event" and r.get("name") == "retire":
+                a = dict(r["attrs"])
+                a.pop("latency_s", None)
+                retires.append(a)
+            elif r["ev"] == "span_close":
+                a = r.get("attrs") or {}
+                if "wsteps" in a and "live_rows" in a:
+                    chips.append(a)
+                elif a.get("tasks") is not None:
+                    phases.append(a)
+    return sorted(retires, key=lambda a: a["rid"]), phases, chips
+
+
+def dd_stream_drive(eng, reqs, arrivals, copy_at=None, copy_to=None):
+    """Submit ``reqs`` on their arrival phases and run phases until every
+    request retired; with ``copy_at`` the snapshot written at the close
+    of that phase (what a kill right after it leaves) is copied to
+    ``copy_to``."""
+    k = eng.next_rid
+    while not eng.idle or k < len(reqs):
+        while k < len(reqs) and arrivals[k] <= eng.phase:
+            eng.submit(*reqs[k])
+            k += 1
+        eng.step()
+        if copy_at is not None and eng.phase == copy_at:
+            shutil.copy(eng.checkpoint_path, copy_to)
+    return eng.result()
+
+
+def dd_stream_launches(res) -> list:
+    """K1 launches per rank of one dd stream run (every rank must have
+    launched; K2 never runs on this path)."""
+    m = res.mesh
+    if min(m["launches"]["run_segment_rf"]) <= 0 \
+            or max(m["launches"]["run_segment_ee"]) != 0:
+        raise AssertionError(f"21: launches per rank {m['launches']}")
+    return m["launches"]["run_segment_rf"]
+
+
+def dd_stream_leg(what, res, exact, wall_s) -> dict:
+    """One full-width dd stream run, checked and logged: every request
+    retired, within the closed form's tolerance; requests/s, latency,
+    host syncs and collective calls per phase, K1 launches per rank."""
+    import numpy as np
+    m = res.mesh
+    if len(res.completed) != len(exact) or any(c.failed
+                                              for c in res.completed):
+        raise AssertionError(f"{what}: {len(res.completed)} of "
+                             f"{len(exact)} requests retired")
+    d_ex = float(np.max(np.abs(res.areas - exact)))
+    if not d_ex < AREA_TOL_EXACT:
+        raise AssertionError(f"{what}: {d_ex:.3e} from the closed form")
+    launches = dd_stream_launches(res)
+    ph = max(res.phases, 1)
+    lat = res.latency_percentiles()
+    rec = dict(wall_s=wall_s, requests_per_sec=len(exact) / wall_s,
+               phases=res.phases, latency=lat, d_exact=d_ex,
+               tasks=res.totals["tasks"], launches_per_rank=launches,
+               host_syncs_per_rank=m["host_syncs"],
+               host_syncs_per_phase=res.host_syncs / ph,
+               collective_calls_per_phase={
+                   k: sum(v) / len(v) / ph
+                   for k, v in m["collective_calls"].items()},
+               transport=dict(backend=m["backend"],
+                              host_staged=m["host_staged"]),
+               crounds=res.totals["crounds"])
+    log(f"[smoke] {what}: {rec['requests_per_sec']:.2f} req/s (wall "
+        f"{wall_s:.3f} s), {res.phases} phases, p50/p99 latency "
+        f"{lat['p50_phases']}/{lat['p99_phases']} phases "
+        f"({lat['p50_s']:.4f}/{lat['p99_s']:.4f} s), {rec['tasks']} tasks, "
+        f"{res.totals['crounds']} collective rounds; host syncs per phase "
+        f"(rank 0) {rec['host_syncs_per_phase']:.2f}, per rank "
+        f"{m['host_syncs']}; collective calls per phase and rank "
+        f"{ {k: round(v, 2) for k, v in rec['collective_calls_per_phase'].items()} }; "
+        f"K1 launches per rank {launches}; transport {m['backend']}"
+        f"{' staged through host memory' if m['host_staged'] else ''}; "
+        f"max |area - closed form| {d_ex:.3e}")
+    return rec
+
+
+def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
+    """21: the walker-dd stream (module docstring). Every spawned world is
+    bounded by ``DD_STREAM_TIMEOUT`` (a rank that hangs fails its
+    command), and so is the phase."""
+    import numpy as np
+    import torch
+    from ppls_tpu_torch.models.integrands import (family_exact, get_family,
+                                                  get_family_ds)
+    from ppls_tpu_torch.obs.telemetry import Telemetry
+    from ppls_tpu_torch.parallel import mesh as MESH
+    from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    MESH.WORLD_TIMEOUT_S = DD_STREAM_TIMEOUT
+    t_phase = time.perf_counter()
+
+    def check_time(step):
+        spent = time.perf_counter() - t_phase
+        if spent > DD_STREAM_TIMEOUT:
+            raise TimeoutError(f"phase 21 ran past its {DD_STREAM_TIMEOUT} "
+                               f"s at {step} ({spent:.0f} s)")
+
+    k = STREAM_K
+    theta = 1.0 + np.arange(k) / k
+    reqs = [(float(t), BOUNDS) for t in theta]
+    exact = family_exact(STREAM_FAMILY, *BOUNDS, theta)
+    ekw = dict(STREAM_KW, engine="walker-dd", device=DEVICE)
+    out = {"legs": {}, "launches": {}}
+
+    # k. K1 bit-equal to its plain segment at a dd-stream rank's bank
+    f_theta, f_ds = get_family(STREAM_FAMILY), get_family_ds(STREAM_FAMILY)
+    base = W.first_phase_inputs(
+        f_theta, theta, BOUNDS, EPS, refill_slots=STREAM_KW["refill_slots"],
+        scout=True, lanes=STREAM_KW["lanes"], roots_per_lane=ROOTS_PER_LANE,
+        capacity=STREAM_KW["capacity"], device="cuda")
+    out["k1"], times = cmp_k1(W, "K1 step_scout (dd stream)", base, f_ds,
+                              EPS, "step_scout", ops)
+    log(fmt_cmp(f"K1 step_scout at a dd-stream rank's bank ({k} requests, "
+                f"{STREAM_KW['lanes']} lanes, R {STREAM_KW['refill_slots']})",
+                out["k1"], times))
+
+    # a. world 1 (NCCL, in this process): a warm-up, the timed run, the
+    # ds-walk leg against the float64 bag, one profiled run
+    def world(n, **over):
+        return TS.StreamEngine(STREAM_FAMILY, EPS, n_devices=n,
+                               **dict(ekw, **over))
+
+    def timed_run(eng):
+        """A run of the K requests on ``eng``, which may have run before
+        (a warm engine: its ranks started, its kernels loaded): this
+        run's own requests, phases, counters and per-rank mesh counts,
+        as a ``StreamResult``, and its wall."""
+        a = eng.result()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b = eng.result()
+
+        def minus(x, y):
+            if isinstance(x, dict):
+                return {k: minus(v, (y or {}).get(k)) for k, v in x.items()}
+            if isinstance(x, list):
+                return [u - v for u, v in zip(x, y or [0] * len(x))]
+            return x
+        return TS.StreamResult(
+            completed=b.completed[len(a.completed):],
+            phases=b.phases - a.phases, wall_s=wall,
+            totals={k: b.totals[k] - a.totals[k] for k in b.totals},
+            phase_stats=None, host_syncs=b.host_syncs - a.host_syncs,
+            mesh=dict(b.mesh, **minus(
+                {k: b.mesh[k] for k in ("host_syncs", "collective_calls",
+                                        "launches")}, a.mesh))), wall
+
+    eng1 = world(1)
+    try:
+        timed_run(eng1)                       # warm-up
+        res1, wall1 = timed_run(eng1)
+        out["legs"]["1"] = dd_stream_leg("21a dd stream, world 1 (NCCL)",
+                                         res1, exact, wall1)
+        out["profile"] = profile_fn(lambda: timed_run(eng1),
+                                    "walk_rf_kernel", out_dir,
+                                    "dd_stream_world1")
+        out["launches"]["1"] = sum(
+            eng1.result().mesh["launches"]["run_segment_rf"])
+    finally:
+        eng1.close()
+    sample = np.arange(0, k, DD_STREAM_SAMPLE)
+    bag = integrate_family(f_theta, theta[sample], BOUNDS, EPS,
+                           chunk=1 << 15, capacity=1 << 22,
+                           device=DEVICE).areas
+    with world(1, scout_dtype="f64") as eng:
+        t0 = time.perf_counter()
+        res_ds = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall_ds = time.perf_counter() - t0
+    d_bag = float(np.max(np.abs(res_ds.areas[sample] - bag)))
+    out["ds"] = dict(wall_s=wall_ds, d_bag=d_bag, phases=res_ds.phases,
+                     launches=dd_stream_launches(res_ds))
+    out["launches"]["1_ds"] = sum(out["ds"]["launches"])
+    log(f"[smoke] 21a ds walk (scouting off), world 1: every "
+        f"{DD_STREAM_SAMPLE}th area {d_bag:.3e} from the float64 bag (tol "
+        f"{AREA_TOL_BAG}), {res_ds.phases} phases, wall {wall_ds:.3f} s")
+    if not d_bag < AREA_TOL_BAG:
+        raise AssertionError(f"21a ds walk: {d_bag:.3e} from the bag")
+    check_time("21a")
+
+    # b. world 4 on the one card (gloo, host-staged): the same gates, the
+    # world started by a warm-up run
+    t0 = time.perf_counter()
+    eng4 = world(4)
+    try:
+        timed_run(eng4)                       # warm-up, the ranks' start
+        start4 = time.perf_counter() - t0
+        res4, wall4 = timed_run(eng4)
+        out["legs"]["4"] = dd_stream_leg(
+            "21b dd stream, world 4 on one card (gloo; not a multi-GPU "
+            "rate)", res4, exact, wall4)
+        out["legs"]["4"]["start_and_warm_up_s"] = start4
+        out["launches"]["4"] = sum(
+            eng4.result().mesh["launches"]["run_segment_rf"])
+    finally:
+        eng4.close()
+    log(f"[smoke] 21b world 4: its start and warm-up run {start4:.1f} s")
+    check_time("21b full width")
+
+    # b/c. at the tests' size: card against CPU, 4 ranks each (the card's
+    # run snapshots every phase; its phase-3 snapshot is what a kill
+    # after phase 3 leaves), then the resumes
+    test_kw = dict(DD_STREAM_TEST_KW, engine="walker-dd",
+                   **dd_cadence(W, DD_STREAM_TEST_KW))
+    t_reqs = [(float(t), DD_STREAM_TEST_BOUNDS)
+              for t in 1.0 + np.arange(6) / 6.0]
+    paths = {name: os.path.join(ckpt_dir, f"dds_{name}")
+             for name in ("card.ckpt", "card3.ckpt", "card3_resize.ckpt",
+                          "card.jsonl", "cpu.jsonl", "resumed.jsonl",
+                          "dya.ckpt", "dya3.ckpt", "dya.jsonl")}
+
+    def events_run(fam, n, dev, events, reqs_, **over):
+        tel = Telemetry(events_path=events)
+        try:
+            with TS.StreamEngine(fam, DD_STREAM_TEST_EPS, n_devices=n,
+                                 device=dev, telemetry=tel,
+                                 **dict(test_kw, **over)) as eng:
+                ck = over.get("checkpoint_path")
+                res = dd_stream_drive(eng, reqs_, DD_STREAM_TEST_ARR,
+                                      3 if ck else None,
+                                      ck and ck.replace(".ckpt", "3.ckpt"))
+        finally:
+            tel.close()
+        return res, dd_stream_surface(events)
+
+    card, card_s = events_run(STREAM_FAMILY, 4, DEVICE, paths["card.jsonl"],
+                              t_reqs, checkpoint_path=paths["card.ckpt"],
+                              checkpoint_every=1)
+    cpu, cpu_s = events_run(STREAM_FAMILY, 4, "cpu", paths["cpu.jsonl"],
+                            t_reqs)
+    d_cc = float(np.max(np.abs(card.areas - cpu.areas)))
+    same = (card_s[2] == cpu_s[2] and np.array_equal(card.phase_stats,
+                                                     cpu.phase_stats)
+            and [(r["rid"], r["retire_phase"]) for r in card_s[0]]
+            == [(r["rid"], r["retire_phase"]) for r in cpu_s[0]])
+    log(f"[smoke] 21b card against CPU, 4 ranks, the tests' size: "
+        f"{card.phases} phases, retire phases, phase rows and "
+        f"{len(card_s[2])} chip spans {'equal' if same else 'DIFFER'}, "
+        f"areas {d_cc:.3e} apart (tol {AREA_TOL_DEVICES})")
+    if not same or not d_cc <= AREA_TOL_DEVICES:
+        raise AssertionError("21b: card and CPU differ")
+    out["card_cpu"] = dict(d_areas=d_cc, phases=card.phases,
+                           chip_spans=len(card_s[2]),
+                           launches=dd_stream_launches(card))
+    out["launches"]["card_cpu"] = sum(out["card_cpu"]["launches"])
+    check_time("21b card = CPU")
+
+    # c. kill-and-resume at world 4; resize 4 -> 3 (the ds walk, then the
+    # dyadic family)
+    shutil.copy(paths["card3.ckpt"], paths["card3_resize.ckpt"])
+    tel = Telemetry(events_path=paths["resumed.jsonl"])
+    try:
+        with TS.StreamEngine.resume(
+                paths["card3.ckpt"], STREAM_FAMILY, DD_STREAM_TEST_EPS,
+                n_devices=4, device=DEVICE, telemetry=tel,
+                checkpoint_every=1, **test_kw) as eng:
+            resumed = dd_stream_drive(eng, t_reqs, DD_STREAM_TEST_ARR)
+    finally:
+        tel.close()
+    r_s = dd_stream_surface(paths["resumed.jsonl"])
+    n3 = 3 * 4                              # the first 3 phases' chip spans
+    same = (np.array_equal(resumed.areas, card.areas)
+            and r_s[1] == card_s[1][3:] and r_s[2] == card_s[2][n3:]
+            and [r for r in card_s[0] if r["retire_phase"] >= 3] == r_s[0])
+    log(f"[smoke] 21c kill after phase 3 and resume on 4 ranks: areas, "
+        f"phase spans, chip spans and retire records "
+        f"{'bit-equal' if same else 'DIFFER'} to the run without a crash")
+    if not same:
+        raise AssertionError("21c: the resumed run differs")
+    with TS.StreamEngine.resume(
+            paths["card3_resize.ckpt"], STREAM_FAMILY, DD_STREAM_TEST_EPS,
+            mesh_resize=True, n_devices=3, device=DEVICE,
+            checkpoint_every=1, **test_kw) as eng:
+        ds3 = dd_stream_drive(eng, t_reqs, DD_STREAM_TEST_ARR)
+    d_ds3 = float(np.max(np.abs(ds3.areas - card.areas)))
+    dya_reqs = [(t, (0.0, 1.0)) for t in DD_STREAM_DYADIC]
+    dya, _s = events_run("quad_scaled", 4, DEVICE, paths["dya.jsonl"],
+                         dya_reqs, checkpoint_path=paths["dya.ckpt"],
+                         checkpoint_every=1)
+    with TS.StreamEngine.resume(
+            paths["dya3.ckpt"], "quad_scaled", DD_STREAM_TEST_EPS,
+            mesh_resize=True, n_devices=3, device=DEVICE,
+            checkpoint_every=1, **test_kw) as eng:
+        dya3 = dd_stream_drive(eng, dya_reqs, DD_STREAM_TEST_ARR)
+    dyadic_same = np.array_equal(dya3.areas, dya.areas)
+    log(f"[smoke] 21c resize 4 -> 3 ranks: the ds walk {d_ds3:.3e} from "
+        f"the 4-rank run (tol {DD_STREAM_RESIZE_TOL}); the dyadic family "
+        f"{'bit-identical' if dyadic_same else 'DIFFERS'}")
+    if not d_ds3 < DD_STREAM_RESIZE_TOL or not dyadic_same:
+        raise AssertionError("21c: the resized resume differs")
+    out["resume"] = dict(d_resize_ds=d_ds3, dyadic_bit_equal=dyadic_same)
+    # the dyadic family drains in the float64 bag: K1 may not run there
+    out["launches"]["resume"] = sum(
+        sum(dd_stream_launches(r)) for r in (resumed, ds3)) + sum(
+        sum(r.mesh["launches"]["run_segment_rf"]) for r in (dya, dya3))
+    check_time("21c")
+
+    # d. serve --engine walker-dd --n-devices 4 --supervise, a chip loss at
+    # phase 3, on the dyadic family: resize-resumed onto 3 ranks
+    ck = os.path.join(ckpt_dir, "dds_serve.ckpt")
+    argv = (["serve", "--engine", "walker-dd", "--n-devices", "4",
+             "--supervise", "--family", "quad_scaled", "--eps",
+             str(DD_STREAM_TEST_EPS), "-a", "0", "-b", "1", "--theta",
+             ",".join(str(t) for t in DD_STREAM_DYADIC), "--arrival-rate",
+             str(DD_STREAM_SERVE_RATE), "--seed", "0", "--checkpoint", ck,
+             "--checkpoint-every", "1", "--fault-plan",
+             json.dumps([{"kind": "chip_loss", "at": 3}]),
+             "--device", DEVICE]
+            + [f for key in ("slots", "chunk", "capacity", "lanes",
+                             "refill_slots")
+               for f in (f"--{key.replace('_', '-')}",
+                         str(DD_STREAM_TEST_KW[key]))])
+    run = run_cli(W, TS, argv)
+    summ = run["summary"]
+    got = ledger(run)
+    want = {c.rid: c.area for c in dya.completed}
+    lost = sorted(set(want) - set(got))
+    rec_ok = all(got[r]["area"] == a for r, a in want.items() if r in got)
+    recov = [(r["kind"], r["action"]) for r in summ.get("recoveries", [])]
+    log(f"[smoke] 21d serve --engine walker-dd --n-devices 4 --supervise, "
+        f"chip_loss at phase 3: recoveries {recov}, world after "
+        f"{summ['mesh']['world']}, {summ['completed']} completed, lost "
+        f"acknowledged requests {lost}, records "
+        f"{'equal' if rec_ok else 'DIFFER from'} the undisturbed engine's "
+        f"(wall {run['wall_s']:.2f} s)")
+    if recov != [("chip_loss", "resize_resume")] or lost or not rec_ok \
+            or summ["mesh"]["world"] != 3:
+        raise AssertionError(f"21d: {summ}")
+    out["serve"] = dict(recoveries=recov, lost=lost, wall_s=run["wall_s"],
+                        launches=summ["mesh"]["launches"],
+                        completed=summ["completed"])
+    out["launches"]["serve"] = sum(
+        summ["mesh"]["launches"]["run_segment_rf"])
+    check_time("21d")
+
+    # e. deadline expiry on the dd stream (world 1 on the card)
+    dl_kw = dict(n_devices=1, device=DEVICE, **test_kw)
+    with TS.StreamEngine(STREAM_FAMILY, DD_STREAM_TEST_EPS, **dl_kw) as eng:
+        eng.submit(1.0, DD_STREAM_TEST_BOUNDS, deadline_phases=1)
+        eng.submit(1.9, DD_STREAM_TEST_BOUNDS)
+        done = {c.rid: c for c in eng.drain()}
+        eng.submit(1.5, DD_STREAM_TEST_BOUNDS)
+        fresh = eng.drain()[0]
+        dl_l = sum(dd_stream_launches(eng.result()))
+    with TS.StreamEngine(STREAM_FAMILY, DD_STREAM_TEST_EPS, **dl_kw) as eng:
+        solo = eng.run([(1.5, DD_STREAM_TEST_BOUNDS)])
+    dl_bag = integrate_family(f_theta, [1.9], DD_STREAM_TEST_BOUNDS,
+                              DD_STREAM_TEST_EPS, chunk=1 << 10,
+                              capacity=1 << 17, device=DEVICE).areas[0]
+    ok = (done[0].failure == "deadline_exceeded"
+          and np.isfinite(done[1].area)
+          and abs(done[1].area - dl_bag) < AREA_TOL_BAG
+          and fresh.area == solo.completed[0].area)
+    log(f"[smoke] 21e deadline expiry: rid 0 {done[0].failure}, rid 1 "
+        f"{abs(done[1].area - dl_bag):.3e} from the float64 bag, a fresh "
+        f"request {'bit-equal' if fresh.area == solo.completed[0].area else 'NOT equal'} "
+        f"to a solo run")
+    if not ok:
+        raise AssertionError("21e: deadline expiry")
+    out["launches"]["deadline"] = dl_l + sum(dd_stream_launches(solo))
+    out["seconds"] = time.perf_counter() - t_phase
+    check_time("21e")
+    log(f"[smoke] 21 done in {out['seconds']:.1f} s; K1 launches (every "
+        f"rank) {out['launches']}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5053,6 +5482,13 @@ def main() -> int:
     tune_l = report["across"]["tune"]["launches"]
     if tune_l["run_segment"] != 0:
         raise AssertionError(f"K3 ran on the tuning sweep: {tune_l}")
+    # 21. the walker-dd stream across ranks (K1 on every rank)
+    dds_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["dd_stream"] = phase_dd_stream(W, TS, dds_dir, out_dir, ops)
+    finally:
+        shutil.rmtree(dds_dir, ignore_errors=True)
+    dds_l = sum(report["dd_stream"]["launches"].values())
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -5091,8 +5527,9 @@ def main() -> int:
     def row(name, source, replaces, launches, cmp, mode, body, **extra):
         c = cmp[mode]
         errs = [v["max_abs_err"] for v in cmp.values()] + [
-            v["max_abs_err"] for b in body.values() for v in b.values()] + (
-            [extra["dd"]["max_abs_err"]] if "dd" in extra else [])
+            v["max_abs_err"] for b in body.values() for v in b.values()] + [
+            extra[k]["max_abs_err"] for k in ("dd", "dd_stream")
+            if k in extra]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs),
@@ -5125,7 +5562,7 @@ def main() -> int:
             + serve_launches["run_segment_rf"]
             + cli_launches["run_segment_rf"]
             + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"]
-            + tune_l["run_segment_rf"],
+            + tune_l["run_segment_rf"] + dds_l,
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -5137,6 +5574,8 @@ def main() -> int:
             bench_launches=bench_launches["run_segment_rf"],
             dd_launches=dd_l["run_segment_rf"], dd=dd_row(dd_cmp["k1"]),
             tune_launches=tune_l["run_segment_rf"],
+            dd_stream_launches=dds_l,
+            dd_stream=dd_row(report["dd_stream"]["k1"]),
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,

@@ -12,7 +12,8 @@ boundary refill, trapezoid or Simpson, and its many-theta mode
 (``integrate_family``) and the streaming engine (``StreamEngine``:
 requests admitted into family slots and retired one by one, one walker
 cycle per phase, queue-overflow victims optionally run on the CPU
-spillover backend), each with checkpoints and kill-and-resume
+spillover backend; with ``engine="walker-dd"`` across ranks that live
+as long as the engine), each with checkpoints and kill-and-resume
 (``resume_family``, ``resume_family_walker``, ``StreamEngine.resume``;
 ``runtime/checkpoint.py`` keeps the reference's containers, so either
 package resumes the other's snapshot); the 2D adaptive cubature

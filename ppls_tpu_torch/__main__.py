@@ -22,7 +22,10 @@ The port's copy of the JAX package's ``__main__.py``:
   last), with ``--spillover``, snapshots and restarts, supervision and
   fault injection, admission policy, ``--slo-config`` (the ``/health``
   verdict of ``--metrics-port``), ``--adapt``, ``--events``,
-  ``--metrics-port`` and ``--ingest-port``;
+  ``--metrics-port`` and ``--ingest-port``; ``--engine walker-dd
+  --n-devices N`` streams across N ranks that live as long as the engine
+  (a ``chip_loss`` under ``--supervise`` resize-resumes onto the
+  survivors); ``--n-devices`` > 1 on the walker engine exits non-zero;
 * ``2d`` integrates a registered 2D integrand with the rectangle bag
   (``parallel/cubature.py``), Simpson or trapezoid, on one device or,
   with ``--n-devices N``, across N ranks (``--checkpoint`` then
@@ -37,9 +40,9 @@ parsers are the reference's, flag for flag, plus ``--device`` (default
 non-zero unless ``--device cpu`` is given). ``--engine sharded``,
 ``family --engine sharded-bag|sharded-walker|sharded-walker-dd``, ``2d
 --n-devices`` and ``qmc --n-devices`` run ranks (``parallel/mesh.py``;
-several ranks share one card over gloo). The options not ported yet
-(serve's multi-chip, cluster and dispatcher options) exit non-zero
-naming their ROADMAP.md item.
+several ranks share one card over gloo), and so does ``serve --engine
+walker-dd``. The options not ported yet (serve's cluster and dispatcher
+options) exit non-zero naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -638,9 +641,11 @@ def _refuse_unported(args) -> None:
             "--lease/--overlap-boundaries require --dispatch (they "
             "are cross-engine pool policies); add --dispatch or drop "
             "the flags")
-    if args.engine == "walker-dd" or args.n_devices:
-        raise _not_ported("the multi-chip stream engine (--engine "
-                          "walker-dd, --n-devices)", "item 7, behind item 8")
+    if args.n_devices is not None and args.n_devices != 1 \
+            and args.engine != "walker-dd":
+        raise SystemExit(
+            f"--n-devices {args.n_devices} applies to --engine walker-dd; "
+            f"the walker engine runs on one card")
 
 
 def _main_serve(args) -> int:
@@ -759,6 +764,9 @@ def _main_serve(args) -> int:
     supervise = bool(args.supervise or plan is not None
                      or os.environ.get("PPLS_CHAOS") == "1")
     quarantine = bool(args.quarantine or supervise)
+    # the world size: the supervisor's resize-resume shrinks it when a
+    # chip is lost, and every later engine build targets the survivors
+    state = {"n_devices": args.n_devices}
 
     # one Telemetry per engine attempt (registry served on
     # --metrics-port, the --events timeline), built in make_engine so a
@@ -803,6 +811,9 @@ def _main_serve(args) -> int:
             # a retry releases the previous attempt's events file handle
             # before the new segment opens it
             holder["tel"].close()
+        if "engine" in holder:
+            # and the previous attempt's ranks (walker-dd)
+            holder.pop("engine").close()
         tel = Telemetry(
             events_path=args.events,
             meta={"mode": "serve", "engine": args.engine,
@@ -814,15 +825,18 @@ def _main_serve(args) -> int:
             events_max_bytes=(int(args.events_max_mb * (1 << 20))
                               if args.events_max_mb else None))
         holder["tel"] = tel
-        ekw = dict(kw, quarantine=quarantine, fault_injector=injector,
-                   telemetry=tel, on_shed=_print_shed)
+        ekw = dict(kw, n_devices=state["n_devices"], quarantine=quarantine,
+                   fault_injector=injector, telemetry=tel,
+                   on_shed=_print_shed)
         if resuming:
             try:
-                # mesh_resize: the reference's elastic rule, a no-op at
-                # equal sizes (one card)
-                return StreamEngine.resume(
+                # mesh_resize: after a chip loss the survivors' engine
+                # resumes the larger world's snapshot through the
+                # elastic rule (a no-op at equal sizes)
+                holder["engine"] = StreamEngine.resume(
                     args.checkpoint, args.family, args.eps,
                     mesh_resize=True, **ekw)
+                return holder["engine"]
             except CheckpointCorruptError as e:
                 # self-healing: a damaged snapshot cannot be resumed;
                 # discard it and start fresh (rids are deterministic, so
@@ -834,8 +848,10 @@ def _main_serve(args) -> int:
                           detail=str(e)[:200])
                 if os.path.exists(args.checkpoint):
                     os.unlink(args.checkpoint)
-        return StreamEngine(args.family, args.eps,
-                            checkpoint_path=args.checkpoint, **ekw)
+        holder["engine"] = StreamEngine(args.family, args.eps,
+                                        checkpoint_path=args.checkpoint,
+                                        **ekw)
+        return holder["engine"]
 
     # cooperative SIGTERM/SIGINT: the loop reads the flag at phase
     # boundaries and winds down with a final checkpoint, a balanced span
@@ -982,11 +998,16 @@ def _main_serve(args) -> int:
         stop.__enter__()
         if supervise:
             from ppls_tpu_torch.runtime.guard import Supervisor
-            # one card: a chip loss leaves nothing to resume onto, so
-            # it propagates (no resize_fn)
+
+            def resize_fn(exc):
+                # chip loss: every later engine build (the resumed
+                # serve_loop's make_engine) targets the surviving ranks
+                state["n_devices"] = exc.surviving
+                return serve_loop
+
             supervisor = Supervisor(
-                serve_loop, deadline=args.watchdog, telemetry=tel_proxy,
-                backoff_base=0.25, backoff_cap=30.0)
+                serve_loop, resize_fn=resize_fn, deadline=args.watchdog,
+                telemetry=tel_proxy, backoff_base=0.25, backoff_cap=30.0)
             eng, wall = supervisor.run()
         elif args.watchdog:
             from ppls_tpu_torch.runtime.guard import run_with_watchdog
@@ -1049,10 +1070,14 @@ def _main_serve(args) -> int:
         if ingest_srv is not None:
             summary["ingest_port"] = ingest_srv.port
             summary["ingest_url"] = ingest_srv.url
+        if res.mesh is not None:
+            summary["mesh"] = res.mesh
         print(json.dumps(summary))
         return 0
     finally:
         stop.__exit__()
+        if "engine" in holder:
+            holder.pop("engine").close()
         if ingest_srv is not None:
             ingest_srv.close()
         if "tel" in holder:

@@ -26,6 +26,12 @@ starts the ranks (in-process for one rank, else ``torch.multiprocessing``
 spawn with a TCP store on 127.0.0.1, rank r on ``cuda:(r %
 device_count)``) and returns rank 0's result. A hang fails the launch at
 its time limit.
+
+A stream keeps its state on its ranks between phases, so it holds a
+:class:`World` instead: rank 0 in the caller's process, ranks 1..N-1
+spawned once and looping on rank 0's commands, over a process group the
+world owns (its own TCP store, never the default group, so the caller
+can still run every other entry point beside it).
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ import importlib
 import os
 import pickle
 import queue
+import signal
 import socket
 import time
 import traceback
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +59,8 @@ from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
 
 COLLECTIVES = ("sum", "gather", "rank")
 LAUNCH_TIMEOUT_S = 3600.0
+# a persistent world's time limit for one command (and one collective)
+WORLD_TIMEOUT_S = 900.0
 
 
 @dataclasses.dataclass
@@ -303,6 +313,320 @@ def launch(fn: Callable, n_devices: Optional[int], device, args: tuple = (),
             exc, tb = payload
             raise exc from RuntimeError(f"rank {rank} of {n}:\n{tb}")
     return got[0][1]
+
+
+# ---------------------------------------------------------------------------
+# The persistent world
+# ---------------------------------------------------------------------------
+
+
+def _own_group(backend: str, store, rank: int, n: int, timeout: float):
+    """A process group built directly on ``store``, never registered as
+    the default group: a process holding one can still call every entry
+    point (``launch`` and ``spmd_entry`` read the default group)."""
+    td = datetime.timedelta(seconds=timeout)
+    if backend == "nccl":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = td
+        return dist.ProcessGroupNCCL(store, rank, n, opts)
+    return dist.ProcessGroupGloo(store, rank, n, td)
+
+
+def _world_mesh(rank: int, n: int, backend: str, device, store,
+                timeout: float, syncs: Optional[HostSyncs] = None) -> Mesh:
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    group = _own_group(backend, dist.PrefixStore("world", store), rank, n,
+                       timeout)
+    mesh = Mesh(rank=rank, size=n, device=dev, backend=backend, group=group)
+    if syncs is not None:
+        mesh.syncs = syncs
+    # every rank finishes connecting before any can fail and close its
+    # end (a peer still connecting would report that instead)
+    mesh.barrier()
+    return mesh
+
+
+def _resolve(target: Tuple[str, str]):
+    return functools.reduce(getattr, target[1].split("."),
+                            importlib.import_module(target[0]))
+
+
+def _world_rank_main(rank: int, n: int, port: int, backend: str, device,
+                     target: Tuple[str, str], args: tuple, timeout: float,
+                     conn) -> None:
+    """A follower of a :class:`World`: join it, build this rank's object
+    ``target(mesh, *args)``, then run each command rank 0 sends (a method
+    name and its arguments), answering ("ok", None) or ("err",
+    (exception, traceback)). Ends on ``None`` (stop), on an error, or
+    when rank 0's end of the pipe closes."""
+    signal.signal(signal.SIGINT, signal.SIG_IGN)   # rank 0 decides
+    try:
+        if torch.device(device).type == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        factory = _resolve(target)
+        conn.send(("hello", rank))
+        store = dist.TCPStore("127.0.0.1", port, n, False,
+                              timeout=datetime.timedelta(seconds=timeout))
+        mesh = _world_mesh(rank, n, backend, device, store, timeout)
+        obj = factory(mesh, *args)
+        conn.send(("ok", None))
+    except BaseException as e:  # noqa: BLE001 -- reported to rank 0
+        conn.send(("err", (_portable(e), traceback.format_exc())))
+        return
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return                        # rank 0 is gone
+        if msg is None:
+            mesh.group.shutdown()
+            return
+        method, margs = msg
+        try:
+            getattr(obj, method)(*margs)
+            conn.send(("ok", None))
+        except BaseException as e:  # noqa: BLE001 -- reported to rank 0
+            try:
+                conn.send(("err", (_portable(e), traceback.format_exc())))
+            except (OSError, ValueError):
+                pass
+            return
+
+
+def _stop_followers(procs, conns) -> None:
+    """Stop and reap every follower: a stop message, a short join, then
+    a kill. Safe to call twice (the world's finalizer)."""
+    for c in conns:
+        try:
+            c.send(None)
+        except (OSError, ValueError):
+            pass
+    for p in procs:
+        p.join(timeout=5.0)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    for c in conns:
+        c.close()
+
+
+class World:
+    """A world of ``n`` ranks that lives across calls, for an engine
+    whose state stays on its ranks between phases.
+
+    Rank 0 lives in this process; ranks 1..n-1 are spawned once (rank r
+    on ``cuda:(r % device_count)``, or the CPU) and each loops on
+    commands from rank 0. Every rank holds one object, ``target(mesh,
+    *args)`` (a module-level callable, imported by name on the spawned
+    ranks); :meth:`call` runs one of its methods on every rank, rank 0's
+    here, so each rank meets the same collectives in the same order.
+
+    The transport is :func:`choose_backend`'s (NCCL when each rank owns
+    a card, gloo otherwise) over a process group the world owns, built
+    on its own TCP store and never the default group: the process that
+    holds a world can still call every other entry point. A world of one
+    rank runs in this process and spawns nothing.
+
+    A follower that dies, raises or does not answer within ``timeout``
+    seconds (also the group's collective time limit) fails the command:
+    the world closes and the error names the rank. :meth:`close` (also
+    the context manager and a finalizer) stops every follower; no
+    process outlives the world."""
+
+    def __init__(self, n: int, device, target: Callable, args: tuple = (),
+                 timeout: Optional[float] = None,
+                 syncs: Optional[HostSyncs] = None):
+        self.n = int(n)
+        if self.n < 1:
+            raise ValueError(f"a world needs >= 1 rank, got {n}")
+        self.timeout = WORLD_TIMEOUT_S if timeout is None else float(timeout)
+        resolve_device(device)            # no card: refuse before spawning
+        self.backend = choose_backend(self.n, device)
+        self._procs, self._conns = [], []
+        self._open = False
+        self._pending = False
+        self._finalizer = weakref.finalize(self, _stop_followers,
+                                           self._procs, self._conns)
+        store = None
+        try:
+            if self.n == 1:
+                store = dist.HashStore()
+            else:
+                store = dist.TCPStore(
+                    "127.0.0.1", 0, self.n, True,
+                    timeout=datetime.timedelta(seconds=self.timeout),
+                    wait_for_workers=False)
+                ctx = torch.multiprocessing.get_context("spawn")
+                spec = (target.__module__, target.__qualname__)
+                for r in range(1, self.n):
+                    mine, theirs = ctx.Pipe(duplex=True)
+                    p = ctx.Process(
+                        target=_world_rank_main,
+                        args=(r, self.n, store.port, self.backend,
+                              str(device), spec, tuple(args), self.timeout,
+                              theirs),
+                        daemon=True)
+                    p.start()
+                    theirs.close()
+                    self._procs.append(p)
+                    self._conns.append(mine)
+                # every follower imported its code before rank 0 waits
+                # in the group's rendezvous (a follower that fails to
+                # start fails here, not at the rendezvous's time limit)
+                self._answers("hello")
+            self.mesh = _world_mesh(0, self.n, self.backend, device, store,
+                                    self.timeout, syncs)
+            self.local = target(self.mesh, *args)
+            if self.n > 1:
+                self._answers("ok")
+            self._open = True
+        except BaseException:
+            self._finalizer()
+            raise
+        self._store = store
+
+    @property
+    def size(self) -> int:
+        return self.n
+
+    @property
+    def pids(self) -> list:
+        """The spawned ranks' process ids (rank 1 first)."""
+        return [p.pid for p in self._procs]
+
+    @property
+    def open(self) -> bool:
+        return self._open
+
+    def _answers(self, want: str) -> None:
+        """One answer from every follower, within the time limit; a
+        dead, failed or silent follower raises naming its rank."""
+        deadline = time.monotonic() + self.timeout
+        for r, (p, c) in enumerate(zip(self._procs, self._conns), 1):
+            while not c.poll(0.05):
+                if not p.is_alive() and not c.poll(0.5):
+                    raise RuntimeError(
+                        f"rank {r} of {self.n} exited with code "
+                        f"{p.exitcode} without an answer")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"rank {r} of {self.n} did not answer within "
+                        f"{self.timeout:.0f} s ({self.backend})")
+            try:
+                kind, payload = c.recv()
+            except (EOFError, OSError):
+                raise RuntimeError(
+                    f"rank {r} of {self.n} closed its pipe (exit code "
+                    f"{p.exitcode})") from None
+            if kind == "err":
+                exc, tb = payload
+                raise exc from RuntimeError(f"rank {r} of {self.n}:\n{tb}")
+            if kind != want:
+                raise RuntimeError(f"rank {r} of {self.n} answered "
+                                   f"{kind!r}, expected {want!r}")
+
+    def _check_open(self) -> None:
+        if not self._open:
+            raise RuntimeError("this world of ranks is closed")
+        for r, p in enumerate(self._procs, 1):
+            if not p.is_alive():
+                self._fail(RuntimeError(
+                    f"rank {r} of {self.n} exited with code {p.exitcode}"))
+
+    def _follower_fault(self, grace: float = 1.0):
+        """The first follower that reported an error or died, as an
+        exception naming its rank (None when all look healthy). Waits at
+        most ``grace`` seconds: a follower blocked in a collective is
+        not asked to answer."""
+        deadline = time.monotonic() + grace
+        while True:
+            for r, (p, c) in enumerate(zip(self._procs, self._conns), 1):
+                try:
+                    if c.poll(0):
+                        kind, payload = c.recv()
+                        if kind == "err":
+                            exc, tb = payload
+                            exc.__cause__ = RuntimeError(
+                                f"rank {r} of {self.n}:\n{tb}")
+                            return exc
+                except (EOFError, OSError):
+                    pass
+                if not p.is_alive():
+                    return RuntimeError(f"rank {r} of {self.n} exited with "
+                                        f"code {p.exitcode}")
+            if time.monotonic() > deadline:
+                return None
+            time.sleep(0.05)
+
+    def _fail(self, exc: BaseException):
+        """Close the world and raise ``exc``, or the follower fault that
+        caused it (a follower's own error, or its death)."""
+        cause = self._follower_fault() if self._procs else None
+        self.close()
+        if cause is not None:
+            raise cause from exc
+        raise exc
+
+    def begin(self, method: str, *args) -> None:
+        """Send one command to every follower; rank 0's part runs through
+        :meth:`run_local`, and :meth:`finish` collects the answers."""
+        self._check_open()
+        if self._pending:
+            raise RuntimeError("a world command is still open")
+        for r, c in enumerate(self._conns, 1):
+            try:
+                c.send((method, args))
+            except (OSError, ValueError) as e:
+                self._fail(RuntimeError(
+                    f"rank {r} of {self.n}: command {method!r} not "
+                    f"delivered ({e})"))
+        self._pending = True
+
+    def run_local(self, method: str, *args):
+        """Rank 0's part of the open command; a failure closes the world
+        and raises the follower fault behind it, if any."""
+        try:
+            return getattr(self.local, method)(*args)
+        except BaseException as e:  # noqa: BLE001 -- diagnosed, re-raised
+            self._pending = False
+            self._fail(e)
+
+    def finish(self) -> None:
+        """Every follower's answer to the open command."""
+        self._pending = False
+        try:
+            self._answers("ok")
+        except BaseException as e:  # noqa: BLE001 -- closes the world
+            self.close()
+            raise e
+
+    def call(self, method: str, *args):
+        """Run ``method(*args)`` on every rank and return rank 0's
+        result."""
+        self.begin(method, *args)
+        out = self.run_local(method, *args)
+        self.finish()
+        return out
+
+    def close(self) -> None:
+        """Stop every follower and shut the group down (idempotent)."""
+        was_open, self._open = self._open, False
+        self._pending = False
+        self._finalizer()
+        if was_open:
+            self.mesh.group.shutdown()
+        self.local = None
+        self.mesh = None
+        self._store = None
+
+    def __enter__(self) -> "World":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def run_calls(calls: Sequence[Tuple[Callable, tuple, dict]]) -> list:

@@ -46,8 +46,13 @@ reference's container. :func:`resume_family_walker_dd` continues it
 bit-identically, or, with ``mesh_resize``, re-deals it onto another
 world size (``mesh.host_strided_redeal``).
 
-Not ported here: the streaming admission path (``admit_window``, ROADMAP
-Queue 1 item 7, behind item 8).
+With ``admit_window`` = AW > 0, :func:`build_dd_walker_run` is the
+walker-dd stream's phase body (``runtime/stream.py``): one cycle per call,
+with the rank's admitted seed block pushed onto its queue top and the
+recycled slots' partial areas cleared as the phase opens, and each
+rank's family live counts returned for retirement. :class:`DDStreamRank`
+is one rank's state of that stream inside a persistent
+``mesh.World``.
 """
 
 from __future__ import annotations
@@ -85,7 +90,6 @@ from ppls_tpu_torch.utils.metrics import RunMetrics
 CTR64 = ("tasks", "splits", "btasks", "wtasks", "wsplits", "roots",
          "rounds", "segs", "wsteps", "srows", "crounds")
 _CTR64_MAX = ("rounds", "crounds")
-STREAM_ITEM = "ROADMAP.md Queue 1 item 7, behind item 8"
 
 
 @dataclasses.dataclass
@@ -133,10 +137,26 @@ def build_dd_walker_run(mesh: Mesh, family: str, eps: float,
     cycles, left)``, which runs up to ``max_cycles`` cycles (the module
     docstring) from the carry ``c`` and returns the new carry, the cycles
     run and the global count left. ``theta_table`` is the (m, T) float64
-    theta table on the rank's device when ``theta_block`` > 1."""
+    theta table on the rank's device when ``theta_block`` > 1; ``run``'s
+    own ``theta_table`` replaces it from that call on.
+
+    With ``admit_window`` = AW > 0 it is the streaming phase body:
+    ``run(c, admit)`` with ``admit = (l, r, th, meta, n_adm, clear)``,
+    this rank's (AW,) admitted-seed block (a dense prefix of ``n_adm``
+    rows, in-domain fill past it) and the (m,) recycled-slot mask, first
+    clears the recycled slots' partial areas, pushes the block onto the
+    rank's queue top and folds the capacity predicate into the cycle's
+    overflow sum, then runs the cycle; it returns ``(c, cycles, left,
+    fam_live)`` with this rank's (m,) int32 live rows per family. The
+    stream requires ``max_cycles == 1`` and ``refill_slots`` > 0."""
     if admit_window:
-        raise ValueError(f"admit_window (the walker-dd stream) is not "
-                         f"ported: {STREAM_ITEM}")
+        if max_cycles != 1:
+            raise ValueError("admit_window requires max_cycles == 1 "
+                             "(one cycle per admission boundary)")
+        if not refill_slots:
+            raise ValueError("admit_window requires refill_slots > 0 "
+                             "(admission rides the refill mode's "
+                             "phase-granular reshard)")
     f_theta = get_family(family)
     f_ds = get_family_ds(family, reduced=reduced)
     syncs = mesh.syncs
@@ -155,6 +175,7 @@ def build_dd_walker_run(mesh: Mesh, family: str, eps: float,
         reshard_window = 2 * breed_chunk
     rebalance_floor = max(n_dev, min_active)
     bank_dry_floor = n_dev * min_active
+    tt = {"v": theta_table}      # the theta table the next cycle reads
     wkw = dict(f_ds=f_ds, eps=eps, m=m, seg_iters=seg_iters,
                max_segments=max_segments, min_active_frac=min_active_frac,
                exit_frac=exit_frac, suspend_frac=suspend_frac, lanes=lanes,
@@ -225,7 +246,7 @@ def build_dd_walker_run(mesh: Mesh, family: str, eps: float,
                    max_iters=1 << 20, syncs=syncs, stop_count=target_local)
         if T > 1:
             return W._run_theta_bag(
-                b, theta_table=theta_table, theta_block=T,
+                b, theta_table=tt["v"], theta_block=T,
                 chunk=W.theta_drain_chunk(breed_chunk, T), **dkw)
         return run_bag(b, rule=rule, chunk=breed_chunk, **dkw)
 
@@ -245,7 +266,7 @@ def build_dd_walker_run(mesh: Mesh, family: str, eps: float,
         if refill_slots:
             walk = W._run_walk_kernel_refill(
                 local, refill_slots=refill_slots, double_buffer=double_buffer,
-                theta_block=T, theta_table=theta_table, seg_stats0=stats,
+                theta_block=T, theta_table=tt["v"], seg_stats0=stats,
                 **wkw)
         else:
             walk = W._run_walk(local, seg_stats0=stats, **wkw)
@@ -277,7 +298,41 @@ def build_dd_walker_run(mesh: Mesh, family: str, eps: float,
             overflow=c.overflow)
         return out, bred.overflow or bag3.overflow
 
-    def run(c: _DDCarry):
+    def admit_local(c: _DDCarry, adm_l, adm_r, adm_th, adm_meta, n_adm,
+                    clear) -> _DDCarry:
+        """Streaming admission at the phase open: clear the recycled
+        slots' partial areas, push the block onto the queue top (the
+        store's slack covers the window: ``_dd_sizing``), and raise the
+        local capacity predicate, which the cycle's first sum
+        replicates. The cleared accumulator is the one carried on (the
+        reference's round-14 repair: a recycled slot must not keep its
+        previous request's partial)."""
+        dev = c.acc.device
+        clear = torch.as_tensor(np.asarray(clear), dtype=torch.bool,
+                                device=dev)
+        if T > 1:
+            clear = clear.repeat_interleave(T)
+        acc2 = torch.where(clear, torch.zeros((), dtype=c.acc.dtype,
+                                              device=dev), c.acc)
+        start, width = c.count, int(np.asarray(adm_l).shape[0])
+        store = c.bag_l.shape[0]
+        if start + width > store:
+            raise ValueError(
+                f"admit window of {width} rows at count {start} overruns "
+                f"the rank's store ({store} rows)")
+        for col, blk in ((c.bag_l, adm_l), (c.bag_r, adm_r),
+                         (c.bag_th, adm_th), (c.bag_meta, adm_meta)):
+            col[start:start + width] = torch.as_tensor(
+                np.asarray(blk), dtype=col.dtype).to(dev)
+        cnt = start + int(n_adm)
+        return dataclasses.replace(c, count=cnt, acc=acc2,
+                                   overflow=c.overflow or cnt > capacity)
+
+    def run(c: _DDCarry, admit=None, theta_table=None):
+        if theta_table is not None:
+            tt["v"] = theta_table
+        if admit_window:
+            c = admit_local(c, *admit)
         glob, n_ovf = mesh.psum_host([c.count, int(c.overflow)])
         c.overflow = c.overflow or n_ovf > 0
         cycles = 0
@@ -287,6 +342,9 @@ def build_dd_walker_run(mesh: Mesh, family: str, eps: float,
             glob, n_ovf = mesh.psum_host([c.count, int(local_ovf)])
             c.overflow = c.overflow or n_ovf > 0
             cycles += 1
+        if admit_window:
+            return c, cycles, glob, W.family_live_counts_cols(
+                c.bag_meta, c.count, m)
         return c, cycles, glob
 
     return run
@@ -703,3 +761,183 @@ def resume_family_walker_dd(path: str, family: str, theta: Sequence[float],
     return integrate_family_walker_dd(
         family, theta, bounds, eps, mesh=mesh, checkpoint_path=path,
         _state_override=state, _totals_override=totals, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# The walker-dd stream's ranks
+# ---------------------------------------------------------------------------
+
+# the per-rank ints of a phase's one gather, before the family live counts
+# and the partial areas: the cumulative counters, the lane-waste buckets,
+# the eval split, then these
+_ROW_TAIL = ("maxd", "count", "overflow", "syncs", "calls_sum",
+             "calls_gather", "calls_rank", "k1_launches", "k2_launches")
+
+
+def dd_row_layout(slots: int, m_eff: int) -> dict:
+    """Column slices of a phase row (:meth:`DDStreamRank.phase_rows`):
+    ``ctr`` (the 11 ``CTR64`` counters), ``waste``, ``evals``, one
+    column per ``_ROW_TAIL`` name, ``fam_live`` (slots) and ``acc``
+    (m_eff)."""
+    out, j = {}, 0
+    for k, w in (("ctr", len(CTR64)), ("waste", W.N_WASTE), ("evals", 2),
+                 *((k, 1) for k in _ROW_TAIL), ("fam_live", slots),
+                 ("acc", m_eff)):
+        out[k] = slice(j, j + w)
+        j += w
+    out["width"] = j
+    return out
+
+
+class DDStreamRank:
+    """One rank's part of the walker-dd stream, held by a persistent
+    ``mesh.World`` across phases: the rank's bag store, partial areas and
+    cumulative counters (a :class:`_DDCarry`), and the phase program
+    (:func:`build_dd_walker_run` with ``max_cycles=1`` and the admit
+    window). Every method runs on every rank in the same order (rank 0
+    in the engine's process); the gathered results are rank 0's.
+
+    ``cfg`` holds the engine's resolved configuration: ``family``,
+    ``eps``, ``rule``, ``slots``, ``lanes``, ``capacity``, ``chunk``,
+    ``roots_per_lane``, ``refill_slots``, ``seg_iters``,
+    ``max_segments``, ``min_active_frac``, ``exit_frac``,
+    ``suspend_frac``, ``sort_roots``, ``sort_skip_ratio``, ``scout``,
+    ``double_buffer``, ``reduced``, ``theta_block``, ``fill`` and
+    ``admit_window`` (per rank)."""
+
+    def __init__(self, mesh: Mesh, cfg: dict):
+        self.mesh = mesh
+        T = int(cfg["theta_block"])
+        self.slots = int(cfg["slots"])
+        self.m_eff = self.slots * T
+        target_local, breed_chunk, self.store, reshard_window = _dd_sizing(
+            cfg["lanes"], cfg["capacity"], cfg["chunk"],
+            cfg["roots_per_lane"])
+        self.fill = tuple(float(v) for v in cfg["fill"])
+        self.run = build_dd_walker_run(
+            mesh, cfg["family"], float(cfg["eps"]), int(breed_chunk),
+            int(cfg["capacity"]), self.slots, int(cfg["lanes"]),
+            int(cfg["seg_iters"]), int(cfg["max_segments"]),
+            float(cfg["min_active_frac"]), float(cfg["exit_frac"]),
+            float(cfg["suspend_frac"]), int(target_local), 1,
+            self.fill[0], self.fill[1], Rule(cfg["rule"]),
+            bool(cfg["sort_roots"]), float(cfg["sort_skip_ratio"]),
+            int(cfg["refill_slots"]), int(reshard_window),
+            admit_window=int(cfg["admit_window"]), scout=bool(cfg["scout"]),
+            double_buffer=bool(cfg["double_buffer"]),
+            reduced=bool(cfg["reduced"]), theta_block=T)
+        self.layout = dd_row_layout(self.slots, self.m_eff)
+        self._launch0 = _launch_counts()
+        self._set_state(None)
+
+    def _set_state(self, st: Optional[dict]) -> None:
+        """A fresh store, or this rank's row of a gathered snapshot
+        ``st`` (:meth:`snapshot_rows`'s keys)."""
+        r, dev = self.mesh.rank, self.mesh.device
+        fx, fth = self.fill
+
+        def block(k):
+            return np.asarray(st["cols"][k])[r] if st else np.zeros(0)
+
+        self.c = _DDCarry(
+            bag_l=device_store(self.store, fx, block("l"), device=dev),
+            bag_r=device_store(self.store, fx, block("r"), device=dev),
+            bag_th=device_store(self.store, fth, block("th"), device=dev),
+            bag_meta=device_store(self.store, 0, block("meta"), torch.int32,
+                                  dev),
+            count=int(st["counts"][r]) if st else 0,
+            acc=(torch.tensor(np.asarray(st["acc"])[r], dtype=torch.float64,
+                              device=dev) if st else
+                 torch.zeros(self.m_eff, dtype=torch.float64, device=dev)),
+            ctr={k: int(np.asarray(st["ctr"][j])[r]) if st else 0
+                 for j, k in enumerate(CTR64)},
+            waste=(np.asarray(st["waste"], dtype=np.int64)[r].copy() if st
+                   else np.zeros(W.N_WASTE, dtype=np.int64)),
+            evals=(np.asarray(st["evals"], dtype=np.int64)[r].copy() if st
+                   else np.zeros(2, dtype=np.int64)),
+            maxd=int(st["maxd"][r]) if st else 0,
+            overflow=bool(st["ovf"][r]) if st else False)
+        self.fam_live = torch.zeros(self.slots, dtype=torch.int32,
+                                    device=dev)
+
+    def phase(self, cmd: dict) -> None:
+        """The phase's launch part on this rank: take this rank's row of
+        the admitted (n, AW) block, its admit count and the recycled-slot
+        mask (and the theta table in theta mode), then run one cycle."""
+        r = self.mesh.rank
+        blk = cmd["block"]
+        tt = (None if cmd.get("theta") is None else
+              torch.as_tensor(np.asarray(cmd["theta"]), dtype=torch.float64,
+                              device=self.mesh.device))
+        self.c, _cycles, _left, self.fam_live = self.run(
+            self.c, (blk[0][r], blk[1][r], blk[2][r], blk[3][r],
+                     int(cmd["counts"][r]), cmd["clear"]), theta_table=tt)
+
+    def phase_rows(self) -> Optional[np.ndarray]:
+        """The phase's pull part: ONE gather of every rank's counters,
+        live counts and partial areas (float64: the integers are below
+        2^53); rank 0 reads it (one sync) and gets the (n, width) rows."""
+        c, mesh = self.c, self.mesh
+        k1, k2 = _launch_counts()
+        ints = [*(c.ctr[k] for k in CTR64), *c.waste, *c.evals, c.maxd,
+                c.count, int(c.overflow), mesh.syncs.n,
+                *(mesh.calls[k] for k in ("sum", "gather", "rank")),
+                k1 - self._launch0[0], k2 - self._launch0[1]]
+        dev = c.acc.device
+        packed = torch.cat([
+            torch.tensor(ints, dtype=torch.float64).to(dev),
+            self.fam_live.to(torch.float64), c.acc])
+        g = mesh.all_gather(packed)
+        if mesh.rank:
+            return None
+        return mesh.syncs.pull_arrays(g)[0]
+
+    def phase_all(self, cmd: dict) -> None:
+        """A follower's whole phase: :meth:`phase`, then its part of the
+        gather."""
+        self.phase(cmd)
+        self.phase_rows()
+
+    def cancel(self, kill) -> Optional[np.ndarray]:
+        """Deadline expiry: compact this rank's queue, dropping the
+        killed slots' live rows (a stable partition, no collective), then
+        gather the new counts; rank 0 gets the (n,) counts."""
+        from ppls_tpu_torch.runtime.stream import _cancel_program
+        c = self.c
+        k = torch.as_tensor(np.asarray(kill), dtype=torch.bool,
+                            device=c.acc.device)
+        bag = _cancel_program(_local_bag(c, self.m_eff), k, self.mesh.syncs)
+        self.c = dataclasses.replace(
+            c, bag_l=bag.bag_l, bag_r=bag.bag_r, bag_th=bag.bag_th,
+            bag_meta=bag.bag_meta, count=bag.count)
+        counts = self.mesh.gather_host([bag.count])[:, 0]
+        return counts if self.mesh.rank == 0 else None
+
+    def snapshot_rows(self) -> Optional[dict]:
+        """Every rank's live prefix (cut to the widest count, in rank
+        order), partial areas and cumulative counters, gathered; rank 0
+        gets them as host arrays."""
+        c, mesh = self.c, self.mesh
+        counts, _b, cols = gather_prefix(
+            mesh, (c.bag_l, c.bag_r, c.bag_th, c.bag_meta), c.count,
+            self.store)
+        pc = mesh.gather_host([*(c.ctr[k] for k in CTR64), *c.waste,
+                               *c.evals, c.maxd, int(c.overflow)])
+        acc = gather_rows(mesh, c.acc)
+        if mesh.rank:
+            return None
+        b = max(int(counts.max(initial=0)), 1)
+        j = len(CTR64)
+        return dict(
+            cols=dict(zip(("l", "r", "th", "meta"),
+                          (x[:, :b] for x in cols))),
+            counts=counts, acc=acc,
+            ctr=[pc[:, i] for i in range(j)],
+            waste=pc[:, j:j + W.N_WASTE],
+            evals=pc[:, j + W.N_WASTE:j + W.N_WASTE + 2],
+            maxd=pc[:, -2], ovf=pc[:, -1].astype(bool))
+
+    def restore(self, st: dict) -> None:
+        """Overlay this rank's row of a snapshot (:meth:`snapshot_rows`'s
+        keys, already on this world's size) on a fresh store."""
+        self._set_state(st)

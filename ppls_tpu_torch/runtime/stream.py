@@ -55,8 +55,20 @@ admission budget and the spillover batch limit within their safe bands
 at every phase close (``runtime/tune.py`` ``OnlineAdapter``, from the
 stats row the phase already read); its state rides every snapshot.
 
-Not ported (the constructor refuses it with the ROADMAP.md item): the
-multi-chip engine (``walker-dd``).
+``engine="walker-dd"`` is the multi-chip stream: the demand-driven
+walker (``parallel/sharded_walker.py``) over ``n_devices`` ranks that
+live as long as the engine (``mesh.World``: rank 0 in this process, the
+others spawned once, when the store is built). Each phase the host deals
+the admitted requests round-robin over the ranks; every rank pushes its
+block onto its own queue top, clears its recycled slots' partial areas
+and runs one cycle (``build_dd_walker_run(admit_window=)``), and rank 0
+reads ONE gather of every rank's counters, live counts and partial
+areas. A request's area is the sum of the ranks' partials in rank
+order. ``obs/flight.py`` publishes each phase's per-rank attribution.
+Deadline expiry compacts every rank's queue; snapshots gather every
+rank's live prefix in rank order, and ``resume(mesh_resize=True)``
+re-deals a snapshot of another world size (``mesh.host_strided_redeal``).
+:meth:`StreamEngine.close` (or the context manager) stops the ranks.
 """
 
 from __future__ import annotations
@@ -73,20 +85,27 @@ import torch
 from ppls_tpu_torch.config import Rule
 from ppls_tpu_torch.models.integrands import (check_ds_domain, get_family,
                                               get_family_ds)
+from ppls_tpu_torch.obs.flight import ChipFlightRecorder
 from ppls_tpu_torch.obs.registry import (PHASE_BUCKETS, SECONDS_BUCKETS,
                                          Histogram)
 from ppls_tpu_torch.obs.telemetry import Telemetry, build_attribution
-from ppls_tpu_torch.parallel.bag_engine import (DEPTH_BITS, BagState,
-                                                _pull_prefix, _restore_bag)
+from ppls_tpu_torch.parallel.bag_engine import (DEPTH_BITS, DEPTH_MASK,
+                                                BagState, _pull_prefix,
+                                                _restore_bag)
+from ppls_tpu_torch.parallel.mesh import (World, default_world,
+                                          host_strided_redeal)
+from ppls_tpu_torch.parallel.sharded_walker import (CTR64, _CTR64_MAX,
+                                                    DDStreamRank, _dd_sizing,
+                                                    dd_row_layout)
 from ppls_tpu_torch.parallel.walker import (
-    DEFAULT_LANES, SORT_SKIP_RATIO, STREAM_STAT_FIELDS, WASTE_FIELDS,
+    DEFAULT_LANES, N_WASTE, SORT_SKIP_RATIO, STREAM_STAT_FIELDS,
+    WASTE_FIELDS,
     _is_reduced_twin, pull_stream_cycle, resolve_cadence,
     resolve_scout_dtype, run_stream_cycle, validate_double_buffer,
     validate_theta_block, walker_sizing)
 from ppls_tpu_torch.runtime.checkpoint import (
     background_writer, engine_name, flush_background_writer,
-    load_family_checkpoint, peek_checkpoint_identity,
-    save_family_checkpoint)
+    load_family_checkpoint, save_family_checkpoint)
 from ppls_tpu_torch.runtime.tune import (ADAPT_WASTE_FRAC, OnlineAdapter,
                                          last_resolution, workload_signature)
 from ppls_tpu_torch.utils.device import HostSyncs, resolve_device
@@ -204,6 +223,9 @@ class StreamResult:
     host_syncs: int = 0
     host_syncs_per_phase: List[int] = dataclasses.field(
         default_factory=list)
+    # walker-dd: the transport and every rank's host syncs, collective
+    # calls by kind and K1 / K2 launches, as of the last phase's gather
+    mesh: Optional[dict] = None
 
     @property
     def areas(self) -> np.ndarray:
@@ -368,11 +390,6 @@ def _stream_identity(engine: str, family: str, eps: float, rule: Rule,
             "refill_slots": int(refill_slots), "n_dev": int(n_dev)}
 
 
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported to ppls_tpu_torch yet "
-                      f"(ROADMAP.md Queue 1 {item})")
-
-
 class StreamEngine:
     """Long-lived streaming integration service over the walker, on one
     card (or on the CPU with ``device="cpu"``).
@@ -393,9 +410,12 @@ class StreamEngine:
 
     The reference's parameters and defaults, with ``device`` in place of
     ``interpret``. ``spillover`` runs queue-overflow victims on the host
-    CPU (``spillover_limit`` per phase). The unported multi-chip engine
-    raises ``ValueError`` (``engine="walker-dd"``,
-    ``mesh``/``n_devices``). ``reduced_integrands`` walks the family's
+    CPU (``spillover_limit`` per phase). ``engine="walker-dd"`` runs the
+    stream over ``n_devices`` ranks (default: every card, one rank on
+    the CPU; ``mesh``, a ``mesh.Mesh`` or ``mesh.World`` or an int, is
+    read for its size), which live until :meth:`close`; the walker
+    engine runs on one card and refuses ``n_devices`` > 1.
+    ``reduced_integrands`` walks the family's
     range-reduced ds twin where it has one. Unless ``exit_frac`` and
     ``suspend_frac`` are given the cadence resolves through the tuning
     table's rows for this device; the ``ppls_tuning_resolution`` gauge
@@ -445,10 +465,8 @@ class StreamEngine:
                  slo_config=None,
                  adapt: bool = False,
                  checkpoint_background: bool = False):
-        if engine == "walker-dd" or mesh is not None or n_devices:
-            raise _not_ported("the multi-chip stream engine (walker-dd)",
-                              "item 7, behind item 8")
-        if engine != "walker":
+        self._world = None
+        if engine not in ("walker", "walker-dd"):
             raise ValueError(f"unknown stream engine {engine!r}")
         self.device = resolve_device(device)
         if lanes % 128:
@@ -458,6 +476,23 @@ class StreamEngine:
             raise ValueError(
                 f"refill_slots must be in [0, roots_per_lane="
                 f"{roots_per_lane}], got {refill_slots}")
+        if engine == "walker-dd":
+            if refill_slots <= 0:
+                raise ValueError(
+                    "walker-dd streaming requires refill_slots > 0 "
+                    "(admission rides the refill mode's phase reshard)")
+            n_dev = (int(getattr(mesh, "size", mesh)) if mesh is not None
+                     else int(n_devices) if n_devices
+                     else default_world(self.device))
+            if n_dev < 1:
+                raise ValueError(f"n_devices must be >= 1, got {n_dev}")
+        elif mesh is not None or (n_devices and int(n_devices) != 1):
+            raise ValueError(
+                "mesh / n_devices > 1 apply to engine='walker-dd'; the "
+                "walker engine runs on one card")
+        else:
+            n_dev = 1
+        self._n_dev = n_dev
         if scout_dtype == "f32" and f64_rounds:
             raise ValueError(
                 "scout_dtype='f32' is meaningless with f64_rounds > 0 "
@@ -470,7 +505,7 @@ class StreamEngine:
             exit_frac, suspend_frac, self._scout, refill_slots,
             signature=workload_signature(
                 family, eps, Rule(rule), theta_block=int(theta_block),
-                mesh_shape=1, scout=self._scout,
+                mesh_shape=n_dev, scout=self._scout,
                 refill_slots=int(refill_slots)),
             device=self.device)
         tier = last_resolution()["tier"]
@@ -687,7 +722,7 @@ class StreamEngine:
         ident = _stream_identity(
             f"{self.engine}-stream", self.family, self.eps, self.rule,
             self.slots, self.lanes, self._chunk, self._capacity,
-            self._roots_per_lane, self._refill_slots, 1)
+            self._roots_per_lane, self._refill_slots, self._n_dev)
         if self._scout:
             ident["scout"] = True
         if self._double_buffer:
@@ -711,10 +746,14 @@ class StreamEngine:
         if not self.checkpoint_path:
             raise ValueError("no checkpoint_path configured")
         m_eff = self.slots * self._theta_block
+        extra = {}
         if self._dev is None:
             bag_cols, count = {}, 0
             acc_pair = np.zeros((2, m_eff))
             fam_last = [-1] * self.slots
+        elif self.engine == "walker-dd":
+            bag_cols, count, acc_pair, fam_last, extra = \
+                self._snapshot_dd_state()
         else:
             d = self._dev
             count = d["bag"].count
@@ -753,6 +792,7 @@ class StreamEngine:
             totals["adapt"] = self._adapt.state()
         if self._theta_block > 1 and self._fill is not None:
             totals["theta_table"] = self._theta_table.tolist()
+        totals.update(extra)
         writer = (background_writer() if self.checkpoint_background
                   else None)
         save_family_checkpoint(
@@ -771,6 +811,36 @@ class StreamEngine:
                 writer.flush()
             self.fault_injector.on_checkpoint_write(self.checkpoint_path)
 
+    def _snapshot_dd_state(self):
+        """Every rank's device state for a snapshot, gathered in rank
+        order: live bag prefixes ((n, b) columns and the (n,) counts, as
+        the batch dd engine's leg snapshot), the (n, slots * T) partial
+        areas, the cumulative counters, and the host delta trackers the
+        phase loop needs to keep producing exact deltas after a
+        resume."""
+        st = self._world.call("snapshot_rows")
+        bag_cols = dict(st["cols"], counts=st["counts"])
+        extra = {"dd": {
+            "ctr": [np.asarray(v).tolist() for v in st["ctr"]],
+            "waste": np.asarray(st["waste"]).tolist(),
+            "evals": np.asarray(st["evals"]).tolist(),
+            "maxd": np.asarray(st["maxd"]).tolist(),
+            "ovf": np.asarray(st["ovf"]).tolist(),
+            "prev": self._dd_prev.tolist(),
+            "prev_waste": self._dd_prev_waste.tolist(),
+            "prev_evals": self._dd_prev_evals.tolist(),
+            "prev_acc": self._dd_prev_acc.tolist(),
+            "prev_chip": {k: v.tolist()
+                          for k, v in self._dd_prev_chip.items()},
+            "prev_count": self._dd_prev_count.tolist(),
+            "rr": self._dd_rr,
+            # the straggler streaks: a resume neither forgets nor
+            # re-fires a streak in progress
+            "flight_streak": list(self._flight._streak),
+        }}
+        return (bag_cols, int(np.sum(st["counts"])), np.asarray(st["acc"]),
+                self._dd_fam_last.tolist(), extra)
+
     @classmethod
     def resume(cls, checkpoint_path: str, family: str, eps: float,
                mesh_resize: bool = False, **kwargs) -> "StreamEngine":
@@ -778,26 +848,26 @@ class StreamEngine:
         ``kwargs`` (CUDA by default). The configuration must match the
         snapshotted run's (identity-checked); the continued stream
         replays the identical phases. ``mesh_resize=True`` is the
-        reference's elastic rule, a no-op at equal mesh sizes: a
-        snapshot of one card resumes, one of another mesh size is
-        refused. A snapshot that carries multi-chip state is refused with
-        its ROADMAP item, one with a non-empty spill queue unless
-        ``spillover=True``, and one with online-adaptation state unless
-        ``adapt=True``. The SLO evaluator's windows re-base at the
-        resumed phase."""
+        reference's elastic rule (a no-op at equal mesh sizes): a
+        walker-dd snapshot of another world size resumes on this
+        engine's ranks, its queues re-dealt depth-stratified
+        (``mesh.host_strided_redeal``) and its counters resharded
+        sum-preserving. A snapshot with a non-empty spill queue is
+        refused unless ``spillover=True``, one with online-adaptation
+        state unless ``adapt=True``. The SLO evaluator's windows re-base
+        at the resumed phase."""
         eng = cls(family, eps, checkpoint_path=checkpoint_path, **kwargs)
+        try:
+            eng._resume_from(checkpoint_path, mesh_resize)
+        except BaseException:
+            eng.close()
+            raise
+        return eng
+
+    def _resume_from(self, checkpoint_path: str, mesh_resize: bool) -> None:
+        eng = self
         bag_cols, count, acc_pair, totals = load_family_checkpoint(
             checkpoint_path, eng._identity(), mesh_resize=mesh_resize)
-        if mesh_resize:
-            n_old = int(peek_checkpoint_identity(checkpoint_path)
-                        .get("n_dev", 1))
-            if n_old != 1:
-                raise _not_ported(
-                    f"elastic resume of a {n_old}-chip snapshot onto one "
-                    f"card (mesh_resize)", "item 7, behind item 8")
-        if "dd" in totals:
-            raise _not_ported("resuming a walker-dd snapshot",
-                              "item 7, behind item 8")
         eng.phase = int(totals["phase"])
         eng._next_rid = int(totals["next_rid"])
         eng._fam_first = np.asarray(totals["fam_first"], dtype=np.int32)
@@ -887,8 +957,12 @@ class StreamEngine:
                 np.full((eng.slots, eng._theta_block), eng._fill[1],
                         dtype=np.float64))
             eng._build_store()
-            eng._restore_device(bag_cols, count, acc_pair,
-                                totals["fam_last"])
+            if eng.engine == "walker-dd":
+                eng._restore_device_dd(bag_cols, totals,
+                                       np.asarray(acc_pair))
+            else:
+                eng._restore_device(bag_cols, count, acc_pair,
+                                    totals["fam_last"])
         eng._replay_registry()
         if eng._slo is not None:
             # the burn windows re-base at the resume point: the replayed
@@ -903,7 +977,6 @@ class StreamEngine:
             "resume", phase=eng.phase, count=eng._count,
             pending=len(eng._pending), resident=len(eng._slot_req),
             completed=len(eng.completed))
-        return eng
 
     def _restore_device(self, bag_cols, count, acc_pair, fam_last):
         """Overlay the snapshot's live prefix on the fresh store and
@@ -923,6 +996,143 @@ class StreamEngine:
         if self._theta_block > 1:
             self._theta_dev = torch.as_tensor(self._theta_table, dtype=f64,
                                               device=dev)
+
+    def _restore_device_dd(self, bag_cols, totals, acc):
+        """Rebuild every rank's store around its saved live prefix and
+        restore the cumulative counters and the host delta trackers, so
+        the continued stream's phase rows and flight-recorder deltas
+        equal the undisturbed run's. A snapshot of another world size
+        (``mesh_resize``) is re-dealt first."""
+        n_dev = self._n_dev
+        dd = totals["dd"]
+        counts = np.asarray(bag_cols.get("counts", np.zeros(n_dev)),
+                            dtype=np.int32)
+        n_old = counts.shape[0]
+        if n_old != n_dev:
+            bag_cols, counts, acc, dd = self._resize_dd_snapshot(
+                bag_cols, counts, acc, dd, n_old)
+        m_eff = self.slots * self._theta_block
+        w_in = np.asarray(dd["waste"], dtype=np.int64).reshape(n_dev, -1)
+        waste = np.zeros((n_dev, N_WASTE), dtype=np.int64)
+        waste[:, :w_in.shape[1]] = w_in       # snapshots with 4 buckets
+        empty = np.zeros((n_dev, 0))
+        st = dict(
+            cols={k: (np.asarray(bag_cols[k]) if "l" in bag_cols
+                      else empty) for k in ("l", "r", "th", "meta")},
+            counts=counts,
+            acc=np.asarray(acc, dtype=np.float64).reshape(n_dev, m_eff),
+            ctr=[np.asarray(v, dtype=np.int64) for v in dd["ctr"]],
+            waste=waste,
+            evals=np.asarray(dd.get("evals", np.zeros((n_dev, 2))),
+                             dtype=np.int64).reshape(n_dev, 2),
+            maxd=np.asarray(dd["maxd"], dtype=np.int64),
+            ovf=np.asarray(dd["ovf"], dtype=bool))
+        self._world.call("restore", st)
+        self._dd_prev = np.asarray(dd["prev"], dtype=np.int64)
+        pw = np.asarray(dd["prev_waste"], dtype=np.int64)
+        self._dd_prev_waste = np.concatenate(
+            [pw, np.zeros(N_WASTE - pw.shape[0], np.int64)])
+        self._dd_prev_evals = np.asarray(dd.get("prev_evals", np.zeros(2)),
+                                         dtype=np.int64)
+        self._dd_prev_acc = np.asarray(dd["prev_acc"], dtype=np.float64)
+        self._dd_prev_chip = {k: np.asarray(v, dtype=np.int64)
+                              for k, v in dd["prev_chip"].items()}
+        pcw = self._dd_prev_chip["waste"].reshape(n_dev, -1)
+        if pcw.shape[1] < N_WASTE:
+            pad = np.zeros((n_dev, N_WASTE), dtype=np.int64)
+            pad[:, :pcw.shape[1]] = pcw
+            self._dd_prev_chip["waste"] = pad
+        self._dd_prev_count = np.asarray(dd["prev_count"], dtype=np.int64)
+        self._dd_fam_last = np.asarray(totals["fam_last"], dtype=np.int32)
+        self._dd_rr = int(dd["rr"])
+        if "flight_streak" in dd:
+            self._flight._streak = [int(v) for v in dd["flight_streak"]]
+
+    def _resize_dd_snapshot(self, bag_cols, counts, acc, dd, n_old: int):
+        """Re-target an ``n_old``-rank snapshot at this engine's world
+        (elastic resume): the queues re-dealt depth-stratified (the key
+        the phase reshard deals by), the counters resharded
+        sum-preserving (the replicated ones, crounds and maxd, take
+        their maximum), and the host delta trackers rebuilt from the new
+        layout so the first phase after the resize reports exact deltas.
+        The straggler streaks reset: per-rank history does not carry
+        across a change of world size."""
+        n_dev, store = self._n_dev, self._dd_store
+        fill_x, fill_th = self._fill
+        m_eff = self.slots * self._theta_block
+        if "l" in bag_cols:
+            cols = {k: np.asarray(bag_cols[k])
+                    for k in ("l", "r", "th", "meta")}
+            dealt, counts = host_strided_redeal(
+                cols, counts, n_dev,
+                fills={"l": fill_x, "r": fill_x, "th": fill_th, "meta": 0},
+                sort_key=np.asarray(bag_cols["meta"]) & DEPTH_MASK)
+            b_new = dealt["l"].shape[1]
+            if b_new > store or int(counts.max(initial=0)) > store:
+                raise ValueError(
+                    f"mesh-resize resume: the re-dealt per-chip queue "
+                    f"({b_new} rows) does not fit the {store}-row store "
+                    f"of the {n_dev}-chip engine; raise capacity (or "
+                    f"resume onto more chips)")
+            bag_cols = dict(dealt, counts=counts)
+        else:
+            counts = np.zeros(n_dev, np.int32)
+
+        def place_sum(vec, dtype):
+            v = np.asarray(vec, dtype=dtype).reshape(n_old, -1)
+            res = np.zeros((n_dev, v.shape[1]), dtype=dtype)
+            res[0] = v.sum(axis=0)
+            return res
+
+        ctr_new = [np.full(n_dev, np.asarray(v, np.int64).max(initial=0),
+                           np.int64) if k in _CTR64_MAX
+                   else place_sum(v, np.int64)[:, 0]
+                   for k, v in zip(CTR64, dd["ctr"])]
+        waste_new = place_sum(dd["waste"], np.int64)
+        evals_new = place_sum(dd.get("evals", np.zeros((n_old, 2))),
+                              np.int64)
+        acc = np.asarray(acc, np.float64).reshape(n_old, m_eff)
+        acc_new = np.zeros((n_dev, m_eff), np.float64)
+        # re-associating the cross-rank sum: exact (dyadic) workloads
+        # stay bit-identical, ds workloads move within the walker's
+        # contract
+        acc_new[0] = acc.sum(axis=0)
+        idx = {k: i for i, k in enumerate(CTR64)}
+        dd = dict(
+            dd, ctr=[c.tolist() for c in ctr_new],
+            waste=waste_new.tolist(), evals=evals_new.tolist(),
+            maxd=np.full(n_dev, np.asarray(dd["maxd"], np.int32)
+                         .max(initial=0), np.int32).tolist(),
+            ovf=np.full(n_dev, bool(np.any(np.asarray(dd["ovf"]))),
+                        dtype=bool).tolist(),
+            # the stored trackers describe the old world: crounds' rank
+            # sum changes with the rank count though its value did not
+            prev=[int(c.sum()) for c in ctr_new],
+            prev_waste=waste_new.sum(axis=0).tolist(),
+            prev_evals=evals_new.sum(axis=0).tolist(),
+            prev_acc=acc_new.sum(axis=0).tolist(),
+            prev_chip={
+                "wsteps": ctr_new[idx["wsteps"]].tolist(),
+                "tasks": ctr_new[idx["tasks"]].tolist(),
+                "crounds": ctr_new[idx["crounds"]].tolist(),
+                "waste": waste_new.tolist()},
+            prev_count=counts.astype(np.int64).tolist(),
+            flight_streak=[0] * n_dev)
+        self.telemetry.event("mesh_resize", n_old=n_old, n_new=n_dev,
+                             rows=int(counts.sum()))
+        return bag_cols, counts, acc_new, dd
+
+    def close(self) -> None:
+        """Stop the walker-dd stream's ranks (idempotent; a no-op on the
+        walker engine). The engine takes no further phase."""
+        if self._world is not None:
+            self._world.close()
+
+    def __enter__(self) -> "StreamEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _replay_registry(self) -> None:
         """Rebuild the registry from the restored record (the
@@ -974,7 +1184,8 @@ class StreamEngine:
         crash resumes from this phase's state), keyed on the phase that
         just closed."""
         if self.fault_injector is not None:
-            self.fault_injector.on_phase_close(self.phase - 1)
+            self.fault_injector.on_phase_close(self.phase - 1,
+                                               n_dev=self._n_dev)
 
     def slo_health(self) -> dict:
         """The ``/health`` verdict: the SLO evaluator's burning set, or
@@ -1144,8 +1355,62 @@ class StreamEngine:
             (self.slots, self._theta_block), fill_th, dtype=np.float64)
         self._build_store()
 
+    def _build_dd_store(self):
+        """The walker-dd stream's world: ``n_devices`` ranks, each holding
+        its store and the phase program (``build_dd_walker_run`` with one
+        cycle per call and the admit window per rank), spawned here
+        once; plus rank 0's host trackers (the previous phase's totals,
+        per-rank counters and live rows, so each phase row and chip span
+        carries deltas) and the flight recorder."""
+        n_dev = self._n_dev
+        ck = self._cycle_kw
+        _tl, _bc, store, _rw = _dd_sizing(self.lanes, self._capacity,
+                                          self._chunk, self._roots_per_lane)
+        slack = store - self._capacity
+        aw = max(1, min(-(-self._admit_window // n_dev), slack))
+        self._dd_aw = aw
+        self._admit_window = min(self._admit_window, aw * n_dev)
+        self._dd_store = store
+        cfg = dict(
+            family=self.family, eps=self.eps, rule=self.rule.value,
+            slots=self.slots, lanes=self.lanes, capacity=self._capacity,
+            chunk=self._chunk, roots_per_lane=self._roots_per_lane,
+            refill_slots=self._refill_slots,
+            **{k: ck[k] for k in ("seg_iters", "max_segments",
+                                  "min_active_frac", "exit_frac",
+                                  "suspend_frac", "sort_roots",
+                                  "sort_skip_ratio")},
+            scout=self._scout, double_buffer=self._double_buffer,
+            reduced=self._reduced, theta_block=self._theta_block,
+            fill=tuple(self._fill), admit_window=aw)
+        self._world = World(n_dev, self.device, DDStreamRank, (cfg,),
+                            syncs=self._syncs)
+        m_eff = self.slots * self._theta_block
+        self._dd_layout = dd_row_layout(self.slots, m_eff)
+        self._dd_prev = np.zeros(len(CTR64), dtype=np.int64)
+        self._dd_prev_waste = np.zeros(N_WASTE, dtype=np.int64)
+        self._dd_prev_evals = np.zeros(2, dtype=np.int64)
+        self._dd_prev_acc = np.zeros(m_eff)
+        self._dd_fam_last = np.full(self.slots, -1, np.int32)
+        self._dd_rr = 0
+        self._dd_admit = None
+        self._dd_prev_chip = {
+            "wsteps": np.zeros(n_dev, np.int64),
+            "tasks": np.zeros(n_dev, np.int64),
+            "crounds": np.zeros(n_dev, np.int64),
+            "waste": np.zeros((n_dev, N_WASTE), np.int64),
+        }
+        self._dd_prev_count = np.zeros(n_dev, np.int64)
+        self._dd_mesh_rows = None
+        self._flight = ChipFlightRecorder(
+            self.telemetry, n_dev, engine=f"{self.engine}-stream")
+        self._dev = True            # the state is built
+
     def _build_store(self):
         fill_x, fill_th = self._fill
+        if self.engine == "walker-dd":
+            self._build_dd_store()
+            return
         dev, f64 = self.device, torch.float64
         store = self._store
         m_eff = self.slots * self._theta_block
@@ -1193,7 +1458,8 @@ class StreamEngine:
         tenant token buckets (an out-of-tokens tenant's requests wait in
         place). Removes the chosen requests from the queue and takes one
         token per admission."""
-        room = self._capacity - self._count
+        # walker-dd: capacity is per rank
+        room = self._capacity * self._n_dev - self._count
         budget = max(0, min(len(self._free), self._admit_window, room))
         if self._adapt is not None:
             # the online budget narrows the admit window within its band
@@ -1285,6 +1551,27 @@ class StreamEngine:
         return chosen
 
     def _apply_admit(self, sl, sr, sth, sm, n_new, clear):
+        if self.engine == "walker-dd":
+            # stage the ranks' blocks for the next phase: the requests
+            # dealt round-robin over the ranks, each rank's block a dense
+            # prefix with in-domain fill past it
+            n_dev, aw = self._n_dev, self._dd_aw
+            fill_x, fill_th = self._fill
+            bl = np.full((n_dev, aw), fill_x)
+            br = np.full((n_dev, aw), fill_x)
+            bth = np.full((n_dev, aw), fill_th)
+            bm = np.zeros((n_dev, aw), dtype=np.int32)
+            cnt = np.zeros(n_dev, dtype=np.int32)
+            for i in range(n_new):
+                chip = self._dd_rr % n_dev
+                self._dd_rr += 1
+                k = cnt[chip]
+                bl[chip, k], br[chip, k] = sl[i], sr[i]
+                bth[chip, k] = sth[i]
+                bm[chip, k] = sm[i]
+                cnt[chip] = k + 1
+            self._dd_admit = (bl, br, bth, bm, cnt, clear)
+            return
         dev, f64 = self.device, torch.float64
         d = self._dev
         bag, acc, acc_c, fam_last = _admit_program(
@@ -1304,6 +1591,8 @@ class StreamEngine:
         """Run the phase's cycle and install its carry. The returned
         token goes to :meth:`_cycle_pull` on this engine before any other
         launch."""
+        if self.engine == "walker-dd":
+            return self._dd_cycle_launch()
         d = self._dev
         out = run_stream_cycle(d["bag"], d["acc"], d["acc_c"],
                                d["fam_last"], self.phase, self._theta_dev,
@@ -1315,7 +1604,105 @@ class StreamEngine:
     def _cycle_pull(self, out):
         """The phase's one read of its results: (fam_live, acc, acc_c,
         fam_last, count, overflow, stats) as host values."""
+        if self.engine == "walker-dd":
+            return self._dd_cycle_pull(out)
         return pull_stream_cycle(out, self._syncs)
+
+    def _dd_cycle_launch(self):
+        """Send the phase to every rank (the whole (n, AW) admitted block
+        once; each rank takes its row) and run rank 0's cycle."""
+        n_dev, aw = self._n_dev, self._dd_aw
+        if self._dd_admit is None:
+            # no admissions this phase: empty blocks, no clears
+            fill_x, fill_th = self._fill
+            self._dd_admit = (
+                np.full((n_dev, aw), fill_x), np.full((n_dev, aw), fill_x),
+                np.full((n_dev, aw), fill_th),
+                np.zeros((n_dev, aw), np.int32), np.zeros(n_dev, np.int32),
+                np.zeros(self.slots, dtype=bool))
+        bl, br, bth, bm, cnt, clear = self._dd_admit
+        self._dd_admit = None
+        cmd = dict(block=(bl, br, bth, bm), counts=cnt, clear=clear,
+                   theta=(self._theta_table if self._theta_block > 1
+                          else None))
+        self._world.begin("phase_all", cmd)
+        self._world.run_local("phase", cmd)
+        return "dd"
+
+    def _dd_cycle_pull(self, _token):
+        """Rank 0's one gather of every rank's cumulative counters, live
+        counts and partial areas, folded into this phase's deltas (the
+        stats row), the per-rank flight-recorder deltas, the summed
+        areas (in rank order) and the last-credit marks."""
+        rows = self._world.run_local("phase_rows")
+        self._world.finish()
+        L = self._dd_layout
+        ctr_h = rows[:, L["ctr"]].astype(np.int64)
+        chip = {k: ctr_h[:, j] for j, k in enumerate(CTR64)}
+        chip["waste"] = rows[:, L["waste"]].astype(np.int64)
+        totals = ctr_h.sum(axis=0)
+        delta = totals - self._dd_prev
+        self._dd_prev = totals
+        waste_tot = chip["waste"].sum(axis=0)
+        waste_delta = waste_tot - self._dd_prev_waste
+        self._dd_prev_waste = waste_tot
+        evals_tot = rows[:, L["evals"]].astype(np.int64).sum(axis=0)
+        evals_delta = evals_tot - self._dd_prev_evals
+        self._dd_prev_evals = evals_tot
+        count_pc = rows[:, L["count"]][:, 0].astype(np.int64)
+        self._chip_phase_rec = {
+            "wsteps": chip["wsteps"] - self._dd_prev_chip["wsteps"],
+            "tasks": chip["tasks"] - self._dd_prev_chip["tasks"],
+            "waste": chip["waste"] - self._dd_prev_chip["waste"],
+            "live_rows": count_pc,
+            "bank_delta": count_pc - self._dd_prev_count,
+            # crounds is the same on every rank: the phase's delta
+            "crounds": int(chip["crounds"].max(initial=0)
+                           - self._dd_prev_chip["crounds"].max(initial=0)),
+        }
+        self._dd_prev_chip = {k: chip[k].copy() for k in
+                              ("wsteps", "tasks", "crounds", "waste")}
+        self._dd_prev_count = count_pc
+        self._dd_mesh_rows = rows[:, L["syncs"].start:L["k2_launches"].stop]
+        acc = np.sum(rows[:, L["acc"]], axis=0)        # fixed rank order
+        credited = acc != self._dd_prev_acc
+        if self._theta_block > 1:
+            # a slot is credited when any of its T thetas is
+            credited = credited.reshape(
+                self.slots, self._theta_block).any(axis=1)
+        self._dd_fam_last = np.where(credited, self.phase,
+                                     self._dd_fam_last).astype(np.int32)
+        self._dd_prev_acc = acc
+        fam_live = rows[:, L["fam_live"]].astype(np.int64).sum(axis=0)
+        count = int(count_pc.sum())
+        maxd = int(rows[:, L["maxd"]].max())
+        # CTR64 order -> STREAM_STAT_FIELDS (splits and crounds in the
+        # tail columns, then the lane-waste and eval deltas)
+        stats = np.concatenate([np.array([
+            delta[0], delta[2], delta[3], delta[4], delta[5], delta[6],
+            delta[7], delta[8], delta[9], maxd, count,
+            int(np.sum(fam_live > 0)), delta[1], delta[10]],
+            dtype=np.int64), waste_delta, evals_delta])
+        return (fam_live, acc, np.zeros_like(acc), self._dd_fam_last,
+                count, bool(np.any(rows[:, L["overflow"]])), stats)
+
+    def mesh_record(self) -> Optional[dict]:
+        """walker-dd: the transport, and every rank's host syncs,
+        collective calls by kind and K1 / K2 launches as of the last
+        phase's gather (that gather excluded); None on the walker
+        engine or before the first phase."""
+        if self._world is None or self._dd_mesh_rows is None:
+            return None
+        m = self._dd_mesh_rows.astype(np.int64)
+        return {"backend": self._world.backend, "world": self._n_dev,
+                "host_staged": (self._world.backend == "gloo"
+                                and self.device.type == "cuda"),
+                "host_syncs": m[:, 0].tolist(),
+                "collective_calls": {"sum": m[:, 1].tolist(),
+                                     "gather": m[:, 2].tolist(),
+                                     "rank": m[:, 3].tolist()},
+                "launches": {"run_segment_rf": m[:, 4].tolist(),
+                             "run_segment_ee": m[:, 5].tolist()}}
 
     def _publish_phase_row(self, row: np.ndarray) -> dict:
         """Fold one phase row into the registry."""
@@ -1379,6 +1766,11 @@ class StreamEngine:
         """Compact the cancelled slots' live rows out of the bag. Between
         phases all walk state lives in the bag, so after the compaction
         nothing can credit the freed slots again."""
+        if self.engine == "walker-dd":
+            # every rank compacts its own queue; one gather of the counts
+            self._count = int(np.sum(self._world.call("cancel", kill)))
+            self._last_fam_live = np.where(kill, 0, self._last_fam_live)
+            return
         k = torch.as_tensor(kill, dtype=torch.bool, device=self.device)
         d = self._dev
         bag = _cancel_program(d["bag"], k, self._syncs)
@@ -1398,7 +1790,8 @@ class StreamEngine:
         if self.fault_injector is not None:
             # phase-open fault boundary, before the phase span and the
             # admissions: a crash here replays this phase's admissions
-            self.fault_injector.on_phase_open(self.phase)
+            self.fault_injector.on_phase_open(self.phase,
+                                              n_dev=self._n_dev)
         n0 = self._syncs.n
         span = self.telemetry.span("phase", phase=self.phase)
         self._refill_tokens()
@@ -1431,6 +1824,14 @@ class StreamEngine:
             return spilled
         (fam_live, acc, acc_c, fam_last, count, overflow,
          stats) = self._cycle_pull(launch)
+        if self.engine == "walker-dd":
+            # the per-rank flight record under the still-open phase span,
+            # from the deltas the pull computed
+            rec = self._chip_phase_rec
+            self._flight.record_phase(
+                self.phase, wsteps=rec["wsteps"], tasks=rec["tasks"],
+                live_rows=rec["live_rows"], bank_delta=rec["bank_delta"],
+                waste=rec["waste"], crounds=rec["crounds"])
         self._last_fam_live = fam_live
         self._last_fam_last = np.asarray(fam_last, dtype=np.int32)
         if overflow:
@@ -1705,4 +2106,5 @@ class StreamEngine:
             latency_hist_seconds=self._h_lat_seconds.solo(),
             per_round=round_stats_from_rows(rows, STREAM_STAT_FIELDS),
             shed=list(self.shed), host_syncs=self._syncs.n,
-            host_syncs_per_phase=list(self._phase_syncs))
+            host_syncs_per_phase=list(self._phase_syncs),
+            mesh=self.mesh_record())

@@ -506,8 +506,10 @@ def test_chip_loss_on_one_card_gives_up():
 
 def test_resume_mesh_resize_at_equal_size(tmp_path):
     """mesh_resize=True is a no-op at equal mesh sizes (the reference's
-    elastic rule); a snapshot of another mesh size is refused with its
-    ROADMAP item."""
+    elastic rule); without it a snapshot of another mesh size is
+    refused. With it the walker engine reads its own state, as the
+    reference's does, and a walker-dd snapshot of one rank resumes onto
+    two, bit-identical on the dyadic family."""
     path = str(tmp_path / "m.ckpt")
     reqs = [(t, BOUNDS) for t in THETA4]
     base = StreamEngine(FAM, EPS, device="cpu", **KW).run(
@@ -529,10 +531,30 @@ def test_resume_mesh_resize_at_equal_size(tmp_path):
                            totals=totals)
     with pytest.raises(ValueError, match="different run"):
         StreamEngine.resume(path, FAM, EPS, device="cpu", **KW)
-    with pytest.raises(ValueError,
-                       match="ROADMAP.md Queue 1 item 7, behind item 8"):
-        StreamEngine.resume(path, FAM, EPS, mesh_resize=True,
-                            device="cpu", **KW)
+    eng3 = StreamEngine.resume(path, FAM, EPS, mesh_resize=True,
+                               device="cpu", **KW)
+    while eng3.next_rid < len(reqs):
+        eng3.submit(*reqs[eng3.next_rid])
+    assert np.array_equal(eng3.run([]).areas, base.areas)
+
+    dkw = dict(KW, engine="walker-dd", device="cpu")
+    dya = [(t, (0.0, 1.0)) for t in THETA4]
+    with StreamEngine("quad_scaled", 1e-9, n_devices=1, **dkw) as e:
+        dbase = e.run(dya, arrival_phase=[0, 0, 1, 2])
+    dpath = str(tmp_path / "dd.ckpt")
+    e = StreamEngine("quad_scaled", 1e-9, checkpoint_path=dpath,
+                     checkpoint_every=1, n_devices=1, **dkw)
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        e.run(dya, arrival_phase=[0, 0, 1, 2], _crash_after_phases=2)
+    e.close()
+    with StreamEngine.resume(dpath, "quad_scaled", 1e-9, mesh_resize=True,
+                             n_devices=2, **dkw) as e2:
+        assert e2.phase == 2
+        while e2.next_rid < len(dya):
+            e2.submit(*dya[e2.next_rid])
+        res = e2.run([])
+    assert np.array_equal(res.areas, dbase.areas)
+    assert res.mesh["world"] == 2
 
 
 def test_slo_health_and_spillover_summary_shapes():

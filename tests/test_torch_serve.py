@@ -21,7 +21,9 @@ At the reference tests' sizes (tests/test_multitenant.py's
   equal the undisturbed run's, every acknowledged rid once
   (tests/test_multitenant.py:487, :506); requests posted to
   ``--ingest-port`` acknowledged and retired across a SIGTERM restart;
-* every option not ported exits non-zero naming its ROADMAP.md item,
+* every option not ported exits non-zero naming its ROADMAP.md item;
+  ``serve --engine walker-dd`` runs (one rank, the reference CLI's
+  ledger at ``--n-devices 1``; and ``--n-devices 2``, two gloo ranks),
   and ``2d`` and ``qmc`` with ``--n-devices 2`` run on 2 gloo ranks;
   without ``--device cpu`` and without a card, ``serve`` exits non-zero
   before it runs.
@@ -505,15 +507,47 @@ REFUSED = {
     "lease": (["serve", "--dispatch", "--lease"], "item 9"),
     "lease_alone": (["serve", "--lease"], "require --dispatch"),
     "overlap": (["serve", "--overlap-boundaries"], "require --dispatch"),
-    "walker_dd": (["serve", "--engine", "walker-dd"],
-                  "item 7, behind item 8"),
-    "n_devices": (["serve", "--n-devices", "2"], "item 7, behind item 8"),
+    # once refused with item 7: the walker-dd stream runs (None)
+    "walker_dd": (["serve", "--engine", "walker-dd"], None),
+    "n_devices": (["serve", "--engine", "walker-dd", "--n-devices", "2"],
+                  None),
 }
+
+
+def _walker_dd_serve_runs(argv, capsys):
+    """The walker-dd ``serve``: on one rank (``--n-devices`` unset on the
+    CPU) the reference CLI's ledger at ``--n-devices 1``; on two ranks
+    every request retires within the walker contract of the one-rank
+    ledger and the summary names the world. ``--n-devices 2`` on the
+    walker engine still exits non-zero."""
+    load = SERVE_ARGS + ["--synthetic", "4"]
+    rc, got = _port(argv[1:] + load)
+    assert rc == 0
+    g_ret, _s, _r, g_sum = _split(got)
+    if "--n-devices" not in argv:
+        rrc, ref = _ref(argv[1:] + load + ["--n-devices", "1"])
+        assert rrc == 0
+        g_sum.pop("mesh")
+        _assert_same_ledger([*g_ret.values(), g_sum], ref)
+        return
+    assert g_sum["completed"] == 4 and g_sum["mesh"]["world"] == 2
+    rc1, one = _port(["--engine", "walker-dd"] + load)
+    o_ret = _split(one)[0]
+    assert sorted(g_ret) == sorted(o_ret) == [0, 1, 2, 3]
+    for rid, r in o_ret.items():
+        assert abs(g_ret[rid]["area"] - r["area"]) < AREA_TOL
+    with pytest.raises(SystemExit) as ei:
+        CLI.main(["serve", "--n-devices", "2", "--device", "cpu"] + load)
+    assert "--engine walker-dd" in str(ei.value.code)
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_options_and_modes_exit_nonzero(name, capsys):
     argv, what = REFUSED[name]
+    if what is None:
+        _walker_dd_serve_runs(argv, capsys)
+        return
     with pytest.raises(SystemExit) as ei:
         CLI.main(argv + (["--device", "cpu"] if argv[:1] == ["serve"]
                          else []))

@@ -45,8 +45,7 @@ from ppls_tpu.parallel.sharded_walker import (
 from ppls_tpu_torch.config import Rule
 from ppls_tpu_torch.parallel.mesh import launch, run_calls
 from ppls_tpu_torch.parallel.sharded_walker import (
-    STREAM_ITEM, build_dd_walker_run, integrate_family_walker_dd,
-    resume_family_walker_dd)
+    build_dd_walker_run, integrate_family_walker_dd, resume_family_walker_dd)
 
 FAM = "sin_recip_scaled"
 BOUNDS = (1e-3, 1.0)
@@ -252,7 +251,17 @@ def test_dd_resume_refuses_another_run(runs, name):
 
 
 def test_dd_stream_admission_is_refused():
-    with pytest.raises(ValueError, match=STREAM_ITEM):
-        build_dd_walker_run(None, FAM, EPS, 256, 1 << 16, 1, 256, 32, 8,
-                            0.05, 0.8, 0.5, 512, 1, 0.5, 1.0,
-                            refill_slots=2, admit_window=64)
+    """The admit window (the walker-dd stream's phase body, once refused
+    with ROADMAP Queue 1 item 7) builds; the reference's two refusals
+    keep its words: one cycle per call, and the refill mode."""
+    from ppls_tpu_torch.parallel.mesh import World
+    args = (FAM, EPS, 256, 1 << 16, 1, 256, 32, 8, 0.05, 0.8, 0.5, 512)
+    with pytest.raises(ValueError, match="max_cycles == 1"):
+        build_dd_walker_run(None, *args, 2, 0.5, 1.0, refill_slots=2,
+                            admit_window=64)
+    with pytest.raises(ValueError, match="refill_slots > 0"):
+        build_dd_walker_run(None, *args, 1, 0.5, 1.0, admit_window=64)
+    with World(1, "cpu", lambda mesh: mesh) as world:
+        run = build_dd_walker_run(world.mesh, *args, 1, 0.5, 1.0,
+                                  refill_slots=2, admit_window=64)
+        assert callable(run)

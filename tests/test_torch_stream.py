@@ -543,9 +543,10 @@ def test_obs_copies_match_reference():
 # ---------------------------------------------------------------------------
 
 
+# once refused with ROADMAP Queue 1 item 7: (options, the world they run)
 REFUSED = {
-    "walker-dd": (dict(engine="walker-dd"), "item 7"),
-    "mesh": (dict(n_devices=2), "item 7"),
+    "walker-dd": (dict(engine="walker-dd"), 1),
+    "mesh": (dict(engine="walker-dd", n_devices=2), 2),
 }
 
 
@@ -599,9 +600,20 @@ def test_multihost_single_engine_quad_matches_reference(f64_rounds):
 
 @pytest.mark.parametrize("arg", list(REFUSED))
 def test_unported_options_raise(arg):
-    over, item = REFUSED[arg]
-    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
-        _port(FAM, EPS, **dict(KW, **over))
+    """The walker-dd stream, once refused, runs on the world asked for
+    (one rank by default on the CPU): every request retires within the
+    walker contract (3e-9) of the float64 bag. The walker engine refuses
+    ``n_devices`` > 1 (it runs on one card)."""
+    from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    over, world = REFUSED[arg]
+    with _port(FAM, EPS, **dict(KW, **over)) as eng:
+        res = eng.run(REQS, arrival_phase=ARRIVALS)
+    assert res.mesh["world"] == world and len(res.completed) == len(REQS)
+    bag = integrate_family(TI.get_family(FAM), THETA, BOUNDS, EPS,
+                           chunk=1 << 10, capacity=1 << 17, device="cpu")
+    assert np.max(np.abs(res.areas - bag.areas)) < 3e-9
+    with pytest.raises(ValueError, match="engine='walker-dd'"):
+        _port(FAM, EPS, **dict(KW, n_devices=2))
 
 
 def test_cuda_is_the_default(monkeypatch, tmp_path):
@@ -776,16 +788,20 @@ def test_checkpoint_every_sets_the_cadence(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,pattern", [
-    pytest.param({"dd": {}}, "ROADMAP.md Queue 1 item 7, behind item 8",
-                 id="extra0-item 7, behind item 8"),
+    # None: resumes (the walker engine reads its own state, as the
+    # reference's does; a walker-dd snapshot resumes on the walker-dd
+    # engine, tests/test_torch_dd_stream.py)
+    pytest.param({"dd": {}}, None, id="extra0-item 7, behind item 8"),
     pytest.param({"adapt": {}}, "snapshot carries online-adaptation state "
                  "but adapt is not armed on this resume; pass adapt=True",
                  id="extra1-adapt is not armed"),
 ])
 def test_resume_refuses_unported_state(tmp_path, extra, pattern):
-    """A snapshot carrying multi-chip state is refused with the ROADMAP
-    item of the missing restore; one carrying online-adaptation state
-    onto an engine without ``adapt`` with the reference's refusal."""
+    """A walker snapshot that also carries a ``dd`` key (once refused
+    with ROADMAP item 7) resumes as the reference's engine does, bit
+    equal to the run without a crash; one carrying online-adaptation
+    state onto an engine without ``adapt`` is refused with the
+    reference's words."""
     from ppls_tpu_torch.runtime.checkpoint import (load_family_checkpoint,
                                                    save_family_checkpoint)
     path = str(tmp_path / "u.ckpt")
@@ -795,6 +811,12 @@ def test_resume_refuses_unported_state(tmp_path, extra, pattern):
     cols, count, acc, totals = load_family_checkpoint(path, eng._identity())
     save_family_checkpoint(path, identity=eng._identity(), bag_cols=cols,
                            count=count, acc=acc, totals=dict(totals, **extra))
+    if pattern is None:
+        eng2 = TS.StreamEngine.resume(path, FAM, EPS, device="cpu", **KW)
+        assert eng2.phase == 1
+        assert np.array_equal(eng2.run([]).areas,
+                              _port(FAM, EPS, **KW).run(REQS[:1]).areas)
+        return
     with pytest.raises(ValueError, match=pattern):
         TS.StreamEngine.resume(path, FAM, EPS, device="cpu", **KW)
 
