@@ -2,6 +2,7 @@
 """Drive the PyTorch port (ppls_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 22     # the build and phase 22 alone
 
 Phases, each of which must pass (any failure exits nonzero):
 
@@ -417,6 +418,48 @@ Phases, each of which must pass (any failure exits nonzero):
    e. Deadline expiry on the dd stream (1 rank): the expired request
       retires ``deadline_exceeded``, its neighbour within 3e-9 of the
       float64 bag, a fresh request bit-equal to a solo run.
+22. The pool dispatcher (``runtime/dispatch.py`` ``EngineDispatcher``:
+   one stream engine per (eps band, rule, theta bucket) key, parked and
+   unparked under a cap, slot credits leased between engines). The phase
+   has one time limit (``DISPATCH_TIMEOUT``), which also bounds every
+   command to a spawned rank and every serve process.
+   k. K1 (trapezoid and Simpson, the ds walk, R = 8) and K2 bit-equal to
+      their plain segments at a pooled engine's first phase (24
+      requests, 16384 lanes).
+   a. The reference bench's ``stream --hetero`` leg at its own
+      configuration (16 requests over 4 keys, slots 4, seed 31) on the
+      card and on the CPU: 9 turns with leasing off, 6 with leasing and
+      overlapped boundaries (>= 1.2x the mean latency, a balanced ledger,
+      an overlapped boundary), the serialized baseline's phases; card =
+      CPU (turns, per-engine phases, ledger; areas < 1e-12); 0 recompiles
+      and no library built.
+   b. Full width: four keys (``e-10:trapezoid:t1``, ``e-9:trapezoid:t1``,
+      ``e-10:trapezoid:t2`` theta pairs, ``e-10:simpson:t1``) of sin(theta
+      / x) on [1e-4, 1], 24 requests each, every engine at the stream
+      leg's width (slots 64, chunk 2^13, capacity 2^22, lanes 2^14, R = 8,
+      double buffer, the ds walk), saturated and open loop (2 requests a
+      turn), 4 and 2 live engines, leasing off, on with overlapped
+      boundaries, on with serialized ones: every area within 1e-3 of the
+      closed form, every 8th t1 trapezoid area within 3e-9 of the float64
+      bag, K1 launched by every engine (saturated), 0 recompiles and no
+      library built; overlapped = serialized boundaries bit for bit; a
+      capped leased pool has a parked donor that completed its requests;
+      capped against uncapped printed. Printed: requests/s, p50/p99
+      latency in turns and seconds, turns, phases per engine, host syncs
+      per turn, park and unpark seconds, boundary and overlap walls, the
+      Simpson key's distance from the float64 Simpson bag, one profiled
+      run's idle share, and the uncapped saturated rate against phase
+      11's single engine. Then the three t1 keys with refill_slots=0
+      through K2: the same gates.
+   c. ``python -m ppls_tpu_torch serve --dispatch`` as processes,
+      tools/ci.sh legs 5e and 5f (their requests, flags and crash plans;
+      5f with ``--lease --overlap-boundaries``), on the card and on the
+      CPU: ci.sh's summary assertions, the malformed line rejected, card
+      = CPU (records equal, areas < 1e-12).
+   d. A walker-dd pool (tests/test_torch_dispatch.py's: two keys of the
+      dyadic quad_scaled through one live engine, each engine two gloo
+      ranks sharing the card): two parks and an unpark, card = CPU, no
+      rank alive after ``close()``.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -428,7 +471,8 @@ paths' launches under ``body_launches``; phase 13's under
 under ``bench_launches``; phase 19's, every rank's, under
 ``dd_launches``, and 19k's records under ``dd``; phase 20a's under
 ``tune_launches``; phase 21's, every rank's, under ``dd_stream_launches``,
-and 21k's record under ``dd_stream``)
+and 21k's record under ``dd_stream``; phase 22's under
+``dispatch_launches``, and 22k's records under ``dispatch``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -667,6 +711,62 @@ DD_STREAM_TEST_ARR = [0, 0, 1, 2, 3, 4]
 DD_STREAM_DYADIC = (1.0, 1.25, 1.5, 2.0, 0.75, 3.0)  # tests/test_faults.py
 DD_STREAM_RESIZE_TOL = 1e-9    # the ds walk resized (tests/test_faults.py)
 DD_STREAM_SERVE_RATE = 0.5     # 21d: requests per phase, past the loss
+# phase 22: the pool dispatcher
+DISPATCH_TIMEOUT = 360         # s, the whole of phase 22, its worlds too
+# 22a: the reference bench's stream --hetero leg (tools/bench_history.py:
+# 163-183, _hetero_requests :624) and its pins (tests/test_dispatch.py:
+# 263-313: 9 turns lease off, 6 with lease and overlap)
+HETERO_FAMILY = "sin_recip_scaled"
+HETERO_BOUNDS = (1e-2, 1.0)
+HETERO_K = 16
+HETERO_RATE = 4.0
+HETERO_SEED = 31
+HETERO_MAX_ENGINES = 4
+HETERO_SLOTS = 4
+HETERO_EKW = dict(chunk=1 << 10, capacity=1 << 16, lanes=256,
+                  roots_per_lane=2, refill_slots=2, seg_iters=32,
+                  min_active_frac=0.05)
+HETERO_SHAPES = ({"eps": 1e-6}, {"eps": 1e-7}, {"eps": 1e-6, "batch": 2},
+                 {"eps": 1e-6, "rule": "simpson"})
+HETERO_TURNS = {"off": 9, "lease": 6}
+# 22b: the stream leg's engine width (phase 11's STREAM_KW, the ds walk)
+# behind one pool; every key gets POOL_K requests
+POOL_KEYS = ({"eps": 1e-10}, {"eps": 1e-9}, {"eps": 1e-10, "batch": 2},
+             {"eps": 1e-10, "rule": "simpson"})
+POOL_K = 24
+POOL_EKW = dict(chunk=STREAM_KW["chunk"], capacity=STREAM_KW["capacity"],
+                lanes=STREAM_KW["lanes"],
+                refill_slots=STREAM_KW["refill_slots"], double_buffer=True)
+POOL_SLOTS = STREAM_KW["slots"]
+POOL_CAPS = (4, 2)
+POOL_RATE = 2.0                # requests per turn, open loop
+POOL_SAMPLE = 8                # every 8th t1 trapezoid area to the bag
+# 22c: tools/ci.sh legs 5e and 5f (their requests, flags and chaos plans)
+CI_DISPATCH_REQS = (
+    {"theta": 1.0, "bounds": [1e-2, 1.0], "arrival_phase": 0},
+    {"theta": 1.05, "bounds": [1e-2, 1.0], "eps": 1e-7, "arrival_phase": 0},
+    {"theta": 1.1, "bounds": [1e-2, 1.0], "rule": "simpson",
+     "arrival_phase": 0},
+    {"theta": [1.15, 1.2], "bounds": [1e-2, 1.0], "arrival_phase": 1},
+    {"theta": 1.25, "bounds": [1e-2, 1.0], "arrival_phase": 1},
+    {"theta": 1.3, "bounds": [1e-2, 1.0], "eps": 1e-7, "arrival_phase": 2},
+    {"theta": 1.35, "bounds": [1e-2, 1.0], "rule": "simpson",
+     "arrival_phase": 2},
+    {"theta": [1.4, 1.45], "bounds": [1e-2, 1.0], "arrival_phase": 3})
+CI_DISPATCH_MALFORMED = {"theta": 1.5, "bounds": [1e-2, 1.0], "eps": 1e-20}
+CI_DISPATCH_ARGS = (
+    "--dispatch", "--max-engines", "4", "--supervise", "--eps", "1e-6",
+    "-a", "1e-2", "-b", "1.0", "--slots", "4", "--chunk", "512",
+    "--capacity", "65536", "--lanes", "256", "--refill-slots", "2",
+    "--checkpoint-every", "1", "--watchdog", "120")
+CI_DISPATCH_LEGS = {           # extra flags, fault plan, malformed line
+    "5e": ((), [{"kind": "crash", "at": 1, "edge": "close"}], True),
+    "5f": (("--lease", "--overlap-boundaries"),
+           [{"kind": "crash", "at": 3, "edge": "close"}], False)}
+# 22d: tests/test_torch_dispatch.py's walker-dd pool (the dyadic family)
+DD_POOL_REQS = ((1.0, {}), (1.25, {}), (1.5, {"eps": 1e-8}),
+                (2.0, {"eps": 1e-8}), (0.75, {}), (3.0, {}))
+DD_POOL_ARR = [0, 0, 1, 1, 2, 3]
 
 
 def log(msg: str) -> None:
@@ -5026,10 +5126,707 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the pool dispatcher
+# ---------------------------------------------------------------------------
+
+
+def pool_key(eng) -> str:
+    """A pooled stream engine's key string."""
+    import math
+    from ppls_tpu_torch.runtime.dispatch import EngineKey
+    return str(EngineKey(round(math.log10(eng.eps)), eng.rule.value,
+                         eng._theta_block))
+
+
+@contextlib.contextmanager
+def engine_launches(W, TS):
+    """K1 and K2 launches per pooled engine key while entered: the
+    launches inside each engine's ``step_begin`` and ``step_finish``."""
+    counts = {}
+    orig = {name: getattr(TS.StreamEngine, name)
+            for name in ("step_begin", "step_finish")}
+
+    def wrap(fn):
+        def step_half(eng, *args):
+            n0 = (W.run_segment_rf.launches, W.run_segment_ee.launches)
+            try:
+                return fn(eng, *args)
+            finally:
+                c = counts.setdefault(pool_key(eng), [0, 0])
+                c[0] += W.run_segment_rf.launches - n0[0]
+                c[1] += W.run_segment_ee.launches - n0[1]
+        return step_half
+
+    for name, fn in orig.items():
+        setattr(TS.StreamEngine, name, wrap(fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in orig.items():
+            setattr(TS.StreamEngine, name, fn)
+
+
+def timed_parks(disp) -> dict:
+    """Wrap ``disp``'s park and unpark: the host seconds of each, after a
+    synchronise."""
+    import torch
+    walls = {"park": [], "unpark": []}
+    for name in walls:
+        fn = getattr(disp, f"_{name}")
+
+        def timed_call(keystr, fn=fn, name=name):
+            t0 = time.perf_counter()
+            try:
+                return fn(keystr)
+            finally:
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+        setattr(disp, f"_{name}", timed_call)
+    return walls
+
+
+def pool_requests(shapes, k: int, bounds, per_key: bool):
+    """Mixed-shape (theta, bounds, kwargs) requests: ``k`` in all cycling
+    over ``shapes`` (the hetero leg, thetas 1 + i / k), or ``k`` per
+    shape, interleaved (22b, thetas 1 + i / k for every key)."""
+    reqs = []
+    n = k * len(shapes) if per_key else k
+    for j in range(n):
+        shape = shapes[j % len(shapes)]
+        i = j // len(shapes) if per_key else j
+        b = int(shape.get("batch", 1))
+        th = (tuple(1.0 + (i + q / (2.0 if per_key else 8.0)) / k
+                    for q in range(b)) if b > 1 else 1.0 + i / k)
+        kw = {"eps": shape["eps"]}
+        if "rule" in shape:
+            kw["rule"] = shape["rule"]
+        reqs.append((th, bounds, kw))
+    return reqs
+
+
+def pool_record(disp, res) -> dict:
+    """The schedule-defined surface of one pool run: turns, per-request
+    turns, per-engine state and counts, parks, the lease ledger."""
+    ls = disp.lease_summary()
+    return dict(
+        turns=res.phases,
+        requests=sorted((c.rid, c.submit_phase, c.admit_phase,
+                         c.retire_phase) for c in res.completed),
+        engines={k: {f: v[f] for f in ("state", "phases", "completed",
+                                       "routed", "lease_donated",
+                                       "lease_received")}
+                 for k, v in disp.engines_summary().items()},
+        parks=sum(c.value for _, c in disp._c_park.items()),
+        ledger={k: ls[k] for k in ("donated", "received", "balanced",
+                                   "by_donor", "by_borrower", "boundaries",
+                                   "overlapped")})
+
+
+def pool_areas(res):
+    """Every request's areas in rid order, flat (a theta pair gives
+    two)."""
+    import numpy as np
+    out = []
+    for c in sorted(res.completed, key=lambda c: c.rid):
+        out.extend(c.areas if c.areas is not None else [c.area])
+    return np.asarray(out)
+
+
+def hetero_serialized(TS, device: str, ekw: dict) -> tuple:
+    """The reference bench's serialized baseline: each key's requests on
+    its own engine, run to completion one key after another. Returns
+    (summed phases, areas by rid)."""
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.runtime.dispatch import EngineKey, canonical_key
+    reqs = pool_requests(HETERO_SHAPES, HETERO_K, HETERO_BOUNDS, False)
+    groups = {}
+    for rid, (theta, bounds, kw) in enumerate(reqs):
+        key = str(canonical_key(kw["eps"], kw.get("rule", "trapezoid"),
+                                theta))
+        groups.setdefault(key, []).append((rid, theta, bounds))
+    phases, areas = 0, {}
+    for keystr in sorted(groups):
+        key = EngineKey.parse(keystr)
+        eng = TS.StreamEngine(HETERO_FAMILY, key.eps, slots=HETERO_SLOTS,
+                              rule=Rule(key.rule),
+                              theta_block=key.theta_block, device=device,
+                              **ekw)
+        r = eng.run([(th, b) for _, th, b in groups[keystr]])
+        for (rid, _, _), c in zip(groups[keystr],
+                                  sorted(r.completed, key=lambda c: c.rid)):
+            areas[rid] = c.area
+        phases += r.phases
+    return phases, areas
+
+
+def dispatch_hetero(W, TS) -> dict:
+    """22a: the reference bench's hetero leg at its own configuration on
+    the card and on the CPU: the pins, card = CPU, no library built."""
+    import numpy as np
+    from ppls_tpu_torch.runtime.dispatch import EngineDispatcher
+    from ppls_tpu_torch.utils import cuda_build
+    reqs = pool_requests(HETERO_SHAPES, HETERO_K, HETERO_BOUNDS, False)
+    arr = stream_sweep_arrivals(HETERO_RATE, HETERO_K, HETERO_SEED)
+    ekw = dict(HETERO_EKW, **dd_cadence(W, HETERO_EKW))
+    out = {"launches": {"run_segment_rf": 0, "run_segment_ee": 0}}
+    builds0 = cuda_build.builds_done()
+    runs = {}
+    for tag, over in (("off", {}),
+                      ("lease", dict(lease=True, overlap_boundaries=True))):
+        for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+            disp = EngineDispatcher(HETERO_FAMILY, slots=HETERO_SLOTS,
+                                    max_engines=HETERO_MAX_ENGINES,
+                                    device=dev, engine_kw=ekw, **over)
+            if where == "card":
+                res, wall, l = counted(
+                    W, lambda: disp.run(reqs, arrival_phase=arr))
+                for k in out["launches"]:
+                    out["launches"][k] += l[k]
+            else:
+                res = disp.run(reqs, arrival_phase=arr)
+            runs[tag, where] = (disp, res)
+            if disp.recompiles() != 0 or len(res.completed) != HETERO_K:
+                raise AssertionError(f"22a {tag} on {where}: "
+                                     f"{disp.recompiles()} recompiles")
+    (ser_card, a_card), wall_s, l = counted(
+        W, lambda: hetero_serialized(TS, DEVICE, ekw))
+    for k in out["launches"]:
+        out["launches"][k] += l[k]
+    ser_cpu, a_cpu = hetero_serialized(TS, "cpu", ekw)
+    for tag in ("off", "lease"):
+        (dc, rc), (dp, rp) = runs[tag, "card"], runs[tag, "cpu"]
+        same = pool_record(dc, rc) == pool_record(dp, rp)
+        d = float(np.max(np.abs(pool_areas(rc) - pool_areas(rp))))
+        lat = [c.retire_phase - c.submit_phase for c in rc.completed]
+        rec = pool_record(dc, rc)
+        out[tag] = dict(turns=rc.phases, mean_latency_turns=float(
+            np.mean(lat)), ledger=rec["ledger"], d_card_cpu=d,
+            card_equals_cpu=same, wall_s=rc.wall_s)
+        log(f"[smoke] 22a hetero leg, {tag}: {rc.phases} turns (pinned "
+            f"{HETERO_TURNS[tag]}), mean latency {np.mean(lat):.3f} turns, "
+            f"lease ledger donated {rec['ledger']['donated']} / received "
+            f"{rec['ledger']['received']}, boundaries "
+            f"{rec['ledger']['boundaries']} ({rec['ledger']['overlapped']} "
+            f"overlapped); card against CPU: turns, per-engine phases and "
+            f"ledger {'equal' if same else 'DIFFER'}, areas {d:.3e} apart "
+            f"(tol {AREA_TOL_DEVICES}); wall {rc.wall_s:.3f} s")
+        if not same or not d < AREA_TOL_DEVICES \
+                or rc.phases != HETERO_TURNS[tag]:
+            raise AssertionError(f"22a {tag}: {out[tag]}")
+    gain = out["off"]["mean_latency_turns"] / out["lease"][
+        "mean_latency_turns"]
+    d_ser = max(abs(a_card[r] - a_cpu[r]) for r in a_card)
+    out["serialized"] = dict(phases=ser_card, d_card_cpu=d_ser,
+                             turns_speedup=ser_card / out["lease"]["turns"])
+    log(f"[smoke] 22a serialized baseline: {ser_card} phases (CPU "
+        f"{ser_cpu}; areas {d_ser:.3e} apart), pool speedup in turns "
+        f"{ser_card / out['lease']['turns']:.2f}x (lease) / "
+        f"{ser_card / out['off']['turns']:.2f}x (off); lease mean-latency "
+        f"gain {gain:.2f}x (>= 1.2); libraries built "
+        f"{cuda_build.builds_done() - builds0}; launches {out['launches']}")
+    lease = out["lease"]["ledger"]
+    if (ser_card != ser_cpu or not d_ser < AREA_TOL_DEVICES or gain < 1.2
+            or not lease["donated"] == lease["received"] >= 1
+            or lease["overlapped"] < 1
+            or cuda_build.builds_done() != builds0
+            or out["launches"]["run_segment_rf"] <= 0):
+        raise AssertionError(f"22a: {out}")
+    return out
+
+
+def pool_run(W, TS, reqs, arr, ekw, cap, over, events=None):
+    """One full-width pool run on the card: (dispatcher, result, host
+    wall, launches, per-engine launches, park/unpark seconds)."""
+    from ppls_tpu_torch.obs.telemetry import Telemetry
+    from ppls_tpu_torch.runtime.dispatch import EngineDispatcher
+    tel = Telemetry(events_path=events) if events else None
+    disp = EngineDispatcher(STREAM_FAMILY, slots=POOL_SLOTS, max_engines=cap,
+                            device=DEVICE, engine_kw=ekw, telemetry=tel,
+                            **over)
+    walls = timed_parks(disp)
+    try:
+        with engine_launches(W, TS) as per_engine:
+            res, wall, launches = counted(
+                W, lambda: disp.run(reqs, arrival_phase=arr))
+    finally:
+        disp.close()
+        if tel is not None:
+            tel.close()
+    return disp, res, wall, launches, per_engine, walls
+
+
+def pool_leg(W, TS, what, keys, ekw, counter, exact, bag, s_bag, out_dir,
+             ckpt_dir, profile) -> dict:
+    """22b at one refill mode: the pool over ``keys`` saturated and open
+    loop, uncapped and capped, lease off, lease and overlap, lease with
+    serialized boundaries; every gate of the module docstring."""
+    import json as _json
+    import numpy as np
+    from ppls_tpu_torch.utils import cuda_build
+    reqs = pool_requests(keys, POOL_K, BOUNDS, True)
+    n = len(reqs)
+    arrivals = {"saturated": None,
+                "open": stream_sweep_arrivals(POOL_RATE, n,
+                                              STREAM_SWEEP_SEED)}
+    caps = (len(keys),) + tuple(c for c in POOL_CAPS if c < len(keys))
+    builds0 = cuda_build.builds_done()
+    out = {"runs": {}, "launches": {"run_segment_rf": 0,
+                                    "run_segment_ee": 0}}
+    pool_run(W, TS, reqs, None, ekw, caps[0], {})          # warm-up
+    results = {}
+    for arr_name, arr in arrivals.items():
+        for cap in caps:
+            for tag, over in (("off", {}),
+                              ("lease", dict(lease=True,
+                                             overlap_boundaries=True)),
+                              ("lease_sync", dict(lease=True))):
+                if tag == "lease_sync" and arr_name != "saturated":
+                    continue
+                name = f"{arr_name}/{cap}/{tag}"
+                ev = os.path.join(ckpt_dir, f"pool_{len(out['runs'])}.jsonl")
+                disp, res, wall, launches, per_eng, walls = pool_run(
+                    W, TS, reqs, arr, ekw, cap, over, events=ev)
+                for k in out["launches"]:
+                    out["launches"][k] += launches[k]
+                results[name] = (disp, res)
+                areas = pool_areas(res)
+                d_ex = float(np.max(np.abs(areas - exact)))
+                by_rid = {c.rid: c for c in res.completed}
+                d_bag = max(abs(by_rid[r].area - a) for r, a in bag.items())
+                lat = res.latency_percentiles()
+                ls = disp.lease_summary()
+                rec = dict(
+                    wall_s=wall, requests_per_sec=n / wall, turns=res.phases,
+                    latency=lat, host_syncs_per_turn=res.host_syncs
+                    / max(res.phases, 1),
+                    phases_per_engine={k: v["phases"] for k, v in
+                                       disp.engines_summary().items()},
+                    per_engine_launches=per_eng, parks=len(walls["park"]),
+                    park_s=walls["park"], unpark_s=walls["unpark"],
+                    boundary_wall_s=ls["boundary_wall_s"],
+                    overlap_wall_s=ls["overlap_wall_s"],
+                    boundaries=ls["boundaries"], overlapped=ls["overlapped"],
+                    donated=ls["donated"], d_exact=d_ex, d_bag=d_bag,
+                    launches=launches)
+                grants = [g for g in (_json.loads(ln) for ln in open(ev))
+                          if g.get("ev") == "event"
+                          and g.get("name") == "lease_grant"]
+                rec["parked_donors"] = sorted(
+                    {g["attrs"]["donor"] for g in grants
+                     if g["attrs"]["donor_parked"]})
+                out["runs"][name] = rec
+                log(f"[smoke] 22b {what} {name}: {rec['requests_per_sec']:.2f}"
+                    f" req/s (wall {wall:.3f} s), {res.phases} turns, p50/p99 "
+                    f"latency {lat['p50_phases']}/{lat['p99_phases']} turns "
+                    f"({lat['p50_s']:.4f}/{lat['p99_s']:.4f} s), phases per "
+                    f"engine {rec['phases_per_engine']}, host syncs per turn "
+                    f"{rec['host_syncs_per_turn']:.2f}, parks "
+                    f"{len(walls['park'])} "
+                    f"({', '.join(f'{t:.3f}' for t in walls['park'])} s), "
+                    f"unparks {len(walls['unpark'])} "
+                    f"({', '.join(f'{t:.3f}' for t in walls['unpark'])} s); "
+                    f"boundaries {ls['boundaries']} ({ls['overlapped']} "
+                    f"overlapped), boundary wall {ls['boundary_wall_s']:.4f} "
+                    f"s, overlap wall {ls['overlap_wall_s']:.4f} s; lease "
+                    f"donated {ls['donated']} (parked donors "
+                    f"{rec['parked_donors']}); {counter} launches per engine "
+                    f"{ {k: v[0 if counter == 'run_segment_rf' else 1] for k, v in per_eng.items()} }; "
+                    f"max |area - closed form| {d_ex:.3e}; every "
+                    f"{POOL_SAMPLE}th t1 trapezoid area {d_bag:.3e} from the "
+                    f"float64 bag")
+                # every engine walks its saturated backlog in the kernel;
+                # in the open loop a lone request may drain in the bag
+                j = 0 if counter == "run_segment_rf" else 1
+                walked = [v[j] for v in per_eng.values()]
+                if (len(res.completed) != n or disp.recompiles() != 0
+                        or not d_ex < AREA_TOL_EXACT
+                        or not d_bag < AREA_TOL_BAG
+                        or set(per_eng) != set(rec["phases_per_engine"])
+                        or any(v[1 - j] != 0 for v in per_eng.values())
+                        or (min(walked) <= 0 if arr_name == "saturated"
+                            else sum(walked) <= 0)
+                        or not ls["balanced"]):
+                    raise AssertionError(f"22b {what} {name}: {rec}")
+                if tag == "lease" and cap < len(keys):
+                    summ = disp.engines_summary()
+                    if not rec["parked_donors"] or any(
+                            summ[k]["completed"] != summ[k]["routed"]
+                            or summ[k]["completed"] != POOL_K
+                            for k in rec["parked_donors"]):
+                        raise AssertionError(
+                            f"22b {what} {name}: no parked donor, or one "
+                            f"that did not complete its requests: {summ}")
+    # overlap = sync at each cap; capped against uncapped, printed
+    for cap in caps:
+        a = results[f"saturated/{cap}/lease"]
+        b = results[f"saturated/{cap}/lease_sync"]
+        ra, rb = pool_record(*a), pool_record(*b)
+        for r in (ra, rb):
+            r["ledger"].pop("overlapped")
+        same = (np.array_equal(pool_areas(a[1]), pool_areas(b[1]))
+                and ra == rb)
+        log(f"[smoke] 22b {what} cap {cap}: overlapped boundaries against "
+            f"serialized ones {'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"22b {what}: overlap != sync at cap {cap}")
+    for arr_name in arrivals:
+        for cap in caps[1:]:
+            for tag in ("off", "lease"):
+                a = pool_areas(results[f"{arr_name}/{cap}/{tag}"][1])
+                b = pool_areas(results[f"{arr_name}/{caps[0]}/{tag}"][1])
+                d = float(np.max(np.abs(a - b)))
+                out["runs"][f"{arr_name}/{cap}/{tag}"]["d_uncapped"] = d
+                log(f"[smoke] 22b {what} {arr_name}/{cap}/{tag} against "
+                    f"the uncapped pool: "
+                    f"{'bit-equal' if d == 0 else f'{d:.3e} apart'} (not "
+                    f"held: parking may move the turn a request reaches "
+                    f"its engine)")
+    base = {c.rid: c for c in results[f"saturated/{caps[0]}/off"][1]
+            .completed}
+    out["simpson_d_bag"] = max(abs(base[r].area - a)
+                               for r, a in s_bag.items())
+    log(f"[smoke] 22b {what}: every {POOL_SAMPLE}th Simpson area "
+        f"{out['simpson_d_bag']:.3e} from the float64 Simpson bag (printed, "
+        f"not held, as phase 7 at full width)")
+    if profile:
+        out["profile"] = profile_fn(
+            lambda: pool_run(W, TS, reqs, None, ekw, caps[0], {}),
+            "walk_rf_kernel", out_dir, "dispatch_pool")
+    if cuda_build.builds_done() != builds0:
+        raise AssertionError(f"22b {what}: a library was built")
+    return out
+
+
+def dispatch_full_width(W, TS, stream_rep, ckpt_dir, out_dir) -> dict:
+    """22b: the stream leg's engines behind one pool, through K1 and,
+    with refill_slots=0 on the three t1 keys, through K2."""
+    import numpy as np
+    from ppls_tpu_torch.config import Rule
+    from ppls_tpu_torch.models.integrands import family_exact, get_family
+    from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    f_theta = get_family(STREAM_FAMILY)
+    out = {}
+    for tag, keys, ekw, counter in (
+            ("K1", POOL_KEYS, POOL_EKW, "run_segment_rf"),
+            ("K2", tuple(k for k in POOL_KEYS if "batch" not in k),
+             dict(POOL_EKW, refill_slots=0, double_buffer=False),
+             "run_segment_ee")):
+        reqs = pool_requests(keys, POOL_K, BOUNDS, True)
+        thetas = [t for th, _, _ in reqs
+                  for t in (th if isinstance(th, tuple) else (th,))]
+        exact = family_exact(STREAM_FAMILY, *BOUNDS, np.asarray(thetas))
+        # every POOL_SAMPLE-th request of each t1 key: the trapezoid
+        # ones against the float64 bag (held), Simpson's against the
+        # float64 Simpson bag (printed)
+        bags = ({}, {})
+        for shape in keys:
+            if "batch" in shape:
+                continue
+            rids = [r for r, (_, _, kw) in enumerate(reqs)
+                    if kw == shape][::POOL_SAMPLE]
+            rule = Rule(shape.get("rule", "trapezoid"))
+            areas = integrate_family(
+                f_theta, [reqs[r][0] for r in rids], BOUNDS, shape["eps"],
+                rule=rule, chunk=1 << 15, capacity=1 << 22,
+                device=DEVICE).areas
+            bags[rule == Rule.SIMPSON].update(
+                zip(rids, np.asarray(areas).tolist()))
+        out[tag] = pool_leg(W, TS, tag, keys, ekw, counter, exact, bags[0],
+                            bags[1], out_dir, ckpt_dir, profile=(tag == "K1"))
+    single = STREAM_K / stream_rep["ds_walk"]["wall_s"]
+    sat = out["K1"]["runs"][f"saturated/{len(POOL_KEYS)}/off"]
+    out["single_engine_requests_per_sec"] = single
+    log(f"[smoke] 22b pool saturated, K1, uncapped: "
+        f"{sat['requests_per_sec']:.2f} req/s over {len(POOL_KEYS)} keys "
+        f"against phase 11's single engine (the same width, the ds walk, "
+        f"{STREAM_K} requests) {single:.2f} req/s: "
+        f"{sat['requests_per_sec'] / single:.3f}x")
+    return out
+
+
+def ci_dispatch_argv(leg: str, reqs_path: str, ckpt: str, events: str,
+                     device: str) -> list:
+    extra, plan, _ = CI_DISPATCH_LEGS[leg]
+    return ([sys.executable, "-m", "ppls_tpu_torch", "serve",
+             *CI_DISPATCH_ARGS, *extra, "--requests", reqs_path,
+             "--checkpoint", ckpt, "--events", events, "--fault-plan",
+             json.dumps(plan), "--device", device])
+
+
+def dispatch_serve(ckpt_dir) -> dict:
+    """22c: ``python -m ppls_tpu_torch serve --dispatch`` as real
+    processes, tools/ci.sh legs 5e and 5f, on the card and on the CPU
+    (all four at once): ci.sh's summary assertions, card = CPU."""
+    procs = {}
+    env = dict(os.environ, PPLS_TUNING_TABLE="off")
+    for leg, (_, _, malformed) in CI_DISPATCH_LEGS.items():
+        path = os.path.join(ckpt_dir, f"ci_{leg}.jsonl")
+        with open(path, "w") as fh:
+            for r in CI_DISPATCH_REQS + ((CI_DISPATCH_MALFORMED,)
+                                         if malformed else ()):
+                fh.write(json.dumps(r) + "\n")
+        for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+            tag = f"{leg}_{where}"
+            argv = ci_dispatch_argv(
+                leg, path, os.path.join(ckpt_dir, f"{tag}.ckpt"),
+                os.path.join(ckpt_dir, f"{tag}_events.jsonl"), dev)
+            procs[leg, where] = (subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), time.perf_counter())
+    # each process's wall ends when it exits (its few lines of output fit
+    # the pipes); a process past the phase's limit is killed
+    ends = {}
+    while len(ends) < len(procs):
+        for key, (proc, t0) in procs.items():
+            if key not in ends and proc.poll() is not None:
+                ends[key] = time.perf_counter() - t0
+        if time.perf_counter() - min(t for _, t in procs.values()) \
+                > DISPATCH_TIMEOUT:
+            for p, _ in procs.values():
+                p.kill()
+            raise TimeoutError(f"22c: serve ran past {DISPATCH_TIMEOUT} s")
+        time.sleep(0.05)
+    runs = {}
+    for key, (proc, _) in procs.items():
+        so, se = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"22c {key}: exit {proc.returncode}: "
+                                 f"{se[-2000:]}")
+        recs = [json.loads(ln) for ln in so.splitlines()
+                if ln.startswith("{")]
+        runs[key] = dict(records=recs, summary=recs[-1], wall_s=ends[key])
+    out = {}
+    for leg in CI_DISPATCH_LEGS:
+        card, cpu = runs[leg, "card"], runs[leg, "cpu"]
+        s = card["summary"]
+        got, want = ledger(card), ledger(cpu)
+        d = max(abs(got[r]["area"] - want[r]["area"]) for r in want)
+        same = (sorted(got) == sorted(want) == list(range(8)) and all(
+            {k: got[r].get(k) for k in RECORD_KEYS if k != "area"}
+            == {k: want[r].get(k) for k in RECORD_KEYS if k != "area"}
+            for r in want))
+        rej = [r for r in card["records"] if r.get("rejected")]
+        L = s["leases"]
+        out[leg] = dict(completed=s["completed"], keys=len(s["engines"]),
+                        attempts=s.get("attempts"), recompiles=s["recompiles"],
+                        leases={k: L[k] for k in ("donated", "received",
+                                                  "overlapped",
+                                                  "boundaries")},
+                        d_card_cpu=d, rejected=[r["error"] for r in rej],
+                        process_wall_s=card["wall_s"],
+                        cpu_process_wall_s=cpu["wall_s"])
+        log(f"[smoke] 22c serve --dispatch, ci.sh leg {leg}: "
+            f"{s['completed']} completed over {len(s['engines'])} keys, "
+            f"recompiles {s['recompiles']}, attempts {s.get('attempts')}, "
+            f"leases donated {L['donated']} / received {L['received']}, "
+            f"{L['overlapped']}/{L['boundaries']} boundaries overlapped; "
+            f"rejected {out[leg]['rejected']}; card against CPU records "
+            f"{'equal' if same else 'DIFFER'}, areas {d:.3e} apart (tol "
+            f"{AREA_TOL_DEVICES}); process walls {card['wall_s']:.1f} s "
+            f"(card) / {cpu['wall_s']:.1f} s (CPU)")
+        ok = (same and d < AREA_TOL_DEVICES and s["recompiles"] == 0
+              and s["completed"] == 8 and len(s["engines"]) >= 3
+              and sum(e["completed"] for e in s["engines"].values()) == 8
+              and s.get("attempts", 1) >= 2
+              and {e["kind"] for e in s["faults_injected"]} == {"crash"}
+              and rej == [r for r in cpu["records"] if r.get("rejected")])
+        if leg == "5e":
+            ok = ok and len(rej) == 1 and "eps" in rej[0]["error"]
+        else:
+            ok = (ok and L["enabled"] and L["overlap_boundaries"]
+                  and L["donated"] == L["received"] >= 1 and L["balanced"]
+                  and L["overlapped"] >= 1 and L["overlap_fraction"] > 0)
+        if not ok:
+            raise AssertionError(f"22c leg {leg}: {out[leg]}")
+    return out
+
+
+def dispatch_dd(W) -> dict:
+    """22d: tests/test_torch_dispatch.py's walker-dd pool on the card (two
+    gloo ranks sharing it) and on the CPU: two keys through one live
+    engine, parked and unparked; card = CPU; no rank left alive."""
+    from ppls_tpu_torch.runtime.dispatch import EngineDispatcher
+    ekw = dict({k: v for k, v in DD_STREAM_TEST_KW.items() if k != "slots"},
+               engine="walker-dd", n_devices=2,
+               **dd_cadence(W, DD_STREAM_TEST_KW))
+    reqs = [(t, (0.0, 1.0), kw) for t, kw in DD_POOL_REQS]
+    out = {}
+    runs = {}
+    for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+        disp = EngineDispatcher(
+            "quad_scaled", slots=DD_STREAM_TEST_KW["slots"], max_engines=1,
+            default_eps=DD_STREAM_TEST_EPS, device=dev, engine_kw=ekw)
+        worlds = []
+        park = disp._park
+
+        def keep_world(keystr, disp=disp, park=park, worlds=worlds):
+            worlds.append(disp._engines[keystr]._world)
+            park(keystr)
+
+        disp._park = keep_world
+        walls = timed_parks(disp)
+        try:
+            res, wall, launches = counted(
+                W, lambda: disp.run(reqs, arrival_phase=DD_POOL_ARR))
+            worlds += [e._world for e in disp._engines.values()]
+        finally:
+            disp.close()
+        alive = [p.pid for w in worlds for p in w._procs if p.is_alive()]
+        runs[where] = res
+        out[where] = dict(parks=len(walls["park"]), park_s=walls["park"],
+                        unpark_s=walls["unpark"], wall_s=wall,
+                        launches=launches, worlds=len(worlds),
+                        alive_after_close=alive, turns=res.phases,
+                        recompiles=disp.recompiles())
+        if alive or len(walls["park"]) != 2 or len(walls["unpark"]) != 1 \
+                or disp.recompiles() != 0:
+            raise AssertionError(f"22d on {where}: {out[where]}")
+
+    def recs(r):
+        return sorted((c.rid, c.submit_phase, c.admit_phase, c.retire_phase,
+                       c.last_credited_phase) for c in r.completed)
+
+    card, cpu = runs["card"], runs["cpu"]
+    d = float(max(abs(a - b) for a, b in zip(card.areas, cpu.areas)))
+    same = recs(card) == recs(cpu) and card.phases == cpu.phases
+    out["d_card_cpu"] = d
+    log(f"[smoke] 22d walker-dd pool (2 ranks per engine sharing the card "
+        f"over gloo, max_engines 1): {card.phases} turns, parks "
+        f"{out["card"]['parks']} "
+        f"({', '.join(f'{t:.2f}' for t in out["card"]['park_s'])} s), "
+        f"unparks {len(out["card"]['unpark_s'])} "
+        f"({', '.join(f'{t:.2f}' for t in out["card"]['unpark_s'])} s, a "
+        f"new world each), {out["card"]['worlds']} worlds, none alive after "
+        f"close; card against CPU records {'equal' if same else 'DIFFER'}, "
+        f"areas {d:.3e} apart (tol {AREA_TOL_DEVICES}); rank 0's launches "
+        f"{out["card"]['launches']}")
+    if not same or not d < AREA_TOL_DEVICES:
+        raise AssertionError(f"22d: card and CPU differ: {out}")
+    return out
+
+
+def dispatch_kernels(W, ops) -> dict:
+    """22k: K1 (trapezoid and Simpson, the ds walk) and K2 bit-equal to
+    their plain segments at a pooled engine's shapes: the first phase of
+    the e-10 keys' requests at the stream leg's width."""
+    import numpy as np
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    f_theta, f_ds = get_family(STREAM_FAMILY), get_family_ds(STREAM_FAMILY)
+    theta = 1.0 + np.arange(POOL_K) / POOL_K
+    eps = POOL_KEYS[0]["eps"]
+    out = {}
+    for name, refill, mode in (("k1", POOL_EKW["refill_slots"], "step"),
+                               ("k1_simpson", POOL_EKW["refill_slots"],
+                                "step_simpson"),
+                               ("k2", 0, "step")):
+        rule, scout = mode_args(mode)
+        base = W.first_phase_inputs(
+            f_theta, theta, BOUNDS, eps, refill_slots=refill,
+            scout=scout, rule=rule, lanes=POOL_EKW["lanes"],
+            roots_per_lane=ROOTS_PER_LANE, capacity=POOL_EKW["capacity"],
+            device=DEVICE)
+        cmp = cmp_k1 if refill else cmp_k2
+        out[name], times = cmp(W, f"22k {name} {mode} (pool engine)", base,
+                               f_ds, eps, mode, ops)
+        log(fmt_cmp(f"22k {'K1' if refill else 'K2'} {mode} at a pooled "
+                    f"engine's first phase ({POOL_K} requests, "
+                    f"{POOL_EKW['lanes']} lanes, R {refill})", out[name],
+                    times))
+    return out
+
+
+def phase_dispatch(W, TS, ckpt_dir, out_dir, ops, stream_rep) -> dict:
+    """22: the pool dispatcher (module docstring), bounded by
+    ``DISPATCH_TIMEOUT`` (every spawned world too)."""
+    from ppls_tpu_torch.parallel import mesh as MESH
+    MESH.WORLD_TIMEOUT_S = DISPATCH_TIMEOUT
+    t_phase = time.perf_counter()
+
+    def check_time(step):
+        spent = time.perf_counter() - t_phase
+        log(f"[smoke] 22: {step} at {spent:.1f} s")
+        if spent > DISPATCH_TIMEOUT:
+            raise TimeoutError(f"phase 22 ran past its {DISPATCH_TIMEOUT} "
+                               f"s at {step} ({spent:.0f} s)")
+
+    out = {"kernels": dispatch_kernels(W, ops)}
+    check_time("22k")
+    out["hetero"] = dispatch_hetero(W, TS)
+    check_time("22a")
+    out["pool"] = dispatch_full_width(W, TS, stream_rep, ckpt_dir, out_dir)
+    check_time("22b")
+    out["serve"] = dispatch_serve(ckpt_dir)
+    check_time("22c")
+    out["dd"] = dispatch_dd(W)
+    check_time("22d")
+    out["launches"] = {k: (out["hetero"]["launches"][k]
+                           + out["pool"]["K1"]["launches"][k]
+                           + out["pool"]["K2"]["launches"][k]
+                           + out["dd"]["card"]["launches"][k])
+                       for k in ("run_segment_rf", "run_segment_ee")}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] 22 done in {out['seconds']:.1f} s; launches "
+        f"{out['launches']}")
+    return out
+
+
+def main_dispatch() -> int:
+    """``python3 chip_smoke.py --phase 22``: the build, phase 11's
+    single-engine ds stream (the comparator: the median of three runs
+    after a warm-up) and phase 22, in one process."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from ppls_tpu_torch.models.integrands import get_family_ds
+    from ppls_tpu_torch.parallel import walker as W
+    from ppls_tpu_torch.runtime import stream as TS
+    from ppls_tpu_torch.utils.cuda_build import load_all_kernels
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    kind, smi = torch.cuda.get_device_name(0), nvidia_smi_line()
+    log(f"[smoke] device: {kind} | nvidia-smi: {smi} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    load_all_kernels()
+    log(f"[smoke] build: {time.perf_counter() - t0:.1f} s")
+    ops = operation_counts(get_family_ds(STREAM_FAMILY))
+    theta = 1.0 + np.arange(STREAM_K) / STREAM_K
+    reqs = [(float(t), BOUNDS) for t in theta]
+    kw = dict(STREAM_KW, scout_dtype="f64", device=DEVICE)
+    TS.StreamEngine(STREAM_FAMILY, EPS, **kw).run(reqs)
+    walls = [counted(W, lambda: TS.StreamEngine(STREAM_FAMILY, EPS,
+                                                **kw).run(reqs))[1]
+             for _ in range(3)]
+    log(f"[smoke] single-engine ds stream (phase 11's, {STREAM_K} "
+        f"requests): walls {', '.join(f'{w:.4f}' for w in walls)} s")
+    ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        rep = phase_dispatch(W, TS, ckpt_dir, out_dir, ops, {"ds_walk": {
+            "wall_s": float(np.median(walls)), "walls": walls}})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rep.update(device=kind, smi=smi, single_engine_walls=walls)
+    with open(os.path.join(out_dir, "chip_smoke_dispatch.json"), "w") as fh:
+        json.dump(rep, fh, indent=1, default=str)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    if sys.argv[1:] == ["--phase", "22"]:
+        return main_dispatch()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -5489,6 +6286,14 @@ def main() -> int:
     finally:
         shutil.rmtree(dds_dir, ignore_errors=True)
     dds_l = sum(report["dd_stream"]["launches"].values())
+    # 22. the pool dispatcher (K1, and K2 at refill_slots=0)
+    disp_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["dispatch"] = phase_dispatch(W, TS, disp_dir, out_dir, ops,
+                                            report["stream"])
+    finally:
+        shutil.rmtree(disp_dir, ignore_errors=True)
+    disp_l = report["dispatch"]["launches"]
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -5530,6 +6335,9 @@ def main() -> int:
             v["max_abs_err"] for b in body.values() for v in b.values()] + [
             extra[k]["max_abs_err"] for k in ("dd", "dd_stream")
             if k in extra]
+        disp = extra.get("dispatch", {})
+        errs += [v["max_abs_err"] for v in (
+            [disp] if "max_abs_err" in disp else disp.values())]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs),
@@ -5562,7 +6370,7 @@ def main() -> int:
             + serve_launches["run_segment_rf"]
             + cli_launches["run_segment_rf"]
             + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"]
-            + tune_l["run_segment_rf"] + dds_l,
+            + tune_l["run_segment_rf"] + dds_l + disp_l["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -5576,6 +6384,9 @@ def main() -> int:
             tune_launches=tune_l["run_segment_rf"],
             dd_stream_launches=dds_l,
             dd_stream=dd_row(report["dd_stream"]["k1"]),
+            dispatch_launches=disp_l["run_segment_rf"],
+            dispatch={k: dd_row(report["dispatch"]["kernels"][k])
+                      for k in ("k1", "k1_simpson")},
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -5589,7 +6400,7 @@ def main() -> int:
             + serve_launches["run_segment_ee"]
             + cli_launches["run_segment_ee"]
             + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"]
-            + tune_l["run_segment_ee"],
+            + tune_l["run_segment_ee"] + disp_l["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
@@ -5597,6 +6408,8 @@ def main() -> int:
             cli_launches=cli_launches["run_segment_ee"],
             bench_launches=bench_launches["run_segment_ee"],
             dd_launches=dd_l["run_segment_ee"], dd=dd_row(dd_cmp["k2"]),
+            dispatch_launches=disp_l["run_segment_ee"],
+            dispatch=dd_row(report["dispatch"]["kernels"]["k2"]),
             stream_launches=report["stream"]["overload"]["k2"]["launches"],
             main_path_ms=report["profile_k2"]["kernel_ms"],
             main_path_launches=launches0["run_segment_ee"],

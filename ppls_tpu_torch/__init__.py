@@ -13,7 +13,10 @@ boundary refill, trapezoid or Simpson, and its many-theta mode
 requests admitted into family slots and retired one by one, one walker
 cycle per phase, queue-overflow victims optionally run on the CPU
 spillover backend; with ``engine="walker-dd"`` across ranks that live
-as long as the engine), each with checkpoints and kill-and-resume
+as long as the engine) and the pool dispatcher in front of it
+(``EngineDispatcher``: one stream engine per (eps band, rule, theta
+bucket) key, parked and unparked under a cap, slot credits leased
+between engines), each with checkpoints and kill-and-resume
 (``resume_family``, ``resume_family_walker``, ``StreamEngine.resume``;
 ``runtime/checkpoint.py`` keeps the reference's containers, so either
 package resumes the other's snapshot); the 2D adaptive cubature
@@ -56,12 +59,13 @@ from ppls_tpu_torch.parallel.sharded_walker import (
     integrate_family_walker_dd, resume_family_walker_dd)
 from ppls_tpu_torch.parallel.walker import (
     WalkerResult, integrate_family_walker, resume_family_walker)
+from ppls_tpu_torch.runtime.dispatch import EngineDispatcher
 from ppls_tpu_torch.runtime.host_frontier import IntegrationResult, integrate
 from ppls_tpu_torch.runtime.stream import StreamEngine, StreamResult
 from ppls_tpu_torch.runtime.tune import measure_trial, tune_workload
 
 __all__ = [
-    "Backend", "CubatureResult", "FAMILIES", "FamilyResult", "INTEGRANDS",
+    "Backend", "CubatureResult", "EngineDispatcher", "FAMILIES", "FamilyResult", "INTEGRANDS",
     "IntegrationResult", "QMCResult", "QuadConfig", "Rule", "ShardedResult",
     "StreamEngine", "StreamResult", "WalkerResult", "device_integrate",
     "eval_batch", "eval_interval", "family_exact", "get_family",

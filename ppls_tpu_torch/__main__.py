@@ -41,8 +41,12 @@ non-zero unless ``--device cpu`` is given). ``--engine sharded``,
 ``family --engine sharded-bag|sharded-walker|sharded-walker-dd``, ``2d
 --n-devices`` and ``qmc --n-devices`` run ranks (``parallel/mesh.py``;
 several ranks share one card over gloo), and so does ``serve --engine
-walker-dd``. The options not ported yet (serve's cluster and dispatcher
-options) exit non-zero naming their ROADMAP.md item.
+walker-dd``. ``serve --dispatch [--max-engines N] [--lease]
+[--overlap-boundaries]`` runs the pool dispatcher
+(``runtime/dispatch.py``): requests may carry their own ``eps`` and
+``rule``, each engine key gets its own stream engine. The option not
+ported yet (serve's multi-process cluster, ``--processes``) exits
+non-zero naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -627,16 +631,23 @@ def _refuse_unported(args) -> None:
     ``serve`` this port does not run yet; the reference's own checks
     keep their wording."""
     if args.processes is not None:
+        if args.dispatch:
+            raise SystemExit(
+                "--dispatch is not supported with --processes (the "
+                "pool is the single-process multi-ENGINE tier, the "
+                "cluster is the multi-PROCESS tier); pick one")
         if args.processes < 1:
             raise SystemExit(
                 f"--processes must be >= 1 (got {args.processes}); "
                 f"drop the flag to run the single-process engine")
         raise _not_ported("the multi-process cluster (--processes)",
                           "item 9")
-    if args.dispatch:
-        raise _not_ported("the heterogeneous-shape dispatcher "
-                          "(--dispatch)", "item 9")
-    if args.lease or args.overlap_boundaries:
+    if args.dispatch and args.spillover:
+        raise SystemExit(
+            "--spillover is not supported with --dispatch (queue "
+            "overflow is the POOL's shed policy; the CPU spillover "
+            "executor is per-engine); drop one of the flags")
+    if not args.dispatch and (args.lease or args.overlap_boundaries):
         raise SystemExit(
             "--lease/--overlap-boundaries require --dispatch (they "
             "are cross-engine pool policies); add --dispatch or drop "
@@ -670,6 +681,16 @@ def _main_serve(args) -> int:
     # per-line rejection record and the loop continues; the same parser
     # backs the --ingest-port HTTP path.
     T = int(args.theta_block)
+    dispatch = bool(args.dispatch)
+    if dispatch:
+        # the pool buckets theta batches itself: the parse-time cap is
+        # the dispatcher's lattice cap, and records may carry the
+        # per-request eps/rule routing keys (synthetic generation still
+        # chunks by --theta-block)
+        from ppls_tpu_torch.runtime.dispatch import MAX_THETA_BUCKET
+        Tcap = MAX_THETA_BUCKET
+    else:
+        Tcap = T
     if args.requests:
         fh = sys.stdin if args.requests == "-" else open(args.requests)
         try:
@@ -680,7 +701,8 @@ def _main_serve(args) -> int:
                     continue
                 try:
                     rec = parse_request_record(json.loads(line),
-                                               theta_block=T)
+                                               theta_block=Tcap,
+                                               dispatch=dispatch)
                 except (json.JSONDecodeError, ValueError) as e:
                     print(json.dumps({
                         "rejected": True, "line": lineno,
@@ -801,6 +823,46 @@ def _main_serve(args) -> int:
         with io_lock:
             print(json.dumps(_serve_shed_record(rec)), flush=True)
 
+    def make_pool(tel, resuming):
+        """The heterogeneous pool in place of the single engine, behind
+        the same serve surface (submit/step/snapshot/result alias;
+        per-request eps/rule route)."""
+        from ppls_tpu_torch.runtime.checkpoint import CheckpointCorruptError
+        from ppls_tpu_torch.runtime.dispatch import EngineDispatcher
+        engine_kw = dict(
+            chunk=args.chunk, capacity=args.capacity,
+            refill_slots=args.refill_slots, scout_dtype=args.scout_dtype,
+            double_buffer=args.double_buffer,
+            reduced_integrands=args.reduced_integrands,
+            engine=args.engine, f64_rounds=args.f64_rounds,
+            n_devices=state["n_devices"], adapt=bool(args.adapt))
+        if args.lanes:
+            engine_kw["lanes"] = args.lanes
+        dkw = dict(
+            slots=args.slots, max_engines=args.max_engines,
+            default_eps=args.eps, default_rule=Rule(args.rule),
+            queue_limit=args.queue_limit,
+            tenant_quotas=args.tenant_quotas,
+            default_deadline_phases=args.deadline_phases,
+            checkpoint_every=args.checkpoint_every, telemetry=tel,
+            slo_config=args.slo_config, lease=bool(args.lease),
+            overlap_boundaries=bool(args.overlap_boundaries),
+            fault_injector=injector, quarantine=quarantine,
+            on_shed=_print_shed, device=device, engine_kw=engine_kw)
+        if resuming:
+            try:
+                return EngineDispatcher.resume(args.checkpoint,
+                                               args.family, **dkw)
+            except CheckpointCorruptError as e:
+                print(f"serve: {e}; starting fresh", file=sys.stderr,
+                      flush=True)
+                tel.event("checkpoint_corrupt", path=args.checkpoint,
+                          detail=str(e)[:200])
+                if os.path.exists(args.checkpoint):
+                    os.unlink(args.checkpoint)
+        return EngineDispatcher(args.family,
+                                checkpoint_path=args.checkpoint, **dkw)
+
     def make_engine():
         from ppls_tpu_torch.obs.telemetry import Telemetry
         from ppls_tpu_torch.runtime.checkpoint import CheckpointCorruptError
@@ -820,11 +882,17 @@ def _main_serve(args) -> int:
                   "family": args.family, "eps": args.eps,
                   "rule": args.rule, "slots": args.slots,
                   "lanes": args.lanes or 0, "seed": args.seed,
-                  "requests": len(reqs), "resumed": resuming},
+                  "requests": len(reqs), "resumed": resuming,
+                  **({"dispatch": True,
+                      "max_engines": args.max_engines}
+                     if dispatch else {})},
             append=resuming,
             events_max_bytes=(int(args.events_max_mb * (1 << 20))
                               if args.events_max_mb else None))
         holder["tel"] = tel
+        if dispatch:
+            holder["engine"] = make_pool(tel, resuming)
+            return holder["engine"]
         ekw = dict(kw, n_devices=state["n_devices"], quarantine=quarantine,
                    fault_injector=injector, telemetry=tel,
                    on_shed=_print_shed)
@@ -891,7 +959,8 @@ def _main_serve(args) -> int:
         from ppls_tpu_torch.runtime.ingest import IngestServer
 
         def ingest_submit(d):
-            rec = parse_request_record(d, theta_block=T)
+            rec = parse_request_record(d, theta_block=Tcap,
+                                       dispatch=dispatch)
             rec.pop("arrival_phase", None)     # live ingest is "now"
             h = holder["handle"]          # the CURRENT attempt's
             with h.lock():
@@ -929,7 +998,8 @@ def _main_serve(args) -> int:
         eng = make_engine()
         handle.publish(eng)
         span = eng.telemetry.span("run", mode="serve",
-                                  engine=f"{args.engine}-stream",
+                                  engine=("dispatch-pool" if dispatch
+                                          else f"{args.engine}-stream"),
                                   requests=len(reqs))
         # a resumed engine skips the request-list prefix it submitted
         # before the crash: the cursor rides the snapshot's client_state
@@ -1045,6 +1115,14 @@ def _main_serve(args) -> int:
                 reasons[s.reason] = reasons.get(s.reason, 0) + 1
             summary["shed_reasons"] = reasons
         summary["spillover"] = eng.spillover_summary()
+        if dispatch:
+            # the pool's numbers: recompiles (0 on mixed-shape traffic),
+            # the per-key decomposition and the lease ledger
+            summary["dispatch"] = True
+            summary["max_engines"] = args.max_engines
+            summary["recompiles"] = eng.recompiles()
+            summary["engines"] = eng.engines_summary()
+            summary["leases"] = eng.lease_summary()
         if holder.get("stopped"):
             summary["terminated"] = holder["stopped"]
         failed = sum(1 for c in res.completed if c.failed)

@@ -1,9 +1,9 @@
 """Async request ingest for ``python -m ppls_tpu_torch serve``.
 
 The port's copy of the JAX package's ``runtime/ingest.py`` (host-only
-Python, the protocol unchanged). The pool dispatcher's routing keys
-(``dispatch=True``) are not ported: ``parse_request_record`` refuses
-them with their ROADMAP.md item.
+Python, the protocol unchanged), with the pool dispatcher's routing
+keys (``dispatch=True``: ``eps``, ``rule``) checked through the port's
+``runtime/dispatch.canonical_key``.
 
 The reference farmer reads its whole workload at startup; until round
 16 this reproduction's serve loop did the same — a stdin JSONL list
@@ -112,17 +112,21 @@ def parse_request_record(d: dict, theta_block: int = 1,
     Domain checks beyond shape (integrand ds-domain, queue policy)
     stay with the engine.
 
-    ``dispatch=True`` asks for the heterogeneous pool's routing keys
-    (``eps``, ``rule``), which are not ported: it raises ``ValueError``
-    naming the ROADMAP.md item."""
-    if dispatch:
-        raise ValueError(
-            "the pool dispatcher's routing keys (dispatch=True) are not "
-            "ported to ppls_tpu_torch yet (ROADMAP.md Queue 1 item 9)")
+    ``dispatch=True`` (the heterogeneous pool, ``runtime/dispatch.py``)
+    additionally accepts the per-request ROUTING KEYS: ``eps`` (positive
+    finite number inside the dispatchable band range) and ``rule`` (a
+    :class:`~ppls_tpu_torch.config.Rule` member name), validated
+    through the dispatcher's canonicalizer, so an out-of-band eps, an
+    unknown rule, an over-cap theta batch, or a theta batch on a
+    non-TRAPEZOID rule all yield the per-line rejection record here.
+    On a single-engine serve (the default) those keys stay UNKNOWN and
+    reject."""
     if not isinstance(d, dict):
         raise ValueError("request record must be a JSON object")
     unknown = set(d) - {"theta", "bounds", "tenant", "priority",
                         "deadline_phases", "arrival_phase"}
+    if dispatch:
+        unknown -= {"eps", "rule"}
     if unknown:
         raise ValueError(f"unknown request keys: {sorted(unknown)}")
     if "theta" not in d or "bounds" not in d:
@@ -168,6 +172,27 @@ def parse_request_record(d: dict, theta_block: int = 1,
         if not isinstance(ap, int) or isinstance(ap, bool) or ap < 0:
             raise ValueError("'arrival_phase' must be an integer >= 0")
         out["arrival_phase"] = ap
+    if dispatch:
+        eps = d.get("eps")
+        rule = d.get("rule")
+        if eps is not None and (not isinstance(eps, (int, float))
+                                or isinstance(eps, bool)):
+            raise ValueError("'eps' must be a number")
+        if rule is not None and not isinstance(rule, str):
+            raise ValueError("'rule' must be a string")
+        # the full routing-key validation through the canonicalizer
+        # (band range, rule membership, bucket cap, batch-rule cross
+        # checks); absent keys validate against placeholder defaults so
+        # a bad theta batch still rejects here, and the dispatcher's own
+        # defaults apply at submit
+        from ppls_tpu_torch.runtime.dispatch import canonical_key
+        canonical_key(1e-6 if eps is None else eps,
+                      "trapezoid" if rule is None else rule,
+                      out["theta"])
+        if eps is not None:
+            out["eps"] = float(eps)
+        if rule is not None:
+            out["rule"] = str(rule).strip().lower()
     return out
 
 

@@ -1333,6 +1333,14 @@ class StreamEngine:
         return len(self._slot_req)
 
     @property
+    def free_capacity(self) -> int:
+        """Slot headroom not already spoken for by queued admissions:
+        the pool dispatcher's routing gate (``runtime/dispatch.py``)
+        deals a request here only when a seat is, or will next phase
+        be, free."""
+        return max(0, self.slots - self.resident - self.pending)
+
+    @property
     def idle(self) -> bool:
         """Nothing queued, resident, live on the device or waiting for
         the spillover backend."""

@@ -599,8 +599,33 @@ def test_parse_request_record_matches_reference():
         with pytest.raises(ValueError) as er:
             RIn.parse_request_record(bad, theta_block=1)
         assert str(ep.value) == str(er.value)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 9"):
-        TIn.parse_request_record(GOOD_RECORD, dispatch=True)
+    # the pool dispatcher's routing keys (dispatch=True): good records
+    # parse as the reference's, bad eps/rule/batch records give its
+    # messages, and without dispatch the keys stay unknown
+    routed = [GOOD_RECORD,
+              dict(GOOD_RECORD, eps=1e-7),
+              dict(GOOD_RECORD, rule=" Simpson "),
+              {"theta": [1, 2, 3], "bounds": [0, 1], "eps": 3e-9}]
+    for good in routed:
+        assert TIn.parse_request_record(good, theta_block=64,
+                                        dispatch=True) == \
+            RIn.parse_request_record(good, theta_block=64, dispatch=True)
+    for bad in ({"theta": 1.0, "bounds": [0, 1], "eps": 1e-20},
+                {"theta": 1.0, "bounds": [0, 1], "eps": "x"},
+                {"theta": 1.0, "bounds": [0, 1], "eps": True},
+                {"theta": 1.0, "bounds": [0, 1], "eps": 0},
+                {"theta": 1.0, "bounds": [0, 1], "rule": "simpsonish"},
+                {"theta": 1.0, "bounds": [0, 1], "rule": 3},
+                {"theta": [1, 2], "bounds": [0, 1], "rule": "simpson"},
+                {"theta": list(range(65)), "bounds": [0, 1]},
+                {"theta": 1.0, "bounds": [0, 1], "nope": 1}):
+        with pytest.raises(ValueError) as ep:
+            TIn.parse_request_record(bad, theta_block=64, dispatch=True)
+        with pytest.raises(ValueError) as er:
+            RIn.parse_request_record(bad, theta_block=64, dispatch=True)
+        assert str(ep.value) == str(er.value)
+    with pytest.raises(ValueError, match="unknown request keys"):
+        TIn.parse_request_record(dict(GOOD_RECORD, eps=1e-7))
 
 
 def test_ingest_server_roundtrip():

@@ -22,6 +22,8 @@ At the reference tests' sizes (tests/test_multitenant.py's
   (tests/test_multitenant.py:487, :506); requests posted to
   ``--ingest-port`` acknowledged and retired across a SIGTERM restart;
 * every option not ported exits non-zero naming its ROADMAP.md item;
+  ``serve --dispatch [--lease]`` runs (the reference CLI's ledger;
+  tests/test_torch_dispatch.py holds the pool itself);
   ``serve --engine walker-dd`` runs (one rank, the reference CLI's
   ledger at ``--n-devices 1``; and ``--n-devices 2``, two gloo ranks),
   and ``2d`` and ``qmc`` with ``--n-devices 2`` run on 2 gloo ranks;
@@ -503,8 +505,9 @@ def test_serve_ingest_acks_survive_a_sigterm_restart(runs, tmp_path,
 REFUSED = {
     "processes": (["serve", "--processes", "2"], "item 9"),
     "processes_zero": (["serve", "--processes", "0"], "must be >= 1"),
-    "dispatch": (["serve", "--dispatch"], "item 9"),
-    "lease": (["serve", "--dispatch", "--lease"], "item 9"),
+    # once refused with item 9: the pool dispatcher runs (None)
+    "dispatch": (["serve", "--dispatch"], None),
+    "lease": (["serve", "--dispatch", "--lease"], None),
     "lease_alone": (["serve", "--lease"], "require --dispatch"),
     "overlap": (["serve", "--overlap-boundaries"], "require --dispatch"),
     # once refused with item 7: the walker-dd stream runs (None)
@@ -542,9 +545,32 @@ def _walker_dd_serve_runs(argv, capsys):
     capsys.readouterr()
 
 
+def _dispatch_serve_runs(argv, capsys):
+    """``serve --dispatch [--lease]`` on the synthetic load: the
+    reference CLI's ledger (areas within 3e-9), and the pool's summary
+    blocks apart from their walls."""
+    load = SERVE_ARGS + ["--synthetic", "6", "--max-engines", "2"]
+    rc, got = _port(argv[1:] + load)
+    rrc, ref = _ref(argv[1:] + load)
+    assert rc == rrc == 0
+    g_sum, r_sum = got[-1], ref[-1]
+    assert g_sum["dispatch"] is True and g_sum["recompiles"] == 0
+    assert g_sum["completed"] == 6
+    assert g_sum["leases"]["enabled"] == ("--lease" in argv)
+    walls = ("boundary_wall_s", "overlap_wall_s", "overlap_wall_frac")
+    for s in (g_sum, r_sum):
+        s["leases"] = {k: v for k, v in s["leases"].items()
+                       if k not in walls}
+    _assert_same_ledger(got, ref)
+    capsys.readouterr()
+
+
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_options_and_modes_exit_nonzero(name, capsys):
     argv, what = REFUSED[name]
+    if what is None and "--dispatch" in argv:
+        _dispatch_serve_runs(argv, capsys)
+        return
     if what is None:
         _walker_dd_serve_runs(argv, capsys)
         return
