@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22     # the build and phase 22 alone
+    python3 chip_smoke.py --phase 23     # the build and phase 23 alone
 
 Phases, each of which must pass (any failure exits nonzero):
 
@@ -349,10 +350,13 @@ Phases, each of which must pass (any failure exits nonzero):
    b. Card against CPU at tests/test_sharded_walker.py's shapes, 4 ranks,
       both modes, the hand cadence on both: equal schedules (tasks,
       splits, cycles, kernel steps, collective rounds, tasks per rank),
-      areas within 1e-12.
+      areas within 1e-12. The CPU calls run last in 19a's world of 4
+      (gloo carries both devices), each rank at a CPU world's torch
+      thread count: one world start for both.
    c. The refill leg on 4 ranks killed after one leg and resumed:
       bit-equal; the tests' shapes' 4-rank snapshot resumed on 2 ranks
-      (``mesh_resize``) on the card and on the CPU: equal.
+      (``mesh_resize``) on the card and on the CPU, both in one world
+      of 2: equal.
    d. ``family --engine sharded-walker-dd --n-devices 4`` (the refill
       leg's flags) and ``family --engine sharded-bag --n-devices 4``:
       areas, tasks and tasks per rank bit-equal to the in-process calls.
@@ -373,9 +377,10 @@ Phases, each of which must pass (any failure exits nonzero):
       through ``sharded_integrate`` on 1 rank (NCCL, in this process):
       the host engine's tasks and rounds, areas within 1e-12 relative.
    c. The same two on 4 ranks sharing the card (gloo, host-staged; one
-      spawned world runs every 4-rank call of 20c-e): world 1's counts
-      and areas within 1e-12, card = CPU (a CPU world of 4), a
-      kill-and-resume bit-equal and a snapshot of another eps refused.
+      spawned world runs every 4-rank call of 20c-e, their CPU twins
+      last, at a CPU world's thread count): world 1's counts and areas
+      within 1e-12, card = CPU, a kill-and-resume bit-equal and a
+      snapshot of another eps refused.
       Printed: tasks per rank, collective calls by kind beside the
       reference's sites, rounds, host syncs, the engine wall.
    d. The bench's ring (phase 17, eps 1e-12) through
@@ -409,12 +414,13 @@ Phases, each of which must pass (any failure exits nonzero):
       spans, areas within 1e-12.
    c. Kill after phase 3 and resume on 4 ranks: areas and the timeline
       bit-equal to the run without a crash; the snapshot resized onto 3
-      ranks (``mesh_resize``): within 1e-9 with the ds walk,
-      bit-identical on the dyadic family.
+      ranks (``mesh_resize``): within 1e-9 with the ds walk; the dyadic
+      family's undisturbed 4-rank run (its resize is 21d's).
    d. ``serve --engine walker-dd --n-devices 4 --supervise`` with a
       ``chip_loss`` at phase 3 (the dyadic family): recoveries
       [("chip_loss", "resize_resume")], 3 ranks after it, no
-      acknowledged request lost, areas equal the undisturbed engine's.
+      acknowledged request lost, areas bit-equal to 21c's undisturbed
+      4-rank engine's.
    e. Deadline expiry on the dd stream (1 rank): the expired request
       retires ``deadline_exceeded``, its neighbour within 3e-9 of the
       float64 bag, a fresh request bit-equal to a solo run.
@@ -461,6 +467,41 @@ Phases, each of which must pass (any failure exits nonzero):
       ranks sharing the card): two parks and an unpark, card = CPU, no
       rank alive after ``close()``.
 
+23. The multi-process cluster (``runtime/cluster.py``
+   ``ClusterStreamEngine``: this process coordinates N worker processes,
+   each a stream engine on ``cuda:0``; on one card the workers time-slice
+   it, so no rate here is a multi-GPU rate). The phase has one time limit
+   (``CLUSTER_TIMEOUT``), which also bounds every worker's start and RPC;
+   after every run no worker process may be left alive.
+   a. The reference bench's multihost leg (tools/bench_history.py:
+      133-143: 8 quad_scaled requests, 2 processes, queue limit 2,
+      spillover limit 2, worker 1 SIGKILLed at phase 1, the supervisor's
+      host_loss arm), as given (f64_rounds=2) and through the walk
+      (f64_rounds=0: K1 in every worker), on the card and on the CPU:
+      records card = CPU, areas bit-equal to the single engine (dyadic),
+      0 lost, none shed, spillover engaged, the survivor's K1 launches >
+      0 in the walker run. The four clusters start at once and then run
+      one after another. Printed: the redeal wall, spawn seconds per
+      worker.
+   b. Phase 11's stream leg (24 requests, eps 1e-10, slots 64, lanes
+      2^14, R = 8, the ds walk) through 1 and 2 worker processes,
+      saturated, after a warm-up run on the same cluster; then 2 processes
+      through K2 (refill_slots=0); the three clusters start at once and
+      each is timed alone: every area within 1e-3 of the closed
+      form, every 8th within 3e-9 of the float64 bag, every worker
+      launching its kernel and not the other. Printed: requests/s and
+      p50/p99 latency (phases, s) against phase 11's single engine, the
+      start and spawn seconds.
+   c. ``python -m ppls_tpu_torch serve --processes`` as real processes,
+      all nine started at once: tools/ci.sh leg 5d's flags at 1, 2 and
+      4 processes, f64_rounds 2 and 0, on the card (the 2-process float64
+      run with ``--metrics-port 0`` scraped live: coordinator retired =
+      sum over workers + spillover = completed), at 2 processes on the
+      CPU, and one ``--supervise`` run with a host_loss fault plan at
+      phase 2. Areas bit-identical across process counts; card = CPU;
+      recoveries [("host_loss", "resize_resume")], 0 lost, areas equal
+      to the undisturbed run's.
+
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
 per T under ``theta``; the stream's launches under ``stream_launches``;
@@ -472,7 +513,9 @@ under ``bench_launches``; phase 19's, every rank's, under
 ``dd_launches``, and 19k's records under ``dd``; phase 20a's under
 ``tune_launches``; phase 21's, every rank's, under ``dd_stream_launches``,
 and 21k's record under ``dd_stream``; phase 22's under
-``dispatch_launches``, and 22k's records under ``dispatch``)
+``dispatch_launches``, and 22k's records under ``dispatch``; phase 23's,
+the sum of every worker process's reported launches, under
+``cluster_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -767,6 +810,24 @@ CI_DISPATCH_LEGS = {           # extra flags, fault plan, malformed line
 DD_POOL_REQS = ((1.0, {}), (1.25, {}), (1.5, {"eps": 1e-8}),
                 (2.0, {"eps": 1e-8}), (0.75, {}), (3.0, {}))
 DD_POOL_ARR = [0, 0, 1, 1, 2, 3]
+# phase 23: the multi-process cluster (runtime/cluster.py)
+CLUSTER_TIMEOUT = 300          # s, the whole of phase 23, its workers too
+# 23a: the reference bench's multihost leg (tools/bench_history.py:133-143)
+MULTIHOST_PROCESSES = 2
+MULTIHOST_QUEUE_LIMIT = 2
+MULTIHOST_SPILL_LIMIT = 2
+MULTIHOST_FAULTS = ({"kind": "host_loss", "at": 1, "chip": 1},)
+# 23b: phase 11's stream leg with the ds walk, through 1 and 2 processes
+CLUSTER_PROCESSES = (1, 2)
+CLUSTER_SAMPLE = 8             # every 8th area to the float64 bag
+# 23c: tools/ci.sh leg 5d (:410-416) at --processes 1, 2, 4
+CLUSTER_SWEEP = (1, 2, 4)
+CI_5D_ARGS = ("--family", "quad_scaled", "--theta",
+              "1.0,1.25,1.5,2.0,0.75,3.0", "--arrival-rate", "2", "--seed",
+              "0", "--eps", "1e-9", "-a", "0.0", "-b", "1.0", "--slots", "4",
+              "--chunk", "1024", "--capacity", "65536", "--lanes", "256",
+              "--refill-slots", "2")
+CI_5D_HOST_LOSS = [{"kind": "host_loss", "at": 2, "chip": 1}]
 
 
 def log(msg: str) -> None:
@@ -4067,6 +4128,13 @@ def phase_qmc(out_dir) -> dict:
     return out
 
 
+def cpu_threads(n: int) -> int:
+    """The torch threads of each rank of a CPU world of ``n``
+    (``mesh.launch``'s): what a CPU call run inside a card's world sets
+    first, so its reductions split as in a CPU world."""
+    return max(1, (os.cpu_count() or 1) // n)
+
+
 def dd_cadence(W, leg_kw: dict) -> dict:
     """The hand tier's cadence for a dd leg, passed explicitly where a
     CPU run is held against the card (the CPU has tuning-table rows the
@@ -4229,7 +4297,13 @@ def phase_dd(W, TS, ckpt_dir, out_dir) -> dict:
               dict(test_kw["legacy"], **w4)),
              ("test_crash", SW.integrate_family_walker_dd, DD_TEST_ARGS,
               dict(test_kw["refill"], checkpoint_path=paths["resize"],
-                   checkpoint_every=1, _crash_after_legs=2, **w4))]
+                   checkpoint_every=1, _crash_after_legs=2, **w4)),
+             # 19b's CPU twins, last, in the same world (gloo carries
+             # both), each rank at a CPU world's thread count
+             ("cpu_threads", torch.set_num_threads, (cpu_threads(4),), {})]
+    calls += [(f"cpu_{leg}", SW.integrate_family_walker_dd, DD_TEST_ARGS,
+               dict(test_kw[leg], n_devices=4, device="cpu"))
+              for leg in ("refill", "legacy")]
     t0 = time.perf_counter()
     got = MESH.launch(MESH.run_calls, 4, DEVICE,
                       ([c[1:] for c in calls],), timeout=DD_TIMEOUT)
@@ -4238,8 +4312,9 @@ def phase_dd(W, TS, ckpt_dir, out_dir) -> dict:
     for k, g in got.items():
         if isinstance(g, Exception) and k not in ("crash", "test_crash"):
             raise AssertionError(f"19 world 4 {k}: {g!r}")
-    log(f"[smoke] 19 world 4 on one card: {len(calls)} calls in "
-        f"{w4_wall:.1f} s (4 spawned ranks, their start included)")
+    log(f"[smoke] 19 world 4 on one card: {len(calls)} calls (19b's CPU "
+        f"twins among them) in {w4_wall:.1f} s (4 spawned ranks, their "
+        f"start included)")
     for leg in DD_LEGS:
         runs[(4, leg)] = r = got[leg]
         out["runs"][f"4/{leg}"] = dd_record(
@@ -4259,19 +4334,13 @@ def phase_dd(W, TS, ckpt_dir, out_dir) -> dict:
                                  f"rounds per cycle are not below legacy's")
 
     # b. card against CPU at the tests' shapes, 4 ranks each
-    t0 = time.perf_counter()
-    cpu = MESH.launch(MESH.run_calls, 4, "cpu", ([
-        (SW.integrate_family_walker_dd, DD_TEST_ARGS,
-         dict(test_kw[leg], n_devices=4, device="cpu"))
-        for leg in ("refill", "legacy")],), timeout=DD_TIMEOUT)
     out["card_cpu"] = {}
-    for leg, c in zip(("refill", "legacy"), cpu):
+    for leg in ("refill", "legacy"):
         out["card_cpu"][leg] = dd_same(
-            f"19b {leg}: card against CPU", got[f"test_{leg}"], c,
-            AREA_TOL_DEVICES)
+            f"19b {leg}: card against CPU", got[f"test_{leg}"],
+            got[f"cpu_{leg}"], AREA_TOL_DEVICES)
     log(f"[smoke] 19b card = CPU at the tests' shapes, 4 ranks, both "
-        f"modes (areas {out['card_cpu']}); the CPU world in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"modes (areas {out['card_cpu']})")
 
     # c. kill-and-resume on 4 ranks; the 4-rank snapshot resumed on 2
     if not isinstance(got["crash"], RuntimeError):
@@ -4281,11 +4350,18 @@ def phase_dd(W, TS, ckpt_dir, out_dir) -> dict:
     shutil.copy(paths["resize"], paths["resize"] + ".cpu")
     rkw = dict(test_kw["refill"], mesh_resize=True, checkpoint_every=1,
                n_devices=2)
-    resized = {where: MESH.launch(
-        SW.resume_family_walker_dd, 2, dev, (path, *DD_TEST_ARGS),
-        dict(rkw, device=dev), timeout=DD_TIMEOUT)
-        for where, dev, path in (("card", DEVICE, paths["resize"]),
-                                 ("cpu", "cpu", paths["resize"] + ".cpu"))}
+    # the card's resume and the CPU's in one world of 2
+    r2 = MESH.launch(MESH.run_calls, 2, DEVICE, ([
+        (SW.resume_family_walker_dd, (paths["resize"], *DD_TEST_ARGS),
+         dict(rkw, device=DEVICE)),
+        (torch.set_num_threads, (cpu_threads(2),), {}),
+        (SW.resume_family_walker_dd,
+         (paths["resize"] + ".cpu", *DD_TEST_ARGS),
+         dict(rkw, device="cpu"))],), timeout=DD_TIMEOUT)
+    resized = {"card": r2[0], "cpu": r2[2]}
+    for where, r in resized.items():
+        if isinstance(r, Exception):
+            raise AssertionError(f"19c the {where}'s resize: {r!r}")
     out["resize"] = dd_same("19c a 4-rank snapshot on 2 ranks, card "
                             "against CPU", resized["card"], resized["cpu"],
                             AREA_TOL_DEVICES)
@@ -4599,6 +4675,7 @@ def phase_across(W, TS, base, report, ckpt_dir, out_dir) -> dict:
     wavefront (20b-c), the 2D bag (20d) and the QMC lattice (20e) across
     ranks, and their commands (20f)."""
     import numpy as np
+    import torch
     from ppls_tpu_torch.models.genz import GENZ, genz_params
     from ppls_tpu_torch.parallel import mesh as MESH
     from ppls_tpu_torch.parallel.qmc import integrate_qmc
@@ -4627,28 +4704,27 @@ def phase_across(W, TS, base, report, ckpt_dir, out_dir) -> dict:
              for k in ("wave", "2d")}
     MESH.LAUNCH_TIMEOUT_S = deadline.left()     # the commands' launches too
     calls = across_calls(paths, DEVICE, True)
+    # the CPU twins run last in the same world (gloo carries both), each
+    # rank at a CPU world's thread count
+    cpu_calls = across_calls(paths, "cpu", False)
     t0 = time.perf_counter()
-    got = MESH.launch(MESH.run_calls, ACROSS_N, DEVICE,
-                      ([c for c in calls.values()],), timeout=deadline.left())
+    res = MESH.launch(MESH.run_calls, ACROSS_N, DEVICE, (
+        list(calls.values())
+        + [(torch.set_num_threads, (cpu_threads(ACROSS_N),), {})]
+        + list(cpu_calls.values()),), timeout=deadline.left())
     w4_wall = time.perf_counter() - t0
-    got = dict(zip(calls, got))
+    got = dict(zip(calls, res[:len(calls)]))
+    cpu = dict(zip(cpu_calls, res[len(calls) + 1:]))
     for k, g in got.items():
         if isinstance(g, Exception) and k not in ("crash", "wrong_eps",
                                                   "peak_crash"):
             raise AssertionError(f"20 world {ACROSS_N} {k}: {g!r}")
-    cpu_calls = across_calls(paths, "cpu", False)
-    t0 = time.perf_counter()
-    cpu = dict(zip(cpu_calls, MESH.launch(
-        MESH.run_calls, ACROSS_N, "cpu", ([c for c in cpu_calls.values()],),
-        timeout=deadline.left())))
-    cpu_wall = time.perf_counter() - t0
     for k, g in cpu.items():
         if isinstance(g, Exception):
-            raise AssertionError(f"20 CPU world {k}: {g!r}")
+            raise AssertionError(f"20 CPU call {k}: {g!r}")
     log(f"[smoke] 20 world {ACROSS_N} on one card (gloo, host-staged: not a "
-        f"multi-GPU rate): {len(calls)} calls in {w4_wall:.1f} s, their "
-        f"start included; the CPU world: {len(cpu_calls)} calls in "
-        f"{cpu_wall:.1f} s")
+        f"multi-GPU rate): {len(calls)} card calls and {len(cpu_calls)} CPU "
+        f"calls in {w4_wall:.1f} s, their start included")
 
     # c. the wavefront on 4 ranks: against world 1, the CPU, and resumed
     out["world4"] = {}
@@ -4968,7 +5044,7 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
     paths = {name: os.path.join(ckpt_dir, f"dds_{name}")
              for name in ("card.ckpt", "card3.ckpt", "card3_resize.ckpt",
                           "card.jsonl", "cpu.jsonl", "resumed.jsonl",
-                          "dya.ckpt", "dya3.ckpt", "dya.jsonl")}
+                          "dya.jsonl")}
 
     def events_run(fam, n, dev, events, reqs_, **over):
         tel = Telemetry(events_path=events)
@@ -5034,26 +5110,23 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
             checkpoint_every=1, **test_kw) as eng:
         ds3 = dd_stream_drive(eng, t_reqs, DD_STREAM_TEST_ARR)
     d_ds3 = float(np.max(np.abs(ds3.areas - card.areas)))
+    # the dyadic family's undisturbed 4-rank run: 21d resize-resumes its
+    # chip loss onto 3 ranks and holds every area to this run's, bit for
+    # bit (the dyadic resize gate, one world start fewer than a second
+    # resize here)
     dya_reqs = [(t, (0.0, 1.0)) for t in DD_STREAM_DYADIC]
     dya, _s = events_run("quad_scaled", 4, DEVICE, paths["dya.jsonl"],
-                         dya_reqs, checkpoint_path=paths["dya.ckpt"],
-                         checkpoint_every=1)
-    with TS.StreamEngine.resume(
-            paths["dya3.ckpt"], "quad_scaled", DD_STREAM_TEST_EPS,
-            mesh_resize=True, n_devices=3, device=DEVICE,
-            checkpoint_every=1, **test_kw) as eng:
-        dya3 = dd_stream_drive(eng, dya_reqs, DD_STREAM_TEST_ARR)
-    dyadic_same = np.array_equal(dya3.areas, dya.areas)
+                         dya_reqs)
     log(f"[smoke] 21c resize 4 -> 3 ranks: the ds walk {d_ds3:.3e} from "
-        f"the 4-rank run (tol {DD_STREAM_RESIZE_TOL}); the dyadic family "
-        f"{'bit-identical' if dyadic_same else 'DIFFERS'}")
-    if not d_ds3 < DD_STREAM_RESIZE_TOL or not dyadic_same:
+        f"the 4-rank run (tol {DD_STREAM_RESIZE_TOL}); the dyadic family's "
+        f"resize is 21d's")
+    if not d_ds3 < DD_STREAM_RESIZE_TOL:
         raise AssertionError("21c: the resized resume differs")
-    out["resume"] = dict(d_resize_ds=d_ds3, dyadic_bit_equal=dyadic_same)
+    out["resume"] = dict(d_resize_ds=d_ds3)
     # the dyadic family drains in the float64 bag: K1 may not run there
     out["launches"]["resume"] = sum(
         sum(dd_stream_launches(r)) for r in (resumed, ds3)) + sum(
-        sum(r.mesh["launches"]["run_segment_rf"]) for r in (dya, dya3))
+        dya.mesh["launches"]["run_segment_rf"])
     check_time("21c")
 
     # d. serve --engine walker-dd --n-devices 4 --supervise, a chip loss at
@@ -5772,10 +5845,483 @@ def phase_dispatch(W, TS, ckpt_dir, out_dir, ops, stream_rep) -> dict:
     return out
 
 
-def main_dispatch() -> int:
-    """``python3 chip_smoke.py --phase 22``: the build, phase 11's
-    single-engine ds stream (the comparator: the median of three runs
-    after a warm-up) and phase 22, in one process."""
+# ---------------------------------------------------------------------------
+# phase 23: the multi-process cluster
+# ---------------------------------------------------------------------------
+
+
+def cluster_workers_alive() -> list:
+    """The pids of cluster worker processes still alive (zombies aside):
+    every phase 23 run must leave none."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as fh:
+                cmd = fh.read()
+            with open(f"/proc/{d}/stat") as fh:
+                state = fh.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if b"ppls_tpu_torch.runtime.cluster" in cmd and state != "Z":
+            pids.append(int(d))
+    return pids
+
+
+def no_workers_left(what: str) -> None:
+    alive = cluster_workers_alive()
+    if alive:
+        raise AssertionError(f"{what}: cluster workers still alive {alive}")
+
+
+def cluster_record(c) -> dict:
+    """A cluster's completed record as the ledger's fields, with its
+    spillover mark."""
+    return dict(record_of(c), spillover=bool(c.spillover))
+
+
+def start_clusters(specs: dict) -> dict:
+    """Start several clusters at once (each constructor spawns its
+    workers and waits for their hellos; the workers' interpreter and
+    torch imports overlap): name -> (engine, start s). If one fails,
+    every engine that started is closed."""
+    import concurrent.futures as cf
+    from ppls_tpu_torch.runtime.cluster import ClusterStreamEngine
+
+    def start(kw):
+        t0 = time.perf_counter()
+        eng = ClusterStreamEngine(**kw)
+        return eng, time.perf_counter() - t0
+
+    with cf.ThreadPoolExecutor(len(specs)) as ex:
+        futs = {name: ex.submit(start, kw) for name, kw in specs.items()}
+    out, err = {}, None
+    for name, fut in futs.items():
+        try:
+            out[name] = fut.result()
+        except Exception as e:  # noqa: BLE001 -- raised after the cleanup
+            err = err or e
+    if err is not None:
+        for eng, _ in out.values():
+            eng.close()
+        raise err
+    return out
+
+
+def cluster_multihost(eng, inj, start_s: float) -> dict:
+    """23a, one run on a started cluster: the reference bench's multihost
+    leg (2 processes, queue limit 2, spillover limit 2, worker 1
+    SIGKILLed at phase 1 through ``inj`` and recovered by the
+    supervisor's host_loss arm). Closes the cluster."""
+    from ppls_tpu_torch.runtime import guard
+    thetas = [1.0 + i / 4.0 for i in range(MULTIHOST_K)]
+    reqs = [(t, (0.0, 1.0)) for t in thetas]
+
+    def loop():
+        k = eng.next_rid
+        while not eng.idle or k < len(reqs):
+            while k < len(reqs):
+                eng.submit(*reqs[k])
+                k += 1
+            eng.step()
+        return eng.result()
+
+    def resize_fn(exc):
+        eng.recover_host_loss(exc)
+        return loop
+
+    sup = guard.Supervisor(loop, resize_fn=resize_fn, log=lambda m: None,
+                           sleep=lambda s: None)
+    try:
+        t0 = time.perf_counter()
+        res = sup.run()
+        wall = time.perf_counter() - t0
+        return dict(
+            records={c.rid: cluster_record(c) for c in res.completed},
+            areas=res.areas, shed=len(res.shed),
+            completed=len(res.completed),
+            recoveries=[list(r) for r in sup.recoveries],
+            survivors=eng.manifest.process_ids,
+            manifest=eng.manifest.describe()["processes"],
+            spillover=eng.spillover_summary(),
+            redeal_wall_s=eng.redeal_walls[0] if eng.redeal_walls else None,
+            spawn_s=dict(eng.spawn_walls), start_s=start_s, wall_s=wall,
+            launches=eng.launches())
+    finally:
+        eng.close()
+
+
+def cluster_card_cpu(TS) -> dict:
+    """23a: the multihost leg as given (f64_rounds=2) and through the walk
+    (f64_rounds=0: K1 on every worker), on the card and on the CPU; the
+    four clusters are started at once, then run one after another."""
+    import numpy as np
+    from ppls_tpu_torch.runtime.faults import FaultInjector, FaultPlan
+    thetas = [1.0 + i / 4.0 for i in range(MULTIHOST_K)]
+    reqs = [(t, (0.0, 1.0)) for t in thetas]
+    injectors = {(f, dev): FaultInjector(FaultPlan.from_events(
+        [dict(e) for e in MULTIHOST_FAULTS]))
+        for f in (2, 0) for dev in (DEVICE, "cpu")}
+    started = start_clusters({key: dict(
+        family=MULTIHOST_FAMILY, eps=MULTIHOST_EPS,
+        n_processes=MULTIHOST_PROCESSES,
+        worker_kw=dict(MULTIHOST_WKW, f64_rounds=key[0]),
+        fault_injector=inj, queue_limit=MULTIHOST_QUEUE_LIMIT,
+        spillover=True, spillover_limit=MULTIHOST_SPILL_LIMIT,
+        device=key[1], spawn_timeout=CLUSTER_TIMEOUT,
+        rpc_timeout=CLUSTER_TIMEOUT) for key, inj in injectors.items()})
+    out = {}
+    try:
+        for f64_rounds in (2, 0):
+            single = TS.StreamEngine(
+                MULTIHOST_FAMILY, MULTIHOST_EPS, device=DEVICE,
+                **dict(MULTIHOST_WKW, f64_rounds=f64_rounds)).run(reqs)
+            card, cpu = (cluster_multihost(started[f64_rounds, dev][0],
+                                           injectors[f64_rounds, dev],
+                                           started[f64_rounds, dev][1])
+                         for dev in (DEVICE, "cpu"))
+            bad = [r for r in set(card["records"]) | set(cpu["records"])
+                   if card["records"].get(r) != cpu["records"].get(r)]
+            bit = bool(np.array_equal(card["areas"], single.areas))
+            lost = MULTIHOST_K - card["completed"] - card["shed"]
+            k1 = {p: card["launches"][str(p)]["run_segment_rf"]
+                  for p in card["survivors"]}
+            row = dict(card={k: v for k, v in card.items()
+                             if k not in ("records", "areas")},
+                       cpu_spawn_s=cpu["spawn_s"], records_differ=bad,
+                       areas_bit_equal_single=bit, lost=lost,
+                       survivor_k1=k1)
+            out[f64_rounds] = row
+            log(f"[smoke] 23a multihost leg, f64_rounds {f64_rounds}: "
+                f"recoveries {card['recoveries']}, survivors "
+                f"{card['survivors']}, {card['completed']} completed "
+                f"({card['spillover']['spillover_completed']} on the CPU "
+                f"spillover, {card['spillover']['spillover_tasks']} tasks), "
+                f"{card['shed']} shed, lost {lost}; areas bit-equal to the "
+                f"single engine {bit}; card = CPU records "
+                f"{'equal' if not bad else f'DIFFER at {bad}'}; redeal wall "
+                f"{card['redeal_wall_s']:.4f} s; spawn s per worker, four "
+                f"clusters started together (card) "
+                f"{ {p: round(s, 2) for p, s in card['spawn_s'].items()} }, "
+                f"(CPU) "
+                f"{ {p: round(s, 2) for p, s in cpu['spawn_s'].items()} }; "
+                f"survivors' K1 launches {k1}; run wall "
+                f"{card['wall_s']:.2f} s")
+            if (bad or not bit or lost or card["shed"]
+                    or card["recoveries"] != [["host_loss",
+                                               "resize_resume"]]
+                    or card["spillover"]["spillover_completed"] <= 0
+                    or (f64_rounds == 0 and min(k1.values()) <= 0)):
+                raise AssertionError(f"23a f64_rounds {f64_rounds}: {row}")
+    finally:
+        for eng, _ in started.values():
+            eng.close()
+    no_workers_left("23a")
+    return out
+
+
+def cluster_timed_run(eng, reqs):
+    """A run of ``reqs`` on a cluster that may have run before: this run's
+    completed records, wall, and its result for the latency quantiles."""
+    import torch
+    n0, p0 = len(eng.completed), eng.phase
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from ppls_tpu_torch.runtime.stream import StreamResult
+    done = eng.completed[n0:]
+    res = StreamResult(completed=done, phases=eng.phase - p0, wall_s=wall,
+                       totals={}, phase_stats=None)
+    return res, wall
+
+
+def cluster_full_width(TS, stream_rep) -> dict:
+    """23b: phase 11's stream leg (24 requests, the ds walk) through 1 and
+    2 worker processes on the one card, saturated, a warm-up run first;
+    then 2 processes through K2 (refill_slots=0)."""
+    import numpy as np
+    from ppls_tpu_torch.models.integrands import family_exact, get_family
+    from ppls_tpu_torch.parallel.bag_engine import integrate_family
+    k = STREAM_K
+    theta = 1.0 + np.arange(k) / k
+    reqs = [(float(t), BOUNDS) for t in theta]
+    exact = family_exact(STREAM_FAMILY, *BOUNDS, theta)
+    sample = np.arange(0, k, CLUSTER_SAMPLE)
+    bag = integrate_family(get_family(STREAM_FAMILY), theta[sample], BOUNDS,
+                           EPS, chunk=1 << 15, capacity=1 << 22,
+                           device=DEVICE).areas
+    single_wall = stream_rep["ds_walk"]["wall_s"]
+    out = {"single_engine": dict(wall_s=single_wall,
+                                 requests_per_sec=k / single_wall)}
+    legs = [(f"K1/{n}", n, dict(STREAM_KW, scout_dtype="f64"),
+             "run_segment_rf") for n in CLUSTER_PROCESSES]
+    legs.append(("K2/2", 2, dict(STREAM_KW, scout_dtype="f64",
+                                 refill_slots=0, double_buffer=False),
+                 "run_segment_ee"))
+    # the three clusters start at once; each is then timed alone while
+    # the others' workers wait on their sockets
+    started = start_clusters({tag: dict(
+        family=STREAM_FAMILY, eps=EPS, n_processes=n, worker_kw=wkw,
+        device=DEVICE, spawn_timeout=CLUSTER_TIMEOUT,
+        rpc_timeout=CLUSTER_TIMEOUT) for tag, n, wkw, _k in legs})
+    try:
+        for tag, n, wkw, kernel in legs:
+            eng, start_s = started[tag]
+            try:
+                _warm, warm_wall = cluster_timed_run(eng, reqs)
+                res, wall = cluster_timed_run(eng, reqs)
+                launches = eng.launches()
+                spawn = dict(eng.spawn_walls)
+            finally:
+                eng.close()
+            out[tag] = full_width_leg(tag, n, kernel, res, wall, warm_wall,
+                                      launches, spawn, start_s, exact,
+                                      sample, bag, single_wall)
+    finally:
+        for eng, _ in started.values():
+            eng.close()
+    no_workers_left("23b")
+    return out
+
+
+def full_width_leg(tag, n, kernel, res, wall, warm_wall, launches, spawn,
+                   start_s, exact, sample, bag, single_wall) -> dict:
+    """One 23b leg's numbers, logged and gated."""
+    import numpy as np
+    k = len(exact)
+    areas = np.array([c.area for c in sorted(res.completed,
+                                             key=lambda c: c.rid)])
+    d_ex = float(np.max(np.abs(areas - exact)))
+    d_bag = float(np.max(np.abs(areas[sample] - bag)))
+    lat = res.latency_percentiles()
+    other = ("run_segment_ee" if kernel == "run_segment_rf"
+             else "run_segment_rf")
+    row = dict(processes=n, wall_s=wall, warm_up_wall_s=warm_wall,
+               requests_per_sec=k / wall, phases=res.phases,
+               latency=lat, d_exact=d_ex, d_bag=d_bag,
+               launches=launches, spawn_s=spawn, start_s=start_s,
+               vs_single=(k / wall) / (k / single_wall))
+    log(f"[smoke] 23b {tag} process(es) on one card ({kernel}; "
+        f"{'the workers time-slice one card: not a multi-GPU rate' if n > 1 else 'one worker'}"
+        f"): {k / wall:.2f} req/s (wall {wall:.3f} s; warm-up run "
+        f"{warm_wall:.3f} s), {row['vs_single']:.3f}x phase 11's single "
+        f"engine ({k / single_wall:.2f} req/s), {res.phases} phases, "
+        f"p50/p99 latency {lat['p50_phases']}/{lat['p99_phases']} "
+        f"phases ({lat['p50_s']:.4f}/{lat['p99_s']:.4f} s); start "
+        f"{start_s:.2f} s, spawn s per worker "
+        f"{ {p: round(s, 2) for p, s in spawn.items()} }; launches "
+        f"{launches}; {d_ex:.3e} from the closed form, every "
+        f"{CLUSTER_SAMPLE}th {d_bag:.3e} from the float64 bag")
+    if (len(res.completed) != k or not d_ex < AREA_TOL_EXACT
+            or not d_bag < AREA_TOL_BAG
+            or sorted(launches) != [str(p) for p in range(n)]
+            or min(v[kernel] for v in launches.values()) <= 0
+            or max(v[other] for v in launches.values()) != 0):
+        raise AssertionError(f"23b {tag}: {row}")
+    return row
+
+
+def ci_5d_argv(p: int, f64_rounds: int, device: str, *extra) -> list:
+    return (["serve", "--processes", str(p), "--f64-rounds",
+             str(f64_rounds), *CI_5D_ARGS, *extra, "--device", device])
+
+
+def cluster_metrics_run(argv) -> tuple:
+    """One serve process with ``--metrics-port 0`` scraped live; the
+    final sample, inside the ``PPLS_SERVE_METRICS_HOLD`` window, holds
+    the reconciliation invariant. Returns (records, the invariant's
+    numbers)."""
+    old = os.environ.get("PPLS_SERVE_METRICS_HOLD")
+    os.environ["PPLS_SERVE_METRICS_HOLD"] = "1"
+    try:
+        proc = ServeProcess(argv + ["--metrics-port", "0"])
+    finally:
+        if old is None:
+            os.environ.pop("PPLS_SERVE_METRICS_HOLD")
+        else:
+            os.environ["PPLS_SERVE_METRICS_HOLD"] = old
+    try:
+        _t, line = proc.wait_for(lambda ln: "metrics on http" in ln,
+                                 "the metrics URL", CLUSTER_TIMEOUT)
+        url = re.search(r"metrics on (http://\S+)", line).group(1)
+        samples = 0
+
+        def summary():
+            nonlocal samples
+            status, _text, _ms = http(url)
+            samples += status == 200
+            return next((json.loads(ln) for _, ln in proc.lines()
+                         if ln.startswith("{") and '"summary"' in ln), None)
+        summ = proc.wait_until(summary, "the summary", CLUSTER_TIMEOUT)
+        status, expo, _ms = http(url)
+        rc = proc.proc.wait(timeout=60)
+    finally:
+        proc.kill()
+    if rc != 0 or status != 200:
+        raise AssertionError(f"23c metrics run exited {rc} / {status}")
+    vals = {}
+    for ln in expo.splitlines():
+        m = re.match(r'ppls_stream_retired_total\{process="([^"]+)"\} (\S+)',
+                     ln)
+        if m:
+            vals[m.group(1)] = float(m.group(2))
+    workers = sum(v for p, v in vals.items() if p != "coordinator")
+    spill = summ["spillover"]["spillover_completed"]
+    inv = dict(coordinator=vals.get("coordinator"), workers=workers,
+               spillover=spill, completed=summ["completed"],
+               samples=samples)
+    if not (inv["coordinator"] == workers + spill == summ["completed"]):
+        raise AssertionError(f"23c: the federation does not reconcile {inv}")
+    recs = [json.loads(ln) for _, ln in sorted(proc.out)
+            if ln.startswith("{")]
+    return dict(records=recs, summary=summ), inv
+
+
+def cluster_serve(ckpt_dir) -> dict:
+    """23c: ``python -m ppls_tpu_torch serve --processes`` as real
+    processes, all started at once: ci.sh leg 5d at 1, 2 and 4 processes
+    with f64_rounds 2 and 0 on the card (the 2-process float64 run with
+    ``--metrics-port 0``, scraped live), at 2 processes on the CPU, and
+    one ``--supervise`` run with a host_loss fault plan."""
+    runs = {(p, f, DEVICE): ci_5d_argv(p, f, DEVICE)
+            for f in (2, 0) for p in CLUSTER_SWEEP}
+    runs.update({(2, f, "cpu"): ci_5d_argv(2, f, "cpu") for f in (2, 0)})
+    # the float64 mode's 7 phases outlast the fault's phase 2
+    runs["supervise"] = ci_5d_argv(2, 2, DEVICE, "--supervise",
+                                   "--fault-plan",
+                                   json.dumps(CI_5D_HOST_LOSS))
+    metrics_key = (2, 2, DEVICE)
+    env = dict(os.environ, PPLS_TUNING_TABLE="off")
+    procs = {}
+    t0 = time.perf_counter()
+    for key, argv in runs.items():
+        if key == metrics_key:
+            continue
+        tag = "_".join(str(k) for k in key) if isinstance(key, tuple) \
+            else key
+        fo = open(os.path.join(ckpt_dir, f"serve_{tag}.out"), "w+")
+        fe = open(os.path.join(ckpt_dir, f"serve_{tag}.err"), "w+")
+        procs[key] = (subprocess.Popen(
+            [sys.executable, "-m", "ppls_tpu_torch", *argv], cwd=ROOT,
+            env=env, stdout=fo, stderr=fe), fo, fe)
+    done = {}
+    try:
+        done[metrics_key], inv = cluster_metrics_run(runs[metrics_key])
+        for key, (proc, fo, fe) in procs.items():
+            rc = proc.wait(timeout=max(CLUSTER_TIMEOUT
+                                       - (time.perf_counter() - t0), 1))
+            fo.seek(0)
+            fe.seek(0)
+            if rc != 0:
+                raise AssertionError(f"23c {key}: exit {rc}: "
+                                     f"{fe.read()[-2000:]}")
+            recs = [json.loads(ln) for ln in fo.read().splitlines()
+                    if ln.startswith("{")]
+            done[key] = dict(records=recs, summary=recs[-1])
+    finally:
+        for proc, fo, fe in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fo.close()
+            fe.close()
+    wall = time.perf_counter() - t0
+    no_workers_left("23c")
+    out = {"federation": inv, "wall_s": wall, "runs": {},
+           "launches": {"run_segment_rf": 0, "run_segment_ee": 0}}
+    log(f"[smoke] 23c {len(runs)} serve --processes processes at once "
+        f"(the 2-process float64 run with --metrics-port 0): {wall:.1f} s "
+        f"to the last exit; {inv['samples']} live scrapes, coordinator "
+        f"retired {inv['coordinator']} = workers {inv['workers']} + "
+        f"spillover {inv['spillover']} = completed {inv['completed']}; no "
+        f"worker left alive")
+    for key, run in done.items():
+        s = run["summary"]
+        out["runs"][str(key)] = dict(completed=s["completed"],
+                                     phases=s["phases"],
+                                     manifest=s["manifest"],
+                                     launches=s["launches"],
+                                     wall_s=s["wall_s"])
+        if key == "supervise" or key[2] == DEVICE:
+            for v in s["launches"].values():
+                for kk in out["launches"]:
+                    out["launches"][kk] += v[kk]
+    for f in (2, 0):
+        sweep = [{r: v["area"] for r, v in ledger(done[p, f, DEVICE]).items()}
+                 for p in CLUSTER_SWEEP]
+        same = all(a == sweep[0] for a in sweep[1:]) and len(sweep[0]) == 6
+        bad = same_records(ledger(done[2, f, "cpu"]),
+                           ledger(done[2, f, DEVICE]))
+        log(f"[smoke] 23c --processes {list(CLUSTER_SWEEP)}, f64_rounds {f}: "
+            f"areas {'bit-identical' if same else 'DIFFER'} across process "
+            f"counts; card = CPU (2 processes) "
+            f"{'records equal' if not bad else f'DIFFER at {bad}'}; "
+            f"launches "
+            f"{[done[p, f, DEVICE]['summary']['launches'] for p in CLUSTER_SWEEP]}")
+        if not same or bad:
+            raise AssertionError(f"23c f64_rounds {f}: sweep {sweep}, "
+                                 f"card/CPU {bad}")
+        out[f"sweep_f64_{f}"] = sweep[0]
+    s = done["supervise"]["summary"]
+    got, want = ledger(done["supervise"]), ledger(done[2, 2, DEVICE])
+    recov = [(r["kind"], r["action"]) for r in s.get("recoveries", [])]
+    lost = sorted(set(want) - set(got))
+    equal = all(got[r]["area"] == want[r]["area"] for r in want if r in got)
+    log(f"[smoke] 23c serve --processes 2 --supervise, host_loss at phase "
+        f"2: recoveries {recov}, manifest after {s['manifest']}, "
+        f"{s['completed']} completed, lost {lost}, areas "
+        f"{'equal' if equal else 'DIFFER from'} the undisturbed run's; "
+        f"redeal walls {s['redeal_walls_s']} s")
+    if recov != [("host_loss", "resize_resume")] or lost or not equal \
+            or s["manifest"]["processes"] != 1:
+        raise AssertionError(f"23c supervise: {s}")
+    out["supervise"] = dict(recoveries=recov, lost=lost,
+                            redeal_walls_s=s["redeal_walls_s"])
+    return out
+
+
+def phase_cluster(W, TS, ckpt_dir, stream_rep) -> dict:
+    """23: the multi-process cluster (module docstring), bounded by
+    ``CLUSTER_TIMEOUT``."""
+    t_phase = time.perf_counter()
+
+    def check_time(step):
+        spent = time.perf_counter() - t_phase
+        log(f"[smoke] 23: {step} at {spent:.1f} s")
+        if spent > CLUSTER_TIMEOUT:
+            raise TimeoutError(f"phase 23 ran past its {CLUSTER_TIMEOUT} "
+                               f"s at {step} ({spent:.0f} s)")
+
+    no_workers_left("23 (before)")
+    out = {"multihost": cluster_card_cpu(TS)}
+    check_time("23a")
+    out["full_width"] = cluster_full_width(TS, stream_rep)
+    check_time("23b")
+    out["serve"] = cluster_serve(ckpt_dir)
+    check_time("23c")
+    launches = {k: 0 for k in ("run_segment_rf", "run_segment_ee")}
+    recs = ([out["multihost"][f]["card"]["launches"] for f in (2, 0)]
+            + [out["full_width"][t]["launches"]
+               for t in out["full_width"] if "/" in t])
+    for rec in recs:
+        for v in rec.values():
+            for kk in launches:
+                launches[kk] += v[kk]
+    for kk in launches:
+        launches[kk] += out["serve"]["launches"][kk]
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] 23 done in {out['seconds']:.1f} s; workers' launches "
+        f"{launches}")
+    return out
+
+
+def main_phase(phase: str) -> int:
+    """``python3 chip_smoke.py --phase 22`` (or ``23``): the build, phase
+    11's single-engine ds stream (the comparator: the median of three
+    runs after a warm-up) and that phase, in one process."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -5805,14 +6351,19 @@ def main_dispatch() -> int:
              for _ in range(3)]
     log(f"[smoke] single-engine ds stream (phase 11's, {STREAM_K} "
         f"requests): walls {', '.join(f'{w:.4f}' for w in walls)} s")
+    stream_rep = {"ds_walk": {"wall_s": float(np.median(walls)),
+                              "walls": walls}}
     ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
-        rep = phase_dispatch(W, TS, ckpt_dir, out_dir, ops, {"ds_walk": {
-            "wall_s": float(np.median(walls)), "walls": walls}})
+        if phase == "22":
+            rep = phase_dispatch(W, TS, ckpt_dir, out_dir, ops, stream_rep)
+        else:
+            rep = phase_cluster(W, TS, ckpt_dir, stream_rep)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     rep.update(device=kind, smi=smi, single_engine_walls=walls)
-    with open(os.path.join(out_dir, "chip_smoke_dispatch.json"), "w") as fh:
+    name = {"22": "dispatch", "23": "cluster"}[phase]
+    with open(os.path.join(out_dir, f"chip_smoke_{name}.json"), "w") as fh:
         json.dump(rep, fh, indent=1, default=str)
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5825,8 +6376,8 @@ def main() -> int:
     import numpy as np
     import torch
 
-    if sys.argv[1:] == ["--phase", "22"]:
-        return main_dispatch()
+    if sys.argv[1:] in (["--phase", "22"], ["--phase", "23"]):
+        return main_phase(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -6294,6 +6845,13 @@ def main() -> int:
     finally:
         shutil.rmtree(disp_dir, ignore_errors=True)
     disp_l = report["dispatch"]["launches"]
+    # 23. the multi-process cluster (K1 and K2 in worker processes)
+    clus_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["cluster"] = phase_cluster(W, TS, clus_dir, report["stream"])
+    finally:
+        shutil.rmtree(clus_dir, ignore_errors=True)
+    clus_l = report["cluster"]["launches"]
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -6370,7 +6928,8 @@ def main() -> int:
             + serve_launches["run_segment_rf"]
             + cli_launches["run_segment_rf"]
             + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"]
-            + tune_l["run_segment_rf"] + dds_l + disp_l["run_segment_rf"],
+            + tune_l["run_segment_rf"] + dds_l + disp_l["run_segment_rf"]
+            + clus_l["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -6387,6 +6946,7 @@ def main() -> int:
             dispatch_launches=disp_l["run_segment_rf"],
             dispatch={k: dd_row(report["dispatch"]["kernels"][k])
                       for k in ("k1", "k1_simpson")},
+            cluster_launches=clus_l["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -6400,7 +6960,8 @@ def main() -> int:
             + serve_launches["run_segment_ee"]
             + cli_launches["run_segment_ee"]
             + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"]
-            + tune_l["run_segment_ee"] + disp_l["run_segment_ee"],
+            + tune_l["run_segment_ee"] + disp_l["run_segment_ee"]
+            + clus_l["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
@@ -6410,6 +6971,7 @@ def main() -> int:
             dd_launches=dd_l["run_segment_ee"], dd=dd_row(dd_cmp["k2"]),
             dispatch_launches=disp_l["run_segment_ee"],
             dispatch=dd_row(report["dispatch"]["kernels"]["k2"]),
+            cluster_launches=clus_l["run_segment_ee"],
             stream_launches=report["stream"]["overload"]["k2"]["launches"],
             main_path_ms=report["profile_k2"]["kernel_ms"],
             main_path_launches=launches0["run_segment_ee"],

@@ -44,9 +44,12 @@ several ranks share one card over gloo), and so does ``serve --engine
 walker-dd``. ``serve --dispatch [--max-engines N] [--lease]
 [--overlap-boundaries]`` runs the pool dispatcher
 (``runtime/dispatch.py``): requests may carry their own ``eps`` and
-``rule``, each engine key gets its own stream engine. The option not
-ported yet (serve's multi-process cluster, ``--processes``) exits
-non-zero naming its ROADMAP.md item.
+``rule``, each engine key gets its own stream engine. ``serve
+--processes N`` runs the multi-process cluster (``runtime/cluster.py``):
+this process coordinates N worker processes, each a stream engine on
+``--device`` (on one card every worker shares it), with ``--checkpoint``
+restarts, ``--supervise`` host-loss recovery, CPU ``--spillover`` and
+one federated ``--metrics-port`` surface.
 """
 
 from __future__ import annotations
@@ -54,11 +57,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-def _not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to ppls_tpu_torch yet "
-                      f"(ROADMAP.md Queue 1 {item})")
-
 
 def theta_batch_arg(s: str):
     """Shared ``--theta`` argparse type (family + serve): a scalar
@@ -626,10 +624,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Exit non-zero, naming its ROADMAP.md item, on an option of
-    ``serve`` this port does not run yet; the reference's own checks
-    keep their wording."""
+def _check_serve_flags(args) -> None:
+    """Exit non-zero on a combination of ``serve`` flags the reference
+    refuses, in its wording, before any engine or worker starts."""
     if args.processes is not None:
         if args.dispatch:
             raise SystemExit(
@@ -637,11 +634,22 @@ def _refuse_unported(args) -> None:
                 "pool is the single-process multi-ENGINE tier, the "
                 "cluster is the multi-PROCESS tier); pick one")
         if args.processes < 1:
+            # a sweep script parameterized over process counts must get
+            # a refusal for P<1, not a silently different engine
             raise SystemExit(
                 f"--processes must be >= 1 (got {args.processes}); "
                 f"drop the flag to run the single-process engine")
-        raise _not_ported("the multi-process cluster (--processes)",
-                          "item 9")
+        if args.ingest_port is not None:
+            raise SystemExit(
+                "--ingest-port is not supported with --processes "
+                "(the cluster coordinator owns the request deal); "
+                "drive the batch/synthetic schedule instead")
+        if args.tenant_quotas is not None:
+            raise SystemExit(
+                "--tenant-quotas is not supported with --processes "
+                "(the cluster coordinator does not implement "
+                "per-tenant token buckets); drop the flag or run "
+                "single-process")
     if args.dispatch and args.spillover:
         raise SystemExit(
             "--spillover is not supported with --dispatch (queue "
@@ -672,7 +680,7 @@ def _main_serve(args) -> int:
     from ppls_tpu_torch.config import Rule
     from ppls_tpu_torch.runtime.ingest import parse_request_record
 
-    _refuse_unported(args)
+    _check_serve_flags(args)
     device = _resolve(args, "serve")
 
     # ---- materialize the request list + open-loop arrival schedule ----
@@ -758,6 +766,10 @@ def _main_serve(args) -> int:
     order = sorted(range(len(reqs)), key=lambda i: arrivals[i])
     reqs = [reqs[i] for i in order]
     arrivals = [arrivals[i] for i in order]
+
+    if args.processes is not None:
+        # the multi-process cluster: this process coordinates N workers
+        return _main_serve_cluster(args, reqs, arrivals, device)
 
     kw = dict(rule=Rule(args.rule), slots=args.slots, chunk=args.chunk,
               capacity=args.capacity, refill_slots=args.refill_slots,
@@ -1199,6 +1211,265 @@ def _serve_shed_record(s) -> dict:
         "theta": (list(s.theta)
                   if isinstance(s.theta, (tuple, list)) else s.theta),
         "bounds": list(s.bounds)}
+
+
+def _main_serve_cluster(args, reqs, arrivals, device) -> int:
+    """The multi-process serve path: one coordinator (this process)
+    deals the request schedule over N worker processes on ``device``,
+    prints the same JSONL ledger + summary as the single-process path
+    and, under supervision, survives a real worker death: host-loss
+    discovery + re-deal onto the survivors, per-request areas preserved
+    (the schedule-independence contract)."""
+    import glob
+    import os
+    import time
+
+    from ppls_tpu_torch.obs.telemetry import Telemetry
+    from ppls_tpu_torch.runtime.checkpoint import CheckpointCorruptError
+    from ppls_tpu_torch.runtime.cluster import ClusterStreamEngine
+    from ppls_tpu_torch.runtime.faults import FaultInjector, FaultPlan
+    from ppls_tpu_torch.runtime.guard import GracefulShutdown, Supervisor
+
+    plan = (FaultPlan.from_spec(args.fault_plan)
+            if args.fault_plan else FaultPlan.from_env())
+    supervise = bool(args.supervise or plan is not None
+                     or os.environ.get("PPLS_CHAOS") == "1")
+    quarantine = bool(args.quarantine or supervise)
+    resuming = bool(args.checkpoint
+                    and os.path.exists(args.checkpoint))
+    tel = Telemetry(
+        events_path=args.events,
+        meta={"mode": "serve-cluster", "engine": args.engine,
+              "family": args.family, "eps": args.eps,
+              "rule": args.rule, "slots": args.slots,
+              "processes": int(args.processes), "seed": args.seed,
+              "requests": len(reqs), "resumed": resuming},
+        append=resuming,
+        events_max_bytes=(int(args.events_max_mb * (1 << 20))
+                          if args.events_max_mb else None))
+    injector = (FaultInjector(plan, telemetry=tel)
+                if plan is not None else None)
+
+    worker_kw = dict(
+        rule=args.rule, slots=args.slots, chunk=args.chunk,
+        capacity=args.capacity, refill_slots=args.refill_slots,
+        scout_dtype=args.scout_dtype,
+        double_buffer=args.double_buffer,
+        reduced_integrands=args.reduced_integrands,
+        theta_block=int(args.theta_block),
+        engine=args.engine, n_devices=args.n_devices,
+        f64_rounds=int(args.f64_rounds),
+        quarantine=quarantine)
+    if args.lanes:
+        worker_kw["lanes"] = args.lanes
+    # checkpoint_path stays OUT of ckw: resume() takes it positionally
+    # and forwards it to the constructor itself
+    ckw = dict(n_processes=int(args.processes),
+               worker_kw=worker_kw,
+               checkpoint_every=args.checkpoint_every,
+               telemetry=tel, fault_injector=injector,
+               queue_limit=args.queue_limit,
+               spillover=bool(args.spillover),
+               spillover_limit=int(args.spillover_limit),
+               slo_config=args.slo_config, device=device)
+
+    def build_engine():
+        if args.checkpoint and os.path.exists(args.checkpoint):
+            try:
+                # cluster_resize: a restart may target fewer (or more)
+                # processes than the snapshot's manifest
+                return ClusterStreamEngine.resume(
+                    args.checkpoint, args.family, args.eps,
+                    cluster_resize=True, **ckw)
+            except CheckpointCorruptError as e:
+                print(f"serve: {e}; starting fresh", file=sys.stderr,
+                      flush=True)
+                tel.event("checkpoint_corrupt", path=args.checkpoint,
+                          detail=str(e)[:200])
+                # the per-process sibling snapshots go with the
+                # coordinator file: a fresh coordinator re-issues grids
+                # from 0, and a stale worker snapshot's gmap would
+                # credit its old grids to the new run's requests
+                for p in ([args.checkpoint]
+                          + glob.glob(f"{args.checkpoint}.p*")):
+                    if os.path.exists(p):
+                        os.unlink(p)
+        return ClusterStreamEngine(
+            args.family, args.eps,
+            checkpoint_path=args.checkpoint, **ckw)
+
+    # the live engine sits in a box: the supervisor's retry arms swap in
+    # a FRESH engine (serve_loop) and the summary/teardown follow it
+    eng_box = {"eng": build_engine()}
+    printed = {"done": 0, "shed": 0}
+
+    # --metrics-port serves the FEDERATED registry (worker registries
+    # under process labels + the coordinator's own) and the /health SLO
+    # verdict, through eng_box so a rebuild re-points it
+    metrics_srv = None
+    if args.metrics_port is not None:
+        from ppls_tpu_torch.obs.server import MetricsServer
+        metrics_srv = MetricsServer(
+            lambda: eng_box["eng"].federated_registry,
+            port=args.metrics_port,
+            health_fn=lambda: eng_box["eng"].slo_health())
+        print(f"serve: metrics on {metrics_srv.url}", file=sys.stderr,
+              flush=True)
+
+    def flush_ledger():
+        # the print cursor trails the ledger, not step()'s return value:
+        # retirements collected before a host-loss abort (or restored by
+        # a resume) still get their line; consumers dedupe by rid
+        eng = eng_box["eng"]
+        while printed["done"] < len(eng.completed):
+            c = eng.completed[printed["done"]]
+            printed["done"] += 1
+            print(json.dumps(_serve_completed_record(c)), flush=True)
+        while printed["shed"] < len(eng.shed):
+            s = eng.shed[printed["shed"]]
+            printed["shed"] += 1
+            print(json.dumps(_serve_shed_record(s)), flush=True)
+
+    flush_ledger()          # a resumed ledger re-prints (rid dedupe)
+    t0 = time.perf_counter()
+    loop_state = {"started": False, "recovered": False}
+    # SIGTERM/SIGINT: the handler only sets a flag, the loop winds down
+    # at the next phase boundary (final snapshot kept, balanced span
+    # close, summary with "terminated", exit 0)
+    stop = GracefulShutdown()
+
+    def serve_loop():
+        # SELF-RESUMING on retry: a watchdog timeout abandons its
+        # attempt thread mid-RPC, so a transient/hang re-entry must not
+        # re-drive that engine (its sockets may still be owned by the
+        # stale thread). Kill the stale cluster and rebuild from the
+        # checkpoint. The host_loss arm recovers the engine IN PLACE
+        # (recover_host_loss) and sets `recovered` so it is kept.
+        if loop_state["started"] \
+                and not loop_state.pop("recovered", False):
+            eng_box["eng"].close(graceful=False)
+            eng_box["eng"] = build_engine()
+            # the rebuilt ledger re-prints from 0 (rid dedupe), as a
+            # process-level restart does
+            printed["done"] = printed["shed"] = 0
+            flush_ledger()
+        loop_state["started"] = True
+        eng = eng_box["eng"]
+        k = int(eng.client_state.setdefault("batch_cursor",
+                                            eng.next_rid))
+        span = tel.span("run", mode="serve-cluster",
+                        processes=eng.n_processes,
+                        requests=len(reqs))
+        while (k < len(reqs) or not eng.idle) and not stop.requested:
+            while k < len(reqs) and arrivals[k] <= eng.phase:
+                r = reqs[k]
+                kw2 = dict(r[2]) if len(r) > 2 else {}
+                if args.deadline_phases is not None:
+                    # the single-process default-deadline semantics,
+                    # applied at submit (spill eligibility keys on it)
+                    kw2.setdefault("deadline_phases",
+                                   args.deadline_phases)
+                eng.submit(r[0], r[1], **kw2)
+                k += 1
+                eng.client_state["batch_cursor"] = k
+            eng.step()
+            flush_ledger()
+        if stop.requested:
+            # graceful shutdown: the final coordinated snapshot IS the
+            # restart state (coordinator + worker siblings), kept
+            if args.checkpoint:
+                eng.snapshot()
+            tel.event("graceful_shutdown",
+                      signal=stop.signal_name or "signal",
+                      phase=eng.phase, pending=eng.pending,
+                      completed=len(eng.completed))
+        span.close(phases=eng.phase, completed=len(eng.completed),
+                   **({"terminated": stop.signal_name or "signal"}
+                      if stop.requested else {}))
+        return eng
+
+    supervisor = None
+    try:
+        stop.__enter__()
+        if supervise:
+            def resize_fn(exc):
+                eng_box["eng"].recover_host_loss(exc)
+                loop_state["recovered"] = True
+                return serve_loop
+
+            supervisor = Supervisor(
+                serve_loop, resize_fn=resize_fn,
+                deadline=args.watchdog, telemetry=tel,
+                backoff_base=0.25, backoff_cap=30.0)
+            supervisor.run()
+        else:
+            serve_loop()
+        wall = time.perf_counter() - t0
+        flush_ledger()
+        eng = eng_box["eng"]
+        res = eng.result(wall_s=wall)
+        if args.checkpoint and not stop.requested:
+            # a graceful shutdown KEEPS its snapshot (the restart
+            # state); only a drained run clears it
+            eng.clear_snapshot()
+        summary = {
+            "summary": True, "engine": args.engine,
+            "family": args.family, "eps": args.eps,
+            "rule": args.rule, "slots": args.slots,
+            "processes": int(args.processes),
+            "manifest": eng.manifest.identity(),
+            "completed": len(res.completed), "phases": res.phases,
+            "wall_s": round(wall, 3),
+            "requests_per_sec": round(res.requests_per_sec, 3),
+            "latency": res.latency_percentiles(),
+            "latency_by_class": res.class_latency_percentiles(),
+            "tenants": res.tenant_summary(),
+            "shed": len(res.shed),
+            "spillover": eng.spillover_summary(),
+            "redeal_walls_s": [round(w, 4)
+                               for w in eng.redeal_walls],
+            "totals": res.totals,
+            # each worker process's cumulative K1/K2 launches
+            "launches": res.cluster["launches"],
+        }
+        if res.shed:
+            reasons = {}
+            for s in res.shed:
+                reasons[s.reason] = reasons.get(s.reason, 0) + 1
+            summary["shed_reasons"] = reasons
+        if stop.requested:
+            summary["terminated"] = stop.signal_name or "signal"
+        failed = sum(1 for c in res.completed if c.failed)
+        if quarantine or failed:
+            summary["failed"] = failed
+        if supervisor is not None:
+            summary["supervised"] = True
+            summary["attempts"] = supervisor.attempts
+            summary["recoveries"] = [
+                {"kind": k, "action": a}
+                for k, a in supervisor.recoveries]
+        if injector is not None:
+            summary["faults_injected"] = [
+                ev.describe() for ev in injector.plan.events
+                if ev.fired]
+        if metrics_srv is not None:
+            summary["metrics_port"] = metrics_srv.port
+            summary["metrics_url"] = metrics_srv.url
+        print(json.dumps(summary), flush=True)
+        return 0
+    finally:
+        stop.__exit__()
+        if metrics_srv is not None:
+            # PPLS_SERVE_METRICS_HOLD: keep the federated surface up N
+            # seconds AFTER the summary line, so an external scraper can
+            # take a final post-drain sample race-free
+            hold = float(os.environ.get("PPLS_SERVE_METRICS_HOLD",
+                                        "0") or 0)
+            if hold > 0:
+                time.sleep(hold)
+            metrics_srv.close()
+        eng_box["eng"].close()
+        tel.close()
 
 
 def _resolve(args, mode: str):

@@ -1957,6 +1957,22 @@ class StreamEngine:
         self._phase_closed()
         return retired
 
+    def last_phase_row(self) -> Optional[dict]:
+        """The newest device-counted phase row as a field dict (None
+        before the first non-idle phase). The cluster worker protocol
+        reads its per-phase deltas here: host values the boundary
+        already read, no device work."""
+        if not self._phase_rows:
+            return None
+        return {k: int(v) for k, v in
+                zip(STREAM_STAT_FIELDS, self._phase_rows[-1])}
+
+    def phase_rows_len(self) -> int:
+        """How many non-idle phase rows exist (the cluster worker pairs
+        this with :meth:`last_phase_row` to tell a fresh row from a
+        stale one across an idle phase)."""
+        return len(self._phase_rows)
+
     def _run_spillover_phase(self) -> List[CompletedRequest]:
         """The phase boundary's spillover batch: up to
         ``spillover_limit`` queued victims, in queue order, run to

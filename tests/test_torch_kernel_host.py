@@ -1000,3 +1000,27 @@ def test_cuda_nan_poison_matches_plain_segments(cuda_device, refill_slots):
     a = {c.rid: c.area for c in card.completed}
     b = {c.rid: c.area for c in cpu.completed}
     assert max(abs(a[k] - b[k]) for k in ok) < 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_workers_launch_k1(cuda_device):
+    """Two cluster workers on one card (``runtime/cluster.py``) walk
+    tests/test_cluster.py's dyadic requests through K1: each worker
+    reports K1 launches, its device is cuda:0, and the areas equal the
+    CPU cluster's bit for bit."""
+    from ppls_tpu_torch.runtime.cluster import ClusterStreamEngine
+    kw = dict(slots=4, chunk=1 << 10, capacity=1 << 16, lanes=256,
+              roots_per_lane=2, refill_slots=2, seg_iters=32,
+              min_active_frac=0.05, f64_rounds=0)
+    reqs = [(t, (0.0, 1.0)) for t in (1.0, 1.25, 1.5, 2.0, 0.75, 3.0)]
+    out, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        with ClusterStreamEngine("quad_scaled", 1e-9, n_processes=2,
+                                 worker_kw=kw, device=dev) as eng:
+            out[dev] = eng.run(reqs, arrival_phase=[0, 0, 1, 2, 3, 4])
+            rows[dev] = eng.manifest.describe()["processes"]
+    assert [r["platform"] for r in rows["cuda"]] == ["gpu", "gpu"]
+    assert all(r["device"].startswith("cuda:") for r in rows["cuda"])
+    launches = out["cuda"].cluster["launches"]
+    assert all(v["run_segment_rf"] > 0 for v in launches.values())
+    assert np.array_equal(out["cuda"].areas, out["cpu"].areas)

@@ -46,7 +46,10 @@ def test_sources_import_no_jax_and_no_reference():
                 PKG / "runtime" / "tune.py",
                 PKG / "tools" / "tune_table.py",
                 PKG / "obs" / "flight.py",
-                PKG / "tools" / "time_dd_stream.py"):
+                PKG / "tools" / "time_dd_stream.py",
+                PKG / "runtime" / "dispatch.py",
+                PKG / "runtime" / "cluster.py",
+                PKG / "obs" / "federation.py"):
         assert new in sources, new
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
@@ -79,7 +82,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "ppls_tpu_torch.parallel.sharded, "
             "ppls_tpu_torch.runtime.tune, "
             "ppls_tpu_torch.tools.tune_table, ppls_tpu_torch.obs.flight, "
-            "ppls_tpu_torch.tools.time_dd_stream\n"
+            "ppls_tpu_torch.tools.time_dd_stream, "
+            "ppls_tpu_torch.runtime.cluster, ppls_tpu_torch.obs.federation\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
             "print(','.join(sorted(bad)))\n")

@@ -503,7 +503,8 @@ def test_serve_ingest_acks_survive_a_sigterm_restart(runs, tmp_path,
 # ---------------------------------------------------------------------------
 
 REFUSED = {
-    "processes": (["serve", "--processes", "2"], "item 9"),
+    # once refused with item 9: the multi-process cluster runs (None)
+    "processes": (["serve", "--processes", "2"], None),
     "processes_zero": (["serve", "--processes", "0"], "must be >= 1"),
     # once refused with item 9: the pool dispatcher runs (None)
     "dispatch": (["serve", "--dispatch"], None),
@@ -565,9 +566,32 @@ def _dispatch_serve_runs(argv, capsys):
     capsys.readouterr()
 
 
+def _processes_serve_runs(argv, capsys):
+    """``serve --processes 2`` on the synthetic load: two worker
+    processes on the CPU; every request retires within the walker
+    contract of the reference CLI's single-engine ledger, and the
+    summary names the manifest and each worker's launches."""
+    load = SERVE_ARGS + ["--synthetic", "4"]
+    rc, got = _port(argv[1:] + load)
+    rrc, ref = _ref(load)
+    assert rc == rrc == 0
+    g_ret, g_shed, _r, g_sum = _split(got)
+    r_ret = _split(ref)[0]
+    assert not g_shed and sorted(g_ret) == sorted(r_ret) == [0, 1, 2, 3]
+    for rid, r in r_ret.items():
+        assert abs(g_ret[rid]["area"] - r["area"]) < AREA_TOL, rid
+    assert g_sum["completed"] == 4 and g_sum["processes"] == 2
+    assert g_sum["manifest"] == {"processes": 2, "devices": [1, 1]}
+    assert sorted(g_sum["launches"]) == ["0", "1"]
+    capsys.readouterr()
+
+
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_options_and_modes_exit_nonzero(name, capsys):
     argv, what = REFUSED[name]
+    if what is None and "--processes" in argv:
+        _processes_serve_runs(argv, capsys)
+        return
     if what is None and "--dispatch" in argv:
         _dispatch_serve_runs(argv, capsys)
         return
