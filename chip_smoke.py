@@ -22,8 +22,11 @@ Phases, each of which must pass (any failure exits nonzero):
       boundary refill), cap=256, thresh 0.80 * lanes, in the same three;
       its ptxas registers, and its co-resident blocks in all 24 (family,
       step machine) variants, which must hold the 128-block grid.
-   c. K3, 256 steps on the same seeded lanes, trapezoid and Simpson; then
-      the reference's probe (tools/profile_walker.py) at lanes=16384, on
+   c. K3, 256 steps on the same seeded lanes, trapezoid and Simpson,
+      then 100 more launches of each with nvidia-smi's clocks.sm and
+      power.draw sampled beside them: us per step, the step's dependent
+      chain, the bound and its share, registers, clocks; then the
+      reference's probe (tools/profile_walker.py) at lanes=16384, on
       restarted lanes that mostly park (not an all-live rate). K3 has no
       grid count, so its time per step against K2's with no exit on the
       seeded lanes is the share of K2's step that the count, its
@@ -411,16 +414,18 @@ Phases, each of which must pass (any failure exits nonzero):
    b. The same on 4 ranks sharing the card (gloo, host-staged: not a
       multi-GPU rate); at the CPU tests' size, 4 ranks on the card
       against 4 on the CPU: the same retire phases, phase rows and chip
-      spans, areas within 1e-12.
+      spans, areas within 1e-12 (the two worlds side by side).
    c. Kill after phase 3 and resume on 4 ranks: areas and the timeline
       bit-equal to the run without a crash; the snapshot resized onto 3
-      ranks (``mesh_resize``): within 1e-9 with the ds walk; the dyadic
-      family's undisturbed 4-rank run (its resize is 21d's).
+      ranks (``mesh_resize``): within 1e-9 with the ds walk; beside the
+      resume, the dyadic family's undisturbed run on 1 CPU rank in this
+      process (exact dyadic sums: the same bits at every world size and
+      on either device; its resize is 21d's).
    d. ``serve --engine walker-dd --n-devices 4 --supervise`` with a
       ``chip_loss`` at phase 3 (the dyadic family): recoveries
       [("chip_loss", "resize_resume")], 3 ranks after it, no
       acknowledged request lost, areas bit-equal to 21c's undisturbed
-      4-rank engine's.
+      engine's.
    e. Deadline expiry on the dd stream (1 rank): the expired request
       retires ``deadline_exceeded``, its neighbour within 3e-9 of the
       float64 bag, a fresh request bit-equal to a solo run.
@@ -461,11 +466,14 @@ Phases, each of which must pass (any failure exits nonzero):
       tools/ci.sh legs 5e and 5f (their requests, flags and crash plans;
       5f with ``--lease --overlap-boundaries``), on the card and on the
       CPU: ci.sh's summary assertions, the malformed line rejected, card
-      = CPU (records equal, areas < 1e-12).
+      = CPU (records equal, areas < 1e-12). They run while 22d runs.
    d. A walker-dd pool (tests/test_torch_dispatch.py's: two keys of the
       dyadic quad_scaled through one live engine, each engine two gloo
       ranks sharing the card): two parks and an unpark, card = CPU, no
-      rank alive after ``close()``.
+      rank alive after ``close()`` (the card's pool and the CPU's side
+      by side).
+   Phases 21 and 22 count the worlds they start (``WorldStarts``): those
+   that spawn ranks, and those of one rank in this process.
 
 23. The multi-process cluster (``runtime/cluster.py``
    ``ClusterStreamEngine``: this process coordinates N worker processes,
@@ -533,6 +541,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -559,6 +568,13 @@ PEAK_F32 = 67e12
 # cycles from a float32 add, multiply or FMA to its first dependent use on
 # Hopper (the chain estimates take the card's top SM clock from nvidia-smi)
 DEP_LATENCY_CYCLES = 4
+# dependent operations of one IEEE float32 division on the sm_90a build
+# (-prec-div=true): its fast path's depth in the SASS of K3's step loop,
+# MUFU.RCP then the dependent FFMAs to the quotient, before FCHK sends
+# the rare operand to the slow path (ppls_tpu_torch/tools/k3_split.py
+# reads it with cuobjdump, division_depth)
+DIV_CHAIN_OPS = 6
+K3_SMI_RUNS = 100              # K3 launches timed beside nvidia-smi samples
 STATE_BYTES = 26 * 4           # one lane's WalkState
 MODES = ("step", "step_scout", "step_simpson")
 DEVICE = "cuda"
@@ -897,7 +913,8 @@ def operation_counts(f_ds, fma=None) -> dict:
     trapezoid and one Simpson step, counted by running the plain PyTorch
     twins on one lane under a counting function mode; and the depth of
     their longest chain of dependent operations (a select counted as
-    one), the step's latency at one warp per scheduler.
+    one, a division as the DIV_CHAIN_OPS dependent operations of its
+    SASS), the step's latency at one warp per scheduler.
 
     The twins compute each two-product in Dekker's form (17 operations,
     about 9 deep). With ``fma`` (default: the kernels' choice for this
@@ -914,8 +931,9 @@ def operation_counts(f_ds, fma=None) -> dict:
     if fma is None:
         from ppls_tpu_torch.models.integrands import KERNEL_GAUSS_CENTER
         fma = f_ds.kernel_family != KERNEL_GAUSS_CENTER
-    arith = {"add", "sub", "mul", "div", "true_divide", "neg", "abs",
-             "round", "__radd__", "__rsub__", "__rmul__", "__rtruediv__"}
+    divisions = {"div", "true_divide", "__rtruediv__", "__rdiv__"}
+    arith = {"add", "sub", "mul", "neg", "abs", "round", "__radd__",
+             "__rsub__", "__rmul__"} | divisions
 
     def depth(x):
         return getattr(x, "_chain", 0) if isinstance(x, torch.Tensor) else 0
@@ -932,6 +950,7 @@ def operation_counts(f_ds, fma=None) -> dict:
             floats = any(isinstance(a, torch.Tensor) and a.is_floating_point()
                          for a in args)
             step = 1 if (name in arith and floats) or name == "where" else 0
+            step = DIV_CHAIN_OPS if name in divisions and floats else step
             Count.n += 1 if name in arith and floats else 0
             d = step + max([depth(a) for a in args] + [0])
             if isinstance(out, torch.Tensor) and d:
@@ -1013,9 +1032,10 @@ def chain_us(ops: dict, mode: str) -> float:
     """The step's longest chain of dependent operations at
     DEP_LATENCY_CYCLES each and the card's top SM clock: the least time
     of one step at one warp per scheduler, where nothing hides a
-    dependent operation's latency (a division counted as one operation,
-    so an underestimate). The scouting step is its scout eval's chain and
-    then the trapezoid step's (the confirm and the tail)."""
+    dependent operation's latency (a division counted as the
+    DIV_CHAIN_OPS operations of its SASS fast path). The scouting step is
+    its scout eval's chain and then the trapezoid step's (the confirm and
+    the tail)."""
     c = ops["chain"]
     depth = {"step_scout": c["scout_eval"] + c["step"],
              "step_simpson": c["simpson_step"]}.get(mode, c["step"])
@@ -1287,13 +1307,45 @@ def phase_k2(W, f_ds, seeded, ops, regs) -> tuple:
 
 
 def phase_k3(W, f_ds, seeded, ops, regs) -> dict:
+    """K3 against its plain segment in both step machines; then
+    K3_SMI_RUNS more launches of each with nvidia-smi's clocks.sm and
+    power.draw sampled beside them; the summary line: us per step, the
+    step's dependent chain, the bound and its share, registers,
+    clocks."""
+    from ppls_tpu_torch.tools.k3_split import SmiSampler
     cmp = {}
     for mode in ("step", "step_simpson"):
-        cmp[mode], times = cmp_k3(W, f"K3 {mode}", seeded[mode_args(mode)[0]],
-                                  f_ds, EPS, mode, ops)
+        rule = mode_args(mode)[0]
+        cmp[mode], times = cmp_k3(W, f"K3 {mode}", seeded[rule], f_ds, EPS,
+                                  mode, ops)
         log(fmt_cmp(f"K3 {mode} (and K2 with no exit)", cmp[mode], times)
             + f"; {cmp[mode]['live_lane_steps']} live lane-steps")
+
+        def prepare(rule=rule):
+            state = clone(seeded[rule])["state"]
+            return lambda: W.run_segment(state, CMP_CAP, f_ds=f_ds, eps=EPS,
+                                         rule=rule)
+        with SmiSampler(0.05) as smi:
+            _, burst_ms, _ = kernel_runs(prepare, K3_SMI_RUNS)
+        c = cmp[mode]
+        c.update(bound_share=c["bound_ms"] / c["ms"], burst_ms=burst_ms,
+                 smi=smi.summary(), registers=regs[
+                     f"{f_ds.kernel_family},{W.step_mode(rule, False)}"])
     log(f"[smoke] {regs_line('K3', regs, f_ds.kernel_family)}")
+    t, sm = cmp["step"], cmp["step_simpson"]
+    clk = t["smi"].get("clocks.sm", {})
+    log(f"[smoke] K3 on the flagship's lanes: "
+        f"trapezoid {t['us_per_step']:.4f} us/step, Simpson "
+        f"{sm['us_per_step']:.4f} ({K3_SMI_RUNS} more launches: "
+        f"{t['burst_ms']:.4f} / {sm['burst_ms']:.4f} ms); the step's "
+        f"dependent chain (a division {DIV_CHAIN_OPS} operations) "
+        f"{t['chain_us_per_step']:.4f} / {sm['chain_us_per_step']:.4f} "
+        f"us/step; bound {t['bound_ms']:.4f} / {sm['bound_ms']:.4f} ms, "
+        f"share {t['bound_share']:.3f} / {sm['bound_share']:.3f}; "
+        f"registers {t['registers']} / {sm['registers']}; clocks.sm "
+        f"{clk.get('median')} MHz (min {clk.get('min')}, max "
+        f"{clk.get('max')}, {t['smi'].get('samples')} samples), power.draw "
+        f"{t['smi'].get('power.draw', {}).get('median')} W")
     return cmp
 
 
@@ -1482,6 +1534,46 @@ def profile_fn(fn, kernel: str, out_dir, tag):
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernel_ms=k_ms,
                 busy_ms_every_entry=all_ms, processing_s=post_s,
                 idle_share=(1 - busy_ms / wall_ms) if busy_ms > 0 else None)
+
+
+def concurrently(*fns):
+    """Run each of ``fns`` on a thread of its own: their results, in
+    order, once all ended (the first one's error raised)."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+    return [f.result() for f in futures]
+
+
+class WorldStarts:
+    """Counts the ``mesh.World``s built while entered: ``spawned`` those
+    of more than one rank (their ranks 1..n-1 spawned), ``single`` those
+    of one rank in this process."""
+
+    def __init__(self):
+        self.spawned = self.single = 0
+
+    def __enter__(self):
+        from ppls_tpu_torch.parallel.mesh import World
+        init = self._init = World.__init__
+        lock = threading.Lock()
+
+        def counting(world, n, *args, **kw):
+            with lock:
+                if int(n) > 1:
+                    self.spawned += 1
+                else:
+                    self.single += 1
+            init(world, n, *args, **kw)
+        World.__init__ = counting
+        return self
+
+    def __exit__(self, *exc):
+        from ppls_tpu_torch.parallel.mesh import World
+        World.__init__ = self._init
+
+    def as_dict(self) -> dict:
+        return dict(spawned=self.spawned, single=self.single)
 
 
 def counted(W, fn):
@@ -5060,11 +5152,13 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
             tel.close()
         return res, dd_stream_surface(events)
 
-    card, card_s = events_run(STREAM_FAMILY, 4, DEVICE, paths["card.jsonl"],
-                              t_reqs, checkpoint_path=paths["card.ckpt"],
-                              checkpoint_every=1)
-    cpu, cpu_s = events_run(STREAM_FAMILY, 4, "cpu", paths["cpu.jsonl"],
-                            t_reqs)
+    # the card's world and the CPU's start and run side by side
+    (card, card_s), (cpu, cpu_s) = concurrently(
+        lambda: events_run(STREAM_FAMILY, 4, DEVICE, paths["card.jsonl"],
+                           t_reqs, checkpoint_path=paths["card.ckpt"],
+                           checkpoint_every=1),
+        lambda: events_run(STREAM_FAMILY, 4, "cpu", paths["cpu.jsonl"],
+                           t_reqs))
     d_cc = float(np.max(np.abs(card.areas - cpu.areas)))
     same = (card_s[2] == cpu_s[2] and np.array_equal(card.phase_stats,
                                                      cpu.phase_stats)
@@ -5082,18 +5176,29 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
     out["launches"]["card_cpu"] = sum(out["card_cpu"]["launches"])
     check_time("21b card = CPU")
 
-    # c. kill-and-resume at world 4; resize 4 -> 3 (the ds walk, then the
-    # dyadic family)
+    # c. kill-and-resume at world 4; resize 4 -> 3 (the ds walk). Beside
+    # the resume, the dyadic family's undisturbed run, 21d's comparator,
+    # on one CPU rank in this process: its areas are exact dyadic sums,
+    # the same bits at every world size and on either device. (Card
+    # engines never run side by side here: a rank 0 counts its launches
+    # on this process's counters.)
     shutil.copy(paths["card3.ckpt"], paths["card3_resize.ckpt"])
-    tel = Telemetry(events_path=paths["resumed.jsonl"])
-    try:
-        with TS.StreamEngine.resume(
-                paths["card3.ckpt"], STREAM_FAMILY, DD_STREAM_TEST_EPS,
-                n_devices=4, device=DEVICE, telemetry=tel,
-                checkpoint_every=1, **test_kw) as eng:
-            resumed = dd_stream_drive(eng, t_reqs, DD_STREAM_TEST_ARR)
-    finally:
-        tel.close()
+
+    def resume4():
+        tel = Telemetry(events_path=paths["resumed.jsonl"])
+        try:
+            with TS.StreamEngine.resume(
+                    paths["card3.ckpt"], STREAM_FAMILY, DD_STREAM_TEST_EPS,
+                    n_devices=4, device=DEVICE, telemetry=tel,
+                    checkpoint_every=1, **test_kw) as eng:
+                return dd_stream_drive(eng, t_reqs, DD_STREAM_TEST_ARR)
+        finally:
+            tel.close()
+
+    dya_reqs = [(t, (0.0, 1.0)) for t in DD_STREAM_DYADIC]
+    resumed, (dya, _s) = concurrently(
+        resume4, lambda: events_run("quad_scaled", 1, "cpu",
+                                    paths["dya.jsonl"], dya_reqs))
     r_s = dd_stream_surface(paths["resumed.jsonl"])
     n3 = 3 * 4                              # the first 3 phases' chip spans
     same = (np.array_equal(resumed.areas, card.areas)
@@ -5110,23 +5215,14 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
             checkpoint_every=1, **test_kw) as eng:
         ds3 = dd_stream_drive(eng, t_reqs, DD_STREAM_TEST_ARR)
     d_ds3 = float(np.max(np.abs(ds3.areas - card.areas)))
-    # the dyadic family's undisturbed 4-rank run: 21d resize-resumes its
-    # chip loss onto 3 ranks and holds every area to this run's, bit for
-    # bit (the dyadic resize gate, one world start fewer than a second
-    # resize here)
-    dya_reqs = [(t, (0.0, 1.0)) for t in DD_STREAM_DYADIC]
-    dya, _s = events_run("quad_scaled", 4, DEVICE, paths["dya.jsonl"],
-                         dya_reqs)
     log(f"[smoke] 21c resize 4 -> 3 ranks: the ds walk {d_ds3:.3e} from "
         f"the 4-rank run (tol {DD_STREAM_RESIZE_TOL}); the dyadic family's "
         f"resize is 21d's")
     if not d_ds3 < DD_STREAM_RESIZE_TOL:
         raise AssertionError("21c: the resized resume differs")
     out["resume"] = dict(d_resize_ds=d_ds3)
-    # the dyadic family drains in the float64 bag: K1 may not run there
     out["launches"]["resume"] = sum(
-        sum(dd_stream_launches(r)) for r in (resumed, ds3)) + sum(
-        dya.mesh["launches"]["run_segment_rf"])
+        sum(dd_stream_launches(r)) for r in (resumed, ds3))
     check_time("21c")
 
     # d. serve --engine walker-dd --n-devices 4 --supervise, a chip loss at
@@ -5727,35 +5823,48 @@ def dispatch_dd(W) -> dict:
     reqs = [(t, (0.0, 1.0), kw) for t, kw in DD_POOL_REQS]
     out = {}
     runs = {}
-    for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+
+    def pool(where, dev):
+        """One pool's run on ``dev``; the card's launches counted (the
+        CPU's plain segments count none)."""
         disp = EngineDispatcher(
             "quad_scaled", slots=DD_STREAM_TEST_KW["slots"], max_engines=1,
             default_eps=DD_STREAM_TEST_EPS, device=dev, engine_kw=ekw)
         worlds = []
         park = disp._park
 
-        def keep_world(keystr, disp=disp, park=park, worlds=worlds):
+        def keep_world(keystr):
             worlds.append(disp._engines[keystr]._world)
             park(keystr)
+
+        def run():
+            return disp.run(reqs, arrival_phase=DD_POOL_ARR)
 
         disp._park = keep_world
         walls = timed_parks(disp)
         try:
-            res, wall, launches = counted(
-                W, lambda: disp.run(reqs, arrival_phase=DD_POOL_ARR))
+            if where == "card":
+                res, wall, launches = counted(W, run)
+            else:
+                t0 = time.perf_counter()
+                res, launches = run(), {}
+                wall = time.perf_counter() - t0
             worlds += [e._world for e in disp._engines.values()]
         finally:
             disp.close()
         alive = [p.pid for w in worlds for p in w._procs if p.is_alive()]
         runs[where] = res
         out[where] = dict(parks=len(walls["park"]), park_s=walls["park"],
-                        unpark_s=walls["unpark"], wall_s=wall,
-                        launches=launches, worlds=len(worlds),
-                        alive_after_close=alive, turns=res.phases,
-                        recompiles=disp.recompiles())
+                          unpark_s=walls["unpark"], wall_s=wall,
+                          launches=launches, worlds=len(worlds),
+                          alive_after_close=alive, turns=res.phases,
+                          recompiles=disp.recompiles())
         if alive or len(walls["park"]) != 2 or len(walls["unpark"]) != 1 \
                 or disp.recompiles() != 0:
             raise AssertionError(f"22d on {where}: {out[where]}")
+
+    # the card's pool and the CPU's start their worlds side by side
+    concurrently(lambda: pool("card", DEVICE), lambda: pool("cpu", "cpu"))
 
     def recs(r):
         return sorted((c.rid, c.submit_phase, c.admit_phase, c.retire_phase,
@@ -5830,10 +5939,10 @@ def phase_dispatch(W, TS, ckpt_dir, out_dir, ops, stream_rep) -> dict:
     check_time("22a")
     out["pool"] = dispatch_full_width(W, TS, stream_rep, ckpt_dir, out_dir)
     check_time("22b")
-    out["serve"] = dispatch_serve(ckpt_dir)
-    check_time("22c")
-    out["dd"] = dispatch_dd(W)
-    check_time("22d")
+    # 22c's serve processes run while 22d's pools start their worlds
+    out["serve"], out["dd"] = concurrently(
+        lambda: dispatch_serve(ckpt_dir), lambda: dispatch_dd(W))
+    check_time("22c and 22d")
     out["launches"] = {k: (out["hetero"]["launches"][k]
                            + out["pool"]["K1"]["launches"][k]
                            + out["pool"]["K2"]["launches"][k]
@@ -6356,7 +6465,11 @@ def main_phase(phase: str) -> int:
     ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
         if phase == "22":
-            rep = phase_dispatch(W, TS, ckpt_dir, out_dir, ops, stream_rep)
+            with WorldStarts() as worlds:
+                rep = phase_dispatch(W, TS, ckpt_dir, out_dir, ops,
+                                     stream_rep)
+            rep["worlds_started"] = worlds.as_dict()
+            log(f"[smoke] worlds started: {worlds.as_dict()}")
         else:
             rep = phase_cluster(W, TS, ckpt_dir, stream_rep)
     finally:
@@ -6833,18 +6946,27 @@ def main() -> int:
     # 21. the walker-dd stream across ranks (K1 on every rank)
     dds_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
-        report["dd_stream"] = phase_dd_stream(W, TS, dds_dir, out_dir, ops)
+        with WorldStarts() as w21:
+            report["dd_stream"] = phase_dd_stream(W, TS, dds_dir, out_dir,
+                                                  ops)
     finally:
         shutil.rmtree(dds_dir, ignore_errors=True)
     dds_l = sum(report["dd_stream"]["launches"].values())
     # 22. the pool dispatcher (K1, and K2 at refill_slots=0)
     disp_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
-        report["dispatch"] = phase_dispatch(W, TS, disp_dir, out_dir, ops,
-                                            report["stream"])
+        with WorldStarts() as w22:
+            report["dispatch"] = phase_dispatch(W, TS, disp_dir, out_dir,
+                                                ops, report["stream"])
     finally:
         shutil.rmtree(disp_dir, ignore_errors=True)
     disp_l = report["dispatch"]["launches"]
+    report["worlds_started"] = {"21": w21.as_dict(), "22": w22.as_dict()}
+    log(f"[smoke] worlds started: phase 21 {w21.spawned} with spawned ranks "
+        f"and {w21.single} of one rank in "
+        f"{report['dd_stream']['seconds']:.1f} s; phase 22 {w22.spawned} "
+        f"and {w22.single} in {report['dispatch']['seconds']:.1f} s; "
+        f"together {w21.spawned + w22.spawned} spawned")
     # 23. the multi-process cluster (K1 and K2 in worker processes)
     clus_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:

@@ -858,11 +858,21 @@ WS_HD void lane_classify_ee(const Lane& s, WasteEE& w) {
 }
 
 // --- geometry and steps (walker.py _node_geometry / step / step_scout) ------
+//
+// The trapezoid and Simpson steps are composed of their point
+// (trap_point, simpson_point), the integrand there, their test
+// (trap_test, simpson_test) and their commit, so that
+// tools/k3_split.cu can time a step's parts apart and try other orders
+// of them.
+
+WS_HD ds2 node_width(const Lane& s) {
+  float scale = pow2_f32(-s.d);
+  return ds2{s.w_h * scale, s.w_l * scale};
+}
 
 template <bool FMA>
 WS_HD void node_geometry(const Lane& s, ds2& w, ds2& x0, ds2& x1) {
-  float scale = pow2_f32(-s.d);
-  w = ds2{s.w_h * scale, s.w_l * scale};
+  w = node_width(s);
   float il = static_cast<float>(s.i & 0x7FFF);
   float ih = static_cast<float>(s.i >> 15);
   ds2 step = ds_add(ds_mul_f32<FMA>(ds_mul_pow2(w, 32768.0f), ih),
@@ -929,25 +939,36 @@ struct Eval {
   bool mode_load, mode_init;
 };
 
-// trapezoid step, evaluation half: one eval per step through the
-// INIT/LOAD cache modes
-template <int FAM, bool THETA>
-WS_HD Eval eval_trap(const Lane& s, float eps32) {
-  constexpr bool FMA = fma_product(FAM);
-  Eval e;
-  bool parked = is_parked(s);
-  e.mode_load = (s.flags & MODE_LOAD) != 0;
-  e.mode_init = (s.flags & MODE_INIT) != 0;
-  bool live = !parked;
+// the point a trapezoid step evaluates: its node's left end (INIT), right
+// end (LOAD) or midpoint (a test); 1 for a parked lane
+template <bool FMA>
+WS_HD ds2 trap_point(const Lane& s) {
   ds2 w, x0, x1;
   node_geometry<FMA>(s, w, x0, x1);
   ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
-  ds2 xq = e.mode_load ? x1 : mid;
-  xq = e.mode_init ? x0 : xq;
-  xq = parked ? ds2{1.0f, 0.0f} : xq;
-  ds2 th = {s.th_h, s.th_l};
-  e.fq = f_ds<FAM>(xq, th);
+  ds2 xq = (s.flags & MODE_LOAD) != 0 ? x1 : mid;
+  xq = (s.flags & MODE_INIT) != 0 ? x0 : xq;
+  return is_parked(s) ? ds2{1.0f, 0.0f} : xq;
+}
 
+// what a trapezoid step does besides its evaluation: its mode, and
+// whether the lane tests its node
+template <bool THETA>
+WS_HD Eval trap_modes(const Lane& s) {
+  Eval e{};
+  e.mode_load = (s.flags & MODE_LOAD) != 0;
+  e.mode_init = (s.flags & MODE_INIT) != 0;
+  e.testing = !is_parked(s) && !(e.mode_load || e.mode_init);
+  e.test_act = e.testing && !(THETA && theta_retired(s));
+  return e;
+}
+
+// trapezoid step, the test with the step's evaluation fq
+template <bool FMA, bool THETA>
+WS_HD Eval trap_test(const Lane& s, ds2 fq, float eps32) {
+  Eval e = trap_modes<THETA>(s);
+  ds2 w = node_width(s);
+  e.fq = fq;
   ds2 quarter = ds_mul_pow2(w, 0.25f);
   e.fl = ds2{s.fl_h, s.fl_l};
   e.fr = ds2{s.fr_h, s.fr_l};
@@ -957,10 +978,17 @@ WS_HD Eval eval_trap(const Lane& s, float eps32) {
   ds2 lr = ds_mul<FMA>(ds_add(e.fl, e.fr), ds_mul_pow2(w, 0.5f));
   ds2 err = ds_abs(ds_sub(e.val, lr));
   e.split = (err.h + err.l) > eps32;
-  e.testing = live && !(e.mode_load || e.mode_init);
-  e.test_act = e.testing && !(THETA && theta_retired(s));
   e.vote = e.test_act && e.split;
   return e;
+}
+
+// trapezoid step, evaluation half: one eval per step through the
+// INIT/LOAD cache modes
+template <int FAM, bool THETA>
+WS_HD Eval eval_trap(const Lane& s, float eps32) {
+  constexpr bool FMA = fma_product(FAM);
+  ds2 fq = f_ds<FAM>(trap_point<FMA>(s), ds2{s.th_h, s.th_l});
+  return trap_test<FMA, THETA>(s, fq, eps32);
 }
 
 // scouting step, evaluation half: float32 test of every live lane,
@@ -1075,32 +1103,33 @@ WS_HD void commit(Lane& s, const Eval& e, bool group_split) {
   s.flags = flags;
 }
 
-// Simpson + Richardson step: one eval per step through the 5-phase mode
-// chain INIT (f(left)) -> LOADM (f(mid)) -> LOAD (f(right)) -> TESTA
-// (f(q1), stashed in fq) -> TESTB (f(q3), decide)
-template <int FAM>
-WS_HD void step_simpson(Lane& s, float eps32) {
-  constexpr bool FMA = fma_product(FAM);
-  bool parked = is_parked(s);
-  bool mode_load = (s.flags & MODE_LOAD) != 0;
-  bool mode_init = (s.flags & MODE_INIT) != 0;
-  bool mode_loadm = (s.flags & MODE_LOADM) != 0;
-  bool mode_testb = (s.flags & MODE_TESTB) != 0;
-  bool live = !parked;
-  bool testa = live && !(mode_load || mode_init || mode_loadm || mode_testb);
+// the point a Simpson step evaluates: its node's left end (INIT),
+// midpoint (LOADM), right end (LOAD), q1 (TESTA) or q3 (TESTB); 1 for a
+// parked lane
+template <bool FMA>
+WS_HD ds2 simpson_point(const Lane& s) {
   ds2 w, x0, x1;
   node_geometry<FMA>(s, w, x0, x1);
   ds2 mid = ds_add(x0, ds_mul_pow2(w, 0.5f));
   ds2 q1 = ds_add(x0, ds_mul_pow2(w, 0.25f));
   ds2 q3 = ds_add(mid, ds_mul_pow2(w, 0.25f));
-  ds2 xq = mode_testb ? q3 : q1;
-  xq = mode_loadm ? mid : xq;
-  xq = mode_load ? x1 : xq;
-  xq = mode_init ? x0 : xq;
-  xq = parked ? ds2{1.0f, 0.0f} : xq;
-  ds2 th = {s.th_h, s.th_l};
-  ds2 fq = f_ds<FAM>(xq, th);
+  ds2 xq = (s.flags & MODE_TESTB) != 0 ? q3 : q1;
+  xq = (s.flags & MODE_LOADM) != 0 ? mid : xq;
+  xq = (s.flags & MODE_LOAD) != 0 ? x1 : xq;
+  xq = (s.flags & MODE_INIT) != 0 ? x0 : xq;
+  return is_parked(s) ? ds2{1.0f, 0.0f} : xq;
+}
 
+// the Simpson + Richardson value of the lane's node and its split
+// decision, with the step's evaluation fq (f(q3) when it decides)
+struct SimpsonTest {
+  ds2 val;
+  bool split;
+};
+
+template <bool FMA>
+WS_HD SimpsonTest simpson_test(const Lane& s, ds2 fq, float eps32) {
+  ds2 w = node_width(s);
   ds2 fl = {s.fl_h, s.fl_l};
   ds2 fr = {s.fr_h, s.fr_l};
   ds2 fm = {s.fm_h, s.fm_l};
@@ -1116,9 +1145,23 @@ WS_HD void step_simpson(Lane& s, float eps32) {
   ds2 diff = ds_sub(s2, s1);
   ds2 corr = ds_mul<FMA>(diff, ds2{K_FIFTEENTH_H, K_FIFTEENTH_L});
   ds2 err = ds_abs(corr);
-  ds2 val = ds_add(s2, corr);
-  bool split = (err.h + err.l) > eps32;
+  return {ds_add(s2, corr), (err.h + err.l) > eps32};
+}
+
+// the Simpson step's commit: the decision `split` (the test's, taken
+// only in TESTB), the credit val, then the caches and the mode chain
+WS_HD void simpson_commit(Lane& s, ds2 fq, ds2 val, bool split) {
+  bool live = !is_parked(s);
+  bool mode_load = (s.flags & MODE_LOAD) != 0;
+  bool mode_init = (s.flags & MODE_INIT) != 0;
+  bool mode_loadm = (s.flags & MODE_LOADM) != 0;
+  bool mode_testb = (s.flags & MODE_TESTB) != 0;
+  bool testa = live && !(mode_load || mode_init || mode_loadm || mode_testb);
   bool testing = live && mode_testb;
+  ds2 fl = {s.fl_h, s.fl_l};
+  ds2 fr = {s.fr_h, s.fr_l};
+  ds2 fm = {s.fm_h, s.fm_l};
+  ds2 fq1 = {s.fq_h, s.fq_l};
 
   int i_next, d_next;
   bool do_split, adv, fin, ovf;
@@ -1149,6 +1192,17 @@ WS_HD void step_simpson(Lane& s, float eps32) {
   s.i = i_next;
   s.d = d_next;
   s.flags = flags;
+}
+
+// Simpson + Richardson step: one eval per step through the 5-phase mode
+// chain INIT (f(left)) -> LOADM (f(mid)) -> LOAD (f(right)) -> TESTA
+// (f(q1), stashed in fq) -> TESTB (f(q3), decide)
+template <int FAM>
+WS_HD void step_simpson(Lane& s, float eps32) {
+  constexpr bool FMA = fma_product(FAM);
+  ds2 fq = f_ds<FAM>(simpson_point<FMA>(s), ds2{s.th_h, s.th_l});
+  SimpsonTest t = simpson_test<FMA>(s, fq, eps32);
+  simpson_commit(s, fq, t.val, t.split);
 }
 
 // one step of step machine MODE outside theta mode; scout mode adds to

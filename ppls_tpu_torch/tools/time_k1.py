@@ -25,7 +25,9 @@ each, ``--launches`` 256-step launches of:
   ``k2_step`` and ``k2_step_scout`` at thresh 0.80 * lanes (with
   ``--reduced`` their ``_reduced`` twins too), and ``k2_noexit`` (thresh
   -1) beside ``k3_step``, K3 on the same lanes: the same work with and
-  without the grid count and barrier;
+  without the grid count and barrier; and ``k3_step_simpson``, K3's
+  Simpson machine on the family's Simpson-seeded lanes (its Simpson
+  eps);
 - ``k1_main_path`` and ``k2_main_path``: the flagship of chip_smoke.py
   phase 4 (M = 1024 thetas of sin(theta/x) on [1e-4, 1], eps 1e-10,
   16384 lanes, 12 roots a lane, refill_slots=8, scout f32,
@@ -227,21 +229,22 @@ def main_path(**kw) -> dict:
 def time_root(launches: int, family: str = "sin_recip_scaled",
               reduced: bool = False) -> dict:
     import numpy as np
+    from ppls_tpu_torch.config import Rule
     from ppls_tpu_torch.models.integrands import get_family, get_family_ds
     from ppls_tpu_torch.parallel import walker as W
 
-    def k3(base, f_ds, eps):
+    def k3(base, f_ds, eps, **rule):
         def prepare():
             state = W.WalkState(*(t.clone() for t in base["state"]))
 
             def launch():
-                W.run_segment(state, CAP, f_ds=f_ds, eps=eps)
+                W.run_segment(state, CAP, f_ds=f_ds, eps=eps, **rule)
                 return CAP
             return launch
         return prepare
 
     f, f_ds = get_family(family), get_family_ds(family)
-    theta, bounds, eps, _ = body_bank(family)
+    theta, bounds, eps, eps_simpson = body_bank(family)
     # the family's ds twin, and with --reduced its range-reduced twin on
     # the same banks
     twins = {"": f_ds}
@@ -271,6 +274,11 @@ def time_root(launches: int, family: str = "sin_recip_scaled",
                                                  seeded["thresh"])
     runs["k2_noexit"] = k2_prepare(seeded, f_ds, eps, False, -1)
     runs["k3_step"] = k3(seeded, f_ds, eps)
+    simpson = Rule.SIMPSON
+    seeded_s = W.first_phase_inputs(f, theta, bounds, eps_simpson,
+                                    refill_slots=0, scout=False,
+                                    rule=simpson, **flagship)
+    runs["k3_step_simpson"] = k3(seeded_s, f_ds, eps_simpson, rule=simpson)
     out = {}
     for name, prepare in runs.items():
         if name.endswith("_reduced"):

@@ -281,23 +281,135 @@ def test_host_k2_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
         assert int(a.tasks.sum()) > 0
 
 
-@pytest.mark.parametrize("rule", [Rule.TRAPEZOID, Rule.SIMPSON])
-@pytest.mark.parametrize("fam,theta,bounds,eps", CASES)
+# --- K3 at its edges ---------------------------------------------------------
+#
+# K3 held bit for bit (no tolerance) to the plain segment through the host
+# build: every integrand body the kernels compile in, launches of every
+# length from none and one step to past a whole walk, lanes that reach the
+# depth cap or finish mid-launch, NaN thetas, and lanes that split beside
+# a point where the integrand is NaN (a K3 that works out the next step's
+# point ahead, under both decisions, must leave no trace of the untaken
+# one; tools/k3_split.cu times such steps).
+
+# every integrand body: CASES and sin(theta x)'s own twin
+BODY_CASES = CASES + [
+    ("sin_scaled", np.linspace(1.0, 8.0, 64), (0.0, 1.0), 1e-7)]
+# K3 launch lengths: no step, one step, odd and even counts, a launch
+# past the 256-step segment
+K3_LAUNCHES = (0, 1, 7, 8, 40, 257)
+RULES = [Rule.TRAPEZOID, Rule.SIMPSON]
+
+
+def _assert_state_bit_equal_nan(a, b):
+    """Every field bit-equal, but that a NaN matches any NaN: its sign is
+    the platform's (the plain segments' CPU kernels give x86's negative
+    default NaN where the host build's scalar code gives a positive
+    one)."""
+    for name, x, y in zip(W.WalkState._fields, a, b):
+        if x.is_floating_point():
+            nan = torch.isnan(x)
+            assert torch.equal(nan, torch.isnan(y)), name
+            x, y = x[~nan], y[~nan]
+        assert torch.equal(_bits(x), _bits(y)), name
+
+
+def _k3_pair(lib, base, launches, f_ds, eps, rule,
+             check=_assert_state_bit_equal):
+    """The plain segment and the host build's K3 on copies of ``base``,
+    launch after launch, every field held bit-equal (``check``) after
+    each; returns the two states."""
+    a, b = _clone(base)["state"], _clone(base)["state"]
+    for iters in launches:
+        W.segment_plain(a, iters, f_ds=f_ds, eps=eps, rule=rule)
+        assert _run_host_seg(lib, b, iters, f_ds, eps,
+                             W.step_mode(rule, False)) == 0
+        check(a, b)
+    return a, b
+
+
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("fam,theta,bounds,eps", BODY_CASES)
 def test_host_k3_bit_equal_to_plain_segment(host_lib, fam, theta, bounds,
                                             eps, rule):
     f_ds = _twin(fam)
     eps = _eps(eps, rule)
     base = _inputs(fam, theta, bounds, eps, False, refill_slots=0,
                    rule=rule)
-    a, b = _clone(base)["state"], _clone(base)["state"]
-    for iters in (8, 40):
-        W.segment_plain(a, iters, f_ds=f_ds, eps=eps, rule=rule)
-        assert _run_host_seg(host_lib, b, iters, f_ds, eps,
-                             W.step_mode(rule, False)) == 0
-        _assert_state_bit_equal(a, b)
-    assert int(a.tasks.sum()) > 0
+    a, b = _k3_pair(host_lib, base, K3_LAUNCHES, f_ds, eps, rule)
+    assert int(a.tasks.sum()) > int(base["state"].tasks.sum())
     # scouting has no K3 variant, in the host build as in the wrapper
     assert _run_host_seg(host_lib, b, 1, f_ds, eps, W.STEP_SCOUT) == -2
+
+
+# eps = 1e-30: every test splits, so lanes walk to MAX_REL_DEPTH and park
+# as OVF; eps = 1e-1: lanes accept their nodes and finish mid-launch,
+# then take parked steps to the launch's end
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("walk_eps,ends", [(1e-30, "overflow"),
+                                           (1e-1, "finish")])
+@pytest.mark.parametrize("fam", ["sin_recip_scaled", "gauss_center"])
+def test_host_k3_overflow_and_finish_bit_equal_to_plain_segment(
+        host_lib, fam, walk_eps, ends, rule):
+    _, theta, bounds, eps = next(c for c in CASES if c[0] == fam)
+    f_ds = _twin(fam)
+    base = _inputs(fam, theta, bounds, _eps(eps, rule), False,
+                   refill_slots=0, rule=rule)
+    before = base["state"].flags
+    a, _ = _k3_pair(host_lib, base, (7, 257), f_ds, walk_eps, rule)
+    live0 = (before & W._PARKED) == 0
+    parked = (a.flags & W._PARKED) != 0
+    ovf = (a.flags & W._OVF) != 0
+    if ends == "overflow":
+        assert bool((live0 & ovf).any())
+        assert int(a.maxd[ovf].max()) >= W.MAX_REL_DEPTH
+    else:
+        assert bool((live0 & parked & ~ovf).any())
+
+
+def _split_lanes_beside_zero(lanes, rule, device="cpu"):
+    """Lanes of sin(theta / x) at theta 1 on a reversed root that ends at
+    or crosses 0 ([1, 0] trapezoid, [0.75, -0.25] Simpson), each testing
+    its node (i 0, d 1) with finite caches: at eps 1e-30 it splits, and
+    the decision it did not take, the advance to the node (1, 1), has
+    the point x = 0 (the trapezoid's right end, Simpson's midpoint),
+    where theta / x is inf and the integrand NaN."""
+    simpson = rule == Rule.SIMPSON
+    s = W._fresh_lanes(lanes, device)
+    vals = dict(a_h=0.75 if simpson else 1.0, w_h=-1.0, th_h=1.0,
+                fl_h=0.5, fr_h=0.25, fm_h=0.375, fq_h=0.4375)
+    for name, v in vals.items():
+        getattr(s, name).fill_(v)
+    s.d.fill_(1)
+    s.flags.fill_(W._MODE_TESTB if simpson else 0)
+    return s
+
+
+def test_host_k3_nan_lanes_bit_equal_to_plain_segment(host_lib):
+    """Lanes that split beside a point with a NaN integrand, and NaN
+    thetas among healthy lanes: the state stays bit-equal to the plain
+    segment's, the split lanes keep finite values, the healthy lanes
+    finite sums."""
+    fam, theta, bounds, eps = CASES[0]
+    f_ds = _twin(fam)
+    zero = torch.zeros(1, dtype=torch.float32)
+    g = f_ds((zero, zero), (zero + 1.0, zero))
+    assert not bool(torch.isfinite(g[0]).all())
+    for rule in RULES:
+        s = _split_lanes_beside_zero(8, rule)
+        a, _ = _k3_pair(host_lib, {"state": s}, (2, 5), f_ds, 1e-30, rule)
+        assert bool((a.d >= 2).all()) and bool((a.i == 0).all())
+        for name in ("fl_h", "fr_h", "fm_h", "fq_h", "acc_h"):
+            assert bool(torch.isfinite(getattr(a, name)).all()), name
+    for rule in RULES:
+        base = _inputs(fam, theta, bounds, _eps(eps, rule), False,
+                       refill_slots=0, rule=rule)
+        base["state"].th_h[3::16] = float("nan")
+        a, _ = _k3_pair(host_lib, base, (1, 40, 64), f_ds,
+                        _eps(eps, rule), rule, _assert_state_bit_equal_nan)
+        poisoned = torch.zeros_like(a.th_h, dtype=torch.bool)
+        poisoned[3::16] = True
+        assert not bool(torch.isfinite(a.acc_h[poisoned]).all())
+        assert bool(torch.isfinite(a.acc_h[~poisoned]).all())
 
 
 # --- the kernels' grid primitives and the three-point confirm, on the host --
@@ -684,10 +796,13 @@ def test_cuda_theta_group_words_bit_equal_to_plain_segment(cuda_device, T,
 
 
 @pytest.mark.cuda
-def test_cuda_walker_matches_cpu_walker(cuda_device):
+def test_cuda_walker_matches_cpu_walker(cuda_device, monkeypatch):
     # the whole slice on the card (K1) and on the CPU (plain segment):
     # the same decisions, so the same task count, and areas equal up to
-    # the float64 reduction order of the two devices
+    # the float64 reduction order of the two devices. Both take the hand
+    # cadence: the tuning table's cpu rows would move the CPU's schedule
+    # (scouting f32 with refill_slots > 0), which the card has no rows for
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
     fam, theta, bounds, eps = CASES[0]
     kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
               refill_slots=2, seg_iters=32, min_active_frac=0.05,
@@ -729,20 +844,47 @@ def test_cuda_k2_bit_equal_to_plain_segment(cuda_device, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rule", [Rule.TRAPEZOID, Rule.SIMPSON])
-def test_cuda_k3_bit_equal_to_plain_segment(cuda_device, rule):
-    fam, theta, bounds, eps = CASES[0]
-    f_ds = get_family_ds(fam)
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("twin", [c[0] for c in BODY_CASES])
+def test_cuda_k3_bit_equal_to_plain_segment(cuda_device, twin, rule):
+    # K3 on the card, every body, launches of every length
+    fam, theta, bounds, eps = next(c for c in BODY_CASES if c[0] == twin)
+    f_ds = _twin(fam)
     eps = _eps(eps, rule)
     base = _inputs(fam, theta, bounds, eps, False, device=cuda_device,
                    refill_slots=0, rule=rule)
     a, b = _clone(base)["state"], _clone(base)["state"]
     before = W.run_segment.launches
-    W.run_segment(a, 40, f_ds=f_ds, eps=eps, rule=rule)
-    W.segment_plain(b, 40, f_ds=f_ds, eps=eps, rule=rule)
-    torch.cuda.synchronize()
-    _assert_state_bit_equal(a, b)
-    assert W.run_segment.launches == before + 1
+    for iters in K3_LAUNCHES:
+        W.run_segment(a, iters, f_ds=f_ds, eps=eps, rule=rule)
+        W.segment_plain(b, iters, f_ds=f_ds, eps=eps, rule=rule)
+        torch.cuda.synchronize()
+        _assert_state_bit_equal(a, b)
+    assert W.run_segment.launches == before + len(K3_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", RULES)
+def test_cuda_k3_edge_lanes_bit_equal_to_plain_segment(cuda_device, rule):
+    # on the card: lanes that split beside a point with a NaN integrand,
+    # lanes that walk
+    # to the depth cap, lanes that finish mid-launch (a NaN's sign is the
+    # platform's, as in the host build's check)
+    fam, theta, bounds, eps = CASES[0]
+    f_ds = _twin(fam)
+    cases = [({"state": _split_lanes_beside_zero(128, rule, cuda_device)},
+              1e-30)]
+    for walk_eps in (1e-30, 1e-1):
+        cases.append((_inputs(fam, theta, bounds, _eps(eps, rule), False,
+                              device=cuda_device, refill_slots=0,
+                              rule=rule), walk_eps))
+    for base, walk_eps in cases:
+        a, b = _clone(base)["state"], _clone(base)["state"]
+        for iters in (2, 7, 257):
+            W.run_segment(a, iters, f_ds=f_ds, eps=walk_eps, rule=rule)
+            W.segment_plain(b, iters, f_ds=f_ds, eps=walk_eps, rule=rule)
+            torch.cuda.synchronize()
+            _assert_state_bit_equal_nan(a, b)
 
 
 @pytest.mark.cuda
@@ -825,10 +967,12 @@ def test_cuda_bodies_bit_equal_to_plain_segment(cuda_device, twin, mode):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("twin", [c[0] for c in CASES[2:]])
-def test_cuda_body_walkers_match_cpu_walker(cuda_device, twin):
+def test_cuda_body_walkers_match_cpu_walker(cuda_device, twin, monkeypatch):
     # the walker through each new body on the card (K1, scouting, double
     # buffer) and on the CPU: the same decisions, areas equal up to the
-    # float64 reduction order of the two devices
+    # float64 reduction order of the two devices (the hand cadence on
+    # both, as in test_cuda_walker_matches_cpu_walker)
+    monkeypatch.setenv("PPLS_TUNING_TABLE", "off")
     fam, theta, bounds, eps = next(c for c in CASES if c[0] == twin)
     kw = dict(capacity=1 << 16, lanes=256, roots_per_lane=2,
               refill_slots=2, seg_iters=32, min_active_frac=0.05,
