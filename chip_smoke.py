@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 22     # the build and phase 22 alone
     python3 chip_smoke.py --phase 23     # the build and phase 23 alone
+    python3 chip_smoke.py --phase 24     # the build and phase 24 alone
 
 Phases, each of which must pass (any failure exits nonzero):
 
@@ -509,6 +510,36 @@ Phases, each of which must pass (any failure exits nonzero):
       phase 2. Areas bit-identical across process counts; card = CPU;
       recoveries [("host_loss", "resize_resume")], 0 lost, areas equal
       to the undisturbed run's.
+24. The diagnosis and post-mortem tools (ppls_tpu_torch/tools/), run
+   in this process through their functions, their printed lines logged
+   (and written to chip_smoke_tools.txt). The phase has one time limit
+   (``TOOLS_TIMEOUT``). With ``--phase 24`` its comparators (phases 4
+   and 6's walks, phase 14a's serve command with a timeline) run first.
+   a. ``analyze_occupancy --attribution`` at the flagship size, one mode
+      at a time: the scout + double-buffer mode is phase 4's walk
+      (166,590,262 tasks, 15,625 kernel steps, 13 K1 launches, the same
+      area hash), the refill_slots=0 mode phase 6's (16,719 steps, 163
+      K2 launches), every mode's buckets sum to lanes x kernel steps.
+      Then ``analyze_occupancy``'s decomposition (round trip,
+      initial_bag, solo runs, a pipeline of 5, five runs of one seed,
+      occupancy, the headroom split against the K3 probe): its runs equal
+      an ``integrate_family_walker`` call with the same arguments here
+      (tasks, kernel steps, area hash).
+   b. ``analyze_occupancy dd`` on one rank (NCCL in this process) and
+      ``characterize_dd``: every dd run within 1e-3 of the closed form,
+      both dd legs launching their kernel.
+   c. The offline tools on phase 14's ledger (14a) and timeline (14b,
+      killed and restarted): ``check_artifacts --serve`` and ``--events
+      --rid-linkage`` and ``analyze_request --check`` exit 0,
+      ``--from-events`` reconciles, and a ledger with one malformed line
+      makes ``check_artifacts`` exit non-zero.
+   d. K2's theta variant (theta_block T > 1; csrc/walk_ee.cu) against the
+      plain theta segment, bit for bit, CMP_CAP steps on seeded theta
+      lanes of sin(theta / x) at lanes=16384: T = 2 and 4 in the
+      trapezoid and scouting machines, T = 256 (the vote across blocks)
+      in the trapezoid one; theta_overwalk > 0 in at least one case.
+   e. ``profile_bag`` with PROFILE_BAG_K iterations: every component a
+      finite, positive time.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -523,7 +554,9 @@ under ``bench_launches``; phase 19's, every rank's, under
 and 21k's record under ``dd_stream``; phase 22's under
 ``dispatch_launches``, and 22k's records under ``dispatch``; phase 23's,
 the sum of every worker process's reported launches, under
-``cluster_launches``)
+``cluster_launches``; phase 24's tools' under ``tools_launches``, K2's
+theta records (24d) under ``theta`` and their launches under
+``theta_launches``, and the K3 probe's under ``tools_probe_launches``)
 and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
@@ -845,6 +878,19 @@ CI_5D_ARGS = ("--family", "quad_scaled", "--theta",
               "--refill-slots", "2")
 CI_5D_HOST_LOSS = [{"kind": "host_loss", "at": 2, "chip": 1}]
 
+# phase 24: the diagnosis and post-mortem tools (ppls_tpu_torch/tools/)
+TOOLS_TIMEOUT = 300            # s, the whole of phase 24
+# the flagship's task count (phase 4; K1_MAIN and K2_MAIN pin phases 4
+# and 6's schedules), which the attribution tool's flagship mode walks
+FLAGSHIP_TASKS = 166590262
+K2_THETA_CMP = ((2, "step"), (2, "step_scout"), (4, "step"),
+                (4, "step_scout"), (256, "step"))
+K2_THETA_FAMILY = "sin_recip_scaled"
+K2_THETA_BOUNDS = (1e-2, 1.0)
+K2_THETA_EPS = 1e-7
+K2_THETA_WALK = 16             # K1 plain steps before K2 takes the lanes
+PROFILE_BAG_K = 10
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1154,18 +1200,21 @@ def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
     return rec, times
 
 
-def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5):
+def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
     """K2 on copies of seeded lanes, CMP_CAP steps at the seeding's exit
-    threshold, as :func:`cmp_k1`; the waste must reconcile."""
+    threshold, as :func:`cmp_k1`; the waste must reconcile. With
+    ``theta_block`` > 1 (K2's theta variant) the bound counts every live
+    lane-step, theta_overwalk too: a retired lane still evaluates."""
     import torch
     rule, scout = mode_args(mode)
+    kw = dict(theta_block=theta_block) if theta_block > 1 else {}
 
     def prepare(fn):
         inp = clone(base)
 
         def launch():
             ctr = fn(inp["state"], inp["thresh"], CMP_CAP, f_ds=f_ds,
-                     eps=eps, scout=scout, rule=rule)
+                     eps=eps, scout=scout, rule=rule, **kw)
             return [*inp["state"], ctr]
         return launch
 
@@ -1180,12 +1229,13 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5):
     if sum(ctr[1:5]) != ctr[0] * lanes:
         raise AssertionError(f"{what}: waste does not reconcile")
     n_bytes = 2 * lanes * STATE_BYTES + 7 * 4
-    bound, bound_by = bound_ms(n_bytes, ctr[1], ctr[5], ctr[6], ops, mode)
+    live = ctr[1] + ctr[4]
+    bound, bound_by = bound_ms(n_bytes, live, ctr[5], ctr[6], ops, mode)
     rec = dict(ms=kernel_ms, plain_ms=plain_ms,
                max_abs_err=compare(what, outs_k, outs_p), bound_ms=bound,
                bound_by=bound_by, counters=ctr,
                us_per_step=1e3 * kernel_ms / ctr[0],
-               bound_dekker_ms=bound_ms(n_bytes, ctr[1], ctr[5], ctr[6],
+               bound_dekker_ms=bound_ms(n_bytes, live, ctr[5], ctr[6],
                                         ops["dekker"], mode)[0],
                chain_us_per_step=chain_us(ops, mode))
     return rec, times
@@ -1294,7 +1344,7 @@ def phase_k2(W, f_ds, seeded, ops, regs) -> tuple:
         log(fmt_cmp(f"K2 {mode}", cmp[mode], times))
     log(f"[smoke] {regs_line('K2', regs, f_ds.kernel_family)}")
     index = torch.cuda.current_device()
-    blocks = {f"{fam},{mode}": W._max_blocks("walk_ee", index, fam, mode)
+    blocks = {f"{fam},{mode}": W._max_blocks("walk_ee", index, fam, mode, 0)
               for fam in range(8) for mode in range(3)}
     need = LANES // W.KERNEL_THREADS
     log(f"[smoke] K2 co-resident blocks: {min(blocks.values())}-"
@@ -1374,7 +1424,8 @@ def phase_barrier(W, f_ds, base, regs, pairs: int = 7) -> dict:
     trap = f"{f_ds.kernel_family},0"
     out = dict(k2_us_per_step=us2, k3_us_per_step=us3,
                barrier_us_per_step=us2 - us3, barrier_share=1 - us3 / us2,
-               k2_ms=k2, k3_ms=k3, k2_registers=regs["walk_ee"][trap],
+               k2_ms=k2, k3_ms=k3,
+               k2_registers=regs["walk_ee"][trap + ",0"],   # T = 1
                k3_registers=regs["walk_seg"][trap])
     log(f"[smoke] barrier: K2 with no exit {us2:.3f} us/step "
         f"({out['k2_registers']} registers), K3 {us3:.3f} us/step "
@@ -2752,6 +2803,10 @@ def serve_full_width(W, TS, ckpt_dir) -> dict:
                        + b1["launches"][k] + b2["launches"][k]
                        for k in a["launches"]}
     out["ledger_a"] = ledger(a)
+    # phase 24's offline tools read 14a's ledger and 14b's timeline (its
+    # killed and restarted segments)
+    with open(ev) as fh:
+        out["artifacts"] = dict(ledger=a["text"], events=fh.read())
     return out
 
 
@@ -3143,11 +3198,12 @@ def phase_serve(W, TS, ckpt_dir) -> dict:
     launches = {k: full["launches"][k] + chaos["launches"][k]
                 + overload["launches"][k] for k in full["launches"]}
     full.pop("ledger_a")
+    artifacts = full.pop("artifacts")
     seconds = time.perf_counter() - t0
     log(f"[smoke] phase 14 (serve): {seconds:.1f} s; in-process launches "
         f"{launches}")
     return dict(full=full, chaos=chaos, overload=overload, entry=entry,
-                launches=launches, seconds=seconds)
+                launches=launches, seconds=seconds, artifacts=artifacts)
 
 
 def cli_json(W, TS, argv) -> tuple:
@@ -6427,10 +6483,345 @@ def phase_cluster(W, TS, ckpt_dir, stream_rep) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the diagnosis and post-mortem tools
+# ---------------------------------------------------------------------------
+
+
+def area_hash(areas) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(areas, dtype=np.float64)).tobytes()).hexdigest()[:16]
+
+
+def tool_call(W, what: str, fn, out_dir):
+    """``fn()`` with its printed lines captured, every kernel's launch
+    count set to 0 just before and read just after: (its value, the
+    lines, the launches). The lines are logged and appended to
+    ``chip_smoke_tools.txt`` in ``out_dir``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value, wall, launches = counted(W, fn)
+    lines = buf.getvalue().splitlines()
+    with open(os.path.join(out_dir, "chip_smoke_tools.txt"), "a") as fh:
+        fh.write(f"### {what} ({wall:.2f} s, launches {launches})\n"
+                 + buf.getvalue())
+    for ln in lines:
+        if ln.strip():
+            log(f"[smoke] {what} | {ln}")
+    log(f"[smoke] {what}: {wall:.2f} s, launches {launches}")
+    return value, lines, launches
+
+
+def tools_attribution(W, f_theta, f_ds, base, out_dir) -> dict:
+    """24a, ``analyze_occupancy --attribution`` on the card, one mode at a
+    time: the flagship mode against phase 4's run (``base["k1"]``) and
+    FLAGSHIP_TASKS and K1_MAIN, the refill_slots=0 mode against phase 6's
+    (``base["k2"]``) and K2_MAIN, every mode's buckets against lanes x
+    kernel steps."""
+    from ppls_tpu_torch.tools import analyze_occupancy as AO
+    out = {}
+    for mode_kw, label in AO.ATTRIBUTION_MODES:
+        recs, _, launches = tool_call(
+            W, f"24a attribution {label}",
+            lambda: AO.attribution(DEVICE, modes=((mode_kw, label),)),
+            out_dir)
+        r = recs[0]["result"]
+        att = r.attribution()
+        if sum(att["buckets"].values()) != r.kernel_steps * r.lanes \
+                or not att["reconciles"]:
+            raise AssertionError(f"24a {label}: buckets do not reconcile")
+        out[label] = dict(tasks=r.metrics.tasks, kernel_steps=r.kernel_steps,
+                          launches=launches, buckets=att["buckets"],
+                          lane_efficiency=r.lane_efficiency,
+                          area_hash=area_hash(r.areas),
+                          wall_s=r.metrics.wall_time_s)
+    pins = (dict(tasks=FLAGSHIP_TASKS, launches=K1_MAIN[0],
+                 kernel_steps=K1_MAIN[1]),
+            dict(launches=K2_MAIN[0], kernel_steps=K2_MAIN[1]))
+    for label, key, pin, kernel in (
+            (AO.ATTRIBUTION_MODES[2][1], "k1", pins[0], "run_segment_rf"),
+            (AO.ATTRIBUTION_MODES[0][1], "k2", pins[1], "run_segment_ee")):
+        got, (want, want_launches) = out[label], base[key]
+        same = dict(tasks=got["tasks"] == want.metrics.tasks,
+                    kernel_steps=got["kernel_steps"] == want.kernel_steps,
+                    launches=got["launches"][kernel] == want_launches,
+                    area_hash=got["area_hash"] == area_hash(want.areas))
+        pinned = {k: {"tasks": got["tasks"], "kernel_steps":
+                      got["kernel_steps"], "launches":
+                      got["launches"][kernel]}[k] == v
+                  for k, v in pin.items()}
+        log(f"[smoke] 24a {label}: {got['tasks']} tasks, "
+            f"{got['kernel_steps']} kernel steps, {kernel} "
+            f"{got['launches'][kernel]}, area hash {got['area_hash']}; "
+            f"against phase {4 if key == 'k1' else 6}'s run {same}, pinned "
+            f"{pin}: {pinned}")
+        if not all(same.values()) or not all(pinned.values()):
+            raise AssertionError(f"24a {label}: not phase "
+                                 f"{4 if key == 'k1' else 6}'s walk")
+    return out
+
+
+def tools_decompose(W, f_theta, f_ds, out_dir) -> dict:
+    """24a, ``analyze_occupancy``'s decomposition on the card; its solo
+    runs against an ``integrate_family_walker`` call with the same
+    arguments in this process."""
+    import numpy as np
+    from ppls_tpu_torch.tools import analyze_occupancy as AO
+    dec, _, launches = tool_call(W, "24a decomposition",
+                                 lambda: AO.decompose(DEVICE), out_dir)
+    theta = 1.0 + np.arange(AO.M) / AO.M
+    ref = W.integrate_family_walker(f_theta, f_ds, theta, AO.BOUNDS, AO.EPS,
+                                    capacity=AO.CAPACITY, refill_slots=8,
+                                    device=DEVICE)
+    want = (ref.metrics.tasks, ref.kernel_steps, area_hash(ref.areas))
+    got = [(r.metrics.tasks, r.kernel_steps, area_hash(r.areas))
+           for r in dec["solo"] + dec["pipeline"] + [dec["warm_up"]]]
+    log(f"[smoke] 24a decomposition: solo, pipeline and warm-up runs "
+        f"(tasks, kernel steps, area hash) {sorted(set(got))} against the "
+        f"same call here {want}; RTT {dec['rtt_s'] * 1e3:.3f} ms; "
+        f"re-dispatched tasks {dec['redispatch_tasks']}; kernel ceiling "
+        f"{dec['ceiling'] / 1e9:.3f} G lane-steps/s, kernel_ceiling_frac "
+        f"{dec.get('kernel_ceiling_frac')}")
+    if any(g != want for g in got) or len(set(dec["redispatch_tasks"])) != 1:
+        raise AssertionError("24a: the decomposition's runs differ from "
+                             "the same call in this process")
+    keep = ("rtt_s", "rtts_s", "initial_bag_s", "solo_walls_s",
+            "pipeline_s", "pipeline_deltas_s", "redispatch_tasks",
+            "redispatch_s", "occupancy", "ceiling", "kernel_ceiling_frac")
+    return dict({k: dec.get(k) for k in keep}, launches=launches,
+                probe={k: dec["probe"].get(k) for k in (
+                    "lane_steps_per_sec", "us_per_step", "launches")},
+                tasks=want[0], kernel_steps=want[1])
+
+
+def tools_dd(W, family_exact, out_dir) -> dict:
+    """24b, ``analyze_occupancy dd`` (one rank: NCCL in this process) and
+    ``characterize_dd``: every dd run's areas within AREA_TOL_EXACT of
+    the closed form."""
+    import numpy as np
+    from ppls_tpu_torch.tools import analyze_occupancy as AO
+    from ppls_tpu_torch.tools import characterize_dd as CD
+    dd, _, dd_launches = tool_call(W, "24b analyze_occupancy dd",
+                                   lambda: AO.dd(DEVICE), out_dir)
+    m = dd["refill"].areas.shape[0]
+    ex = family_exact(AO.FAMILY, *AO.BOUNDS, 1.0 + np.arange(m) / m)
+    errs = {leg: float(np.max(np.abs(dd[leg].areas - ex)))
+            for leg in ("refill", "legacy")}
+    rows, _, cd_launches = tool_call(W, "24b characterize_dd",
+                                     lambda: CD.characterize(DEVICE),
+                                     out_dir)
+    ex = family_exact(CD.FAMILY, *CD.BOUNDS, 1.0 + np.arange(CD.M) / CD.M)
+    for row in rows:
+        errs[row["name"]] = max(float(np.max(np.abs(r.areas - ex)))
+                                for r in row["runs"])
+    log(f"[smoke] 24b: max |area - closed form| per run {errs} (tol "
+        f"{AREA_TOL_EXACT})")
+    if not all(e < AREA_TOL_EXACT for e in errs.values()):
+        raise AssertionError("24b: a dd run misses the closed form")
+    if dd_launches["run_segment_rf"] <= 0 \
+            or dd_launches["run_segment_ee"] <= 0:
+        raise AssertionError(f"24b: a dd leg launched no kernel "
+                             f"{dd_launches}")
+    return dict(world=dd["world"], err=errs,
+                legs={leg: dict(tasks=dd[leg].metrics.tasks,
+                                wall_s=dd[f"wall_{leg}_s"],
+                                cycles=dd[leg].cycles,
+                                collective_rounds=dd[leg].collective_rounds)
+                      for leg in ("refill", "legacy")},
+                ceiling=dd["ceiling"], dd_launches=dd_launches,
+                characterize={row["name"]: dict(
+                    tasks=row["tasks"], wall_s=row["wall_s"],
+                    rate=row["rate"], walls_s=row["walls_s"])
+                    for row in rows},
+                characterize_launches=cd_launches)
+
+
+def tools_offline(ckpt_dir, artifacts) -> dict:
+    """24c: check_artifacts, analyze_request and --from-events on phase
+    14's serve ledger and timeline; a malformed ledger line must fail."""
+    from ppls_tpu_torch.tools import analyze_occupancy as AO
+    from ppls_tpu_torch.tools import analyze_request as AR
+    from ppls_tpu_torch.tools import check_artifacts as CA
+    led = os.path.join(ckpt_dir, "serve_14a.jsonl")
+    ev = os.path.join(ckpt_dir, "serve_14b_events.jsonl")
+    bad = os.path.join(ckpt_dir, "serve_14a_malformed.jsonl")
+    lines = artifacts["ledger"].splitlines()
+    i = next(j for j, ln in enumerate(lines) if '"rid"' in ln)
+    for path, text in ((led, artifacts["ledger"]),
+                       (ev, artifacts["events"]),
+                       (bad, "\n".join(lines[:i] + [lines[i][:40]]
+                                       + lines[i + 1:]) + "\n")):
+        with open(path, "w") as fh:
+            fh.write(text)
+    runs = {}
+    for name, fn, argv in (
+            ("check_artifacts --serve", CA.main, ["--serve", led]),
+            ("check_artifacts --events --rid-linkage", CA.main,
+             ["--events", ev, "--rid-linkage"]),
+            ("analyze_request --check", AR.main, [ev, "--check"]),
+            ("analyze_occupancy --from-events", AO.main,
+             ["--from-events", ev]),
+            ("check_artifacts --serve (malformed line)", CA.main,
+             ["--serve", bad])):
+        o, e = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            rc = fn(argv)
+        runs[name] = dict(rc=rc, out=o.getvalue(), err=e.getvalue())
+        for ln in (o.getvalue() + e.getvalue()).splitlines():
+            if ln.strip():
+                log(f"[smoke] 24c {name} | {ln}")
+        log(f"[smoke] 24c {name}: exit {rc}")
+    want = {name: (1 if "malformed" in name else 0) for name in runs}
+    ok = {name: (runs[name]["rc"] != 0 if want[name] else
+                 runs[name]["rc"] == 0) for name in runs}
+    recon = [ln for ln in runs["analyze_occupancy --from-events"][
+        "out"].splitlines() if "reconciliation:" in ln]
+    if not all(ok.values()) or not recon \
+            or not all("-> OK" in ln for ln in recon):
+        raise AssertionError(f"24c: offline tools {ok}, {recon}")
+    return {name: r["rc"] for name, r in runs.items()}
+
+
+def tools_k2_theta(W, ops_of) -> dict:
+    """24d: K2's theta variant against the plain theta segment, bit for
+    bit, on seeded theta lanes at the flagship's width: a bred and dealt
+    theta bank of sin(theta / x) (each group's thetas spread over 0.5 /
+    T) walked K2_THETA_WALK steps by the plain K1 segment, then CMP_CAP
+    K2 steps per (T, step machine); theta_overwalk > 0 somewhere."""
+    import numpy as np
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    f_theta = get_family(K2_THETA_FAMILY)
+    f_ds = get_family_ds(K2_THETA_FAMILY)
+    ops = ops_of(f_ds)
+    cmp = {}
+    for T, mode in K2_THETA_CMP:
+        _, scout = mode_args(mode)
+        m = LANES // T
+        theta = (1.0 + np.arange(m) / m)[:, None] \
+            + 0.5 * np.arange(T)[None, :] / T
+        inp = W.first_phase_inputs(
+            f_theta, theta, K2_THETA_BOUNDS, K2_THETA_EPS, lanes=LANES,
+            roots_per_lane=ROOTS_PER_LANE, refill_slots=REFILL_SLOTS,
+            capacity=CAPACITY, scout=scout, theta_block=T, device=DEVICE)
+        W.segment_rf_plain(inp["state"], inp["slot"], inp["thresh"],
+                           K2_THETA_WALK, inp["batch"], inp["nslots"],
+                           inp["bank"], inp["resm"], f_ds=f_ds,
+                           eps=K2_THETA_EPS, scout=scout, theta_block=T)
+        base = dict(state=inp["state"], thresh=LANES // 8)
+        key = f"{T}" + ("_scout" if scout else "")
+        cmp[key], times = cmp_k2(W, f"K2 theta T={T} {mode}", base, f_ds,
+                                 K2_THETA_EPS, mode, ops, theta_block=T)
+        cmp[key].update(T=T, mode=mode)
+        log(fmt_cmp(f"K2 theta T={T} {mode}", cmp[key], times))
+    over = {k: c["counters"][4] for k, c in cmp.items()}
+    log(f"[smoke] 24d K2 theta_overwalk per case {over}")
+    if not any(over.values()):
+        raise AssertionError("24d: no K2 theta case walked a retired lane")
+    return cmp
+
+
+def tools_profile_bag(out_dir) -> dict:
+    """24e: ``profile_bag`` at its sizes with PROFILE_BAG_K iterations:
+    every component a finite, positive time."""
+    import math
+    from ppls_tpu_torch.tools import profile_bag as PB
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        us = PB.profile(DEVICE, PROFILE_BAG_K)
+    for ln in buf.getvalue().splitlines():
+        log(f"[smoke] 24e profile_bag | {ln}")
+    with open(os.path.join(out_dir, "chip_smoke_tools.txt"), "a") as fh:
+        fh.write(f"### 24e profile_bag (K={PROFILE_BAG_K})\n"
+                 + buf.getvalue())
+    if len(us) != 13 or not all(math.isfinite(v) and v > 0
+                                for v in us.values()):
+        raise AssertionError(f"24e: profile_bag times {us}")
+    return us
+
+
+def phase_tools(W, TS, ckpt_dir, out_dir, base, artifacts) -> dict:
+    """24: the diagnosis and post-mortem tools on the card (module
+    docstring), bounded by ``TOOLS_TIMEOUT``. ``base`` holds phases 4 and
+    6's runs and their K1 / K2 launches; ``artifacts`` phase 14's ledger
+    and timeline."""
+    import torch
+    from ppls_tpu_torch.models.integrands import (family_exact, get_family,
+                                                  get_family_ds)
+    t_phase = time.perf_counter()
+    with open(os.path.join(out_dir, "chip_smoke_tools.txt"), "w"):
+        pass
+
+    def check_time(step):
+        spent = time.perf_counter() - t_phase
+        log(f"[smoke] 24: {step} at {spent:.1f} s")
+        if spent > TOOLS_TIMEOUT:
+            raise TimeoutError(f"phase 24 ran past its {TOOLS_TIMEOUT} s at "
+                               f"{step} ({spent:.0f} s)")
+
+    f_theta = get_family("sin_recip_scaled")
+    f_ds = get_family_ds("sin_recip_scaled")
+    out = {"attribution": tools_attribution(W, f_theta, f_ds, base,
+                                            out_dir)}
+    out["decomposition"] = tools_decompose(W, f_theta, f_ds, out_dir)
+    check_time("24a")
+    out["dd"] = tools_dd(W, family_exact, out_dir)
+    check_time("24b")
+    out["offline"] = tools_offline(ckpt_dir, artifacts)
+    check_time("24c")
+    out["k2_theta"], _, theta_launches = counted(
+        W, lambda: tools_k2_theta(W, operation_counts))
+    out["k2_theta_launches"] = theta_launches["run_segment_ee"]
+    check_time("24d")
+    out["profile_bag_us"] = tools_profile_bag(out_dir)
+    torch.cuda.synchronize()
+    check_time("24e")
+    paths = ([v["launches"] for v in out["attribution"].values()]
+             + [out["decomposition"]["launches"],
+                out["dd"]["dd_launches"],
+                out["dd"]["characterize_launches"]])
+    out["launches"] = {k: sum(p[k] for p in paths)
+                       for k in ("run_segment_rf", "run_segment_ee",
+                                 "run_segment")}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] 24 done in {out['seconds']:.1f} s; the tools' launches "
+        f"{out['launches']} (K3: the probes), K2 theta "
+        f"{out['k2_theta_launches']}")
+    return out
+
+
+def tools_base(W, f_theta, f_ds, theta) -> dict:
+    """Phases 4 and 6's runs for ``--phase 24`` alone: the flagship (K1)
+    and its refill_slots=0 fallback (K2) with their launches."""
+    kw = dict(capacity=CAPACITY, lanes=LANES, roots_per_lane=ROOTS_PER_LANE,
+              device=DEVICE)
+    out = {}
+    for key, over in (("k1", dict(refill_slots=REFILL_SLOTS,
+                                  double_buffer=True, scout_dtype="f32")),
+                      ("k2", dict(refill_slots=0, scout_dtype="f64"))):
+        res, _, launches = counted(W, lambda: W.integrate_family_walker(
+            f_theta, f_ds, theta, BOUNDS, EPS, **kw, **over))
+        kernel = "run_segment_rf" if key == "k1" else "run_segment_ee"
+        out[key] = (res, launches[kernel])
+    return out
+
+
+def tools_serve_artifacts(W, TS, ckpt_dir) -> dict:
+    """For ``--phase 24`` alone: phase 14a's serve command with a
+    timeline (its ledger and events)."""
+    ev = os.path.join(ckpt_dir, "serve_14_events.jsonl")
+    run = run_cli(W, TS, serve_argv(events=ev))
+    with open(ev) as fh:
+        return dict(ledger=run["text"], events=fh.read())
+
+
 def main_phase(phase: str) -> int:
-    """``python3 chip_smoke.py --phase 22`` (or ``23``): the build, phase
-    11's single-engine ds stream (the comparator: the median of three
-    runs after a warm-up) and that phase, in one process."""
+    """``python3 chip_smoke.py --phase 22`` (or ``23``, ``24``): the
+    build, its comparators and that phase, in one process. Phases 22 and
+    23 compare with phase 11's single-engine ds stream (the median of
+    three runs after a warm-up); phase 24 with phases 4 and 6's walks and
+    phase 14a's serve command with a timeline."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -6451,20 +6842,29 @@ def main_phase(phase: str) -> int:
     load_all_kernels()
     log(f"[smoke] build: {time.perf_counter() - t0:.1f} s")
     ops = operation_counts(get_family_ds(STREAM_FAMILY))
-    theta = 1.0 + np.arange(STREAM_K) / STREAM_K
-    reqs = [(float(t), BOUNDS) for t in theta]
-    kw = dict(STREAM_KW, scout_dtype="f64", device=DEVICE)
-    TS.StreamEngine(STREAM_FAMILY, EPS, **kw).run(reqs)
-    walls = [counted(W, lambda: TS.StreamEngine(STREAM_FAMILY, EPS,
-                                                **kw).run(reqs))[1]
-             for _ in range(3)]
-    log(f"[smoke] single-engine ds stream (phase 11's, {STREAM_K} "
-        f"requests): walls {', '.join(f'{w:.4f}' for w in walls)} s")
-    stream_rep = {"ds_walk": {"wall_s": float(np.median(walls)),
-                              "walls": walls}}
+    walls = []
+    if phase in ("22", "23"):
+        theta = 1.0 + np.arange(STREAM_K) / STREAM_K
+        reqs = [(float(t), BOUNDS) for t in theta]
+        kw = dict(STREAM_KW, scout_dtype="f64", device=DEVICE)
+        TS.StreamEngine(STREAM_FAMILY, EPS, **kw).run(reqs)
+        walls = [counted(W, lambda: TS.StreamEngine(STREAM_FAMILY, EPS,
+                                                    **kw).run(reqs))[1]
+                 for _ in range(3)]
+        log(f"[smoke] single-engine ds stream (phase 11's, {STREAM_K} "
+            f"requests): walls {', '.join(f'{w:.4f}' for w in walls)} s")
+        stream_rep = {"ds_walk": {"wall_s": float(np.median(walls)),
+                                  "walls": walls}}
     ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
-        if phase == "22":
+        if phase == "24":
+            from ppls_tpu_torch.models.integrands import get_family
+            f_theta = get_family("sin_recip_scaled")
+            base = tools_base(W, f_theta, get_family_ds("sin_recip_scaled"),
+                              1.0 + np.arange(M) / M)
+            rep = phase_tools(W, TS, ckpt_dir, out_dir, base,
+                              tools_serve_artifacts(W, TS, ckpt_dir))
+        elif phase == "22":
             with WorldStarts() as worlds:
                 rep = phase_dispatch(W, TS, ckpt_dir, out_dir, ops,
                                      stream_rep)
@@ -6475,7 +6875,7 @@ def main_phase(phase: str) -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     rep.update(device=kind, smi=smi, single_engine_walls=walls)
-    name = {"22": "dispatch", "23": "cluster"}[phase]
+    name = {"22": "dispatch", "23": "cluster", "24": "tools"}[phase]
     with open(os.path.join(out_dir, f"chip_smoke_{name}.json"), "w") as fh:
         json.dump(rep, fh, indent=1, default=str)
     print(smi)
@@ -6489,7 +6889,8 @@ def main() -> int:
     import numpy as np
     import torch
 
-    if sys.argv[1:] in (["--phase", "22"], ["--phase", "23"]):
+    if sys.argv[1:] in (["--phase", "22"], ["--phase", "23"],
+                        ["--phase", "24"]):
         return main_phase(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6885,6 +7286,7 @@ def main() -> int:
         report["serve"] = phase_serve(W, TS, serve_dir)
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_artifacts = report["serve"].pop("artifacts")
     serve_launches = report["serve"]["launches"]
     if serve_launches["run_segment"] != 0:
         raise AssertionError(f"K3 ran on the serve path: {serve_launches}")
@@ -6974,6 +7376,17 @@ def main() -> int:
     finally:
         shutil.rmtree(clus_dir, ignore_errors=True)
     clus_l = report["cluster"]["launches"]
+    # 24. the diagnosis and post-mortem tools (K1, K2, the K3 probe;
+    # K2's theta variant)
+    tools_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
+    try:
+        report["tools"] = phase_tools(
+            W, TS, tools_dir, out_dir,
+            dict(k1=(res, launches["run_segment_rf"]),
+                 k2=(res0, launches0["run_segment_ee"])), serve_artifacts)
+    finally:
+        shutil.rmtree(tools_dir, ignore_errors=True)
+    tools_l = report["tools"]["launches"]
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -7018,6 +7431,7 @@ def main() -> int:
         disp = extra.get("dispatch", {})
         errs += [v["max_abs_err"] for v in (
             [disp] if "max_abs_err" in disp else disp.values())]
+        errs += [v["max_abs_err"] for v in extra.get("theta", {}).values()]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max(errs),
@@ -7029,6 +7443,10 @@ def main() -> int:
                                          "bound_by", "us_per_step",
                                          "max_abs_err")}
                   for k, v in k1_theta.items()}
+    theta_k2_rows = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "us_per_step",
+                                            "max_abs_err", "counters")}
+                     for k, v in report["tools"]["k2_theta"].items()}
 
     def dd_row(c):
         """A kernel's record at a dd rank's shapes (19k)."""
@@ -7051,7 +7469,7 @@ def main() -> int:
             + cli_launches["run_segment_rf"]
             + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"]
             + tune_l["run_segment_rf"] + dds_l + disp_l["run_segment_rf"]
-            + clus_l["run_segment_rf"],
+            + clus_l["run_segment_rf"] + tools_l["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -7069,6 +7487,7 @@ def main() -> int:
             dispatch={k: dd_row(report["dispatch"]["kernels"][k])
                       for k in ("k1", "k1_simpson")},
             cluster_launches=clus_l["run_segment_rf"],
+            tools_launches=tools_l["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -7083,7 +7502,7 @@ def main() -> int:
             + cli_launches["run_segment_ee"]
             + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"]
             + tune_l["run_segment_ee"] + disp_l["run_segment_ee"]
-            + clus_l["run_segment_ee"],
+            + clus_l["run_segment_ee"] + tools_l["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
@@ -7094,6 +7513,9 @@ def main() -> int:
             dispatch_launches=disp_l["run_segment_ee"],
             dispatch=dd_row(report["dispatch"]["kernels"]["k2"]),
             cluster_launches=clus_l["run_segment_ee"],
+            tools_launches=tools_l["run_segment_ee"],
+            theta_launches=report["tools"]["k2_theta_launches"],
+            theta=theta_k2_rows,
             stream_launches=report["stream"]["overload"]["k2"]["launches"],
             main_path_ms=report["profile_k2"]["kernel_ms"],
             main_path_launches=launches0["run_segment_ee"],
@@ -7103,7 +7525,9 @@ def main() -> int:
         row("walk_seg", "ppls_tpu_torch/csrc/walk_seg.cu",
             "ppls_tpu/parallel/walker.py:1253",
             main_launches["run_segment"], k3, "step", bodies("k3"),
-            probe_launches=probe["launches"], steps_256=steps_256(k3),
+            probe_launches=probe["launches"],
+            tools_probe_launches=tools_l["run_segment"],
+            steps_256=steps_256(k3),
             registers=regs["walk_seg"]),
     ]}))
     print(smi)

@@ -54,12 +54,12 @@ namespace {
 
 using wg::kThreads;
 
-template <int FAM, int MODE>
+template <int FAM, int MODE, bool THETA>
 __global__ void __launch_bounds__(wg::kCountBlock)
-    walk_ee_kernel(void* const* p, float eps32, int thresh, int cap) {
+    walk_ee_kernel(void* const* p, float eps32, int thresh, int cap, int T) {
   __shared__ wg::CountShared cs;
   uint64_t* sync = static_cast<uint64_t*>(p[ws::P_EE_SYNC]);
-  ws::WasteEE w = {0, 0, 0};
+  ws::WasteEE w = {0, 0, 0, 0};
   int sc_n = 0, cf_n = 0;
 
   // Step 1 always runs (the reference's k == 0); after step k, step
@@ -74,16 +74,31 @@ __global__ void __launch_bounds__(wg::kCountBlock)
       if (wg::count_serve(cs, sync, c) <= thresh) break;
   } else {
     const int lane = blockIdx.x * kThreads + threadIdx.x;
+    // theta mode: every step is evaluate -> the group's vote -> commit,
+    // one vote per step computed (a dropped speculative step voted too,
+    // in every block alike)
+    __shared__ wg::VoteShared vs;
+    uint32_t* votes = static_cast<uint32_t*>(p[ws::P_EE_VOTE]);
+    const int groups = gridDim.x * kThreads / T;
+    int v = 0;
+    auto step = [&](ws::Lane& t, ws::WasteEE& tw, int& tsc, int& tcf) {
+      ws::lane_classify_ee<THETA>(t, tw);
+      if constexpr (THETA) {
+        ws::Eval e = ws::evaluate<FAM, MODE, true>(t, eps32, tsc, tcf);
+        bool any = wg::group_any(e.vote, T, votes, groups, v++, vs);
+        ws::commit<MODE, true>(t, e, any);
+      } else {
+        ws::step<FAM, MODE>(t, eps32, tsc, tcf);
+      }
+    };
     ws::Lane s = ws::load_lane(p, lane);
-    ws::lane_classify_ee(s, w);
-    ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
+    step(s, w, sc_n, cf_n);
     for (int c = 0; k < cap; ++c) {
       wg::count_arrive(!ws::is_parked(s), cs);
       ws::Lane t = s;
       ws::WasteEE tw = w;
       int tsc = sc_n, tcf = cf_n;
-      ws::lane_classify_ee(t, tw);
-      ws::step<FAM, MODE>(t, eps32, tsc, tcf);
+      step(t, tw, tsc, tcf);
       if (wg::count_wait(cs) <= thresh) break;
       s = t;
       w = tw;
@@ -95,23 +110,34 @@ __global__ void __launch_bounds__(wg::kCountBlock)
   }
 
   // counters: steps, eval_active, masked_dead, parked with a root,
-  // theta_overwalk (0: no theta groups here), scout evals, confirm evals
+  // theta_overwalk (0 outside theta mode), scout evals, confirm evals
   // (the count warp adds zeros)
   int* out = static_cast<int*>(p[ws::P_EE_COUNTERS]);
-  const int vals[6] = {w.active, w.dead, w.parked_root, 0, sc_n, cf_n};
+  const int vals[6] = {w.active, w.dead, w.parked_root, w.over, sc_n, cf_n};
   wg::add_counters(vals, 6, out + 1);
   if (blockIdx.x == 0 && threadIdx.x == 0) out[0] = k;
 }
 
+// the variant of (family, mode, theta mode); Simpson has no theta mode
 struct Pick {
+  bool theta;
   template <int FAM, int MODE>
   const void* operator()() const {
-    return reinterpret_cast<const void*>(&walk_ee_kernel<FAM, MODE>);
+    if constexpr (MODE == ws::STEP_SIMPSON) {
+      if (theta) return nullptr;
+      return reinterpret_cast<const void*>(&walk_ee_kernel<FAM, MODE, false>);
+    } else {
+      return theta ? reinterpret_cast<const void*>(
+                         &walk_ee_kernel<FAM, MODE, true>)
+                   : reinterpret_cast<const void*>(
+                         &walk_ee_kernel<FAM, MODE, false>);
+    }
   }
 };
 
-const void* pick_kernel(int family, int mode) {
-  return ws::dispatch(family, mode, Pick{}, static_cast<const void*>(nullptr));
+const void* pick_kernel(int family, int mode, bool theta) {
+  return ws::dispatch(family, mode, Pick{theta},
+                      static_cast<const void*>(nullptr));
 }
 
 }  // namespace
@@ -119,25 +145,28 @@ const void* pick_kernel(int family, int mode) {
 extern "C" {
 
 // Blocks (kThreads lanes and the count warp) the current device holds at
-// once for this variant, or -1 on error (queried once per family, mode
-// and device).
-int walk_ee_max_coresident_blocks(int family, int mode) {
-  return wg::max_coresident_blocks(pick_kernel(family, mode),
+// once for this variant (`theta` nonzero: the theta-mode one), or -1 on
+// error (queried once per family, mode, theta mode and device).
+int walk_ee_max_coresident_blocks(int family, int mode, int theta) {
+  return wg::max_coresident_blocks(pick_kernel(family, mode, theta != 0),
                                    wg::kCountBlock);
 }
 
 // One cooperative launch on `stream`, whose device must be current.
 // `d_ptrs` is a device array of ws::N_EE_PTRS pointers; `mode` a
-// ws::STEP_*. Returns 0, a cudaError_t code, -2 for an unknown family or
-// mode, -3 when lanes is not a multiple of the block size, -4 when the
-// grid exceeds `max_blocks` (it is never shrunk), or -5 when lanes exceed
-// the packed count's fields (wg::packed_fits).
+// ws::STEP_*; `T` the theta block (1: no theta groups; else a power of
+// two dividing lanes). Returns 0, a cudaError_t code, -2 for an unknown
+// family or mode (or Simpson with T > 1), -3 when lanes is not a
+// multiple of the block size or T is not a power of two dividing lanes,
+// -4 when the grid exceeds `max_blocks` (it is never shrunk), or -5 when
+// lanes exceed the packed count's fields (wg::packed_fits).
 int walk_ee_launch(void* const* d_ptrs, int lanes, int family, int mode,
-                   float eps32, int thresh, int cap, int max_blocks,
+                   float eps32, int thresh, int cap, int T, int max_blocks,
                    void* stream) {
-  const void* fn = pick_kernel(family, mode);
+  if (T < 1 || (T & (T - 1)) != 0 || lanes % T != 0) return -3;
+  const void* fn = pick_kernel(family, mode, T > 1);
   if (fn == nullptr) return -2;
-  void* args[] = {(void*)&d_ptrs, &eps32, &thresh, &cap};
+  void* args[] = {(void*)&d_ptrs, &eps32, &thresh, &cap, &T};
   return wg::launch_cooperative(fn, lanes, max_blocks, args, stream,
                                 wg::kCountBlock);
 }

@@ -1,7 +1,8 @@
-// The grid-wide counts and K1's theta-group vote, shared by the
+// The grid-wide counts and the theta-group votes, shared by the
 // cooperative walk kernels: K1 (walk_rf.cu) counts in its lane threads
-// after each step (grid_count), K2 (walk_ee.cu) in a count warp beside
-// its lanes while they compute the next step (count_serve).
+// after each step (grid_count), K2 (walk_ee.cu) counts in a count warp
+// beside its lanes while they compute the next step (count_serve); both
+// vote among their lane threads with group_any.
 //
 // The packing and slot arithmetic at the top is plain C++ that the host
 // build (walk_host.cpp) runs too, so the CPU tests hold it; the device
@@ -264,57 +265,78 @@ __device__ __forceinline__ int count_serve(CountShared& cs, uint64_t* slots,
   return total;
 }
 
-// The union vote of theta groups: true in every thread whose group of T
-// adjacent lanes (lanes g*T .. g*T+T-1; T a power of two) holds a true
-// `vote`. Every thread of the grid must call it, with the same T and c.
+// The union vote of theta groups: true in every lane thread whose group
+// of T adjacent lanes (lanes g*T .. g*T+T-1; T a power of two) holds a
+// true `vote`. Every lane thread of the grid calls it once per vote c,
+// with the same T; K2's count warp never does, and joins none of its
+// barriers (it may be spinning on the count meanwhile), so the vote
+// syncs the kThreads lane threads alone (kBarLanes; in K1 those are the
+// whole block).
 //   T <= 32:       one warp ballot, masked to the group's T bits.
-//   T <= kThreads: ballots, one flag per warp in shared memory, one
-//                  __syncthreads(). The next write of the flags comes
-//                  after the caller's next block barrier (grid_count).
+//   T <= kThreads: ballots, one flag per warp in shared memory, then the
+//                  lanes' barrier. The flags alternate between two sets
+//                  by c's parity: a warp writes set c % 2 again only at
+//                  vote c + 2, after vote c + 1's barrier, which every
+//                  lane reaches only after it read vote c's flags (K2's
+//                  count_arrive does not wait, so nothing else orders
+//                  them).
 //   T > kThreads:  a group spans T / kThreads whole blocks, and only
-//                  those need each other's vote: a block OR, then thread 0
-//                  adds (1 arrival, the block's vote) into its group's
-//                  word of `slots` (see vote_word) in one relaxed atomic
-//                  and spins on that word until the group's blocks have
-//                  all arrived; no grid-wide barrier. (A grid.sync() here
-//                  cost +1.5 us a step at T = 256 over T = 128 on the
-//                  H100 80GB HBM3, 700 W.) The words are never cleared,
-//                  as grid_count's: a vote is the word minus its value
-//                  after the set's previous vote.
+//                  those need each other's vote: thread 0 ORs the
+//                  block's flags, adds (1 arrival, the block's vote) into
+//                  its group's word of `slots` (see vote_word) in one
+//                  relaxed atomic and spins on that word until the
+//                  group's blocks have all arrived; no grid-wide barrier.
+//                  (A grid.sync() here cost +1.5 us a step at T = 256
+//                  over T = 128 on the H100 80GB HBM3, 700 W.) A second
+//                  lanes' barrier hands its answer to the block; its next
+//                  write follows vote c + 1's first barrier, after every
+//                  lane read it. The words are never cleared, as
+//                  grid_count's: a vote is the word minus its value after
+//                  the set's previous vote.
+// The group's blocks wait only for each other; K2's count warp waits for
+// every block's arrival at the count of step c, which each block makes
+// before its vote of step c + 1, so the two never wait on each other in
+// a cycle.
+constexpr int kBarLanes = 3;
+
+struct VoteShared {
+  int warp_any[2][kWarps];
+  int group_vote;
+  uint32_t vbase[3];  // the group's words after their last vote
+};
+
 __device__ __forceinline__ bool group_any(bool vote, int T, uint32_t* slots,
-                                          int G, int c) {
+                                          int G, int c, VoteShared& vs) {
+  const unsigned b = __ballot_sync(0xffffffffu, vote);
   if (T <= 32) {
-    unsigned b = __ballot_sync(0xffffffffu, vote);
     if (T == 32) return b != 0u;
     int base = (threadIdx.x & 31) & ~(T - 1);
     return ((b >> base) & ((1u << T) - 1u)) != 0u;
   }
+  int* flags = vs.warp_any[c & 1];
+  if ((threadIdx.x & 31) == 0) flags[threadIdx.x >> 5] = b != 0u;
+  bar_sync(kBarLanes, kThreads);
   if (T <= kThreads) {
-    __shared__ int warp_any[kWarps];
-    unsigned b = __ballot_sync(0xffffffffu, vote);
-    if ((threadIdx.x & 31) == 0) warp_any[threadIdx.x >> 5] = b != 0u;
-    __syncthreads();
     int per_group = T >> 5;
     int w0 = (threadIdx.x >> 5) & ~(per_group - 1);
     int any = 0;
-    for (int j = 0; j < per_group; ++j) any |= warp_any[w0 + j];
+    for (int j = 0; j < per_group; ++j) any |= flags[w0 + j];
     return any != 0;
   }
-  __shared__ int group_vote;
-  __shared__ uint32_t vbase[3];  // the group's words after their last vote
-  int block_any = __syncthreads_or(vote);
   if (threadIdx.x == 0) {
+    int block_any = 0;
+    for (int j = 0; j < kWarps; ++j) block_any |= flags[j];
     const int s = c % 3;
-    const uint32_t b = c < 3 ? 0u : vbase[s];
+    const uint32_t base = c < 3 ? 0u : vs.vbase[s];
     uint32_t* slot = slots + vote_slot(vote_group(blockIdx.x, T), G, c);
     const uint32_t mine = vote_word(block_any != 0);
-    uint32_t w = atom_add_relaxed(slot, mine) + mine - b;
-    while (vote_arrivals(w) < vote_blocks(T)) w = ld_relaxed(slot) - b;
-    vbase[s] = w + b;
-    group_vote = vote_any(w);
+    uint32_t w = atom_add_relaxed(slot, mine) + mine - base;
+    while (vote_arrivals(w) < vote_blocks(T)) w = ld_relaxed(slot) - base;
+    vs.vbase[s] = w + base;
+    vs.group_vote = vote_any(w);
   }
-  __syncthreads();
-  return group_vote != 0;
+  bar_sync(kBarLanes, kThreads);
+  return vs.group_vote != 0;
 }
 
 // Block-wide sum of v over the block's warps (K2's count warp too),

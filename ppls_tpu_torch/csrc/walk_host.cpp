@@ -11,7 +11,8 @@
 //                  the kernel's own vote words, walk_grid.cuh), then
 //                  commits all lanes
 //   walk_ee_host   K2 (walk_ee.cu), the early-exit segment, in the
-//                  kernel's speculate-then-commit order
+//                  kernel's speculate-then-commit order; with T > 1 its
+//                  theta groups vote as K1's do
 //   walk_seg_host  K3 (walk_seg.cu), the fixed-length segment
 // The counts between steps go through the kernels' packed count
 // (walk_grid.cuh): one word per block, summed. The wg_* entries expose
@@ -80,6 +81,21 @@ bool group_vote(const std::vector<char>& vote, int lanes, int T, int c,
   return true;
 }
 
+// Every lane's answer to its group's union vote: the OR of the votes of
+// its T adjacent lanes, through the kernels' vote words (group_vote) for
+// T > kThreads. Returns false if a word did not gain its arrivals.
+bool theta_vote(const std::vector<char>& vote, int lanes, int T, int c,
+                std::vector<uint32_t>& slots, std::vector<uint32_t>& base,
+                std::vector<char>& any) {
+  if (T > wg::kThreads) return group_vote(vote, lanes, T, c, slots, base, any);
+  for (int g = 0; g < lanes / T; ++g) {
+    char a = 0;
+    for (int t = 0; t < T; ++t) a |= vote[g * T + t];
+    for (int t = 0; t < T; ++t) any[g * T + t] = a;
+  }
+  return true;
+}
+
 template <int FAM, int MODE, bool THETA>
 int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
        int batch, int T) {
@@ -121,16 +137,8 @@ int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
     }
     if constexpr (THETA) {
       for (int lane = 0; lane < lanes; ++lane) vote[lane] = evals[lane].vote;
-      if (T > wg::kThreads) {
-        if (!group_vote(vote, lanes, T, k, vote_slots, vote_base, any))
-          return -6;
-      } else {
-        for (int g = 0; g < lanes / T; ++g) {
-          char a = 0;
-          for (int t = 0; t < T; ++t) a |= vote[g * T + t];
-          for (int t = 0; t < T; ++t) any[g * T + t] = a;
-        }
-      }
+      if (!theta_vote(vote, lanes, T, k, vote_slots, vote_base, any))
+        return -6;
       for (int lane = 0; lane < lanes; ++lane) {
         ws::commit<MODE, true>(held[lane], evals[lane], any[lane] != 0);
         ws::store_lane(p, lane, held[lane]);
@@ -153,28 +161,50 @@ int rf(void* const* p, int lanes, int R, float eps32, int thresh, int cap,
 // K2's order (walk_ee.cu): the first step; then, while k < cap, the
 // count of the state after step k, step k + 1 on copies of every lane
 // and of the counters, and the copies kept only when the count exceeds
-// thresh. The state after step k stays in `p` until a step is kept.
-template <int FAM, int MODE>
-int ee(void* const* p, int lanes, float eps32, int thresh, int cap) {
-  ws::WasteEE w = {0, 0, 0};
+// thresh. The state after step k stays in `p` until a step is kept. In
+// theta mode (T > 1) a step evaluates every lane, takes each group's
+// vote (one vote per computed step, as the kernel's lanes cast them,
+// dropped steps included), then commits every lane.
+template <int FAM, int MODE, bool THETA>
+int ee(void* const* p, int lanes, float eps32, int thresh, int cap, int T) {
+  ws::WasteEE w = {0, 0, 0, 0};
   int sc_n = 0, cf_n = 0;
   std::vector<ws::Lane> next(lanes);
-  for (int lane = 0; lane < lanes; ++lane) {
-    ws::Lane s = ws::load_lane(p, lane);
-    ws::lane_classify_ee(s, w);
-    ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);
-    ws::store_lane(p, lane, s);
-  }
+  std::vector<ws::Eval> evals(THETA ? lanes : 0);
+  std::vector<char> vote(THETA ? lanes : 0), any(THETA ? lanes : 0);
+  std::vector<uint32_t> vote_slots(THETA ? 3 * (lanes / T) : 0, 0u);
+  std::vector<uint32_t> vote_base(vote_slots.size(), 0u);
+  int v = 0;
+  // one step of every lane of `next`, counted into tw, tsc and tcf
+  auto step_all = [&](ws::WasteEE& tw, int& tsc, int& tcf) {
+    for (int lane = 0; lane < lanes; ++lane) {
+      ws::lane_classify_ee<THETA>(next[lane], tw);
+      if constexpr (THETA)
+        evals[lane] = ws::evaluate<FAM, MODE, true>(next[lane], eps32, tsc,
+                                                    tcf);
+      else
+        ws::step<FAM, MODE>(next[lane], eps32, tsc, tcf);
+    }
+    if constexpr (THETA) {
+      for (int lane = 0; lane < lanes; ++lane) vote[lane] = evals[lane].vote;
+      if (!theta_vote(vote, lanes, T, v++, vote_slots, vote_base, any))
+        return false;
+      for (int lane = 0; lane < lanes; ++lane)
+        ws::commit<MODE, true>(next[lane], evals[lane], any[lane] != 0);
+    }
+    return true;
+  };
+  for (int lane = 0; lane < lanes; ++lane) next[lane] = ws::load_lane(p, lane);
+  if (!step_all(w, sc_n, cf_n)) return -6;
+  for (int lane = 0; lane < lanes; ++lane) ws::store_lane(p, lane, next[lane]);
   int k = 1, live, nref;
   while (k < cap) {
     if (!packed_counts(p, lanes, nullptr, nullptr, live, nref)) return -6;
     ws::WasteEE tw = w;
     int tsc = sc_n, tcf = cf_n;
-    for (int lane = 0; lane < lanes; ++lane) {
+    for (int lane = 0; lane < lanes; ++lane)
       next[lane] = ws::load_lane(p, lane);
-      ws::lane_classify_ee(next[lane], tw);
-      ws::step<FAM, MODE>(next[lane], eps32, tsc, tcf);
-    }
+    if (!step_all(tw, tsc, tcf)) return -6;
     if (live <= thresh) break;
     for (int lane = 0; lane < lanes; ++lane)
       ws::store_lane(p, lane, next[lane]);
@@ -188,7 +218,7 @@ int ee(void* const* p, int lanes, float eps32, int thresh, int cap) {
   out[1] = w.active;
   out[2] = w.dead;
   out[3] = w.parked_root;
-  out[4] = 0;
+  out[4] = w.over;
   out[5] = sc_n;
   out[6] = cf_n;
   return 0;
@@ -208,9 +238,9 @@ int seg(void* const* p, int lanes, float eps32, int iters) {
 }  // namespace
 
 // Each entry returns 0, or -2 for an unknown family or mode (or Simpson
-// with T > 1); walk_rf_host returns -3 when T is not a power of two
-// dividing lanes; walk_rf_host and walk_ee_host return -6 if a packed
-// count or a vote word did not hold its arrivals.
+// with T > 1); walk_rf_host and walk_ee_host return -3 when T is
+// not a power of two dividing lanes; walk_rf_host and the walk_ee entries
+// return -6 if a packed count or a vote word did not hold its arrivals.
 extern "C" {
 
 // the packed count's layout: {kArrivalBits, kCountBits, kMaxBlocks,
@@ -343,9 +373,16 @@ int walk_rf_host(void* const* p, int lanes, int R, int family, int mode,
 }
 
 int walk_ee_host(void* const* p, int lanes, int family, int mode,
-                 float eps32, int thresh, int cap) {
+                 float eps32, int thresh, int cap, int T) {
+  if (T < 1 || (T & (T - 1)) != 0 || lanes % T != 0) return -3;
   return ws::dispatch(family, mode, [&]<int FAM, int MODE>() {
-    return ee<FAM, MODE>(p, lanes, eps32, thresh, cap);
+    if constexpr (MODE == ws::STEP_SIMPSON) {
+      if (T > 1) return -2;
+      return ee<FAM, MODE, false>(p, lanes, eps32, thresh, cap, 1);
+    } else {
+      if (T > 1) return ee<FAM, MODE, true>(p, lanes, eps32, thresh, cap, T);
+      return ee<FAM, MODE, false>(p, lanes, eps32, thresh, cap, 1);
+    }
   }, -2);
 }
 

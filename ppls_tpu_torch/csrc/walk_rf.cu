@@ -14,10 +14,11 @@
 // of T adjacent lanes walk one node sequence, each lane with its own
 // theta. Each step is split in two (walk_step.cuh): every lane evaluates
 // its node and votes, the vote is OR-reduced over its group
-// (wg::group_any: a warp ballot up to T = 32, shared memory up to the
-// block, beyond that a word per group that only the group's blocks wait
-// on), and every lane commits the group's decision. Retired lanes' live
-// steps are counted as theta_overwalk.
+// (wg::group_any: a warp ballot up to T = 32, per-warp flags and a
+// named barrier up to the block, beyond that a word per group that only
+// the group's blocks wait on; K2 votes through it too), and every lane
+// commits the group's decision. Retired lanes' live steps are counted as
+// theta_overwalk.
 //
 // Design. One thread owns one lane; the lane state lives in registers
 // for the whole launch and the state tensors are updated in place. Root
@@ -74,6 +75,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = blockIdx.x * kThreads + threadIdx.x;
   uint64_t* sync = static_cast<uint64_t*>(p[ws::P_SYNC]);
   uint32_t* votes = static_cast<uint32_t*>(p[ws::P_VOTE]);
+  __shared__ wg::VoteShared vs;
 
   ws::Lane s = ws::load_lane(p, lane);
   int slot = static_cast<int*>(p[ws::P_SLOT])[lane];
@@ -96,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
     ws::lane_classify<THETA>(s, slot, nslots, w);
     if constexpr (THETA) {
       ws::Eval e = ws::evaluate<FAM, MODE, true>(s, eps32, sc_n, cf_n);
-      bool any = wg::group_any(e.vote, T, votes, lanes / T, k);
+      bool any = wg::group_any(e.vote, T, votes, lanes / T, k, vs);
       ws::commit<MODE, true>(s, e, any);
     } else {
       ws::step<FAM, MODE>(s, eps32, sc_n, cf_n);

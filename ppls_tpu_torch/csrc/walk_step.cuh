@@ -76,12 +76,14 @@ constexpr int P_VOTE = 42;            // uint32[3 * lanes / T], zeroed: the
 constexpr int N_PTRS = 43;
 // pointer table of one K2 launch (walker.py run_segment_ee): the state,
 // then int32[7] counters (steps, eval_active, masked_dead,
-// parked_with_root, theta_overwalk, scout evals, confirm evals) and a
-// uint64[3] zeroed packed-count buffer. K3 takes the 26 state pointers
-// only.
+// parked_with_root, theta_overwalk, scout evals, confirm evals), a
+// uint64[3] zeroed packed-count buffer and the uint32[3 * lanes / T]
+// zeroed vote words of theta groups beyond one block (read only when
+// T > 128). K3 takes the 26 state pointers only.
 constexpr int P_EE_COUNTERS = 26;
 constexpr int P_EE_SYNC = 27;
-constexpr int N_EE_PTRS = 28;
+constexpr int P_EE_VOTE = 28;
+constexpr int N_EE_PTRS = 29;
 
 // --- float32 constants (exact values of the Python modules' constants) ------
 constexpr float K_SPLIT = 4097.0f;
@@ -844,15 +846,20 @@ WS_HD void lane_classify(const Lane& s, int slot, int nslots, Waste& w) {
 
 // K2's per-lane waste classification: live -> eval_active, no root ->
 // masked_dead, otherwise parked with a root (the host splits that bucket
-// into refill_stall or drain_tail by the queue at launch)
+// into refill_stall or drain_tail by the queue at launch); in theta mode
+// a live but retired lane's step is theta_overwalk, not eval_active
+// (walker.py kernel_ee's over_n)
 struct WasteEE {
-  int active, dead, parked_root;
+  int active, dead, parked_root, over;
 };
 
+template <bool THETA = false>
 WS_HD void lane_classify_ee(const Lane& s, WasteEE& w) {
   int live = !is_parked(s);
   int dead = (s.flags & NO_ROOT) != 0;
-  w.active += live;
+  int over = THETA && live && theta_retired(s);
+  w.active += live - over;
+  w.over += over;
   w.dead += dead;
   w.parked_root += 1 - live - dead;
 }

@@ -338,6 +338,25 @@ def integrate_family(f_theta: Callable, theta: Sequence[float],
         host_syncs=syncs.n)
 
 
+def integrate_bag(config, **kw) -> FamilyResult:
+    """One integral of a :class:`~ppls_tpu_torch.config.QuadConfig`
+    through the bag engine: its integrand over [a, b] at its eps, rule
+    and capacity, as a family of one (theta unused). ``kw`` reaches
+    :func:`integrate_family` (``chunk``, ``device``: CUDA by default)."""
+    from ppls_tpu_torch.models.integrands import get_integrand
+    entry = get_integrand(config.integrand)
+    f_theta = _UNPARAMETERIZED_CACHE.setdefault(
+        entry.fn, lambda x, _th, _f=entry.fn: _f(x))
+    return integrate_family(
+        f_theta, [0.0], (config.a, config.b), config.eps,
+        rule=Rule(config.rule), capacity=int(config.capacity), **kw)
+
+
+# one theta-ignoring wrapper per integrand, so repeated calls pass the
+# same callable
+_UNPARAMETERIZED_CACHE: dict = {}
+
+
 def resume_family(path: str, f_theta: Callable, theta: Sequence[float],
                   bounds, eps: float,
                   rule: Rule = Rule.TRAPEZOID,

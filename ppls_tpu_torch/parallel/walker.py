@@ -784,34 +784,43 @@ def _live_count(s: WalkState) -> torch.Tensor:
 
 def segment_ee_plain(state: WalkState, thresh: int, cap: int, *,
                      f_ds: Callable, eps: float, scout: bool,
-                     rule: Rule = Rule.TRAPEZOID) -> torch.Tensor:
+                     rule: Rule = Rule.TRAPEZOID,
+                     theta_block: int = 1) -> torch.Tensor:
     """K2 in plain PyTorch: steps while ``k == 0 or (k < cap and live >
     thresh)``, ``live`` the unparked lanes after each step. Before each
     step every lane-step is counted as live (eval_active), rootless
-    (masked_dead) or parked with a root. ``state`` is updated in place.
-    Returns the int32 (7,) counters [steps, eval_active, masked_dead,
-    parked_with_root, theta_overwalk (0), scout evals, confirm evals]."""
+    (masked_dead) or parked with a root. With ``theta_block`` = T > 1
+    the steps vote in groups of T lanes, and a live but retired lane's
+    step counts as theta_overwalk instead of eval_active (the
+    reference's ``kernel_ee`` theta branch). ``state`` is updated in
+    place. Returns the int32 (7,) counters [steps, eval_active,
+    masked_dead, parked_with_root, theta_overwalk, scout evals, confirm
+    evals]."""
     mode = step_mode(rule, scout)
     lanes = state.a_h.shape[0]
     eps32 = f32(eps)
+    T = int(theta_block)
     zero = torch.zeros((), dtype=torch.int32, device=state.i.device)
-    wa = wd = wr = se = ce = zero
+    wa = wd = wr = wo = se = ce = zero
     st = state
     k, live = 0, int(_live_count(st))
     while k == 0 or (k < cap and live > thresh):
         live_n = _live_count(st)
         dead_n = dsk.mask_count((st.flags & _NO_ROOT) != 0)
-        wa = wa + live_n
+        over_n = (dsk.mask_count(((st.flags & _PARKED) == 0)
+                                 & _theta_retired(st)) if T > 1 else zero)
+        wa = wa + live_n - over_n
         wd = wd + dead_n
         wr = wr + (lanes - live_n - dead_n)
-        st, sc_n, cf_n = _step(st, f_ds, eps32, mode)
+        wo = wo + over_n
+        st, sc_n, cf_n = _step(st, f_ds, eps32, mode, T)
         se = se + sc_n
         ce = ce + cf_n
         live = int(_live_count(st))
         k += 1
     for dst, src in zip(state, st):
         dst.copy_(src)
-    return torch.stack([torch.full_like(zero, k), wa, wd, wr, zero, se,
+    return torch.stack([torch.full_like(zero, k), wa, wd, wr, wo, se,
                         ce]).to(torch.int32)
 
 
@@ -883,8 +892,7 @@ def _device_index(device: torch.device) -> int:
 def _max_blocks(kernel: str, index: int, *variant: int) -> int:
     """Blocks of the cooperative ``kernel`` ("walk_rf" or "walk_ee")
     that card ``index`` holds at once (queried once per variant and card,
-    with that card current). ``variant`` is (family, mode), plus the
-    theta flag for K1."""
+    with that card current). ``variant`` is (family, mode, theta flag)."""
     from ppls_tpu_torch.utils import cuda_build
     lib = getattr(cuda_build, f"load_{kernel}")().lib
     with torch.cuda.device(index):
@@ -1021,35 +1029,52 @@ run_segment_rf.launches = 0
 
 def run_segment_ee(state: WalkState, thresh: int, cap: int, *,
                    f_ds: Callable, eps: float, scout: bool,
-                   rule: Rule = Rule.TRAPEZOID):
+                   rule: Rule = Rule.TRAPEZOID, theta_block: int = 1):
     """One K2 segment launch, the reference's ``run_segment_ee``. On a
     CUDA tensor this launches the hand-written kernel
-    (``csrc/walk_ee.cu``, built at first use) on the current stream, or
-    raises; on a CPU tensor it runs :func:`segment_ee_plain`. ``state``
-    is updated IN PLACE. Returns ``(state, steps, (wa, wd, wr, wo), (se,
-    ce))`` as the reference does, the counts as views of one int32
-    device tensor: steps, then eval_active, masked_dead,
-    parked-with-root and theta_overwalk lane-steps, then scout and
-    confirm evals.
+    (``csrc/walk_ee.cu``, built at first use; its theta variant when
+    ``theta_block`` > 1) on the current stream, or raises; on a CPU
+    tensor it runs :func:`segment_ee_plain`. ``state`` is updated IN
+    PLACE. Returns ``(state, steps, (wa, wd, wr, wo), (se, ce))`` as the
+    reference does, the counts as views of one int32 device tensor:
+    steps, then eval_active, masked_dead, parked-with-root and
+    theta_overwalk lane-steps, then scout and confirm evals.
+
+    No entry point walks K2 with ``theta_block`` > 1: the reference
+    builds that kernel (``make_walk_kernel(early_exit=True,
+    theta_block=T)``) on no path, and ``validate_theta_block`` refuses
+    ``refill_slots=0``. Here T must be a power of two dividing the lanes,
+    with the trapezoid rule.
 
     ``run_segment_ee.launches`` counts kernel launches."""
     device = state.a_h.device
+    T = int(theta_block)
+    lanes = state.a_h.shape[0]
+    if T < 1 or T & (T - 1) or lanes % T:
+        raise ValueError(f"theta_block must be a power of two dividing "
+                         f"lanes={lanes}, got {T}")
+    if T > 1 and Rule(rule) != Rule.TRAPEZOID:
+        raise ValueError("theta_block > 1 supports Rule.TRAPEZOID only")
     if _cpu_or_cuda("K2", device):
         ctr = segment_ee_plain(state, thresh, cap, f_ds=f_ds, eps=eps,
-                               scout=scout, rule=rule)
+                               scout=scout, rule=rule, theta_block=T)
         return state, ctr[0], ctr[1:5], ctr[5:7]
-    _check_packed_limits("K2", state.a_h.shape[0])
+    _check_packed_limits("K2", lanes)
     family, mode = _kernel_family(f_ds), step_mode(rule, scout)
     lanes = _check_operands("K2", state, device)
     from ppls_tpu_torch.utils.cuda_build import load_walk_ee
     lib = load_walk_ee().lib
     ctr = torch.zeros(7, dtype=torch.int32, device=device)
     sync = torch.zeros(3, dtype=torch.int64, device=device)
-    ptrs = _pointer_table((*state, ctr, sync), device)
-    max_blocks = _max_blocks("walk_ee", _device_index(device), family, mode)
+    # the theta groups' vote words; the T = 1 variants never read them
+    votes = (torch.zeros(3 * (lanes // T), dtype=torch.int32, device=device)
+             if T > 1 else sync)
+    ptrs = _pointer_table((*state, ctr, sync, votes), device)
+    max_blocks = _max_blocks("walk_ee", _device_index(device), family, mode,
+                             int(T > 1))
     _launch("K2", device, lambda stream: lib.walk_ee_launch(
         ptrs.data_ptr(), lanes, family, mode, f32(eps), int(thresh),
-        int(cap), max_blocks, stream))
+        int(cap), T, max_blocks, stream))
     run_segment_ee.launches += 1
     return state, ctr[0], ctr[1:5], ctr[5:7]
 

@@ -5,7 +5,8 @@ It restarts the same K3 segment ``outer`` times (each restart resets the
 lanes' DFS position and endpoint caches to the start state) and times
 the whole run with CUDA events. ``kernel_ceiling_slope`` times two
 restart counts and takes the slope, so every constant cost (launch
-latency, the first launch's warm-up) cancels:
+latency, the first launch's warm-up) cancels (``dd_kernel_ceiling_slope``
+takes it at the dd walker's 2^12 lanes a rank):
 
     rate = (steps_hi - steps_lo) / (time_hi - time_lo)
 
@@ -123,6 +124,14 @@ def kernel_ceiling_slope(lanes: int = 1 << 14, seg_iters: int = 256,
             "launches": 2 + outer_lo + outer_hi, "device": lo["device"],
             "single_run_lo": lo["lane_steps_per_sec"],
             "single_run_hi": hi["lane_steps_per_sec"]}
+
+
+def dd_kernel_ceiling_slope(lanes: int = 1 << 12, **kw) -> dict:
+    """The slope at the demand-driven walker's lane count per rank (2^12,
+    where the single-card flagship runs 2^14): a dd leg's headroom split
+    rates against the lane count it runs (the reference's
+    ``dd_kernel_ceiling_slope``)."""
+    return kernel_ceiling_slope(lanes=lanes, **kw)
 
 
 if __name__ == "__main__":

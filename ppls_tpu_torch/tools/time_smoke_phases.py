@@ -1,13 +1,16 @@
-"""Time phases 21 (the walker-dd stream) and 22 (the pool dispatcher) of
-the ``chip_smoke.py`` of one checkout, alone, on the card:
+"""Time phases of the ``chip_smoke.py`` of one checkout, alone, on the
+card: 21 (the walker-dd stream), 22 (the pool dispatcher) and, where
+the checkout has it, 24 (the diagnosis tools):
 
-    python3 ppls_tpu_torch/tools/time_smoke_phases.py ROOT
+    python3 ppls_tpu_torch/tools/time_smoke_phases.py ROOT [PHASE ...]
 
 It imports ROOT's ``chip_smoke.py`` and package, builds ROOT's kernels,
-runs the two phases as ``chip_smoke.main`` does (phase 22's comparator
-stubbed: its single-engine wall only scales a printed ratio), and prints
-one line ``P2122 {json}``: per phase its seconds and the mesh worlds it
-built (those that spawned ranks, and those of one rank). To compare two
+runs the phases (21 and 22 by default) as ``chip_smoke.main`` does
+(phase 22's comparator stubbed: its single-engine wall only scales a
+printed ratio; phase 24's comparators, phases 4 and 6's walks and phase
+14a's serve command, run before its clock starts), and prints one line
+``P2122 {json}``: per phase its seconds and the mesh worlds it built
+(those that spawned ranks, and those of one rank). To compare two
 checkouts on one card, run it once per root in one call, in the order
 parent, change, change, parent (PERF.md). Needs an NVIDIA GPU."""
 import json
@@ -40,12 +43,23 @@ def main():
         init(w, n, *a, **k)
     MESH.World.__init__ = counting
     res = {"root": os.path.basename(root)}
-    phases = (("21", lambda d: C.phase_dd_stream(W, TS, d, out_dir, ops)),
-              ("22", lambda d: C.phase_dispatch(
-                  W, TS, d, out_dir, ops, {"ds_walk": {"wall_s": 1.0}})))
-    for ph, fn in phases:
+    phases = {"21": lambda d: C.phase_dd_stream(W, TS, d, out_dir, ops),
+              "22": lambda d: C.phase_dispatch(
+                  W, TS, d, out_dir, ops, {"ds_walk": {"wall_s": 1.0}})}
+    if hasattr(C, "phase_tools"):
+        phases["24"] = lambda d: C.phase_tools(W, TS, d, out_dir, *tools_in)
+    chosen = sys.argv[2:] or ["21", "22"]
+    for ph in chosen:
+        fn = phases[ph]
         before = dict(counts)
         d = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=root)
+        if ph == "24":
+            import numpy as np
+            from ppls_tpu_torch.models.integrands import get_family
+            f = "sin_recip_scaled"
+            tools_in = (C.tools_base(W, get_family(f), get_family_ds(f),
+                                     1.0 + np.arange(C.M) / C.M),
+                        C.tools_serve_artifacts(W, TS, d))
         t0 = time.perf_counter()
         try:
             fn(d)

@@ -10,8 +10,13 @@ kinds, required keys, per-segment monotonic timestamps, span-nesting
 balance), :func:`validate_serve_output_text` the retire/shed/rejection
 records and the summary's accounting, and :func:`dedup_by_rid` collapses
 the lines a resume replays; :func:`validate_tuning_table_json` checks a
-tuning table (``tools/tune_table.py``'s output). The bench-record and
-graftlint validators stay in the reference.
+tuning table (``tools/tune_table.py``'s output). The bench-record
+envelope (:func:`validate_record`, :func:`validate_artifact_text`: the
+``BENCH_r*.json`` / ``MULTICHIP_r*.json`` artifacts and bench stdout) and
+the graftlint JSON ledger (:func:`validate_graftlint_json`,
+:func:`validate_graftlint_text`) are checked here too, with the JAX
+package's error texts, so ``ppls_tpu_torch/tools/check_artifacts.py``
+reads every document type the reference's checker reads.
 """
 
 from __future__ import annotations
@@ -21,9 +26,102 @@ import math
 from typing import List
 
 
+class ArtifactSchemaError(ValueError):
+    """A bench/multichip record violates the artifact envelope."""
+
+
 def _is_finite_number(v) -> bool:
     return isinstance(v, (int, float)) and not isinstance(v, bool) \
         and math.isfinite(v)
+
+
+def validate_record(rec: dict, *, where: str = "record",
+                    require_vs_baseline: bool = True) -> dict:
+    """Validate one bench record envelope; returns ``rec`` unchanged so
+    call sites can wrap their final ``print(json.dumps(...))``.
+    Raises :class:`ArtifactSchemaError` with the offending field."""
+    if not isinstance(rec, dict):
+        raise ArtifactSchemaError(f"{where}: not a JSON object")
+    if "error" in rec and not isinstance(rec.get("error"), str):
+        raise ArtifactSchemaError(f"{where}: 'error' must be a string")
+    if not isinstance(rec.get("metric"), str) or not rec["metric"]:
+        raise ArtifactSchemaError(f"{where}: missing/empty 'metric'")
+    if not _is_finite_number(rec.get("value")):
+        raise ArtifactSchemaError(
+            f"{where}: 'value' must be a finite number, got "
+            f"{rec.get('value')!r}")
+    if not isinstance(rec.get("unit"), str) or not rec["unit"]:
+        raise ArtifactSchemaError(f"{where}: missing/empty 'unit'")
+    if require_vs_baseline and "error" not in rec \
+            and not _is_finite_number(rec.get("vs_baseline")):
+        raise ArtifactSchemaError(
+            f"{where}: 'vs_baseline' must be a finite number, got "
+            f"{rec.get('vs_baseline')!r}")
+    sec = rec.get("secondary")
+    if sec is not None:
+        if not isinstance(sec, dict):
+            raise ArtifactSchemaError(f"{where}: 'secondary' must be "
+                                      f"an object")
+        for name, sub in sec.items():
+            if not isinstance(sub, dict):
+                raise ArtifactSchemaError(
+                    f"{where}.secondary.{name}: not an object")
+            if "error" in sub or "skipped" in sub:
+                continue
+            # secondaries carry heterogeneous payloads (some are
+            # records, some comparison blocks): require the metric
+            # label, and check 'value' finiteness only when present —
+            # a NaN/None value is the silent-poison case
+            if not isinstance(sub.get("metric"), str) \
+                    or not sub["metric"]:
+                raise ArtifactSchemaError(
+                    f"{where}.secondary.{name}: missing/empty 'metric'")
+            if "value" in sub and not _is_finite_number(sub["value"]):
+                raise ArtifactSchemaError(
+                    f"{where}.secondary.{name}: 'value' must be a "
+                    f"finite number, got {sub.get('value')!r}")
+    return rec
+
+
+def validate_artifact_text(text: str, *, where: str = "artifact",
+                           require_records: bool = True) -> List[str]:
+    """Validate every bench record found in an artifact's text.
+
+    Two shapes are handled: a round's WRAPPER object (one
+    pretty-printed JSON object whose ``tail`` string holds the bench's
+    stdout/stderr tail — the records are JSON lines inside it), and a
+    raw line stream (bench stdout piped directly). Only lines parsing
+    as objects with a ``metric`` key are treated as bench records.
+    Returns a list of problem strings (empty = clean);
+    ``require_records`` flags an artifact with no records at all (the
+    silent-drop outcome) — disable it for artifacts that legitimately
+    carry none (e.g. the multichip dryrun log).
+    """
+    try:
+        wrapper = json.loads(text)
+    except json.JSONDecodeError:
+        wrapper = None
+    problems: List[str] = []
+    found = 0
+    if isinstance(wrapper, dict):
+        if "metric" in wrapper:
+            found += 1
+            try:
+                validate_record(wrapper, where=where)
+            except ArtifactSchemaError as e:
+                problems.append(str(e))
+        tail = wrapper.get("tail")
+        if isinstance(tail, str):
+            sub, sub_found = _scan_lines(tail, f"{where}:tail")
+            problems += sub
+            found += sub_found
+    else:
+        sub, sub_found = _scan_lines(text, where)
+        problems += sub
+        found += sub_found
+    if require_records and not found:
+        problems.append(f"{where}: no bench records found")
+    return problems
 
 
 EVENT_KINDS = ("meta", "span_open", "span_close", "event")
@@ -291,6 +389,34 @@ def validate_serve_output_text(text: str, *, where: str = "serve"
     return problems
 
 
+def _scan_lines(text: str, where: str):
+    """Scan a raw log/stdout stream for bench-record JSON lines;
+    returns (problems, records_found)."""
+    problems: List[str] = []
+    found = 0
+    for i, line in enumerate(text.splitlines(), 1):
+        line = line.strip()
+        if not line.startswith("{"):
+            continue
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError:
+            if '"metric"' in line:
+                # a truncated/garbled bench record is exactly the
+                # silent-drop failure mode this check exists for
+                problems.append(f"{where}:{i}: unparseable bench "
+                                f"record line")
+            continue
+        if not isinstance(obj, dict) or "metric" not in obj:
+            continue                 # some other JSON block (e.g. logs)
+        found += 1
+        try:
+            validate_record(obj, where=f"{where}:{i}")
+        except ArtifactSchemaError as e:
+            problems.append(str(e))
+    return problems, found
+
+
 def dedup_replayed(records: List[dict], key_fn) -> List[dict]:
     """Collapse replayed duplicates out of an events stream: after a
     kill-and-resume, the replayed turns re-emit their events with
@@ -320,6 +446,98 @@ def dedup_by_rid(records: List[dict]) -> List[dict]:
     """Replay dedup keyed on the request id — the common case: one
     retire/shed event per rid survives, replays collapse."""
     return dedup_replayed(records, lambda r: r.get("rid"))
+
+
+def validate_graftlint_json(doc, where: str = "graftlint") -> List[str]:
+    """Validate a ``python -m tools.graftlint --format json`` document:
+    the machine-readable lint ledger ci.sh feeds to annotation tooling.
+    One record per violation with the full line-free key, counts that
+    reconcile with the record list, and an ``ok`` flag consistent with
+    the new-violation count — a malformed or self-inconsistent ledger
+    must fail CI loudly, exactly like a malformed bench record."""
+    import re
+    problems: List[str] = []
+    if not isinstance(doc, dict):
+        return [f"{where}: document is not a JSON object"]
+    if doc.get("schema") != "graftlint-v1":
+        problems.append(f"{where}: schema != 'graftlint-v1' "
+                        f"({doc.get('schema')!r})")
+    if not isinstance(doc.get("target"), str) or not doc.get("target"):
+        problems.append(f"{where}: missing/empty 'target'")
+    if not isinstance(doc.get("deep"), bool):
+        problems.append(f"{where}: 'deep' must be a bool")
+    # "runtime" arrived with the GL12-GL14 tier; older ledgers
+    # legitimately lack it, but a present field must be a bool
+    if "runtime" in doc and not isinstance(doc["runtime"], bool):
+        problems.append(f"{where}: 'runtime' must be a bool")
+    vs = doc.get("violations")
+    if not isinstance(vs, list):
+        return problems + [f"{where}: 'violations' must be a list"]
+    code_re = re.compile(r"^GL\d{2}$")
+    n_new = n_known = 0
+    for i, v in enumerate(vs):
+        w = f"{where}: violations[{i}]"
+        if not isinstance(v, dict):
+            problems.append(f"{w}: not an object")
+            continue
+        for k, t in (("key", str), ("code", str), ("path", str),
+                     ("symbol", str), ("message", str), ("line", int),
+                     ("grandfathered", bool)):
+            if not isinstance(v.get(k), t) or (t is str and not v[k]):
+                problems.append(f"{w}: missing/invalid {k!r}")
+        code = v.get("code")
+        if isinstance(code, str) and not code_re.match(code):
+            problems.append(f"{w}: code {code!r} is not GLxx")
+        # "tier" is optional (newer ledgers carry it) but a
+        # present value must be a known tier name
+        if "tier" in v and v["tier"] not in ("ast", "deep", "runtime"):
+            problems.append(f"{w}: tier {v.get('tier')!r} is not one "
+                            f"of ast/deep/runtime")
+        key = v.get("key")
+        if isinstance(key, str) and isinstance(code, str) \
+                and isinstance(v.get("path"), str) \
+                and isinstance(v.get("symbol"), str) \
+                and key != f"{code}:{v['path']}:{v['symbol']}":
+            problems.append(f"{w}: key {key!r} != code:path:symbol")
+        if v.get("grandfathered") is True:
+            n_known += 1
+            if not isinstance(v.get("reason"), str):
+                problems.append(f"{w}: grandfathered record lacks a "
+                                f"'reason'")
+        elif v.get("grandfathered") is False:
+            n_new += 1
+    stale = doc.get("stale")
+    if not isinstance(stale, list) \
+            or not all(isinstance(s, str) for s in stale):
+        problems.append(f"{where}: 'stale' must be a list of keys")
+    counts = doc.get("counts")
+    if not isinstance(counts, dict):
+        problems.append(f"{where}: missing 'counts'")
+    else:
+        expect = {"total": n_new + n_known, "new": n_new,
+                  "grandfathered": n_known,
+                  "stale": len(stale) if isinstance(stale, list)
+                  else counts.get("stale")}
+        for k, e in expect.items():
+            if counts.get(k) != e:
+                problems.append(
+                    f"{where}: counts.{k}={counts.get(k)!r} does not "
+                    f"reconcile with the record list ({e})")
+    if isinstance(doc.get("ok"), bool) and doc["ok"] != (n_new == 0):
+        problems.append(f"{where}: ok={doc['ok']} but {n_new} new "
+                        f"violation record(s)")
+    elif not isinstance(doc.get("ok"), bool):
+        problems.append(f"{where}: 'ok' must be a bool")
+    return problems
+
+
+def validate_graftlint_text(text: str,
+                            where: str = "graftlint") -> List[str]:
+    try:
+        doc = json.loads(text)
+    except json.JSONDecodeError as e:
+        return [f"{where}: unparseable JSON: {e}"]
+    return validate_graftlint_json(doc, where=where)
 
 
 def validate_tuning_table_json(doc, where: str = "tuning") -> List[str]:

@@ -155,8 +155,9 @@ def load_walk_rf() -> BuiltLib:
 def load_walk_ee() -> BuiltLib:
     """Build (at first use) and load K2, the early-exit segment."""
     built = _load_nvcc("walk_ee")
-    _sig(built.lib.walk_ee_launch, [_P, _I, _I, _I, _F, _I, _I, _I, _P])
-    _sig(built.lib.walk_ee_max_coresident_blocks, [_I, _I])
+    _sig(built.lib.walk_ee_launch,
+         [_P, _I, _I, _I, _F, _I, _I, _I, _I, _P])
+    _sig(built.lib.walk_ee_max_coresident_blocks, [_I, _I, _I])
     return built
 
 
@@ -180,8 +181,9 @@ def load_all_kernels() -> dict:
 
 def build_walk_host(out_root: Path) -> BuiltLib:
     """Build the host (g++) twin of the walk kernels' step machine into
-    ``out_root`` and load it: ``walk_rf_host``, ``walk_ee_host`` and
-    ``walk_seg_host``, and the packed-count, vote and integrand checks
+    ``out_root`` and load it: ``walk_rf_host``, ``walk_ee_host`` (both
+    with a theta block T) and ``walk_seg_host``, the packed-count, vote
+    and integrand checks
     (``wg_*``, ``ws_f_*_host``), and the two-product
     (``ws_two_prod_host``, ``ws_fma_product``). Used by the CPU tests
     only."""
@@ -192,7 +194,7 @@ def build_walk_host(out_root: Path) -> BuiltLib:
                           [CSRC / "walk_host.cpp"], DEVICE_HEADERS, out_root)
     lib = built.lib
     _sig(lib.walk_rf_host, [_P, _I, _I, _I, _I, _F, _I, _I, _I, _I])
-    _sig(lib.walk_ee_host, [_P, _I, _I, _I, _F, _I, _I])
+    _sig(lib.walk_ee_host, [_P, _I, _I, _I, _F, _I, _I, _I])
     _sig(lib.walk_seg_host, [_P, _I, _I, _I, _F, _I])
     _sig(lib.wg_limits, [_P], None)
     _sig(lib.wg_packed_fits, [_I])

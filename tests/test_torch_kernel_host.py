@@ -135,7 +135,7 @@ def _run_host_ee(lib, state, thresh, cap, f_ds, eps, mode):
     table = _table((*state, ctr, sync))
     rc = lib.walk_ee_host(ctypes.cast(table, ctypes.c_void_p),
                           state.a_h.shape[0], f_ds.kernel_family, mode,
-                          f32(eps), thresh, cap)
+                          f32(eps), thresh, cap, 1)
     assert rc == 0
     return ctr
 

@@ -27,8 +27,10 @@ PKG = Path(__file__).resolve().parent.parent / "ppls_tpu_torch"
 
 
 def test_sources_import_no_jax_and_no_reference():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ppls_tpu)(\.|\s|$)",
-                     re.M)
+    # the reference's tools/ package included (its analysers import
+    # ppls_tpu, and so JAX)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|ppls_tpu|tools)(\.|\s|$)", re.M)
     sources = list(PKG.rglob("*.py"))
     assert PKG / "runtime" / "checkpoint.py" in sources
     assert PKG / "__main__.py" in sources
@@ -49,7 +51,13 @@ def test_sources_import_no_jax_and_no_reference():
                 PKG / "tools" / "time_dd_stream.py",
                 PKG / "runtime" / "dispatch.py",
                 PKG / "runtime" / "cluster.py",
-                PKG / "obs" / "federation.py"):
+                PKG / "obs" / "federation.py",
+                PKG / "tools" / "check_artifacts.py",
+                PKG / "tools" / "analyze_request.py",
+                PKG / "tools" / "analyze_occupancy.py",
+                PKG / "tools" / "profile_bag.py",
+                PKG / "tools" / "characterize_dd.py",
+                PKG / "tools" / "korobov_search.py"):
         assert new in sources, new
     bad = [str(p) for p in sources if pat.search(p.read_text())]
     assert not bad, bad
@@ -83,9 +91,15 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "ppls_tpu_torch.runtime.tune, "
             "ppls_tpu_torch.tools.tune_table, ppls_tpu_torch.obs.flight, "
             "ppls_tpu_torch.tools.time_dd_stream, "
-            "ppls_tpu_torch.runtime.cluster, ppls_tpu_torch.obs.federation\n"
+            "ppls_tpu_torch.runtime.cluster, ppls_tpu_torch.obs.federation, "
+            "ppls_tpu_torch.tools.check_artifacts, "
+            "ppls_tpu_torch.tools.analyze_request, "
+            "ppls_tpu_torch.tools.analyze_occupancy, "
+            "ppls_tpu_torch.tools.profile_bag, "
+            "ppls_tpu_torch.tools.characterize_dd, "
+            "ppls_tpu_torch.tools.korobov_search\n"
             "bad = [m for m in set(sys.modules) - before "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu')]\n"
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ppls_tpu', 'tools')]\n"
             "print(','.join(sorted(bad)))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=str(PKG.parent), timeout=120,
