@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 22     # the build and phase 22 alone
     python3 chip_smoke.py --phase 23     # the build and phase 23 alone
     python3 chip_smoke.py --phase 24     # the build and phase 24 alone
+    python3 chip_smoke.py --phase 25     # the build and phase 25 alone
 
 Phases, each of which must pass (any failure exits nonzero):
 
@@ -403,7 +404,8 @@ Phases, each of which must pass (any failure exits nonzero):
    ``World``). The phase has one time limit (``DD_STREAM_TIMEOUT``), which
    also bounds every command to the spawned ranks.
    k. K1 (scouting, R = 8) bit-equal to its plain segment on a dd-stream
-      rank's bank (the stream leg's 24 requests at 2^14 lanes).
+      rank's bank (the stream leg's 24 requests at 2^14 lanes), 64 steps
+      (LATE_CMP_CAP).
    a. The stream leg's configuration (phase 11: 24 requests of sin(theta
       / x) on [1e-4, 1], eps 1e-10, slots 64, chunk 2^13, capacity 2^22
       per rank, lanes 2^14, R = 8, scout f32, double buffer) with
@@ -437,7 +439,7 @@ Phases, each of which must pass (any failure exits nonzero):
    command to a spawned rank and every serve process.
    k. K1 (trapezoid and Simpson, the ds walk, R = 8) and K2 bit-equal to
       their plain segments at a pooled engine's first phase (24
-      requests, 16384 lanes).
+      requests, 16384 lanes), at most 64 steps (LATE_CMP_CAP).
    a. The reference bench's ``stream --hetero`` leg at its own
       configuration (16 requests over 4 keys, slots 4, seed 31) on the
       card and on the CPU: 9 turns with leasing off, 6 with leasing and
@@ -449,12 +451,13 @@ Phases, each of which must pass (any failure exits nonzero):
       ``e-10:trapezoid:t2`` theta pairs, ``e-10:simpson:t1``) of sin(theta
       / x) on [1e-4, 1], 24 requests each, every engine at the stream
       leg's width (slots 64, chunk 2^13, capacity 2^22, lanes 2^14, R = 8,
-      double buffer, the ds walk), saturated and open loop (2 requests a
-      turn), 4 and 2 live engines, leasing off, on with overlapped
-      boundaries, on with serialized ones: every area within 1e-3 of the
-      closed form, every 8th t1 trapezoid area within 3e-9 of the float64
-      bag, K1 launched by every engine (saturated), 0 recompiles and no
-      library built; overlapped = serialized boundaries bit for bit; a
+      double buffer, the ds walk), saturated and open loop (8 requests a
+      turn, phase 11c's top rate), 4 and 2 live engines, leasing off, on
+      with overlapped boundaries, on with serialized ones: every area
+      within 1e-3 of the closed form, every 8th t1 trapezoid area within
+      3e-9 of the float64 bag (each sampled theta through the bag once for
+      both legs), K1 launched by every engine (saturated), 0 recompiles
+      and no library built; overlapped = serialized boundaries bit for bit; a
       capped leased pool has a parked donor that completed its requests;
       capped against uncapped printed. Printed: requests/s, p50/p99
       latency in turns and seconds, turns, phases per engine, host syncs
@@ -534,12 +537,32 @@ Phases, each of which must pass (any failure exits nonzero):
       ``--from-events`` reconciles, and a ledger with one malformed line
       makes ``check_artifacts`` exit non-zero.
    d. K2's theta variant (theta_block T > 1; csrc/walk_ee.cu) against the
-      plain theta segment, bit for bit, CMP_CAP steps on seeded theta
-      lanes of sin(theta / x) at lanes=16384: T = 2 and 4 in the
+      plain theta segment, bit for bit, LATE_CMP_CAP (64) steps on seeded
+      theta lanes of sin(theta / x) at lanes=16384: T = 2 and 4 in the
       trapezoid and scouting machines, T = 256 (the vote across blocks)
       in the trapezoid one; theta_overwalk > 0 in at least one case.
    e. ``profile_bag`` with PROFILE_BAG_K iterations: every component a
       finite, positive time.
+25. The last of the reference's surface on the port. The phase has one
+   time limit (``EXTRAS_TIMEOUT``), which also bounds its workers' start
+   and RPCs.
+   a. The host-level ds library (ops/ds.py): every function on
+      DS_LIB_N (2^20) seeded pairs on the card and on the CPU, bit-equal
+      (a difference names the function and its ulps per limb).
+   b. ``segment_sum_auto(force_exact=True)`` on the card: m = 1024
+      against four shards of 256 on dyadic leaves, every slice bit-equal,
+      equal to the CPU's and to the exact sums. Then phase 19's dd-leg
+      family (64 thetas of sin(theta / x) on [1e-4, 1], eps 1e-10, lanes
+      2^12) through the single walker on K1 (R = 8, scout, double
+      buffer) and on K2 (R = 0), each with ``PPLS_EXACT_SEGSUM`` 0 and 1:
+      equal tasks, kernel steps, cycles and launches, areas within 1e-15
+      relative.
+   c. ``ClusterStreamEngine(jax_distributed=True)``: 2 workers sharing
+      the card (the walk: K1 in each) beside the same cluster on the CPU,
+      started at once: every hello's device picture (global devices =
+      the sum of the local ones, ids 0..1, the platform), 2 requests
+      served with card = CPU records, every card worker launched K1, no
+      worker alive after ``close()``.
 
 Before the last line it prints one JSON object describing each kernel
 (time, plain time, bound, launches on its main paths; K1's theta times
@@ -556,8 +579,9 @@ and 21k's record under ``dd_stream``; phase 22's under
 the sum of every worker process's reported launches, under
 ``cluster_launches``; phase 24's tools' under ``tools_launches``, K2's
 theta records (24d) under ``theta`` and their launches under
-``theta_launches``, and the K3 probe's under ``tools_probe_launches``)
-and the card's ``nvidia-smi`` name and power
+``theta_launches``, and the K3 probe's under ``tools_probe_launches``;
+phase 25's, 25b's walker runs and 25c's workers, under
+``surface_launches``) and the card's ``nvidia-smi`` name and power
 limit; the last line is the ``{"ok": true, "device": ...}`` record.
 The full report, the profiles and the build logs go to ``out_dir``.
 """
@@ -587,6 +611,7 @@ REFILL_SLOTS = 8
 ROOTS_PER_LANE = 12
 CAPACITY = 1 << 23
 CMP_CAP = 256                  # steps of the kernel-vs-plain launches
+LATE_CMP_CAP = 64              # the same, in phases 21k, 22k and 24d
 AREA_TOL_BAG = 3e-9
 AREA_TOL_EXACT = 1e-3
 AREA_TOL_DEVICES = 1e-12       # card vs CPU: float64 reduction order only
@@ -831,7 +856,7 @@ POOL_EKW = dict(chunk=STREAM_KW["chunk"], capacity=STREAM_KW["capacity"],
                 refill_slots=STREAM_KW["refill_slots"], double_buffer=True)
 POOL_SLOTS = STREAM_KW["slots"]
 POOL_CAPS = (4, 2)
-POOL_RATE = 2.0                # requests per turn, open loop
+POOL_RATE = 8.0                # requests per turn, open loop (phase 11c's)
 POOL_SAMPLE = 8                # every 8th t1 trapezoid area to the bag
 # 22c: tools/ci.sh legs 5e and 5f (their requests, flags and chaos plans)
 CI_DISPATCH_REQS = (
@@ -890,6 +915,15 @@ K2_THETA_BOUNDS = (1e-2, 1.0)
 K2_THETA_EPS = 1e-7
 K2_THETA_WALK = 16             # K1 plain steps before K2 takes the lanes
 PROFILE_BAG_K = 10
+# phase 25: the last of the reference's surface on the port
+EXTRAS_TIMEOUT = 120           # s, the whole of phase 25, its workers too
+DS_LIB_N = 1 << 20             # 25a's seeded pairs
+SEGSUM_N = 1 << 16             # 25b's dyadic leaves ...
+SEGSUM_M = 1024                # ... over one card's families ...
+SEGSUM_SHARDS = 4              # ... and over four shards of 256
+SEGSUM_AREA_TOL = 1e-15        # 25b: forced credit against the default
+DIST_PROCESSES = 2             # 25c: the distributed workers
+DIST_K = 2                     # 25c: requests served over their group
 
 
 def log(msg: str) -> None:
@@ -1164,8 +1198,9 @@ def fmt_cmp(what: str, c: dict, times) -> str:
     return line
 
 
-def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
-    """K1 on copies of one dealt bank, CMP_CAP steps: the median of
+def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1,
+           cap=CMP_CAP):
+    """K1 on copies of one dealt bank, ``cap`` steps: the median of
     ``runs`` kernel launches (kernel_runs), then the plain segment,
     every output held bit-equal. Returns (record, the kernel ms of each
     run)."""
@@ -1177,7 +1212,7 @@ def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
 
         def launch():
             resh, resl, ctr = fn(
-                inp["state"], inp["slot"], inp["thresh"], CMP_CAP,
+                inp["state"], inp["slot"], inp["thresh"], cap,
                 inp["batch"], inp["nslots"], inp["bank"], inp["resm"],
                 f_ds=f_ds, eps=eps, scout=scout, rule=rule, **kw)
             return [*inp["state"], inp["slot"], *inp["resm"], resh, resl,
@@ -1200,8 +1235,9 @@ def cmp_k1(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
     return rec, times
 
 
-def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
-    """K2 on copies of seeded lanes, CMP_CAP steps at the seeding's exit
+def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1,
+           cap=CMP_CAP):
+    """K2 on copies of seeded lanes, ``cap`` steps at the seeding's exit
     threshold, as :func:`cmp_k1`; the waste must reconcile. With
     ``theta_block`` > 1 (K2's theta variant) the bound counts every live
     lane-step, theta_overwalk too: a retired lane still evaluates."""
@@ -1213,7 +1249,7 @@ def cmp_k2(W, what, base, f_ds, eps, mode, ops, runs=5, theta_block=1):
         inp = clone(base)
 
         def launch():
-            ctr = fn(inp["state"], inp["thresh"], CMP_CAP, f_ds=f_ds,
+            ctr = fn(inp["state"], inp["thresh"], cap, f_ds=f_ds,
                      eps=eps, scout=scout, rule=rule, **kw)
             return [*inp["state"], ctr]
         return launch
@@ -5092,7 +5128,7 @@ def phase_dd_stream(W, TS, ckpt_dir, out_dir, ops) -> dict:
         scout=True, lanes=STREAM_KW["lanes"], roots_per_lane=ROOTS_PER_LANE,
         capacity=STREAM_KW["capacity"], device="cuda")
     out["k1"], times = cmp_k1(W, "K1 step_scout (dd stream)", base, f_ds,
-                              EPS, "step_scout", ops)
+                              EPS, "step_scout", ops, cap=LATE_CMP_CAP)
     log(fmt_cmp(f"K1 step_scout at a dd-stream rank's bank ({k} requests, "
                 f"{STREAM_KW['lanes']} lanes, R {STREAM_KW['refill_slots']})",
                 out["k1"], times))
@@ -5732,7 +5768,7 @@ def dispatch_full_width(W, TS, stream_rep, ckpt_dir, out_dir) -> dict:
     from ppls_tpu_torch.models.integrands import family_exact, get_family
     from ppls_tpu_torch.parallel.bag_engine import integrate_family
     f_theta = get_family(STREAM_FAMILY)
-    out = {}
+    out, bag_areas = {}, {}
     for tag, keys, ekw, counter in (
             ("K1", POOL_KEYS, POOL_EKW, "run_segment_rf"),
             ("K2", tuple(k for k in POOL_KEYS if "batch" not in k),
@@ -5752,12 +5788,19 @@ def dispatch_full_width(W, TS, stream_rep, ckpt_dir, out_dir) -> dict:
             rids = [r for r, (_, _, kw) in enumerate(reqs)
                     if kw == shape][::POOL_SAMPLE]
             rule = Rule(shape.get("rule", "trapezoid"))
-            areas = integrate_family(
-                f_theta, [reqs[r][0] for r in rids], BOUNDS, shape["eps"],
-                rule=rule, chunk=1 << 15, capacity=1 << 22,
-                device=DEVICE).areas
+            # the K2 leg's sampled thetas are among the K1 leg's: each
+            # (eps, rule, theta) runs through the bag once
+            key = (shape["eps"], rule)
+            need = [reqs[r][0] for r in rids
+                    if key + (reqs[r][0],) not in bag_areas]
+            if need:
+                areas = integrate_family(
+                    f_theta, need, BOUNDS, shape["eps"], rule=rule,
+                    chunk=1 << 15, capacity=1 << 22, device=DEVICE).areas
+                bag_areas.update((key + (t,), float(a))
+                                 for t, a in zip(need, areas))
             bags[rule == Rule.SIMPSON].update(
-                zip(rids, np.asarray(areas).tolist()))
+                (r, bag_areas[key + (reqs[r][0],)]) for r in rids)
         out[tag] = pool_leg(W, TS, tag, keys, ekw, counter, exact, bags[0],
                             bags[1], out_dir, ckpt_dir, profile=(tag == "K1"))
     single = STREAM_K / stream_rep["ds_walk"]["wall_s"]
@@ -5967,7 +6010,7 @@ def dispatch_kernels(W, ops) -> dict:
             device=DEVICE)
         cmp = cmp_k1 if refill else cmp_k2
         out[name], times = cmp(W, f"22k {name} {mode} (pool engine)", base,
-                               f_ds, eps, mode, ops)
+                               f_ds, eps, mode, ops, cap=LATE_CMP_CAP)
         log(fmt_cmp(f"22k {'K1' if refill else 'K2'} {mode} at a pooled "
                     f"engine's first phase ({POOL_K} requests, "
                     f"{POOL_EKW['lanes']} lanes, R {refill})", out[name],
@@ -6688,8 +6731,9 @@ def tools_k2_theta(W, ops_of) -> dict:
     """24d: K2's theta variant against the plain theta segment, bit for
     bit, on seeded theta lanes at the flagship's width: a bred and dealt
     theta bank of sin(theta / x) (each group's thetas spread over 0.5 /
-    T) walked K2_THETA_WALK steps by the plain K1 segment, then CMP_CAP
-    K2 steps per (T, step machine); theta_overwalk > 0 somewhere."""
+    T) walked K2_THETA_WALK steps by the plain K1 segment, then
+    LATE_CMP_CAP K2 steps per (T, step machine); theta_overwalk > 0
+    somewhere."""
     import numpy as np
     from ppls_tpu_torch.models.integrands import get_family, get_family_ds
     f_theta = get_family(K2_THETA_FAMILY)
@@ -6712,7 +6756,8 @@ def tools_k2_theta(W, ops_of) -> dict:
         base = dict(state=inp["state"], thresh=LANES // 8)
         key = f"{T}" + ("_scout" if scout else "")
         cmp[key], times = cmp_k2(W, f"K2 theta T={T} {mode}", base, f_ds,
-                                 K2_THETA_EPS, mode, ops, theta_block=T)
+                                 K2_THETA_EPS, mode, ops, theta_block=T,
+                                 cap=LATE_CMP_CAP)
         cmp[key].update(T=T, mode=mode)
         log(fmt_cmp(f"K2 theta T={T} {mode}", cmp[key], times))
     over = {k: c["counters"][4] for k, c in cmp.items()}
@@ -6816,12 +6861,284 @@ def tools_serve_artifacts(W, TS, ckpt_dir) -> dict:
         return dict(ledger=run["text"], events=fh.read())
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the host-level ds library, exact segment sums on demand, the
+# workers' distributed bootstrap
+# ---------------------------------------------------------------------------
+
+
+def f32_ulps(a, b) -> int:
+    """The largest distance in float32 ulps between two float32 arrays
+    (0 where bit-equal; NaNs at the same lanes count 0)."""
+    import numpy as np
+    a = np.asarray(a, dtype=np.float32)
+    b = np.asarray(b, dtype=np.float32)
+
+    def ordered(x):
+        i = x.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    both_nan = np.isnan(a) & np.isnan(b)
+    d = np.abs(ordered(a) - ordered(b))
+    return int(np.max(np.where(both_nan, 0, d), initial=0))
+
+
+def surface_ds_lib() -> dict:
+    """25a: every function of the host-level ds library (ops/ds.py) on
+    DS_LIB_N seeded pairs, on the card and on the CPU: bit-equal, or the
+    function and its ulps named."""
+    import numpy as np
+    import torch
+    from ppls_tpu_torch.ops import ds as DS
+    rng = np.random.default_rng(25)
+    n = DS_LIB_N
+
+    def split(x):
+        hi = x.astype(np.float32)
+        return hi, (x - hi.astype(np.float64)).astype(np.float32)
+
+    sign = rng.choice([-1.0, 1.0], n)
+    x = split(rng.uniform(-100.0, 100.0, n))
+    y = split(rng.uniform(0.1, 100.0, n) * sign)
+    big = split(rng.uniform(-2e4, 2e4, n))
+    ex = split(rng.uniform(-85.0, 5.0, n))
+    cond = rng.random(n) < 0.5
+    cases = {
+        "two_sum": ("two_sum", (x[0], y[0])),
+        "quick_two_sum": ("quick_two_sum", (x[0], y[1])),
+        "two_prod": ("two_prod", (x[0], y[0])),
+        "ds_neg": ("ds_neg", (x,)),
+        "ds_add": ("ds_add", (x, y)),
+        "ds_sub": ("ds_sub", (x, y)),
+        "ds_add_f32": ("ds_add_f32", (x, y[0])),
+        "ds_mul": ("ds_mul", (x, y)),
+        "ds_mul_f32": ("ds_mul_f32", (x, y[0])),
+        "ds_mul_pow2": ("ds_mul_pow2", (x, 0.125)),
+        "ds_div": ("ds_div", (x, y)),
+        "ds_abs": ("ds_abs", (y,)),
+        "ds_lt": ("ds_lt", (x, (x[0], y[1]))),
+        "ds_gt": ("ds_gt", (x, (x[0], y[1]))),
+        "ds_where": ("ds_where", (cond, x, y)),
+        "ds_sin": ("ds_sin", (big,)),
+        "ds_cos": ("ds_cos", (big,)),
+        "ds_exp": ("ds_exp", (ex,)),
+        "ds_const": ("ds_const", (-1.0 / 3.0, x[0])),
+        "ds_zero_like": ("ds_zero_like", (x[0],)),
+    }
+
+    def on(dev, v):
+        if isinstance(v, tuple):
+            return tuple(on(dev, p) for p in v)
+        if isinstance(v, np.ndarray):
+            return torch.from_numpy(v).to(dev)
+        return v
+
+    out, bad = {}, {}
+    for name, (fn, args) in cases.items():
+        got = []
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            r = getattr(DS, fn)(*on(dev, args))
+            r = r if isinstance(r, tuple) else (r,)
+            got.append([v.cpu().numpy() for v in r])
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+        ulps = [0 if c.dtype == np.bool_ else f32_ulps(c, h)
+                for c, h in zip(*got)]
+        same = all(np.array_equal(c.view(np.uint8), h.view(np.uint8))
+                   for c, h in zip(*got))
+        out[name] = dict(bit_equal=same, ulps=ulps, card_s=card_s)
+        if not same:
+            bad[name] = ulps
+    log(f"[smoke] 25a the ds library on {n} seeded pairs, card against "
+        f"CPU: {len(cases) - len(bad)} of {len(cases)} functions "
+        f"bit-equal{'' if not bad else f'; DIFFER (ulps per limb) {bad}'}")
+    if bad:
+        raise AssertionError(f"25a: card != CPU in {bad}")
+    return out
+
+
+def surface_segsum(W) -> dict:
+    """25b: ``segment_sum_auto(force_exact=True)`` on the card (one card's
+    m = SEGSUM_M against SEGSUM_SHARDS shards, and the CPU), then phase
+    19's dd-leg family through the single walker on K1 and through K2
+    with PPLS_EXACT_SEGSUM=1 and without it: the same schedule, areas
+    within SEGSUM_AREA_TOL relative."""
+    import numpy as np
+    import torch
+    from ppls_tpu_torch.models.integrands import get_family, get_family_ds
+    from ppls_tpu_torch.ops import reduction as R
+    rng = np.random.default_rng(26)
+    n, m = SEGSUM_N, SEGSUM_M
+    m_local = m // SEGSUM_SHARDS
+    fam = rng.integers(0, m, n).astype(np.int32)
+    leaf = rng.integers(-(1 << 20), 1 << 20, n) * 2.0 ** -24   # dyadic
+
+    def forced(f, v, mm, dev):
+        return R.segment_sum_auto(
+            torch.from_numpy(f).to(dev), torch.from_numpy(v).to(dev), mm,
+            len(v), force_exact=True).cpu().numpy()
+    whole = forced(fam, leaf, m, DEVICE)
+    shards_equal = []
+    for d in range(SEGSUM_SHARDS):
+        pick = (fam // m_local) == d
+        local = forced(fam[pick] % m_local, leaf[pick], m_local, DEVICE)
+        shards_equal.append(bool(np.array_equal(
+            local, whole[d * m_local:(d + 1) * m_local])))
+    truth = np.zeros(m)
+    np.add.at(truth, fam, leaf)
+    cpu_equal = bool(np.array_equal(whole, forced(fam, leaf, m, "cpu")))
+    out = dict(shards_equal=shards_equal, cpu_equal=cpu_equal,
+               truth_equal=bool(np.array_equal(whole, truth)))
+    log(f"[smoke] 25b segment_sum_auto(force_exact=True) on the card: m "
+        f"{m} against {SEGSUM_SHARDS} shards of {m_local}: slices "
+        f"bit-equal {shards_equal}; = the CPU's {cpu_equal}; = the exact "
+        f"sums {out['truth_equal']}")
+    if not (all(shards_equal) and cpu_equal and out["truth_equal"]):
+        raise AssertionError(f"25b: forced sums {out}")
+
+    f_theta, f_ds = get_family(DD_FAMILY), get_family_ds(DD_FAMILY)
+    theta = 1.0 + np.arange(DD_M) / DD_M
+    launches = {"run_segment_rf": 0, "run_segment_ee": 0}
+    prev = os.environ.get("PPLS_EXACT_SEGSUM")
+    try:
+        for leg, lkw in DD_LEGS.items():
+            kernel = ("run_segment_rf" if lkw["refill_slots"]
+                      else "run_segment_ee")
+            runs = {}
+            for knob in ("0", "1"):
+                os.environ["PPLS_EXACT_SEGSUM"] = knob
+                runs[knob] = counted(W, lambda: W.integrate_family_walker(
+                    f_theta, f_ds, theta, BOUNDS, DD_EPS, **DD_KW, **lkw,
+                    device=DEVICE))
+                launches[kernel] += runs[knob][2][kernel]
+            (a, wa, la), (b, wb, lb) = runs["0"], runs["1"]
+            rel = float(np.max(np.abs(b.areas - a.areas)
+                               / np.abs(a.areas)))
+            rec = dict(tasks=(a.metrics.tasks, b.metrics.tasks),
+                       kernel_steps=(a.kernel_steps, b.kernel_steps),
+                       cycles=(a.cycles, b.cycles),
+                       launches=(la[kernel], lb[kernel]), max_rel=rel,
+                       walls=(wa, wb))
+            out[leg] = rec
+            log(f"[smoke] 25b {DD_M} thetas of {DD_FAMILY} (phase 19's dd "
+                f"leg) on the single walker, {leg} ({kernel}): default / "
+                f"PPLS_EXACT_SEGSUM=1 tasks {rec['tasks']}, kernel steps "
+                f"{rec['kernel_steps']}, cycles {rec['cycles']}, launches "
+                f"{rec['launches']}, areas {rel:.3e} apart relative (tol "
+                f"{SEGSUM_AREA_TOL}); walls {wa:.3f} / {wb:.3f} s")
+            if (len(set(rec["tasks"])) != 1
+                    or len(set(rec["kernel_steps"])) != 1
+                    or len(set(rec["cycles"])) != 1
+                    or len(set(rec["launches"])) != 1
+                    or rec["launches"][0] <= 0
+                    or not rel <= SEGSUM_AREA_TOL):
+                raise AssertionError(f"25b {leg}: {rec}")
+    finally:
+        if prev is None:
+            os.environ.pop("PPLS_EXACT_SEGSUM", None)
+        else:
+            os.environ["PPLS_EXACT_SEGSUM"] = prev
+    out["launches"] = launches
+    return out
+
+
+def surface_cluster() -> dict:
+    """25c: a DIST_PROCESSES-worker ``ClusterStreamEngine(jax_distributed=
+    True)`` sharing the card (the walk: K1 in every worker) beside the
+    same cluster on the CPU, both started at once: the hellos' device
+    pictures meet tests/test_cluster.py:478's invariants, DIST_K
+    requests served with card = CPU records, every card worker launched
+    K1, and no worker alive after ``close()``."""
+    reqs = [(1.0 + i / 4.0, (0.0, 1.0)) for i in range(DIST_K)]
+    started = start_clusters({dev: dict(
+        family=MULTIHOST_FAMILY, eps=MULTIHOST_EPS,
+        n_processes=DIST_PROCESSES,
+        worker_kw=dict(MULTIHOST_WKW, f64_rounds=0), jax_distributed=True,
+        device=dev, spawn_timeout=EXTRAS_TIMEOUT,
+        rpc_timeout=EXTRAS_TIMEOUT) for dev in (DEVICE, "cpu")})
+    got = {}
+    try:
+        for dev, (eng, start_s) in started.items():
+            infos = [w.hello.get("jax_distributed") for w in eng._workers]
+            res = eng.run(reqs)
+            got[dev] = dict(
+                infos=infos, start_s=start_s,
+                records={c.rid: cluster_record(c) for c in res.completed},
+                launches=eng.launches())
+    finally:
+        for eng, _ in started.values():
+            eng.close()
+    no_workers_left("25c")
+    card, cpu = got[DEVICE], got["cpu"]
+    k1 = {p: v["run_segment_rf"] for p, v in card["launches"].items()}
+    problems = []
+    for dev, g in ((DEVICE, card), ("cpu", cpu)):
+        infos = g["infos"]
+        platform = "cpu" if dev == "cpu" else "gpu"
+        if (any(i is None for i in infos)
+                or any(i["global_devices"]
+                       != sum(j["local_devices"] for j in infos)
+                       for i in infos)
+                or sorted(i["process_id"] for i in infos)
+                != list(range(DIST_PROCESSES))
+                or any(i["platform"] != platform for i in infos)):
+            problems.append(f"{dev} pictures {infos}")
+    if card["records"] != cpu["records"] or len(card["records"]) != DIST_K:
+        problems.append("records")
+    if sorted(k1) != [str(p) for p in range(DIST_PROCESSES)] \
+            or min(k1.values()) <= 0:
+        problems.append(f"K1 launches {k1}")
+    log(f"[smoke] 25c {DIST_PROCESSES}-worker cluster with "
+        f"jax_distributed=True (one gloo group over the coordinator's "
+        f"store, the workers sharing the card): pictures {card['infos']}; "
+        f"{len(card['records'])} requests served, card = CPU records "
+        f"{card['records'] == cpu['records']}; workers' K1 launches {k1}; "
+        f"start {card['start_s']:.1f} s (card), {cpu['start_s']:.1f} s "
+        f"(CPU); no worker alive after close()")
+    if problems:
+        raise AssertionError(f"25c: {problems}")
+    return dict(card=card, cpu_infos=cpu["infos"],
+                launches={"run_segment_rf": sum(k1.values()),
+                          "run_segment_ee": sum(
+                              v["run_segment_ee"]
+                              for v in card["launches"].values())})
+
+
+def phase_surface(W) -> dict:
+    """25: the host-level ds library, exact segment sums on demand and the
+    workers' distributed bootstrap (module docstring), bounded by
+    ``EXTRAS_TIMEOUT``."""
+    t_phase = time.perf_counter()
+
+    def check_time(step):
+        spent = time.perf_counter() - t_phase
+        log(f"[smoke] 25: {step} at {spent:.1f} s")
+        if spent > EXTRAS_TIMEOUT:
+            raise TimeoutError(f"phase 25 ran past its {EXTRAS_TIMEOUT} s "
+                               f"at {step} ({spent:.0f} s)")
+
+    out = {"ds_lib": surface_ds_lib()}
+    check_time("25a")
+    out["segsum"] = surface_segsum(W)
+    check_time("25b")
+    out["cluster"] = surface_cluster()
+    check_time("25c")
+    out["launches"] = {k: out["segsum"]["launches"][k]
+                       + out["cluster"]["launches"][k]
+                       for k in ("run_segment_rf", "run_segment_ee")}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[smoke] 25 done in {out['seconds']:.1f} s; launches "
+        f"{out['launches']}")
+    return out
+
+
 def main_phase(phase: str) -> int:
-    """``python3 chip_smoke.py --phase 22`` (or ``23``, ``24``): the
-    build, its comparators and that phase, in one process. Phases 22 and
-    23 compare with phase 11's single-engine ds stream (the median of
+    """``python3 chip_smoke.py --phase 22`` (or ``23``, ``24``, ``25``):
+    the build, its comparators and that phase, in one process. Phases 22
+    and 23 compare with phase 11's single-engine ds stream (the median of
     three runs after a warm-up); phase 24 with phases 4 and 6's walks and
-    phase 14a's serve command with a timeline."""
+    phase 14a's serve command with a timeline; phase 25 needs none."""
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -6857,7 +7174,9 @@ def main_phase(phase: str) -> int:
                                   "walls": walls}}
     ckpt_dir = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=ROOT)
     try:
-        if phase == "24":
+        if phase == "25":
+            rep = phase_surface(W)
+        elif phase == "24":
             from ppls_tpu_torch.models.integrands import get_family
             f_theta = get_family("sin_recip_scaled")
             base = tools_base(W, f_theta, get_family_ds("sin_recip_scaled"),
@@ -6875,7 +7194,8 @@ def main_phase(phase: str) -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     rep.update(device=kind, smi=smi, single_engine_walls=walls)
-    name = {"22": "dispatch", "23": "cluster", "24": "tools"}[phase]
+    name = {"22": "dispatch", "23": "cluster", "24": "tools",
+            "25": "surface"}[phase]
     with open(os.path.join(out_dir, f"chip_smoke_{name}.json"), "w") as fh:
         json.dump(rep, fh, indent=1, default=str)
     print(smi)
@@ -6890,7 +7210,7 @@ def main() -> int:
     import torch
 
     if sys.argv[1:] in (["--phase", "22"], ["--phase", "23"],
-                        ["--phase", "24"]):
+                        ["--phase", "24"], ["--phase", "25"]):
         return main_phase(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -7387,6 +7707,11 @@ def main() -> int:
     finally:
         shutil.rmtree(tools_dir, ignore_errors=True)
     tools_l = report["tools"]["launches"]
+    # 25. the host-level ds library, exact segment sums on demand (K1 and
+    # K2 on the walker's forced credit), the workers' distributed
+    # bootstrap (K1 in the workers)
+    report["surface"] = phase_surface(W)
+    surf_l = report["surface"]["launches"]
     body_paths = (red["k1"]["launches"], red["k2"]["launches"],
                   report["reference_problem"]["launches"],
                   report["gauss"]["launches"],
@@ -7469,7 +7794,8 @@ def main() -> int:
             + cli_launches["run_segment_rf"]
             + bench_launches["run_segment_rf"] + dd_l["run_segment_rf"]
             + tune_l["run_segment_rf"] + dds_l + disp_l["run_segment_rf"]
-            + clus_l["run_segment_rf"] + tools_l["run_segment_rf"],
+            + clus_l["run_segment_rf"] + tools_l["run_segment_rf"]
+            + surf_l["run_segment_rf"],
             {**k1, **k1_theta}, "step_scout", bodies("k1"),
             flagship_launches=main_launches["run_segment_rf"],
             theta_launches=theta_launches,
@@ -7488,6 +7814,7 @@ def main() -> int:
                       for k in ("k1", "k1_simpson")},
             cluster_launches=clus_l["run_segment_rf"],
             tools_launches=tools_l["run_segment_rf"],
+            surface_launches=surf_l["run_segment_rf"],
             stream_main_path_ms=report["stream"]["profile"]["kernel_ms"],
             theta=theta_rows,
             step_attribution=attribution,
@@ -7502,7 +7829,8 @@ def main() -> int:
             + cli_launches["run_segment_ee"]
             + bench_launches["run_segment_ee"] + dd_l["run_segment_ee"]
             + tune_l["run_segment_ee"] + disp_l["run_segment_ee"]
-            + clus_l["run_segment_ee"] + tools_l["run_segment_ee"],
+            + clus_l["run_segment_ee"] + tools_l["run_segment_ee"]
+            + surf_l["run_segment_ee"],
             k2, "step", bodies("k2"),
             body_launches=body_launches["run_segment_ee"],
             checkpoint_launches=ckpt_launches["run_segment_ee"],
@@ -7514,6 +7842,7 @@ def main() -> int:
             dispatch=dd_row(report["dispatch"]["kernels"]["k2"]),
             cluster_launches=clus_l["run_segment_ee"],
             tools_launches=tools_l["run_segment_ee"],
+            surface_launches=surf_l["run_segment_ee"],
             theta_launches=report["tools"]["k2_theta_launches"],
             theta=theta_k2_rows,
             stream_launches=report["stream"]["overload"]["k2"]["launches"],

@@ -41,6 +41,10 @@ from ppls_tpu_torch.ops.rules2d import div
 FAMILIES: Dict[str, Callable] = {}
 DS_FAMILIES: Dict[str, Callable] = {}
 DS_FAMILIES_REDUCED: Dict[str, Callable] = {}
+# closed forms: per-theta exact(a, b, theta) -> float (user families;
+# the built-ins register none, see family_exact) and vectorised
+# exact_vec(a, b, theta[]) -> float64 ndarray
+FAMILY_EXACT: Dict[str, Callable] = {}
 FAMILY_EXACT_VEC: Dict[str, Callable] = {}
 
 # Cody-Waite validity limits of the ds transcendentals: beyond these the
@@ -450,15 +454,39 @@ FAMILY_EXACT_VEC["gauss_center"] = _gauss_center_exact_vec
 FAMILY_EXACT_VEC["quad_scaled"] = _quad_scaled_exact_vec
 
 
-def family_exact(name: str, a: float, b: float, theta) -> Optional[np.ndarray]:
+def register_family_exact(name: str, fn: Callable,
+                          vec: Optional[Callable] = None) -> Callable:
+    """Register exact(a, b, theta) -> float for a parameterised family,
+    plus an optional vectorised numpy twin exact_vec(a, b, theta[])."""
+    FAMILY_EXACT[name] = fn
+    if vec is not None:
+        FAMILY_EXACT_VEC[name] = vec
+    return fn
+
+
+def family_exact(name: str, a: float, b: float, theta,
+                 prefer_vec: Optional[bool] = None) -> Optional[np.ndarray]:
     """Exact integrals over [a, b] for every theta (float64 array of
-    theta's shape), or None if the family has no closed form."""
+    theta's shape), or None if the family has no closed form.
+
+    The vectorised form answers when one is registered and
+    ``prefer_vec`` is true (by default: 64 thetas or more) or no
+    per-theta form is registered; otherwise the per-theta form, one call
+    a theta. The built-in families register only vectorised forms (the
+    reference's per-theta forms are 40-digit mpmath)."""
+    fn = FAMILY_EXACT.get(name)
     vfn = FAMILY_EXACT_VEC.get(name)
-    if vfn is None:
+    if fn is None and vfn is None:
         return None
     th = np.asarray(theta, dtype=np.float64)
-    return np.asarray(vfn(float(a), float(b), th.reshape(-1)),
-                      dtype=np.float64).reshape(th.shape)
+    if prefer_vec is None:
+        prefer_vec = th.size >= 64
+    if vfn is not None and (prefer_vec or fn is None):
+        return np.asarray(vfn(float(a), float(b), th.reshape(-1)),
+                          dtype=np.float64).reshape(th.shape)
+    return np.array([fn(float(a), float(b), float(t))
+                     for t in th.reshape(-1)],
+                    dtype=np.float64).reshape(th.shape)
 
 
 # --- float64 models of the reduced forms (host side, numpy) ------------------

@@ -9,7 +9,8 @@ not depend on the order of the additions at all.
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,13 +59,32 @@ def kahan_add(acc: Tuple[torch.Tensor, torch.Tensor],
     return t, c + err
 
 
+def _env_force_exact() -> bool:
+    """PPLS_EXACT_SEGSUM truthiness (unset, 0, false and off mean
+    False)."""
+    v = os.environ.get("PPLS_EXACT_SEGSUM", "").strip().lower()
+    return v not in ("", "0", "false", "off")
+
+
 def segment_sum_auto(fam: torch.Tensor, leaf: torch.Tensor, m: int,
-                     n: int) -> torch.Tensor:
+                     n: int, force_exact: Optional[bool] = None
+                     ) -> torch.Tensor:
     """Per-family sum of ``leaf`` by id ``fam`` with the reference's
     tiers: a plain sum for m == 1, a broadcast-mask reduction for
     m <= 256, and :func:`exact_segment_sum` beyond. Only the last tier
     is error-free; the first two are fixed-order float64 reductions,
-    deterministic for a given shape and device."""
+    deterministic for a given shape and device, so a sum can move by
+    ~1 ulp when m crosses a tier boundary (a rank's m_local <= 256
+    against one card's m = 1024).
+
+    ``force_exact`` (default: the ``PPLS_EXACT_SEGSUM`` environment
+    knob) sends every tier through :func:`exact_segment_sum`: the
+    per-segment totals then do not depend on the tier, and one card and
+    a world of ranks give bit-identical shard sums."""
+    if force_exact is None:
+        force_exact = _env_force_exact()
+    if force_exact:
+        return exact_segment_sum(fam, leaf, m, n)
     if m == 1:
         return leaf.sum().reshape(1)
     if m <= 256:

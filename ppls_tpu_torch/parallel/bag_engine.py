@@ -152,10 +152,10 @@ def run_bag(state: BagState, *, f_theta: Callable, eps: float, rule: Rule,
 
 
 def initial_bag(bounds, capacity: int, n_families: int, chunk: int,
-                theta=None, *, device) -> BagState:
-    """Seed the bag, on ``device``, with one [a, b] task per family. Dead
-    slots hold an in-domain point of family 0 (masked lanes still
-    evaluate them)."""
+                theta=None, dtype=torch.float64, *, device) -> BagState:
+    """Seed the bag, on ``device``, with one [a, b] task per family, its
+    float columns and accumulator at ``dtype``. Dead slots hold an
+    in-domain point of family 0 (masked lanes still evaluate them)."""
     bounds = np.asarray(bounds, dtype=np.float64).reshape(-1, 2)
     m = bounds.shape[0]
     if m > capacity:
@@ -169,19 +169,18 @@ def initial_bag(bounds, capacity: int, n_families: int, chunk: int,
     dev = torch.device(device)
     fill = float(0.5 * (bounds[0, 0] + bounds[0, 1]))
     store = capacity + 2 * chunk
-    f64 = torch.float64
-    bag_l = torch.full((store,), fill, dtype=f64, device=dev)
-    bag_l[:m] = torch.as_tensor(bounds[:, 0], dtype=f64, device=dev)
-    bag_r = torch.full((store,), fill, dtype=f64, device=dev)
-    bag_r[:m] = torch.as_tensor(bounds[:, 1], dtype=f64, device=dev)
-    bag_th = torch.full((store,), float(theta[0]), dtype=f64, device=dev)
-    bag_th[:m] = torch.as_tensor(theta, dtype=f64, device=dev)
+    bag_l = torch.full((store,), fill, dtype=dtype, device=dev)
+    bag_l[:m] = torch.as_tensor(bounds[:, 0], dtype=dtype, device=dev)
+    bag_r = torch.full((store,), fill, dtype=dtype, device=dev)
+    bag_r[:m] = torch.as_tensor(bounds[:, 1], dtype=dtype, device=dev)
+    bag_th = torch.full((store,), float(theta[0]), dtype=dtype, device=dev)
+    bag_th[:m] = torch.as_tensor(theta, dtype=dtype, device=dev)
     bag_meta = torch.zeros(store, dtype=torch.int32, device=dev)
     bag_meta[:m] = torch.arange(m, dtype=torch.int32,
                                 device=dev) << DEPTH_BITS
     return BagState(
         bag_l=bag_l, bag_r=bag_r, bag_th=bag_th, bag_meta=bag_meta,
-        count=m, acc=torch.zeros(n_families, dtype=f64, device=dev),
+        count=m, acc=torch.zeros(n_families, dtype=dtype, device=dev),
         max_depth=torch.zeros((), dtype=torch.int32, device=dev))
 
 

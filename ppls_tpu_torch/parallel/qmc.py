@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ppls_tpu_torch.models.genz import GENZ, get_genz
-from ppls_tpu_torch.parallel.mesh import spmd_entry
+from ppls_tpu_torch.parallel.mesh import Mesh, spmd_entry
 from ppls_tpu_torch.utils.device import resolve_device
 from ppls_tpu_torch.utils.metrics import RunMetrics
 
@@ -130,6 +130,7 @@ def integrate_qmc(fn: Callable, a: np.ndarray, u: np.ndarray,
                   n_points: int = 1 << 18,
                   n_shifts: int = 8,
                   seed: int = 17,
+                  mesh: Optional[Mesh] = None,
                   n_devices: Optional[int] = None,
                   fn_name: Optional[str] = None,
                   exact: Optional[float] = None,
@@ -139,17 +140,24 @@ def integrate_qmc(fn: Callable, a: np.ndarray, u: np.ndarray,
     unless ``device="cpu"``).
 
     ``n_points`` must be one of the precomputed ``KOROBOV_A`` sizes.
-    ``n_devices`` None or 1 runs on the one device; more split the
-    lattice's k range over that many ranks (``n_points`` must divide
-    evenly), started by ``mesh.launch`` unless the call is made inside a
-    process group. Spawned ranks look ``fn`` up by its Genz name
-    (``fn_name``, or the registry entry holding ``fn``)."""
+    ``mesh``, a rank's :class:`~ppls_tpu_torch.parallel.mesh.Mesh` (one
+    from ``mesh.launch``, or a persistent world's), runs this rank's
+    stripe on the mesh's device and spawns nothing; ``device`` and
+    ``n_devices`` are then not read. Otherwise ``n_devices`` None or 1
+    runs on the one device; more split the lattice's k range over that
+    many ranks (``n_points`` must divide evenly), started by
+    ``mesh.launch`` unless the call is made inside a process group.
+    Spawned ranks look ``fn`` up by its Genz name (``fn_name``, or the
+    registry entry holding ``fn``)."""
     if n_points not in KOROBOV_A:
         raise ValueError(f"n_points must be one of {sorted(KOROBOV_A)}")
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"n_devices={n_devices} must be >= 1")
-    dev = resolve_device(device)
-    n_dev = 1 if n_devices is None else int(n_devices)
+    if mesh is None:
+        dev = resolve_device(device)
+        n_dev = 1 if n_devices is None else int(n_devices)
+    else:
+        n_dev = mesh.size
     if n_points % n_dev:
         raise ValueError(f"n_points={n_points} not divisible by mesh "
                          f"size {n_dev}")
@@ -159,7 +167,10 @@ def integrate_qmc(fn: Callable, a: np.ndarray, u: np.ndarray,
     shifts = rng.random((n_shifts, a.shape[0]))
 
     t0 = time.perf_counter()
-    if n_dev == 1:
+    if mesh is not None:
+        # the rank body on the caller's mesh, whatever group it holds
+        est = _qmc_ranks.__wrapped__(fn, a, u, n_points, shifts, mesh=mesh)
+    elif n_dev == 1:
         sums = _stripe_sums(fn, a, u, shifts, n_points, 0, n_points, dev)
         est = (sums / float(n_points)).cpu().numpy()      # the one read
     else:

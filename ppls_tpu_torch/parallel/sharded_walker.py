@@ -552,10 +552,9 @@ def integrate_family_walker_dd(
     waste_tot = waste_pc.sum(axis=0)
     evals_tot = evals_pc.sum(axis=0)
     sevals, cevals = int(evals_tot[0]), int(evals_tot[1])
-    # device-counted kernel evals (scout + confirm, or the eval_active
-    # bucket), plus a legacy snapshot's estimated share
-    kernel_evals = ((sevals + cevals) if sevals else int(waste_tot[0])) \
-        + est_kevals
+    kernel_evals, evals_estimated = W.derive_kernel_evals(
+        sevals, cevals, int(waste_tot[0]), wtasks, tot["wsplits"],
+        tot["roots"], rule, est_kevals=est_kevals)
     ept = EVALS_PER_TASK[Rule(rule)]     # float64 evals per bag task
     metrics = RunMetrics(
         tasks=tasks, splits=tot["splits"], leaves=tasks - tot["splits"],
@@ -577,7 +576,8 @@ def integrate_family_walker_dd(
         refill_slots=int(refill_slots), collective_rounds=tot["crounds"],
         waste=waste_tot, waste_per_chip=waste_pc, scout_evals=sevals,
         confirm_evals=cevals if sevals else int(waste_tot[0]),
-        evals_estimated=est_kevals > 0, host_syncs=int(pc[:, -1].sum()),
+        evals_estimated=evals_estimated,
+        host_syncs=int(pc[:, -1].sum()),
         device=str(dev), failed=failed, mesh=rec)
 
 

@@ -1933,6 +1933,34 @@ class WalkerResult:
         return out
 
 
+def derive_kernel_evals(sevals: int, cevals: int, eval_active: int,
+                        wtasks: int, wsplits: int, roots: int,
+                        rule: Rule, est_kevals: int = 0):
+    """The one derivation of the walk kernels' integrand-eval count,
+    shared by the single and dd results so the two cannot drift: the
+    device-counted scout + confirm evals in scout mode, the eval_active
+    waste bucket otherwise (each live lane-step evaluates one real
+    point), plus ``est_kevals``, the host model's estimate of a legacy
+    snapshot's share. With no counter anywhere and walker tasks, the
+    whole run takes the host model. Returns ``(kernel_evals,
+    evals_estimated)``: estimated whenever a model share is mixed in."""
+    counted = (sevals + cevals) if sevals else int(eval_active)
+    estimated = est_kevals > 0
+    if counted == 0 and wtasks > 0 and not estimated:
+        est_kevals = _host_model_kevals(wtasks, wsplits, roots, rule)
+        estimated = True
+    return counted + int(est_kevals), estimated
+
+
+def _host_model_kevals(wtasks: int, wsplits: int, roots: int,
+                       rule: Rule) -> int:
+    """The reference's host model of the kernels' evals, from walker
+    tasks, splits and roots (what predates the device counters)."""
+    return (2 * wtasks - wsplits + roots
+            if Rule(rule) == Rule.TRAPEZOID else
+            4 * wtasks - 2 * wsplits + roots)
+
+
 def estimate_legacy_kernel_evals(totals: dict, rule: Rule) -> int:
     """The host-model kernel evals of a restored snapshot whose totals
     predate the device counters (no waste buckets, no scout counts, but
@@ -1943,11 +1971,8 @@ def estimate_legacy_kernel_evals(totals: dict, rule: Rule) -> int:
     if any(int(v) for v in np.asarray(waste).reshape(-1)) \
             or int(totals.get("sevals", 0)) or wtasks == 0:
         return 0
-    wsplits = int(totals.get("wsplits", 0))
-    roots = int(totals.get("roots", 0))
-    return (2 * wtasks - wsplits + roots
-            if Rule(rule) == Rule.TRAPEZOID else
-            4 * wtasks - 2 * wsplits + roots)
+    return _host_model_kevals(wtasks, int(totals.get("wsplits", 0)),
+                              int(totals.get("roots", 0)), rule)
 
 
 def _walker_identity(f_theta, f_ds, eps, theta2d, bounds, rule, scout,
@@ -2324,11 +2349,9 @@ def collect_family_walker(d: WalkerDispatch) -> WalkerResult:
     tot, waste, lanes = r.tot, r.waste, d.lanes
     tasks, wtasks = tot["tasks"], tot["wtasks"]
     sevals, cevals = int(r.evals[0]), int(r.evals[1])
-    # kernel evals are device-counted: scout + confirm in scout mode,
-    # the eval_active bucket otherwise (one real eval per live step),
-    # plus a legacy snapshot's estimated share
-    kernel_evals = ((sevals + cevals) if sevals else int(waste[0])) \
-        + r.est_kevals
+    kernel_evals, evals_estimated = derive_kernel_evals(
+        sevals, cevals, int(waste[0]), wtasks, tot["wsplits"],
+        tot["roots"], d.rule, est_kevals=r.est_kevals)
     ept = EVALS_PER_TASK[Rule(d.rule)]     # float64 evals per bag task
     cyc_stats = (np.asarray(r.cyc_rows, dtype=np.int64)[:C_CAP]
                  if r.cyc_rows else None)
@@ -2351,7 +2374,7 @@ def collect_family_walker(d: WalkerDispatch) -> WalkerResult:
         lanes=int(lanes), kernel_steps=tot["wsteps"],
         refill_slots=d.refill_slots, waste=waste, scout_evals=sevals,
         confirm_evals=cevals if sevals else int(waste[0]),
-        evals_estimated=r.est_kevals > 0, host_syncs=r.host_syncs,
+        evals_estimated=evals_estimated, host_syncs=r.host_syncs,
         host_syncs_per_cycle=r.syncs_per_cycle, device=r.device,
         failed=failed)
 

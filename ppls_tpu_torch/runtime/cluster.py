@@ -21,11 +21,21 @@ boundary is the cross-process exchange, over a localhost socket.
   ``state`` reply carries the worker process's cumulative
   ``run_segment_rf`` / ``run_segment_ee`` launch counts; the coordinator
   keeps them per process (``launches()``, ``result().cluster``).
-* **No ``jax.distributed`` bootstrap.** The reference's
-  ``init_distributed`` is the ``jax.distributed.initialize`` path of a
-  TPU pod, left off by its own local cluster. The port's workers are
-  host-local torch processes that exchange requests over the coordinator
-  socket, so it has no counterpart, and ``jax_distributed=True`` raises.
+* **The workers' distributed bootstrap** (``jax_distributed=True``, the
+  reference's ``init_distributed`` path of a TPU pod). The coordinator
+  opens a ``TCPStore`` for each spawn and hands its address to every
+  worker (``--jax-coordinator HOST:PORT --num-processes N``); each
+  worker joins a ``torch.distributed`` process group of the N workers
+  (:func:`init_distributed`: gloo when they share one card, NCCL when
+  each owns one, ``parallel/mesh.py``'s ``choose_backend``) before it
+  builds its engine, all-reduces its device count once and reports the
+  picture in its hello. The group is the workers' own, never the
+  default group, and carries no collective after that, so a lost worker
+  blocks no survivor; the store lives in the coordinator, so no
+  worker's loss takes it down. Process ids must be 0..N-1, as the
+  reference's ``jax.distributed`` requires: a respawn on other ids fails
+  its bootstrap naming the worker, as the reference's does. A worker
+  shuts its group down when it exits.
 * **Coordinator-held manifest.** :class:`ClusterManifest` records
   process -> devices as the workers report it at hello (``devices``: the
   ranks the worker's engine drives, 1, or ``n_devices`` for
@@ -91,6 +101,66 @@ _WORKER_ENGINE_KEYS = (
 # the kernels a worker's engine launches (``parallel/walker.py``'s
 # counting wrappers), reported per process
 _LAUNCH_KEYS = ("run_segment_rf", "run_segment_ee")
+
+# the reference's name for the workers' distributed bootstrap; the
+# switch itself is ``ClusterStreamEngine(jax_distributed=True)``
+ENV_JAX_DISTRIBUTED = "PPLS_JAX_DISTRIBUTED"
+# s, the bootstrap rendezvous (every worker joins within it)
+DIST_TIMEOUT_S = 300.0
+
+# this worker process's group of workers (init_distributed), if any
+_DIST_GROUP = None
+
+
+def init_distributed(coordinator_address: str, num_processes: int,
+                     process_id: int, device="cuda") -> dict:
+    """Join the workers' process group over the ``TCPStore`` at
+    ``coordinator_address`` (HOST:PORT) as rank ``process_id`` of
+    ``num_processes``, on ``cuda:(process_id % cards)`` or the CPU, and
+    all-reduce the local device counts once. Returns the device picture
+    this process sees (the hello's ``jax_distributed`` row):
+    ``process_id``, ``local_devices`` (1: the worker's one device),
+    ``global_devices`` (their sum over the group) and ``platform``
+    (``"gpu"`` or ``"cpu"``). Raises, as the reference does, unless
+    0 <= process_id < num_processes."""
+    global _DIST_GROUP
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ppls_tpu_torch.parallel.mesh import (_own_group, choose_backend,
+                                              rank_device)
+    n, rank = int(num_processes), int(process_id)
+    if n < 0 or rank < 0 or rank >= n:
+        raise ValueError(
+            "process_id and num_processes must be nonnegative, with "
+            "process_id < num_processes. Got process_id="
+            f"{rank}, num_processes={n}.")
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    host, port = coordinator_address.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), None, False,
+                          timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    backend = choose_backend(n, device)
+    group = _own_group(backend, dist.PrefixStore("cluster", store), rank,
+                       n, DIST_TIMEOUT_S)
+    count = torch.ones(1, dtype=torch.int64,
+                       device=dev if backend == "nccl" else "cpu")
+    group.allreduce([count]).wait()
+    _DIST_GROUP = group
+    return {"process_id": rank, "local_devices": 1,
+            "global_devices": int(count.item()),
+            "platform": "gpu" if dev.type == "cuda" else "cpu"}
+
+
+def _shutdown_distributed() -> None:
+    """Shut this worker's group of workers down, if it joined one."""
+    global _DIST_GROUP
+    if _DIST_GROUP is not None:
+        _DIST_GROUP.shutdown()
+        _DIST_GROUP = None
 
 
 @dataclasses.dataclass
@@ -265,6 +335,10 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--process-id", type=int, required=True)
     p.add_argument("--spec", required=True,
                    help="engine spec: inline JSON or @file.json")
+    p.add_argument("--jax-coordinator", default=None,
+                   help="the workers' TCPStore address; arms "
+                        "init_distributed (the reference's flag name)")
+    p.add_argument("--num-processes", type=int, default=None)
     args = p.parse_args(argv)
 
     spec = args.spec
@@ -276,6 +350,11 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from ppls_tpu_torch.obs.telemetry import Telemetry
+    dist_info = None
+    if args.jax_coordinator and args.num_processes:
+        dist_info = init_distributed(args.jax_coordinator,
+                                     args.num_processes, args.process_id,
+                                     spec.get("device", "cuda"))
     device = _worker_device(spec, args.process_id)
     tel = Telemetry()
     eng, resumed, corrupt = _worker_build_engine(spec, tel, device)
@@ -301,6 +380,8 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     }
     if corrupt:
         hello["corrupt"] = corrupt
+    if dist_info:
+        hello["jax_distributed"] = dist_info
     hello.update(_worker_state(eng))
     io.send(hello)
 
@@ -324,6 +405,7 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
     finally:
         io.close()
         eng.close()
+        _shutdown_distributed()
 
 
 def _worker_dispatch(eng, cmd: dict) -> dict:
@@ -416,6 +498,9 @@ class WorkerHandle:
         # seconds from the spawn to the hello: interpreter, torch
         # import, device context and engine build
         self.spawn_s = float(spawn_s)
+        # the workers' TCPStore (jax_distributed), shared by the
+        # handles of one spawn and freed with the last of them
+        self.dist_store = None
 
     def send_cmd(self, obj: dict) -> None:
         """Fire one command without reading the reply: the fan-out half
@@ -500,17 +585,31 @@ def _package_root() -> str:
 
 def _spawn_workers(n_processes: int, spec: dict, base_ckpt,
                    spawn_timeout: float, rpc_timeout: float,
+                   jax_distributed: bool = False,
                    process_ids: Optional[List[int]] = None
                    ) -> List[WorkerHandle]:
     """Spawn + handshake ``n_processes`` workers. Every worker gets the
     shared engine spec plus its own checkpoint path (sibling files of
-    the coordinator snapshot: ``<path>.p<process_id>``)."""
+    the coordinator snapshot: ``<path>.p<process_id>``). With
+    ``jax_distributed`` the workers join one process group over a
+    ``TCPStore`` opened here, which every returned handle holds."""
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     srv.bind(("127.0.0.1", 0))
     srv.listen(n_processes)
     addr = f"127.0.0.1:{srv.getsockname()[1]}"
     ids = (list(process_ids) if process_ids is not None
            else list(range(n_processes)))
+    store = None
+    if jax_distributed:
+        # the workers' rendezvous lives in the coordinator, so it
+        # outlives any one worker; every worker gets its address
+        import datetime
+
+        import torch.distributed as dist
+        store = dist.TCPStore(
+            "127.0.0.1", 0, None, True,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
+            wait_for_workers=False)
     procs, started, handles = {}, {}, {}
     env = dict(os.environ)
     # workers must resolve the package whatever the coordinator's cwd:
@@ -526,6 +625,9 @@ def _spawn_workers(n_processes: int, spec: dict, base_ckpt,
             cmd = [sys.executable, "-m", "ppls_tpu_torch.runtime.cluster",
                    "--connect", addr, "--process-id", str(pid_),
                    "--spec", json.dumps(wspec)]
+            if store is not None:
+                cmd += ["--jax-coordinator", f"127.0.0.1:{store.port}",
+                        "--num-processes", str(n_processes)]
             started[pid_] = time.perf_counter()
             procs[pid_] = subprocess.Popen(
                 cmd, stdout=subprocess.DEVNULL, env=env)
@@ -558,6 +660,7 @@ def _spawn_workers(n_processes: int, spec: dict, base_ckpt,
             handles[k] = WorkerHandle(
                 k, procs[k], io, hello, rpc_timeout,
                 spawn_s=time.perf_counter() - started[k])
+            handles[k].dist_store = store
         return [handles[k] for k in sorted(handles)]
     except BaseException:
         for h in handles.values():
@@ -635,6 +738,9 @@ class ClusterStreamEngine:
     ``device`` is the workers' device (CUDA by default; it is resolved
     before any worker starts, so without a card this raises and spawns
     nothing). ``worker_kw`` are the workers' engine kwargs.
+    ``jax_distributed=True`` (the reference's name) builds the workers'
+    process group at every spawn (module docstring); each worker's
+    hello then carries its ``jax_distributed`` device picture.
     """
 
     def __init__(self, family: str, eps: float, *,
@@ -658,12 +764,6 @@ class ClusterStreamEngine:
         from ppls_tpu_torch.utils.device import resolve_device
         self._closed = True       # nothing to close until workers exist
         self._workers: List[WorkerHandle] = []
-        if jax_distributed:
-            raise ValueError(
-                "jax_distributed=True has no counterpart in "
-                "ppls_tpu_torch: the port's workers are host-local torch "
-                "processes that exchange requests over the coordinator "
-                "socket; drop the flag")
         if n_processes < 1:
             raise ValueError(
                 f"n_processes must be >= 1, got {n_processes}")
@@ -674,6 +774,7 @@ class ClusterStreamEngine:
         self.rule = Rule(self.worker_kw.get("rule", Rule.TRAPEZOID))
         self._f_ds = get_family_ds(family)
         self.n_processes = int(n_processes)
+        self.jax_distributed = bool(jax_distributed)
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = max(int(checkpoint_every), 1)
         self.telemetry = telemetry if telemetry is not None \
@@ -785,7 +886,8 @@ class ClusterStreamEngine:
         self._workers = _spawn_workers(
             len(process_ids), self._worker_spec(),
             self.checkpoint_path, self._spawn_timeout,
-            self._rpc_timeout, process_ids=process_ids)
+            self._rpc_timeout, self.jax_distributed,
+            process_ids=process_ids)
         for w in self._workers:
             self.spawn_walls[w.process_id] = w.spawn_s
             if w.hello.get("launches") is not None:
@@ -807,7 +909,7 @@ class ClusterStreamEngine:
             "cluster_bootstrap",
             processes=self.manifest.n_processes,
             devices=self.manifest.identity()["devices"],
-            jax_distributed=False)
+            jax_distributed=self.jax_distributed)
 
     def _live(self) -> List[WorkerHandle]:
         return list(self._workers)

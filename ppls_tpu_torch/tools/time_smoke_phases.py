@@ -1,6 +1,7 @@
 """Time phases of the ``chip_smoke.py`` of one checkout, alone, on the
 card: 21 (the walker-dd stream), 22 (the pool dispatcher) and, where
-the checkout has it, 24 (the diagnosis tools):
+the checkout has them, 24 (the diagnosis tools) and 25 (the ds library,
+exact segment sums on demand, the workers' distributed bootstrap):
 
     python3 ppls_tpu_torch/tools/time_smoke_phases.py ROOT [PHASE ...]
 
@@ -48,6 +49,8 @@ def main():
                   W, TS, d, out_dir, ops, {"ds_walk": {"wall_s": 1.0}})}
     if hasattr(C, "phase_tools"):
         phases["24"] = lambda d: C.phase_tools(W, TS, d, out_dir, *tools_in)
+    if hasattr(C, "phase_surface"):
+        phases["25"] = lambda d: C.phase_surface(W)
     chosen = sys.argv[2:] or ["21", "22"]
     for ph in chosen:
         fn = phases[ph]

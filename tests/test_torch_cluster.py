@@ -22,14 +22,19 @@ the walk (``f64_rounds=0``: each worker runs K1's plain segment here).
   launches (counted here by a wrapper around the plain segment, as the
   kernels count on the card).
 * Without a card ``ClusterStreamEngine`` (CUDA by default) raises
-  ``resolve_device``'s error and spawns nothing; ``jax_distributed=True``
-  raises.
+  ``resolve_device``'s error and spawns nothing.
+* The workers' distributed bootstrap (``jax_distributed=True``) beside
+  the reference's (tests/test_cluster.py:478): every hello reports the
+  group's device picture, the ids are 0..n-1, the cluster serves, a
+  lost worker blocks no survivor; a spawn on ids other than 0..n-1 fails
+  its bootstrap naming the worker, in both packages.
 
 The card's twin (every worker launches K1) is
 tests/test_torch_kernel_host.py::test_cuda_cluster_workers_launch_k1.
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -310,12 +315,132 @@ def test_without_a_card_raises_before_spawning(monkeypatch):
                             worker_kw=WKW)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         C._worker_device({"device": "cuda"}, 0)
-    with pytest.raises(ValueError, match="host-local torch processes"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         ClusterStreamEngine("quad_scaled", 1e-9, n_processes=2,
-                            worker_kw=WKW, device="cpu",
-                            jax_distributed=True)
+                            worker_kw=WKW, jax_distributed=True)
     with pytest.raises(ValueError, match="n_processes must be >= 1"):
         ClusterStreamEngine("quad_scaled", 1e-9, n_processes=0,
                             worker_kw=WKW, device="cpu")
     assert spawned == []
 
+
+
+def _port_workers() -> list:
+    """This process's port worker children still alive (zombies aside)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as fh:
+                cmd = fh.read()
+        except OSError:
+            continue
+        if (int(fields[1]) == os.getpid() and fields[0] != "Z"
+                and b"ppls_tpu_torch.runtime.cluster" in cmd):
+            out.append(int(d))
+    return out
+
+
+def _both(ref_fn, port_fn):
+    """Run the reference's and the port's halves at once (their workers
+    start in parallel): (reference outcome, port outcome), each a value
+    or the exception raised."""
+    import concurrent.futures as cf
+
+    def catch(fn):
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 -- compared by the caller
+            return e
+    with cf.ThreadPoolExecutor(2) as ex:
+        fr, fp = ex.submit(catch, ref_fn), ex.submit(catch, port_fn)
+        return fr.result(), fp.result()
+
+
+def _check_pictures(infos):
+    """tests/test_cluster.py:478's invariants on the hellos' pictures."""
+    assert all(i is not None for i in infos)
+    local = [i["local_devices"] for i in infos]
+    assert all(i["global_devices"] == sum(local) for i in infos)
+    assert sorted(i["process_id"] for i in infos) == [0, 1]
+
+
+def test_jax_distributed_bootstrap_beside_the_reference(base):
+    """Two workers join one process group (gloo on the CPU) over the
+    coordinator's store: each reports the global device picture, as the
+    reference's jax.distributed workers do, and the cluster serves over
+    it with the reference engine's areas. A killed worker blocks no
+    survivor (the group carries no collective after the hello), and no
+    worker outlives close()."""
+    from ppls_tpu.runtime.cluster import ClusterStreamEngine as RefCluster
+
+    def ref():
+        eng = RefCluster("quad_scaled", 1e-9, n_processes=2,
+                         worker_kw=dict(WKW), jax_distributed=True)
+        try:
+            infos = [w.hello.get("jax_distributed") for w in eng._workers]
+            return infos, eng.run(REQS6[:2])
+        finally:
+            # a graceful close waits ~10 s on jax.distributed's shutdown
+            eng.close(graceful=False)
+
+    tel, events = _spying_telemetry()
+
+    def port():
+        eng = _cluster(2, telemetry=tel, jax_distributed=True)
+        pids = [w.proc.pid for w in eng._workers]
+        try:
+            infos = [w.hello.get("jax_distributed") for w in eng._workers]
+            res = eng.run(REQS6[:2])
+            eng.kill_process(0)
+            eng.recover_host_loss()
+            eng.submit(*REQS6[2])
+            after = eng.drain()
+            return infos, res, after, pids
+        finally:
+            eng.close()
+
+    (rinfos, rres), got = _both(ref, port)
+    assert not isinstance(got, Exception), got
+    infos, res, after, pids = got
+    _check_pictures(rinfos)
+    _check_pictures(infos)
+    assert all(i["platform"] == "cpu" for i in infos)
+    assert len(res.completed) == len(rres.completed) == 2
+    assert np.array_equal(res.areas, base["f64"].areas[:2])
+    assert np.array_equal(res.areas, rres.areas)
+    assert [c.rid for c in after] == [2]
+    assert after[0].area == base["f64"].areas[2]
+    boot = [kw for name, kw in events if name == "cluster_bootstrap"]
+    assert boot and all(kw["jax_distributed"] is True for kw in boot)
+    assert not [p for p in pids if _alive(p)]
+
+
+def test_jax_distributed_respawn_needs_ids_0_to_n_minus_1():
+    """A spawn on process ids other than 0..n-1 (ids [0, 2]): the
+    reference's jax.distributed refuses process_id 2 of 2, so worker 2
+    exits before its hello and the bootstrap fails naming it; the port
+    refuses with the same words and fails the same way, with no worker
+    left."""
+    from ppls_tpu.runtime import cluster as RC
+    spec = dict(WKW, family="quad_scaled", eps=1e-9)
+    msg = r"worker process\(es\) \[2\] exited before handshaking"
+
+    def ref():
+        return RC._spawn_workers(2, spec, None, 120.0, 60.0, True,
+                                 process_ids=[0, 2])
+
+    def port():
+        return C._spawn_workers(2, dict(spec, device="cpu"), None, 120.0,
+                                60.0, True, process_ids=[0, 2])
+    rout, pout = _both(ref, port)
+    for out in (rout, pout):
+        assert isinstance(out, RuntimeError), out
+        assert re.search(msg, str(out)), out
+    assert _port_workers() == []
+    with pytest.raises(ValueError, match="process_id < num_processes. Got "
+                       "process_id=2, num_processes=2"):
+        C.init_distributed("127.0.0.1:1", 2, 2, "cpu")

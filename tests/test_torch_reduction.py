@@ -111,6 +111,96 @@ def test_segment_sum_auto_plain_tiers_within_one_ulp():
     assert np.all(np.abs(got - exact) <= 1e-15 * scale)
 
 
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _ground_truth(fam, leaf, m):
+    """Per-segment sums in arrival order (exact on dyadic leaves, whose
+    every partial sum is representable; tests/test_reduction.py)."""
+    out = np.zeros(m)
+    np.add.at(out, fam, leaf)
+    return out
+
+
+def _dyadic24(rng, n):
+    return rng.integers(-(1 << 20), 1 << 20, n) * 2.0 ** -24
+
+
+def test_segment_sum_auto_force_exact_routes_small_m():
+    """tests/test_reduction.py:88: force_exact sends the m == 1 and
+    m <= 256 tiers through the digit-plane path; held to the port's
+    exact_segment_sum and to the reference's forced sums, bit for
+    bit."""
+    rng = np.random.default_rng(11)
+    n = 1 << 10
+    for m in (1, 64, 256):
+        fam = rng.integers(0, m, n).astype(np.int32)
+        leaf = rng.uniform(-1, 1, n) * 10.0 ** rng.uniform(-9, -3, n)
+        forced = tred.segment_sum_auto(_t(fam), _t(leaf), m, n,
+                                       force_exact=True).numpy()
+        direct = tred.exact_segment_sum(_t(fam), _t(leaf), m, n).numpy()
+        ref = np.asarray(jred.segment_sum_auto(
+            jnp.asarray(fam), jnp.asarray(leaf), m, n, force_exact=True))
+        assert np.array_equal(forced, direct), m
+        assert np.array_equal(forced, ref), m
+
+
+def test_segment_sum_auto_force_exact_mesh_bit_equality():
+    """tests/test_reduction.py:105: with force_exact one card's m = 1024
+    and eight shards' m = 128 give the same slices to the bit, and the
+    right ones."""
+    rng = np.random.default_rng(23)
+    n, m, shards = 1 << 12, 1024, 8
+    m_local = m // shards
+    fam = rng.integers(0, m, n).astype(np.int32)
+    leaf = _dyadic24(rng, n)
+    whole = tred.segment_sum_auto(_t(fam), _t(leaf), m, n,
+                                  force_exact=True).numpy()
+    for d in range(shards):
+        pick = (fam // m_local) == d
+        lf, lv = fam[pick] % m_local, leaf[pick]
+        local = tred.segment_sum_auto(_t(lf), _t(lv), m_local, len(lv),
+                                      force_exact=True).numpy()
+        assert np.array_equal(local,
+                              whole[d * m_local:(d + 1) * m_local]), d
+    assert np.array_equal(whole, _ground_truth(fam, leaf, m))
+
+
+@pytest.mark.parametrize("m,n", [(1, 777), (100, 4096)])
+def test_segment_sum_auto_forced_bit_equal_to_reference(m, n):
+    """Forced sums on arbitrary finite leaves: the reference's bits."""
+    rng = np.random.default_rng(m * 7 + n)
+    fam = rng.integers(0, m, n).astype(np.int32)
+    leaf = _leaves(rng, n)
+    got = tred.segment_sum_auto(_t(fam), _t(leaf), m, n,
+                                force_exact=True).numpy()
+    ref = np.asarray(jred.segment_sum_auto(
+        jnp.asarray(fam), jnp.asarray(leaf), m, n, force_exact=True))
+    assert np.array_equal(got, ref)
+
+
+def test_segment_sum_auto_env_knob(monkeypatch):
+    """tests/test_reduction.py:133: PPLS_EXACT_SEGSUM=1 forces the
+    exact tier; unset, 0, off and false keep the default routing."""
+    rng = np.random.default_rng(5)
+    n, m = 512, 128
+    fam = rng.integers(0, m, n).astype(np.int32)
+    leaf = rng.uniform(-1, 1, n) * 1e-6
+    exact = tred.exact_segment_sum(_t(fam), _t(leaf), m, n).numpy()
+    monkeypatch.setenv("PPLS_EXACT_SEGSUM", "1")
+    assert tred._env_force_exact()
+    via_env = tred.segment_sum_auto(_t(fam), _t(leaf), m, n).numpy()
+    assert np.array_equal(via_env, exact)
+    for off in ("0", "off", "false", " OFF ", ""):
+        monkeypatch.setenv("PPLS_EXACT_SEGSUM", off)
+        assert not tred._env_force_exact()
+        default = tred.segment_sum_auto(_t(fam), _t(leaf), m, n).numpy()
+        assert np.abs(default - exact).max() < 1e-18
+    monkeypatch.delenv("PPLS_EXACT_SEGSUM")
+    assert not tred._env_force_exact()
+
+
 def test_kahan_add_bit_equal():
     rng = np.random.default_rng(12)
     xs = _leaves(rng, 200)

@@ -93,3 +93,27 @@ def cli_output(argv) -> tuple:
     with contextlib.redirect_stdout(buf):
         rc = CLI.main(list(argv))
     return rc, buf.getvalue()
+
+
+def qmc_on_mesh(name: str, n_points: int):
+    """``integrate_qmc`` on this rank's mesh, passed in (``mesh=``)."""
+    from ppls_tpu_torch.models import genz as G
+    from ppls_tpu_torch.parallel.qmc import integrate_qmc
+    a, u = G.genz_params(name, 8, seed=0)
+    return integrate_qmc(G.get_genz(name).fn, a, u, n_points=n_points,
+                         mesh=M.make_mesh(device="cpu"))
+
+
+def segsum_knob_on_every_rank(m: int = 64, n: int = 4096) -> np.ndarray:
+    """Per rank (rows in rank order): whether PPLS_EXACT_SEGSUM reads as
+    set here, and whether ``segment_sum_auto`` at m <= 256 gave the
+    exact tier's bits on seeded arbitrary leaves."""
+    from ppls_tpu_torch.ops import reduction as R
+    mesh = M.make_mesh(device="cpu")
+    rng = np.random.default_rng(mesh.rank)
+    fam = torch.from_numpy(rng.integers(0, m, n).astype(np.int32))
+    leaf = torch.from_numpy(rng.uniform(-1, 1, n)
+                            * 10.0 ** rng.uniform(-9, -3, n))
+    same = torch.equal(R.segment_sum_auto(fam, leaf, m, n),
+                       R.exact_segment_sum(fam, leaf, m, n))
+    return mesh.gather_host([int(R._env_force_exact()), int(same)])
